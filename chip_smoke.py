@@ -11,7 +11,8 @@ member planes; LOG_SIZE 300, CHK_FREQ 100):
 
 1. build      - nvcc for sm_90a, seconds; the card's name and power limit;
 2. kernels    - K-a SHA-512, K-b mod L, K-c Ed25519 verify, K-d quorum
-                step, each against its plain version on the same inputs;
+                step, K8 window slide and zero, each against its plain
+                version on the same inputs;
 3. ingress    - 64 DID signers sign 1024 NYM requests, tiled with planted
                 faults into one 8192-entry drain, then a 104-entry drain,
                 through ``CoreAuthNr.authenticate_batch``; verdicts
@@ -21,10 +22,25 @@ member planes; LOG_SIZE 300, CHK_FREQ 100):
                 same schedule on the CPU (plain versions): equal deltas,
                 frontiers and counters; then the card run once more under
                 ``torch.profiler`` for the device's busy and idle share;
-5. report     - a ``kernels`` JSON line (launches of the main path run,
+A. pool       - ``bench.py``'s n=64 ordered-txns cell through the port's
+                ``SimPool`` (64 validators, one instance, 3PC batches of
+                320, adaptive tick), signed: 320 warm-up requests, then
+                3,200 timed; the same seed on the CPU must order the same
+                requests in the same order (``ordered_hash``);
+B. pool       - n=16 with six RBFT instances (96 member planes), signed,
+                adaptive tick, LOG_SIZE 30 / CHK_FREQ 5 so every member
+                slides at least four times, and a primary disconnect that
+                forces a view change (the view-change zero); card and CPU
+                agree on ``ordered_hash``, the protocol timeline and every
+                node's view;
+5. report     - a ``kernels`` JSON line (launches of the main path's runs,
                 K-a/K-b held against their plain versions at the drain's
                 shapes, times, bounds), a times line, the card, and last
                 ``{"ok": true, "device": {...}}``.
+
+Each main-path run (phases 3, 4, A and B on the card) starts with every
+launch counter at 0 and reads the counters right after; the ``kernels``
+line's ``launches`` are their sums.
 
 Any mismatch raises and the script exits non-zero. It imports nothing of
 JAX. Without a CUDA device it exits non-zero before printing a result.
@@ -44,9 +60,14 @@ N_VALIDATORS = 64
 LOG_SIZE = 300
 CHK_FREQ = 100
 N_CHECKPOINTS = LOG_SIZE // CHK_FREQ
-DRAIN = 8192  # the largest ingress bucket (client_authn._BUCKETS)
+DRAIN = 8192  # the reference's largest ingress bucket
 BENCH_VERIFY_BATCH = 32768  # bench.py's Ed25519 batch
 N_SLOTS = 420  # 3PC slots driven in phase 4 (>= 320, four slides)
+POOL_BATCH = 320  # bench.py _bench_ordered: 3PC batch size
+POOL_BATCHES = 10  # bench.py bench_ordered_txns_n64: batches=10
+# pool phase B: n=16 x 6 RBFT instances in a 30-slot window, checkpoints
+# every 5, so its vote group is M = 96 members of N = 16 validators
+B_NODES, B_INSTANCES, B_LOG_SIZE, B_CHK_FREQ = 16, 6, 30, 5
 
 # Roofline inputs (H100 SXM). Memory: 3.35 TB/s (NVIDIA data sheet).
 # Integer issue: 132 SMs x 64 INT32 lanes (Hopper white paper) x 1.98 GHz
@@ -395,6 +416,55 @@ def _step_pair(state, words, n):
     return err, comp
 
 
+def _random_votes(dev, rng, m, n, s, c):
+    """A vote state of random 0/1 planes and frontiers in [0, S]."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import quorum as q
+
+    def bits(*shape):
+        return torch.from_numpy(
+            (rng.rand(*shape) < 0.4).astype(np.uint8)).to(dev)
+
+    return q.VoteState(
+        preprepare_seen=bits(m, s), prepare_votes=bits(m, n, s),
+        commit_votes=bits(m, n, s), checkpoint_votes=bits(m, n, c),
+        ordered=bits(m, s), prepared_acked=bits(m, s),
+        frontier=torch.from_numpy(
+            rng.randint(0, s + 1, m).astype(np.int32)).to(dev))
+
+
+def check_window(dev, rng, m, n, s, c, chk_freq):
+    """K8 against its plain versions on an (M, N, S, C) vote group: slides
+    with the edge deltas (0, 1, S-1, S, > S), the pool's pattern (one
+    member sliding by a checkpoint interval), every member sliding, and
+    zeros under random masks."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import quorum as q
+
+    slides = [np.zeros(m, np.int32) for _ in range(3)]
+    slides[0][:8] = [0, 1, s - 1, s, s + 1, 3 * s, chk_freq, 7]
+    slides[1][rng.randint(m)] = chk_freq
+    slides[2][:] = rng.randint(1, s, m)
+    err_slide = err_zero = 0
+    for deltas in slides:
+        state = _random_votes(dev, rng, m, n, s, c)
+        shadow = q.clone_state(state)
+        q.slide_state(state, torch.from_numpy(deltas))
+        q.slide_plain(shadow, torch.from_numpy(deltas))
+        err_slide = max(err_slide, _max_abs_err(list(zip(state, shadow))))
+    for p_hit in (0.1, 0.5, 1.0):
+        state = _random_votes(dev, rng, m, n, s, c)
+        shadow = q.clone_state(state)
+        mask = torch.from_numpy((rng.rand(m) < p_hit).astype(np.uint8))
+        q.zero_members(state, mask)
+        q.zero_plain(shadow, mask)
+        err_zero = max(err_zero, _max_abs_err(list(zip(state, shadow))))
+    if err_slide or err_zero:
+        raise AssertionError(f"K8 differs from plain: slide {err_slide}, "
+                             f"zero {err_zero}")
+    return err_slide, err_zero
+
+
 # --- phase 3: ingress ---------------------------------------------------------
 
 
@@ -452,7 +522,7 @@ def run_ingress(dev, signers, reqs, rng):
         raise AssertionError("a planted request was accepted")
     if int(verdicts.sum()) != DRAIN - len(planted):
         raise AssertionError("a valid request was rejected")
-    # a small drain (the 128 bucket) hashes on the card too
+    # a small drain hashes on the card too
     small = reqs[:96] + planted[:8]
     before = kb.launch_counts()
     small_verdicts = authnr.authenticate_batch(small)
@@ -611,6 +681,145 @@ def trace_quorum(validators, main_wall_s, main_log):
                            for name, (count, total) in top]}
 
 
+# --- phases A and B: the pool ------------------------------------------------
+
+
+def _pool_result(pool, wall_s, **extra):
+    return dict(
+        ordered_hash=pool.ordered_hash(),
+        trace_hash=pool.trace.trace_hash(exclude_cats=("dispatch",)),
+        views=[nd.data.view_no for nd in pool.nodes],
+        ordered_min=min(len(nd.ordered_digests) for nd in pool.nodes),
+        wall_s=wall_s, **extra)
+
+
+def run_pool_a(device):
+    """``bench.py``'s n=64 ordered-txns cell (``_bench_ordered(64, 1,
+    batches=10)``: seed 11, 3PC batches of 320, batch wait 0.05, adaptive
+    tick from 0.1, pipelined flush) with signed requests: 320 warm-up
+    requests, then 3,200 timed. Ordered txns/sec is the bench's: requests
+    ordered at every node in the timed window over its wall time."""
+    from indy_plenum_tpu_torch.common.metrics_collector import MetricsName
+    from indy_plenum_tpu_torch.config import getConfig
+    from indy_plenum_tpu_torch.simulation.pool import SimPool
+
+    config = getConfig({
+        "Max3PCBatchSize": POOL_BATCH, "Max3PCBatchWait": 0.05,
+        "QuorumTickInterval": 0.1, "QuorumTickAdaptive": True,
+        "TraceNetReceivers": 4, "ResidentTickDepth": 1})
+    pool = SimPool(n_nodes=N_VALIDATORS, seed=11, config=config,
+                   device_quorum=True, sign_requests=True,
+                   shadow_check=False, pipelined_flush=True, trace=True,
+                   device=device)
+    seq = [0]
+
+    def submit(count):
+        for _ in range(count):
+            seq[0] += 1
+            pool.submit_request(seq[0])
+
+    def run_until(target):
+        start = pool.timer.get_current_time()
+        while min(len(nd.ordered_digests) for nd in pool.nodes) < target:
+            if pool.timer.get_current_time() - start > 600:
+                raise AssertionError(f"phase A stalled below {target}")
+            pool.run_for(0.1)
+
+    def seconds(name):  # host wall time the pool's meters have summed
+        stat = pool.metrics.stat(name)
+        return stat.total if stat is not None else 0.0
+
+    submit(POOL_BATCH)
+    run_until(POOL_BATCH)
+    n_txns = POOL_BATCHES * POOL_BATCH
+    sign_t0 = time.perf_counter()
+    submit(n_txns)
+    sign_s = time.perf_counter() - sign_t0
+    flushes0 = pool.vote_group.flushes
+    auth0 = seconds(MetricsName.AUTH_BATCH_TIME)
+    flush0 = seconds(MetricsName.DEVICE_FLUSH_TIME)
+    sim_t0 = pool.timer.get_current_time()
+    t0 = time.perf_counter()
+    run_until(POOL_BATCH + n_txns)
+    if device != "cpu":
+        import torch
+
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sim = pool.timer.get_current_time() - sim_t0
+    if not pool.honest_nodes_agree():
+        raise AssertionError("phase A: honest nodes disagree")
+    ordered = min(len(nd.ordered_digests) for nd in pool.nodes) - POOL_BATCH
+    auth = pool.metrics.stat(MetricsName.AUTH_BATCH_SIZE)
+    dispatches = pool.vote_group.flushes - flushes0
+    return _pool_result(
+        pool, wall, ordered=ordered, sim_s=sim,
+        ordered_txns_per_s=ordered / wall,
+        ordered_txns_per_sim_s=ordered / sim,
+        dispatches=dispatches,
+        dispatches_per_batch=dispatches / (ordered / POOL_BATCH),
+        ingress_drains=auth.count, verify_rows=int(auth.total),
+        # where the timed window's wall time went: the ingress drain
+        # (host preparation + verify chain) and the tick's group flush
+        # (staging, step, readback, absorb); the rest is the 3PC
+        # services in Python. Signing the requests precedes the window.
+        drain_s=seconds(MetricsName.AUTH_BATCH_TIME) - auth0,
+        flush_s=seconds(MetricsName.DEVICE_FLUSH_TIME) - flush0,
+        client_sign_s=sign_s,
+        governor=pool.governor.trajectory_summary())
+
+
+def run_pool_b(device):
+    """The RBFT instance axis, window slides and a view change: n=16 with
+    six instances (96 member planes), signed, adaptive tick, 3PC batches
+    of one request in a 30-slot window with checkpoints every 5, then the
+    master primary disconnected until the pool changes view."""
+    from indy_plenum_tpu_torch.config import getConfig
+    from indy_plenum_tpu_torch.simulation.pool import SimPool
+
+    config = getConfig({
+        "Max3PCBatchSize": 1, "Max3PCBatchWait": 0.05,
+        "QuorumTickInterval": 0.05, "QuorumTickAdaptive": True,
+        "LOG_SIZE": B_LOG_SIZE, "CHK_FREQ": B_CHK_FREQ})
+    pool = SimPool(n_nodes=B_NODES, seed=29, config=config,
+                   device_quorum=True, sign_requests=True,
+                   shadow_check=False, num_instances=B_INSTANCES,
+                   trace=True, device=device)
+    group = pool.vote_group
+    slides = [0] * len(group._members)
+    resets = [0] * len(group._members)
+    real_slide, real_reset = group.slide_member, group.reset_member
+
+    def slide_member(member_idx, delta):
+        slides[member_idx] += 1
+        real_slide(member_idx, delta)
+
+    def reset_member(member_idx):
+        resets[member_idx] += 1
+        real_reset(member_idx)
+
+    group.slide_member, group.reset_member = slide_member, reset_member
+    t0 = time.perf_counter()
+    for i in range(24):
+        pool.submit_request(i)
+    pool.run_for(15)
+    pool.network.disconnect(pool.nodes[0].data.primaries[0])
+    pool.run_for(pool.config.ToleratePrimaryDisconnection + 10)
+    for i in range(100, 106):
+        pool.submit_request(i)
+    pool.run_for(15)
+    if device != "cpu":
+        import torch
+
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not pool.honest_nodes_agree():
+        raise AssertionError("phase B: honest nodes disagree")
+    return _pool_result(pool, wall, members=len(slides),
+                        min_slides=min(slides), member_resets=sum(resets),
+                        max_view=max(nd.data.view_no for nd in pool.nodes))
+
+
 # --- phase 5: report ----------------------------------------------------------
 
 
@@ -684,6 +893,27 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
     call_q = _cuda_ms(quorum, 50)
     t_q_plain = _cuda_ms(lambda: q.step_plain(state, words, n), 5)
 
+    # K8 as the pool calls it: one member slides by a checkpoint interval
+    # (host deltas, the others 0); one member zeroed (host mask)
+    votes = _random_votes(dev, rng, m, n, s, c)
+    deltas = torch.zeros(m, dtype=torch.int32)
+    deltas[rng.randint(m)] = CHK_FREQ
+    mask = torch.zeros(m, dtype=torch.bool)
+    mask[rng.randint(m)] = True
+
+    def slide():
+        q.slide_state(votes, deltas)
+
+    def zero():
+        q.zero_members(votes, mask)
+
+    t_slide = _kernel_ms(slide, 50)
+    call_slide = _cuda_ms(slide, 50)
+    t_slide_plain = _cuda_ms(lambda: q.slide_plain(votes, deltas), 5)
+    t_zero = _kernel_ms(zero, 50)
+    call_zero = _cuda_ms(zero, 50)
+    t_zero_plain = _cuda_ms(lambda: q.zero_plain(votes, mask), 5)
+
     n_blocks = int(counts_np.sum())
     # K-d reads every plane once and writes only the vote bytes its words
     # hit (all of this wave's words are valid and in range), the ordered
@@ -695,6 +925,14 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
     compact_bytes = m * (4 + 8 * width + 8 + c)
     quorum_bytes = (state_bytes + 4 * m * w + hits + m * (2 * s + 4)
                     + events_bytes + compact_bytes)
+    # K8 moves bytes and computes nothing: the sliding member's rows read
+    # where they survive (S - d columns) and written whole, its
+    # checkpoint votes written, its frontier read and written, the deltas
+    # read; the zero writes every leaf of the masked member, reads the mask
+    leaf_rows = 2 * n + 3
+    slide_bytes = (leaf_rows * (s - CHK_FREQ) + leaf_rows * s + n * c + 8
+                   + 4 * m)
+    zero_bytes = leaf_rows * s + n * c + 4 + m
 
     def bound(nbytes, ops):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -718,6 +956,12 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
         ("quorum_step", "indy_plenum_tpu_torch/csrc/quorum.cu",
          "indy_plenum_tpu/tpu/quorum.py:284", t_q, t_q_plain,
          bound(quorum_bytes, m * (10 * w + 2 * n * s + 12 * s))),
+        ("window_slide", "indy_plenum_tpu_torch/csrc/window.cu",
+         "indy_plenum_tpu/tpu/quorum.py:358", t_slide, t_slide_plain,
+         bound(slide_bytes, 0)),
+        ("window_zero", "indy_plenum_tpu_torch/csrc/window.cu",
+         "indy_plenum_tpu/tpu/compile_plan.py:83", t_zero, t_zero_plain,
+         bound(zero_bytes, 0)),
     ]
     out = []
     for name, src, replaces, ms, plain_ms, (bound_ms, bound_by) in rows:
@@ -742,8 +986,22 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
                  "quorum_step_ms_64x128": t_q, "n_sha_blocks": n_blocks,
                  "call_ms": {"sha512_blocks": call_sha, "reduce_mod_l":
                              call_modl, "ed25519_verify": call_ver,
-                             "quorum_step": call_q},
+                             "quorum_step": call_q,
+                             "window_slide": call_slide,
+                             "window_zero": call_zero},
                  "verify_full_rows": n_full}
+
+
+# the kernels each main-path run must launch
+PATH_KERNELS = {
+    "ingress": ("sha512_blocks", "reduce_mod_l", "ed25519_verify"),
+    "quorum": ("quorum_step", "window_slide"),
+    # 11 batches of 320: below one checkpoint interval, so no slide
+    "pool_a": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
+               "quorum_step"),
+    "pool_b": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
+               "quorum_step", "window_slide", "window_zero"),
+}
 
 
 def main() -> int:
@@ -760,6 +1018,7 @@ def main() -> int:
     set_deterministic()
     dev = resolve_device()
     card = _nvidia_smi()
+    t_start = time.perf_counter()
 
     # 1. build
     t0 = time.perf_counter()
@@ -769,27 +1028,58 @@ def main() -> int:
           card=card)
 
     # 2. kernels against their plain versions, on the card
+    t0 = time.perf_counter()
     rng = np.random.RandomState(20261016)
     signers, reqs = make_signed_requests(seed=64)
     err_a, err_b = check_sha512_and_mod_l(dev, rng)
     err_c, n_ok, n_rows = check_verify(dev, signers, reqs, rng)
     err_d, q_steps = check_quorum(dev, rng)
+    # K8 at the shapes the main path gives it: phase 4's and phase A's
+    # group (64 x 64 x 300) and phase B's (96 x 16 x 30)
+    err_slide, err_zero = check_window(
+        dev, rng, N_VALIDATORS, N_VALIDATORS, LOG_SIZE, N_CHECKPOINTS,
+        CHK_FREQ)
+    b_slide, b_zero = check_window(
+        dev, rng, B_NODES * B_INSTANCES, B_NODES, B_LOG_SIZE,
+        B_LOG_SIZE // B_CHK_FREQ, B_CHK_FREQ)
+    err_slide, err_zero = max(err_slide, b_slide), max(err_zero, b_zero)
     errs = {"sha512_blocks": err_a, "reduce_mod_l": err_b,
-            "ed25519_verify": err_c, "quorum_step": err_d}
+            "ed25519_verify": err_c, "quorum_step": err_d,
+            "window_slide": err_slide, "window_zero": err_zero}
     _line("kernels", max_abs_err=errs, verify_accepted=n_ok,
-          verify_rows=n_rows, quorum_steps=q_steps)
+          verify_rows=n_rows, quorum_steps=q_steps,
+          phase_s=time.perf_counter() - t0, card=card)
 
-    # 3 + 4: the main path, with every launch counter at 0 before it
-    torch.cuda.synchronize()
-    kb.reset_launch_counts()
-    ingress = run_ingress(dev, signers, reqs, random.Random(3))
-    ingress_launches = kb.launch_counts()
-    _line("ingress", **ingress, launches=ingress_launches)
+    # 3, 4, A, B: the main path. Every launch counter is 0 just before
+    # each run on the card and read just after; the sums are the
+    # kernels line's launches
+    launches = {name: 0 for name in kb.LAUNCHES}
 
+    def on_card(tag, fn, *args):
+        torch.cuda.synchronize()
+        kb.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = kb.launch_counts()
+        for name in PATH_KERNELS[tag]:
+            if got[name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on the "
+                                     f"{tag} path")
+        for name, count in got.items():
+            launches[name] += count
+        return out, got, wall
+
+    ingress, ingress_launches, ingress_s = on_card(
+        "ingress", run_ingress, dev, signers, reqs, random.Random(3))
+    _line("ingress", **ingress, launches=ingress_launches,
+          phase_s=ingress_s, card=card)
+
+    t0 = time.perf_counter()
     validators = [f"Node{i}" for i in range(N_VALIDATORS)]
-    glog, gfront, gcount, gwall, gticks, gh = run_quorum_schedule(
-        "cuda", validators)
-    launches = kb.launch_counts()
+    (glog, gfront, gcount, gwall, gticks, gh), quorum_launches, _ = \
+        on_card("quorum", run_quorum_schedule, "cuda", validators)
     clog, cfront, ccount, _, cticks, _ = run_quorum_schedule(
         "cpu", validators)
     if glog != clog or gfront != cfront or gcount != ccount \
@@ -804,18 +1094,44 @@ def main() -> int:
     # a scripted vote schedule through the plane, not the pool's ordered
     # rate: no request flows through this phase
     plane_slots_per_s = N_SLOTS / gwall
+    trace = trace_quorum(validators, gwall, glog)
     _line("quorum", slots=N_SLOTS, ticks=gticks, slides_per_member=slides,
           final_h=gh[0], wall_s=gwall,
           plane_ordered_slots_per_s=plane_slots_per_s,
-          counters=gcount, delta_events=len(glog))
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 f"main path")
-    trace = trace_quorum(validators, gwall, glog)
-    _line("quorum_trace", **trace)
+          counters=gcount, delta_events=len(glog),
+          launches=quorum_launches, phase_s=time.perf_counter() - t0,
+          card=card)
+    _line("quorum_trace", **trace, card=card)
+
+    # A. the n=64 ordered-txns cell through the port's pool
+    t0 = time.perf_counter()
+    pool_a, a_launches, _ = on_card("pool_a", run_pool_a, None)
+    cpu_a = run_pool_a("cpu")
+    for key in ("ordered_hash", "trace_hash", "views", "ordered_min"):
+        if pool_a[key] != cpu_a[key]:
+            raise AssertionError(f"phase A: card and CPU differ on {key}")
+    if pool_a["ordered"] != POOL_BATCHES * POOL_BATCH:
+        raise AssertionError(f"phase A ordered {pool_a['ordered']}")
+    _line("pool_a", **pool_a, launches=a_launches,
+          cpu_wall_s=cpu_a["wall_s"], phase_s=time.perf_counter() - t0,
+          card=card)
+
+    # B. the instance axis, slides and a view change
+    t0 = time.perf_counter()
+    pool_b, b_launches, _ = on_card("pool_b", run_pool_b, None)
+    cpu_b = run_pool_b("cpu")
+    for key in ("ordered_hash", "trace_hash", "views", "min_slides",
+                "member_resets"):
+        if pool_b[key] != cpu_b[key]:
+            raise AssertionError(f"phase B: card and CPU differ on {key}")
+    if pool_b["min_slides"] < 4 or pool_b["max_view"] < 1:
+        raise AssertionError("phase B: too few slides or no view change")
+    _line("pool_b", **pool_b, launches=b_launches,
+          cpu_wall_s=cpu_b["wall_s"], phase_s=time.perf_counter() - t0,
+          card=card)
 
     # 5. report
+    t0 = time.perf_counter()
     kernels, errs, times = kernel_report(dev, signers, reqs, rng, launches,
                                          errs)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -828,7 +1144,10 @@ def main() -> int:
         "quorum_step_ms_64x128": times["quorum_step_ms_64x128"],
         "call_ms": times["call_ms"],
         "plane_ordered_slots_per_s": plane_slots_per_s,
-        "plain_ms": plain}}), flush=True)
+        "pool_a_ordered_txns_per_s": pool_a["ordered_txns_per_s"],
+        "pool_a_ordered_txns_per_sim_s": pool_a["ordered_txns_per_sim_s"],
+        "plain_ms": plain, "report_s": time.perf_counter() - t0,
+        "total_s": time.perf_counter() - t_start}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,7 @@ Copy of ``Request`` from ``indy_plenum_tpu/common/request.py`` (reference:
 plenum/common/request.py). A request is {identifier, reqId, operation,
 protocolVersion, signature | signatures}; its ``digest`` is sha256 over
 the canonical signing serialization of everything except the
-signature(s). The wire-validating ``SafeRequest`` stays with the node
-runtime, which comes to the port with the consensus services.
+signature(s). ``SafeRequest`` (same file) validates untrusted wire data.
 """
 from __future__ import annotations
 
@@ -13,6 +12,16 @@ import hashlib
 from typing import Any, Dict, List, Optional
 
 from .constants import CURRENT_PROTOCOL_VERSION, TXN_TYPE, f
+from .exceptions import InvalidClientRequest
+from .messages.fields import (
+    AnyField,
+    IdentifierField,
+    MapField,
+    NonEmptyStringField,
+    NonNegativeNumberField,
+    ProtocolVersionField,
+    SignatureField,
+)
 from .serializers.serialization import serialize_for_signing
 
 
@@ -115,3 +124,46 @@ class Request:
     def __repr__(self):
         return (f"Request(identifier={self.identifier!r}, "
                 f"reqId={self.reqId!r}, op={self.operation!r})")
+
+
+_REQUEST_SCHEMA = (
+    (f.IDENTIFIER, IdentifierField(nullable=True)),
+    (f.REQ_ID, NonNegativeNumberField()),
+    (f.OPERATION, MapField(NonEmptyStringField(), AnyField())),
+    (f.SIGNATURE, SignatureField(nullable=True)),
+    (f.PROTOCOL_VERSION, ProtocolVersionField()),
+)
+
+
+class SafeRequest(Request):
+    """Request constructed from untrusted wire data: validates field shapes."""
+
+    def __init__(self, **kwargs):
+        for name, validator in _REQUEST_SCHEMA:
+            val = kwargs.get(name)
+            if val is None and (validator.optional or validator.nullable):
+                continue
+            err = validator.validate(val)
+            if err:
+                raise InvalidClientRequest(
+                    kwargs.get(f.IDENTIFIER), kwargs.get(f.REQ_ID),
+                    f"{name}: {err}")
+        if not kwargs.get(f.SIGNATURE) and not kwargs.get(f.SIGNATURES):
+            raise InvalidClientRequest(
+                kwargs.get(f.IDENTIFIER), kwargs.get(f.REQ_ID),
+                "missing signature(s)")
+        known = {name for name, _ in _REQUEST_SCHEMA} | {f.SIGNATURES}
+        unknown = set(kwargs) - known
+        if unknown:
+            raise InvalidClientRequest(
+                kwargs.get(f.IDENTIFIER), kwargs.get(f.REQ_ID),
+                f"unknown fields {sorted(unknown)}")
+        super().__init__(
+            identifier=kwargs.get(f.IDENTIFIER),
+            reqId=kwargs.get(f.REQ_ID),
+            operation=kwargs.get(f.OPERATION),
+            signature=kwargs.get(f.SIGNATURE),
+            signatures=kwargs.get(f.SIGNATURES),
+            protocolVersion=kwargs.get(f.PROTOCOL_VERSION,
+                                       CURRENT_PROTOCOL_VERSION),
+        )

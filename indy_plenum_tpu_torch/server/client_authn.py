@@ -6,8 +6,10 @@ plenum/server/req_authenticator.py ``ReqAuthenticator``).
 ``CoreAuthNr.authenticate`` resolves the signer's verkey and verifies the
 request's canonical signing bytes on the host (the oracle);
 ``authenticate_batch`` is the ingress hot path: every attached signature
-of a whole drain becomes one entry of ONE device verify, padded to a
-fixed bucket size.
+of a whole drain becomes one entry of ONE device verify. The reference
+pads a drain to a bucket size so that XLA compiles a few shapes only; a
+CUDA kernel (and the plain version) takes any batch, so the port verifies
+exactly the drain's entries.
 
 Every drain hashes on the device (``tpu.ed25519.verify_kernel_full``:
 SHA-512 -> mod L -> curve check); the host only packs padded blocks. The
@@ -38,17 +40,6 @@ from ..utils.base58 import b58decode
 from ..utils.torch_env import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
-
-# batch bucket sizes: pad to the smallest fitting bucket
-_BUCKETS = (8, 32, 128, 512, 2048, 8192)
-
-
-def _bucket(n: int) -> int:
-    for b in _BUCKETS:
-        if n <= b:
-            return b
-    return ((n + _BUCKETS[-1] - 1) // _BUCKETS[-1]) * _BUCKETS[-1]
-
 
 def warm_device_auth_path(device: DeviceLike = None) -> None:
     """Build and load the kernel library OFF the protocol path: the only
@@ -184,20 +175,15 @@ class CoreAuthNr(ClientAuthNr):
 
     def _verify_entries(self, pks: List[bytes], msgs: List[bytes],
                         sigs: List[bytes]) -> np.ndarray:
-        """One device verify of the drain's entries, padded to its bucket;
-        (m,) bool with the structural checks folded in."""
-        m = len(sigs)
-        pad = _bucket(m) - m
-        pks = pks + [pks[0]] * pad
-        msgs = msgs + [msgs[0]] * pad
-        sigs = sigs + [sigs[0]] * pad
+        """One device verify of the drain's entries; (m,) bool with the
+        structural checks folded in."""
         (pk_a, r_a, s_a, blocks, counts,
          pre) = ted.prepare_batch_device(pks, msgs, sigs,
                                          ted.max_blocks_for(msgs))
         ok = ted.verify_kernel_full(*ted.to_device(
             (pk_a, r_a, s_a, blocks, counts), self.device))
         # one batched sync per ingress drain: the verdicts decide admission
-        return (ok.cpu().numpy() & pre)[:m]
+        return ok.cpu().numpy() & pre
 
 
 class ReqAuthenticator:

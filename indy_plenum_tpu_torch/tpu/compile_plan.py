@@ -9,7 +9,10 @@ so here the plan only binds the three functions a
 - ``step(states, words)`` -> (states, events, compact): the fused quorum
   step (K-d, :func:`~indy_plenum_tpu_torch.tpu.quorum.step_compact`);
 - ``slide(states, (M,) deltas)`` and ``zero(states, (M,) mask)``: the
-  rare-path window ops, plain tensor ops (a roll and a mask).
+  rare-path window ops (K8, reference ``_slide_body``/``_zero_body``,
+  ``:83-97``): :func:`~indy_plenum_tpu_torch.tpu.quorum.slide_state` and
+  :func:`~indy_plenum_tpu_torch.tpu.quorum.zero_members`, one
+  ``csrc/window.cu`` launch each on the card.
 
 All three update the state IN PLACE, which takes the place of the
 reference's buffer donation (``compile_plan.py:54``), and return it so a

@@ -20,8 +20,12 @@ vote words, scatters, evaluates quorums, advances the in-order frontier and
 emits the compact deltas - in ONE launch of ``csrc/quorum.cu`` for CUDA
 tensors, or in its plain PyTorch version (:func:`step_plain`) for CPU
 tensors. The state is updated IN PLACE (the reference donates it).
-:func:`slide_state` and :func:`zero_members` are plain tensor ops (a roll
-and a mask) on any device: they run on the rare path only.
+:func:`slide_state` and :func:`zero_members` (K8, reference
+``quorum.py:358`` ``slide_state`` and ``compile_plan.py:83`` ``_zero_body``)
+are the window's rare-path ops, the checkpoint slide and the view-change
+zero: one launch each of ``csrc/window.cu`` for CUDA tensors, their plain
+versions (:func:`slide_plain`, :func:`zero_plain`) for CPU tensors, the
+state in place either way.
 
 Words are uint32 bit patterns carried in int32 tensors; the plain version
 decodes them in int64 lanes masked to 0xFFFFFFFF (CPU torch has no uint32
@@ -285,11 +289,12 @@ def step(state: VoteState, words: torch.Tensor, n_validators: int
     return events
 
 
-def slide_state(state: VoteState, deltas: torch.Tensor) -> None:
-    """Roll each member's slot axis left by its ``deltas[m]`` and zero the
-    vacated columns (checkpoint-stabilization window slide), in place.
-    A zero delta is a strict identity; checkpoint votes clear where the
-    delta is positive; the frontier slides with the window, clamped at 0."""
+def slide_plain(state: VoteState, deltas: torch.Tensor) -> None:
+    """The plain version of the window slide: roll each member's slot axis
+    left by its ``deltas[m]`` (>= 0) and zero the vacated columns, in
+    place. A zero delta is a strict identity; checkpoint votes clear where
+    the delta is positive; the frontier slides with the window, clamped
+    at 0."""
     s = state.prepare_votes.shape[-1]
     d = deltas.to(device=state.frontier.device, dtype=torch.int64)
     cols = torch.arange(s, device=d.device)
@@ -315,11 +320,80 @@ def slide_state(state: VoteState, deltas: torch.Tensor) -> None:
                                      min=0))
 
 
-def zero_members(state: VoteState, mask: torch.Tensor) -> None:
-    """Zero every leaf row of the masked members, in place (view reset)."""
+def zero_plain(state: VoteState, mask: torch.Tensor) -> None:
+    """The plain version of the view-change zero: every leaf row of the
+    masked members, in place."""
     hit = mask.to(device=state.frontier.device, dtype=torch.bool)
     for x in state:
         x.masked_fill_(hit.view((-1,) + (1,) * (x.dim() - 1)), 0)
+
+
+def _member_operand(state: VoteState, values: torch.Tensor, dtype,
+                    what: str) -> torch.Tensor:
+    """The (M,) per-member operand of a window kernel on the state's card.
+    A host operand crosses from pinned memory without blocking the host
+    (PyTorch's pinned allocator keeps the buffer until the copy is done);
+    the copy runs on the current stream, ahead of the kernel."""
+    if values.dim() != 1 or values.shape[0] != state.frontier.shape[0]:
+        raise ValueError(f"window {what}: one entry per member")
+    dev = state.frontier.device
+    if values.device.type == "cpu":
+        values = values.to(dtype).pin_memory().to(dev, non_blocking=True)
+    elif values.device != dev:
+        raise ValueError(f"window {what}: operand on {values.device}, "
+                         f"state on {dev}")
+    return values.to(dtype).contiguous()
+
+
+def _window_launch(state: VoteState, operand: torch.Tensor, entry: str,
+                   name: str) -> None:
+    dev = state.frontier.device
+    for leaf, t in zip(VoteState._fields, state):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"window {name}: state.{leaf} must be a "
+                             f"contiguous tensor on {dev}")
+    if state.frontier.dtype != torch.int32:
+        raise ValueError(f"window {name}: frontier must be int32")
+    m_count, n_rows, s = state.prepare_votes.shape
+    c = state.checkpoint_votes.shape[-1]
+    code = getattr(kb.library(), entry)(
+        *[t.data_ptr() for t in state], operand.data_ptr(),
+        m_count, n_rows, s, c, torch.cuda.current_stream(dev).cuda_stream)
+    kb.check(code, name)
+    kb.LAUNCHES[name] += 1
+
+
+def _window_device(state: VoteState) -> str:
+    dev = state.frontier.device.type
+    if dev not in ("cpu", "cuda"):
+        raise ValueError(f"window ops: unsupported device "
+                         f"{state.frontier.device}")
+    return dev
+
+
+def slide_state(state: VoteState, deltas: torch.Tensor) -> None:
+    """K8's slide: each member's window moves forward by its
+    ``deltas[m]`` (>= 0), in place. CPU state takes :func:`slide_plain`;
+    CUDA state launches ``slide_kernel`` (``csrc/window.cu``) or raises.
+    Host ``deltas`` cross to the card without a blocking copy."""
+    if _window_device(state) == "cpu":
+        slide_plain(state, deltas)
+        return
+    _window_launch(state, _member_operand(state, deltas, torch.int32,
+                                          "slide"),
+                   "window_slide_launch", "window_slide")
+
+
+def zero_members(state: VoteState, mask: torch.Tensor) -> None:
+    """K8's zero: every leaf row of the masked members (view reset), in
+    place. CPU state takes :func:`zero_plain`; CUDA state launches
+    ``zero_kernel`` (``csrc/window.cu``) or raises."""
+    if _window_device(state) == "cpu":
+        zero_plain(state, mask)
+        return
+    _window_launch(state, _member_operand(state, mask != 0, torch.uint8,
+                                          "zero"),
+                   "window_zero_launch", "window_zero")
 
 
 # --- host packers (copies of the reference's) -------------------------------

@@ -558,6 +558,10 @@ class VotePlaneGroup:
         self.flushes = 0
         self.flush_votes_total = 0
         self.flush_capacity_total = 0
+        # the governor's per-shard occupancy series; an unsharded group is
+        # one shard holding every member row
+        self.flush_votes_per_shard = [0]
+        self.flush_capacity_per_shard = [0]
         # one flush chunk holds a full 3PC wave (~2N votes per member),
         # pow2, never below the static FLUSH_BATCH
         self.flush_batch = FLUSH_BATCH
@@ -631,6 +635,8 @@ class VotePlaneGroup:
             capacity = len(self._members) * shape
             self.flush_votes_total += votes
             self.flush_capacity_total += capacity
+            self.flush_votes_per_shard[0] += votes
+            self.flush_capacity_per_shard[0] += capacity
             self.metrics.add_event(MetricsName.DEVICE_FLUSH)
             self.metrics.add_event(MetricsName.DEVICE_FLUSH_VOTES, votes)
             self.metrics.add_event(
@@ -644,6 +650,8 @@ class VotePlaneGroup:
         self._states, events, compact = self._plan.step(self._states, words)
         self.flushes += 1
         self.flush_capacity_total += len(self._members) * FLUSH_LADDER[0]
+        self.flush_capacity_per_shard[0] += (len(self._members)
+                                             * FLUSH_LADDER[0])
         self.metrics.add_event(MetricsName.DEVICE_FLUSH)
         return [(events, compact)]
 

@@ -40,6 +40,8 @@ LAUNCHES: Dict[str, int] = {
     "reduce_mod_l": 0,
     "ed25519_verify": 0,
     "quorum_step": 0,
+    "window_slide": 0,
+    "window_zero": 0,
 }
 
 _P = ctypes.c_void_p
@@ -62,6 +64,11 @@ _SIGNATURES = {
         # compact: new_prepared, n_prepared, new_committed, n_committed,
         # stable, then the stream
         _P, _P, _P, _P, _P, _P),
+    # state (as quorum_step), deltas or mask, M, N, S, C, stream
+    "window_slide_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _P),
+    "window_zero_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _P),
 }
 
 _lock = threading.Lock()

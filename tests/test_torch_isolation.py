@@ -37,7 +37,9 @@ def _port_modules():
 
 def test_port_imports_without_jax_or_reference():
     mods = _port_modules()
-    assert "indy_plenum_tpu_torch.tpu.vote_plane" in mods
+    for mod in ("tpu.vote_plane", "simulation.pool",
+                "server.consensus.ordering_service", "config"):
+        assert "indy_plenum_tpu_torch." + mod in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -73,6 +75,7 @@ def no_cuda(monkeypatch):
 
 def _entry_points(device_kw):
     from indy_plenum_tpu_torch.server.client_authn import CoreAuthNr
+    from indy_plenum_tpu_torch.simulation.pool import SimPool
     from indy_plenum_tpu_torch.tpu.ed25519 import batch_verify
     from indy_plenum_tpu_torch.tpu.vote_plane import (
         DeviceVotePlane,
@@ -88,11 +91,19 @@ def _entry_points(device_kw):
             validators, 32, 2, **device_kw),
         "batch_verify": lambda: batch_verify(
             [b"\x00" * 32], [b""], [b"\x00" * 64], **device_kw),
+        "SimPool.device_quorum": lambda: SimPool(
+            4, device_quorum=True, **device_kw),
+        "SimPool.sign_requests": lambda: SimPool(
+            4, sign_requests=True, **device_kw),
     }
 
 
-@pytest.mark.parametrize("name", ["CoreAuthNr", "VotePlaneGroup",
-                                  "DeviceVotePlane", "batch_verify"])
+ENTRY_POINTS = ["CoreAuthNr", "VotePlaneGroup", "DeviceVotePlane",
+                "batch_verify", "SimPool.device_quorum",
+                "SimPool.sign_requests"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
 @pytest.mark.parametrize("device_kw", [{}, {"device": "cuda"}],
                          ids=["default", "cuda"])
 def test_entry_points_raise_without_cuda(no_cuda, name, device_kw):
@@ -102,8 +113,7 @@ def test_entry_points_raise_without_cuda(no_cuda, name, device_kw):
         _entry_points(device_kw)[name]()
 
 
-@pytest.mark.parametrize("name", ["CoreAuthNr", "VotePlaneGroup",
-                                  "DeviceVotePlane", "batch_verify"])
+@pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_entry_points_run_on_explicit_cpu(no_cuda, name):
     _entry_points({"device": "cpu"})[name]()
 
@@ -130,6 +140,10 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         q.step_compact(state, torch.empty((2, 16), dtype=torch.int32,
                                           device=meta), 4)
+    with pytest.raises(ValueError):
+        q.slide_state(state, torch.ones(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        q.zero_members(state, torch.ones(2, dtype=torch.bool))
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -164,7 +178,8 @@ def test_ctypes_signatures_match_cuda_sources():
             found[fn] = tuple(kinds)
     assert found == {k: tuple(v) for k, v in kb._SIGNATURES.items()}
     assert set(kb.LAUNCHES) == {"sha512_blocks", "reduce_mod_l",
-                                "ed25519_verify", "quorum_step"}
+                                "ed25519_verify", "quorum_step",
+                                "window_slide", "window_zero"}
 
 
 def test_source_hash_tracks_sources_and_build_dir_is_ignored():
