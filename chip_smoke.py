@@ -12,7 +12,12 @@ member planes; LOG_SIZE 300, CHK_FREQ 100):
 1. build      - nvcc for sm_90a, seconds; the card's name and power limit;
 2. kernels    - K-a SHA-512, K-b mod L, K-c Ed25519 verify, K-d quorum
                 step, K8 window slide and zero, each against its plain
-                version on the same inputs;
+                version on the same inputs; K12 SHA-256 (11 padding-edge
+                lengths) and K11 node hash (waves of 1 .. 65,536) against
+                their plain versions and hashlib; K10 audit fold, dense
+                and indexed, on 16,384 proofs of a 131,072-leaf tree with
+                planted faults, against the plain versions and the host
+                MerkleVerifier, and a chunk with a 49+-level path;
 3. ingress    - 64 DID signers sign 1024 NYM requests, tiled with planted
                 faults into one 8192-entry drain, then a 104-entry drain,
                 through ``CoreAuthNr.authenticate_batch``; verdicts
@@ -33,14 +38,30 @@ B. pool       - n=16 with six RBFT instances (96 member planes), signed,
                 forces a view change (the view-change zero); card and CPU
                 agree on ``ordered_hash``, the protocol timeline and every
                 node's view;
+C. execution  - real execution at n=4 with two RBFT instances and
+                phase A's config: signed NYMs executed into every node's
+                ledgers and SMT states, 320 warm-up requests then 3,200
+                timed, the state's hash waves on the card (K11); the same
+                seed with host waves, and with the default "auto" law
+                (a fresh offload policy), must give the same ordering,
+                ledger hashes and state and txn roots; prints ordered
+                txns/sec, the share of the wall spent executing, the
+                device waves, and how many hashes "auto" put on the card;
+D. reads      - proved reads over phase C's committed domain ledger
+                (drains of 4,096 through ``make_read_service(mode=
+                "device")``, K10 indexed), then the catchup-proof shape
+                end to end and kernel only;
+E. state      - ``run_commit_arms`` host vs device waves at the
+                reference's state-bench size (100,000 keys, delta 256, 20
+                windows): equal per-window roots;
 5. report     - a ``kernels`` JSON line (launches of the main path's runs,
                 K-a/K-b held against their plain versions at the drain's
                 shapes, times, bounds), a times line, the card, and last
                 ``{"ok": true, "device": {...}}``.
 
-Each main-path run (phases 3, 4, A and B on the card) starts with every
-launch counter at 0 and reads the counters right after; the ``kernels``
-line's ``launches`` are their sums.
+Each main-path run (phases 3, 4, A, B, C, D and E on the card) starts with
+every launch counter at 0 and reads the counters right after; the
+``kernels`` line's ``launches`` are their sums.
 
 Any mismatch raises and the script exits non-zero. It imports nothing of
 JAX. Without a CUDA device it exits non-zero before printing a result.
@@ -76,11 +97,19 @@ B_NODES, B_INSTANCES, B_LOG_SIZE, B_CHK_FREQ = 16, 6, 30, 5
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # 32-bit integer instructions per unit of work, counted from the CUDA
-# sources (lower bounds: the dominant terms only):
-# SHA-512, per 128-byte block: 80 rounds x ~38 (two 3-rotate sigmas, ch,
-# maj, 7 64-bit adds, each 64-bit op = 2 instructions) + 64 schedule
-# words x ~22 + 16 byte swaps x 2.
-SHA512_OPS_PER_BLOCK = 80 * 38 + 64 * 22 + 32
+# sources (lower bounds: the dominant terms only). sm_90a merges any
+# 3-input logic into one LOP3 and two chained adds into one IADD3 (a
+# 64-bit 3-input add is IADD3 + IADD3.X); a rotate is one funnel shift
+# SHF per 32-bit word. ``python -m indy_plenum_tpu_torch.utils.sass_count``
+# counts what the compiler emitted, to check these against.
+# SHA-512, per 128-byte block: 80 rounds x 28 (two sigmas of 3 64-bit
+# rotates = 6 SHF + 2 LOP3 each, ch and maj 2 LOP3 each, the 7 adds as 4
+# 3-input 64-bit adds = 8) + 64 schedule words x 20 (two sigmas of 8, 3
+# adds as 2 3-input 64-bit adds = 4) + 16 byte swaps x 2 + 8 final 64-bit
+# adds x 2. Round 0 of a message's first block sees only the constant IV:
+# two 64-bit adds, not 28 instructions.
+SHA512_OPS_PER_BLOCK = 80 * 28 + 64 * 20 + 32 + 16
+SHA512_IV_ROUND_SAVING = 28 - 4
 # h mod L, per item, as a Barrett reduction on 64-bit limbs needs it
 # (not the subtract ladder the kernel runs): q1 * mu (5 x 5 = 25
 # products) and q3 * L mod 2^320 (14 products), each 64x64->128 product
@@ -94,6 +123,21 @@ MOD_L_OPS_PER_ITEM = 39 * (8 + 4) + 2 * 5 * 6
 # a signature whose A fails to decompress stops there. The rest: x*y 1,
 # table 127 multiplies, 64 windows x (32 multiplies + 16 squares),
 # compress 13 multiplies + 254 squares (invert).
+# SHA-256, per 64-byte compression, counted from csrc/sha256.cu: 64
+# rounds x 14 (two Sigmas of 3 SHF + 1 LOP3, ch and maj 1 LOP3 each, the
+# 7 adds as 4 IADD3) + 48 schedule words x 10 (two sigmas of 2 SHF + 1
+# shift + 1 LOP3, 3 adds as 2 IADD3) + the 8 final adds. Constants fold:
+# round 0 of a message's first compression sees only the constant IV (2
+# instructions, not 14); the second block of H(0x01 || l || r) holds one
+# variable word, so schedule words 16..37 cost 107 instead of 220; the
+# padding block of a 64-byte message is all constant, so its schedule
+# costs nothing.
+SHA256_OPS_PER_COMPRESSION = 64 * 14 + 48 * 10 + 8
+SHA256_IV_ROUND_SAVING = 14 - 2
+SHA256_NODE_OPS = (2 * SHA256_OPS_PER_COMPRESSION - SHA256_IV_ROUND_SAVING
+                   - (220 - 107))
+SHA256_64B_OPS = (2 * SHA256_OPS_PER_COMPRESSION - SHA256_IV_ROUND_SAVING
+                  - 48 * 10)
 FE_MUL_OPS = 25 * 8 + 110
 FE_SQR_OPS = 15 * 8 + 90
 DECOMPRESS_OPS_PER_ITEM = 18 * FE_MUL_OPS + 255 * FE_SQR_OPS
@@ -160,6 +204,16 @@ def _kernel_ms(fn, reps: int) -> float:
         cycles *= 4
     raise AssertionError("the host could not enqueue the timed calls "
                          "ahead of the device")
+
+
+def bound(nbytes, ops):
+    """The least time the card could take, in ms, and what sets it: bytes
+    over the memory rate or 32-bit integer instructions over the issue
+    rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def _max_abs_err(pairs) -> int:
@@ -463,6 +517,166 @@ def check_window(dev, rng, m, n, s, c, chk_freq):
         raise AssertionError(f"K8 differs from plain: slide {err_slide}, "
                              f"zero {err_zero}")
     return err_slide, err_zero
+
+
+# K10-K12: SHA-256, the node hash and the audit-path fold
+SHA_LENGTHS = (0, 1, 55, 56, 63, 64, 65, 119, 120, 128, 200)
+NODE_WAVES = (1, 31, 32, 33, 4096, 65536)
+AUDIT_TREE = 131072  # bench.py bench_catchup_proofs: 2^17 seeded leaves
+AUDIT_FIRST, AUDIT_PROOFS = 57344, 16384  # 16k consecutive proofs
+
+
+def check_sha256(dev, rng):
+    """K12 and K11 against their plain versions on the card and against
+    hashlib: K12 at every padding edge (1,024 seeded messages a length),
+    K11 at wave widths around the offload floor (32) and at the large
+    waves."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import sha256 as s2
+
+    err12 = 0
+    for length in SHA_LENGTHS:
+        msgs = rng.randint(0, 256, (1024, length)).astype(np.uint8)
+        t = torch.from_numpy(msgs).to(dev)
+        got = s2.sha256_fixed(t, length)
+        err12 = max(err12, _max_abs_err([(got, s2.sha256_fixed_plain(t))]))
+        got_np = got.cpu().numpy()
+        for row, dig in zip(msgs, got_np):
+            if dig.tobytes() != hashlib.sha256(row.tobytes()).digest():
+                raise AssertionError(f"sha256_fixed disagrees with hashlib "
+                                     f"at length {length}")
+    err11 = 0
+    for n in NODE_WAVES:
+        left = rng.randint(0, 256, (n, 32)).astype(np.uint8)
+        right = rng.randint(0, 256, (n, 32)).astype(np.uint8)
+        lt, rt = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+        got = s2.merkle_node_hash(lt, rt)
+        err11 = max(err11, _max_abs_err(
+            [(got, s2.merkle_node_hash_plain(lt, rt))]))
+        got_np = got.cpu().numpy()
+        for a, b, dig in zip(left, right, got_np):
+            if dig.tobytes() != hashlib.sha256(
+                    b"\x01" + a.tobytes() + b.tobytes()).digest():
+                raise AssertionError(f"merkle_node_hash disagrees with "
+                                     f"hashlib at {n} pairs")
+        # the host seam the SMT waves call
+        seam = s2.merkle_node_hash_bytes(left, right, dev)
+        if not np.array_equal(seam, got_np):
+            raise AssertionError("merkle_node_hash_bytes differs")
+    if err12 or err11:
+        raise AssertionError(f"K12/K11 differ from plain: {err12} {err11}")
+    return err12, err11
+
+
+def audit_corpus(n_leaves: int = AUDIT_TREE, first: int = AUDIT_FIRST,
+                 count: int = AUDIT_PROOFS, seed: int = 5):
+    """bench.py's catchup-proof shape by default: a 131,072-leaf
+    CompactMerkleTree of seeded 64-byte leaves and 16,384 consecutive
+    proofs from 57,344."""
+    from indy_plenum_tpu_torch.ledger.compact_merkle_tree import \
+        CompactMerkleTree
+
+    rng = np.random.RandomState(seed)
+    raw = rng.randint(0, 256, (n_leaves, 64)).astype(np.uint8)
+    leaves = [row.tobytes() for row in raw]
+    tree = CompactMerkleTree()
+    tree.extend(leaves)
+    idx = list(range(first, first + count))
+    return (tree, [leaves[i] for i in idx], idx,
+            [tree.audit_path(i) for i in idx])
+
+
+def _fold_inputs(dev, leaf_data, indices, paths, tree_sizes, roots):
+    """Dense and indexed K10 operands, per-row tree sizes and roots."""
+    import torch
+    from indy_plenum_tpu_torch.server.catchup import catchup_rep_service \
+        as crs
+
+    n = len(leaf_data)
+    packed = crs.pack_audit_batch(leaf_data, indices, paths, tree_sizes[0],
+                                  roots[0])
+    leaf, idx, table, path_idx, plen, _, _ = packed
+    depth = path_idx.shape[1]
+    dense = np.zeros((n, depth, 32), np.uint8)
+    for i, p in enumerate(paths):
+        if p:
+            dense[i, :len(p)] = np.frombuffer(b"".join(p),
+                                              np.uint8).reshape(-1, 32)
+    ts = np.asarray(tree_sizes, np.int32)
+    root = np.stack([np.frombuffer(r, np.uint8) for r in roots])
+    to = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+          for a in (leaf, idx, dense, table, path_idx, plen, ts, root)]
+    return dict(zip(("leaf", "index", "path", "table", "path_idx",
+                     "path_len", "tree_size", "root"), to))
+
+
+def check_audit(dev, corpus, rng):
+    """K10, dense and indexed, at the catchup-proof shape with planted
+    faults (a flipped leaf byte, a wrong index, a path one node short, one
+    node long, a wrong root), against the plain versions and the host
+    MerkleVerifier; then a chunk holding a path deeper than 48 levels
+    through ``verify_audit_paths_batch``: the whole chunk verifies
+    False, as the reference's packing makes it."""
+    from indy_plenum_tpu_torch.ledger.merkle_verifier import STH, \
+        MerkleVerifier
+    from indy_plenum_tpu_torch.server.catchup import catchup_rep_service \
+        as crs
+    from indy_plenum_tpu_torch.tpu import sha256 as s2
+
+    tree, leaf_data, indices, paths = corpus
+    n = len(leaf_data)
+    leaf_data, indices, paths = list(leaf_data), list(indices), list(paths)
+    sizes = [tree.tree_size] * n
+    roots = [tree.root_hash] * n
+    planted = {}
+    for i in rng.choice(n, 600, replace=False):
+        kind = len(planted) % 5
+        if kind == 0:
+            leaf_data[i] = _flip(leaf_data[i], int(rng.randint(512)))
+        elif kind == 1:
+            indices[i] = indices[i] + 1
+        elif kind == 2:
+            paths[i] = paths[i][:-1]
+        elif kind == 3:
+            paths[i] = paths[i] + [rng.bytes(32)]
+        else:
+            roots[i] = _flip(roots[i], int(rng.randint(256)))
+        planted[int(i)] = kind
+    verifier = MerkleVerifier()
+    expect = np.array([verifier.verify_leaf_inclusion(
+        d, i, p, STH(tree_size=s, sha256_root_hash=r))
+        for d, i, p, s, r in zip(leaf_data, indices, paths, sizes, roots)])
+    if expect[list(planted)].any() or not np.delete(
+            expect, list(planted)).all():
+        raise AssertionError("planted faults: host verifier verdicts wrong")
+    t = _fold_inputs(dev, leaf_data, indices, paths, sizes, roots)
+    dense = s2.verify_audit_paths(t["leaf"], t["index"], t["path"],
+                                  t["path_len"], t["tree_size"], t["root"])
+    dense_plain = s2.verify_audit_paths_plain(
+        t["leaf"], t["index"], t["path"], t["path_len"], t["tree_size"],
+        t["root"])
+    indexed = s2.verify_audit_paths_indexed(
+        t["leaf"], t["index"], t["table"], t["path_idx"], t["path_len"],
+        t["tree_size"], t["root"])
+    indexed_plain = s2.verify_audit_paths_indexed_plain(
+        t["leaf"], t["index"], t["table"], t["path_idx"], t["path_len"],
+        t["tree_size"], t["root"])
+    for name, got in (("dense", dense), ("dense plain", dense_plain),
+                      ("indexed", indexed),
+                      ("indexed plain", indexed_plain)):
+        if not np.array_equal(got.cpu().numpy(), expect):
+            raise AssertionError(f"K10 {name} verdicts differ from the "
+                                 f"host verifier")
+    # a chunk holding a path deeper than 48 levels: None from the packer,
+    # every verdict of the chunk False
+    deep = list(corpus[3][:crs._ChunkedDeviceVerify.CHUNK])
+    deep[7] = deep[7] + [b"\x00" * 32] * 40
+    bad = crs.verify_audit_paths_batch(
+        list(corpus[1][:len(deep)]), list(corpus[2][:len(deep)]), deep,
+        tree.tree_size, tree.root_hash, mode="device", device=dev)
+    if bad.any() or len(bad) != len(deep):
+        raise AssertionError("a chunk with a 49+-level path verified")
+    return 0, len(planted)
 
 
 # --- phase 3: ingress ---------------------------------------------------------
@@ -820,6 +1034,190 @@ def run_pool_b(device):
                         max_view=max(nd.data.view_no for nd in pool.nodes))
 
 
+# --- phases C, D and E: real execution, proved reads, the state -------------
+
+C_NODES, C_INSTANCES = 4, 2  # a deployed 4-node pool: f + 1 = 2 instances
+E_KEYS, E_DELTA, E_WINDOWS = 100_000, 256, 20  # bench.py's state cell
+D_DRAIN, D_DRAINS = 4096, 4
+
+
+def run_pool_c(device, mode):
+    """Real execution on the card: ``bench.py``'s n=64 cell config (3PC
+    batches of 320, batch wait 0.05, adaptive tick from 0.1, pipelined
+    flush, seed 11) at n = 4 with two RBFT instances, signed NYM writes
+    executed into every node's ledgers and SMT states, the state's hash
+    waves placed by ``StateCommitBatchMode`` = ``mode``. 320 warm-up
+    requests, then 3,200 timed."""
+    from indy_plenum_tpu_torch.common.constants import AUDIT_LEDGER_ID, \
+        DOMAIN_LEDGER_ID
+    from indy_plenum_tpu_torch.config import getConfig
+    from indy_plenum_tpu_torch.simulation.pool import SimPool
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    config = getConfig({
+        "Max3PCBatchSize": POOL_BATCH, "Max3PCBatchWait": 0.05,
+        "QuorumTickInterval": 0.1, "QuorumTickAdaptive": True,
+        "TraceNetReceivers": 4, "ResidentTickDepth": 1,
+        "StateCommitBatchMode": mode})
+    pool = SimPool(n_nodes=C_NODES, seed=11, config=config,
+                   device_quorum=True, sign_requests=True,
+                   real_execution=True, num_instances=C_INSTANCES,
+                   shadow_check=False, pipelined_flush=True, trace=True,
+                   device=device)
+    exec_s, wave_s = [0.0], [0.0]
+
+    def timed(fn, acc):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                acc[0] += time.perf_counter() - t0
+        return wrapper
+
+    for nd in pool.nodes:
+        # the executor seam the services call, and inside it the state's
+        # per-level hash waves (host or device, as the mode places them)
+        nd.executor.apply_batch = timed(nd.executor.apply_batch, exec_s)
+        nd.executor.commit_batch = timed(nd.executor.commit_batch, exec_s)
+        st = nd.boot.db.get_state(DOMAIN_LEDGER_ID)
+        st._hash_wave = timed(st._hash_wave, wave_s)
+    seq = [0]
+
+    def submit(count):
+        for _ in range(count):
+            seq[0] += 1
+            pool.submit_request(seq[0])
+
+    def run_until(target):
+        start = pool.timer.get_current_time()
+        while min(len(nd.ordered_digests) for nd in pool.nodes) < target:
+            if pool.timer.get_current_time() - start > 600:
+                raise AssertionError(f"phase C stalled below {target}")
+            pool.run_for(0.1)
+
+    def states():
+        return [nd.boot.db.get_state(DOMAIN_LEDGER_ID) for nd in pool.nodes]
+
+    submit(POOL_BATCH)
+    run_until(POOL_BATCH)
+    n_txns = POOL_BATCHES * POOL_BATCH
+    submit(n_txns)
+    exec_s[0] = wave_s[0] = 0.0
+    waves0 = kb.LAUNCHES["merkle_node_hash"]
+    hashes0 = sum(st.wave_device_hashes for st in states())
+    sim_t0 = pool.timer.get_current_time()
+    t0 = time.perf_counter()
+    run_until(POOL_BATCH + n_txns)
+    if device != "cpu":
+        import torch
+
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sim = pool.timer.get_current_time() - sim_t0
+    if not pool.honest_nodes_agree():
+        raise AssertionError("phase C: honest nodes disagree")
+    ordered = min(len(nd.ordered_digests) for nd in pool.nodes) - POOL_BATCH
+    waves = kb.LAUNCHES["merkle_node_hash"] - waves0
+    wave_hashes = sum(st.wave_device_hashes for st in states()) - hashes0
+    node0 = pool.nodes[0].boot.db
+    return pool, _pool_result(
+        pool, wall, ordered=ordered, sim_s=sim,
+        ordered_txns_per_s=ordered / wall,
+        ordered_txns_per_sim_s=ordered / sim,
+        execution_s=exec_s[0], execution_share=exec_s[0] / wall,
+        wave_hashing_s=wave_s[0],
+        device_waves=waves,
+        mean_wave_width=wave_hashes / waves if waves else 0.0,
+        wave_device_hashes=sum(st.wave_device_hashes for st in states()),
+        wave_host_hashes=sum(st.wave_host_hashes for st in states()),
+        ledger_hashes=[pool.ledger_hash(nd.name) for nd in pool.nodes],
+        state_root=node0.get_state(DOMAIN_LEDGER_ID)
+        .committed_head_hash.hex(),
+        domain_txn_root=node0.get_ledger(DOMAIN_LEDGER_ID).root_hash.hex(),
+        audit_txn_root=node0.get_ledger(AUDIT_LEDGER_ID).root_hash.hex(),
+        roots_agree=len({(nd.boot.db.get_state(DOMAIN_LEDGER_ID)
+                          .committed_head_hash,
+                          nd.boot.db.get_ledger(DOMAIN_LEDGER_ID).root_hash,
+                          nd.boot.db.get_ledger(AUDIT_LEDGER_ID).root_hash)
+                         for nd in pool.nodes}) == 1)
+
+
+def run_reads_d(pool, corpus, dev):
+    """Proved reads on the card: drains of 4,096 seeded indices over phase
+    C's committed domain ledger through ``make_read_service(mode=
+    "device")``, then ``verify_audit_paths_batch`` at the catchup-proof
+    shape, end to end (packing + transfer + kernel)."""
+    from indy_plenum_tpu_torch.server.catchup import catchup_rep_service \
+        as crs
+
+    service = pool.make_read_service("node0", mode="device")
+    rng = random.Random(17)
+    served = verified = 0
+    t0 = time.perf_counter()
+    for _ in range(D_DRAINS):
+        for _ in range(D_DRAIN):
+            service.submit(rng.randrange(1 << 30))
+        replies = service.drain()
+        served += len(replies)
+        verified += sum(r.verified for r in replies)
+    reads_s = time.perf_counter() - t0
+    if served != D_DRAIN * D_DRAINS or verified != served:
+        raise AssertionError(f"phase D: {verified} of {served} reads "
+                             f"verified")
+    tree, leaf_data, indices, paths = corpus
+    t0 = time.perf_counter()
+    verdicts = crs.verify_audit_paths_batch(
+        leaf_data, indices, paths, tree.tree_size, tree.root_hash,
+        mode="device", device=dev)
+    e2e_s = time.perf_counter() - t0
+    if not verdicts.all():
+        raise AssertionError("phase D: a catchup-shape proof failed")
+    return {"ledger_size": service.backing.tree_size,
+            "reads_served": served, "reads_verified": verified,
+            "reads_per_s": served / reads_s,
+            "proofs": len(leaf_data),
+            "proofs_per_s_end_to_end": len(leaf_data) / e2e_s}
+
+
+def catchup_kernel_rate(corpus, dev):
+    """K10 alone at the catchup-proof shape: all 16,384 proofs packed into
+    one launch, already on the card, device time behind a spin (timing
+    launches, outside phase D's count)."""
+    import torch
+    from indy_plenum_tpu_torch.server.catchup import catchup_rep_service \
+        as crs
+    from indy_plenum_tpu_torch.tpu import sha256 as s2
+
+    tree, leaf_data, indices, paths = corpus
+    packed = crs.pack_audit_batch(leaf_data, indices, paths,
+                                  tree.tree_size, tree.root_hash)
+    args = [torch.from_numpy(a).to(dev) for a in packed]
+    if not bool(s2.verify_audit_paths_indexed(*args).all()):
+        raise AssertionError("catchup-shape proofs failed in one launch")
+    kernel_ms = _kernel_ms(lambda: s2.verify_audit_paths_indexed(*args), 5)
+    return {"kernel_ms_16384": kernel_ms,
+            "proofs_per_s_kernel": len(leaf_data) / (kernel_ms / 1e3)}
+
+
+def run_state_e(dev):
+    """The state at the reference's state-bench size: ``run_commit_arms``
+    with arms host and device on the card (100,000 keys, delta 256, 20
+    windows, seed 7, 32 hot keys at 0.9); per-window roots must be
+    identical across the arms (the function asserts it)."""
+    from indy_plenum_tpu_torch.simulation.state_commit_bench import \
+        run_commit_arms
+
+    rec = run_commit_arms(n_keys=E_KEYS, delta=E_DELTA, windows=E_WINDOWS,
+                          seed=7, hot_keys=32, hot_frac=0.9,
+                          arms=("host", "device"), device=dev)
+    if not rec["roots_identical"] \
+            or rec["arms"]["device"]["wave_device_hashes"] <= 0 \
+            or rec["arms"]["host"]["wave_device_hashes"] != 0:
+        raise AssertionError(f"phase E: {rec}")
+    return rec
+
+
 # --- phase 5: report ----------------------------------------------------------
 
 
@@ -934,17 +1332,12 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
                    + 4 * m)
     zero_bytes = leaf_rows * s + n * c + 4 + m
 
-    def bound(nbytes, ops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / INT32_OPS_PER_S * 1e3
-        return (max(t_bytes, t_ops),
-                "bytes" if t_bytes >= t_ops else "operations")
-
     rows = [
         ("sha512_blocks", "indy_plenum_tpu_torch/csrc/sha512.cu",
          "indy_plenum_tpu/tpu/sha512.py:201", t_sha, t_sha_plain,
          bound(128 * n_blocks + 4 * DRAIN + 64 * DRAIN,
-               n_blocks * SHA512_OPS_PER_BLOCK)),
+               n_blocks * SHA512_OPS_PER_BLOCK
+               - DRAIN * SHA512_IV_ROUND_SAVING)),
         ("reduce_mod_l", "indy_plenum_tpu_torch/csrc/sha512.cu",
          "indy_plenum_tpu/tpu/sha512.py:249", t_modl, t_modl_plain,
          bound(DRAIN * (64 + 32), DRAIN * MOD_L_OPS_PER_ITEM)),
@@ -992,9 +1385,101 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
                  "verify_full_rows": n_full}
 
 
+def sha256_report(dev, corpus, rng, launches, errs):
+    """K10-K12 rows of the kernels line at the main path's shapes: K11 at
+    a 320-pair wave (phase C's widest: one 3PC batch of 320 new keys),
+    K10 at one 4,096-proof chunk of the catchup-proof corpus (the chunk
+    ``_ChunkedDeviceVerify`` launches; phase D's drains are the same
+    size), K12 at 4,096 64-byte messages (not on the main path: its
+    compression runs inside K10/K11)."""
+    import torch
+    from indy_plenum_tpu_torch.server.catchup import catchup_rep_service \
+        as crs
+    from indy_plenum_tpu_torch.tpu import sha256 as s2
+
+    chunk = crs._ChunkedDeviceVerify.CHUNK
+    msgs = torch.from_numpy(
+        rng.randint(0, 256, (chunk, 64)).astype(np.uint8)).to(dev)
+    wave = 320
+    left = torch.from_numpy(
+        rng.randint(0, 256, (wave, 32)).astype(np.uint8)).to(dev)
+    right = torch.from_numpy(
+        rng.randint(0, 256, (wave, 32)).astype(np.uint8)).to(dev)
+    tree, leaf_data, indices, paths = corpus
+    t = _fold_inputs(dev, leaf_data[:chunk], indices[:chunk], paths[:chunk],
+                     [tree.tree_size] * chunk, [tree.root_hash] * chunk)
+    dense_args = [t[k] for k in ("leaf", "index", "path", "path_len",
+                                 "tree_size", "root")]
+    idx_args = [t[k] for k in ("leaf", "index", "table", "path_idx",
+                               "path_len", "tree_size", "root")]
+    # the same chunk's verdicts, kernel against plain, once more
+    for fn, plain, args in (
+            (s2.verify_audit_paths, s2.verify_audit_paths_plain,
+             dense_args),
+            (s2.verify_audit_paths_indexed,
+             s2.verify_audit_paths_indexed_plain, idx_args)):
+        if not torch.equal(fn(*args).cpu(), plain(*args).cpu()):
+            raise AssertionError("K10 chunk differs from plain")
+    fns = {
+        "sha256_fixed": (lambda: s2.sha256_fixed(msgs),
+                         lambda: s2.sha256_fixed_plain(msgs)),
+        "merkle_node_hash": (lambda: s2.merkle_node_hash(left, right),
+                             lambda: s2.merkle_node_hash_plain(left, right)),
+        "audit_paths": (lambda: s2.verify_audit_paths(*dense_args),
+                        lambda: s2.verify_audit_paths_plain(*dense_args)),
+        "audit_paths_indexed": (
+            lambda: s2.verify_audit_paths_indexed(*idx_args),
+            lambda: s2.verify_audit_paths_indexed_plain(*idx_args)),
+    }
+    levels = int(t["path_len"].sum())  # two compressions a level
+    depth = t["path_idx"].shape[1]
+    n_table = t["table"].shape[0]
+    fold_bytes = chunk * (32 + 4 + 4 + 4 + 32 + 1)
+    work = {  # (bytes moved once, 32-bit instructions)
+        "sha256_fixed": (chunk * (64 + 32), chunk * SHA256_64B_OPS),
+        "merkle_node_hash": (wave * 96, wave * SHA256_NODE_OPS),
+        "audit_paths": (fold_bytes + chunk * depth * 32,
+                        levels * SHA256_NODE_OPS),
+        "audit_paths_indexed": (fold_bytes + chunk * depth * 4
+                                + n_table * 32,
+                                levels * SHA256_NODE_OPS),
+    }
+    replaces = {
+        "sha256_fixed": "indy_plenum_tpu/tpu/sha256.py:103",
+        "merkle_node_hash": "indy_plenum_tpu/tpu/sha256.py:325",
+        "audit_paths": "indy_plenum_tpu/tpu/sha256.py:273",
+        "audit_paths_indexed": "indy_plenum_tpu/tpu/sha256.py:295",
+    }
+    rows, call_ms, shapes = [], {}, {
+        "sha256_fixed": f"{chunk} x 64 B", "merkle_node_hash": f"{wave} pairs",
+        "audit_paths": f"{chunk} proofs x {depth} levels",
+        "audit_paths_indexed": f"{chunk} proofs x {depth} levels, "
+                               f"{n_table} table rows"}
+    for name, (fn, plain) in fns.items():
+        ms = _kernel_ms(fn, 20)
+        call_ms[name] = _cuda_ms(fn, 20)
+        plain_ms = _cuda_ms(plain, 1, 1)
+        bound_ms, bound_by = bound(*work[name])
+        rows.append({"name": name, "route": "cuda",
+                     "source": "indy_plenum_tpu_torch/csrc/sha256.cu",
+                     "replaces": replaces[name], "launches": launches[name],
+                     "max_abs_err": errs[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    return rows, call_ms, shapes
+
+
 # the kernels each main-path run must launch
 PATH_KERNELS = {
     "ingress": ("sha512_blocks", "reduce_mod_l", "ed25519_verify"),
+    # K11 on the SMT waves; 11 batches stay below a checkpoint: no slide
+    "pool_c": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
+               "quorum_step", "merkle_node_hash"),
+    # the default "auto" law places each wave where it measured cheaper
+    "pool_c_auto": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
+                    "quorum_step"),
+    "reads_d": ("audit_paths_indexed",),
+    "state_e": ("merkle_node_hash",),
     "quorum": ("quorum_step", "window_slide"),
     # 11 batches of 320: below one checkpoint interval, so no slide
     "pool_a": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
@@ -1043,11 +1528,19 @@ def main() -> int:
         dev, rng, B_NODES * B_INSTANCES, B_NODES, B_LOG_SIZE,
         B_LOG_SIZE // B_CHK_FREQ, B_CHK_FREQ)
     err_slide, err_zero = max(err_slide, b_slide), max(err_zero, b_zero)
+    # K10-K12: digests against plain and hashlib, verdicts against plain
+    # and the host MerkleVerifier (planted faults included)
+    err_k12, err_k11 = check_sha256(dev, rng)
+    corpus = audit_corpus()
+    err_k10, n_planted = check_audit(dev, corpus, rng)
     errs = {"sha512_blocks": err_a, "reduce_mod_l": err_b,
             "ed25519_verify": err_c, "quorum_step": err_d,
-            "window_slide": err_slide, "window_zero": err_zero}
+            "window_slide": err_slide, "window_zero": err_zero,
+            "sha256_fixed": err_k12, "merkle_node_hash": err_k11,
+            "audit_paths": err_k10, "audit_paths_indexed": err_k10}
     _line("kernels", max_abs_err=errs, verify_accepted=n_ok,
           verify_rows=n_rows, quorum_steps=q_steps,
+          audit_planted_faults=n_planted,
           phase_s=time.perf_counter() - t0, card=card)
 
     # 3, 4, A, B: the main path. Every launch counter is 0 just before
@@ -1130,10 +1623,70 @@ def main() -> int:
           cpu_wall_s=cpu_b["wall_s"], phase_s=time.perf_counter() - t0,
           card=card)
 
+    # C. real execution: device waves on the card, then host waves; the
+    # two runs must agree on every ordering fingerprint and root
+    t0 = time.perf_counter()
+    (pool_c, c_dev), c_launches, _ = on_card("pool_c", run_pool_c, None,
+                                              "device")
+    _, c_host = run_pool_c(None, "host")
+    for key in ("ordered_hash", "trace_hash", "views", "ordered_min",
+                "ledger_hashes", "state_root", "domain_txn_root",
+                "audit_txn_root"):
+        if c_dev[key] != c_host[key]:
+            raise AssertionError(f"phase C: device and host waves differ "
+                                 f"on {key}")
+    if c_dev["ordered"] != POOL_BATCHES * POOL_BATCH \
+            or not c_dev["roots_agree"] \
+            or c_dev["wave_device_hashes"] <= 0 \
+            or c_host["wave_device_hashes"] != 0:
+        raise AssertionError(f"phase C: {c_dev}")
+    # and under the default law ("auto"), from a fresh policy as a new
+    # process has it: the device run above fed the process-wide one
+    from indy_plenum_tpu_torch.state import sparse_merkle_state
+    sparse_merkle_state._WAVE_OFFLOAD = None
+    (_, c_auto), c_auto_launches, _ = on_card("pool_c_auto", run_pool_c,
+                                              None, "auto")
+    for key in ("ordered_hash", "ledger_hashes", "state_root",
+                "domain_txn_root", "audit_txn_root"):
+        if c_auto[key] != c_dev[key]:
+            raise AssertionError(f"phase C: auto waves differ on {key}")
+    _line("pool_c", **c_dev, launches=c_launches,
+          host_waves_wall_s=c_host["wall_s"],
+          host_waves_execution_s=c_host["execution_s"],
+          host_waves_hashing_s=c_host["wave_hashing_s"],
+          host_waves_ordered_txns_per_s=c_host["ordered_txns_per_s"],
+          auto_wall_s=c_auto["wall_s"],
+          auto_ordered_txns_per_s=c_auto["ordered_txns_per_s"],
+          auto_wave_hashing_s=c_auto["wave_hashing_s"],
+          auto_device_waves=c_auto["device_waves"],
+          auto_wave_device_hashes=c_auto["wave_device_hashes"],
+          auto_wave_host_hashes=c_auto["wave_host_hashes"],
+          auto_launches=c_auto_launches,
+          phase_s=time.perf_counter() - t0, card=card)
+
+    # D. proved reads over phase C's committed domain ledger
+    t0 = time.perf_counter()
+    reads, d_launches, _ = on_card("reads_d", run_reads_d, pool_c, corpus,
+                                   dev)
+    reads.update(catchup_kernel_rate(corpus, dev))
+    _line("reads_d", **reads, launches=d_launches,
+          phase_s=time.perf_counter() - t0, card=card)
+    del pool_c
+
+    # E. the state at the reference's state-bench size
+    t0 = time.perf_counter()
+    state_e, e_launches, _ = on_card("state_e", run_state_e, dev)
+    _line("state_e", **state_e, launches=e_launches,
+          phase_s=time.perf_counter() - t0, card=card)
+
     # 5. report
     t0 = time.perf_counter()
     kernels, errs, times = kernel_report(dev, signers, reqs, rng, launches,
                                          errs)
+    sha_rows, sha_call_ms, sha_shapes = sha256_report(dev, corpus, rng,
+                                                      launches, errs)
+    kernels += sha_rows
+    times["call_ms"].update(sha_call_ms)
     print(json.dumps({"kernels": kernels}), flush=True)
     plain = {k["name"]: k["plain_ms"] for k in kernels}
     print(json.dumps({"times": {
@@ -1146,6 +1699,12 @@ def main() -> int:
         "plane_ordered_slots_per_s": plane_slots_per_s,
         "pool_a_ordered_txns_per_s": pool_a["ordered_txns_per_s"],
         "pool_a_ordered_txns_per_sim_s": pool_a["ordered_txns_per_sim_s"],
+        "pool_c_ordered_txns_per_s": c_dev["ordered_txns_per_s"],
+        "pool_c_execution_share": c_dev["execution_share"],
+        "reads_d_proofs_per_s_end_to_end":
+            reads["proofs_per_s_end_to_end"],
+        "reads_d_proofs_per_s_kernel": reads["proofs_per_s_kernel"],
+        "sha256_shapes": sha_shapes,
         "plain_ms": plain, "report_s": time.perf_counter() - t0,
         "total_s": time.perf_counter() - t_start}}), flush=True)
     print(card, flush=True)

@@ -1,19 +1,26 @@
-"""Canonical signing serialization: every node must sign/hash identical bytes.
+"""Canonical serialization: every node must hash/sign identical bytes.
 
-Port of ``serialize_for_signing`` from
-``indy_plenum_tpu/common/serializers/serialization.py``. The JAX package
-calls ``msgpack.packb(_canonical(obj), use_bin_type=True)``; the machine
-the port runs on may have no ``msgpack``, so this module carries a small
-msgpack ENCODER of its own, byte-identical to msgpack-python for every
-type a request payload holds: ``None``, ``bool``, ``int`` (-2^63 ..
-2^64-1), ``float`` (as float 64), ``str``, ``bytes``/``bytearray``,
-lists/tuples and dicts. Maps are key-sorted and ``None`` values dropped
-(absent field == None), exactly as ``_canonical`` does there.
+Port of ``indy_plenum_tpu/common/serializers/serialization.py``: the
+signing serializer (ordered msgpack), the ledger txn serializer (compact
+key-sorted JSON) and the base58 root serializer. The JAX package calls
+``msgpack.packb``/``msgpack.unpackb``; the machine the port runs on may
+have no ``msgpack``, so this module carries a small msgpack ENCODER and
+DECODER of its own. The encoder is byte-identical to msgpack-python
+(``use_bin_type=True``) for every type a request payload or a state value
+holds: ``None``, ``bool``, ``int`` (-2^63 .. 2^64-1), ``float`` (as
+float 64), ``str``, ``bytes``/``bytearray``, lists/tuples and dicts. For
+signing, maps are key-sorted and ``None`` values dropped (absent field ==
+None), exactly as ``_canonical`` does there. The decoder gives the objects
+``msgpack.unpackb(raw=False)`` gives: str for str, bytes for bin, lists
+for arrays, dicts for maps.
 """
 from __future__ import annotations
 
+import json
 import struct
-from typing import Any
+from typing import Any, Tuple
+
+from ...utils.base58 import b58decode, b58encode
 
 
 def _canonical(obj: Any) -> Any:
@@ -112,3 +119,134 @@ def packb(obj: Any) -> bytes:
 def serialize_for_signing(obj: Any) -> bytes:
     """Deterministic bytes for signing/digesting (ordered msgpack)."""
     return packb(_canonical(obj))
+
+
+# --- decoding (msgpack.unpackb(data, raw=False)) ----------------------------
+
+# fixed-width headers: tag -> (struct format, size)
+_FIXED = {
+    0xCA: (">f", 4), 0xCB: (">d", 8),
+    0xCC: (">B", 1), 0xCD: (">H", 2), 0xCE: (">I", 4), 0xCF: (">Q", 8),
+    0xD0: (">b", 1), 0xD1: (">h", 2), 0xD2: (">i", 4), 0xD3: (">q", 8),
+}
+# length-prefixed: tag -> (kind, length format, length size)
+_SIZED = {
+    0xC4: ("bin", ">B", 1), 0xC5: ("bin", ">H", 2), 0xC6: ("bin", ">I", 4),
+    0xD9: ("str", ">B", 1), 0xDA: ("str", ">H", 2), 0xDB: ("str", ">I", 4),
+    0xDC: ("array", ">H", 2), 0xDD: ("array", ">I", 4),
+    0xDE: ("map", ">H", 2), 0xDF: ("map", ">I", 4),
+}
+
+
+class UnpackError(ValueError):
+    """Bytes that are not one complete msgpack object of the supported
+    types (extension types and trailing bytes included)."""
+
+
+def _take(data: bytes, pos: int, n: int) -> Tuple[bytes, int]:
+    end = pos + n
+    if end > len(data):
+        raise UnpackError("truncated msgpack data")
+    return data[pos:end], end
+
+
+def _unpack(data: bytes, pos: int) -> Tuple[Any, int]:
+    if pos >= len(data):
+        raise UnpackError("truncated msgpack data")
+    tag = data[pos]
+    pos += 1
+    if tag <= 0x7F:
+        return tag, pos
+    if tag >= 0xE0:
+        return tag - 0x100, pos
+    if 0xA0 <= tag <= 0xBF:
+        kind, n = "str", tag & 0x1F
+    elif 0x90 <= tag <= 0x9F:
+        kind, n = "array", tag & 0x0F
+    elif 0x80 <= tag <= 0x8F:
+        kind, n = "map", tag & 0x0F
+    elif tag == 0xC0:
+        return None, pos
+    elif tag == 0xC2:
+        return False, pos
+    elif tag == 0xC3:
+        return True, pos
+    elif tag in _FIXED:
+        fmt, size = _FIXED[tag]
+        raw, pos = _take(data, pos, size)
+        return struct.unpack(fmt, raw)[0], pos
+    elif tag in _SIZED:
+        kind, fmt, size = _SIZED[tag]
+        raw, pos = _take(data, pos, size)
+        n = struct.unpack(fmt, raw)[0]
+    else:
+        raise UnpackError(f"unsupported msgpack tag 0x{tag:02x}")
+    if kind == "bin":
+        return _take(data, pos, n)
+    if kind == "str":
+        raw, pos = _take(data, pos, n)
+        try:
+            return raw.decode("utf-8"), pos
+        except UnicodeDecodeError as ex:
+            raise UnpackError(str(ex)) from None
+    if kind == "array":
+        items = []
+        for _ in range(n):
+            item, pos = _unpack(data, pos)
+            items.append(item)
+        return items, pos
+    out = {}
+    for _ in range(n):
+        key, pos = _unpack(data, pos)
+        value, pos = _unpack(data, pos)
+        try:
+            out[key] = value
+        except TypeError:  # a list or dict as a key: not hashable
+            raise UnpackError("unhashable map key") from None
+    return out, pos
+
+
+def unpackb(data: bytes) -> Any:
+    """msgpack decoding with ``raw=False`` semantics."""
+    data = bytes(data)
+    obj, pos = _unpack(data, 0)
+    if pos != len(data):
+        raise UnpackError("extra data after the msgpack object")
+    return obj
+
+
+def deserialize_msgpack(data: bytes) -> Any:
+    return unpackb(data)
+
+
+class JsonSerializer:
+    """Ledger txn serializer: compact, key-sorted JSON (stable digests)."""
+
+    @staticmethod
+    def dumps(obj: Any) -> bytes:
+        return json.dumps(obj, sort_keys=True,
+                          separators=(",", ":")).encode()
+
+    @staticmethod
+    def loads(data) -> Any:
+        if isinstance(data, (bytes, bytearray)):
+            data = data.decode()
+        return json.loads(data)
+
+
+ledger_txn_serializer = JsonSerializer()
+
+
+class Base58Serializer:
+    """Root-hash serializer: 32-byte roots <-> base58 text."""
+
+    @staticmethod
+    def serialize(raw: bytes) -> str:
+        return b58encode(raw)
+
+    @staticmethod
+    def deserialize(txt: str) -> bytes:
+        return b58decode(txt)
+
+
+state_roots_serializer = Base58Serializer()

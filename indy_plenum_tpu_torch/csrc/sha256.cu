@@ -1,0 +1,324 @@
+// SHA-256 for the ledgers' Merkle machinery: fixed-length messages, the
+// RFC 6962 node hash H(0x01 || l || r), and the audit-path fold.
+//
+// Replaces (JAX reference, indy_plenum_tpu/tpu/sha256.py):
+//   K12  sha256_fixed (sha256.py:103) / merkle_node_hash (:127) - SHA-256
+//        of fixed-length messages, padded at trace time there;
+//   K11  _merkle_node_hash_batch (:325, jit :334) via
+//        merkle_node_hash_bytes (:337) - one per-level wave of the batched
+//        SMT commit, (B, 32) x 2 -> (B, 32), in the uint32-lane word form
+//        of _merkle_node_hash_words (:195);
+//   K10  _verify_audit_paths (:273) / _verify_audit_paths_indexed (:295),
+//        the fold _audit_fold (:221) - RFC 6962 audit paths against a
+//        root, dense (B, D, 32) siblings or a (U, 32) node table indexed
+//        by (B, D) int32.
+//
+// What bounds them on an H100: integer issue. One compression is 64
+// dependent rounds of 32-bit rotates, adds and logic (~1,400 instructions
+// with the schedule, 3-input logic and adds merged into LOP3 and IADD3)
+// for 64 bytes of message, so even K11, which reads 64 bytes and writes
+// 32 per node, needs ~2,600 instructions per 96 bytes moved - far above
+// the card's ~5 instructions per byte balance
+// (16.7e12 INT32/s over 3.35e12 B/s). K10 reads one 32-byte sibling per
+// level and does two compressions per level. At the main path's sizes
+// (waves of 32..320 pairs, chunks of 4,096 proofs) one thread per item
+// fills few SMs, so a call is bound by one thread's chain of dependent
+// rounds, not by the card's issue rate.
+//
+// Design:
+//   - one device function for the compression: the state and a rolling
+//     16-word schedule window stay in registers, the 64 rounds are
+//     unrolled, K sits in __constant__ memory (every thread of a warp
+//     reads the same round constant at once: a broadcast), rotates are
+//     __funnelshift_r; big-endian words are loaded with __byte_perm;
+//   - one thread per message / node / proof, 128-thread blocks: items
+//     are independent, so no block needs another's result; a 320-pair
+//     wave is 3 blocks and a 4,096-proof chunk 32, so the card's 132 SMs
+//     are mostly idle at these sizes (the main path's own batch sizes);
+//   - K11 builds the two message blocks straight from word-shifted halves
+//     as the reference's word path does (prefix word 0x01000000 | l0>>8,
+//     second block r7<<24 | 0x00800000, zeros, bit length 520): no byte
+//     round-trips;
+//   - K10 loops over its proof's levels and stops at path_len (levels past
+//     it change nothing in the reference either); the index/size shifting
+//     runs to completion as MerkleVerifier's while loop does (the
+//     reference bounds it by its padded depth, >= 16 there); index and
+//     tree size stay int32 so parity, >> and the comparisons agree;
+//   - making these fast (several threads per proof, merged waves) is
+//     later work: this first version is the simple right one.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+__constant__ uint32_t kK[64] = {
+    0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
+    0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01, 0x243185be, 0x550c7dc3,
+    0x72be5d74, 0x80deb1fe, 0x9bdc06a7, 0xc19bf174, 0xe49b69c1, 0xefbe4786,
+    0x0fc19dc6, 0x240ca1cc, 0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da,
+    0x983e5152, 0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
+    0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc, 0x53380d13,
+    0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85, 0xa2bfe8a1, 0xa81a664b,
+    0xc24b8b70, 0xc76c51a3, 0xd192e819, 0xd6990624, 0xf40e3585, 0x106aa070,
+    0x19a4c116, 0x1e376c08, 0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a,
+    0x5b9cca4f, 0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
+    0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2};
+
+__device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
+  return __funnelshift_r(x, x, n);
+}
+
+__device__ __forceinline__ uint32_t bswap32(uint32_t x) {
+  return __byte_perm(x, 0, 0x0123);
+}
+
+__device__ __forceinline__ void init_state(uint32_t st[8]) {
+  st[0] = 0x6a09e667u; st[1] = 0xbb67ae85u; st[2] = 0x3c6ef372u;
+  st[3] = 0xa54ff53au; st[4] = 0x510e527fu; st[5] = 0x9b05688cu;
+  st[6] = 0x1f83d9abu; st[7] = 0x5be0cd19u;
+}
+
+// One compression: st (8 words) updated in place; w (16 words) is used as
+// the rolling schedule window and left clobbered.
+__device__ __forceinline__ void compress(uint32_t st[8], uint32_t w[16]) {
+  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
+  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
+#pragma unroll
+  for (int t = 0; t < 64; ++t) {
+    uint32_t wt;
+    if (t < 16) {
+      wt = w[t];
+    } else {
+      uint32_t w15 = w[(t + 1) & 15], w2 = w[(t + 14) & 15];
+      uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
+      uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
+      wt = w[t & 15] + s0 + w[(t + 9) & 15] + s1;
+      w[t & 15] = wt;
+    }
+    uint32_t S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+    uint32_t ch = (e & f) ^ (~e & g);
+    uint32_t t1 = h + S1 + ch + kK[t] + wt;
+    uint32_t S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+    uint32_t mj = (a & b) ^ (a & c) ^ (b & c);
+    uint32_t t2 = S0 + mj;
+    h = g; g = f; f = e; e = d + t1;
+    d = c; c = b; b = a; a = t1 + t2;
+  }
+  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
+  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+}
+
+// H(0x01 || l || r) on big-endian words: two compressions.
+__device__ __forceinline__ void node_hash(const uint32_t l[8],
+                                          const uint32_t r[8],
+                                          uint32_t out[8]) {
+  uint32_t w[16];
+  w[0] = 0x01000000u | (l[0] >> 8);
+#pragma unroll
+  for (int i = 1; i < 8; ++i) w[i] = (l[i - 1] << 24) | (l[i] >> 8);
+  w[8] = (l[7] << 24) | (r[0] >> 8);
+#pragma unroll
+  for (int i = 1; i < 8; ++i) w[8 + i] = (r[i - 1] << 24) | (r[i] >> 8);
+  init_state(out);
+  compress(out, w);
+  w[0] = (r[7] << 24) | 0x00800000u;
+#pragma unroll
+  for (int i = 1; i < 15; ++i) w[i] = 0;
+  w[15] = 520;  // 65 bytes * 8
+  compress(out, w);
+}
+
+__device__ __forceinline__ void load_words(const uint8_t* p, uint32_t x[8]) {
+  const uint32_t* q = reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = bswap32(__ldg(q + i));
+}
+
+__device__ __forceinline__ void store_words(uint8_t* p, const uint32_t x[8]) {
+  uint32_t* q = reinterpret_cast<uint32_t*>(p);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) q[i] = bswap32(x[i]);
+}
+
+// K12: msg (B, L) bytes -> out (B, 32); FIPS 180-4 padding built per byte
+// (0x80 after the message, the 64-bit bit length in the last 8 bytes).
+__global__ void sha256_fixed_kernel(const uint8_t* __restrict__ msg,
+                                    uint8_t* __restrict__ out, int batch,
+                                    int msg_len) {
+  int item = blockIdx.x * blockDim.x + threadIdx.x;
+  if (item >= batch) return;
+  const uint8_t* m = msg + static_cast<size_t>(item) * msg_len;
+  const int n_blocks = (msg_len + 9 + 63) / 64;
+  const int total = n_blocks * 64;
+  const uint64_t bitlen = static_cast<uint64_t>(msg_len) * 8;
+  uint32_t st[8];
+  init_state(st);
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    uint32_t w[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        int p = blk * 64 + 4 * i + j;
+        uint32_t byte;
+        if (p < msg_len) {
+          byte = m[p];
+        } else if (p == msg_len) {
+          byte = 0x80;
+        } else if (p >= total - 8) {
+          byte = static_cast<uint32_t>(
+              (bitlen >> (8 * (total - 1 - p))) & 0xFF);
+        } else {
+          byte = 0;
+        }
+        word = (word << 8) | byte;
+      }
+      w[i] = word;
+    }
+    compress(st, w);
+  }
+  store_words(out + static_cast<size_t>(item) * 32, st);
+}
+
+// K11: one thread per pair.
+__global__ void merkle_node_kernel(const uint8_t* __restrict__ left,
+                                   const uint8_t* __restrict__ right,
+                                   uint8_t* __restrict__ out, int batch) {
+  int item = blockIdx.x * blockDim.x + threadIdx.x;
+  if (item >= batch) return;
+  uint32_t l[8], r[8], h[8];
+  load_words(left + static_cast<size_t>(item) * 32, l);
+  load_words(right + static_cast<size_t>(item) * 32, r);
+  node_hash(l, r, h);
+  store_words(out + static_cast<size_t>(item) * 32, h);
+}
+
+// K10: one thread per proof. Siblings come from path[b, level] (dense,
+// table == nullptr) or table[path_idx[b, level]] (indexed).
+__global__ void audit_fold_kernel(const uint8_t* __restrict__ leaf,
+                                  const int32_t* __restrict__ index,
+                                  const uint8_t* __restrict__ path,
+                                  const uint8_t* __restrict__ table,
+                                  const int32_t* __restrict__ path_idx,
+                                  const int32_t* __restrict__ path_len,
+                                  const int32_t* __restrict__ tree_size,
+                                  const uint8_t* __restrict__ root,
+                                  uint8_t* __restrict__ ok_out, int batch,
+                                  int depth) {
+  int item = blockIdx.x * blockDim.x + threadIdx.x;
+  if (item >= batch) return;
+  uint32_t r[8];
+  load_words(leaf + static_cast<size_t>(item) * 32, r);
+  int32_t fn = index[item];
+  int32_t fsn = tree_size[item] - 1;
+  const int32_t plen = path_len[item];
+  int32_t consumed = 0;
+  bool ok = true;
+  for (int level = 0; level < depth && level < plen; ++level) {
+    const uint8_t* sp;
+    if (table == nullptr) {
+      sp = path + (static_cast<size_t>(item) * depth + level) * 32;
+    } else {
+      sp = table + static_cast<size_t>(
+                       path_idx[static_cast<size_t>(item) * depth + level]) *
+                       32;
+    }
+    uint32_t s[8];
+    load_words(sp, s);
+    // int32 parity as the reference's floor-mod: (fn & 1) == fn % 2
+    const bool use_left = (fn & 1) || (fn == fsn);
+    ok = ok && (fsn > 0);  // a level consumed with fsn exhausted
+    uint32_t h[8];
+    if (use_left) {
+      node_hash(s, r, h);
+    } else {
+      node_hash(r, s, h);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) r[i] = h[i];
+    if (use_left) {
+      while (!(fn & 1) && fn != 0) {
+        fn >>= 1;
+        fsn >>= 1;
+      }
+    }
+    fn >>= 1;
+    fsn >>= 1;
+    ++consumed;
+  }
+  ok = ok && (fsn == 0) && (consumed == plen);
+  uint32_t want[8];
+  load_words(root + static_cast<size_t>(item) * 32, want);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ok = ok && (r[i] == want[i]);
+  ok_out[item] = ok ? 1 : 0;
+}
+
+inline int grid_for(int batch, int threads) {
+  return (batch + threads - 1) / threads;
+}
+
+}  // namespace
+
+extern "C" int sha256_fixed_launch(const void* msg, void* out, int batch,
+                                   int msg_len, void* stream) {
+  if (batch > 0) {
+    const int threads = 128;
+    sha256_fixed_kernel<<<grid_for(batch, threads), threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(msg), static_cast<uint8_t*>(out), batch,
+        msg_len);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int merkle_node_hash_launch(const void* left, const void* right,
+                                       void* out, int batch, void* stream) {
+  if (batch > 0) {
+    const int threads = 128;
+    merkle_node_kernel<<<grid_for(batch, threads), threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(left), static_cast<const uint8_t*>(right),
+        static_cast<uint8_t*>(out), batch);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int audit_paths_launch(const void* leaf, const void* index,
+                                  const void* path, const void* path_len,
+                                  const void* tree_size, const void* root,
+                                  void* ok, int batch, int depth,
+                                  void* stream) {
+  if (batch > 0) {
+    const int threads = 128;
+    audit_fold_kernel<<<grid_for(batch, threads), threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(leaf), static_cast<const int32_t*>(index),
+        static_cast<const uint8_t*>(path), nullptr, nullptr,
+        static_cast<const int32_t*>(path_len),
+        static_cast<const int32_t*>(tree_size),
+        static_cast<const uint8_t*>(root), static_cast<uint8_t*>(ok), batch,
+        depth);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int audit_paths_indexed_launch(
+    const void* leaf, const void* index, const void* table,
+    const void* path_idx, const void* path_len, const void* tree_size,
+    const void* root, void* ok, int batch, int depth, void* stream) {
+  if (batch > 0) {
+    const int threads = 128;
+    audit_fold_kernel<<<grid_for(batch, threads), threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(leaf), static_cast<const int32_t*>(index),
+        nullptr, static_cast<const uint8_t*>(table),
+        static_cast<const int32_t*>(path_idx),
+        static_cast<const int32_t*>(path_len),
+        static_cast<const int32_t*>(tree_size),
+        static_cast<const uint8_t*>(root), static_cast<uint8_t*>(ok), batch,
+        depth);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -9,12 +9,17 @@ simple in-memory fakes. This is the tier-5 harness AND the integration
 surface for consensus changes.
 
 Copy of ``indy_plenum_tpu/simulation/pool.py``, with its imports bound to
-the port. The pool's device work (the ingress drain's Ed25519 batch verify
-and the grouped quorum step, window slide and view-change zero) runs on
-the CUDA card unless the caller passes ``device="cpu"``, which runs the
-kernels' plain PyTorch versions. What later slices of the port bring
-raises ``NotImplementedError``: real execution (ledgers, catchup, state
-proofs and ``make_read_service``), BLS, a device mesh, the region latency
+the port. The pool's device work (the ingress drain's Ed25519 batch verify,
+the grouped quorum step, window slide and view-change zero, and with real
+execution the SMT commit's hash waves and the proved reads' audit-path
+folds) runs on the CUDA card unless the caller passes ``device="cpu"``,
+which runs the kernels' plain PyTorch versions. With ``real_execution``
+every node executes through its own ledgers and SMT states
+(``LedgersBootstrap`` + ``NodeExecutor``); without it, ``SimExecutor``
+fakes the roots. What later slices of the port bring raises
+``NotImplementedError``: catchup (the reference wires a seeder and a
+leecher into every real-execution node; here a node that needs catchup
+raises), BLS and the state-proof plane, a device mesh, the region latency
 matrix, the closed-loop retry driver, the telemetry plane and multi-tick
 device residency (``ResidentTickDepth > 1``). The ordering lanes' seams
 (a shared timer, metrics collector and trace ring, the cross-lane
@@ -168,9 +173,6 @@ class SimNode:
                  shadow_check: Optional[bool] = None,
                  vote_plane=None, trace=None, metrics=None,
                  device: DeviceLike = None):
-        if domain_genesis is not None or storage is not None:
-            raise _later_slice("real execution (ledgers, SMT state)",
-                               "SHA-256/real-execution")
         if bls_keys is not None:
             raise _later_slice("BLS multi-signatures", "BLS")
         # shadow_check default: on whenever the device plane decides, so
@@ -212,7 +214,24 @@ class SimNode:
         self.stasher3pc = StashingRouter(
             limit=1000, buses=[self.internal_bus])
         self.demux.register(0, self.stasher3pc)
-        self.executor = SimExecutor()
+        self.boot = None
+        if domain_genesis is not None:
+            # real execution: ledgers + SMT states + audit spine per node
+            from ..server.ledgers_bootstrap import LedgersBootstrap
+            from ..server.request_managers.write_request_manager import (
+                NodeExecutor,
+            )
+
+            self.boot = LedgersBootstrap(
+                storage=storage, domain_genesis=domain_genesis,
+                config=config, device=device).build()
+            self.boot.write_manager.metrics = metrics
+            self.executor = NodeExecutor(
+                self.boot.write_manager,
+                get_view_info=lambda: (self.data.view_no,
+                                       list(self.data.primaries)))
+        else:
+            self.executor = SimExecutor()
         self.requests_view = requests.view_for(name)
 
         self.vote_plane = vote_plane
@@ -253,6 +272,17 @@ class SimNode:
             network=self.external_bus, ordering_service=self.ordering,
             view_change_service=self.view_changer)
 
+        if self.boot is not None:
+            # catchup plane: the reference wires a seeder and a leecher
+            # here; both come with the catchup slice, so a node that
+            # falls behind (NeedMasterCatchup) raises instead of leeching
+            from ..common.messages.internal_messages import (
+                NeedMasterCatchup,
+            )
+
+            self.internal_bus.subscribe(NeedMasterCatchup,
+                                        self._on_need_catchup)
+
         # execution: commit batches as they order (the Node's job);
         # re-ordered duplicates after a view change are skipped by seqNo
         self.ordered_log: List[Ordered] = []
@@ -269,11 +299,24 @@ class SimNode:
             return  # already executed (re-ordered after view change)
         self.executed_upto = ordered.ppSeqNo
         self.ordered_log.append(ordered)
-        self.executor.commit_batch(ordered.ppSeqNo)
+        staged = self.executor.commit_batch(ordered.ppSeqNo)
         if self.trace.enabled:
             self.trace.record(
                 "3pc.executed", node=self.name,
                 key=(ordered.viewNo, ordered.ppSeqNo, ordered.digest))
+            if staged is not None and self.boot is not None:
+                # executed -> durable-state-root hop (STATE_PHASE join)
+                state = self.boot.db.get_state(staged.ledger_id)
+                self.trace.record(
+                    "state.commit", cat="state", node=self.name,
+                    key=(ordered.viewNo, ordered.ppSeqNo),
+                    args={"ledger": staged.ledger_id,
+                          "hashes": state.hashes_total
+                          if state is not None else 0})
+
+    def _on_need_catchup(self, msg, *args) -> None:
+        raise _later_slice(f"catchup ({self.name} fell behind the pool)",
+                           "catchup")
 
     def _on_catchup_finished(self, msg, *args) -> None:
         # batches at/below the caught-up point were executed THROUGH the
@@ -287,6 +330,20 @@ class SimNode:
         for o in self.ordered_log:
             out.extend(o.reqIdr)
         return out
+
+    @property
+    def committed_request_digests(self) -> List[str]:
+        """The committed domain ledger's request-digest sequence — the
+        ordering fingerprint that COVERS catchup: a node that leeched a
+        range never saw its ``Ordered`` events, but the fetched txns
+        carry the original request digests in their metadata, so the
+        ledger sequence is bit-comparable across survivors and
+        freshly-caught-up nodes. Requires real execution."""
+        from ..common.txn_util import get_digest
+
+        ledger = self.boot.db.get_ledger(DOMAIN_LEDGER_ID)
+        return [get_digest(ledger.get_by_seq_no(s)) or ""
+                for s in range(1, ledger.size + 1)]
 
 
 class SimPool:
@@ -305,9 +362,6 @@ class SimPool:
                  trace: bool = False,
                  trace_capacity: Optional[int] = None,
                  device: DeviceLike = None):
-        if real_execution:
-            raise _later_slice("real execution (ledgers, SMT state, "
-                               "catchup)", "SHA-256/real-execution")
         if bls:
             raise _later_slice("BLS multi-signatures", "BLS")
         if mesh is not None:
@@ -357,33 +411,27 @@ class SimPool:
             for inst in range(1, num_instances):
                 self.requests.register_node(f"{name}#{inst}")
 
+        self.real_execution = real_execution
         self.sign_requests = sign_requests
+        self.device = device
         self.trustee = None
         self.authnr = None
-        self.domain_genesis = None
-        if sign_requests:
-            from ..common.constants import (
-                TARGET_NYM,
-                TRUSTEE,
-                TXN_PAYLOAD,
-                TXN_PAYLOAD_DATA,
-                VERKEY,
-            )
+        domain_genesis = None
+        if real_execution or sign_requests:
+            from ..common.constants import TRUSTEE
             from ..crypto.signers import DidSigner
             from ..ledger.genesis import genesis_nym_txn
-            from ..server.client_authn import CoreAuthNr
 
             self.trustee = DidSigner(b"\x09" * 32)
-            self.domain_genesis = [genesis_nym_txn(
+            domain_genesis = [genesis_nym_txn(
                 self.trustee.identifier, self.trustee.verkey, role=TRUSTEE)]
-            # the ingress gate trusts the identities the domain genesis
-            # names (node-state backed resolution arrives with the Node
-            # composition)
-            nyms = [txn[TXN_PAYLOAD][TXN_PAYLOAD_DATA]
-                    for txn in self.domain_genesis]
-            self.authnr = CoreAuthNr(
-                seed_keys={nym[TARGET_NYM]: nym[VERKEY] for nym in nyms},
-                device=device)
+        if sign_requests:
+            from ..server.client_authn import CoreAuthNr
+
+            # the ingress gate: genesis identities via seed_keys (node-state
+            # backed resolution arrives with the Node composition)
+            self.authnr = CoreAuthNr(seed_keys={
+                self.trustee.identifier: self.trustee.verkey}, device=device)
         self._ingress: List[Request] = []
         # admission control (ingress plane): a bounded auth queue with
         # the deterministic shed policy replaces the unbounded _ingress
@@ -425,6 +473,7 @@ class SimPool:
         self.nodes: List[SimNode] = [
             SimNode(name, self.validators, self.timer, self.network,
                     self.requests, self.config, device_quorum=device_quorum,
+                    domain_genesis=domain_genesis if real_execution else None,
                     bls_keys=self.bls_keys, shadow_check=shadow_check,
                     vote_plane=(self.vote_group.view(i * k)
                                 if self.vote_group else None),
@@ -549,8 +598,20 @@ class SimPool:
         # client_id: the ingress plane's virtual-client identity — the
         # admission controller's per-client fairness cap keys on it
         # (None = anonymous, outside any cap)
-        req = Request(identifier="client1", reqId=seq,
-                      operation={"type": "1", "v": seq})
+        if self.real_execution:
+            from ..common.constants import NYM, TARGET_NYM, TXN_TYPE, VERKEY
+            from ..crypto.signers import DidSigner
+
+            target = DidSigner(hashlib.sha256(
+                b"sim-target-%d" % seq).digest())
+            req = Request(
+                identifier=self.trustee.identifier, reqId=seq,
+                operation={TXN_TYPE: NYM, TARGET_NYM: target.identifier,
+                           VERKEY: target.verkey})
+            req.target_signer = target  # test convenience
+        else:
+            req = Request(identifier="client1", reqId=seq,
+                          operation={"type": "1", "v": seq})
         if self.trace.enabled:
             # geo plane: the submitting client's home region rides the
             # ingress mark into the journey table (None = unstamped —
@@ -658,10 +719,27 @@ class SimPool:
     def make_read_service(self, name: str = "node0", mode: str = "host",
                           capacity: int = 0,
                           region: Optional[int] = None):
-        """Proof-serving reads need real execution and the state-proof
-        plane, which later slices of the port bring."""
-        raise _later_slice("make_read_service (proved reads)",
-                           "SHA-256/real-execution")
+        """A proof-serving :class:`~indy_plenum_tpu_torch.ingress
+        .read_service.ReadService` over ``name``'s committed domain ledger
+        (requires real_execution): the backing rides the node's
+        checkpoint-stabilized hook. ``capacity`` bounds the read queue
+        (seeded with the POOL seed, like the write side); ``region`` tags
+        the read-journey marks. The service verifies on the pool's
+        device. Window multi-signatures (the state-proof plane) come with
+        the BLS slice of the port."""
+        from ..ingress.read_service import LedgerBacking, ReadService
+
+        node = self.node(name)
+        assert node.boot is not None, "make_read_service needs real ledgers"
+        backing = LedgerBacking(
+            node.boot.db.get_ledger(DOMAIN_LEDGER_ID),
+            bus=node.internal_bus)
+        return ReadService(
+            backing, clock=self.timer.get_current_time,
+            metrics=self.metrics, trace=self.trace, mode=mode,
+            capacity=capacity,
+            seed=self.config.IngressShedSeed or self.seed, name=name,
+            region=region, device=self.device)
 
     def run_for(self, seconds: float) -> None:
         self.timer.advance(seconds)
@@ -679,3 +757,13 @@ class SimPool:
         check_dispatch_budget's sharded gate compare runs on it."""
         return hashlib.sha256(
             "|".join(self.nodes[0].ordered_digests).encode()).hexdigest()
+
+    def ledger_hash(self, name: str) -> str:
+        """sha256 of ``name``'s committed domain-ledger request-digest
+        sequence (real execution only) — the per-node ordering
+        fingerprint that stays comparable ACROSS CATCHUP: a node that
+        leeched a GC'd range has the identical ledger sequence as the
+        survivors even though its ``ordered_log`` skips the leeched
+        middle."""
+        return hashlib.sha256("|".join(
+            self.node(name).committed_request_digests).encode()).hexdigest()

@@ -1,0 +1,371 @@
+"""Batched SHA-256 for the ledgers' Merkle machinery (PyTorch + CUDA).
+
+Port of ``indy_plenum_tpu/tpu/sha256.py``. Three kernels in
+``csrc/sha256.cu``, each with its plain PyTorch version beside it:
+
+- :func:`sha256_fixed` (K12, reference ``sha256.py:103``): SHA-256 of
+  fixed-length messages, (B, L) uint8 -> (B, 32);
+- :func:`merkle_node_hash` (K11, reference ``_merkle_node_hash_batch``
+  ``:325``): H(0x01 || l || r) per pair, one wave of the batched SMT
+  commit; :func:`merkle_node_hash_bytes` (``:337``) is the host seam the
+  state calls with (n, 32) numpy arrays;
+- :func:`verify_audit_paths` / :func:`verify_audit_paths_indexed` (K10,
+  ``:273`` / ``:295``): the RFC 6962 audit-path fold to a (B,) verdict,
+  siblings dense (B, D, 32) or from a (U, 32) node table by (B, D) int32.
+
+A wrapper runs the plain version only for tensors on the CPU; for CUDA
+tensors it launches its kernel or raises. The plain versions carry the
+uint32 words in int64 lanes masked to 0xFFFFFFFF: CPU torch has no
+unsigned 32-bit shift, add or not to rely on for the wraparound.
+
+The fold's inner index/size shift runs to completion as
+``MerkleVerifier.root_from_audit_path``'s while loop does; the reference
+unrolls it its padded depth times (>= 16 there), which a CUDA kernel that
+compiles no shapes does not carry. No XLA shape padding is carried over
+either: waves and batches run at their own sizes.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from ..utils import kernel_build as kb
+from ..utils.torch_env import DeviceLike, resolve_device
+
+_K = [
+    0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5,
+    0x3956c25b, 0x59f111f1, 0x923f82a4, 0xab1c5ed5,
+    0xd807aa98, 0x12835b01, 0x243185be, 0x550c7dc3,
+    0x72be5d74, 0x80deb1fe, 0x9bdc06a7, 0xc19bf174,
+    0xe49b69c1, 0xefbe4786, 0x0fc19dc6, 0x240ca1cc,
+    0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da,
+    0x983e5152, 0xa831c66d, 0xb00327c8, 0xbf597fc7,
+    0xc6e00bf3, 0xd5a79147, 0x06ca6351, 0x14292967,
+    0x27b70a85, 0x2e1b2138, 0x4d2c6dfc, 0x53380d13,
+    0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85,
+    0xa2bfe8a1, 0xa81a664b, 0xc24b8b70, 0xc76c51a3,
+    0xd192e819, 0xd6990624, 0xf40e3585, 0x106aa070,
+    0x19a4c116, 0x1e376c08, 0x2748774c, 0x34b0bcb5,
+    0x391c0cb3, 0x4ed8aa4a, 0x5b9cca4f, 0x682e6ff3,
+    0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
+    0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2]
+
+_H0 = [0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
+       0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19]
+
+M32 = 0xFFFFFFFF
+
+# --- the plain versions: uint32 words in int64 lanes ------------------------
+
+
+def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
+    return ((x >> n) | (x << (32 - n))) & M32
+
+
+def _compress(state: List[torch.Tensor],
+              block: List[torch.Tensor]) -> List[torch.Tensor]:
+    """One compression over (B,) lanes: state (8 words), block (16)."""
+    w = list(block)
+    for t in range(16, 64):
+        w15, w2 = w[t - 15], w[t - 2]
+        s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
+        s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> 10)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & M32)
+    a, b, c, d, e, f, g, h = state
+    for t in range(64):
+        s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
+        ch = (e & f) ^ ((~e & M32) & g)
+        t1 = (h + s1 + ch + _K[t] + w[t]) & M32
+        s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
+        mj = (a & b) ^ (a & c) ^ (b & c)
+        h, g, f, e = g, f, e, (d + t1) & M32
+        d, c, b, a = c, b, a, (t1 + s0 + mj) & M32
+    return [(x + y) & M32 for x, y in zip(state, (a, b, c, d, e, f, g, h))]
+
+
+def _bytes_to_words(b: torch.Tensor) -> torch.Tensor:
+    """(..., 4k) uint8 big-endian -> (..., k) int64 words."""
+    quads = b.to(torch.int64).reshape(b.shape[:-1] + (-1, 4))
+    return ((quads[..., 0] << 24) | (quads[..., 1] << 16)
+            | (quads[..., 2] << 8) | quads[..., 3])
+
+
+def _words_to_bytes(w: torch.Tensor) -> torch.Tensor:
+    shifts = torch.tensor([24, 16, 8, 0], device=w.device)
+    out = (w.unsqueeze(-1) >> shifts) & 0xFF
+    return out.reshape(w.shape[:-1] + (-1,)).to(torch.uint8)
+
+
+def _initial_state(batch: int, device) -> List[torch.Tensor]:
+    zeros = torch.zeros(batch, dtype=torch.int64, device=device)
+    return [zeros + h for h in _H0]
+
+
+def sha256_fixed_plain(msg: torch.Tensor) -> torch.Tensor:
+    """The plain version of K12: (..., L) uint8 -> (..., 32) uint8, padded
+    as the reference pads (0x80, zeros, 64-bit big-endian bit length)."""
+    msg_len = msg.shape[-1]
+    lead = msg.shape[:-1]
+    flat = msg.reshape(int(np.prod(lead, dtype=np.int64)), msg_len)
+    n_blocks = (msg_len + 9 + 63) // 64
+    pad = np.zeros(n_blocks * 64 - msg_len, np.uint8)
+    pad[0] = 0x80
+    pad[-8:] = np.frombuffer((msg_len * 8).to_bytes(8, "big"), np.uint8)
+    pad_t = torch.from_numpy(pad).to(msg.device)
+    padded = torch.cat([flat, pad_t.expand(flat.shape[0], -1)], dim=1)
+    words = _bytes_to_words(padded)
+    state = _initial_state(flat.shape[0], msg.device)
+    for i in range(n_blocks):
+        state = _compress(state, [words[:, 16 * i + j] for j in range(16)])
+    return _words_to_bytes(torch.stack(state, dim=1)).reshape(lead + (32,))
+
+
+def _node_words(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """H(0x01 || l || r) on (B, 8) words, built from word-shifted halves
+    as the reference's ``_merkle_node_hash_words`` builds them."""
+    lw = [left[:, i] for i in range(8)]
+    rw = [right[:, i] for i in range(8)]
+    w = [0x01000000 | (lw[0] >> 8)]
+    w += [((lw[i - 1] << 24) & M32) | (lw[i] >> 8) for i in range(1, 8)]
+    w.append(((lw[7] << 24) & M32) | (rw[0] >> 8))
+    w += [((rw[i - 1] << 24) & M32) | (rw[i] >> 8) for i in range(1, 8)]
+    state = _compress(_initial_state(left.shape[0], left.device), w)
+    zero = torch.zeros_like(lw[0])
+    w2 = [((rw[7] << 24) & M32) | 0x00800000] + [zero] * 14 + [zero + 520]
+    return torch.stack(_compress(state, w2), dim=1)
+
+
+def merkle_node_hash_plain(left: torch.Tensor,
+                           right: torch.Tensor) -> torch.Tensor:
+    """The plain version of K11: (B, 32) uint8 x 2 -> (B, 32) uint8."""
+    return _words_to_bytes(_node_words(_bytes_to_words(left),
+                                       _bytes_to_words(right)))
+
+
+def _int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 lanes wrapped to int32 values (the reference's int32 math)."""
+    return ((x + (1 << 31)) & M32) - (1 << 31)
+
+
+def _audit_fold_plain(leaf: torch.Tensor, index: torch.Tensor,
+                      sibling: Callable[[int], torch.Tensor], depth: int,
+                      path_len: torch.Tensor, tree_size: torch.Tensor,
+                      root: torch.Tensor) -> torch.Tensor:
+    """The plain version of K10: the reference's ``_audit_fold`` over
+    (B, 8) words; ``sibling(level)`` gives the level's (B, 8) words."""
+    r = _bytes_to_words(leaf)
+    fn = index.to(torch.int64)
+    fsn = _int32(tree_size.to(torch.int64) - 1)
+    plen = path_len.to(torch.int64)
+    consumed = torch.zeros_like(fn)
+    ok = torch.ones(fn.shape, dtype=torch.bool, device=fn.device)
+    for level in range(depth):
+        active = level < plen
+        if not bool(active.any()):
+            break  # every later level is inactive too
+        use_left = ((fn & 1) == 1) | (fn == fsn)
+        sib = sibling(level)
+        left = torch.where(use_left[:, None], sib, r)
+        right = torch.where(use_left[:, None], r, sib)
+        r = torch.where(active[:, None], _node_words(left, right), r)
+        ok = ok & (~active | (fsn > 0))
+        shift = use_left & active
+        fn2, fsn2 = fn, fsn
+        while True:  # while fn % 2 == 0 and fn != 0: fn >>= 1; fsn >>= 1
+            do = shift & ((fn2 & 1) == 0) & (fn2 != 0)
+            if not bool(do.any()):
+                break
+            fn2 = torch.where(do, fn2 >> 1, fn2)
+            fsn2 = torch.where(do, fsn2 >> 1, fsn2)
+        fn = torch.where(active, fn2 >> 1, fn)
+        fsn = torch.where(active, fsn2 >> 1, fsn)
+        consumed = consumed + active.to(torch.int64)
+    ok = ok & (fsn == 0) & (consumed == plen)
+    return ok & (r == _bytes_to_words(root)).all(dim=1)
+
+
+def verify_audit_paths_plain(leaf, index, path, path_len, tree_size,
+                             root) -> torch.Tensor:
+    """The plain version of K10, dense siblings (B, D, 32)."""
+    words = _bytes_to_words(path)
+    return _audit_fold_plain(leaf, index, lambda lv: words[:, lv, :],
+                             path.shape[1], path_len, tree_size, root)
+
+
+def verify_audit_paths_indexed_plain(leaf, index, table, path_idx, path_len,
+                                     tree_size, root) -> torch.Tensor:
+    """The plain version of K10 over a node table (U, 32) + (B, D)."""
+    words = _bytes_to_words(table)
+    idx = path_idx.to(torch.int64)
+    return _audit_fold_plain(leaf, index, lambda lv: words[idx[:, lv]],
+                             path_idx.shape[1], path_len, tree_size, root)
+
+
+# --- kernel wrappers --------------------------------------------------------
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """A contiguous tensor of ``dtype`` on ``device`` whose shape matches
+    ``shape`` (None = any size), 4-byte aligned for word loads."""
+    ok = (t.dtype == dtype and t.is_contiguous() and t.device == device
+          and t.dim() == len(shape)
+          and all(want is None or got == want
+                  for got, want in zip(t.shape, shape))
+          and t.data_ptr() % 4 == 0)
+    if not ok:
+        raise ValueError(
+            f"{name}: expected a contiguous, aligned {dtype} tensor of "
+            f"shape {shape} on {device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device}")
+
+
+def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CPU or CUDA tensor, got "
+                         f"{t.device}")
+    return t.device
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def sha256_fixed(msg: torch.Tensor,
+                 msg_len: Optional[int] = None) -> torch.Tensor:
+    """K12: (B, L) uint8 -> (B, 32) uint8 (``msg_len``, when given, must be
+    L, as in the reference's signature). CPU tensors take the plain
+    version; CUDA tensors launch ``sha256_fixed_kernel`` or raise."""
+    if msg_len is not None and msg.shape[-1] != msg_len:
+        raise ValueError(f"sha256_fixed: rows of {msg.shape[-1]} bytes, "
+                         f"msg_len {msg_len}")
+    if msg.device.type == "cpu":
+        return sha256_fixed_plain(msg)
+    dev = _cuda_device(msg, "sha256_fixed")
+    if msg.dtype != torch.uint8 or msg.dim() != 2 or not msg.is_contiguous():
+        raise ValueError("sha256_fixed: expected a contiguous (B, L) uint8 "
+                         "tensor")
+    batch, length = msg.shape
+    out = torch.empty((batch, 32), dtype=torch.uint8, device=dev)
+    code = kb.library().sha256_fixed_launch(
+        msg.data_ptr(), out.data_ptr(), batch, length, _stream(dev))
+    kb.check(code, "sha256_fixed")
+    kb.LAUNCHES["sha256_fixed"] += 1
+    return out
+
+
+def merkle_node_hash(left: torch.Tensor, right: torch.Tensor
+                     ) -> torch.Tensor:
+    """K11: H(0x01 || left || right), (B, 32) uint8 x 2 -> (B, 32). CPU
+    tensors take the plain version; CUDA tensors launch
+    ``merkle_node_kernel`` or raise."""
+    if left.device.type == "cpu":
+        return merkle_node_hash_plain(left, right)
+    dev = _cuda_device(left, "merkle_node_hash")
+    batch = left.shape[0]
+    for name, t in (("left", left), ("right", right)):
+        _check(t, f"merkle_node_hash: {name}", torch.uint8, (batch, 32), dev)
+    out = torch.empty((batch, 32), dtype=torch.uint8, device=dev)
+    code = kb.library().merkle_node_hash_launch(
+        left.data_ptr(), right.data_ptr(), out.data_ptr(), batch,
+        _stream(dev))
+    kb.check(code, "merkle_node_hash")
+    kb.LAUNCHES["merkle_node_hash"] += 1
+    return out
+
+
+def _check_fold(leaf, index, path_len, tree_size, root, name):
+    dev = _cuda_device(leaf, name)
+    batch = leaf.shape[0]
+    _check(leaf, f"{name}: leaf", torch.uint8, (batch, 32), dev)
+    _check(root, f"{name}: root", torch.uint8, (batch, 32), dev)
+    for what, t in (("index", index), ("path_len", path_len),
+                    ("tree_size", tree_size)):
+        _check(t, f"{name}: {what}", torch.int32, (batch,), dev)
+    return dev, batch
+
+
+def verify_audit_paths(leaf: torch.Tensor, index: torch.Tensor,
+                       path: torch.Tensor, path_len: torch.Tensor,
+                       tree_size: torch.Tensor,
+                       root: torch.Tensor) -> torch.Tensor:
+    """K10, dense: leaf hashes (B, 32) uint8, index (B,) int32, path
+    (B, D, 32) uint8, path_len (B,) int32, tree_size (B,) int32, root
+    (B, 32) -> (B,) bool. CPU tensors take the plain version; CUDA
+    tensors launch ``audit_fold_kernel`` or raise."""
+    if leaf.device.type == "cpu":
+        return verify_audit_paths_plain(leaf, index, path, path_len,
+                                        tree_size, root)
+    dev, batch = _check_fold(leaf, index, path_len, tree_size, root,
+                             "verify_audit_paths")
+    depth = path.shape[1] if path.dim() == 3 else -1
+    _check(path, "verify_audit_paths: path", torch.uint8,
+           (batch, depth, 32), dev)
+    ok = torch.empty(batch, dtype=torch.uint8, device=dev)
+    code = kb.library().audit_paths_launch(
+        leaf.data_ptr(), index.data_ptr(), path.data_ptr(),
+        path_len.data_ptr(), tree_size.data_ptr(), root.data_ptr(),
+        ok.data_ptr(), batch, depth, _stream(dev))
+    kb.check(code, "audit_paths")
+    kb.LAUNCHES["audit_paths"] += 1
+    return ok.bool()
+
+
+def verify_audit_paths_indexed(leaf: torch.Tensor, index: torch.Tensor,
+                               table: torch.Tensor, path_idx: torch.Tensor,
+                               path_len: torch.Tensor,
+                               tree_size: torch.Tensor,
+                               root: torch.Tensor) -> torch.Tensor:
+    """K10 over a deduplicated node table: table (U, 32) uint8 and
+    path_idx (B, D) int32 (every entry in [0, U)) instead of dense paths.
+    CPU tensors take the plain version; CUDA tensors launch
+    ``audit_fold_kernel`` or raise."""
+    if leaf.device.type == "cpu":
+        return verify_audit_paths_indexed_plain(
+            leaf, index, table, path_idx, path_len, tree_size, root)
+    dev, batch = _check_fold(leaf, index, path_len, tree_size, root,
+                             "verify_audit_paths_indexed")
+    depth = path_idx.shape[1] if path_idx.dim() == 2 else -1
+    _check(table, "verify_audit_paths_indexed: table", torch.uint8,
+           (None, 32), dev)
+    _check(path_idx, "verify_audit_paths_indexed: path_idx", torch.int32,
+           (batch, depth), dev)
+    ok = torch.empty(batch, dtype=torch.uint8, device=dev)
+    code = kb.library().audit_paths_indexed_launch(
+        leaf.data_ptr(), index.data_ptr(), table.data_ptr(),
+        path_idx.data_ptr(), path_len.data_ptr(), tree_size.data_ptr(),
+        root.data_ptr(), ok.data_ptr(), batch, depth, _stream(dev))
+    kb.check(code, "audit_paths_indexed")
+    kb.LAUNCHES["audit_paths_indexed"] += 1
+    return ok.bool()
+
+
+def merkle_node_hash_bytes(left: np.ndarray, right: np.ndarray,
+                           device: DeviceLike = None) -> np.ndarray:
+    """Host-array seam for the state-commit hash waves: (n, 32) uint8
+    host arrays in, the resolved (n, 32) uint8 host array out - one
+    per-level wave of the batched SMT commit rides one call. On the card
+    the pairs cross from pinned memory with a non-blocking copy, K11 runs
+    on the current stream and the digests come back into pinned memory
+    behind one event. The wave result is the product (the commit cannot
+    go on to the next level without these digests) and commits run off
+    the vote-plane tick loop, so the call blocks, as the reference's
+    does."""
+    dev = resolve_device(device)
+    n = left.shape[0]
+    if dev.type == "cpu":
+        return merkle_node_hash(torch.tensor(left),
+                                torch.tensor(right)).numpy()
+    staged = torch.empty((2, n, 32), dtype=torch.uint8, pin_memory=True)
+    view = staged.numpy()
+    view[0] = left
+    view[1] = right
+    pairs = staged.to(dev, non_blocking=True)
+    out = merkle_node_hash(pairs[0], pairs[1])
+    host = torch.empty((n, 32), dtype=torch.uint8, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
+    done.synchronize()
+    return host.numpy().copy()

@@ -42,6 +42,10 @@ LAUNCHES: Dict[str, int] = {
     "quorum_step": 0,
     "window_slide": 0,
     "window_zero": 0,
+    "sha256_fixed": 0,
+    "merkle_node_hash": 0,
+    "audit_paths": 0,
+    "audit_paths_indexed": 0,
 }
 
 _P = ctypes.c_void_p
@@ -69,6 +73,16 @@ _SIGNATURES = {
                             _P),
     "window_zero_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P),
+    # msg, out, batch, msg_len, stream
+    "sha256_fixed_launch": (_P, _P, _I, _I, _P),
+    # left, right, out, batch, stream
+    "merkle_node_hash_launch": (_P, _P, _P, _I, _P),
+    # leaf, index, path, path_len, tree_size, root, ok, batch, depth, stream
+    "audit_paths_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # leaf, index, table, path_idx, path_len, tree_size, root, ok, batch,
+    # depth, stream
+    "audit_paths_indexed_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _P),
 }
 
 _lock = threading.Lock()

@@ -6,6 +6,10 @@ so it also runs where JAX is not installed:
 
 - the window kernels (K8, ``csrc/window.cu``) against their plain versions
   at the main path's size, bit-equal;
+- the SHA-256 kernels (K10-K12, ``csrc/sha256.cu``) against their plain
+  versions, hashlib and the host MerkleVerifier, planted faults included;
+- a small real-execution pool whose state waves run on the card against
+  the same pool with host waves;
 - a small signed pool on the card against the same pool on the CPU, through
   checkpoint slides and a view change: the same ordering, the same
   protocol timeline, and every kernel of the path launched.
@@ -31,7 +35,10 @@ def test_window_kernels_match_plain(card):
     from indy_plenum_tpu_torch.utils import kernel_build as kb
 
     before = dict(kb.LAUNCHES)
-    assert chip_smoke.check_window(card, np.random.RandomState(4)) == (0, 0)
+    assert chip_smoke.check_window(
+        card, np.random.RandomState(4), chip_smoke.N_VALIDATORS,
+        chip_smoke.N_VALIDATORS, chip_smoke.LOG_SIZE,
+        chip_smoke.N_CHECKPOINTS, chip_smoke.CHK_FREQ) == (0, 0)
     assert kb.LAUNCHES["window_slide"] == before["window_slide"] + 3
     assert kb.LAUNCHES["window_zero"] == before["window_zero"] + 3
 
@@ -70,5 +77,39 @@ def test_small_pool_on_card_matches_cpu(card):
     launches = kb.launch_counts()
     assert on_card == _pool_run("cpu")
     assert max(on_card[2]) >= 1
-    for name, count in launches.items():
-        assert count > 0, name
+    for name in chip_smoke_path("pool_b"):
+        assert launches[name] > 0, name
+
+
+def chip_smoke_path(tag):
+    import chip_smoke
+
+    return chip_smoke.PATH_KERNELS[tag]
+
+
+@pytest.mark.cuda
+def test_sha256_kernels_match_plain(card):
+    """``chip_smoke.py``'s K10-K12 checks at a small audit corpus."""
+    import chip_smoke
+
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    rng = np.random.RandomState(8)
+    assert chip_smoke.check_sha256(card, rng) == (0, 0)
+    before = dict(kb.LAUNCHES)
+    corpus = chip_smoke.audit_corpus(4096, 1000, 1024)
+    assert chip_smoke.check_audit(card, corpus, rng)[0] == 0
+    assert kb.LAUNCHES["audit_paths"] > before["audit_paths"]
+    assert kb.LAUNCHES["audit_paths_indexed"] \
+        > before["audit_paths_indexed"]
+
+
+@pytest.mark.cuda
+def test_state_waves_on_card_match_host_waves(card):
+    from indy_plenum_tpu_torch.simulation.state_commit_bench import (
+        run_commit_arms,
+    )
+
+    rec = run_commit_arms(n_keys=3000, windows=4, arms=("host", "device"))
+    assert rec["roots_identical"]
+    assert rec["arms"]["device"]["wave_device_hashes"] > 0

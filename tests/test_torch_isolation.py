@@ -1,8 +1,9 @@
 """The port stands alone, and never hides the card.
 
 - Every module of ``indy_plenum_tpu_torch`` and ``chip_smoke.py`` imports
-  with ``jax`` and ``indy_plenum_tpu`` made unimportable (a subprocess:
-  this test process has imported jax already, through conftest).
+  with ``jax``, ``indy_plenum_tpu``, ``msgpack`` and ``cryptography`` made
+  unimportable (a subprocess: this test process has imported jax already,
+  through conftest); the card's machine has none of them.
 - Without CUDA, an entry point built without ``device="cpu"`` raises, one
   asked for ``device="cuda"`` raises instead of running the plain
   versions, and a kernel wrapper given a tensor on neither the CPU nor a
@@ -38,18 +39,20 @@ def _port_modules():
 def test_port_imports_without_jax_or_reference():
     mods = _port_modules()
     for mod in ("tpu.vote_plane", "simulation.pool",
-                "server.consensus.ordering_service", "config"):
+                "server.consensus.ordering_service", "config", "tpu.sha256",
+                "server.ledgers_bootstrap", "ingress.read_service"):
         assert "indy_plenum_tpu_torch." + mod in mods
+    blocked = ("jax", "indy_plenum_tpu", "msgpack", "cryptography")
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['indy_plenum_tpu'] = None\n"
+        f"for name in {blocked!r}:\n"
+        "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and"
-        " (m.split('.')[0] in ('jax', 'indy_plenum_tpu'))]\n"
+        f" (m.split('.')[0] in {blocked!r})]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -74,7 +77,20 @@ def no_cuda(monkeypatch):
 
 
 def _entry_points(device_kw):
+    import numpy as np
+
+    from indy_plenum_tpu_torch.ingress.read_service import (
+        ReadService,
+        StaticCorpusBacking,
+    )
+    from indy_plenum_tpu_torch.server.catchup.catchup_rep_service import (
+        verify_audit_paths_batch,
+    )
     from indy_plenum_tpu_torch.server.client_authn import CoreAuthNr
+    from indy_plenum_tpu_torch.state.sparse_merkle_state import (
+        SparseMerkleState,
+    )
+    from indy_plenum_tpu_torch.tpu.sha256 import merkle_node_hash_bytes
     from indy_plenum_tpu_torch.simulation.pool import SimPool
     from indy_plenum_tpu_torch.tpu.ed25519 import batch_verify
     from indy_plenum_tpu_torch.tpu.vote_plane import (
@@ -95,12 +111,24 @@ def _entry_points(device_kw):
             4, device_quorum=True, **device_kw),
         "SimPool.sign_requests": lambda: SimPool(
             4, sign_requests=True, **device_kw),
+        "SimPool.real_execution": lambda: SimPool(
+            4, real_execution=True, **device_kw),
+        "SparseMerkleState": lambda: SparseMerkleState(**device_kw),
+        "ReadService": lambda: ReadService(StaticCorpusBacking(8),
+                                           **device_kw),
+        "verify_audit_paths_batch": lambda: verify_audit_paths_batch(
+            [b"x"], [0], [[]], 1, b"\x00" * 32, **device_kw),
+        "merkle_node_hash_bytes": lambda: merkle_node_hash_bytes(
+            np.zeros((2, 32), np.uint8), np.zeros((2, 32), np.uint8),
+            **device_kw),
     }
 
 
 ENTRY_POINTS = ["CoreAuthNr", "VotePlaneGroup", "DeviceVotePlane",
                 "batch_verify", "SimPool.device_quorum",
-                "SimPool.sign_requests"]
+                "SimPool.sign_requests", "SimPool.real_execution",
+                "SparseMerkleState", "ReadService",
+                "verify_audit_paths_batch", "merkle_node_hash_bytes"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -123,6 +151,7 @@ def test_wrappers_refuse_other_devices():
     CUDA tensor that launches the kernel, or the wrapper raises."""
     from indy_plenum_tpu_torch.tpu import ed25519 as ted
     from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.tpu import sha256 as s2
     from indy_plenum_tpu_torch.tpu import sha512 as s5
 
     meta = torch.device("meta")
@@ -144,6 +173,19 @@ def test_wrappers_refuse_other_devices():
         q.slide_state(state, torch.ones(2, dtype=torch.int32))
     with pytest.raises(ValueError):
         q.zero_members(state, torch.ones(2, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        s2.sha256_fixed(torch.empty((2, 8), dtype=torch.uint8, device=meta))
+    with pytest.raises(ValueError):
+        s2.merkle_node_hash(b32, b32)
+    i32 = torch.empty(2, dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError):
+        s2.verify_audit_paths(
+            b32, i32, torch.empty((2, 3, 32), dtype=torch.uint8,
+                                  device=meta), i32, i32, b32)
+    with pytest.raises(ValueError):
+        s2.verify_audit_paths_indexed(
+            b32, i32, b32, torch.empty((2, 3), dtype=torch.int32,
+                                       device=meta), i32, i32, b32)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -177,9 +219,21 @@ def test_ctypes_signatures_match_cuda_sources():
                 kinds.append(kb._P if "*" in p else kb._I)
             found[fn] = tuple(kinds)
     assert found == {k: tuple(v) for k, v in kb._SIGNATURES.items()}
+    # K10-K12 live in csrc/sha256.cu: every sha256_*/audit_* entry point
+    # the loader declares is defined there, with the declared arguments
+    with open(os.path.join(kb.CSRC_DIR, "sha256.cu")) as fh:
+        sha_src = fh.read()
+    sha_entries = {fn for fn in kb._SIGNATURES
+                   if fn.startswith(("sha256_", "audit_", "merkle_node_"))}
+    assert sha_entries == {"sha256_fixed_launch", "merkle_node_hash_launch",
+                           "audit_paths_launch", "audit_paths_indexed_launch"}
+    for fn in sha_entries:
+        assert f'extern "C" int {fn}(' in sha_src, fn
     assert set(kb.LAUNCHES) == {"sha512_blocks", "reduce_mod_l",
                                 "ed25519_verify", "quorum_step",
-                                "window_slide", "window_zero"}
+                                "window_slide", "window_zero",
+                                "sha256_fixed", "merkle_node_hash",
+                                "audit_paths", "audit_paths_indexed"}
 
 
 def test_source_hash_tracks_sources_and_build_dir_is_ignored():
