@@ -17,7 +17,13 @@ member planes; LOG_SIZE 300, CHK_FREQ 100):
                 their plain versions and hashlib; K10 audit fold, dense
                 and indexed, on 16,384 proofs of a 131,072-leaf tree with
                 planted faults, against the plain versions and the host
-                MerkleVerifier, and a chunk with a 49+-level path;
+                MerkleVerifier, and a chunk with a 49+-level path; K9
+                resident step at phase A's and B's group shapes for k =
+                1, 2, 4 and 7 slots (edge slides, an empty slot), and
+                against K7 at k = 1; K14 fused verify + quorum step at the
+                graft entry's shape and on 8,192 signed votes with planted
+                faults, against its plain version, the pure-Python oracle
+                and K7 alone on the good votes;
 3. ingress    - 64 DID signers sign 1024 NYM requests, tiled with planted
                 faults into one 8192-entry drain, then a 104-entry drain,
                 through ``CoreAuthNr.authenticate_batch``; verdicts
@@ -38,6 +44,15 @@ B. pool       - n=16 with six RBFT instances (96 member planes), signed,
                 forces a view change (the view-change zero); card and CPU
                 agree on ``ordered_hash``, the protocol timeline and every
                 node's view;
+F. residency  - phase A's config (F1) and phase B's (F2) at
+                ``ResidentTickDepth`` 4, on the card only: each orders what
+                its phase ordered (``ordered_hash``; F2 also every view,
+                and every plane's h at its node's low watermark), every
+                consume is K9 and every slide folds into it (no K8 slide);
+                prints dispatches per ordered batch beside phase A's;
+G. fused step - K14 at 8,192 signed votes into one 64 x 300 member through
+                ``tpu/step.py``'s ``fused_step``: votes/sec and K-c's
+                share of the step's device time;
 C. execution  - real execution at n=4 with two RBFT instances and
                 phase A's config: signed NYMs executed into every node's
                 ledgers and SMT states, 320 warm-up requests then 3,200
@@ -59,9 +74,9 @@ E. state      - ``run_commit_arms`` host vs device waves at the
                 shapes, times, bounds), a times line, the card, and last
                 ``{"ok": true, "device": {...}}``.
 
-Each main-path run (phases 3, 4, A, B, C, D and E on the card) starts with
-every launch counter at 0 and reads the counters right after; the
-``kernels`` line's ``launches`` are their sums.
+Each main-path run (phases 3, 4, A, B, F, G, C, D and E on the card)
+starts with every launch counter at 0 and reads the counters right after;
+the ``kernels`` line's ``launches`` are their sums.
 
 Any mismatch raises and the script exits non-zero. It imports nothing of
 JAX. Without a CUDA device it exits non-zero before printing a result.
@@ -214,6 +229,24 @@ def bound(nbytes, ops):
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def step_work(m, n, s, c, words_np):
+    """(bytes, 32-bit instructions) of one grouped quorum step over an
+    (M, N, S, C) group and these (..., M, W) words: every plane read once,
+    each valid word read and its hit written, the ordered and acked planes
+    and the frontier written, the events and the compact record written;
+    a few instructions per word and per vote byte counted."""
+    from indy_plenum_tpu_torch.tpu import quorum as q
+
+    state_bytes = m * (3 * s + 2 * n * s + n * c + 4)
+    hits = int(((words_np >> 31) & 1).sum())
+    events_bytes = m * (3 * s + c + 8 * s)
+    width = q.delta_width(s, q.ORDER_DELTA_CAP)
+    compact_bytes = m * (4 + 8 * width + 8 + c)
+    nbytes = (state_bytes + 4 * words_np.size + hits + m * (2 * s + 4)
+              + events_bytes + compact_bytes)
+    return nbytes, 10 * words_np.size + m * (2 * n * s + 12 * s)
 
 
 def _max_abs_err(pairs) -> int:
@@ -417,14 +450,7 @@ def check_quorum(dev, rng):
     steps = 0
     for step_i in range(12):
         w = 16 if step_i % 3 == 0 else 128
-        kind = rng.randint(0, 4, (m, w))
-        sender = rng.randint(0, n + 8, (m, w))
-        slot = rng.randint(0, s + 20, (m, w))
-        valid = rng.rand(m, w) < 0.9
-        words = ((valid.astype(np.uint64) << 31)
-                 | (kind.astype(np.uint64) << 29)
-                 | (sender.astype(np.uint64) << 16)
-                 | slot.astype(np.uint64)).astype(np.uint32)
+        words = _random_words(rng, m, w, n, s)
         if step_i == 5:
             # fresh planes, 20 slots prepared with a commit short; then
             # completing all 20 at once orders > 16 in one step
@@ -455,6 +481,19 @@ def check_quorum(dev, rng):
     if err:
         raise AssertionError(f"K-d differs from plain: {err}")
     return err, steps
+
+
+def _random_words(rng, m, w, n, s):
+    """(M, W) vote words with out-of-range senders and slots and ~10%
+    invalid padding."""
+    kind = rng.randint(0, 4, (m, w))
+    sender = rng.randint(0, n + 8, (m, w))
+    slot = rng.randint(0, s + 20, (m, w))
+    valid = rng.rand(m, w) < 0.9
+    return ((valid.astype(np.uint64) << 31)
+            | (kind.astype(np.uint64) << 29)
+            | (sender.astype(np.uint64) << 16)
+            | slot.astype(np.uint64)).astype(np.uint32)
 
 
 def _step_pair(state, words, n):
@@ -517,6 +556,158 @@ def check_window(dev, rng, m, n, s, c, chk_freq):
         raise AssertionError(f"K8 differs from plain: slide {err_slide}, "
                              f"zero {err_zero}")
     return err_slide, err_zero
+
+
+RESIDENT_SLOTS = (1, 2, 4, 7)  # K9's ring slots per consume, checked
+RESIDENT_WIDTH = 128  # the group's slot width (flush_batch) at n <= 64
+
+
+def resident_words(rng, k, m, w, n, s):
+    """k slots of (M, W) words: full 3PC waves in the first slot (so
+    quorums are reached), random votes after, and one all-empty slot."""
+    words = np.stack([_random_words(rng, m, w, n, s) for _ in range(k)])
+    per_slot = max(1, w // (2 * n))
+    words[0] = _wave_words(m, w, n, s,
+                           [int(x) for x in rng.randint(0, s, per_slot)],
+                           rng)
+    if k > 1:
+        words[k // 2] = 0
+    return words
+
+
+def check_resident(dev, rng, m, n, s, c, chk_freq, w=RESIDENT_WIDTH):
+    """K9 against its plain version on an (M, N, S, C) group with W-wide
+    slots, k = 1, 2, 4 and 7: seeded vote states and words, slides mixing
+    0, 1, the checkpoint interval, S - 1, S and 2S, one all-empty slot and
+    a member whose frontier is below its delta; every state leaf, event
+    and compact output equal. Then K9 with one zero-slide slot against K7
+    on the same state and words."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import quorum as q
+
+    mix = np.array([0, 1, chk_freq, s - 1, s, 2 * s], np.int32)
+    err = 0
+    for k in RESIDENT_SLOTS:
+        state = _random_votes(dev, rng, m, n, s, c)
+        state.frontier[m - 1] = 1  # below its delta
+        shadow = q.clone_state(state)
+        slides = mix[rng.randint(0, len(mix), (k, m))]
+        slides[:, 0] = 0  # one member never slides
+        slides[0, m - 1] = chk_freq
+        words = q.words_tensor(resident_words(rng, k, m, w, n, s), dev)
+        ev, comp = q.resident_step(state, torch.from_numpy(slides), words, n)
+        pev, pcomp = q.resident_step_plain(
+            shadow, torch.from_numpy(slides).to(dev), words, n)
+        err = max(err, _max_abs_err(list(zip(state, shadow))
+                                    + list(zip(ev, pev))
+                                    + list(zip(comp, pcomp))))
+    state = _random_votes(dev, rng, m, n, s, c)
+    shadow = q.clone_state(state)
+    words = q.words_tensor(resident_words(rng, 1, m, w, n, s)[0], dev)
+    ev, comp = q.resident_step(state, torch.zeros((1, m), dtype=torch.int32),
+                               words[None], n)
+    kev, kcomp = q.step_compact(shadow, words, n)
+    cross = _max_abs_err(list(zip(state, shadow)) + list(zip(ev, kev))
+                         + list(zip(comp, kcomp)))
+    if err or cross:
+        raise AssertionError(f"K9 differs from plain ({err}) or from K7 "
+                             f"({cross})")
+    return err
+
+
+def fused_inputs(rng, n, s, batch):
+    """K14's operands at (N, S, B): vote b is the PRE-PREPARE, a PREPARE or
+    a COMMIT of slot b // 2N in ``_wave_words``' layout, signed by its
+    sender's seeded Ed25519 key over the vote's packed word (4 bytes,
+    little-endian); every 16th vote is planted bad (a flipped signature
+    bit, a wrong key or a flipped message bit, in turn). Returns the
+    signed rows, the words, the (pk, R, S, h) arrays and the expected
+    verdicts."""
+    from indy_plenum_tpu_torch.crypto import ed25519 as ed
+    from indy_plenum_tpu_torch.tpu import ed25519 as ted
+    from indy_plenum_tpu_torch.tpu import quorum as q
+
+    seeds = [rng.bytes(32) for _ in range(n)]
+    keys = [ed.public_key(sd) for sd in seeds]
+    rows, words, expect = [], [], []
+    for b in range(batch):
+        slot, pos = (b // (2 * n)) % s, b % (2 * n)
+        kind, sender = ((q.PREPREPARE, 0) if pos == 0 else
+                        (q.PREPARE, pos) if pos < n else (q.COMMIT, pos - n))
+        word = q.pack_vote(kind, sender, slot)
+        msg = word.to_bytes(4, "little")
+        sig = ed.sign(seeds[sender], msg)
+        pk = keys[sender]
+        fault = (b // 16) % 3 if b % 16 == 7 else None
+        if fault == 0:
+            sig = _flip(sig, rng.randint(0, 256))
+        elif fault == 1:
+            pk = keys[(sender + 1) % n]
+        elif fault == 2:
+            msg = _flip(msg, rng.randint(0, 32))
+        rows.append((pk, msg, sig))
+        words.append(word)
+        expect.append(fault is None)
+    pk_a, r_a, s_a, h_a, pre = ted.prepare_batch(*zip(*rows))
+    if not pre.all():
+        raise AssertionError("K14 inputs: a structural check failed")
+    return (rows, np.array(words, np.uint32)[None, :],
+            [pk_a, r_a, s_a, h_a], np.array(expect))
+
+
+def check_fused(dev, rng, inputs):
+    """K14 against its plain version, on the graft entry's shape (n = 8,
+    S = 16, C = 2, B = 8: ``step.example_inputs``) and on ``inputs``
+    (``fused_inputs`` at N = 64, S = 300, B = 8,192, C = 3): state, events
+    and verdicts equal; the verdicts equal the construction's and the
+    pure-Python oracle's (every planted vote and 512 good ones); and the
+    result equals K7 alone on the good votes' words."""
+    import torch
+    from indy_plenum_tpu_torch.crypto import ed25519 as ed
+    from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.tpu import step as st
+
+    err = 0
+    small = st.example_inputs(device=dev)
+    plain_small = (q.clone_state(small[0]),) + small[1:]
+    got = st.fused_step(*small, n_validators=8, device=dev)
+    want = st.fused_step_plain(*plain_small, n_validators=8)
+    if not bool(got[2].all()):
+        raise AssertionError("K14: the graft entry's votes were rejected")
+    err = max(err, _max_abs_err(list(zip(got[0], want[0]))
+                                + list(zip(got[1], want[1]))
+                                + [(got[2], want[2])]))
+    rows, words_np, arrays, expect = inputs
+    n, s, c = N_VALIDATORS, LOG_SIZE, N_CHECKPOINTS
+    words = q.words_tensor(words_np, dev)
+    sig = [torch.from_numpy(a).to(dev) for a in arrays]
+    state, events, ok = st.fused_step(q.init_state(n, s, c, 1, dev), words,
+                                      *sig, n_validators=n, device=dev)
+    pstate, pevents, pok = st.fused_step_plain(
+        q.init_state(n, s, c, 1, dev), words, *sig, n_validators=n)
+    err = max(err, _max_abs_err(list(zip(state, pstate))
+                                + list(zip(events, pevents))
+                                + [(ok, pok)]))
+    ok_np = ok.cpu().numpy()
+    if not np.array_equal(ok_np, expect):
+        raise AssertionError("K14 verdicts differ from the planted faults")
+    good_idx = np.nonzero(expect)[0]
+    sample = np.concatenate([np.nonzero(~expect)[0], rng.choice(
+        good_idx, min(512, len(good_idx)), replace=False)])
+    for i in sample:
+        if ed.verify(*rows[i]) != bool(ok_np[i]):
+            raise AssertionError(f"K14 verdict {i} != oracle")
+    good = q.words_tensor(np.where(expect[None, :], words_np, 0), dev)
+    kstate = q.init_state(n, s, c, 1, dev)
+    kevents = q.step(kstate, good, n)
+    alone = _max_abs_err(list(zip(state, kstate))
+                         + list(zip(events, kevents)))
+    if err or alone:
+        raise AssertionError(f"K14 differs from plain ({err}) or from K7 "
+                             f"on the good votes ({alone})")
+    if int(events.ordered.sum()) == 0:
+        raise AssertionError("K14: no slot ordered")
+    return err, int(ok_np.sum()), len(sample)
 
 
 # K10-K12: SHA-256, the node hash and the audit-path fold
@@ -907,12 +1098,14 @@ def _pool_result(pool, wall_s, **extra):
         wall_s=wall_s, **extra)
 
 
-def run_pool_a(device):
+def run_pool_a(device, depth=1):
     """``bench.py``'s n=64 ordered-txns cell (``_bench_ordered(64, 1,
     batches=10)``: seed 11, 3PC batches of 320, batch wait 0.05, adaptive
     tick from 0.1, pipelined flush) with signed requests: 320 warm-up
     requests, then 3,200 timed. Ordered txns/sec is the bench's: requests
-    ordered at every node in the timed window over its wall time."""
+    ordered at every node in the timed window over its wall time.
+    ``depth`` is ``ResidentTickDepth`` (phase F1 runs 4, the reference's
+    residency sub-bench, ``bench.py:394``)."""
     from indy_plenum_tpu_torch.common.metrics_collector import MetricsName
     from indy_plenum_tpu_torch.config import getConfig
     from indy_plenum_tpu_torch.simulation.pool import SimPool
@@ -920,7 +1113,7 @@ def run_pool_a(device):
     config = getConfig({
         "Max3PCBatchSize": POOL_BATCH, "Max3PCBatchWait": 0.05,
         "QuorumTickInterval": 0.1, "QuorumTickAdaptive": True,
-        "TraceNetReceivers": 4, "ResidentTickDepth": 1})
+        "TraceNetReceivers": 4, "ResidentTickDepth": depth})
     pool = SimPool(n_nodes=N_VALIDATORS, seed=11, config=config,
                    device_quorum=True, sign_requests=True,
                    shadow_check=False, pipelined_flush=True, trace=True,
@@ -980,21 +1173,25 @@ def run_pool_a(device):
         drain_s=seconds(MetricsName.AUTH_BATCH_TIME) - auth0,
         flush_s=seconds(MetricsName.DEVICE_FLUSH_TIME) - flush0,
         client_sign_s=sign_s,
+        resident_ticks=pool.vote_group.resident_ticks,
+        readbacks_deferred=pool.vote_group.readbacks_deferred,
         governor=pool.governor.trajectory_summary())
 
 
-def run_pool_b(device):
+def run_pool_b(device, depth=1):
     """The RBFT instance axis, window slides and a view change: n=16 with
     six instances (96 member planes), signed, adaptive tick, 3PC batches
     of one request in a 30-slot window with checkpoints every 5, then the
-    master primary disconnected until the pool changes view."""
+    master primary disconnected until the pool changes view. ``depth`` is
+    ``ResidentTickDepth`` (phase F2 runs 4)."""
     from indy_plenum_tpu_torch.config import getConfig
     from indy_plenum_tpu_torch.simulation.pool import SimPool
 
     config = getConfig({
         "Max3PCBatchSize": 1, "Max3PCBatchWait": 0.05,
         "QuorumTickInterval": 0.05, "QuorumTickAdaptive": True,
-        "LOG_SIZE": B_LOG_SIZE, "CHK_FREQ": B_CHK_FREQ})
+        "LOG_SIZE": B_LOG_SIZE, "CHK_FREQ": B_CHK_FREQ,
+        "ResidentTickDepth": depth})
     pool = SimPool(n_nodes=B_NODES, seed=29, config=config,
                    device_quorum=True, sign_requests=True,
                    shadow_check=False, num_instances=B_INSTANCES,
@@ -1031,7 +1228,57 @@ def run_pool_b(device):
         raise AssertionError("phase B: honest nodes disagree")
     return _pool_result(pool, wall, members=len(slides),
                         min_slides=min(slides), member_resets=sum(resets),
-                        max_view=max(nd.data.view_no for nd in pool.nodes))
+                        max_view=max(nd.data.view_no for nd in pool.nodes),
+                        planes_track_watermarks=all(
+                            nd.vote_plane.h == nd.data.low_watermark
+                            for nd in pool.nodes),
+                        flushes=group.flushes,
+                        resident_ticks=group.resident_ticks,
+                        readbacks_deferred=group.readbacks_deferred)
+
+
+# --- phases F and G: residency, the fused step -------------------------------
+
+
+def run_fused_g(dev, inputs):
+    """K14 at full width through ``tpu/step.py``'s ``fused_step``: the
+    8,192 signed votes of ``fused_inputs`` into a fresh (1, 64, 300)
+    member, on the card."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.tpu import step as st
+
+    _, words_np, arrays, expect = inputs
+    words = q.words_tensor(words_np, dev)
+    sig = [torch.from_numpy(a).to(dev) for a in arrays]
+    state, events, ok = st.fused_step(
+        q.init_state(N_VALIDATORS, LOG_SIZE, N_CHECKPOINTS, 1, dev), words,
+        *sig, n_validators=N_VALIDATORS, device=dev)
+    if not np.array_equal(ok.cpu().numpy(), expect):
+        raise AssertionError("phase G: verdicts differ")
+    return {"votes": int(words_np.shape[1]), "accepted": int(expect.sum()),
+            "ordered_slots": int(events.ordered.sum()),
+            "prepared_slots": int(events.prepared.sum())}
+
+
+def time_fused_g(dev, inputs):
+    """Device time of one K14 call at phase G's shape behind the spin,
+    and of its K-c launch alone: votes/sec and K-c's share."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import ed25519 as ted
+    from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.tpu import step as st
+
+    _, words_np, arrays, _ = inputs
+    words = q.words_tensor(words_np, dev)
+    sig = [torch.from_numpy(a).to(dev) for a in arrays]
+    state = q.init_state(N_VALIDATORS, LOG_SIZE, N_CHECKPOINTS, 1, dev)
+    fused_ms = _kernel_ms(lambda: st.fused_step(
+        state, words, *sig, n_validators=N_VALIDATORS, device=dev), 5)
+    verify_ms = _kernel_ms(lambda: ted.verify_kernel(*sig), 5)
+    return {"fused_ms": fused_ms, "verify_ms": verify_ms,
+            "votes_per_s": words_np.shape[1] / (fused_ms / 1e3),
+            "verify_share": verify_ms / fused_ms}
 
 
 # --- phases C, D and E: real execution, proved reads, the state -------------
@@ -1313,16 +1560,6 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
     t_zero_plain = _cuda_ms(lambda: q.zero_plain(votes, mask), 5)
 
     n_blocks = int(counts_np.sum())
-    # K-d reads every plane once and writes only the vote bytes its words
-    # hit (all of this wave's words are valid and in range), the ordered
-    # and acked planes, the frontier, the events and the compact record
-    state_bytes = m * (3 * s + 2 * n * s + n * c + 4)
-    hits = int(((words_np >> 31) & 1).sum())
-    events_bytes = m * (3 * s + c + 8 * s)
-    width = q.delta_width(s, q.ORDER_DELTA_CAP)
-    compact_bytes = m * (4 + 8 * width + 8 + c)
-    quorum_bytes = (state_bytes + 4 * m * w + hits + m * (2 * s + 4)
-                    + events_bytes + compact_bytes)
     # K8 moves bytes and computes nothing: the sliding member's rows read
     # where they survive (S - d columns) and written whole, its
     # checkpoint votes written, its frontier read and written, the deltas
@@ -1348,7 +1585,7 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
                + (DRAIN - n_full) * DECOMPRESS_OPS_PER_ITEM)),
         ("quorum_step", "indy_plenum_tpu_torch/csrc/quorum.cu",
          "indy_plenum_tpu/tpu/quorum.py:284", t_q, t_q_plain,
-         bound(quorum_bytes, m * (10 * w + 2 * n * s + 12 * s))),
+         bound(*step_work(m, n, s, c, words_np))),
         ("window_slide", "indy_plenum_tpu_torch/csrc/window.cu",
          "indy_plenum_tpu/tpu/quorum.py:358", t_slide, t_slide_plain,
          bound(slide_bytes, 0)),
@@ -1469,6 +1706,72 @@ def sha256_report(dev, corpus, rng, launches, errs):
     return rows, call_ms, shapes
 
 
+def residency_report(dev, rng, launches, errs, inputs):
+    """K9 and K14 rows of the kernels line. K9 at phase F1's consume: a
+    (64, 64, 300, 3) group, k = 4 slots of 128 words (phase A's waves and
+    votes), no slide (F1's 11 batches stay below a checkpoint). K14 at
+    phase G's 8,192 signed votes into one (64, 300) member. Bounds: K9's
+    bytes are the words and slides read, the planes read once for the
+    eval and the step's writes (``step_work``), and 2 x (2N + 3) x S + N x
+    C for each sliding member (none here); K14's is K-c's bound at B plus
+    K7's at (1, N, S) with B words."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import ed25519 as ted
+    from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.tpu import step as st
+
+    m, n, s, c, w, k = (N_VALIDATORS, N_VALIDATORS, LOG_SIZE,
+                        N_CHECKPOINTS, RESIDENT_WIDTH, 4)
+    state = _random_votes(dev, rng, m, n, s, c)
+    words_np = resident_words(rng, k, m, w, n, s)
+    words = q.words_tensor(words_np, dev)
+    slides = torch.zeros((k, m), dtype=torch.int32, device=dev)
+    sliding = int((slides != 0).any(dim=0).sum())
+
+    def resident():
+        return q.resident_step(state, slides, words, n)
+
+    _, words_g, arrays, _ = inputs
+    batch = words_g.shape[1]
+    gwords = q.words_tensor(words_g, dev)
+    sig = [torch.from_numpy(a).to(dev) for a in arrays]
+    gstate = q.init_state(n, s, c, 1, dev)
+
+    def fused():
+        return st.fused_step(gstate, gwords, *sig, n_validators=n,
+                             device=dev)
+
+    rows, call_ms = [], {}
+    nbytes, ops = step_work(m, n, s, c, words_np)
+    nbytes += 4 * k * m + sliding * (2 * (2 * n + 3) * s + n * c)
+    kc_ms, kc_by = bound(batch * (4 * 32 + 1), batch * VERIFY_OPS_PER_ITEM)
+    k7_ms, _ = bound(*step_work(1, n, s, c, words_g))
+    for name, fn, plain, (bound_ms, bound_by), src, replaces in (
+            ("resident_step", resident,
+             lambda: q.resident_step_plain(state, slides, words, n),
+             bound(nbytes, ops), "indy_plenum_tpu_torch/csrc/resident.cu",
+             "indy_plenum_tpu/tpu/compile_plan.py:100"),
+            ("fused_step", fused,
+             lambda: st.fused_step_plain(gstate, gwords, *sig,
+                                         n_validators=n),
+             (kc_ms + k7_ms, kc_by),
+             "indy_plenum_tpu_torch/tpu/step.py (csrc/ed25519.cu + "
+             "csrc/quorum.cu)", "indy_plenum_tpu/tpu/step.py:29")):
+        ms = _kernel_ms(fn, 20 if name == "resident_step" else 5)
+        call_ms[name] = _cuda_ms(fn, 20 if name == "resident_step" else 5)
+        plain_ms = _cuda_ms(plain, 1, 0)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": errs[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    kc_alone = _kernel_ms(lambda: ted.verify_kernel(*sig), 5)
+    return rows, call_ms, {"resident_step": f"k={k} x {m} x {w} words, "
+                           f"{m} x {n} x {s}, {sliding} sliding",
+                           "fused_step": f"{batch} votes, 1 x {n} x {s}",
+                           "fused_step_verify_ms": kc_alone}
+
+
 # the kernels each main-path run must launch
 PATH_KERNELS = {
     "ingress": ("sha512_blocks", "reduce_mod_l", "ed25519_verify"),
@@ -1486,6 +1789,13 @@ PATH_KERNELS = {
                "quorum_step"),
     "pool_b": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
                "quorum_step", "window_slide", "window_zero"),
+    # residency: every consume is K9 (K7 only for a cold start with an
+    # empty ring), slides folded in, the view change's zero still K8
+    "pool_f1": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
+                "resident_step"),
+    "pool_f2": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
+                "resident_step", "window_zero"),
+    "fused_g": ("ed25519_verify", "fused_step"),
 }
 
 
@@ -1533,14 +1843,26 @@ def main() -> int:
     err_k12, err_k11 = check_sha256(dev, rng)
     corpus = audit_corpus()
     err_k10, n_planted = check_audit(dev, corpus, rng)
+    # K9 at phase A's / F1's group and at phase B's / F2's; K14 at the
+    # graft entry's shape and at full width (phase G's votes)
+    err_k9 = max(check_resident(dev, rng, N_VALIDATORS, N_VALIDATORS,
+                                LOG_SIZE, N_CHECKPOINTS, CHK_FREQ),
+                 check_resident(dev, rng, B_NODES * B_INSTANCES, B_NODES,
+                                B_LOG_SIZE, B_LOG_SIZE // B_CHK_FREQ,
+                                B_CHK_FREQ))
+    fused = fused_inputs(rng, N_VALIDATORS, LOG_SIZE, DRAIN)
+    err_k14, k14_accepted, k14_oracle = check_fused(dev, rng, fused)
     errs = {"sha512_blocks": err_a, "reduce_mod_l": err_b,
             "ed25519_verify": err_c, "quorum_step": err_d,
+            "resident_step": err_k9, "fused_step": err_k14,
             "window_slide": err_slide, "window_zero": err_zero,
             "sha256_fixed": err_k12, "merkle_node_hash": err_k11,
             "audit_paths": err_k10, "audit_paths_indexed": err_k10}
     _line("kernels", max_abs_err=errs, verify_accepted=n_ok,
           verify_rows=n_rows, quorum_steps=q_steps,
-          audit_planted_faults=n_planted,
+          audit_planted_faults=n_planted, resident_slots=RESIDENT_SLOTS,
+          fused_votes=DRAIN, fused_accepted=k14_accepted,
+          fused_oracle_checked=k14_oracle,
           phase_s=time.perf_counter() - t0, card=card)
 
     # 3, 4, A, B: the main path. Every launch counter is 0 just before
@@ -1623,6 +1945,39 @@ def main() -> int:
           cpu_wall_s=cpu_b["wall_s"], phase_s=time.perf_counter() - t0,
           card=card)
 
+    # F. residency at full width: phases A's and B's configs at depth 4,
+    # card only, each held against its phase (whose CPU twin ran above)
+    t0 = time.perf_counter()
+    pool_f1, f1_launches, _ = on_card("pool_f1", run_pool_a, None, 4)
+    if pool_f1["ordered_hash"] != pool_a["ordered_hash"] \
+            or pool_f1["ordered"] != POOL_BATCHES * POOL_BATCH:
+        raise AssertionError("phase F1: residency changed the ordering")
+    if f1_launches["window_slide"] != 0:
+        raise AssertionError("phase F1: a slide was not folded into K9")
+    _line("pool_f1", **pool_f1, launches=f1_launches,
+          a_dispatches_per_batch=pool_a["dispatches_per_batch"],
+          quorum_step_launches=f1_launches["quorum_step"],
+          phase_s=time.perf_counter() - t0, card=card)
+    t0 = time.perf_counter()
+    pool_f2, f2_launches, _ = on_card("pool_f2", run_pool_b, None, 4)
+    for key in ("ordered_hash", "views"):
+        if pool_f2[key] != pool_b[key]:
+            raise AssertionError(f"phase F2: residency changed {key}")
+    if not pool_f2["planes_track_watermarks"] \
+            or f2_launches["window_slide"] != 0 \
+            or pool_f2["min_slides"] < 4:
+        raise AssertionError(f"phase F2: {pool_f2} {f2_launches}")
+    _line("pool_f2", **pool_f2, launches=f2_launches,
+          b_flushes=pool_b["flushes"], phase_s=time.perf_counter() - t0,
+          card=card)
+
+    # G. the fused verify + quorum step at full width
+    t0 = time.perf_counter()
+    fused_g, g_launches, _ = on_card("fused_g", run_fused_g, dev, fused)
+    fused_g.update(time_fused_g(dev, fused))
+    _line("fused_g", **fused_g, launches=g_launches,
+          phase_s=time.perf_counter() - t0, card=card)
+
     # C. real execution: device waves on the card, then host waves; the
     # two runs must agree on every ordering fingerprint and root
     t0 = time.perf_counter()
@@ -1687,6 +2042,10 @@ def main() -> int:
                                                       launches, errs)
     kernels += sha_rows
     times["call_ms"].update(sha_call_ms)
+    res_rows, res_call_ms, res_shapes = residency_report(
+        dev, rng, launches, errs, fused)
+    kernels += res_rows
+    times["call_ms"].update(res_call_ms)
     print(json.dumps({"kernels": kernels}), flush=True)
     plain = {k["name"]: k["plain_ms"] for k in kernels}
     print(json.dumps({"times": {
@@ -1705,6 +2064,12 @@ def main() -> int:
             reads["proofs_per_s_end_to_end"],
         "reads_d_proofs_per_s_kernel": reads["proofs_per_s_kernel"],
         "sha256_shapes": sha_shapes,
+        "residency_shapes": res_shapes,
+        "pool_f1_ordered_txns_per_s": pool_f1["ordered_txns_per_s"],
+        "dispatches_per_batch": {"pool_a": pool_a["dispatches_per_batch"],
+                                 "pool_f1": pool_f1["dispatches_per_batch"]},
+        "fused_g_votes_per_s": fused_g["votes_per_s"],
+        "fused_g_verify_share": fused_g["verify_share"],
         "plain_ms": plain, "report_s": time.perf_counter() - t0,
         "total_s": time.perf_counter() - t_start}}), flush=True)
     print(card, flush=True)

@@ -30,37 +30,19 @@
 // (coalesced). A member with d >= S skips the read pass. Spreading one
 // member's rows over many blocks keeps the lone sliding member of the
 // pool's pattern from running on one SM; the other members' blocks exit
-// at once. The zero uses the same grid.
-#include <cstdint>
-#include <cuda_runtime.h>
+// at once. The zero uses the same grid. The row roll itself is
+// quorum_common.cuh's, which K9 runs for the slides it folds in.
+#include "quorum_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = qc::kThreads;
 constexpr int kStageBytes = 48 * 1024;  // dynamic shared memory, no opt-in
 constexpr int kRowsPerBlock = 8;
 
-// row r of member m's shifted leaves: 0 preprepare_seen, 1 ordered,
-// 2 prepared_acked, then N prepare rows, then N commit rows
-__device__ __forceinline__ uint8_t* row_ptr(
-    int r, int m, int N, int S, uint8_t* pp, uint8_t* ordered,
-    uint8_t* acked, uint8_t* pv, uint8_t* cv) {
-  const size_t ms = static_cast<size_t>(m) * S;
-  if (r == 0) return pp + ms;
-  if (r == 1) return ordered + ms;
-  if (r == 2) return acked + ms;
-  r -= 3;
-  uint8_t* plane = r < N ? pv : cv;
-  const int n = r < N ? r : r - N;
-  return plane + (static_cast<size_t>(m) * N + n) * S;
-}
-
-__global__ void slide_kernel(
-    uint8_t* __restrict__ pp, uint8_t* __restrict__ pv,
-    uint8_t* __restrict__ cv, uint8_t* __restrict__ ck,
-    uint8_t* __restrict__ ordered, uint8_t* __restrict__ acked,
-    int32_t* __restrict__ frontier, const int32_t* __restrict__ deltas,
-    int N, int S, int C, int rows_per_block) {
+__global__ void slide_kernel(qc::Planes p,
+                             const int32_t* __restrict__ deltas, int N,
+                             int S, int C, int rows_per_block) {
   extern __shared__ uint8_t stage[];  // rows_per_block x S bytes
   const int m = blockIdx.x;
   const int d = deltas[m];
@@ -68,36 +50,12 @@ __global__ void slide_kernel(
   const int rows = 2 * N + 3;
   const int r0 = blockIdx.y * rows_per_block;
   const int nr = rows - r0 < rows_per_block ? rows - r0 : rows_per_block;
-  const int span = nr * S;
-  const int keep = d < S ? S - d : 0;
-  if (keep > 0) {
-    for (int i = threadIdx.x; i < span; i += blockDim.x) {
-      const int r = i / S, c = i - r * S;
-      stage[i] = row_ptr(r0 + r, m, N, S, pp, ordered, acked, pv, cv)[c];
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < span; i += blockDim.x) {
-    const int r = i / S, c = i - r * S;
-    row_ptr(r0 + r, m, N, S, pp, ordered, acked, pv, cv)[c] =
-        c < keep ? stage[i + d] : 0;
-  }
-  if (blockIdx.y == 0) {
-    uint8_t* ckm = ck + static_cast<size_t>(m) * N * C;
-    for (int i = threadIdx.x; i < N * C; i += blockDim.x) ckm[i] = 0;
-    if (threadIdx.x == 0) {
-      const int f = frontier[m] - d;
-      frontier[m] = f > 0 ? f : 0;
-    }
-  }
+  qc::slide_rows(p, m, r0, nr, d, N, S, stage);
+  if (blockIdx.y == 0) qc::slide_tail(p, m, d, N, C);
 }
 
-__global__ void zero_kernel(
-    uint8_t* __restrict__ pp, uint8_t* __restrict__ pv,
-    uint8_t* __restrict__ cv, uint8_t* __restrict__ ck,
-    uint8_t* __restrict__ ordered, uint8_t* __restrict__ acked,
-    int32_t* __restrict__ frontier, const uint8_t* __restrict__ mask,
-    int N, int S, int C, int rows_per_block) {
+__global__ void zero_kernel(qc::Planes p, const uint8_t* __restrict__ mask,
+                            int N, int S, int C, int rows_per_block) {
   const int m = blockIdx.x;
   if (!mask[m]) return;
   const int rows = 2 * N + 3;
@@ -105,12 +63,12 @@ __global__ void zero_kernel(
   const int nr = rows - r0 < rows_per_block ? rows - r0 : rows_per_block;
   for (int i = threadIdx.x; i < nr * S; i += blockDim.x) {
     const int r = i / S, c = i - r * S;
-    row_ptr(r0 + r, m, N, S, pp, ordered, acked, pv, cv)[c] = 0;
+    qc::row_ptr(p, r0 + r, m, N, S)[c] = 0;
   }
   if (blockIdx.y == 0) {
-    uint8_t* ckm = ck + static_cast<size_t>(m) * N * C;
+    uint8_t* ckm = p.ck + static_cast<size_t>(m) * N * C;
     for (int i = threadIdx.x; i < N * C; i += blockDim.x) ckm[i] = 0;
-    if (threadIdx.x == 0) frontier[m] = 0;
+    if (threadIdx.x == 0) p.frontier[m] = 0;
   }
 }
 
@@ -136,10 +94,7 @@ extern "C" int window_slide_launch(
     const dim3 grid = window_grid(M, N, S, &per);
     slide_kernel<<<grid, kThreads, per * S,
                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<uint8_t*>(pp), static_cast<uint8_t*>(pv),
-        static_cast<uint8_t*>(cv), static_cast<uint8_t*>(ck),
-        static_cast<uint8_t*>(ordered), static_cast<uint8_t*>(acked),
-        static_cast<int32_t*>(frontier),
+        qc::planes(pp, pv, cv, ck, ordered, acked, frontier),
         static_cast<const int32_t*>(deltas), N, S, C, per);
   }
   return static_cast<int>(cudaGetLastError());
@@ -157,10 +112,7 @@ extern "C" int window_zero_launch(
     const dim3 grid = window_grid(M, N, S, &per);
     zero_kernel<<<grid, kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
-        static_cast<uint8_t*>(pp), static_cast<uint8_t*>(pv),
-        static_cast<uint8_t*>(cv), static_cast<uint8_t*>(ck),
-        static_cast<uint8_t*>(ordered), static_cast<uint8_t*>(acked),
-        static_cast<int32_t*>(frontier),
+        qc::planes(pp, pv, cv, ck, ordered, acked, frontier),
         static_cast<const uint8_t*>(mask), N, S, C, per);
   }
   return static_cast<int>(cudaGetLastError());

@@ -20,8 +20,10 @@ fakes the roots. What later slices of the port bring raises
 ``NotImplementedError``: catchup (the reference wires a seeder and a
 leecher into every real-execution node; here a node that needs catchup
 raises), BLS and the state-proof plane, a device mesh, the region latency
-matrix, the closed-loop retry driver, the telemetry plane and multi-tick
-device residency (``ResidentTickDepth > 1``). The ordering lanes' seams
+matrix, the closed-loop retry driver and the telemetry plane. With
+``ResidentTickDepth > 1`` the vote group runs its multi-tick residency
+ring (one fused device step per up to that many ticks, checkpoint slides
+folded in). The ordering lanes' seams
 (a shared timer, metrics collector and trace ring, the cross-lane
 checkpoint barrier, the lane tick driver), the router spies and the
 closed-loop retry seam are left out: the lanes and overload slices bring

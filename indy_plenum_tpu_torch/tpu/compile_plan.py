@@ -16,9 +16,11 @@ so here the plan only binds the three functions a
 
 All three update the state IN PLACE, which takes the place of the
 reference's buffer donation (``compile_plan.py:54``), and return it so a
-caller rebinding its state reads like the JAX code. Member-sharded and
-2-axis mesh plans (``compile_plan.py:201-245``) and the residency plan
-(``resident_plan_for``) come with a later slice of the port.
+caller rebinding its state reads like the JAX code.
+:func:`resident_plan_for` (``:99-173``) binds the residency ring's
+consume, K9 (:func:`~indy_plenum_tpu_torch.tpu.quorum.resident_step`).
+Member-sharded and 2-axis mesh plans (``compile_plan.py:201-245``) come
+with the mesh slice of the port.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.torch_env import DeviceLike, resolve_device
 from . import quorum as q
 
 
@@ -44,6 +47,42 @@ def _zero_body(states: q.VoteState, mask: torch.Tensor) -> q.VoteState:
 def _slide_body(states: q.VoteState, deltas: torch.Tensor) -> q.VoteState:
     q.slide_state(states, deltas)
     return states
+
+
+@functools.lru_cache(maxsize=None)
+def resident_plan_for(mesh, n_validators: int, n_validator_rows: int,
+                      delta_cap: int, n_slots: int, width: int,
+                      device: DeviceLike = None) -> Callable:
+    """The fused multi-slot consume of the residency ring (reference
+    ``compile_plan.py:100``): ``step(states, slides, *words)`` -> (states,
+    events, compact), where ``slides`` is (n_slots, M) int32 (per-slot
+    window deltas, applied BEFORE that slot's scatter) and the words are
+    ``n_slots`` (M, width) rows, or their (n_slots, M, width) stack as one
+    operand. Quorums are evaluated once at the end, with the compact
+    deltas; the state is updated in place. On the card the whole step is
+    one K9 launch. Cached per the reference's key; runs on the card
+    unless ``device="cpu"``."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "resident mesh plans (member-sharded and member x validator "
+            "fabrics) come with the mesh slice of the port")
+    if n_validator_rows != n_validators:
+        raise ValueError("unsharded plans carry no pad validator rows")
+    dev = resolve_device(device)
+
+    def step(states: q.VoteState, slides, *words):
+        block = (words[0] if len(words) == 1 and words[0].dim() == 3
+                 else torch.stack(words))
+        if tuple(block.shape[::2]) != (n_slots, width) \
+                or block.device != dev:
+            raise ValueError(f"resident plan: words must be {n_slots} "
+                             f"slots of width {width} on {dev}")
+        events, compact = q.resident_step(
+            states, torch.as_tensor(slides), block, n_validators,
+            delta_cap)
+        return states, events, compact
+
+    return step
 
 
 @functools.lru_cache(maxsize=None)

@@ -25,7 +25,12 @@ tensors. The state is updated IN PLACE (the reference donates it).
 are the window's rare-path ops, the checkpoint slide and the view-change
 zero: one launch each of ``csrc/window.cu`` for CUDA tensors, their plain
 versions (:func:`slide_plain`, :func:`zero_plain`) for CPU tensors, the
-state in place either way.
+state in place either way. :func:`resident_step` (K9, reference
+``compile_plan.py:100`` ``resident_plan_for``) chains k (slide, scatter)
+slots and evaluates once, in one launch of ``csrc/resident.cu``; its
+plain version is :func:`resident_step_plain`, built like
+:func:`step_plain` from the scatter and eval halves (:func:`scatter_plain`,
+:func:`eval_plain`, the reference's ``scatter_batch``/``eval_compact``).
 
 Words are uint32 bit patterns carried in int32 tensors; the plain version
 decodes them in int64 lanes masked to 0xFFFFFFFF (CPU torch has no uint32
@@ -34,7 +39,7 @@ shifts).
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -138,19 +143,21 @@ def _delta_slots(newly: torch.Tensor, width: int):
             newly.sum(dim=-1, dtype=torch.int32))
 
 
-def step_plain(state: VoteState, words: torch.Tensor, n_validators: int,
-               delta_cap: int = ORDER_DELTA_CAP, compact: bool = True
-               ) -> Tuple[QuorumEvents, CompactEvents]:
-    """The plain version of K-d on any device: scatter + quorum eval (+
-    frontier and compact deltas when ``compact``), ``state`` in place."""
-    m_count, n_rows, s = state.prepare_votes.shape
+def scatter_plain(state: VoteState, words: torch.Tensor,
+                  ok: Optional[torch.Tensor] = None) -> None:
+    """The plain version of the scatter half (reference ``scatter_batch``,
+    ``quorum.py:322``): decode (M, W) vote words and store 1 into the hit
+    planes, ``state`` in place. ``ok`` ((M, W) bool, optional) drops the
+    words whose verdict is False, as K14's ``valid &= ok``."""
+    n_rows, s = state.prepare_votes.shape[1:]
     c = state.checkpoint_votes.shape[-1]
     msgs = unpack_words(words)
-    member = torch.arange(m_count, device=words.device).unsqueeze(-1)
+    valid = msgs.valid if ok is None else msgs.valid & ok.to(torch.bool)
+    member = torch.arange(words.shape[0], device=words.device).unsqueeze(-1)
     member = member.expand_as(msgs.slot)
     slot_ok = msgs.slot < s
     cslot_ok = msgs.slot < c
-    mine = msgs.valid & (msgs.sender < n_rows)
+    mine = valid & (msgs.sender < n_rows)
 
     def scatter(plane, hit, slots):
         plane[member[hit], msgs.sender[hit], slots[hit]] = 1
@@ -162,9 +169,17 @@ def step_plain(state: VoteState, words: torch.Tensor, n_validators: int,
     scatter(state.checkpoint_votes,
             (msgs.kind == CHECKPOINT) & mine & cslot_ok, msgs.slot)
     # PRE-PREPARE is per slot, not per validator: no sender bound
-    pp_hit = (msgs.kind == PREPREPARE) & msgs.valid & slot_ok
+    pp_hit = (msgs.kind == PREPREPARE) & valid & slot_ok
     state.preprepare_seen[member[pp_hit], msgs.slot[pp_hit]] = 1
 
+
+def eval_plain(state: VoteState, n_validators: int,
+               delta_cap: int = ORDER_DELTA_CAP, compact: bool = True
+               ) -> Tuple[QuorumEvents, CompactEvents]:
+    """The plain version of the eval half (reference ``eval_compact``,
+    ``quorum.py:342``): quorum eval over the current planes (+ frontier
+    and compact deltas when ``compact``), ``state`` in place."""
+    s = state.prepare_votes.shape[-1]
     f = (n_validators - 1) // 3
     prepare_q = n_validators - f - 1
     commit_q = n_validators - f
@@ -199,30 +214,61 @@ def step_plain(state: VoteState, words: torch.Tensor, n_validators: int,
         stable=stable.to(torch.uint8))
 
 
-def _check_state(state: VoteState, words: torch.Tensor) -> None:
-    dev = words.device
+def step_plain(state: VoteState, words: torch.Tensor, n_validators: int,
+               delta_cap: int = ORDER_DELTA_CAP, compact: bool = True,
+               ok: Optional[torch.Tensor] = None
+               ) -> Tuple[QuorumEvents, CompactEvents]:
+    """The plain version of K-d on any device: scatter + quorum eval (+
+    frontier and compact deltas when ``compact``), ``state`` in place;
+    ``ok`` masks words as :func:`scatter_plain` does."""
+    scatter_plain(state, words, ok)
+    return eval_plain(state, n_validators, delta_cap, compact)
+
+
+def resident_step_plain(states: VoteState, slides, words_seq,
+                        n_validators: int,
+                        delta_cap: int = ORDER_DELTA_CAP
+                        ) -> Tuple[QuorumEvents, CompactEvents]:
+    """The plain version of K9, the reference's unsharded resident body
+    (``compile_plan.py:119-126``): for each slot k, slide by ``slides[k]``
+    ((k, M) deltas) then scatter ``words_seq[k]`` ((M, W) words); then one
+    eval with the compact deltas. ``states`` in place."""
+    slides = torch.as_tensor(slides)
+    for k in range(len(words_seq)):
+        if bool((slides[k] != 0).any()):  # a zero slide is the identity
+            slide_plain(states, slides[k])
+        scatter_plain(states, words_seq[k])
+    return eval_plain(states, n_validators, delta_cap, True)
+
+
+def _check_state(state: VoteState, dev: torch.device, what: str) -> None:
     for name, t in zip(VoteState._fields, state):
         if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"quorum step: state.{name} must be a "
-                             f"contiguous tensor on {dev}")
-    if words.dtype != torch.int32 or words.dim() != 2 \
-            or not words.is_contiguous():
-        raise ValueError("quorum step: words must be a contiguous (M, W) "
-                         "int32 tensor of uint32 bit patterns")
+            raise ValueError(f"{what}: state.{name} must be a contiguous "
+                             f"tensor on {dev}")
     if state.frontier.dtype != torch.int32:
-        raise ValueError("quorum step: frontier must be int32")
-    if words.shape[0] != state.prepare_votes.shape[0]:
-        raise ValueError("quorum step: one word row per member")
+        raise ValueError(f"{what}: frontier must be int32")
 
 
-def _step_kernel(state: VoteState, words: torch.Tensor, n_validators: int,
-                 delta_cap: int, compact: bool
-                 ) -> Tuple[QuorumEvents, CompactEvents]:
-    _check_state(state, words)
-    m_count, n_rows, s = state.prepare_votes.shape
+def _check_words(state: VoteState, words: torch.Tensor, dims: int,
+                 what: str) -> None:
+    if words.dtype != torch.int32 or words.dim() != dims \
+            or not words.is_contiguous():
+        shape = "(M, W)" if dims == 2 else "(k, M, W)"
+        raise ValueError(f"{what}: words must be a contiguous {shape} "
+                         "int32 tensor of uint32 bit patterns")
+    if words.shape[-2] != state.frontier.shape[0]:
+        raise ValueError(f"{what}: one word row per member")
+    _check_state(state, words.device, what)
+
+
+def _outputs(state: VoteState, width: int, compact: bool
+             ) -> Tuple[QuorumEvents, CompactEvents]:
+    """Device outputs of a K7/K9 launch: the full events and the compact
+    record (whose frontier is the live state's with ``compact``)."""
+    m_count, _, s = state.prepare_votes.shape
     c = state.checkpoint_votes.shape[-1]
-    width = delta_width(s, delta_cap)
-    dev = words.device
+    dev = state.frontier.device
 
     def empty(*shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -242,18 +288,44 @@ def _step_kernel(state: VoteState, words: torch.Tensor, n_validators: int,
         new_committed=empty(m_count, width, dtype=torch.int32),
         n_committed=empty(m_count, dtype=torch.int32),
         stable=empty(m_count, c, dtype=torch.uint8))
-    lib = kb.library()
-    code = lib.quorum_step_launch(
-        *[t.data_ptr() for t in state], words.data_ptr(),
-        m_count, n_rows, s, c, words.shape[1], n_validators, width,
-        1 if compact else 0,
-        *[t.data_ptr() for t in events],
+    return events, comp
+
+
+def _output_ptrs(events: QuorumEvents, comp: CompactEvents) -> list:
+    return [t.data_ptr() for t in events] + [
         comp.new_prepared.data_ptr(), comp.n_prepared.data_ptr(),
         comp.new_committed.data_ptr(), comp.n_committed.data_ptr(),
-        comp.stable.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    kb.check(code, "quorum_step")
-    kb.LAUNCHES["quorum_step"] += 1
+        comp.stable.data_ptr()]
+
+
+def _step_kernel(state: VoteState, words: torch.Tensor, n_validators: int,
+                 delta_cap: int, compact: bool,
+                 ok: Optional[torch.Tensor] = None,
+                 counter: str = "quorum_step"
+                 ) -> Tuple[QuorumEvents, CompactEvents]:
+    """One ``quorum_step_kernel`` launch; ``ok`` ((M, W) bool or uint8 on
+    the card, optional) is K14's per-word verdict operand, counted under
+    ``counter``."""
+    _check_words(state, words, 2, "quorum step")
+    if ok is not None and (
+            ok.device != words.device or not ok.is_contiguous()
+            or ok.dtype not in (torch.bool, torch.uint8)
+            or ok.numel() != words.numel()):
+        raise ValueError("quorum step: ok must be a contiguous bool or "
+                         "uint8 tensor with one verdict per word on "
+                         f"{words.device}")
+    m_count, n_rows, s = state.prepare_votes.shape
+    c = state.checkpoint_votes.shape[-1]
+    width = delta_width(s, delta_cap)
+    events, comp = _outputs(state, width, compact)
+    code = kb.library().quorum_step_launch(
+        *[t.data_ptr() for t in state], words.data_ptr(),
+        None if ok is None else ok.data_ptr(),
+        m_count, n_rows, s, c, words.shape[1], n_validators, width,
+        1 if compact else 0, *_output_ptrs(events, comp),
+        torch.cuda.current_stream(words.device).cuda_stream)
+    kb.check(code, counter)
+    kb.LAUNCHES[counter] += 1
     if compact:
         # the frontier the host reads is a snapshot, not the live state
         comp = comp._replace(frontier=state.frontier.clone())
@@ -287,6 +359,48 @@ def step(state: VoteState, words: torch.Tensor, n_validators: int
     events, _ = _dispatch(state, words, n_validators, ORDER_DELTA_CAP,
                           False)
     return events
+
+
+def _resident_kernel(states: VoteState, slides: torch.Tensor,
+                     words: torch.Tensor, n_validators: int,
+                     delta_cap: int) -> Tuple[QuorumEvents, CompactEvents]:
+    dev = words.device
+    _check_words(states, words, 3, "resident step")
+    k, m_count, w = words.shape
+    if tuple(slides.shape) != (k, m_count):
+        raise ValueError("resident step: slides must be (k, M)")
+    slides = _to_card(slides, torch.int32, dev, "resident step")
+    _, n_rows, s = states.prepare_votes.shape
+    c = states.checkpoint_votes.shape[-1]
+    width = delta_width(s, delta_cap)
+    events, comp = _outputs(states, width, True)
+    code = kb.library().resident_step_launch(
+        *[t.data_ptr() for t in states], slides.data_ptr(),
+        words.data_ptr(), k, m_count, n_rows, s, c, w, n_validators, width,
+        *_output_ptrs(events, comp),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kb.check(code, "resident_step")
+    kb.LAUNCHES["resident_step"] += 1
+    return events, comp._replace(frontier=states.frontier.clone())
+
+
+def resident_step(states: VoteState, slides: torch.Tensor,
+                  words: torch.Tensor, n_validators: int,
+                  delta_cap: int = ORDER_DELTA_CAP
+                  ) -> Tuple[QuorumEvents, CompactEvents]:
+    """K9: k ring slots in one step. ``slides`` (k, M) window deltas, each
+    applied before its slot's scatter; ``words`` (k, M, W) vote words;
+    then one quorum eval with the compact deltas. Updates ``states`` in
+    place and returns (events, compact). CPU tensors take
+    :func:`resident_step_plain`; CUDA tensors launch
+    ``resident_step_kernel`` (``csrc/resident.cu``) or raise. Host
+    ``slides`` cross to the card without a blocking copy."""
+    if words.device.type == "cpu":
+        return resident_step_plain(states, slides, words, n_validators,
+                                   delta_cap)
+    if words.device.type != "cuda":
+        raise ValueError(f"resident step: unsupported device {words.device}")
+    return _resident_kernel(states, slides, words, n_validators, delta_cap)
 
 
 def slide_plain(state: VoteState, deltas: torch.Tensor) -> None:
@@ -328,32 +442,33 @@ def zero_plain(state: VoteState, mask: torch.Tensor) -> None:
         x.masked_fill_(hit.view((-1,) + (1,) * (x.dim() - 1)), 0)
 
 
-def _member_operand(state: VoteState, values: torch.Tensor, dtype,
-                    what: str) -> torch.Tensor:
-    """The (M,) per-member operand of a window kernel on the state's card.
-    A host operand crosses from pinned memory without blocking the host
-    (PyTorch's pinned allocator keeps the buffer until the copy is done);
-    the copy runs on the current stream, ahead of the kernel."""
-    if values.dim() != 1 or values.shape[0] != state.frontier.shape[0]:
-        raise ValueError(f"window {what}: one entry per member")
-    dev = state.frontier.device
+def _to_card(values: torch.Tensor, dtype, dev: torch.device,
+             what: str) -> torch.Tensor:
+    """A small operand on the card ``dev``. A host operand crosses from
+    pinned memory without blocking the host (PyTorch's pinned allocator
+    keeps the buffer until the copy is done); the copy runs on the current
+    stream, ahead of the kernel."""
     if values.device.type == "cpu":
         values = values.to(dtype).pin_memory().to(dev, non_blocking=True)
     elif values.device != dev:
-        raise ValueError(f"window {what}: operand on {values.device}, "
-                         f"state on {dev}")
+        raise ValueError(f"{what}: operand on {values.device}, state on "
+                         f"{dev}")
     return values.to(dtype).contiguous()
+
+
+def _member_operand(state: VoteState, values: torch.Tensor, dtype,
+                    what: str) -> torch.Tensor:
+    """The (M,) per-member operand of a window kernel on the state's
+    card."""
+    if values.dim() != 1 or values.shape[0] != state.frontier.shape[0]:
+        raise ValueError(f"window {what}: one entry per member")
+    return _to_card(values, dtype, state.frontier.device, f"window {what}")
 
 
 def _window_launch(state: VoteState, operand: torch.Tensor, entry: str,
                    name: str) -> None:
     dev = state.frontier.device
-    for leaf, t in zip(VoteState._fields, state):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"window {name}: state.{leaf} must be a "
-                             f"contiguous tensor on {dev}")
-    if state.frontier.dtype != torch.int32:
-        raise ValueError(f"window {name}: frontier must be int32")
+    _check_state(state, dev, f"window {name}")
     m_count, n_rows, s = state.prepare_votes.shape
     c = state.checkpoint_votes.shape[-1]
     code = getattr(kb.library(), entry)(

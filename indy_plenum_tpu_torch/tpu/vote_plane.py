@@ -12,7 +12,11 @@ and quorum verdicts come back as compact deltas.
   ONE fused CUDA launch per dispatch; every member holds a
   :class:`_MemberPlane` view. Sync and pipelined flush, device eval
   (compact readback, the default) and ``host_eval`` (full event-matrix
-  readback), with the overflow fallback of the reference.
+  readback), with the overflow fallback of the reference; and multi-tick
+  residency (``resident_depth > 1``, reference ``vote_plane.py:759-789``,
+  ``:1361-1497``): each tick's words are staged into a device ring without
+  a launch, and ONE K9 launch consumes up to ``resident_depth`` ticks with
+  the checkpoint slides folded in, quorums evaluated once.
 
 Transfer contract (the reference's XLA async dispatch and
 ``copy_to_host_async``, ``vote_plane.py:1311-1322``):
@@ -27,11 +31,16 @@ Transfer contract (the reference's XLA async dispatch and
   CUDA event per in-flight step, waited on before the absorb reads them;
   there is no fallback when a copy cannot be issued - it raises.
 
+- the residency ring stages each slot's words in its own pinned host row
+  and copies it to the device ring ``non_blocking``; a row is rewritten
+  only after the event behind its last copy has completed.
+
 Pipelined mode keeps the reference's one-tick verdict lag; dtypes and
 byte counts equal JAX's (int32 slot lists and counts, uint8 ``stable``,
 bool events), so ``readback_bytes_total`` counts the same bytes. A mesh
-and multi-tick residency (``resident_depth > 1``) come with later slices
-of the port and raise ``NotImplementedError`` here.
+comes with the mesh slice of the port and raises ``NotImplementedError``
+here; so does ``schedule_rebalance`` (the ring and rebalance slice), and
+the placement map stays the identity.
 """
 from __future__ import annotations
 
@@ -45,7 +54,7 @@ from ..common.metrics_collector import MetricsCollector, MetricsName
 from ..observability.trace import NULL_TRACE, _NO_SPAN
 from ..utils.torch_env import DeviceLike, resolve_device
 from . import quorum as q
-from .compile_plan import plan_for
+from .compile_plan import plan_for, resident_plan_for
 
 # fixed flush granularity
 FLUSH_BATCH = 128
@@ -194,6 +203,77 @@ class _Staging:
         self._copied.record(torch.cuda.current_stream(self._dev.device))
         self._pending_copy = True
         return self._dev
+
+
+class _Ring:
+    """The residency ring's word slots: a (capacity, M, width) int32 block
+    on the device, grown by doubling, so a consume hands K9 its k slots as
+    one operand. Each slot is staged in its own pinned host row and copied
+    ``non_blocking``; a row is rewritten only after the CUDA event behind
+    its last copy has completed. On the CPU the host block is the ring:
+    the plain step reads it before a slot is staged again."""
+
+    def __init__(self, rows: int, width: int, device: torch.device):
+        self._shape = (rows, width)
+        self._device = device
+        self._cuda = device.type == "cuda"
+        self._cap = 0
+        self._host = self._dev = None
+        self._copied: list = []  # per slot: the event behind its copy
+        self._grow(4)
+
+    def _grow(self, cap: int) -> None:
+        host = torch.zeros((cap,) + self._shape, dtype=torch.int32,
+                           pin_memory=self._cuda)
+        dev = (torch.empty((cap,) + self._shape, dtype=torch.int32,
+                           device=self._device) if self._cuda else None)
+        if self._cap:
+            # staged slots keep their words: on the card a copy behind
+            # their H2D copies on the same stream
+            (dev if self._cuda else host)[:self._cap].copy_(self.block(
+                self._cap))
+        self._host, self._dev = host, dev
+        self._view = host.numpy().view(np.uint32)
+        self._copied += [None] * (cap - self._cap)
+        self._cap = cap
+
+    def stage(self, pos: int, chunks) -> None:
+        """Slot ``pos`` (at most one past the last staged) <- one
+        padded word row per member."""
+        if pos >= self._cap:
+            self._grow(2 * self._cap)
+        if self._copied[pos] is not None:
+            self._copied[pos].synchronize()
+            self._copied[pos] = None
+        view = self._view[pos]
+        view[...] = 0
+        for i, entries in enumerate(chunks):
+            if entries:
+                q.fill_words_row(view[i], entries)
+        if self._cuda:
+            self._dev[pos].copy_(self._host[pos], non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self._device))
+            self._copied[pos] = event
+
+    def block(self, k: int) -> torch.Tensor:
+        """Slots [0, k) as one contiguous (k, M, width) tensor."""
+        return (self._dev if self._cuda else self._host)[:k]
+
+
+def _rebase_full(row: np.ndarray, d: int) -> np.ndarray:
+    """A full (S,) event row moved into the window slid by ``d``."""
+    if not d:
+        return row
+    return np.concatenate([row[d:], np.zeros(min(d, row.shape[0]),
+                                             row.dtype)])
+
+
+def _rebase_slots(row: np.ndarray, d: int, s: int) -> np.ndarray:
+    """An S-padded slot list's entries moved into the window slid by
+    ``d`` (slots the slide dropped go)."""
+    new = row[row < s]
+    return new[new >= d] - d if d else new
 
 
 def _host_words(packed, width: int, device: torch.device) -> torch.Tensor:
@@ -519,10 +599,6 @@ class VotePlaneGroup:
             raise NotImplementedError(
                 "mesh-sharded vote planes come with the mesh slice of the "
                 "port")
-        if int(resident_depth) > 1:
-            raise NotImplementedError(
-                "multi-tick device residency (resident_depth > 1) comes "
-                "with the residency slice of the port")
         self.device = resolve_device(device)
         self._n = len(validators)
         self._log_size = log_size
@@ -576,6 +652,29 @@ class VotePlaneGroup:
         # in-flight steps of the last flush: [(events, compact, fetch)]
         self._inflight: Optional[list] = None
         self._inflight_seq = 0
+        # multi-tick device residency (reference vote_plane.py:759-789):
+        # with resident_depth N > 1 flush() stages each tick's words into
+        # ring slots (a copy, no launch) and ONE K9 launch consumes up to
+        # N ticks, each slot's checkpoint slide folded in before its
+        # scatter; verdicts may lag up to N ticks. Device eval only:
+        # host_eval stays per tick.
+        self.resident_depth = max(1, int(resident_depth))
+        self._resident = self.resident_depth > 1 and not host_eval
+        self._ring: list = []  # per staged slot: its slide vector or None
+        self._ring_words: Optional[_Ring] = None  # made on first use
+        self._ring_ticks = 0  # enqueued ticks since the last consume
+        self.resident_ticks = 0  # total ticks that rode the ring
+        self.readbacks_deferred = 0  # ticks whose readback deferred
+        # one fixed slot width (the adaptive ladder stays per tick)
+        self._resident_width = self.flush_batch
+        self._pending_slide = np.zeros(n_members, np.int32)
+        # cumulative slide per member, and its snapshot when the in-flight
+        # consume was dispatched: the difference rebases reported slots
+        self._slide_cum = np.zeros(n_members, np.int64)
+        self._inflight_cum = self._slide_cum.copy()
+        if self._resident:
+            self.metrics.add_event(MetricsName.DEVICE_RESIDENT_DEPTH,
+                                   self.resident_depth)
 
     def view(self, member_idx: int) -> "DeviceVotePlane":
         return self._members[member_idx]
@@ -583,8 +682,15 @@ class VotePlaneGroup:
     @property
     def lagging(self) -> bool:
         """True while a dispatched step's events are not yet in the host
-        snapshot (pipelined mode)."""
-        return self._inflight is not None
+        snapshot (pipelined mode), or a ring slot is staged but not yet
+        evaluated: the governor's absorb clamp and the services'
+        lost-wakeup guard treat both as in flight."""
+        return self._inflight is not None or bool(self._ring)
+
+    def _row_of(self, member_idx: int) -> int:
+        """Device row holding a member's plane: the identity until the
+        ring and rebalance slice brings plane rotation."""
+        return member_idx
 
     # --- dispatch -------------------------------------------------------
 
@@ -632,16 +738,21 @@ class VotePlaneGroup:
                     self._states, words)
             results.append((events, compact))
             self.flushes += 1
-            capacity = len(self._members) * shape
-            self.flush_votes_total += votes
-            self.flush_capacity_total += capacity
-            self.flush_votes_per_shard[0] += votes
-            self.flush_capacity_per_shard[0] += capacity
             self.metrics.add_event(MetricsName.DEVICE_FLUSH)
-            self.metrics.add_event(MetricsName.DEVICE_FLUSH_VOTES, votes)
-            self.metrics.add_event(
-                MetricsName.DEVICE_FLUSH_OCCUPANCY, votes / capacity)
+            self._count_scatter(votes, shape)
         return results
+
+    def _count_scatter(self, votes: int, shape: int) -> None:
+        """Occupancy counters of one (M, shape) word block, dispatched or
+        staged into the ring (the governor's input)."""
+        capacity = len(self._members) * shape
+        self.flush_votes_total += votes
+        self.flush_capacity_total += capacity
+        self.flush_votes_per_shard[0] += votes
+        self.flush_capacity_per_shard[0] += capacity
+        self.metrics.add_event(MetricsName.DEVICE_FLUSH_VOTES, votes)
+        self.metrics.add_event(
+            MetricsName.DEVICE_FLUSH_OCCUPANCY, votes / capacity)
 
     def _dispatch_empty(self) -> list:
         """One padded no-vote step (cold start needs SOME events)."""
@@ -732,26 +843,43 @@ class VotePlaneGroup:
         touched = np.nonzero(
             (host.new_prepared[:, 0] < s) | (host.new_committed[:, 0] < s)
             | over_p | over_c)[0]
+        # the residency slide-fold rebase (reference vote_plane.py:
+        # 1009-1063): slides folded into the consumed step moved the
+        # window after its certs were found, so reported slots are in
+        # pre-slide coordinates; shift them down by the slides applied
+        # since the consume was dispatched (0 on every per-tick path)
+        shift = self._slide_cum - self._inflight_cum
         for mi in touched:
             member = self._members[mi]
+            d = int(shift[mi])
             if over_p[mi]:
-                new = np.nonzero(full_prep[mi] & ~self._mir_prepared[mi])[0]
+                new = np.nonzero(_rebase_full(full_prep[mi], d)
+                                 & ~self._mir_prepared[mi])[0]
             else:
-                row = host.new_prepared[mi]
-                new = row[row < s]
+                new = _rebase_slots(host.new_prepared[mi], d, s)
             if new.size:
                 self._mir_prepared[mi, new] = True
                 member._delta_prepared.extend(int(x) for x in new)
             if over_c[mi]:
-                new = np.nonzero(full_ord[mi] & ~self._mir_commit_ok[mi])[0]
+                new = np.nonzero(_rebase_full(full_ord[mi], d)
+                                 & ~self._mir_commit_ok[mi])[0]
             else:
-                row = host.new_committed[mi]
-                new = row[row < s]
+                new = _rebase_slots(host.new_committed[mi], d, s)
             if new.size:
                 self._mir_commit_ok[mi, new] = True
                 member._delta_committed.extend(int(x) for x in new)
-        self._mir_stable[:] = host.stable.astype(bool)
-        self._mir_frontier[:] = host.frontier
+        plain = shift == 0
+        self._mir_stable[plain] = host.stable[plain].astype(bool)
+        self._mir_frontier[plain] = host.frontier[plain]
+        if not plain.all():
+            # slid members: the checkpoint votes the report saw were
+            # zeroed by the folded slide's own roll - keep the mirror's
+            # post-slide state, and only advance the frontier by the
+            # rebased report
+            sh = ~plain
+            self._mir_frontier[sh] = np.maximum(
+                self._mir_frontier[sh],
+                np.maximum(host.frontier[sh] - shift[sh], 0))
         return bytes_n
 
     # --- flush --------------------------------------------------------
@@ -780,6 +908,10 @@ class VotePlaneGroup:
     def flush(self) -> None:
         """Scatter every member's pending votes; refresh host event caches."""
         self._flush_seq += 1
+        if self._resident:
+            with self.metrics.measure_time(MetricsName.DEVICE_FLUSH_TIME):
+                self._flush_resident()
+            return
         if self.pipelined:
             with self.metrics.measure_time(MetricsName.DEVICE_FLUSH_TIME):
                 self._flush_pipelined()
@@ -802,6 +934,130 @@ class VotePlaneGroup:
             self._absorb_results(
                 results, overlapped=self._flush_seq > self._inflight_seq)
 
+    # --- multi-tick residency ring ------------------------------------
+
+    def _take_slide(self) -> Optional[np.ndarray]:
+        """Detach the accumulated slide vector for the NEXT ring slot (the
+        step applies it before that slot's scatter)."""
+        if not self._pending_slide.any():
+            return None
+        vec = self._pending_slide
+        self._pending_slide = np.zeros(len(self._members), np.int32)
+        return vec
+
+    def _ring_slot(self, chunks: List[List[int]]) -> None:
+        if self._ring_words is None:
+            self._ring_words = _Ring(len(self._members),
+                                     self._resident_width, self.device)
+        self._ring_words.stage(len(self._ring), chunks)
+        self._ring.append(self._take_slide())
+
+    def _enqueue_chunks(self, count_tick: bool = True) -> None:
+        """Stage every member's pending votes into ring slots: copies to
+        the device, no launch."""
+        enqueued = False
+        while any(m._pending for m in self._members):
+            chunks, votes = self._collect_chunks()
+            shape = self._resident_width
+            args = ({"votes": votes, "shape": shape}
+                    if self.trace.enabled else None)
+            with self.trace.span("flush.enqueue", args=args) \
+                    if self.trace.enabled else _NO_SPAN:
+                self._ring_slot(chunks)
+            self._count_scatter(votes, shape)
+            enqueued = True
+        if enqueued and count_tick:
+            self._ring_ticks += 1
+            self.resident_ticks += 1
+            self.metrics.add_event(MetricsName.DEVICE_RESIDENT_TICKS)
+
+    def _consume_ring(self, sync: bool = False) -> None:
+        """ONE K9 launch consuming every ring slot (slides folded in per
+        slot, quorums evaluated once), its compact readback handed to the
+        pipeline - or absorbed now when ``sync`` (cold start, drain)."""
+        if self._pending_slide.any():
+            # a trailing slide with no votes after it rides an empty slot
+            self._ring_slot([[] for _ in self._members])
+            capacity = len(self._members) * self._resident_width
+            self.flush_capacity_total += capacity
+            self.flush_capacity_per_shard[0] += capacity
+        # absorb the PREVIOUS consume first: its readback overlapped the
+        # resident ticks' host work
+        self._sync_inflight()
+        if not self._ring:
+            results = self._dispatch_empty()  # cold start only
+        else:
+            slides = np.stack([
+                vec if vec is not None
+                else np.zeros(len(self._members), np.int32)
+                for vec in self._ring])
+            k, self._ring = len(self._ring), []
+            ticks, self._ring_ticks = self._ring_ticks, 0
+            args = ({"slots": k, "ticks": ticks,
+                     "resident": self.resident_depth}
+                    if self.trace.enabled else None)
+            with self.trace.span("flush.dispatch", args=args) \
+                    if self.trace.enabled else _NO_SPAN:
+                step = resident_plan_for(None, self._n, self._n,
+                                         self._delta_cap, k,
+                                         self._resident_width, self.device)
+                self._states, events, compact = step(
+                    self._states, torch.from_numpy(slides),
+                    self._ring_words.block(k))
+            results = [(events, compact)]
+            self.flushes += 1
+            self.metrics.add_event(MetricsName.DEVICE_FLUSH)
+        self._inflight_cum = self._slide_cum.copy()
+        if self.pipelined and not sync:
+            self._inflight = self._start_readbacks(results)
+            self._inflight_seq = self._flush_seq
+        else:
+            self._absorb_results(self._start_readbacks(results),
+                                 overlapped=False)
+
+    def _drain_ring(self) -> None:
+        """The residency barrier: consume and absorb everything staged NOW
+        (view resets and per-query refreshes must see settled state)."""
+        if self._resident and (self._ring or self._pending_slide.any()):
+            self._consume_ring(sync=True)
+        else:
+            self._sync_inflight()
+
+    def _flush_resident(self) -> None:
+        """Stage this tick's votes into the ring; consume only when the
+        ring holds ``resident_depth`` ticks, the pool went quiet, or the
+        snapshot is void (cold start) - otherwise defer the readback."""
+        had_pending = any(m._pending for m in self._members)
+        if had_pending:
+            self._enqueue_chunks()
+        if self._host_prepared is None:
+            # cold start (or post-reset): callers need SOME snapshot
+            self._consume_ring(sync=True)
+            return
+        if self._ring and (self._ring_ticks >= self.resident_depth
+                           or not had_pending):
+            self._consume_ring()
+        elif self._ring:
+            self.readbacks_deferred += 1
+            self.metrics.add_event(MetricsName.DEVICE_READBACKS_DEFERRED)
+            if self.trace.enabled:
+                self.trace.record("flush.defer", cat="dispatch",
+                                  args={"ring_ticks": self._ring_ticks})
+        elif not had_pending and self._inflight is not None:
+            # quiet tick, nothing staged, a consume in flight: absorb now
+            self._sync_inflight()
+
+    # --- rebalancing: the ring and rebalance slice -----------------------
+
+    def schedule_rebalance(self, rows: int) -> None:
+        raise NotImplementedError(
+            "member-plane rotation (schedule_rebalance) comes with the ring "
+            "and rebalance slice of the port")
+
+    def rebalance_at_barrier(self) -> None:
+        """The checkpoint-boundary barrier of a scheduled rotation: nothing
+        can be scheduled yet, so a no-op."""
+
     # --- window management --------------------------------------------
 
     def _roll_member_mirrors(self, member_idx: int, delta: int) -> None:
@@ -821,10 +1077,23 @@ class VotePlaneGroup:
             x - delta for x in member._delta_committed if x >= delta]
 
     def slide_member(self, member_idx: int, delta: int) -> None:
+        if self._resident:
+            # slide-fold: stage the votes recorded against the OLD window
+            # first (they scatter before the slide), then ACCUMULATE the
+            # delta for the next ring slot. No sync, no launch: the
+            # mirrors roll on the host and stay the live snapshot.
+            self._enqueue_chunks(count_tick=False)
+            self.rebalance_at_barrier()
+            self._pending_slide[self._row_of(member_idx)] += delta
+            self._slide_cum[member_idx] += delta
+            self._roll_member_mirrors(member_idx, delta)
+            self.version += 1
+            return
         self.flush()
         self._sync_inflight()
+        self.rebalance_at_barrier()
         deltas = torch.zeros(len(self._members), dtype=torch.int32)
-        deltas[member_idx] = delta
+        deltas[self._row_of(member_idx)] = delta
         self._states = self._plan.slide(self._states, deltas)
         self.version += 1
         self._host_prepared = None
@@ -832,10 +1101,11 @@ class VotePlaneGroup:
 
     def reset_member(self, member_idx: int) -> None:
         # pending for this member was cleared by the caller; other
-        # members' buffered votes are untouched
-        self._sync_inflight()
+        # members' buffered votes are untouched. A view reset drains the
+        # residency ring first: old-view events must not land after it
+        self._drain_ring()
         mask = torch.zeros(len(self._members), dtype=torch.bool)
-        mask[member_idx] = True
+        mask[self._row_of(member_idx)] = True
         self._states = self._plan.zero(self._states, mask)
         self.version += 1
         self._host_prepared = None
@@ -922,8 +1192,9 @@ class _MemberPlane(DeviceVotePlane):
         self._group.flush()
         if not self.defer_flush_on_query:
             # per-query mode wants CURRENT state: a pipelined group must
-            # absorb its in-flight step now
-            self._group._sync_inflight()
+            # absorb its in-flight step now, a resident one consume its
+            # ring
+            self._group._drain_ring()
         self._copy_slices()
 
     def events(self):

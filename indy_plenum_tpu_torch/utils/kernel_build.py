@@ -40,6 +40,8 @@ LAUNCHES: Dict[str, int] = {
     "reduce_mod_l": 0,
     "ed25519_verify": 0,
     "quorum_step": 0,
+    "resident_step": 0,
+    "fused_step": 0,
     "window_slide": 0,
     "window_zero": 0,
     "sha256_fixed": 0,
@@ -61,13 +63,21 @@ _SIGNATURES = {
     "quorum_step_launch": (
         # state: pp, prepare, commit, checkpoint, ordered, acked, frontier
         _P, _P, _P, _P, _P, _P, _P,
-        # words, M, N, S, C, W, n_validators, delta_cap, compact
-        _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        # words, ok (NULL but for K14), M, N, S, C, W, n_validators,
+        # delta_cap, compact
+        _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
         # events: prepared, newly, ordered, stable, prepare/commit counts
         _P, _P, _P, _P, _P, _P,
         # compact: new_prepared, n_prepared, new_committed, n_committed,
         # stable, then the stream
         _P, _P, _P, _P, _P, _P),
+    "resident_step_launch": (
+        # state (as quorum_step), slides (k, M), words (k, M, W)
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        # k, M, N, S, C, W, n_validators, delta_cap
+        _I, _I, _I, _I, _I, _I, _I, _I,
+        # events and compact outputs (as quorum_step), then the stream
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # state (as quorum_step), deltas or mask, M, N, S, C, stream
     "window_slide_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _P),

@@ -6,6 +6,10 @@ so it also runs where JAX is not installed:
 
 - the window kernels (K8, ``csrc/window.cu``) against their plain versions
   at the main path's size, bit-equal;
+- the resident step (K9, ``csrc/resident.cu``) and the fused verify +
+  quorum step (K14, ``tpu/step.py``) against their plain versions at small
+  shapes, bit-equal, and a small resident pool on the card against the
+  same pool per tick;
 - the SHA-256 kernels (K10-K12, ``csrc/sha256.cu``) against their plain
   versions, hashlib and the host MerkleVerifier, planted faults included;
 - a small real-execution pool whose state waves run on the card against
@@ -113,3 +117,64 @@ def test_state_waves_on_card_match_host_waves(card):
     rec = run_commit_arms(n_keys=3000, windows=4, arms=("host", "device"))
     assert rec["roots_identical"]
     assert rec["arms"]["device"]["wave_device_hashes"] > 0
+
+
+@pytest.mark.cuda
+def test_resident_step_matches_plain(card):
+    """``chip_smoke.py``'s K9 check at a small group: k = 1, 2, 4, 7 slots
+    with edge slides and an empty slot, and K9 at k = 1 against K7."""
+    import chip_smoke
+
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    before = kb.LAUNCHES["resident_step"]
+    assert chip_smoke.check_resident(card, np.random.RandomState(9), 6, 7,
+                                     40, 2, 5, w=32) == 0
+    assert kb.LAUNCHES["resident_step"] == before + 5
+
+
+@pytest.mark.cuda
+def test_fused_step_matches_plain(card):
+    """K14 at the graft entry's shape and on 256 signed votes with planted
+    faults (``chip_smoke.check_fused`` builds the full-width operands at
+    N = 64, S = 300)."""
+    import chip_smoke
+
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    rng = np.random.RandomState(10)
+    inputs = chip_smoke.fused_inputs(rng, chip_smoke.N_VALIDATORS,
+                                     chip_smoke.LOG_SIZE, 256)
+    before = kb.LAUNCHES["fused_step"]
+    err, accepted, _ = chip_smoke.check_fused(card, rng, inputs)
+    assert err == 0 and accepted == int(inputs[3].sum())
+    assert kb.LAUNCHES["fused_step"] == before + 2
+
+
+@pytest.mark.cuda
+def test_resident_pool_on_card_orders_as_per_tick(card):
+    from indy_plenum_tpu_torch.config import getConfig
+    from indy_plenum_tpu_torch.simulation.pool import SimPool
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    def run(depth, device):
+        cfg = getConfig({"Max3PCBatchWait": 0.1, "QuorumTickInterval": 0.05,
+                         "QuorumTickAdaptive": True, "Max3PCBatchSize": 1,
+                         "CHK_FREQ": 5, "LOG_SIZE": 15,
+                         "ResidentTickDepth": depth})
+        pool = SimPool(4, seed=11, config=cfg, device_quorum=True,
+                       shadow_check=False, device=device)
+        for i in range(12):
+            pool.submit_request(i)
+        pool.run_for(30)
+        assert pool.honest_nodes_agree()
+        return pool
+
+    kb.library()
+    kb.reset_launch_counts()
+    resident = run(4, None)
+    launches = kb.launch_counts()
+    assert resident.ordered_hash() == run(1, "cpu").ordered_hash()
+    assert launches["resident_step"] > 0 and launches["window_slide"] == 0
+    for node in resident.nodes:
+        assert node.vote_plane.h == node.data.low_watermark

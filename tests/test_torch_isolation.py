@@ -40,8 +40,12 @@ def test_port_imports_without_jax_or_reference():
     mods = _port_modules()
     for mod in ("tpu.vote_plane", "simulation.pool",
                 "server.consensus.ordering_service", "config", "tpu.sha256",
-                "server.ledgers_bootstrap", "ingress.read_service"):
+                "server.ledgers_bootstrap", "ingress.read_service",
+                "tpu.step", "tpu.compile_plan"):
         assert "indy_plenum_tpu_torch." + mod in mods
+    for src in ("resident.cu", "quorum_common.cuh", "quorum.cu",
+                "window.cu"):
+        assert os.path.isfile(os.path.join(PKG, "csrc", src)), src
     blocked = ("jax", "indy_plenum_tpu", "msgpack", "cryptography")
     code = (
         "import sys\n"
@@ -93,16 +97,28 @@ def _entry_points(device_kw):
     from indy_plenum_tpu_torch.tpu.sha256 import merkle_node_hash_bytes
     from indy_plenum_tpu_torch.simulation.pool import SimPool
     from indy_plenum_tpu_torch.tpu.ed25519 import batch_verify
+    from indy_plenum_tpu_torch.tpu.compile_plan import resident_plan_for
+    from indy_plenum_tpu_torch.tpu.step import example_inputs, fused_step
     from indy_plenum_tpu_torch.tpu.vote_plane import (
         DeviceVotePlane,
         VotePlaneGroup,
     )
 
     validators = ["a", "b", "c", "d"]
+
+    def k14():
+        inputs = example_inputs(batch=2, n_validators=4, device="cpu")
+        return fused_step(*inputs, n_validators=4, **device_kw)
+
     return {
         "CoreAuthNr": lambda: CoreAuthNr(**device_kw),
         "VotePlaneGroup": lambda: VotePlaneGroup(
             4, validators, 32, 2, **device_kw),
+        "VotePlaneGroup.resident": lambda: VotePlaneGroup(
+            4, validators, 32, 2, resident_depth=4, **device_kw),
+        "resident_plan_for": lambda: resident_plan_for(
+            None, 4, 4, 16, 2, 16, **device_kw),
+        "fused_step": k14,
         "DeviceVotePlane": lambda: DeviceVotePlane(
             validators, 32, 2, **device_kw),
         "batch_verify": lambda: batch_verify(
@@ -124,7 +140,8 @@ def _entry_points(device_kw):
     }
 
 
-ENTRY_POINTS = ["CoreAuthNr", "VotePlaneGroup", "DeviceVotePlane",
+ENTRY_POINTS = ["CoreAuthNr", "VotePlaneGroup", "VotePlaneGroup.resident",
+                "resident_plan_for", "fused_step", "DeviceVotePlane",
                 "batch_verify", "SimPool.device_quorum",
                 "SimPool.sign_requests", "SimPool.real_execution",
                 "SparseMerkleState", "ReadService",
@@ -169,6 +186,10 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         q.step_compact(state, torch.empty((2, 16), dtype=torch.int32,
                                           device=meta), 4)
+    with pytest.raises(ValueError):
+        q.resident_step(state, torch.zeros((1, 2), dtype=torch.int32),
+                        torch.empty((1, 2, 16), dtype=torch.int32,
+                                    device=meta), 4)
     with pytest.raises(ValueError):
         q.slide_state(state, torch.ones(2, dtype=torch.int32))
     with pytest.raises(ValueError):
@@ -229,8 +250,17 @@ def test_ctypes_signatures_match_cuda_sources():
                            "audit_paths_launch", "audit_paths_indexed_launch"}
     for fn in sha_entries:
         assert f'extern "C" int {fn}(' in sha_src, fn
+    # K9 is csrc/resident.cu; K14's masked step is K7's entry point with
+    # the verdict operand right after the words
+    with open(os.path.join(kb.CSRC_DIR, "resident.cu")) as fh:
+        assert 'extern "C" int resident_step_launch(' in fh.read()
+    with open(os.path.join(kb.CSRC_DIR, "quorum.cu")) as fh:
+        assert "const void* words, const void* ok, int M" in fh.read()
+    assert kb._SIGNATURES["quorum_step_launch"][7:10] == (kb._P, kb._P,
+                                                          kb._I)
     assert set(kb.LAUNCHES) == {"sha512_blocks", "reduce_mod_l",
                                 "ed25519_verify", "quorum_step",
+                                "resident_step", "fused_step",
                                 "window_slide", "window_zero",
                                 "sha256_fixed", "merkle_node_hash",
                                 "audit_paths", "audit_paths_indexed"}

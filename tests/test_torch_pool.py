@@ -18,9 +18,11 @@ from indy_plenum_tpu.config import getConfig as jax_config  # noqa: E402
 from indy_plenum_tpu.simulation.pool import SimPool as JaxPool  # noqa: E402
 from indy_plenum_tpu_torch.config import getConfig as port_config  # noqa: E402,E501
 from indy_plenum_tpu_torch.simulation.pool import SimPool as PortPool  # noqa: E402,E501
+from test_torch_resident import copy_staging  # noqa: E402
 
 COUNTERS = ("flushes", "flush_votes_total", "flush_capacity_total",
-            "readback_bytes_total", "readbacks", "readbacks_overlapped")
+            "readback_bytes_total", "readbacks", "readbacks_overlapped",
+            "resident_ticks", "readbacks_deferred")
 BASE = {"Max3PCBatchWait": 0.1, "Max3PCBatchSize": 2,
         "QuorumTickInterval": 0.05}
 
@@ -39,10 +41,10 @@ def _view_change(pool, first, then):
     pool.run_for(12)
 
 
-def _steady(pool, count):
+def _steady(pool, count, seconds=15):
     for i in range(count):
         pool.submit_request(i)
-    pool.run_for(15)
+    pool.run_for(seconds)
 
 
 def _burst(pool, count):
@@ -52,6 +54,10 @@ def _burst(pool, count):
         pool.submit_request(i, client_id=f"client{i % 4}")
     pool.run_for(12)
 
+
+SLIDE_FOLD = {"Max3PCBatchWait": 0.1, "QuorumTickInterval": 0.05,
+              "QuorumTickAdaptive": True, "ResidentTickDepth": 4,
+              "Max3PCBatchSize": 1, "CHK_FREQ": 5, "LOG_SIZE": 15}
 
 SCENARIOS = {
     # n=4, signed, a primary disconnect forces a view change
@@ -70,6 +76,16 @@ SCENARIOS = {
                     QuorumTickAdaptive=True),
         kwargs=dict(num_instances=6),
         script=lambda p: _steady(p, 12), min_slides=2),
+    # n=4, signed, the view change above with a depth-4 residency ring
+    "n4_signed_view_change_resident": dict(
+        n=4, seed=37, config=dict(BASE, ResidentTickDepth=4),
+        kwargs=dict(sign_requests=True),
+        script=lambda p: _view_change(p, 6, 4)),
+    # tests/test_residency.py::test_resident_slide_fold_identity's pool:
+    # checkpoint slides fold into the resident step
+    "n4_resident_slide_fold": dict(
+        n=4, seed=11, config=SLIDE_FOLD,
+        kwargs={}, script=lambda p: _steady(p, 12, 30), min_slides=2),
     # n=4, signed, a burst through a bounded admission queue
     "n4_admission_burst": dict(
         n=4, seed=23,
@@ -79,10 +95,12 @@ SCENARIOS = {
 }
 
 
-def _run(pool_cls, make_config, case, **extra):
+def _run(pool_cls, make_config, case, config_overrides=None, **extra):
+    """The case's fingerprints; with ``config_overrides``, the pool."""
     spec = SCENARIOS[case]
     pool = pool_cls(spec["n"], seed=spec["seed"],
-                    config=make_config(dict(spec["config"])),
+                    config=make_config(dict(spec["config"],
+                                            **(config_overrides or {}))),
                     device_quorum=True, shadow_check=False, trace=True,
                     **spec["kwargs"], **extra)
     slides = [0] * len(pool.vote_group._members)
@@ -95,6 +113,8 @@ def _run(pool_cls, make_config, case, **extra):
     pool.vote_group.slide_member = slide_member
     spec["script"](pool)
     assert pool.honest_nodes_agree()
+    if config_overrides is not None:
+        return pool
     return {
         "ordered_hash": pool.ordered_hash(),
         "ordered_digests": [n.ordered_digests for n in pool.nodes],
@@ -112,7 +132,9 @@ def _run(pool_cls, make_config, case, **extra):
 
 
 @pytest.mark.parametrize("case", sorted(SCENARIOS))
-def test_port_pool_matches_jax_pool(case):
+def test_port_pool_matches_jax_pool(case, monkeypatch):
+    if SCENARIOS[case]["config"].get("ResidentTickDepth", 1) > 1:
+        copy_staging(monkeypatch)  # the JAX ring's staging race
     want = _run(JaxPool, jax_config, case)
     got = _run(PortPool, port_config, case, device="cpu")
     for key in want:
@@ -125,3 +147,22 @@ def test_port_pool_matches_jax_pool(case):
         assert min(got["slides"]) >= spec["min_slides"]
     if "admission" in case:
         assert got["shed"] > 0
+    if "resident" in case:
+        assert got["counters"]["resident_ticks"] > 0
+
+
+def test_port_residency_orders_as_per_tick():
+    """The slide-fold pool at depth 4 and at depth 1 in the port: the same
+    ordering; the window really slid, every plane's h tracks its node's
+    low watermark, and the ring really deferred readbacks."""
+    resident = _run(PortPool, port_config, "n4_resident_slide_fold", {},
+                    device="cpu")
+    per_tick = _run(PortPool, port_config, "n4_resident_slide_fold",
+                    {"ResidentTickDepth": 1}, device="cpu")
+    assert resident.ordered_hash() == per_tick.ordered_hash()
+    for node in resident.nodes:
+        assert node.data.stable_checkpoint >= 10
+        assert node.vote_plane.h == node.data.low_watermark
+    group = resident.vote_group
+    assert group.readbacks_deferred > 0
+    assert group.flushes < per_tick.vote_group.flushes

@@ -134,10 +134,19 @@ def test_standalone_plane_matches_jax(host_eval):
     assert runs[0] == runs[1]
 
 
-def test_mesh_and_residency_raise():
+def test_mesh_raises():
     with pytest.raises(NotImplementedError):
         tvp.VotePlaneGroup(4, ["a", "b", "c", "d"], 40, mesh=object(),
                            device="cpu")
-    with pytest.raises(NotImplementedError):
-        tvp.VotePlaneGroup(4, ["a", "b", "c", "d"], 40, resident_depth=2,
-                           device="cpu")
+
+
+def test_residency_builds_and_flushes():
+    group = tvp.VotePlaneGroup(4, ["a", "b", "c", "d"], 40,
+                               resident_depth=2, device="cpu")
+    view = group.view(0)
+    view.record_preprepare(1)
+    for v in ("b", "c", "d"):
+        view.record_prepare(v, 1)
+    group.flush()
+    assert group.resident_depth == 2 and group.resident_ticks == 1
+    assert view.has_prepare_quorum(1)
