@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA port on one card, at the n=64 size.
+"""Smoke run of the PyTorch + CUDA port on one card, at the n=64 and n=256
+sizes.
 
     python3 chip_smoke.py
 
@@ -23,7 +24,13 @@ member planes; LOG_SIZE 300, CHK_FREQ 100):
                 against K7 at k = 1; K14 fused verify + quorum step at the
                 graft entry's shape and on 8,192 signed votes with planted
                 faults, against its plain version, the pure-Python oracle
-                and K7 alone on the good votes;
+                and K7 alone on the good votes; K13 fabric step at M = N =
+                256, S = 300 on (8,) and (4, 2) and N = 250 on v = 4, with
+                and without ``ok``, and against K7 at v = 1; the tiled K9
+                at k = 1, 2, 4 on (8,) and (4, 2); K1 ring shift for every
+                shift 1 .. m + 1 and K15 rotation merge for 13 rotations,
+                on (8,), (4, 2) and (K15) without a mesh; the sharded K14
+                on 4 validator tiles with phase G's votes;
 3. ingress    - 64 DID signers sign 1024 NYM requests, tiled with planted
                 faults into one 8192-entry drain, then a 104-entry drain,
                 through ``CoreAuthNr.authenticate_batch``; verdicts
@@ -52,7 +59,21 @@ F. residency  - phase A's config (F1) and phase B's (F2) at
                 prints dispatches per ordered batch beside phase A's;
 G. fused step - K14 at 8,192 signed votes into one 64 x 300 member through
                 ``tpu/step.py``'s ``fused_step``: votes/sec and K-c's
-                share of the step's device time;
+                share of the step's device time; the same votes through the
+                sharded K14 on 4 validator tiles give the same result;
+H. fabric     - ``bench.py``'s fabric cell (n=256, one instance, 320
+                warm-up then 640 timed requests) in four arms on the card:
+                one device (K7), the (8,) member mesh and the (4, 2)
+                member x validator fabric (K13), and the fabric at
+                ``ResidentTickDepth`` 4 (the tiled K9); one ``ordered_hash``
+                for all four; per arm the wall, ordered txns/sec,
+                dispatches per ordered batch, readbacks (overlapped, bytes
+                per member block) and K13 launches;
+R. rebalance  - the reference's forced-rebalance pool at n=64 (batches of
+                one, CHK_FREQ 5, LOG_SIZE 15, depth 4, seed 23) on (4, 2)
+                and (8,): ``RebalanceForceTick`` 12 against 0 gives the
+                same ``ordered_hash`` and dispatch-free ``trace_hash``; the
+                forced arm rotates (K1 + K15) at least once;
 C. execution  - real execution at n=4 with two RBFT instances and
                 phase A's config: signed NYMs executed into every node's
                 ledgers and SMT states, 320 warm-up requests then 3,200
@@ -74,7 +95,7 @@ E. state      - ``run_commit_arms`` host vs device waves at the
                 shapes, times, bounds), a times line, the card, and last
                 ``{"ok": true, "device": {...}}``.
 
-Each main-path run (phases 3, 4, A, B, F, G, C, D and E on the card)
+Each main-path run (phases 3, 4, A, B, F, G, H, R, C, D and E on the card)
 starts with every launch counter at 0 and reads the counters right after;
 the ``kernels`` line's ``launches`` are their sums.
 
@@ -710,6 +731,188 @@ def check_fused(dev, rng, inputs):
     return err, int(ok_np.sum()), len(sample)
 
 
+# --- slice 5: the fabric (K13, tiled K9), the ring (K1), the rotation (K15)
+
+FABRIC_N = 256  # bench.py:524-570's fabric cell: n = 256, one instance
+FABRIC_W = 512  # that group's flush_batch: 2N votes in a pow2 chunk
+FABRIC_SHAPES = ((8,), (4, 2))  # the cell's member mesh and its fabric
+
+
+def fabric_mesh(dev, shape):
+    """The one-device fabric: every tile of ``shape`` on ``dev``."""
+    from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.utils.torch_env import mesh_devices
+
+    return q.make_fabric_mesh([dev] * mesh_devices(shape), shape)
+
+
+def fabric_state(dev, rng, n_rows, n_real, c, m=FABRIC_N, s=LOG_SIZE):
+    """Random planes on (m, n_rows, s, c), pad validator rows empty."""
+    state = _random_votes(dev, rng, m, n_rows, s, c)
+    for leaf in (state.prepare_votes, state.commit_votes,
+                 state.checkpoint_votes):
+        leaf[:, n_real:] = 0
+    return state
+
+
+def fabric_words(rng, m, w, n, s, c):
+    """(M, W) words: a full 3PC wave of one slot (quorums fire), random
+    votes with out-of-range senders and slots, and checkpoint votes."""
+    words = _random_words(rng, m, w, n, s)
+    wave = min(2 * n, w - 32)  # at W = 2N the wave drops 32 COMMITs
+    words[:, :wave] = _wave_words(m, wave, n, s,
+                                  [int(rng.randint(0, s))], rng)
+    chk = rng.randint(0, n, (m, 32))
+    words[:, -32:] = (0x80000000 | (3 << 29) | (chk << 16)
+                      | rng.randint(0, c + 1, (m, 32)))
+    return words
+
+
+def check_fabric(dev, rng):
+    """K13 against its plain version at full width: M = N = 256, S = 300,
+    C = 4 on (8,) and (4, 2), and N = 250 (padded to 252) on v = 4 with
+    the path's C = 3; each with and without an ``ok`` operand and once
+    without the compact record; then K13 at v = 1 on an unpadded state
+    against K7. Every state leaf, event and compact output equal."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import quorum as q
+
+    m, s = FABRIC_N, LOG_SIZE
+    err = checks = 0
+    for shape, n, c in (((8,), FABRIC_N, 4), ((4, 2), FABRIC_N, 4),
+                        ((2, 4), 250, N_CHECKPOINTS)):
+        v = shape[1] if len(shape) > 1 else 1
+        rows = -(-n // v) * v
+        state = fabric_state(dev, rng, rows, n, c)
+        for ok_p, compact in ((None, True), (0.9, True), (None, False)):
+            words = q.words_tensor(fabric_words(rng, m, FABRIC_W, n, s, c),
+                                   dev)
+            ok = None if ok_p is None else torch.from_numpy(
+                rng.rand(m, FABRIC_W) < ok_p).to(dev)
+            shadow = q.clone_state(state)
+            ev, comp = q.fabric_step(state, words, n, v, compact=compact,
+                                     ok=ok)
+            pev, pcomp = q.fabric_step_plain(shadow, words, n, v,
+                                             compact=compact, ok=ok)
+            outs = list(zip(state, shadow)) + list(zip(ev, pev))
+            if compact:
+                outs += list(zip(comp, pcomp))
+            err = max(err, _max_abs_err(outs))
+            checks += 1
+        if int(ev.ordered.sum()) == 0:
+            raise AssertionError(f"K13 on {shape}: no slot ordered")
+    state = fabric_state(dev, rng, FABRIC_N, FABRIC_N, N_CHECKPOINTS)
+    shadow = q.clone_state(state)
+    words = q.words_tensor(fabric_words(rng, m, FABRIC_W, FABRIC_N, s,
+                                        N_CHECKPOINTS), dev)
+    ev, comp = q.fabric_step(state, words, FABRIC_N, 1)
+    kev, kcomp = q.step_compact(shadow, words, FABRIC_N)
+    cross = _max_abs_err(list(zip(state, shadow)) + list(zip(ev, kev))
+                         + list(zip(comp, kcomp)))
+    if err or cross:
+        raise AssertionError(f"K13 differs from plain ({err}) or from K7 "
+                             f"({cross})")
+    return err, checks
+
+
+def check_resident_tile(dev, rng):
+    """The tiled K9 against its plain version at full width (M = N = 256,
+    S = 300, C = 3, W = 512) on (8,) and (4, 2), k = 1, 2 and 4, slides
+    of 0, 1, S - 1 and S, one all-empty slot."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import quorum as q
+
+    m, n, s, c = FABRIC_N, FABRIC_N, LOG_SIZE, N_CHECKPOINTS
+    mix = np.array([0, 1, s - 1, s], np.int32)
+    err = 0
+    for shape in FABRIC_SHAPES:
+        v = shape[1] if len(shape) > 1 else 1
+        for k in (1, 2, 4):
+            state = fabric_state(dev, rng, n, n, c)
+            shadow = q.clone_state(state)
+            slides = mix[rng.randint(0, len(mix), (k, m))]
+            slides[:, 0] = 0
+            words = np.stack([fabric_words(rng, m, FABRIC_W, n, s, c)
+                              for _ in range(k)])
+            if k > 1:
+                words[k // 2] = 0
+            words = q.words_tensor(words, dev)
+            ev, comp = q.resident_tile_step(
+                state, torch.from_numpy(slides), words, n, v)
+            pev, pcomp = q.resident_tile_plain(
+                shadow, torch.from_numpy(slides).to(dev), words, n, v)
+            err = max(err, _max_abs_err(list(zip(state, shadow))
+                                        + list(zip(ev, pev))
+                                        + list(zip(comp, pcomp))))
+    if err:
+        raise AssertionError(f"tiled K9 differs from plain: {err}")
+    return err
+
+
+def check_ring_rotate(dev, rng):
+    """K1 on every leaf of a full-width state (M = N = 256, S = 300, C =
+    3) for shifts 1 .. m + 1 on (8,) and (4, 2); K15 (through
+    ``rotate_planes``) for rows 1, R - 1, R, R + 1, M - 1 and 8 random
+    values on (8,), (4, 2) and without a mesh; each against its plain
+    version."""
+    from indy_plenum_tpu_torch.tpu import rebalance as rb
+    from indy_plenum_tpu_torch.tpu import ring_exchange as rx
+
+    m_rows = FABRIC_N
+    state = fabric_state(dev, rng, FABRIC_N, FABRIC_N, N_CHECKPOINTS)
+    err_ring = err_rot = 0
+    for shape in (None,) + FABRIC_SHAPES:
+        mesh = None if shape is None else fabric_mesh(dev, shape)
+        r = m_rows if shape is None else m_rows // shape[0]
+        if shape is not None:
+            for shift in range(1, shape[0] + 2):
+                got = rx.ring_shift_planes(state, mesh, shift)
+                want = rx.ring_shift_plain(state, mesh, shift)
+                err_ring = max(err_ring, _max_abs_err(zip(got, want)))
+        rows = [1, r - 1, r, r + 1, m_rows - 1] + [
+            int(x) for x in rng.randint(0, m_rows, 8)]
+        for rot in rows:
+            got = rb.rotate_planes(state, mesh, rot, r)
+            want = rb.rotate_planes_plain(state, mesh, rot, r)
+            err_rot = max(err_rot, _max_abs_err(zip(got, want)))
+    if err_ring or err_rot:
+        raise AssertionError(f"K1 ({err_ring}) or K15 ({err_rot}) differs "
+                             "from plain")
+    return err_ring, err_rot
+
+
+def check_sharded_fused(dev, inputs, n=N_VALIDATORS, s=LOG_SIZE,
+                        c=N_CHECKPOINTS):
+    """The sharded K14 on a 4-tile validator fabric against its plain
+    version on ``inputs`` (``fused_inputs``; phase G's 8,192 signed votes
+    at N = 64, S = 300, C = 3), and against the unsharded K14 on the same
+    votes."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.tpu import step as st
+
+    _, words_np, arrays, expect = inputs
+    words = q.words_tensor(words_np, dev)
+    sig = [torch.from_numpy(a).to(dev) for a in arrays]
+    mesh = q.make_fabric_mesh([dev] * 4, (4,), ("validators",))
+    fn = st.make_sharded_fused_step(mesh, n)
+    state, events, ok = fn(q.init_state(n, s, c, 1, dev), words, *sig)
+    pstate, pevents, pok = st.fused_step_plain(
+        q.init_state(n, s, c, 1, dev), words, *sig, n_validators=n,
+        v_shards=4)
+    ustate, uevents, uok = st.fused_step(q.init_state(n, s, c, 1, dev),
+                                         words, *sig, n_validators=n,
+                                         device=dev)
+    err = _max_abs_err(list(zip(state, pstate)) + list(zip(events, pevents))
+                       + [(ok, pok)])
+    cross = _max_abs_err(list(zip(state, ustate))
+                         + list(zip(events, uevents)) + [(ok, uok)])
+    if err or cross or not np.array_equal(ok.cpu().numpy(), expect):
+        raise AssertionError(f"sharded K14 differs from plain ({err}) or "
+                             f"from K14 ({cross})")
+    return err
+
+
 # K10-K12: SHA-256, the node hash and the audit-path fold
 SHA_LENGTHS = (0, 1, 55, 56, 63, 64, 65, 119, 120, 128, 200)
 NODE_WAVES = (1, 31, 32, 33, 4096, 65536)
@@ -1237,6 +1440,121 @@ def run_pool_b(device, depth=1):
                         readbacks_deferred=group.readbacks_deferred)
 
 
+# --- phases H and R: the fabric at full width, the rebalance ----------------
+
+H_BATCHES = 2  # bench.py bench_fabric: n, batches = 256, 2
+H_ARMS = (("single", None, 1), ("mesh8", (8,), 1),
+          ("fabric4x2", (4, 2), 1), ("fabric4x2_resident", (4, 2), 4))
+R_NODES, R_SEED, R_FORCE_TICK = 64, 23, 12  # test_residency.py:155-171
+R_SHAPES = ((4, 2), (8,))
+
+
+def run_pool_h(device, shape, depth):
+    """``bench.py``'s fabric cell (``bench.py:524-570``: ``_bench_ordered
+    (256, 1, batches=2)``, whose config is ``bench.py:154-200``): 256
+    validators, one instance, seed 11, unsigned, 3PC batches of 320,
+    batch wait 0.05, adaptive tick from 0.1, pipelined flush; 320 warm-up
+    requests, then 640 timed. ``shape`` None is the one-device arm (K7),
+    else the one-device fabric of that mesh shape (K13); ``depth`` is
+    ``ResidentTickDepth``."""
+    from indy_plenum_tpu_torch.common.metrics_collector import MetricsName
+    from indy_plenum_tpu_torch.config import getConfig
+    from indy_plenum_tpu_torch.simulation.pool import SimPool
+
+    config = getConfig({
+        "Max3PCBatchSize": POOL_BATCH, "Max3PCBatchWait": 0.05,
+        "QuorumTickInterval": 0.1, "QuorumTickAdaptive": True,
+        "TraceNetReceivers": 4, "ResidentTickDepth": depth})
+    mesh = None if shape is None else fabric_mesh(device or "cuda", shape)
+    pool = SimPool(n_nodes=FABRIC_N, seed=11, config=config,
+                   device_quorum=True, shadow_check=False,
+                   pipelined_flush=True, mesh=mesh, trace=True,
+                   device=device)
+    seq = [0]
+
+    def submit(count):
+        for _ in range(count):
+            seq[0] += 1
+            pool.submit_request(seq[0])
+
+    def run_until(target):
+        start = pool.timer.get_current_time()
+        while min(len(nd.ordered_digests) for nd in pool.nodes) < target:
+            if pool.timer.get_current_time() - start > 600:
+                raise AssertionError(f"phase H stalled below {target}")
+            pool.run_for(0.1)
+
+    group = pool.vote_group
+    submit(POOL_BATCH)
+    run_until(POOL_BATCH)
+    n_txns = H_BATCHES * POOL_BATCH
+    submit(n_txns)
+    flushes0 = group.flushes
+    stat = pool.metrics.stat(MetricsName.DEVICE_FLUSH_TIME)
+    flush0 = stat.total if stat is not None else 0.0
+    t0 = time.perf_counter()
+    run_until(POOL_BATCH + n_txns)
+    if device != "cpu":
+        import torch
+
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not pool.honest_nodes_agree():
+        raise AssertionError("phase H: honest nodes disagree")
+    ordered = min(len(nd.ordered_digests) for nd in pool.nodes) - POOL_BATCH
+    dispatches = group.flushes - flushes0
+    return dict(
+        ordered_hash=pool.ordered_hash(), ordered=ordered, wall_s=wall,
+        ordered_txns_per_s=ordered / wall, dispatches=dispatches,
+        dispatches_per_batch=dispatches / (ordered / POOL_BATCH),
+        flush_s=pool.metrics.stat(MetricsName.DEVICE_FLUSH_TIME).total
+        - flush0,
+        readbacks=group.readbacks,
+        readbacks_overlapped=group.readbacks_overlapped,
+        readback_bytes_total=group.readback_bytes_total,
+        readback_bytes_per_shard=group.readback_bytes_per_shard,
+        shards=group.shards, mesh_shape=list(group.mesh_shape),
+        strategy=group.compile_strategy,
+        resident_ticks=group.resident_ticks,
+        readbacks_deferred=group.readbacks_deferred)
+
+
+def run_pool_r(device, shape, force_tick):
+    """The reference's forced-rebalance arm (``tests/test_residency.py:
+    135-171``) at n=64: batches of one, CHK_FREQ 5, LOG_SIZE 15,
+    ResidentTickDepth 4, seed 23, on the one-device fabric of ``shape``;
+    ``force_tick`` 12 forces a rotation, 0 never rotates."""
+    from indy_plenum_tpu_torch.config import getConfig
+    from indy_plenum_tpu_torch.simulation.pool import SimPool
+
+    config = getConfig({
+        "Max3PCBatchWait": 0.1, "Max3PCBatchSize": 1,
+        "QuorumTickInterval": 0.05, "CHK_FREQ": 5, "LOG_SIZE": 15,
+        "ResidentTickDepth": 4, "RebalanceForceTick": force_tick})
+    pool = SimPool(R_NODES, seed=R_SEED, config=config, device_quorum=True,
+                   shadow_check=False, mesh=fabric_mesh(device or "cuda",
+                                                        shape),
+                   trace=True, device=device)
+    t0 = time.perf_counter()
+    for i in range(6):
+        pool.submit_request(i)
+    pool.run_for(5)
+    for i in range(6, 12):
+        pool.submit_request(i)
+    pool.run_for(25)
+    if device != "cpu":
+        import torch
+
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not pool.honest_nodes_agree():
+        raise AssertionError("phase R: honest nodes disagree")
+    group = pool.vote_group
+    return _pool_result(pool, wall, rebalances=group.rebalances,
+                        row_shift=group.row_shift, flushes=group.flushes,
+                        resident_ticks=group.resident_ticks)
+
+
 # --- phases F and G: residency, the fused step -------------------------------
 
 
@@ -1256,6 +1574,15 @@ def run_fused_g(dev, inputs):
         *sig, n_validators=N_VALIDATORS, device=dev)
     if not np.array_equal(ok.cpu().numpy(), expect):
         raise AssertionError("phase G: verdicts differ")
+    # the same votes through the sharded K14 on a 4-tile validator fabric
+    sharded = st.make_sharded_fused_step(
+        q.make_fabric_mesh([dev] * 4, (4,), ("validators",)), N_VALIDATORS)
+    sstate, sevents, sok = sharded(
+        q.init_state(N_VALIDATORS, LOG_SIZE, N_CHECKPOINTS, 1, dev), words,
+        *sig)
+    if _max_abs_err(list(zip(state, sstate)) + list(zip(events, sevents))
+                    + [(ok, sok)]):
+        raise AssertionError("phase G: the sharded step differs")
     return {"votes": int(words_np.shape[1]), "accepted": int(expect.sum()),
             "ordered_slots": int(events.ordered.sum()),
             "prepared_slots": int(events.prepared.sum())}
@@ -1772,6 +2099,114 @@ def residency_report(dev, rng, launches, errs, inputs):
                            "fused_step_verify_ms": kc_alone}
 
 
+def state_bytes(m, n, s, c):
+    """Bytes of a member-stacked VoteState of (M, N, S, C)."""
+    return m * (3 * s + 2 * n * s + n * c + 4)
+
+
+def fabric_report(dev, rng, launches, errs, inputs):
+    """The rows of slice 5's kernels, at the main path's shapes: K13 at
+    phase H's (4, 2) step (M = N = 256, S = 300, C = 3, W = 512, v = 2);
+    the tiled K9 at its resident arm's consume (k = 4 slots, no slide);
+    K1 (one ring step of every leaf on (8,)) and K15 (the merge of a
+    rotation by R / 2 on (8,)) on phase H's state; the sharded K14 at
+    phase G's 8,192 votes on 4 tiles. Bounds (bytes): K13 and the tiled
+    K9 are ``step_work`` plus the partials written and read (2 x M x v x
+    (2S + C) x 4) and the slides; K1 reads and writes every leaf once;
+    K15 reads one arm's row for each row it writes and writes the state
+    (K1's bytes); the sharded K14 is K-c's bound plus K13's at (1, N, S)
+    with B words. Also K13 at v = 1 (the (8,) member mesh's step) against
+    K7 on the same state and words, alternated three times in one call."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.tpu import rebalance as rb
+    from indy_plenum_tpu_torch.tpu import ring_exchange as rx
+    from indy_plenum_tpu_torch.tpu import step as st
+
+    m, n, s, c, w, k, v = (FABRIC_N, FABRIC_N, LOG_SIZE, N_CHECKPOINTS,
+                           FABRIC_W, 4, 2)
+    state = fabric_state(dev, rng, n, n, c)
+    words_np = fabric_words(rng, m, w, n, s, c)
+    words = q.words_tensor(words_np, dev)
+    slot_words_np = np.stack([fabric_words(rng, m, w, n, s, c)
+                              for _ in range(k)])
+    slot_words = q.words_tensor(slot_words_np, dev)
+    slides = torch.zeros((k, m), dtype=torch.int32, device=dev)
+    partials = 2 * m * v * (2 * s + c) * 4
+    mesh8 = fabric_mesh(dev, (8,))
+    r = m // 8
+    arm_a = rx.ring_shift_planes(state, mesh8, 0)
+    arm_b = rx.ring_shift_planes(state, mesh8, 1)
+    leaf_bytes = state_bytes(m, n, s, c)
+
+    _, words_g, arrays, _ = inputs
+    batch = words_g.shape[1]
+    gwords = q.words_tensor(words_g, dev)
+    sig = [torch.from_numpy(a).to(dev) for a in arrays]
+    gstate = q.init_state(N_VALIDATORS, s, c, 1, dev)
+    sharded = st.make_sharded_fused_step(
+        q.make_fabric_mesh([dev] * 4, (4,), ("validators",)), N_VALIDATORS)
+    kc_ms, kc_by = bound(batch * (4 * 32 + 1), batch * VERIFY_OPS_PER_ITEM)
+    g_bytes, g_ops = step_work(1, N_VALIDATORS, s, c, words_g)
+    k13g_ms, _ = bound(g_bytes + 2 * 4 * (2 * s + c) * 4, g_ops)
+    nb, ops = step_work(m, n, s, c, words_np)
+    nb_t, ops_t = step_work(m, n, s, c, slot_words_np)
+    rows = [
+        ("fabric_step",
+         lambda: q.fabric_step(state, words, n, v),
+         lambda: q.fabric_step_plain(state, words, n, v),
+         bound(nb + partials, ops), "indy_plenum_tpu_torch/csrc/fabric.cu",
+         "indy_plenum_tpu/tpu/quorum.py:306", 20),
+        ("resident_tile",
+         lambda: q.resident_tile_step(state, slides, slot_words, n, v),
+         lambda: q.resident_tile_plain(state, slides, slot_words, n, v),
+         bound(nb_t + 4 * k * m + partials, ops_t),
+         "indy_plenum_tpu_torch/csrc/resident.cu (+ csrc/fabric.cu)",
+         "indy_plenum_tpu/tpu/compile_plan.py:141", 20),
+        ("ring_shift",
+         lambda: rx.ring_shift_planes(state, mesh8, 1),
+         lambda: rx.ring_shift_plain(state, mesh8, 1),
+         bound(2 * leaf_bytes, 0), "indy_plenum_tpu_torch/csrc/ring.cu",
+         "indy_plenum_tpu/tpu/ring_exchange.py:101", 20),
+        ("rotate_merge",
+         lambda: rb.rotate_merge(arm_a, arm_b, r // 2, r),
+         lambda: rb.rotate_merge_plain(arm_a, arm_b, r // 2, r),
+         bound(2 * leaf_bytes, 0), "indy_plenum_tpu_torch/csrc/ring.cu",
+         "indy_plenum_tpu/tpu/rebalance.py:184", 20),
+        ("sharded_fused_step",
+         lambda: sharded(gstate, gwords, *sig),
+         lambda: st.fused_step_plain(
+             gstate, gwords, *sig, n_validators=N_VALIDATORS, v_shards=4),
+         (kc_ms + k13g_ms, kc_by),
+         "indy_plenum_tpu_torch/tpu/step.py (csrc/ed25519.cu + "
+         "csrc/fabric.cu)", "indy_plenum_tpu/tpu/step.py:46", 5),
+    ]
+    out, call_ms = [], {}
+    for name, fn, plain, (bound_ms, bound_by), src, replaces, reps in rows:
+        ms = _kernel_ms(fn, reps)
+        call_ms[name] = _cuda_ms(fn, reps)
+        plain_ms = _cuda_ms(plain, 1, 0)
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": errs[name], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None})
+    v1 = {"k13_v1_ms": [], "k7_ms": [], "k13_v1_call_ms": [],
+          "k7_call_ms": []}
+    for _ in range(3):
+        for tag, fn in (("k13_v1", lambda: q.fabric_step(state, words, n, 1)),
+                        ("k7", lambda: q.step_compact(state, words, n))):
+            v1[f"{tag}_ms"].append(_kernel_ms(fn, 20))
+            v1[f"{tag}_call_ms"].append(_cuda_ms(fn, 20))
+    return out, call_ms, v1, {
+        "fabric_step": f"{m} x {n} x {s}, v={v}, {w} words",
+        "resident_tile": f"k={k} x {m} x {w} words, {m} x {n} x {s}, v={v}",
+        "ring_shift": f"every leaf of {m} x {n} x {s}, (8,), shift 1",
+        "rotate_merge": f"every leaf of {m} x {n} x {s}, R={r}, s={r // 2}",
+        "sharded_fused_step": f"{batch} votes, 1 x {N_VALIDATORS} x {s}, "
+                              "v=4"}
+
+
 # the kernels each main-path run must launch
 PATH_KERNELS = {
     "ingress": ("sha512_blocks", "reduce_mod_l", "ed25519_verify"),
@@ -1795,7 +2230,17 @@ PATH_KERNELS = {
                 "resident_step"),
     "pool_f2": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
                 "resident_step", "window_zero"),
-    "fused_g": ("ed25519_verify", "fused_step"),
+    "fused_g": ("ed25519_verify", "fused_step", "sharded_fused_step"),
+    # phase H: K7 on one device, K13 on the fabric, the tiled K9 with
+    # residency (K13 for its cold start); 3 batches: no slide
+    "fabric_single": ("quorum_step",),
+    "fabric_mesh8": ("fabric_step",),
+    "fabric_fabric4x2": ("fabric_step",),
+    "fabric_fabric4x2_resident": ("resident_tile",),
+    # phase R: the forced arm rotates (K1 + K15); both arms run the tiled
+    # K9 and slide inside it
+    "rebalance_forced": ("resident_tile", "ring_shift", "rotate_merge"),
+    "rebalance_unforced": ("resident_tile",),
 }
 
 
@@ -1852,17 +2297,25 @@ def main() -> int:
                                 B_CHK_FREQ))
     fused = fused_inputs(rng, N_VALIDATORS, LOG_SIZE, DRAIN)
     err_k14, k14_accepted, k14_oracle = check_fused(dev, rng, fused)
+    # K13, the tiled K9, K1, K15 and the sharded K14 at full width
+    err_k13, k13_checks = check_fabric(dev, rng)
+    err_tile = check_resident_tile(dev, rng)
+    err_k1, err_k15 = check_ring_rotate(dev, rng)
+    err_sk14 = check_sharded_fused(dev, fused)
     errs = {"sha512_blocks": err_a, "reduce_mod_l": err_b,
             "ed25519_verify": err_c, "quorum_step": err_d,
             "resident_step": err_k9, "fused_step": err_k14,
             "window_slide": err_slide, "window_zero": err_zero,
             "sha256_fixed": err_k12, "merkle_node_hash": err_k11,
-            "audit_paths": err_k10, "audit_paths_indexed": err_k10}
+            "audit_paths": err_k10, "audit_paths_indexed": err_k10,
+            "fabric_step": err_k13, "resident_tile": err_tile,
+            "ring_shift": err_k1, "rotate_merge": err_k15,
+            "sharded_fused_step": err_sk14}
     _line("kernels", max_abs_err=errs, verify_accepted=n_ok,
           verify_rows=n_rows, quorum_steps=q_steps,
           audit_planted_faults=n_planted, resident_slots=RESIDENT_SLOTS,
           fused_votes=DRAIN, fused_accepted=k14_accepted,
-          fused_oracle_checked=k14_oracle,
+          fused_oracle_checked=k14_oracle, fabric_checks=k13_checks,
           phase_s=time.perf_counter() - t0, card=card)
 
     # 3, 4, A, B: the main path. Every launch counter is 0 just before
@@ -1978,6 +2431,49 @@ def main() -> int:
     _line("fused_g", **fused_g, launches=g_launches,
           phase_s=time.perf_counter() - t0, card=card)
 
+    # H. bench.py's fabric cell at full width: one device (K7), the (8,)
+    # member mesh and the (4, 2) fabric (K13), and the fabric at depth 4
+    # (the tiled K9), all on the one card; one ordering for all four
+    t0 = time.perf_counter()
+    fabric_h = {}
+    for arm, shape, depth in H_ARMS:
+        res, h_launches, _ = on_card(f"fabric_{arm}", run_pool_h, None,
+                                     shape, depth)
+        res["k13_launches"] = (h_launches["fabric_step"]
+                               + h_launches["resident_tile"])
+        fabric_h[arm] = res
+        _line("fabric_h", arm=arm, **res, launches=h_launches, card=card)
+    hashes = {res["ordered_hash"] for res in fabric_h.values()}
+    if len(hashes) != 1 or any(res["ordered"] != H_BATCHES * POOL_BATCH
+                               for res in fabric_h.values()):
+        raise AssertionError(f"phase H: the arms differ: {fabric_h}")
+    _line("fabric_h_summary", ordered_hash=hashes.pop(),
+          phase_s=time.perf_counter() - t0, card=card)
+
+    # R. a forced rebalance (K1 + K15) against the unforced arm, n=64, on
+    # the (4, 2) fabric and the (8,) mesh
+    t0 = time.perf_counter()
+    rebalance_r = {}
+    for shape in R_SHAPES:
+        forced, r_launches, _ = on_card("rebalance_forced", run_pool_r,
+                                        None, shape, R_FORCE_TICK)
+        plain_arm, u_launches, _ = on_card("rebalance_unforced",
+                                           run_pool_r, None, shape, 0)
+        for key in ("ordered_hash", "trace_hash", "views", "ordered_min"):
+            if forced[key] != plain_arm[key]:
+                raise AssertionError(f"phase R {shape}: the forced arm "
+                                     f"differs on {key}")
+        if forced["rebalances"] < 1 or forced["row_shift"] == 0 \
+                or plain_arm["rebalances"] != 0 \
+                or u_launches["ring_shift"] or u_launches["rotate_merge"]:
+            raise AssertionError(f"phase R {shape}: {forced} {plain_arm}")
+        rebalance_r["x".join(map(str, shape))] = forced
+        _line("rebalance_r", mesh=list(shape), **forced,
+              unforced_wall_s=plain_arm["wall_s"], launches=r_launches,
+              unforced_launches=u_launches, card=card)
+    _line("rebalance_r_summary", phase_s=time.perf_counter() - t0,
+          card=card)
+
     # C. real execution: device waves on the card, then host waves; the
     # two runs must agree on every ordering fingerprint and root
     t0 = time.perf_counter()
@@ -2046,6 +2542,10 @@ def main() -> int:
         dev, rng, launches, errs, fused)
     kernels += res_rows
     times["call_ms"].update(res_call_ms)
+    fab_rows, fab_call_ms, k13_v1, fab_shapes = fabric_report(
+        dev, rng, launches, errs, fused)
+    kernels += fab_rows
+    times["call_ms"].update(fab_call_ms)
     print(json.dumps({"kernels": kernels}), flush=True)
     plain = {k["name"]: k["plain_ms"] for k in kernels}
     print(json.dumps({"times": {
@@ -2069,6 +2569,15 @@ def main() -> int:
         "dispatches_per_batch": {"pool_a": pool_a["dispatches_per_batch"],
                                  "pool_f1": pool_f1["dispatches_per_batch"]},
         "fused_g_votes_per_s": fused_g["votes_per_s"],
+        "fabric_shapes": fab_shapes,
+        "k13_v1_vs_k7_256x256x300": k13_v1,
+        "fabric_h": {arm: {key: res[key] for key in (
+            "wall_s", "ordered_txns_per_s", "dispatches_per_batch",
+            "readbacks", "readbacks_overlapped", "readback_bytes_per_shard",
+            "k13_launches")} for arm, res in fabric_h.items()},
+        "rebalance_r": {mesh: {key: res[key] for key in (
+            "wall_s", "rebalances", "row_shift")}
+            for mesh, res in rebalance_r.items()},
         "fused_g_verify_share": fused_g["verify_share"],
         "plain_ms": plain, "report_s": time.perf_counter() - t0,
         "total_s": time.perf_counter() - t_start}}), flush=True)

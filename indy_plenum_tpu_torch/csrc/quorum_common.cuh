@@ -1,6 +1,8 @@
 // Device code shared by the vote-plane kernels: the grouped quorum step
-// (K7, quorum.cu), the window slide and zero (K8, window.cu) and the
-// resident multi-slot step (K9, resident.cu).
+// (K7, quorum.cu), the window slide and zero (K8, window.cu), the
+// resident multi-slot step (K9 and its tiled form, resident.cu) and the
+// member x validator fabric step (K13, fabric.cu). K7, K9 and K13 decide
+// through one function (decide_member), so they cannot drift.
 //
 // Every function here works on ONE member plane inside one thread block
 // and is called by all threads of the block alike (some hold a barrier).
@@ -60,15 +62,19 @@ __device__ __forceinline__ uint8_t* row_ptr(const Planes& p, int r, int m,
   return plane + (static_cast<size_t>(m) * N + n) * S;
 }
 
-// Decode member m's W words and store 1 into the hit planes. The
-// reference's scatter is a max of 0/1 bytes, idempotent, so plain stores
-// are right in any thread order. PRE-PREPARE hits regardless of the
-// sender (quorum.py:170); checkpoints are bounded by C, not S (:153).
-// ``okm`` (nullable) is a per-word verdict: a word whose verdict is 0 is
-// dropped like an invalid one (K14's masked decode).
-__device__ __forceinline__ void scatter_member(
+// Decode member m's W words and store 1 into the hit planes of the
+// validator rows [row_lo, row_lo + rows) (a fabric tile's senders; the
+// whole plane for K7 and K9). The reference's scatter is a max of 0/1
+// bytes, idempotent, so plain stores are right in any thread order.
+// PRE-PREPARE hits regardless of the sender (quorum.py:170), stored only
+// by the block that owns the member's slot-axis rows (``pp_owner``);
+// checkpoints are bounded by C, not S (:153). ``okm`` (nullable) is a
+// per-word verdict: a word whose verdict is 0 is dropped like an invalid
+// one (K14's masked decode).
+__device__ __forceinline__ void scatter_member_rows(
     const Planes& p, int m, const uint32_t* __restrict__ wm,
-    const uint8_t* __restrict__ okm, int N, int S, int C, int W) {
+    const uint8_t* __restrict__ okm, int N, int S, int C, int W,
+    int row_lo, int rows, bool pp_owner) {
   uint8_t* ppm = p.pp + static_cast<size_t>(m) * S;
   uint8_t* pvm = p.pv + static_cast<size_t>(m) * N * S;
   uint8_t* cvm = p.cv + static_cast<size_t>(m) * N * S;
@@ -81,8 +87,8 @@ __device__ __forceinline__ void scatter_member(
     const int sender = (w >> 16) & 0x1FFF;
     const int slot = w & 0xFFFF;
     if (kind == 0) {
-      if (slot < S) ppm[slot] = 1;
-    } else if (sender < N) {
+      if (pp_owner && slot < S) ppm[slot] = 1;
+    } else if (sender >= row_lo && sender < row_lo + rows) {
       if (kind == 1) {
         if (slot < S) pvm[static_cast<size_t>(sender) * S + slot] = 1;
       } else if (kind == 2) {
@@ -92,6 +98,13 @@ __device__ __forceinline__ void scatter_member(
       }
     }
   }
+}
+
+// The whole plane: K7's and K9's scatter.
+__device__ __forceinline__ void scatter_member(
+    const Planes& p, int m, const uint32_t* __restrict__ wm,
+    const uint8_t* __restrict__ okm, int N, int S, int C, int W) {
+  scatter_member_rows(p, m, wm, okm, N, S, C, W, 0, N, true);
 }
 
 // Roll rows [r0, r0 + nr) of member m left by d > 0, zero-filling the
@@ -129,36 +142,84 @@ __device__ __forceinline__ void slide_tail(const Planes& p, int m, int d,
   }
 }
 
-// Quorum eval of member m over its current planes, and the compact
-// record:
-//   1. column counts over the N validator rows against n-f-1 (prepare)
-//      and n-f (commit, checkpoint), f from the REAL validator count;
-//      prepared / newly ordered / cumulative ordered; with ``compact``
-//      prepared_acked is SET to prepared (quorum.py:274), not or-ed;
+// A fabric tile's part of a slide by d > 0 of member m: its validator rows
+// [r0, r0 + nv) of the prepare and commit planes and of the checkpoint
+// votes, and, for the tile that owns the member's slot-axis rows, the
+// preprepare_seen, ordered and prepared_acked rows and the frontier.
+// Rows are staged ``per`` at a time through ``stage`` (per x S bytes).
+__device__ __forceinline__ void slide_tile(const Planes& p, int m, int r0,
+                                           int nv, bool owner, int d, int N,
+                                           int S, int C, int per,
+                                           uint8_t* stage) {
+  // row_ptr numbering: 0..2 slot-axis rows, 3 + n prepare, 3 + N + n commit
+  const int lo[3] = {0, 3 + r0, 3 + N + r0};
+  const int cnt[3] = {owner ? 3 : 0, nv, nv};
+  for (int g = 0; g < 3; ++g) {
+    for (int a = 0; a < cnt[g]; a += per) {
+      const int nr = cnt[g] - a < per ? cnt[g] - a : per;
+      slide_rows(p, m, lo[g] + a, nr, d, N, S, stage);
+      __syncthreads();  // the stage is reused by the next chunk
+    }
+  }
+  uint8_t* ckm = p.ck + (static_cast<size_t>(m) * N + r0) * C;
+  for (int i = threadIdx.x; i < nv * C; i += blockDim.x) ckm[i] = 0;
+  if (owner && threadIdx.x == 0) {
+    const int f = p.frontier[m] - d;
+    p.frontier[m] = f > 0 ? f : 0;
+  }
+}
+
+// Column counts of member m's validator rows [r0, r0 + nr) at slot s (the
+// prepare and commit planes) and at checkpoint slot c. Threads walk
+// slots, so the reads of each validator row are coalesced.
+__device__ __forceinline__ void column_counts(const Planes& p, int m, int r0,
+                                              int nr, int N, int S, int s,
+                                              int* pc, int* cc) {
+  const uint8_t* pvm = p.pv + (static_cast<size_t>(m) * N + r0) * S;
+  const uint8_t* cvm = p.cv + (static_cast<size_t>(m) * N + r0) * S;
+  int a = 0, b = 0;
+  for (int n = 0; n < nr; ++n) {
+    a += pvm[static_cast<size_t>(n) * S + s];
+    b += cvm[static_cast<size_t>(n) * S + s];
+  }
+  *pc = a;
+  *cc = b;
+}
+
+__device__ __forceinline__ int checkpoint_count(const Planes& p, int m,
+                                                int r0, int nr, int N, int C,
+                                                int c) {
+  const uint8_t* ckm = p.ck + (static_cast<size_t>(m) * N + r0) * C;
+  int kc = 0;
+  for (int n = 0; n < nr; ++n) kc += ckm[static_cast<size_t>(n) * C + c];
+  return kc;
+}
+
+// Quorum decision of member m from its column counts, and the compact
+// record. ``counts(s, &pc, &cc)`` gives slot s's prepare and commit
+// counts, ``chk_count(c)`` checkpoint slot c's:
+//   1. counts against n-f-1 (prepare) and n-f (commit, checkpoint), f from
+//      the REAL validator count; prepared / newly ordered / cumulative
+//      ordered; with ``compact`` prepared_acked is SET to prepared
+//      (quorum.py:274), not or-ed;
 //   2. ascending delta-slot lists capped at ``cap`` and padded with S,
 //      with the true counts (warp ballots + popcounts, one warp per
 //      list), and with ``compact`` the frontier max(old, leading run of
 //      ordered) (:272).
-// Threads walk slots, so the reads of each validator row are coalesced.
 // ``f_*`` are three kMaxSlots-byte flag arrays in shared memory.
-__device__ __forceinline__ void eval_member(
-    const Planes& p, const Events& e, int m, int N, int S, int C,
-    int n_validators, int cap, int compact, uint8_t* f_newprep,
-    uint8_t* f_newly, uint8_t* f_ordered) {
+template <class Counts, class ChkCount>
+__device__ __forceinline__ void decide_member(
+    const Planes& p, const Events& e, int m, int S, int C, int n_validators,
+    int cap, int compact, Counts counts, ChkCount chk_count,
+    uint8_t* f_newprep, uint8_t* f_newly, uint8_t* f_ordered) {
   const size_t ms = static_cast<size_t>(m) * S;
   const uint8_t* ppm = p.pp + ms;
-  const uint8_t* pvm = p.pv + static_cast<size_t>(m) * N * S;
-  const uint8_t* cvm = p.cv + static_cast<size_t>(m) * N * S;
-  const uint8_t* ckm = p.ck + static_cast<size_t>(m) * N * C;
   const int f = (n_validators - 1) / 3;
   const int prepare_q = n_validators - f - 1;
   const int commit_q = n_validators - f;
   for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    int pc = 0, cc = 0;
-    for (int n = 0; n < N; ++n) {
-      pc += pvm[static_cast<size_t>(n) * S + s];
-      cc += cvm[static_cast<size_t>(n) * S + s];
-    }
+    int pc, cc;
+    counts(s, &pc, &cc);
     const bool seen = ppm[s] != 0;
     const bool prepared = seen && pc >= prepare_q;
     const bool commit_ok = seen && cc >= commit_q && prepared;
@@ -178,9 +239,7 @@ __device__ __forceinline__ void eval_member(
     f_ordered[s] = now;
   }
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    int kc = 0;
-    for (int n = 0; n < N; ++n) kc += ckm[static_cast<size_t>(n) * C + c];
-    const bool st = kc >= commit_q;
+    const bool st = chk_count(c) >= commit_q;
     e.stable[static_cast<size_t>(m) * C + c] = st;
     e.stable_u8[static_cast<size_t>(m) * C + c] = st;
   }
@@ -224,6 +283,41 @@ __device__ __forceinline__ void eval_member(
   }
 }
 
+
+// Quorum eval of member m over its current planes (K7, K9): the column
+// counts over all N rows, then the decide.
+__device__ __forceinline__ void eval_member(
+    const Planes& p, const Events& e, int m, int N, int S, int C,
+    int n_validators, int cap, int compact, uint8_t* f_newprep,
+    uint8_t* f_newly, uint8_t* f_ordered) {
+  decide_member(
+      p, e, m, S, C, n_validators, cap, compact,
+      [&](int s, int* pc, int* cc) { column_counts(p, m, 0, N, N, S, s, pc,
+                                                   cc); },
+      [&](int c) { return checkpoint_count(p, m, 0, N, N, C, c); },
+      f_newprep, f_newly, f_ordered);
+}
+
+// A fabric tile's partial counts: member m's validator rows [r0, r0 + nv)
+// (tile j of v) summed per slot into pc/cc_part[(m v + j) S + s] and per
+// checkpoint slot into kc_part[(m v + j) C + c].
+__device__ __forceinline__ void tile_partials(const Planes& p, int m, int j,
+                                              int v, int r0, int nv, int N,
+                                              int S, int C, int32_t* pc_part,
+                                              int32_t* cc_part,
+                                              int32_t* kc_part) {
+  const size_t row = static_cast<size_t>(m) * v + j;
+  for (int s = threadIdx.x; s < S; s += blockDim.x) {
+    int pc, cc;
+    column_counts(p, m, r0, nv, N, S, s, &pc, &cc);
+    pc_part[row * S + s] = pc;
+    cc_part[row * S + s] = cc;
+  }
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    kc_part[row * C + c] = checkpoint_count(p, m, r0, nv, N, C, c);
+  }
+}
+
 inline Planes planes(void* pp, void* pv, void* cv, void* ck, void* ordered,
                      void* acked, void* frontier) {
   return Planes{static_cast<uint8_t*>(pp), static_cast<uint8_t*>(pv),
@@ -248,5 +342,12 @@ inline Events events(void* prepared, void* newly, void* ordered,
                 static_cast<int32_t*>(n_comm),
                 static_cast<uint8_t*>(stable_u8)};
 }
+
+// K13's second kernel (fabric.cu): one block per member sums the v tile
+// partials and decides; also run after the tiled K9 (resident.cu).
+int fabric_decide(const Planes& p, const Events& e, const int32_t* pc_part,
+                  const int32_t* cc_part, const int32_t* kc_part, int M,
+                  int v, int S, int C, int n_validators, int cap,
+                  int compact, cudaStream_t stream);
 
 }  // namespace qc

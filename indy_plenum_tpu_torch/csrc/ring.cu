@@ -1,0 +1,222 @@
+// Member-plane migration on the fabric: the ring shift (K1) and the
+// rotation's shard-local merge (K15). Both copy bytes, out of place, for
+// every leaf of a member-stacked state in ONE launch over a table of
+// leaves passed by value, so any dtype works (the uint8 planes, the int32
+// frontier, float32 in the tests).
+//
+// Replaces (JAX reference):
+// - K1: indy_plenum_tpu/tpu/ring_exchange.py:101, the repo's only
+//   `pl.pallas_call` (`_ring_kernel` :67, `_pallas_ring_fn` :89,
+//   `ring_shift_pallas` :118), behind the dispatcher `ring_shift_planes`
+//   (:127) whose oracle is `ring_shift_reference` (:47, lax.ppermute):
+//   member block b of every leaf moves to block (b + shift) mod m. The
+//   TPU kernel RDMAs each device's block to its ring neighbour. On one
+//   device every block lives in the same leaf, and the member blocks are
+//   contiguous rows, so the shift is a rotation of each leaf's bytes by
+//   shift x R x row_bytes: dst[(i + offset) mod total] = src[i]. Any shift
+//   and both mesh ranks (the validator tiles of a member block move with
+//   it, inside its rows).
+// - K15: indy_plenum_tpu/tpu/rebalance.py:207-221, `rotate_planes`' merge:
+//   for rows = b R + s, two ring shifts (K1 by b and by b + 1) give arms A
+//   and B; new row k R + r of shard k takes A's row k R + r - s when
+//   r >= s, else B's row k R + r - s + R. Without a mesh the rotation is
+//   this merge alone with m = 1 (A = B = the state, R = M): a roll of the
+//   member axis.
+//
+// What bounds them on an H100: bytes. K1 reads and writes each leaf once:
+// at the fabric bench's state (256 x 256 x 300 uint8 planes x 2, the
+// checkpoint votes, three slot rows and the frontier) ~39.7 MB each way,
+// ~79 MB, 24 us at 3.35 TB/s. K15's merge moves the same bytes: it reads
+// one arm's row for each row it writes. A rotation on a mesh is three
+// such passes (two K1 arms and the merge) where, with every tile on one
+// card, one K1-style roll of each leaf by ``rows`` rows would do: the
+// arms-and-merge shape is the reference's multi-device one, kept for the
+// multi-card fabric.
+//
+// Design: a grid-stride copy, grid (blocks, leaves). Each leaf moves in
+// the widest granule (16, 4 or 1 bytes) that divides its size, its
+// rotation offset (K1) or row (K15) and both addresses, so the big planes
+// move as 16-byte vector loads and stores, neighbouring threads on
+// neighbouring addresses. The rotation's wrap is a compare, not a
+// division; the merge divides once per granule to find the row.
+#include <cstddef>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxLeaves = 16;
+constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 1024;
+
+struct RingTable {
+  const uint8_t* src[kMaxLeaves];
+  uint8_t* dst[kMaxLeaves];
+  long long units[kMaxLeaves];   // leaf size in granules
+  long long offset[kMaxLeaves];  // rotation in granules, < units
+  int granule[kMaxLeaves];
+};
+
+struct MergeTable {
+  const uint8_t* a[kMaxLeaves];
+  const uint8_t* b[kMaxLeaves];
+  uint8_t* dst[kMaxLeaves];
+  int row_units[kMaxLeaves];  // one member row in granules
+  int granule[kMaxLeaves];
+};
+
+template <class T>
+__device__ __forceinline__ void rotate_leaf(const T* __restrict__ src,
+                                            T* __restrict__ dst,
+                                            long long units,
+                                            long long offset) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < units; i += step) {
+    long long to = i + offset;
+    if (to >= units) to -= units;
+    dst[to] = src[i];
+  }
+}
+
+__global__ void ring_shift_kernel(RingTable t) {
+  const int l = blockIdx.y;
+  switch (t.granule[l]) {
+    case 16:
+      rotate_leaf(reinterpret_cast<const uint4*>(t.src[l]),
+                  reinterpret_cast<uint4*>(t.dst[l]), t.units[l],
+                  t.offset[l]);
+      break;
+    case 4:
+      rotate_leaf(reinterpret_cast<const uint32_t*>(t.src[l]),
+                  reinterpret_cast<uint32_t*>(t.dst[l]), t.units[l],
+                  t.offset[l]);
+      break;
+    default:
+      rotate_leaf(t.src[l], t.dst[l], t.units[l], t.offset[l]);
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void merge_leaf(const T* __restrict__ a,
+                                           const T* __restrict__ b,
+                                           T* __restrict__ dst, int rows,
+                                           int row_units, int shard_rows,
+                                           int s) {
+  const long long units = static_cast<long long>(rows) * row_units;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < units; i += step) {
+    const int g = static_cast<int>(i / row_units);
+    const int col = static_cast<int>(i - static_cast<long long>(g) *
+                                             row_units);
+    const int r = g % shard_rows;
+    const bool from_a = r >= s;
+    const int src_row = g - r + (from_a ? r - s : r - s + shard_rows);
+    const T* from = from_a ? a : b;
+    dst[i] = from[static_cast<long long>(src_row) * row_units + col];
+  }
+}
+
+__global__ void rotate_merge_kernel(MergeTable t, int rows, int shard_rows,
+                                    int s) {
+  const int l = blockIdx.y;
+  switch (t.granule[l]) {
+    case 16:
+      merge_leaf(reinterpret_cast<const uint4*>(t.a[l]),
+                 reinterpret_cast<const uint4*>(t.b[l]),
+                 reinterpret_cast<uint4*>(t.dst[l]), rows, t.row_units[l],
+                 shard_rows, s);
+      break;
+    case 4:
+      merge_leaf(reinterpret_cast<const uint32_t*>(t.a[l]),
+                 reinterpret_cast<const uint32_t*>(t.b[l]),
+                 reinterpret_cast<uint32_t*>(t.dst[l]), rows,
+                 t.row_units[l], shard_rows, s);
+      break;
+    default:
+      merge_leaf(t.a[l], t.b[l], t.dst[l], rows, t.row_units[l], shard_rows,
+                 s);
+  }
+}
+
+// the widest of 16, 4 and 1 bytes that divides every value given
+int granule_of(const long long* values, int n) {
+  const int widths[2] = {16, 4};
+  for (int g : widths) {
+    bool fits = true;
+    for (int i = 0; i < n; ++i) fits = fits && values[i] % g == 0;
+    if (fits) return g;
+  }
+  return 1;
+}
+
+int blocks_for(long long most_units) {
+  const long long b = (most_units + kThreads - 1) / kThreads;
+  return static_cast<int>(b < 1 ? 1 : (b > kMaxBlocks ? kMaxBlocks : b));
+}
+
+}  // namespace
+
+// ``table``: host int64 triples (src, dst, row_bytes) per leaf, each leaf
+// ``rows`` member rows of row_bytes; block b -> b + shift of m blocks of
+// rows / m rows each is a rotation by shift_rows = shift x rows / m rows.
+extern "C" int ring_shift_launch(const void* table, int n_leaves, int rows,
+                                 int shift_rows, void* stream) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves || rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long* in = static_cast<const long long*>(table);
+  const int sr = ((shift_rows % rows) + rows) % rows;
+  RingTable t = {};
+  long long most = 0;
+  for (int l = 0; l < n_leaves; ++l) {
+    const long long src = in[3 * l], dst = in[3 * l + 1];
+    const long long row_bytes = in[3 * l + 2];
+    const long long total = row_bytes * rows;
+    const long long offset = row_bytes * sr;
+    const long long vals[4] = {src, dst, total, offset};
+    const int g = granule_of(vals, 4);
+    t.src[l] = reinterpret_cast<const uint8_t*>(src);
+    t.dst[l] = reinterpret_cast<uint8_t*>(dst);
+    t.units[l] = total / g;
+    t.offset[l] = offset / g;
+    t.granule[l] = g;
+    most = t.units[l] > most ? t.units[l] : most;
+  }
+  ring_shift_kernel<<<dim3(blocks_for(most), n_leaves), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(t);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ``table``: host int64 quadruples (a, b, dst, row_bytes) per leaf, each
+// leaf ``rows`` member rows in shards of ``shard_rows``; 0 < s < shard_rows.
+extern "C" int rotate_merge_launch(const void* table, int n_leaves,
+                                   int rows, int shard_rows, int s,
+                                   void* stream) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves || shard_rows < 1 ||
+      rows % shard_rows != 0 || s < 1 || s >= shard_rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long* in = static_cast<const long long*>(table);
+  MergeTable t = {};
+  long long most = 0;
+  for (int l = 0; l < n_leaves; ++l) {
+    const long long vals[4] = {in[4 * l], in[4 * l + 1], in[4 * l + 2],
+                               in[4 * l + 3]};
+    const int g = granule_of(vals, 4);
+    t.a[l] = reinterpret_cast<const uint8_t*>(vals[0]);
+    t.b[l] = reinterpret_cast<const uint8_t*>(vals[1]);
+    t.dst[l] = reinterpret_cast<uint8_t*>(vals[2]);
+    t.row_units[l] = static_cast<int>(vals[3] / g);
+    t.granule[l] = g;
+    const long long units = static_cast<long long>(rows) * t.row_units[l];
+    most = units > most ? units : most;
+  }
+  rotate_merge_kernel<<<dim3(blocks_for(most), n_leaves), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(t, rows,
+                                                             shard_rows, s);
+  return static_cast<int>(cudaGetLastError());
+}

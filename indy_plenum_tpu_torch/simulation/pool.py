@@ -19,11 +19,15 @@ every node executes through its own ledgers and SMT states
 fakes the roots. What later slices of the port bring raises
 ``NotImplementedError``: catchup (the reference wires a seeder and a
 leecher into every real-execution node; here a node that needs catchup
-raises), BLS and the state-proof plane, a device mesh, the region latency
-matrix, the closed-loop retry driver and the telemetry plane. With
+raises), BLS and the state-proof plane, the region latency matrix, the
+closed-loop retry driver and the telemetry plane. With
 ``ResidentTickDepth > 1`` the vote group runs its multi-tick residency
 ring (one fused device step per up to that many ticks, checkpoint slides
-folded in). The ordering lanes' seams
+folded in). ``mesh`` (a ``FabricMesh`` from
+``tpu.quorum.make_fabric_mesh`` on the pool's device) runs the vote group
+as the member x validator fabric on that one device, and with
+``RebalanceSkewThreshold`` or ``RebalanceForceTick`` armed
+``pool.rebalance`` plans member-plane rotations. The ordering lanes' seams
 (a shared timer, metrics collector and trace ring, the cross-lane
 checkpoint barrier, the lane tick driver), the router spies and the
 closed-loop retry seam are left out: the lanes and overload slices bring
@@ -366,8 +370,6 @@ class SimPool:
                  device: DeviceLike = None):
         if bls:
             raise _later_slice("BLS multi-signatures", "BLS")
-        if mesh is not None:
-            raise _later_slice("a device mesh", "mesh")
         self.config = config or getConfig(
             {"Max3PCBatchWait": 0.1, "Max3PCBatchSize": 10})
         self.seed = seed
@@ -547,9 +549,8 @@ class SimPool:
         # adaptive tick mode: the governor's interval trajectory is a
         # first-class observable (bench digests, determinism tests)
         self.governor = getattr(self._quorum_tick_timer, "governor", None)
-        # occupancy-driven rebalance policy: the reference builds one only
-        # for a member-sharded group, which the port does not have yet
-        self.rebalance = None
+        # occupancy-driven rebalance policy (None unless sharded + armed)
+        self.rebalance = getattr(self._quorum_tick_timer, "rebalance", None)
         self.resource_ledger = None
         self.telemetry = None
 

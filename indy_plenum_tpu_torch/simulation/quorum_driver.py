@@ -15,10 +15,12 @@ against the fresh snapshot. ``device.dispatches_per_tick`` and
 amortization is a regression-guarded number
 (``scripts/check_dispatch_budget.py``).
 
-The port runs one unsharded group on one card (or on the CPU with
-``device="cpu"``): a mesh, and with it the occupancy-driven rebalancer,
-come with the mesh slice of the port, and the multi-lane tick
-(``drive_lane_ticks``) with the ordering-lanes slice.
+With a ``mesh`` the same contract runs on the member x validator fabric,
+every tile on the group's one device: the governor observes the per-cell
+occupancy grid, and an armed :class:`~indy_plenum_tpu_torch.tpu.rebalance
+.RebalancePolicy` plans member-plane rotations that the group executes at
+its next checkpoint-boundary slide. The multi-lane tick
+(``drive_lane_ticks``) comes with the ordering-lanes slice.
 
 Copy of ``indy_plenum_tpu/simulation/quorum_driver.py``, with its imports
 bound to the port.
@@ -42,10 +44,10 @@ def make_vote_group(n_nodes: int, validators, config: Config,
     """Member axis = (node x instance): member i*num_instances + inst_id
     is node i's plane for protocol instance inst_id (SURVEY §2.6's RBFT
     mapping — instances are a leading tensor dimension, so backups' vote
-    tallies ride the same vmapped dispatch as the master's). ``mesh``
-    shards that member axis across a device mesh via ``shard_map`` (the
-    member count is padded up to a mesh multiple; quorum events gather
-    back in one readback); ``pipelined`` (DEFAULT since the ordering
+    tallies ride the same dispatch as the master's). ``mesh`` (a
+    ``FabricMesh``) runs the group as the member x validator fabric on
+    its one device (both axes padded up to a mesh multiple; readbacks
+    counted per member block); ``pipelined`` (DEFAULT since the ordering
     fast path: README "Performance") overlaps each tick's device
     round-trip with the next tick's host work (verdicts lag one tick;
     the services' lost-wakeup guard re-arms while a step is in flight).
@@ -118,6 +120,13 @@ def drive_group_ticks(timer: TimerService, config: Config, vote_group,
     # narrows the tick for the whole pool
     last_shard = [list(vote_group.flush_votes_per_shard),
                   list(vote_group.flush_capacity_per_shard)]
+    # occupancy-driven rebalancing (tpu/rebalance.py): None unless the
+    # group is member-sharded AND a trigger is armed. The policy only
+    # PLANS here; the group executes at its next checkpoint-boundary
+    # slide (the rebalance barrier).
+    from ..tpu.rebalance import RebalancePolicy
+
+    rebalance = RebalancePolicy.from_config(config, vote_group)
     timer_box: list = []  # the RepeatingTimer, bound after construction
 
     def tick() -> None:
@@ -165,6 +174,16 @@ def drive_group_ticks(timer: TimerService, config: Config, vote_group,
                     "tick.governor", cat="dispatch",
                     args={"interval": round(new_interval, 9),
                           "occupancy_ewma": round(governor.ewma, 6)})
+        if rebalance is not None:
+            rows = rebalance.observe(
+                governor.shard_ewmas if governor is not None else None)
+            if rows:
+                if trace.enabled:
+                    trace.record(
+                        "rebalance.planned", cat="dispatch",
+                        args={"rows": rows,
+                              "skew": round(rebalance.last_skew, 4)})
+                vote_group.schedule_rebalance(rows)
         last[:] = [vote_group.flushes, vote_group.flush_votes_total,
                    vote_group.flush_capacity_total]
         last_shard[0] = list(vote_group.flush_votes_per_shard)
@@ -191,5 +210,6 @@ def drive_group_ticks(timer: TimerService, config: Config, vote_group,
     rt = RepeatingTimer(timer, interval, tick, barrier=True)
     timer_box.append(rt)
     rt.governor = governor
+    rt.rebalance = rebalance
     return rt
 

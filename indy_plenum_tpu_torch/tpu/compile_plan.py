@@ -1,31 +1,41 @@
 """Execution plans for the grouped vote-plane step functions.
 
-Port of the unsharded part of ``indy_plenum_tpu/tpu/compile_plan.py``
-(``plan_for(None, ...)``, ``:186-199``). In JAX the plan decides how each
-function compiles (``jit``/``pjit``/``shard_map``); PyTorch runs eagerly,
-so here the plan only binds the three functions a
-:class:`~indy_plenum_tpu_torch.tpu.vote_plane.VotePlaneGroup` runs:
+Port of ``indy_plenum_tpu/tpu/compile_plan.py``. In JAX the plan decides
+how each function compiles for a mesh shape (``jit``/``pjit``/
+``shard_map``); PyTorch runs eagerly, so here the plan binds the three
+functions a :class:`~indy_plenum_tpu_torch.tpu.vote_plane.VotePlaneGroup`
+runs, to the kernels that run them:
 
 - ``step(states, words)`` -> (states, events, compact): the fused quorum
-  step (K-d, :func:`~indy_plenum_tpu_torch.tpu.quorum.step_compact`);
+  step - K7 (:func:`~indy_plenum_tpu_torch.tpu.quorum.step_compact`)
+  without a mesh, K13 (:func:`~indy_plenum_tpu_torch.tpu.quorum.
+  fabric_step`) on the fabric (reference ``:201-245``, its ``shard_map``
+  step);
 - ``slide(states, (M,) deltas)`` and ``zero(states, (M,) mask)``: the
   rare-path window ops (K8, reference ``_slide_body``/``_zero_body``,
   ``:83-97``): :func:`~indy_plenum_tpu_torch.tpu.quorum.slide_state` and
   :func:`~indy_plenum_tpu_torch.tpu.quorum.zero_members`, one
-  ``csrc/window.cu`` launch each on the card.
+  ``csrc/window.cu`` launch each on the card. The reference's pjit'd mesh
+  versions are per-member maps over the member-stacked state, so on the
+  one-device fabric K8 runs them over the padded state as it is.
+
+``CompilePlan.strategy`` names what the port launches for each function
+(``{"step": "k7" | "k13", "slide": "k8", "zero": "k8"}``) where the
+reference names its compilation path; ``mesh_shape`` is the reference's:
+``()`` unsharded, ``(m,)`` or ``(m, v)`` on the fabric.
 
 All three update the state IN PLACE, which takes the place of the
 reference's buffer donation (``compile_plan.py:54``), and return it so a
 caller rebinding its state reads like the JAX code.
 :func:`resident_plan_for` (``:99-173``) binds the residency ring's
-consume, K9 (:func:`~indy_plenum_tpu_torch.tpu.quorum.resident_step`).
-Member-sharded and 2-axis mesh plans (``compile_plan.py:201-245``) come
-with the mesh slice of the port.
+consume: K9 (:func:`~indy_plenum_tpu_torch.tpu.quorum.resident_step`)
+unsharded, the tiled K9 (:func:`~indy_plenum_tpu_torch.tpu.quorum.
+resident_tile_step`) on the fabric.
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -37,6 +47,22 @@ class CompilePlan(NamedTuple):
     step: Callable
     slide: Callable
     zero: Callable
+    strategy: dict
+    mesh_shape: Tuple[int, ...]
+
+
+def _fabric_tiles(mesh, n_validator_rows: int) -> int:
+    """The fabric's validator tile count, checked against the rows."""
+    v = mesh.v_shards
+    if n_validator_rows % v:
+        raise ValueError(f"{n_validator_rows} validator rows on {v} tiles")
+    return v
+
+
+def _check_device(mesh, t: torch.Tensor) -> None:
+    if t.device != mesh.device:
+        raise ValueError(f"fabric plan: operand on {t.device}, mesh on "
+                         f"{mesh.device}")
 
 
 def _zero_body(states: q.VoteState, mask: torch.Tensor) -> q.VoteState:
@@ -61,14 +87,21 @@ def resident_plan_for(mesh, n_validators: int, n_validator_rows: int,
     operand. Quorums are evaluated once at the end, with the compact
     deltas; the state is updated in place. On the card the whole step is
     one K9 launch. Cached per the reference's key; runs on the card
-    unless ``device="cpu"``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "resident mesh plans (member-sharded and member x validator "
-            "fabrics) come with the mesh slice of the port")
-    if n_validator_rows != n_validators:
-        raise ValueError("unsharded plans carry no pad validator rows")
-    dev = resolve_device(device)
+    unless ``device="cpu"``. On a fabric ``mesh`` the step is the tiled
+    K9 over the mesh's device, whose state carries ``n_validator_rows``
+    (padded) rows."""
+    mesh = q.as_fabric(mesh)
+    if mesh is None:
+        if n_validator_rows != n_validators:
+            raise ValueError("unsharded plans carry no pad validator rows")
+        dev = resolve_device(device)
+        v = None
+    else:
+        dev = mesh.device
+        if device is not None and resolve_device(device) != dev:
+            raise ValueError(f"resident plan: device {device}, mesh on "
+                             f"{dev}")
+        v = _fabric_tiles(mesh, n_validator_rows)
 
     def step(states: q.VoteState, slides, *words):
         block = (words[0] if len(words) == 1 and words[0].dim() == 3
@@ -77,9 +110,14 @@ def resident_plan_for(mesh, n_validators: int, n_validator_rows: int,
                 or block.device != dev:
             raise ValueError(f"resident plan: words must be {n_slots} "
                              f"slots of width {width} on {dev}")
-        events, compact = q.resident_step(
-            states, torch.as_tensor(slides), block, n_validators,
-            delta_cap)
+        if v is None:
+            events, compact = q.resident_step(
+                states, torch.as_tensor(slides), block, n_validators,
+                delta_cap)
+        else:
+            events, compact = q.resident_tile_step(
+                states, torch.as_tensor(slides), block, n_validators, v,
+                delta_cap)
         return states, events, compact
 
     return step
@@ -88,19 +126,33 @@ def resident_plan_for(mesh, n_validators: int, n_validator_rows: int,
 @functools.lru_cache(maxsize=None)
 def plan_for(mesh, n_validators: int, n_validator_rows: int,
              delta_cap: int) -> CompilePlan:
-    """The plan for an unsharded group. ``n_validators`` is the REAL
-    validator count (quorum thresholds); ``n_validator_rows`` the row
-    count the state tensors carry (equal without a mesh)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh plans (member-sharded and member x validator fabrics) "
-            "come with the mesh slice of the port")
-    if n_validator_rows != n_validators:
-        raise ValueError("unsharded plans carry no pad validator rows")
+    """The plan for a group. ``n_validators`` is the REAL validator count
+    (quorum thresholds); ``n_validator_rows`` the row count the state
+    tensors carry (equal without a mesh; padded to a multiple of the
+    validator tiles on the fabric - pad rows never receive votes, so the
+    summed counts are exact)."""
+    mesh = q.as_fabric(mesh)
+    if mesh is None:
+        if n_validator_rows != n_validators:
+            raise ValueError("unsharded plans carry no pad validator rows")
 
-    def step(states: q.VoteState, words: torch.Tensor):
-        events, compact = q.step_compact(states, words, n_validators,
-                                         delta_cap)
+        def step(states: q.VoteState, words: torch.Tensor):
+            events, compact = q.step_compact(states, words, n_validators,
+                                             delta_cap)
+            return states, events, compact
+
+        return CompilePlan(step=step, slide=_slide_body, zero=_zero_body,
+                           strategy={"step": "k7", "slide": "k8",
+                                     "zero": "k8"},
+                           mesh_shape=())
+    v = _fabric_tiles(mesh, n_validator_rows)
+
+    def fabric(states: q.VoteState, words: torch.Tensor):
+        _check_device(mesh, words)
+        events, compact = q.fabric_step(states, words, n_validators, v,
+                                        delta_cap)
         return states, events, compact
 
-    return CompilePlan(step=step, slide=_slide_body, zero=_zero_body)
+    return CompilePlan(step=fabric, slide=_slide_body, zero=_zero_body,
+                       strategy={"step": "k13", "slide": "k8", "zero": "k8"},
+                       mesh_shape=tuple(mesh.shape))

@@ -29,8 +29,24 @@ state in place either way. :func:`resident_step` (K9, reference
 ``compile_plan.py:100`` ``resident_plan_for``) chains k (slide, scatter)
 slots and evaluates once, in one launch of ``csrc/resident.cu``; its
 plain version is :func:`resident_step_plain`, built like
-:func:`step_plain` from the scatter and eval halves (:func:`scatter_plain`,
-:func:`eval_plain`, the reference's ``scatter_batch``/``eval_compact``).
+:func:`step_plain` from the scatter and decide halves (:func:`scatter_plain`,
+:func:`decide_plain`, the reference's ``scatter_batch``/``eval_compact``).
+
+The member x validator fabric (reference ``quorum.py:59-73``,
+``:145-190``, ``:306-342``, ``:402``) runs on ONE device here: a
+:class:`FabricMesh` names the tile grid (m member blocks x v validator
+blocks) and the one device that holds every tile. The group's state stays
+one member-stacked :class:`VoteState`, its validator rows padded to a
+multiple of v, so tile (i, j) is member rows ``[i R, (i+1) R)`` x
+validator rows ``[j V, (j+1) V)``. :func:`fabric_step` (K13, reference
+``step_compact_local`` ``:306`` under ``compile_plan.py:201-245``) scatters
+each tile's own senders and writes its partial column counts, sums the v
+partials (the reference's ``psum`` over the validator axis) and decides,
+in two launches of ``csrc/fabric.cu``; its plain version is
+:func:`fabric_step_plain`. :func:`resident_tile_step` is K9 per tile
+(``compile_plan.py:141-173``): the slides and scatters of k ring slots
+restricted to each tile's rows, then K13's decide. :func:`make_sharded_step`
+(``:402``) is K13 on one plane without the compact record.
 
 Words are uint32 bit patterns carried in int32 tensors; the plain version
 decodes them in int64 lanes masked to 0xFFFFFFFF (CPU torch has no uint32
@@ -45,12 +61,17 @@ import numpy as np
 import torch
 
 from ..utils import kernel_build as kb
+from ..utils.torch_env import resolve_device
 
 # message kinds in the packed device format
 PREPREPARE = 0
 PREPARE = 1
 COMMIT = 2
 CHECKPOINT = 3
+
+# the quorum fabric's axis names: axis 0 blocks the member axis M, axis 1
+# (when present) each plane's validator axis N (reference quorum.py:55)
+FABRIC_AXES = ("members", "validators")
 
 # fixed per-step delta capacity: a step whose newly reached certs exceed it
 # reports the TRUE count and the host falls back to one full-events
@@ -103,6 +124,83 @@ class CompactEvents(NamedTuple):
     stable: torch.Tensor  # (M, C) uint8
 
 
+class FabricMesh(NamedTuple):
+    """The fabric's tile grid on ONE device (the port of
+    ``make_fabric_mesh``'s ``Mesh``): ``shape`` is (m,) or (m, v),
+    ``axis_names`` the reference's names for its axes and ``device`` the
+    device that holds every tile. Every tile of the grid lives in the one
+    member-stacked state on that device; a fabric spread over several
+    cards (cross-card reduce and ring) is a later slice."""
+
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    device: torch.device
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape[self.axis_names.index(axis)]
+
+    @property
+    def m_shards(self) -> int:
+        """Member blocks (mesh axis 0)."""
+        return self.shape[0]
+
+    @property
+    def v_shards(self) -> int:
+        """Validator blocks (mesh axis 1; 1 on a 1-axis mesh)."""
+        return self.shape[1] if len(self.shape) > 1 else 1
+
+
+def make_fabric_mesh(devices, shape, axis_names=None) -> FabricMesh:
+    """The fabric mesh from a device list and a 1- or 2-dim ``shape``:
+    ``(8,)`` member blocks only, ``(4, 2)`` the member x validator grid.
+    The shape checks are the reference's (``quorum.py:66-73``): one or two
+    dims, each >= 1, and at least as many devices as tiles. The list may
+    repeat one device (``["cuda:0"] * 8`` on the card, ``["cpu"] * 8`` in
+    the tests); a list that names two different devices raises
+    ``NotImplementedError``: tiles on distinct cards wait for the
+    multi-card slice. ``axis_names`` defaults to :data:`FABRIC_AXES`
+    (``("validators",)`` gives the 1-D mesh of :func:`make_sharded_step`)."""
+    shape = tuple(int(d) for d in shape)
+    if not 1 <= len(shape) <= 2 or any(d < 1 for d in shape):
+        raise ValueError(f"fabric mesh shape must be (M,) or (M, V): {shape}")
+    n_dev = 1
+    for d in shape:
+        n_dev *= d
+    devices = list(devices)
+    if len(devices) < n_dev:
+        raise ValueError(
+            f"fabric mesh {shape} needs {n_dev} devices, have {len(devices)}")
+    named = {_same_card(d) for d in devices[:n_dev]}
+    if len(named) != 1:
+        raise NotImplementedError(
+            f"a fabric over several devices ({sorted(map(str, named))}) "
+            "needs cross-card copies: it waits for the multi-card slice "
+            "of the port; give one device for every tile")
+    names = tuple(axis_names) if axis_names is not None \
+        else FABRIC_AXES[:len(shape)]
+    if len(names) != len(shape):
+        raise ValueError(f"one axis name per mesh dim: {names}")
+    return FabricMesh(shape, names, resolve_device(named.pop()))
+
+
+def _same_card(device) -> torch.device:
+    """``device`` with a bare ``cuda`` named by its index, so that one
+    card listed two ways counts once."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def as_fabric(mesh) -> Optional[FabricMesh]:
+    """``mesh`` as a :class:`FabricMesh` (None stays None); anything else
+    is refused - the port's fabric is built by :func:`make_fabric_mesh`."""
+    if mesh is None or isinstance(mesh, FabricMesh):
+        return mesh
+    raise TypeError(f"the port's mesh is a FabricMesh (make_fabric_mesh), "
+                    f"not {type(mesh).__name__}")
+
+
 def init_state(n_validators: int, log_size: int, n_checkpoints: int,
                n_members: int = 1, device="cpu") -> VoteState:
     m, n, s, c = n_members, n_validators, log_size, n_checkpoints
@@ -144,20 +242,28 @@ def _delta_slots(newly: torch.Tensor, width: int):
 
 
 def scatter_plain(state: VoteState, words: torch.Tensor,
-                  ok: Optional[torch.Tensor] = None) -> None:
+                  ok: Optional[torch.Tensor] = None, row_offset: int = 0,
+                  local_rows: Optional[int] = None) -> None:
     """The plain version of the scatter half (reference ``scatter_batch``,
     ``quorum.py:322``): decode (M, W) vote words and store 1 into the hit
     planes, ``state`` in place. ``ok`` ((M, W) bool, optional) drops the
-    words whose verdict is False, as K14's ``valid &= ok``."""
+    words whose verdict is False, as K14's ``valid &= ok``.
+    ``row_offset``/``local_rows`` restrict the per-validator planes to one
+    validator tile's rows ``[row_offset, row_offset + local_rows)`` (the
+    reference's ``_scatter_local``, ``:145-173``): a sender outside them is
+    dropped, a PRE-PREPARE hits whatever its sender."""
     n_rows, s = state.prepare_votes.shape[1:]
     c = state.checkpoint_votes.shape[-1]
+    if local_rows is None:
+        local_rows = n_rows - row_offset
     msgs = unpack_words(words)
     valid = msgs.valid if ok is None else msgs.valid & ok.to(torch.bool)
     member = torch.arange(words.shape[0], device=words.device).unsqueeze(-1)
     member = member.expand_as(msgs.slot)
     slot_ok = msgs.slot < s
     cslot_ok = msgs.slot < c
-    mine = valid & (msgs.sender < n_rows)
+    mine = valid & (msgs.sender >= row_offset) \
+        & (msgs.sender < row_offset + local_rows)
 
     def scatter(plane, hit, slots):
         plane[member[hit], msgs.sender[hit], slots[hit]] = 1
@@ -173,19 +279,18 @@ def scatter_plain(state: VoteState, words: torch.Tensor,
     state.preprepare_seen[member[pp_hit], msgs.slot[pp_hit]] = 1
 
 
-def eval_plain(state: VoteState, n_validators: int,
-               delta_cap: int = ORDER_DELTA_CAP, compact: bool = True
-               ) -> Tuple[QuorumEvents, CompactEvents]:
-    """The plain version of the eval half (reference ``eval_compact``,
-    ``quorum.py:342``): quorum eval over the current planes (+ frontier
-    and compact deltas when ``compact``), ``state`` in place."""
+def decide_plain(state: VoteState, prep_counts: torch.Tensor,
+                 comm_counts: torch.Tensor, chk_counts: torch.Tensor,
+                 n_validators: int, delta_cap: int = ORDER_DELTA_CAP,
+                 compact: bool = True) -> Tuple[QuorumEvents, CompactEvents]:
+    """The decide half of the eval, from column counts ((M, S), (M, S),
+    (M, C) int32): thresholds from the REAL ``n_validators``, events, and
+    with ``compact`` the frontier and compact deltas; ``state`` in place.
+    The one decide path of K7, K9 and K13 (``qc::decide_member``)."""
     s = state.prepare_votes.shape[-1]
     f = (n_validators - 1) // 3
     prepare_q = n_validators - f - 1
     commit_q = n_validators - f
-    prep_counts = state.prepare_votes.sum(dim=1, dtype=torch.int32)
-    comm_counts = state.commit_votes.sum(dim=1, dtype=torch.int32)
-    chk_counts = state.checkpoint_votes.sum(dim=1, dtype=torch.int32)
     pp = state.preprepare_seen.bool()
     prepared = pp & (prep_counts >= prepare_q)
     commit_ok = pp & (comm_counts >= commit_q) & prepared
@@ -220,9 +325,10 @@ def step_plain(state: VoteState, words: torch.Tensor, n_validators: int,
                ) -> Tuple[QuorumEvents, CompactEvents]:
     """The plain version of K-d on any device: scatter + quorum eval (+
     frontier and compact deltas when ``compact``), ``state`` in place;
-    ``ok`` masks words as :func:`scatter_plain` does."""
-    scatter_plain(state, words, ok)
-    return eval_plain(state, n_validators, delta_cap, compact)
+    ``ok`` masks words as :func:`scatter_plain` does. It is K13's plain
+    version on one validator tile."""
+    return fabric_step_plain(state, words, n_validators, 1, delta_cap,
+                             compact, ok)
 
 
 def resident_step_plain(states: VoteState, slides, words_seq,
@@ -232,13 +338,10 @@ def resident_step_plain(states: VoteState, slides, words_seq,
     """The plain version of K9, the reference's unsharded resident body
     (``compile_plan.py:119-126``): for each slot k, slide by ``slides[k]``
     ((k, M) deltas) then scatter ``words_seq[k]`` ((M, W) words); then one
-    eval with the compact deltas. ``states`` in place."""
-    slides = torch.as_tensor(slides)
-    for k in range(len(words_seq)):
-        if bool((slides[k] != 0).any()):  # a zero slide is the identity
-            slide_plain(states, slides[k])
-        scatter_plain(states, words_seq[k])
-    return eval_plain(states, n_validators, delta_cap, True)
+    eval with the compact deltas. ``states`` in place. It is the tiled
+    K9's plain version on one validator tile."""
+    return resident_tile_plain(states, slides, words_seq, n_validators, 1,
+                               delta_cap)
 
 
 def _check_state(state: VoteState, dev: torch.device, what: str) -> None:
@@ -260,6 +363,18 @@ def _check_words(state: VoteState, words: torch.Tensor, dims: int,
     if words.shape[-2] != state.frontier.shape[0]:
         raise ValueError(f"{what}: one word row per member")
     _check_state(state, words.device, what)
+
+
+def _check_ok(ok: Optional[torch.Tensor], words: torch.Tensor,
+              what: str) -> None:
+    """K14's verdict operand: one bool or uint8 per word, beside them."""
+    if ok is not None and (
+            ok.device != words.device or not ok.is_contiguous()
+            or ok.dtype not in (torch.bool, torch.uint8)
+            or ok.numel() != words.numel()):
+        raise ValueError(f"{what}: ok must be a contiguous bool or uint8 "
+                         "tensor with one verdict per word on "
+                         f"{words.device}")
 
 
 def _outputs(state: VoteState, width: int, compact: bool
@@ -307,13 +422,7 @@ def _step_kernel(state: VoteState, words: torch.Tensor, n_validators: int,
     the card, optional) is K14's per-word verdict operand, counted under
     ``counter``."""
     _check_words(state, words, 2, "quorum step")
-    if ok is not None and (
-            ok.device != words.device or not ok.is_contiguous()
-            or ok.dtype not in (torch.bool, torch.uint8)
-            or ok.numel() != words.numel()):
-        raise ValueError("quorum step: ok must be a contiguous bool or "
-                         "uint8 tensor with one verdict per word on "
-                         f"{words.device}")
+    _check_ok(ok, words, "quorum step")
     m_count, n_rows, s = state.prepare_votes.shape
     c = state.checkpoint_votes.shape[-1]
     width = delta_width(s, delta_cap)
@@ -401,6 +510,212 @@ def resident_step(states: VoteState, slides: torch.Tensor,
     if words.device.type != "cuda":
         raise ValueError(f"resident step: unsupported device {words.device}")
     return _resident_kernel(states, slides, words, n_validators, delta_cap)
+
+
+# --- the member x validator fabric (K13, tiled K9) --------------------------
+
+
+def _tile_rows(state: VoteState, v_shards: int) -> int:
+    n_rows = state.prepare_votes.shape[1]
+    if v_shards < 1 or n_rows % v_shards:
+        raise ValueError(f"fabric: {n_rows} validator rows do not split "
+                         f"into {v_shards} tiles")
+    return n_rows // v_shards
+
+
+def tile_partials_plain(state: VoteState, v_shards: int):
+    """Each validator tile's column counts: ((M, v, S), (M, v, S), (M, v,
+    C)) int32 prepare, commit and checkpoint partials (the local sums the
+    reference's ``psum`` reduces, ``quorum.py:186-190``)."""
+    m_count, n_rows, s = state.prepare_votes.shape
+    v_rows = _tile_rows(state, v_shards)
+
+    def part(x):
+        return x.view(m_count, v_shards, v_rows, x.shape[-1]).sum(
+            dim=2, dtype=torch.int32)
+
+    return (part(state.prepare_votes), part(state.commit_votes),
+            part(state.checkpoint_votes))
+
+
+def scatter_tiles_plain(state: VoteState, words: torch.Tensor,
+                        v_shards: int,
+                        ok: Optional[torch.Tensor] = None) -> None:
+    """Every validator tile scatters its own senders (the reference's
+    shard-local ``_scatter_local`` at each tile's row offset)."""
+    v_rows = _tile_rows(state, v_shards)
+    for j in range(v_shards):
+        scatter_plain(state, words, ok, j * v_rows, v_rows)
+
+
+def decide_partials_plain(state: VoteState, partials, n_validators: int,
+                          delta_cap: int, compact: bool
+                          ) -> Tuple[QuorumEvents, CompactEvents]:
+    """K13's second half: sum the v partials, then decide."""
+    return decide_plain(state, *[p.sum(dim=1, dtype=torch.int32)
+                                 for p in partials],
+                        n_validators, delta_cap, compact)
+
+
+def fabric_step_plain(state: VoteState, words: torch.Tensor,
+                      n_validators: int, v_shards: int,
+                      delta_cap: int = ORDER_DELTA_CAP, compact: bool = True,
+                      ok: Optional[torch.Tensor] = None
+                      ) -> Tuple[QuorumEvents, CompactEvents]:
+    """The plain version of K13 on any device: tile scatters, partial
+    counts, their sum over the validator tiles, the decide; ``state`` in
+    place. ``ok`` masks words as :func:`scatter_plain` does."""
+    scatter_tiles_plain(state, words, v_shards, ok)
+    return decide_partials_plain(state, tile_partials_plain(state, v_shards),
+                                 n_validators, delta_cap, compact)
+
+
+def _partials_out(state: VoteState, v_shards: int):
+    m_count, _, s = state.prepare_votes.shape
+    c = state.checkpoint_votes.shape[-1]
+    dev = state.frontier.device
+    return [torch.empty((m_count, v_shards, x), dtype=torch.int32,
+                        device=dev) for x in (s, s, c)]
+
+
+def _fabric_kernel(state: VoteState, words: torch.Tensor, n_validators: int,
+                   v_shards: int, delta_cap: int, compact: bool,
+                   ok: Optional[torch.Tensor], counter: str
+                   ) -> Tuple[QuorumEvents, CompactEvents]:
+    _check_words(state, words, 2, "fabric step")
+    _check_ok(ok, words, "fabric step")
+    _tile_rows(state, v_shards)
+    m_count, n_rows, s = state.prepare_votes.shape
+    c = state.checkpoint_votes.shape[-1]
+    width = delta_width(s, delta_cap)
+    events, comp = _outputs(state, width, compact)
+    parts = _partials_out(state, v_shards)
+    code = kb.library().fabric_step_launch(
+        *[t.data_ptr() for t in state], words.data_ptr(),
+        None if ok is None else ok.data_ptr(),
+        m_count, n_rows, s, c, words.shape[1], v_shards, n_validators, width,
+        1 if compact else 0, *[t.data_ptr() for t in parts],
+        *_output_ptrs(events, comp),
+        torch.cuda.current_stream(words.device).cuda_stream)
+    kb.check(code, counter)
+    kb.LAUNCHES[counter] += 1
+    if compact:
+        comp = comp._replace(frontier=state.frontier.clone())
+    return events, comp
+
+
+def fabric_step(state: VoteState, words: torch.Tensor, n_validators: int,
+                v_shards: int, delta_cap: int = ORDER_DELTA_CAP,
+                compact: bool = True, ok: Optional[torch.Tensor] = None,
+                counter: str = "fabric_step"
+                ) -> Tuple[QuorumEvents, CompactEvents]:
+    """K13: the grouped step over the fabric's tiles, ``state``'s validator
+    rows cut into ``v_shards`` tiles. ``n_validators`` is the REAL
+    validator count (thresholds); pad rows receive only what senders
+    address them. Updates ``state`` in place and returns (events,
+    compact); without ``compact`` neither ``prepared_acked`` nor the
+    frontier moves (the reference's ``make_sharded_step``). CPU tensors
+    take :func:`fabric_step_plain`; CUDA tensors launch
+    ``csrc/fabric.cu`` (tile scatter + partials, then reduce + decide) or
+    raise."""
+    if words.device.type == "cpu":
+        return fabric_step_plain(state, words, n_validators, v_shards,
+                                 delta_cap, compact, ok)
+    if words.device.type != "cuda":
+        raise ValueError(f"fabric step: unsupported device {words.device}")
+    return _fabric_kernel(state, words, n_validators, v_shards, delta_cap,
+                          compact, ok, counter)
+
+
+def resident_tile_plain(states: VoteState, slides, words_seq,
+                        n_validators: int, v_shards: int,
+                        delta_cap: int = ORDER_DELTA_CAP
+                        ) -> Tuple[QuorumEvents, CompactEvents]:
+    """The plain version of the tiled K9 (reference ``compile_plan.py:
+    141-173``): for each slot, the slide, then every tile's scatter; then
+    the tiles' partial counts, their sum and one decide with the compact
+    deltas. ``states`` in place."""
+    slides = torch.as_tensor(slides)
+    for k in range(len(words_seq)):
+        if bool((slides[k] != 0).any()):  # a zero slide is the identity
+            slide_plain(states, slides[k])
+        scatter_tiles_plain(states, words_seq[k], v_shards)
+    return decide_partials_plain(states,
+                                 tile_partials_plain(states, v_shards),
+                                 n_validators, delta_cap, True)
+
+
+def _resident_tile_kernel(states: VoteState, slides: torch.Tensor,
+                          words: torch.Tensor, n_validators: int,
+                          v_shards: int, delta_cap: int
+                          ) -> Tuple[QuorumEvents, CompactEvents]:
+    dev = words.device
+    _check_words(states, words, 3, "resident tile step")
+    k, m_count, w = words.shape
+    if tuple(slides.shape) != (k, m_count):
+        raise ValueError("resident tile step: slides must be (k, M)")
+    _tile_rows(states, v_shards)
+    slides = _to_card(slides, torch.int32, dev, "resident tile step")
+    _, n_rows, s = states.prepare_votes.shape
+    c = states.checkpoint_votes.shape[-1]
+    width = delta_width(s, delta_cap)
+    events, comp = _outputs(states, width, True)
+    parts = _partials_out(states, v_shards)
+    code = kb.library().resident_tile_launch(
+        *[t.data_ptr() for t in states], slides.data_ptr(),
+        words.data_ptr(), k, m_count, n_rows, s, c, w, v_shards,
+        n_validators, width, *[t.data_ptr() for t in parts],
+        *_output_ptrs(events, comp),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kb.check(code, "resident_tile")
+    kb.LAUNCHES["resident_tile"] += 1
+    return events, comp._replace(frontier=states.frontier.clone())
+
+
+def resident_tile_step(states: VoteState, slides: torch.Tensor,
+                       words: torch.Tensor, n_validators: int,
+                       v_shards: int, delta_cap: int = ORDER_DELTA_CAP
+                       ) -> Tuple[QuorumEvents, CompactEvents]:
+    """The tiled K9: k ring slots over the fabric's tiles in one step.
+    ``slides`` (k, M) window deltas, each applied before its slot's
+    scatter; ``words`` (k, M, W); every tile slides and scatters its own
+    rows, then K13's reduce and decide. Updates ``states`` in place and
+    returns (events, compact). CPU tensors take
+    :func:`resident_tile_plain`; CUDA tensors launch
+    ``resident_tile_kernel`` (``csrc/resident.cu``), then K13's decide,
+    or raise."""
+    if words.device.type == "cpu":
+        return resident_tile_plain(states, slides, words, n_validators,
+                                   v_shards, delta_cap)
+    if words.device.type != "cuda":
+        raise ValueError(f"resident tile step: unsupported device "
+                         f"{words.device}")
+    return _resident_tile_kernel(states, slides, words, n_validators,
+                                 v_shards, delta_cap)
+
+
+def make_sharded_step(mesh: FabricMesh, n_validators: int,
+                      axis: str = "validators"):
+    """One plane's step with its validator axis cut into the ``axis``
+    tiles of ``mesh`` (reference ``quorum.py:402``): ``(state, words)`` ->
+    (state, events), state (1, N, S) updated in place, full events, no
+    compact record (``prepared_acked`` and the frontier stay). K13 on the
+    card; ``n_validators`` must split evenly over the tiles, as the
+    reference asserts."""
+    mesh = as_fabric(mesh)
+    n_shards = mesh.axis_size(axis)
+    if n_validators % n_shards:
+        raise ValueError(f"{n_validators} validators on {n_shards} tiles")
+
+    def sharded(state: VoteState, words: torch.Tensor):
+        if words.device != mesh.device:
+            raise ValueError(f"sharded step: words on {words.device}, "
+                             f"mesh on {mesh.device}")
+        events, _ = fabric_step(state, words, n_validators, n_shards,
+                                compact=False)
+        return state, events
+
+    return sharded
 
 
 def slide_plain(state: VoteState, deltas: torch.Tensor) -> None:

@@ -1,0 +1,101 @@
+"""Member-plane migration between fabric blocks: the ring shift (K1).
+
+Port of ``indy_plenum_tpu/tpu/ring_exchange.py``. The reference moves
+whole member-shard blocks of the vote planes one ring step along mesh
+axis 0, device to device: ``ring_shift_reference`` (``:47``, a
+``lax.ppermute``) is the oracle and a Pallas RDMA ring permute
+(``_ring_kernel`` ``:67``, ``pl.pallas_call`` ``:101``, the repo's only
+Pallas kernel) the TPU path.
+
+Here every block of the fabric lives on ONE device (see
+:class:`~indy_plenum_tpu_torch.tpu.quorum.FabricMesh`), and member blocks
+are contiguous rows of each member-stacked leaf, so moving block b to
+block (b + shift) mod m is a roll of the member axis by shift x R rows.
+:func:`ring_shift_plain` is that roll in PyTorch; :func:`ring_shift_planes`
+launches K1 (``csrc/ring.cu`` ``ring_shift_kernel``: every leaf in one
+launch, out of place, any dtype, any shift, either mesh rank) for CUDA
+tensors and raises for anything but the CPU or a card. The reference's
+off-TPU fallback to the ppermute path has no counterpart: a CUDA tensor
+reaches the kernel or the call raises.
+
+``states`` is any member-leading tensor or tuple of them (a
+:class:`~indy_plenum_tpu_torch.tpu.quorum.VoteState` stack included);
+state carried per member on the host (h, mirrors) is the caller's to
+rotate.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils import kernel_build as kb
+from .quorum import FabricMesh, as_fabric
+
+
+def leaves_of(states):
+    """(list of leaves, rebuild(list) -> the same structure)."""
+    if isinstance(states, torch.Tensor):
+        return [states], lambda ls: ls[0]
+    cls = type(states)
+    if hasattr(states, "_fields"):  # a NamedTuple such as VoteState
+        return list(states), lambda ls: cls(*ls)
+    return list(states), lambda ls: cls(ls)
+
+
+def _block_rows(leaves, mesh: FabricMesh) -> int:
+    rows = leaves[0].shape[0]
+    if any(x.shape[0] != rows for x in leaves):
+        raise ValueError("ring shift: every leaf leads with the member axis")
+    if rows % mesh.m_shards:
+        raise ValueError(f"ring shift: {rows} member rows do not split into "
+                         f"{mesh.m_shards} blocks")
+    return rows // mesh.m_shards
+
+
+def ring_shift_plain(states, mesh: FabricMesh, shift: int = 1):
+    """The plain version of K1 (the reference's ``ring_shift_reference``):
+    member block b of every leaf moves to block (b + shift) mod m, a roll
+    of the member axis by ``shift`` x R rows; new tensors."""
+    mesh = as_fabric(mesh)
+    leaves, rebuild = leaves_of(states)
+    r = _block_rows(leaves, mesh)
+    return rebuild([torch.roll(x, shift * r, dims=0) for x in leaves])
+
+
+def _ring_kernel(leaves, rows: int, shift_rows: int):
+    dev = leaves[0].device
+    outs, table = [], []
+    for x in leaves:
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError(f"ring shift: every leaf must be a contiguous "
+                             f"tensor on {dev}")
+        out = torch.empty_like(x)
+        outs.append(out)
+        table += [x.data_ptr(), out.data_ptr(),
+                  x.element_size() * (x.numel() // rows)]
+    host = np.array(table, np.int64)
+    code = kb.library().ring_shift_launch(
+        host.ctypes.data, len(leaves), rows, shift_rows,
+        torch.cuda.current_stream(dev).cuda_stream)
+    kb.check(code, "ring_shift")
+    kb.LAUNCHES["ring_shift"] += 1
+    return outs
+
+
+def ring_shift_planes(states, mesh: FabricMesh, shift: int = 1):
+    """K1: migrate member blocks ``shift`` ring steps along mesh axis 0 (the
+    reference's dispatcher, ``ring_exchange.py:127``). A shift that is a
+    multiple of m is the identity and returns ``states`` itself
+    (``:134-135``). CPU tensors take :func:`ring_shift_plain`; CUDA
+    tensors launch ``ring_shift_kernel`` once for every leaf, or raise."""
+    mesh = as_fabric(mesh)
+    if shift % mesh.m_shards == 0:
+        return states
+    leaves, rebuild = leaves_of(states)
+    r = _block_rows(leaves, mesh)
+    dev = leaves[0].device.type
+    if dev == "cpu":
+        return ring_shift_plain(states, mesh, shift)
+    if dev != "cuda":
+        raise ValueError(f"ring shift: unsupported device {leaves[0].device}")
+    return rebuild(_ring_kernel(leaves, leaves[0].shape[0], shift * r))

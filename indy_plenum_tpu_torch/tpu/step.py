@@ -17,8 +17,13 @@ and a one-block-per-member kernel, which the stream order carries.
 Word b carries the vote whose signature is row b (the reference's "msgs
 batch length == signature batch length"); the state is ONE member (M = 1).
 As the reference's ``q.step``, the step neither sets ``prepared_acked``
-nor moves the frontier. ``make_sharded_fused_step`` comes with the mesh
-slice of the port.
+nor moves the frontier.
+
+:func:`make_sharded_fused_step` (reference ``step.py:46``) is the same
+step on a 1-D validator fabric: K-c over the whole batch (on one device
+the reference's ``all_gather`` of the verdicts, ``:62``, is the identity),
+then K13 (``csrc/fabric.cu``) with the verdicts as its ``ok`` operand,
+each tile scattering its own senders.
 """
 from __future__ import annotations
 
@@ -35,14 +40,16 @@ from . import quorum as q
 
 def fused_step_plain(state: q.VoteState, words: torch.Tensor,
                      pk: torch.Tensor, rb: torch.Tensor, s: torch.Tensor,
-                     h: torch.Tensor, *, n_validators: int
+                     h: torch.Tensor, *, n_validators: int,
+                     v_shards: int = 1
                      ) -> Tuple[q.VoteState, q.QuorumEvents, torch.Tensor]:
-    """The plain version of K14: :func:`~.ed25519.verify_kernel_plain`,
-    then :func:`~.quorum.step_plain` with ``compact=False`` and the
+    """The plain version of K14, and with ``v_shards`` validator tiles of
+    the sharded K14: :func:`~.ed25519.verify_kernel_plain`, then
+    :func:`~.quorum.fabric_step_plain` without the compact record, the
     verdicts as its word mask. ``state`` in place."""
     ok = ted.verify_kernel_plain(pk, rb, s, h)
-    events, _ = q.step_plain(state, words, n_validators, compact=False,
-                             ok=ok.view(words.shape))
+    events, _ = q.fabric_step_plain(state, words, n_validators, v_shards,
+                                    compact=False, ok=ok.view(words.shape))
     return state, events, ok
 
 
@@ -73,6 +80,44 @@ def fused_step(state: q.VoteState, words: torch.Tensor, pk: torch.Tensor,
                                q.ORDER_DELTA_CAP, False, ok=ok,
                                counter="fused_step")
     return state, events, ok
+
+
+def make_sharded_fused_step(mesh: q.FabricMesh, n_validators: int,
+                            axis: str = "validators"):
+    """The fused step over ``mesh``'s ``axis`` tiles: returns ``(state,
+    words, pk, rb, s, h)`` -> (state, events, ok), the operands as
+    :func:`fused_step` takes them, on the mesh's device. The reference's
+    sizes hold: ``n_validators`` and the batch split evenly over the
+    tiles. The CPU takes :func:`fused_step_plain`; on the card K-c
+    counts one ``ed25519_verify`` and the masked K13 one
+    ``sharded_fused_step``."""
+    mesh = q.as_fabric(mesh)
+    n_shards = mesh.axis_size(axis)
+    if n_validators % n_shards:
+        raise ValueError(f"{n_validators} validators on {n_shards} tiles")
+
+    def sharded(state: q.VoteState, words: torch.Tensor, pk: torch.Tensor,
+                rb: torch.Tensor, s: torch.Tensor, h: torch.Tensor):
+        if words.dim() != 2 or words.shape[0] != 1 \
+                or words.shape[1] != pk.shape[0] \
+                or pk.shape[0] % n_shards:
+            raise ValueError("sharded fused step: words must be (1, B), "
+                             "one per signature, B a multiple of the tiles")
+        for t in (words, pk, rb, s, h, *state):
+            if t.device != mesh.device:
+                raise ValueError(f"sharded fused step: operand on "
+                                 f"{t.device}, mesh on {mesh.device}")
+        if mesh.device.type == "cpu":
+            return fused_step_plain(state, words, pk, rb, s, h,
+                                    n_validators=n_validators,
+                                    v_shards=n_shards)
+        ok = ted.verify_kernel(pk, rb, s, h)
+        events, _ = q.fabric_step(state, words, n_validators, n_shards,
+                                  compact=False, ok=ok,
+                                  counter="sharded_fused_step")
+        return state, events, ok
+
+    return sharded
 
 
 def example_inputs(batch: int = 8, n_validators: int = 8,

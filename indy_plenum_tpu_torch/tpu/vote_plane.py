@@ -1,7 +1,7 @@
 """Host adapter making the device quorum tensors the consensus truth source.
 
-Port of the unsharded, per-tick part of ``indy_plenum_tpu/tpu/vote_plane.py``
-(reference analog: the prepare/commit cert collection of
+Port of ``indy_plenum_tpu/tpu/vote_plane.py`` (reference analog: the
+prepare/commit cert collection of
 ``plenum/server/consensus/ordering_service.py``). Validated votes are
 buffered on the host as packed uint32 words, scattered into the dense
 (member x validator x slot) tensors of :mod:`.quorum` in padded batches,
@@ -16,7 +16,12 @@ and quorum verdicts come back as compact deltas.
   residency (``resident_depth > 1``, reference ``vote_plane.py:759-789``,
   ``:1361-1497``): each tick's words are staged into a device ring without
   a launch, and ONE K9 launch consumes up to ``resident_depth`` ticks with
-  the checkpoint slides folded in, quorums evaluated once.
+  the checkpoint slides folded in, quorums evaluated once; and the
+  member x validator fabric (``mesh=``, reference ``:594-660``,
+  ``:800-952``, ``:1116-1282``, ``:1499-1532``) with every tile on the
+  group's one device: padded axes, K13 steps, per-block staging and
+  absorb, the occupancy grid, and plane rotation (rebalance) through the
+  placement map.
 
 Transfer contract (the reference's XLA async dispatch and
 ``copy_to_host_async``, ``vote_plane.py:1311-1322``):
@@ -37,10 +42,8 @@ Transfer contract (the reference's XLA async dispatch and
 
 Pipelined mode keeps the reference's one-tick verdict lag; dtypes and
 byte counts equal JAX's (int32 slot lists and counts, uint8 ``stable``,
-bool events), so ``readback_bytes_total`` counts the same bytes. A mesh
-comes with the mesh slice of the port and raises ``NotImplementedError``
-here; so does ``schedule_rebalance`` (the ring and rebalance slice), and
-the placement map stays the identity.
+bool events), so ``readback_bytes_total`` counts the same bytes, and on a
+mesh ``readback_bytes_per_shard`` the same bytes per member block.
 """
 from __future__ import annotations
 
@@ -174,35 +177,46 @@ class _Fetch:
 
 class _Staging:
     """One ladder rung's scatter staging: a pinned (M, width) host buffer
-    and its device twin. The host buffer is rewritten only after the
-    event behind its last H2D copy has completed."""
+    and its device twin, staged and copied in ``blocks`` member blocks
+    (one on an unsharded group). A block's host rows are rewritten only
+    after the event behind their last H2D copy has completed."""
 
-    def __init__(self, rows: int, width: int, device: torch.device):
+    def __init__(self, rows: int, width: int, device: torch.device,
+                 blocks: int = 1):
         self._cuda = device.type == "cuda"
         self.host = torch.zeros((rows, width), dtype=torch.int32,
                                 pin_memory=self._cuda)
         self._view = self.host.numpy().view(np.uint32)
         self._dev = (torch.empty((rows, width), dtype=torch.int32,
                                  device=device) if self._cuda else None)
-        self._copied = torch.cuda.Event() if self._cuda else None
-        self._pending_copy = False
+        self._block = rows // blocks
+        self._copied = [torch.cuda.Event() if self._cuda else None
+                        for _ in range(blocks)]
+        self._pending_copy = [False] * blocks
 
-    def stage(self, chunks) -> torch.Tensor:
-        if self._pending_copy:
-            self._copied.synchronize()
-            self._pending_copy = False
-        view = self._view
-        view[...] = 0
-        for i, entries in enumerate(chunks):
-            if entries:
-                q.fill_words_row(view[i], entries)
-        if not self._cuda:
-            # the plain step consumes the words before this returns
-            return self.host
-        self._dev.copy_(self.host, non_blocking=True)
-        self._copied.record(torch.cuda.current_stream(self._dev.device))
-        self._pending_copy = True
-        return self._dev
+    def stage(self, row_chunks, interleave=None) -> torch.Tensor:
+        """``row_chunks[r]``: the packed words of device row r. After
+        each block's copy is issued, ``interleave`` (optional) advances
+        once."""
+        for b, event in enumerate(self._copied):
+            lo, hi = b * self._block, (b + 1) * self._block
+            if self._pending_copy[b]:
+                event.synchronize()
+                self._pending_copy[b] = False
+            view = self._view[lo:hi]
+            view[...] = 0
+            for i, entries in enumerate(row_chunks[lo:hi]):
+                if entries:
+                    q.fill_words_row(view[i], entries)
+            if self._cuda:
+                self._dev[lo:hi].copy_(self.host[lo:hi], non_blocking=True)
+                event.record(torch.cuda.current_stream(self._dev.device))
+                self._pending_copy[b] = True
+            if interleave is not None:
+                next(interleave, None)
+        # on the CPU the plain step consumes the words before the buffer
+        # is staged again
+        return self._dev if self._cuda else self.host
 
 
 class _Ring:
@@ -585,7 +599,19 @@ class VotePlaneGroup:
     ``pipelined`` overlaps each flush's device round-trip with the next
     tick's host work (verdicts lag one tick). ``host_eval`` reads back
     the full event matrix instead of the compact deltas. Runs on the card
-    unless ``device="cpu"``."""
+    unless ``device="cpu"``.
+
+    ``mesh`` (a :class:`~indy_plenum_tpu_torch.tpu.quorum.FabricMesh` on
+    the group's device, from ``make_fabric_mesh``) runs the group as the
+    reference's member x validator fabric, every tile on that one device:
+    both axes pad up to their mesh multiple (pad member rows are zero
+    planes with no member view, pad validator rows never receive votes),
+    the step is K13 (the tiled K9 with residency), the word block is
+    staged member block by member block, the absorb folds the compact
+    record block by block (``readback_bytes_per_shard``), the occupancy
+    grid has one cell per (member block, validator block), and a
+    scheduled rebalance rotates the planes along the member axis (K1 and
+    K15) at the next checkpoint-boundary slide."""
 
     def __init__(self, n_members: int, validators: List[str], log_size: int,
                  n_checkpoints: int = 4, h: int = 0, metrics=None,
@@ -595,19 +621,46 @@ class VotePlaneGroup:
                  delta_cap: Optional[int] = None,
                  resident_depth: int = 1,
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded vote planes come with the mesh slice of the "
-                "port")
         self.device = resolve_device(device)
+        mesh = q.as_fabric(mesh)
         self._n = len(validators)
         self._log_size = log_size
         self._n_chk = n_checkpoints
         self.host_eval = host_eval
         self._delta_cap = int(delta_cap) if delta_cap else q.ORDER_DELTA_CAP
-        self._plan = plan_for(None, self._n, self._n, self._delta_cap)
-        self._states = q.init_state(self._n, log_size, n_checkpoints,
-                                    n_members, self.device)
+        self._mesh = mesh
+        self._m_shards = 1  # member blocks (mesh axis 0)
+        self._v_shards = 1  # validator blocks (mesh axis 1)
+        self._shard_rows = n_members
+        self._m_pad = n_members
+        self._v_rows = self._n
+        self._n_pad = self._n
+        if mesh is not None:
+            if mesh.device != self.device:
+                raise ValueError(f"fabric mesh on {mesh.device}, group on "
+                                 f"{self.device}")
+            self._m_shards = mesh.m_shards
+            self._v_shards = mesh.v_shards
+            # both axes pad up to their mesh multiple (reference
+            # vote_plane.py:612-617)
+            self._shard_rows = -(-n_members // self._m_shards)
+            self._m_pad = self._shard_rows * self._m_shards
+            self._v_rows = -(-self._n // self._v_shards)
+            self._n_pad = self._v_rows * self._v_shards
+        # occupancy grid: cell i * v_shards + j = member block i x
+        # validator block j
+        self._n_shards = self._m_shards * self._v_shards
+        self._plan = plan_for(mesh, self._n, self._n_pad, self._delta_cap)
+        # real (non-pad) rows per member block and per validator block:
+        # the capacity denominators of the occupancy grid
+        self._real_rows = [
+            min(max(n_members - si * self._shard_rows, 0), self._shard_rows)
+            for si in range(self._m_shards)]
+        self._v_real = [
+            min(max(self._n - vj * self._v_rows, 0), self._v_rows)
+            for vj in range(self._v_shards)]
+        self._states = q.init_state(self._n_pad, log_size, n_checkpoints,
+                                    self._m_pad, self.device)
         self._members = [
             _MemberPlane(self, i, validators, log_size, n_checkpoints, h)
             for i in range(n_members)]
@@ -619,25 +672,28 @@ class VotePlaneGroup:
         self._host_commit_counts: Optional[np.ndarray] = None
         self._host_commit_ok: Optional[np.ndarray] = None
         self._host_stable: Optional[np.ndarray] = None
-        # device-eval mirrors kept current by folding compact deltas in
-        self._mir_prepared = np.zeros((n_members, log_size), bool)
-        self._mir_commit_ok = np.zeros((n_members, log_size), bool)
-        self._mir_stable = np.zeros((n_members, n_checkpoints), bool)
-        self._mir_frontier = np.zeros(n_members, np.int64)
+        # device-eval mirrors kept current by folding compact deltas in,
+        # indexed by MEMBER (the placement map translates rows)
+        self._mir_prepared = np.zeros((self._m_pad, log_size), bool)
+        self._mir_commit_ok = np.zeros((self._m_pad, log_size), bool)
+        self._mir_stable = np.zeros((self._m_pad, n_checkpoints), bool)
+        self._mir_frontier = np.zeros(self._m_pad, np.int64)
         # last absorbed step's device-resident full events (overflow
         # fallback + on-demand diagnostics)
         self._dev_events: Optional[q.QuorumEvents] = None
+        # readback accounting; on a mesh the absorb counts one readback
+        # per member block, and the bytes of each block
         self.readback_bytes_total = 0
         self.readbacks = 0
         self.readbacks_overlapped = 0
+        self.readback_bytes_per_shard = [0] * self._m_shards
         self._flush_seq = 0
         self.flushes = 0
         self.flush_votes_total = 0
         self.flush_capacity_total = 0
-        # the governor's per-shard occupancy series; an unsharded group is
-        # one shard holding every member row
-        self.flush_votes_per_shard = [0]
-        self.flush_capacity_per_shard = [0]
+        # the governor's per-cell occupancy series (one cell unsharded)
+        self.flush_votes_per_shard = [0] * self._n_shards
+        self.flush_capacity_per_shard = [0] * self._n_shards
         # one flush chunk holds a full 3PC wave (~2N votes per member),
         # pow2, never below the static FLUSH_BATCH
         self.flush_batch = FLUSH_BATCH
@@ -667,17 +723,68 @@ class VotePlaneGroup:
         self.readbacks_deferred = 0  # ticks whose readback deferred
         # one fixed slot width (the adaptive ladder stays per tick)
         self._resident_width = self.flush_batch
-        self._pending_slide = np.zeros(n_members, np.int32)
-        # cumulative slide per member, and its snapshot when the in-flight
+        self._pending_slide = np.zeros(self._m_pad, np.int32)  # by ROW
+        # cumulative slide per MEMBER, and its snapshot when the in-flight
         # consume was dispatched: the difference rebases reported slots
-        self._slide_cum = np.zeros(n_members, np.int64)
+        self._slide_cum = np.zeros(self._m_pad, np.int64)
         self._inflight_cum = self._slide_cum.copy()
         if self._resident:
             self.metrics.add_event(MetricsName.DEVICE_RESIDENT_DEPTH,
                                    self.resident_depth)
+        # occupancy-driven rebalancing (tpu/rebalance.py): member planes
+        # may rotate across device rows at a checkpoint-boundary barrier;
+        # the placement map translates member index <-> device row
+        # wherever the host touches rows. Mirrors stay member-indexed.
+        self._row_shift = 0
+        self._rebalance_pending = 0
+        self.rebalances = 0
+        self._rebuild_placement()
+
+    def _rebuild_placement(self) -> None:
+        """Recompute the row -> member map from the rotation shift
+        (identity until the first rebalance)."""
+        rows = (np.arange(self._m_pad) - self._row_shift) % self._m_pad
+        self._row_member = np.where(
+            rows < len(self._members), rows, -1).astype(np.int64)
+        self._row_valid = self._row_member >= 0
+
+    def _row_of(self, member_idx: int) -> int:
+        """Device row currently holding this member's plane."""
+        return (member_idx + self._row_shift) % self._m_pad
+
+    @property
+    def row_shift(self) -> int:
+        """Current member -> device-row rotation (0 until a rebalance)."""
+        return self._row_shift
 
     def view(self, member_idx: int) -> "DeviceVotePlane":
         return self._members[member_idx]
+
+    @property
+    def shards(self) -> int:
+        """Occupancy-grid cell count: 1 unsharded, member blocks x
+        validator blocks on the fabric."""
+        return self._n_shards
+
+    @property
+    def mesh_shape(self) -> tuple:
+        """() unsharded, (m,) or (m, v) on the fabric."""
+        return self._plan.mesh_shape
+
+    @property
+    def compile_strategy(self) -> dict:
+        """The kernel behind each plan function (``CompilePlan.strategy``:
+        what the port launches, where the reference names its
+        compilation path)."""
+        return dict(self._plan.strategy)
+
+    @property
+    def shard_occupancy(self) -> List[float]:
+        """Cumulative per-cell occupancy (scattered votes / real-row
+        capacity), the flattened grid of cell i * v + j."""
+        return [round(v / c, 4) if c else 0.0
+                for v, c in zip(self.flush_votes_per_shard,
+                                self.flush_capacity_per_shard)]
 
     @property
     def lagging(self) -> bool:
@@ -687,38 +794,61 @@ class VotePlaneGroup:
         lost-wakeup guard treat both as in flight."""
         return self._inflight is not None or bool(self._ring)
 
-    def _row_of(self, member_idx: int) -> int:
-        """Device row holding a member's plane: the identity until the
-        ring and rebalance slice brings plane rotation."""
-        return member_idx
-
     # --- dispatch -------------------------------------------------------
 
-    def _stage_scatter(self, chunks: List[List[int]], shape: int
-                       ) -> torch.Tensor:
+    def _row_chunks(self, chunks: List[List[int]]) -> List[List[int]]:
+        """Member chunks laid out by device row (pad rows empty)."""
+        if not self._row_shift and self._m_pad == len(chunks):
+            return chunks
+        return [chunks[mi] if mi >= 0 else [] for mi in self._row_member]
+
+    def _stage_scatter(self, chunks: List[List[int]], shape: int,
+                       interleave=None) -> torch.Tensor:
+        """The (M_pad, shape) word block on the device. On a mesh each
+        member block's rows are staged and copied in turn, and
+        ``interleave`` (the pipelined absorb) advances once after each
+        block's copy is issued (reference ``vote_plane.py:1116-1136``)."""
         buf = self._scatter_bufs.get(shape)
         if buf is None:
             buf = self._scatter_bufs[shape] = _Staging(
-                len(self._members), shape, self.device)
-        return buf.stage(chunks)
+                self._m_pad, shape, self.device, self._m_shards)
+        return buf.stage(self._row_chunks(chunks), interleave)
+
+    def _cell_votes(self, shard_votes: List[int], base: int, take) -> None:
+        """Attribute one member's votes to occupancy-grid cells: by member
+        block, and under the 2-axis fabric by each vote's SENDER block."""
+        if self._v_shards == 1:
+            shard_votes[base] += len(take)
+            return
+        for w in take:
+            shard_votes[base + min(((w >> 16) & 0x1FFF) // self._v_rows,
+                                   self._v_shards - 1)] += 1
 
     def _collect_chunks(self):
+        """One flush-batch chunk from every member's pending queue, votes
+        attributed to grid cells under the CURRENT placement."""
         chunks = []
         votes = 0
-        for m in self._members:
+        shard_votes = [0] * self._n_shards
+        for i, m in enumerate(self._members):
             take, m._pending = (m._pending[:self.flush_batch],
                                 m._pending[self.flush_batch:])
             chunks.append(take)
             votes += len(take)
-        return chunks, votes
+            self._cell_votes(
+                shard_votes,
+                (self._row_of(i) // self._shard_rows) * self._v_shards,
+                take)
+        return chunks, votes, shard_votes
 
-    def _dispatch_pending(self) -> list:
+    def _dispatch_pending(self, interleave=None) -> list:
         """Chunk + scatter every member's pending votes; returns the
         chained (events, compact) step results (empty if nothing was
-        pending)."""
+        pending). ``interleave`` threads the pipelined per-block absorb
+        through the staging."""
         results = []
         while any(m._pending for m in self._members):
-            chunks, votes = self._collect_chunks()
+            chunks, votes, shard_votes = self._collect_chunks()
             busiest = max(len(c) for c in chunks)
             if self._ladder is not None:
                 self._ladder.record(busiest)
@@ -729,27 +859,57 @@ class VotePlaneGroup:
                 shape = FLUSH_BATCH
                 while shape < busiest:
                     shape *= 2
-            args = ({"votes": votes, "shape": shape}
-                    if self.trace.enabled else None)
+            args = None
+            if self.trace.enabled:
+                args = {"votes": votes, "shape": shape}
+                if self._n_shards > 1:
+                    args["shard_votes"] = list(shard_votes)
             with self.trace.span("flush.dispatch", args=args) \
                     if self.trace.enabled else _NO_SPAN:
-                words = self._stage_scatter(chunks, shape)
+                words = self._stage_scatter(chunks, shape, interleave)
                 self._states, events, compact = self._plan.step(
                     self._states, words)
             results.append((events, compact))
             self.flushes += 1
             self.metrics.add_event(MetricsName.DEVICE_FLUSH)
-            self._count_scatter(votes, shape)
+            self._count_scatter(votes, shape, shard_votes)
         return results
 
-    def _count_scatter(self, votes: int, shape: int) -> None:
+    def _cell_capacity(self, shape: int) -> List[float]:
+        """One word block's capacity per grid cell: real member rows
+        only, apportioned across validator blocks by their share of real
+        senders under the 2-axis fabric."""
+        if self._v_shards == 1:
+            return [r * shape for r in self._real_rows]
+        return [r * shape * v / self._n
+                for r in self._real_rows for v in self._v_real]
+
+    def _account_shards(self, shard_votes: List[int], shape: int) -> None:
+        """Fold one word block into the per-cell occupancy series."""
+        caps = self._cell_capacity(shape)
+        for si in range(self._n_shards):
+            self.flush_votes_per_shard[si] += shard_votes[si]
+            self.flush_capacity_per_shard[si] += caps[si]
+        if self._n_shards > 1:
+            self.metrics.add_event(
+                MetricsName.DEVICE_SHARD_COUNT, self._n_shards)
+            for si in range(self._n_shards):
+                if caps[si]:
+                    self.metrics.add_event(
+                        f"{MetricsName.DEVICE_SHARD_FLUSH_VOTES}.{si}",
+                        shard_votes[si])
+                    self.metrics.add_event(
+                        f"{MetricsName.DEVICE_SHARD_FLUSH_CAPACITY}.{si}",
+                        caps[si])
+
+    def _count_scatter(self, votes: int, shape: int,
+                       shard_votes: List[int]) -> None:
         """Occupancy counters of one (M, shape) word block, dispatched or
         staged into the ring (the governor's input)."""
         capacity = len(self._members) * shape
         self.flush_votes_total += votes
         self.flush_capacity_total += capacity
-        self.flush_votes_per_shard[0] += votes
-        self.flush_capacity_per_shard[0] += capacity
+        self._account_shards(shard_votes, shape)
         self.metrics.add_event(MetricsName.DEVICE_FLUSH_VOTES, votes)
         self.metrics.add_event(
             MetricsName.DEVICE_FLUSH_OCCUPANCY, votes / capacity)
@@ -761,8 +921,7 @@ class VotePlaneGroup:
         self._states, events, compact = self._plan.step(self._states, words)
         self.flushes += 1
         self.flush_capacity_total += len(self._members) * FLUSH_LADDER[0]
-        self.flush_capacity_per_shard[0] += (len(self._members)
-                                             * FLUSH_LADDER[0])
+        self._account_shards([0] * self._n_shards, FLUSH_LADDER[0])
         self.metrics.add_event(MetricsName.DEVICE_FLUSH)
         return [(events, compact)]
 
@@ -787,113 +946,188 @@ class VotePlaneGroup:
     # --- absorb -------------------------------------------------------
 
     def _absorb_results(self, results: list, overlapped: bool) -> None:
-        """Fold one flush's chained steps into the host snapshot."""
+        """Fold one flush's chained steps into the host snapshot, every
+        member block at once."""
+        for _ in self._absorb_blocks(results, overlapped):
+            pass
+
+    def _absorb_blocks(self, results: list, overlapped: bool):
+        """Generator folding one flush's chained steps into the host
+        snapshot, one member block at a time (reference
+        ``vote_plane.py:864-952``), yielding between blocks so the
+        pipelined flush can fold a block while the next block's words are
+        staged. host_eval: ONE full-matrix readback. Device eval: each
+        step's compact record crosses in one copy (one device holds every
+        block), and is folded and counted per member block on a mesh -
+        one ``flush.readback`` span (with its ``shard``), one
+        ``readbacks`` count and the block's bytes in
+        ``readback_bytes_per_shard``, as a fabric with a card per block
+        reads them back."""
         trace_on = self.trace.enabled
-        args = {"bytes": 0, "overlapped": overlapped} if trace_on else None
-        with self.trace.span("flush.readback", args=args) \
-                if trace_on else _NO_SPAN:
-            if self.host_eval:
+        if self.host_eval:
+            args = ({"bytes": 0, "overlapped": overlapped}
+                    if trace_on else None)
+            with self.trace.span("flush.readback", args=args) \
+                    if trace_on else _NO_SPAN:
                 (self._host_prepared, self._host_prepare_counts,
                  self._host_commit_counts,
                  self._host_stable) = results[-1][2].result()
+                if self._row_shift:
+                    # the snapshot is row-indexed, members read it by
+                    # index: un-rotate the rows
+                    perm = (np.arange(self._m_pad)
+                            + self._row_shift) % self._m_pad
+                    (self._host_prepared, self._host_prepare_counts,
+                     self._host_commit_counts, self._host_stable) = (
+                        self._host_prepared[perm],
+                        self._host_prepare_counts[perm],
+                        self._host_commit_counts[perm],
+                        self._host_stable[perm])
                 self._host_commit_ok = (
                     self._host_commit_counts
                     >= self._n - (self._n - 1) // 3)
                 bytes_n = sum(a.nbytes for a in (
                     self._host_prepared, self._host_prepare_counts,
                     self._host_commit_counts, self._host_stable))
-            else:
-                bytes_n = 0
-                for events, _, fetch in results:
-                    bytes_n += self._apply_compact(
-                        events, q.CompactEvents(*fetch.result()))
-                self._host_prepared = self._mir_prepared
-                self._host_commit_ok = self._mir_commit_ok
-                self._host_stable = self._mir_stable
-                self._host_prepare_counts = None
-                self._host_commit_counts = None
-            if args is not None:
-                args["bytes"] = bytes_n
-        self.readback_bytes_total += bytes_n
-        self.readbacks += 1
-        if overlapped:
-            self.readbacks_overlapped += 1
-        self.metrics.add_event(MetricsName.DEVICE_READBACK_BYTES, bytes_n)
+                if args is not None:
+                    args["bytes"] = bytes_n
+            self._count_readback(bytes_n, overlapped, None)
+        else:
+            sharded = self._mesh is not None
+            hosts = [(events, q.CompactEvents(*fetch.result()))
+                     for events, _, fetch in results]
+            for si in range(self._m_shards if sharded else 1):
+                args = ({"bytes": 0, "overlapped": overlapped}
+                        if trace_on else None)
+                if args is not None and sharded:
+                    args["shard"] = si
+                with self.trace.span("flush.readback", args=args) \
+                        if trace_on else _NO_SPAN:
+                    bytes_n = 0
+                    for events, host in hosts:
+                        bytes_n += self._apply_compact(
+                            events, host, si if sharded else None)
+                    if args is not None:
+                        args["bytes"] = bytes_n
+                self._count_readback(bytes_n, overlapped,
+                                     si if sharded else None)
+                yield si
+            self._host_prepared = self._mir_prepared
+            self._host_commit_ok = self._mir_commit_ok
+            self._host_stable = self._mir_stable
+            self._host_prepare_counts = None
+            self._host_commit_counts = None
         self._dev_events = results[-1][0]
         self.metrics.add_event(MetricsName.DEVICE_READBACK_COMPACT,
                                0 if self.host_eval else 1)
         self.version += 1
 
-    def _apply_compact(self, events: q.QuorumEvents,
-                       host: q.CompactEvents) -> int:
-        """Fold one step's compact deltas into the mirrors + per-member
-        delta accumulators; returns the bytes that crossed the link. A
-        member whose true delta count exceeds the cap triggers one
-        full-events fetch for this step (diffed against its mirror)."""
+    def _count_readback(self, bytes_n: int, overlapped: bool,
+                        si: Optional[int]) -> None:
+        self.readback_bytes_total += bytes_n
+        if si is not None:
+            self.readback_bytes_per_shard[si] += bytes_n
+        self.readbacks += 1
+        if overlapped:
+            self.readbacks_overlapped += 1
+        self.metrics.add_event(MetricsName.DEVICE_READBACK_BYTES, bytes_n)
+
+    def _apply_compact(self, events: q.QuorumEvents, host: q.CompactEvents,
+                       si: Optional[int]) -> int:
+        """Fold one step's compact deltas - the whole group (``si`` None)
+        or member block ``si``'s rows - into the mirrors + per-member
+        delta accumulators; returns the bytes of that block. A member
+        whose true delta count exceeds the cap triggers one full-events
+        fetch of the block for this step (diffed against its mirror)."""
+        lo = 0 if si is None else si * self._shard_rows
+        if si is not None:
+            host = q.CompactEvents(*[a[lo:lo + self._shard_rows]
+                                     for a in host])
         bytes_n = sum(a.nbytes for a in host)
         s = self._log_size
         cap = self._delta_cap
+        rows = host.frontier.shape[0]
+        # pad rows hold nothing; a rotated placement maps each device row
+        # back to its member (or -1)
+        row_member = self._row_member[lo:lo + rows]
+        valid = self._row_valid[lo:lo + rows]
         over_p = host.n_prepared > cap
         over_c = host.n_committed > cap
         full_prep = full_ord = None
-        if over_p.any() or over_c.any():
-            full_prep = events.prepared.cpu().numpy()
-            full_ord = events.ordered.cpu().numpy()
+        if (over_p & valid).any() or (over_c & valid).any():
+            full_prep = events.prepared[lo:lo + rows].cpu().numpy()
+            full_ord = events.ordered[lo:lo + rows].cpu().numpy()
             bytes_n += full_prep.nbytes + full_ord.nbytes
         touched = np.nonzero(
-            (host.new_prepared[:, 0] < s) | (host.new_committed[:, 0] < s)
-            | over_p | over_c)[0]
+            ((host.new_prepared[:, 0] < s) | (host.new_committed[:, 0] < s)
+             | over_p | over_c) & valid)[0]
         # the residency slide-fold rebase (reference vote_plane.py:
         # 1009-1063): slides folded into the consumed step moved the
         # window after its certs were found, so reported slots are in
         # pre-slide coordinates; shift them down by the slides applied
         # since the consume was dispatched (0 on every per-tick path)
         shift = self._slide_cum - self._inflight_cum
-        for mi in touched:
+        for r in touched:
+            mi = int(row_member[r])
             member = self._members[mi]
             d = int(shift[mi])
-            if over_p[mi]:
-                new = np.nonzero(_rebase_full(full_prep[mi], d)
+            if over_p[r]:
+                new = np.nonzero(_rebase_full(full_prep[r], d)
                                  & ~self._mir_prepared[mi])[0]
             else:
-                new = _rebase_slots(host.new_prepared[mi], d, s)
+                new = _rebase_slots(host.new_prepared[r], d, s)
             if new.size:
                 self._mir_prepared[mi, new] = True
                 member._delta_prepared.extend(int(x) for x in new)
-            if over_c[mi]:
-                new = np.nonzero(_rebase_full(full_ord[mi], d)
+            if over_c[r]:
+                new = np.nonzero(_rebase_full(full_ord[r], d)
                                  & ~self._mir_commit_ok[mi])[0]
             else:
-                new = _rebase_slots(host.new_committed[mi], d, s)
+                new = _rebase_slots(host.new_committed[r], d, s)
             if new.size:
                 self._mir_commit_ok[mi, new] = True
                 member._delta_committed.extend(int(x) for x in new)
-        plain = shift == 0
-        self._mir_stable[plain] = host.stable[plain].astype(bool)
-        self._mir_frontier[plain] = host.frontier[plain]
+        mis = row_member[valid]
+        stable = host.stable.astype(bool)[valid]
+        frontier = host.frontier[valid]
+        deltas = shift[mis]
+        plain = deltas == 0
+        self._mir_stable[mis[plain]] = stable[plain]
+        self._mir_frontier[mis[plain]] = frontier[plain]
         if not plain.all():
             # slid members: the checkpoint votes the report saw were
             # zeroed by the folded slide's own roll - keep the mirror's
             # post-slide state, and only advance the frontier by the
             # rebased report
             sh = ~plain
-            self._mir_frontier[sh] = np.maximum(
-                self._mir_frontier[sh],
-                np.maximum(host.frontier[sh] - shift[sh], 0))
+            self._mir_frontier[mis[sh]] = np.maximum(
+                self._mir_frontier[mis[sh]],
+                np.maximum(frontier[sh] - deltas[sh], 0))
         return bytes_n
 
     # --- flush --------------------------------------------------------
 
     def _flush_pipelined(self) -> None:
         # 1. absorb the steps dispatched LAST tick (their copies have had
-        # a whole tick of host work to land)
+        # a whole tick of host work to land). On a mesh with votes
+        # pending, the absorb runs per member block, interleaved with
+        # step 2's per-block staging (reference vote_plane.py:1282)
+        absorb = None
         if self._inflight is not None:
             results, self._inflight = self._inflight, None
-            self._absorb_results(
+            absorb = self._absorb_blocks(
                 results, overlapped=self._flush_seq > self._inflight_seq)
+            if self._mesh is None or self.host_eval \
+                    or not any(m._pending for m in self._members):
+                for _ in absorb:  # nothing to interleave with
+                    pass
+                absorb = None
         # 2. dispatch this tick's votes and start their readback copies;
         # the absorb happens next tick
-        results = self._dispatch_pending()
+        results = self._dispatch_pending(interleave=absorb)
+        if absorb is not None:
+            for _ in absorb:  # the blocks the staging did not cover
+                pass
         if results:
             self._inflight = self._start_readbacks(results)
             self._inflight_seq = self._flush_seq
@@ -937,19 +1171,19 @@ class VotePlaneGroup:
     # --- multi-tick residency ring ------------------------------------
 
     def _take_slide(self) -> Optional[np.ndarray]:
-        """Detach the accumulated slide vector for the NEXT ring slot (the
-        step applies it before that slot's scatter)."""
+        """Detach the accumulated slide vector (row-indexed) for the NEXT
+        ring slot (the step applies it before that slot's scatter)."""
         if not self._pending_slide.any():
             return None
         vec = self._pending_slide
-        self._pending_slide = np.zeros(len(self._members), np.int32)
+        self._pending_slide = np.zeros(self._m_pad, np.int32)
         return vec
 
     def _ring_slot(self, chunks: List[List[int]]) -> None:
         if self._ring_words is None:
-            self._ring_words = _Ring(len(self._members),
-                                     self._resident_width, self.device)
-        self._ring_words.stage(len(self._ring), chunks)
+            self._ring_words = _Ring(self._m_pad, self._resident_width,
+                                     self.device)
+        self._ring_words.stage(len(self._ring), self._row_chunks(chunks))
         self._ring.append(self._take_slide())
 
     def _enqueue_chunks(self, count_tick: bool = True) -> None:
@@ -957,14 +1191,17 @@ class VotePlaneGroup:
         the device, no launch."""
         enqueued = False
         while any(m._pending for m in self._members):
-            chunks, votes = self._collect_chunks()
+            chunks, votes, shard_votes = self._collect_chunks()
             shape = self._resident_width
-            args = ({"votes": votes, "shape": shape}
-                    if self.trace.enabled else None)
+            args = None
+            if self.trace.enabled:
+                args = {"votes": votes, "shape": shape}
+                if self._n_shards > 1:
+                    args["shard_votes"] = list(shard_votes)
             with self.trace.span("flush.enqueue", args=args) \
                     if self.trace.enabled else _NO_SPAN:
                 self._ring_slot(chunks)
-            self._count_scatter(votes, shape)
+            self._count_scatter(votes, shape, shard_votes)
             enqueued = True
         if enqueued and count_tick:
             self._ring_ticks += 1
@@ -972,15 +1209,17 @@ class VotePlaneGroup:
             self.metrics.add_event(MetricsName.DEVICE_RESIDENT_TICKS)
 
     def _consume_ring(self, sync: bool = False) -> None:
-        """ONE K9 launch consuming every ring slot (slides folded in per
-        slot, quorums evaluated once), its compact readback handed to the
-        pipeline - or absorbed now when ``sync`` (cold start, drain)."""
+        """ONE K9 launch (the tiled K9 on a mesh) consuming every ring
+        slot (slides folded in per slot, quorums evaluated once), its
+        compact readback handed to the pipeline - or absorbed now when
+        ``sync`` (cold start, drain)."""
         if self._pending_slide.any():
             # a trailing slide with no votes after it rides an empty slot
             self._ring_slot([[] for _ in self._members])
-            capacity = len(self._members) * self._resident_width
-            self.flush_capacity_total += capacity
-            self.flush_capacity_per_shard[0] += capacity
+            self.flush_capacity_total += (len(self._members)
+                                          * self._resident_width)
+            self._account_shards([0] * self._n_shards,
+                                 self._resident_width)
         # absorb the PREVIOUS consume first: its readback overlapped the
         # resident ticks' host work
         self._sync_inflight()
@@ -988,8 +1227,7 @@ class VotePlaneGroup:
             results = self._dispatch_empty()  # cold start only
         else:
             slides = np.stack([
-                vec if vec is not None
-                else np.zeros(len(self._members), np.int32)
+                vec if vec is not None else np.zeros(self._m_pad, np.int32)
                 for vec in self._ring])
             k, self._ring = len(self._ring), []
             ticks, self._ring_ticks = self._ring_ticks, 0
@@ -998,7 +1236,7 @@ class VotePlaneGroup:
                     if self.trace.enabled else None)
             with self.trace.span("flush.dispatch", args=args) \
                     if self.trace.enabled else _NO_SPAN:
-                step = resident_plan_for(None, self._n, self._n,
+                step = resident_plan_for(self._mesh, self._n, self._n_pad,
                                          self._delta_cap, k,
                                          self._resident_width, self.device)
                 self._states, events, compact = step(
@@ -1017,7 +1255,8 @@ class VotePlaneGroup:
 
     def _drain_ring(self) -> None:
         """The residency barrier: consume and absorb everything staged NOW
-        (view resets and per-query refreshes must see settled state)."""
+        (view resets, rotations and per-query refreshes must see settled
+        state)."""
         if self._resident and (self._ring or self._pending_slide.any()):
             self._consume_ring(sync=True)
         else:
@@ -1047,16 +1286,40 @@ class VotePlaneGroup:
             # quiet tick, nothing staged, a consume in flight: absorb now
             self._sync_inflight()
 
-    # --- rebalancing: the ring and rebalance slice -----------------------
+    # --- occupancy-driven rebalancing ---------------------------------
 
     def schedule_rebalance(self, rows: int) -> None:
-        raise NotImplementedError(
-            "member-plane rotation (schedule_rebalance) comes with the ring "
-            "and rebalance slice of the port")
+        """Plan a member-plane rotation by ``rows`` device rows along the
+        member axis (planes move, members don't), executed at the next
+        checkpoint-boundary slide: the barrier where the ring is
+        drained."""
+        rows = int(rows) % self._m_pad
+        if rows:
+            self._rebalance_pending = rows
 
     def rebalance_at_barrier(self) -> None:
-        """The checkpoint-boundary barrier of a scheduled rotation: nothing
-        can be scheduled yet, so a no-op."""
+        """Execute a scheduled rotation, if any (the checkpoint-boundary
+        slide calls this; harnesses may model their own barriers)."""
+        if self._rebalance_pending:
+            self._execute_rebalance()
+
+    def _execute_rebalance(self) -> None:
+        from .rebalance import rotate_planes
+
+        rows, self._rebalance_pending = self._rebalance_pending, 0
+        # barrier: everything staged settles under the OLD placement,
+        # THEN the planes move (K1 + K15) and the placement map rewrites
+        self._drain_ring()
+        self._states = rotate_planes(self._states, self._mesh, rows,
+                                     self._shard_rows)
+        self._row_shift = (self._row_shift + rows) % self._m_pad
+        self._rebuild_placement()
+        self.rebalances += 1
+        self.version += 1
+        if self.trace.enabled:
+            self.trace.record("rebalance.executed", cat="dispatch",
+                              args={"rows": rows,
+                                    "shift": self._row_shift})
 
     # --- window management --------------------------------------------
 
@@ -1091,8 +1354,10 @@ class VotePlaneGroup:
             return
         self.flush()
         self._sync_inflight()
+        # the checkpoint-boundary barrier: a scheduled rotation runs now,
+        # with the device state settled
         self.rebalance_at_barrier()
-        deltas = torch.zeros(len(self._members), dtype=torch.int32)
+        deltas = torch.zeros(self._m_pad, dtype=torch.int32)
         deltas[self._row_of(member_idx)] = delta
         self._states = self._plan.slide(self._states, deltas)
         self.version += 1
@@ -1104,7 +1369,7 @@ class VotePlaneGroup:
         # members' buffered votes are untouched. A view reset drains the
         # residency ring first: old-view events must not land after it
         self._drain_ring()
-        mask = torch.zeros(len(self._members), dtype=torch.bool)
+        mask = torch.zeros(self._m_pad, dtype=torch.bool)
         mask[self._row_of(member_idx)] = True
         self._states = self._plan.zero(self._states, mask)
         self.version += 1
@@ -1249,4 +1514,6 @@ class _MemberPlane(DeviceVotePlane):
         ev = self._group._dev_events
         if ev is None:
             return 0
-        return int(ev.prepare_counts[self._mi, slot].item())
+        # one scalar from the device-resident events, addressed by row
+        return int(ev.prepare_counts[self._group._row_of(self._mi),
+                                     slot].item())

@@ -48,6 +48,11 @@ LAUNCHES: Dict[str, int] = {
     "merkle_node_hash": 0,
     "audit_paths": 0,
     "audit_paths_indexed": 0,
+    "fabric_step": 0,
+    "resident_tile": 0,
+    "sharded_fused_step": 0,
+    "ring_shift": 0,
+    "rotate_merge": 0,
 }
 
 _P = ctypes.c_void_p
@@ -78,6 +83,29 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I,
         # events and compact outputs (as quorum_step), then the stream
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "fabric_step_launch": (
+        # state (as quorum_step), words, ok (NULL but for the sharded K14)
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        # M, N, S, C, W, v, n_validators, delta_cap, compact
+        _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        # partial counts (M, v, S) prepare, commit, (M, v, C) checkpoint
+        _P, _P, _P,
+        # events and compact outputs (as quorum_step), then the stream
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "resident_tile_launch": (
+        # state (as quorum_step), slides (k, M), words (k, M, W)
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        # k, M, N, S, C, W, v, n_validators, delta_cap
+        _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        # partial counts (as fabric_step), events and compact outputs,
+        # then the stream
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # host table of (src, dst, row_bytes) per leaf, leaves, rows,
+    # shift_rows, stream
+    "ring_shift_launch": (_P, _I, _I, _I, _P),
+    # host table of (a, b, dst, row_bytes) per leaf, leaves, rows,
+    # shard_rows, s, stream
+    "rotate_merge_launch": (_P, _I, _I, _I, _I, _P),
     # state (as quorum_step), deltas or mask, M, N, S, C, stream
     "window_slide_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _P),

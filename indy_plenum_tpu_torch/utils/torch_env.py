@@ -60,3 +60,24 @@ def set_deterministic() -> None:
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True, warn_only=True)
 
+
+
+def parse_mesh_shape(spec) -> tuple:
+    """Parse a ``--mesh`` value into a fabric mesh shape: ``"8"`` ->
+    ``(8,)`` (member-sharded), ``"4x2"`` -> ``(4, 2)`` (the member x
+    validator fabric). Raises ValueError on anything else. Copy of
+    ``indy_plenum_tpu/utils/jax_env.py:parse_mesh_shape``."""
+    dims = tuple(int(p) for p in str(spec).lower().split("x"))
+    if not 1 <= len(dims) <= 2 or any(d < 1 for d in dims):
+        raise ValueError(f"mesh shape must be M or MxV with dims >= 1: "
+                         f"{spec!r}")
+    return dims
+
+
+def mesh_devices(shape) -> int:
+    """Tile count a fabric mesh shape needs (the reference's device
+    count)."""
+    n = 1
+    for d in shape:
+        n *= d
+    return n

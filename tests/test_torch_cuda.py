@@ -16,7 +16,13 @@ so it also runs where JAX is not installed:
   the same pool with host waves;
 - a small signed pool on the card against the same pool on the CPU, through
   checkpoint slides and a view change: the same ordering, the same
-  protocol timeline, and every kernel of the path launched.
+  protocol timeline, and every kernel of the path launched;
+- the fabric step (K13, ``csrc/fabric.cu``), the tiled resident step, the
+  ring shift and the rotation's merge (K1, K15, ``csrc/ring.cu``) and the
+  sharded fused step against their plain versions, bit-equal, at
+  ``chip_smoke.py``'s full-width shapes (the sharded step at n = 16);
+- the forced-rebalance pool (n = 64 on the (2, 2) fabric) on the card
+  against the same pool on the CPU, and against its unforced arm.
 """
 import numpy as np
 import pytest
@@ -178,3 +184,55 @@ def test_resident_pool_on_card_orders_as_per_tick(card):
     assert launches["resident_step"] > 0 and launches["window_slide"] == 0
     for node in resident.nodes:
         assert node.vote_plane.h == node.data.low_watermark
+
+
+@pytest.mark.cuda
+def test_fabric_kernels_match_plain(card):
+    """``chip_smoke.py``'s K13, tiled K9, K1 and K15 checks at full width:
+    M = N = 256, S = 300."""
+    import chip_smoke
+
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    rng = np.random.RandomState(13)
+    before = dict(kb.LAUNCHES)
+    assert chip_smoke.check_fabric(card, rng) == (0, 9)
+    assert chip_smoke.check_resident_tile(card, rng) == 0
+    assert chip_smoke.check_ring_rotate(card, rng) == (0, 0)
+    for name in ("fabric_step", "resident_tile", "ring_shift",
+                 "rotate_merge"):
+        assert kb.LAUNCHES[name] > before[name], name
+
+
+@pytest.mark.cuda
+def test_sharded_fused_step_matches_plain(card):
+    import chip_smoke
+
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    inputs = chip_smoke.fused_inputs(np.random.RandomState(15), 16, 40, 64)
+    before = kb.LAUNCHES["sharded_fused_step"]
+    assert chip_smoke.check_sharded_fused(card, inputs, 16, 40, 2) == 0
+    assert kb.LAUNCHES["sharded_fused_step"] == before + 1
+
+
+@pytest.mark.cuda
+def test_rebalance_pool_on_card_matches_cpu(card):
+    import chip_smoke
+
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    kb.library()
+    kb.reset_launch_counts()
+    forced = chip_smoke.run_pool_r(None, (2, 2), chip_smoke.R_FORCE_TICK)
+    launches = kb.launch_counts()
+    unforced = chip_smoke.run_pool_r(None, (2, 2), 0)
+    on_cpu = chip_smoke.run_pool_r("cpu", (2, 2), chip_smoke.R_FORCE_TICK)
+    keys = ("ordered_hash", "trace_hash", "views", "ordered_min")
+    for key in keys:
+        assert forced[key] == unforced[key] == on_cpu[key], key
+    assert forced["rebalances"] >= 1 and forced["row_shift"] != 0
+    assert (forced["rebalances"], forced["row_shift"]) \
+        == (on_cpu["rebalances"], on_cpu["row_shift"])
+    for name in chip_smoke.PATH_KERNELS["rebalance_forced"]:
+        assert launches[name] > 0, name

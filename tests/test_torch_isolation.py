@@ -43,8 +43,10 @@ def test_port_imports_without_jax_or_reference():
                 "server.ledgers_bootstrap", "ingress.read_service",
                 "tpu.step", "tpu.compile_plan"):
         assert "indy_plenum_tpu_torch." + mod in mods
+    for mod in ("tpu.ring_exchange", "tpu.rebalance"):
+        assert "indy_plenum_tpu_torch." + mod in mods
     for src in ("resident.cu", "quorum_common.cuh", "quorum.cu",
-                "window.cu"):
+                "window.cu", "fabric.cu", "ring.cu"):
         assert os.path.isfile(os.path.join(PKG, "csrc", src)), src
     blocked = ("jax", "indy_plenum_tpu", "msgpack", "cryptography")
     code = (
@@ -110,6 +112,12 @@ def _entry_points(device_kw):
         inputs = example_inputs(batch=2, n_validators=4, device="cpu")
         return fused_step(*inputs, n_validators=4, **device_kw)
 
+    def fabric_mesh():
+        from indy_plenum_tpu_torch.tpu.quorum import make_fabric_mesh
+
+        return make_fabric_mesh([device_kw.get("device", "cuda")] * 8,
+                                (2, 2))
+
     return {
         "CoreAuthNr": lambda: CoreAuthNr(**device_kw),
         "VotePlaneGroup": lambda: VotePlaneGroup(
@@ -119,6 +127,10 @@ def _entry_points(device_kw):
         "resident_plan_for": lambda: resident_plan_for(
             None, 4, 4, 16, 2, 16, **device_kw),
         "fused_step": k14,
+        "VotePlaneGroup.fabric": lambda: VotePlaneGroup(
+            4, validators, 32, 2, mesh=fabric_mesh(), **device_kw),
+        "SimPool.fabric": lambda: SimPool(
+            4, device_quorum=True, mesh=fabric_mesh(), **device_kw),
         "DeviceVotePlane": lambda: DeviceVotePlane(
             validators, 32, 2, **device_kw),
         "batch_verify": lambda: batch_verify(
@@ -141,7 +153,8 @@ def _entry_points(device_kw):
 
 
 ENTRY_POINTS = ["CoreAuthNr", "VotePlaneGroup", "VotePlaneGroup.resident",
-                "resident_plan_for", "fused_step", "DeviceVotePlane",
+                "resident_plan_for", "fused_step", "VotePlaneGroup.fabric",
+                "SimPool.fabric", "DeviceVotePlane",
                 "batch_verify", "SimPool.device_quorum",
                 "SimPool.sign_requests", "SimPool.real_execution",
                 "SparseMerkleState", "ReadService",
@@ -190,6 +203,13 @@ def test_wrappers_refuse_other_devices():
         q.resident_step(state, torch.zeros((1, 2), dtype=torch.int32),
                         torch.empty((1, 2, 16), dtype=torch.int32,
                                     device=meta), 4)
+    with pytest.raises(ValueError):
+        q.fabric_step(state, torch.empty((2, 16), dtype=torch.int32,
+                                         device=meta), 4, 2)
+    with pytest.raises(ValueError):
+        q.resident_tile_step(state, torch.zeros((1, 2), dtype=torch.int32),
+                             torch.empty((1, 2, 16), dtype=torch.int32,
+                                         device=meta), 4, 2)
     with pytest.raises(ValueError):
         q.slide_state(state, torch.ones(2, dtype=torch.int32))
     with pytest.raises(ValueError):
@@ -263,7 +283,20 @@ def test_ctypes_signatures_match_cuda_sources():
                                 "resident_step", "fused_step",
                                 "window_slide", "window_zero",
                                 "sha256_fixed", "merkle_node_hash",
-                                "audit_paths", "audit_paths_indexed"}
+                                "audit_paths", "audit_paths_indexed",
+                                "fabric_step", "resident_tile",
+                                "sharded_fused_step", "ring_shift",
+                                "rotate_merge"}
+    # K13 and the tiled K9 share fabric.cu's decide kernel; K1 and K15
+    # are csrc/ring.cu
+    with open(os.path.join(kb.CSRC_DIR, "fabric.cu")) as fh:
+        fabric = fh.read()
+    assert 'extern "C" int fabric_step_launch(' in fabric
+    assert "int fabric_decide(" in fabric
+    with open(os.path.join(kb.CSRC_DIR, "ring.cu")) as fh:
+        ring = fh.read()
+    for fn in ("ring_shift_launch", "rotate_merge_launch"):
+        assert f'extern "C" int {fn}(' in ring, fn
 
 
 def test_source_hash_tracks_sources_and_build_dir_is_ignored():

@@ -192,5 +192,9 @@ def test_packers_match_reference():
 
 
 def test_mesh_plans_raise():
+    # a fabric over two devices waits for the multi-card slice; a mesh
+    # that is not the port's FabricMesh is refused
     with pytest.raises(NotImplementedError):
+        tcp.plan_for(tq.make_fabric_mesh(["cpu", "cuda:0"], (2,)), 4, 4, 16)
+    with pytest.raises(TypeError):
         tcp.plan_for(object(), 4, 4, 16)

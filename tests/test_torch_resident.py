@@ -181,10 +181,15 @@ def test_ring_drains_on_view_reset():
 
 
 def test_rebalance_and_mesh_wait_for_their_slices():
+    # the rotation and the one-device fabric are in; only a fabric over
+    # several cards waits for its slice
     group = tvp.VotePlaneGroup(4, ["a", "b", "c", "d"], 8, 2,
                                resident_depth=4, device="cpu")
     group.rebalance_at_barrier()  # nothing scheduled: a no-op
-    with pytest.raises(NotImplementedError, match="rebalance slice"):
-        group.schedule_rebalance(1)
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        tcp.resident_plan_for(object(), 4, 4, 16, 1, 16, "cpu")
+    assert group.rebalances == 0
+    group.schedule_rebalance(1)
+    group.rebalance_at_barrier()
+    assert (group.rebalances, group.row_shift) == (1, 1)
+    with pytest.raises(NotImplementedError, match="multi-card slice"):
+        tcp.resident_plan_for(tq.make_fabric_mesh(["cpu", "cuda:0"], (2,)),
+                              4, 4, 16, 1, 16, "cpu")

@@ -135,8 +135,23 @@ def test_standalone_plane_matches_jax(host_eval):
 
 
 def test_mesh_raises():
+    import torch
+
+    from indy_plenum_tpu_torch.tpu import quorum as tq
+
+    # a fabric over two devices waits for the multi-card slice; a mesh
+    # that is not the port's FabricMesh, or on another device than the
+    # group's, is refused
     with pytest.raises(NotImplementedError):
+        tvp.VotePlaneGroup(4, ["a", "b", "c", "d"], 40,
+                           mesh=tq.make_fabric_mesh(["cpu", "cuda:0"], (2,)),
+                           device="cpu")
+    with pytest.raises(TypeError):
         tvp.VotePlaneGroup(4, ["a", "b", "c", "d"], 40, mesh=object(),
+                           device="cpu")
+    meta = tq.FabricMesh((2,), ("members",), torch.device("meta"))
+    with pytest.raises(ValueError):
+        tvp.VotePlaneGroup(4, ["a", "b", "c", "d"], 40, mesh=meta,
                            device="cpu")
 
 
