@@ -11,11 +11,15 @@ drives the signed write path through its entry points at the size of
 member planes; LOG_SIZE 300, CHK_FREQ 100):
 
 1. build      - nvcc for sm_90a, seconds; the card's name and power limit;
-2. kernels    - K-a SHA-512, K-b mod L, K-c Ed25519 verify, K-d quorum
-                step, K8 window slide and zero, each against its plain
-                version on the same inputs; K12 SHA-256 (11 padding-edge
-                lengths) and K11 node hash (waves of 1 .. 65,536) against
-                their plain versions and hashlib; K10 audit fold, dense
+2. kernels    - K-a SHA-512, K-b mod L, K-c Ed25519 verify, K-d (K7)
+                quorum step (from an empty state, and from random states
+                at the shapes of phases A, B, H, C and R), K8 window slide
+                and zero, each against its plain version on the same
+                inputs; K12 SHA-256 (11 padding-edge lengths) and K11
+                (waves of 1 .. 65,536 as one-level plans, a real 320-key
+                commit plan of ~250 levels, a plan whose levels loop over
+                a full cluster)
+                against their plain versions and hashlib; K10 audit fold, dense
                 and indexed, on 16,384 proofs of a 131,072-leaf tree with
                 planted faults, against the plain versions and the host
                 MerkleVerifier, and a chunk with a 49+-level path; K9
@@ -77,12 +81,14 @@ R. rebalance  - the reference's forced-rebalance pool at n=64 (batches of
 C. execution  - real execution at n=4 with two RBFT instances and
                 phase A's config: signed NYMs executed into every node's
                 ledgers and SMT states, 320 warm-up requests then 3,200
-                timed, the state's hash waves on the card (K11); the same
-                seed with host waves, and with the default "auto" law
-                (a fresh offload policy), must give the same ordering,
-                ledger hashes and state and txn roots; prints ordered
-                txns/sec, the share of the wall spent executing, the
-                device waves, and how many hashes "auto" put on the card;
+                timed, the state's device waves on the card as one K11
+                commit plan per commit; the same seed with host waves,
+                and with the default "auto" law (a fresh offload policy),
+                must give the same ordering, ledger hashes and state and
+                txn roots; prints ordered txns/sec, the share of the wall
+                spent executing, the device commits (each one K11
+                launch), their levels and mean width, and how many hashes
+                "auto" put on the card;
 D. reads      - proved reads over phase C's committed domain ledger
                 (drains of 4,096 through ``make_read_service(mode=
                 "device")``, K10 indexed), then the catchup-proof shape
@@ -502,6 +508,37 @@ def check_quorum(dev, rng):
     if err:
         raise AssertionError(f"K-d differs from plain: {err}")
     return err, steps
+
+
+def check_quorum_shapes(dev, rng):
+    """K7 against its plain version at every shape of ``K7_SHAPES``, from
+    a random vote state: three compact steps of random words (some senders
+    and slots out of range, ~10% invalid), then one step without the
+    compact record. Every state leaf, event and compact output equal, the
+    frontier snapshot a copy (never the live state's storage). Returns the
+    largest error and the shapes checked."""
+    from indy_plenum_tpu_torch.tpu import quorum as q
+
+    err = 0
+    for tag, m, n, s, c, w in K7_SHAPES:
+        state = _random_votes(dev, rng, m, n, s, c)
+        for step_i in range(4):
+            words = q.words_tensor(_random_words(rng, m, w, n, s), dev)
+            shadow = q.clone_state(state)
+            compact = step_i < 3
+            ev, comp = q._dispatch(state, words, n, q.ORDER_DELTA_CAP,
+                                   compact)
+            pev, pcomp = q.step_plain(shadow, words, n, compact=compact)
+            if comp.frontier.untyped_storage().data_ptr() \
+                    == state.frontier.untyped_storage().data_ptr():
+                raise AssertionError(f"K7 {tag}: the frontier snapshot "
+                                     "aliases the state")
+            err = max(err, _max_abs_err(list(zip(state, shadow))
+                                        + list(zip(ev, pev))
+                                        + list(zip(comp, pcomp))))
+    if err:
+        raise AssertionError(f"K7 differs from plain: {err}")
+    return err, [tag for tag, *_ in K7_SHAPES]
 
 
 def _random_words(rng, m, w, n, s):
@@ -957,9 +994,100 @@ def check_sha256(dev, rng):
         seam = s2.merkle_node_hash_bytes(left, right, dev)
         if not np.array_equal(seam, got_np):
             raise AssertionError("merkle_node_hash_bytes differs")
+    # K11's commit plans: a real 320-key commit of phase C's shape, a plan
+    # whose levels loop over a full cluster and a one-level wave (the
+    # narrow waves above take the one-block path)
+    for refs, lits, offs in (commit_plan(dev)[:3], wide_plan(rng),
+                             (s2._wave_refs(320), rng.randint(
+                                 0, 256, (640, 32)).astype(np.uint8),
+                              [0, 320])):
+        rt = torch.from_numpy(np.array(refs)).to(dev)
+        lt = torch.from_numpy(np.array(lits)).to(dev)
+        got = s2.merkle_plan_hash(rt, lt, offs)
+        err11 = max(err11, _max_abs_err(
+            [(got, s2.merkle_plan_hash_plain(rt, lt, offs))]))
+        seam = s2.merkle_plan_hash_bytes(refs, lits, offs, dev)
+        if not np.array_equal(seam, got.cpu().numpy()):
+            raise AssertionError("merkle_plan_hash_bytes differs")
     if err12 or err11:
         raise AssertionError(f"K12/K11 differ from plain: {err12} {err11}")
     return err12, err11
+
+
+PLAN_TREE_KEYS = 3200  # phase C's domain state after its timed batches
+K11_BLOCKS = (1, 2, 4, 8)  # one block, or clusters of 2, 4, 8
+K11_SWEEP_WIDTHS = (32, 64, 128, 320, 1024)
+_PLANS = {}
+
+
+def commit_plan(dev, n_keys=PLAN_TREE_KEYS, batch=POOL_BATCH):
+    """A real K11 commit plan: ``batch`` new keys (one 3PC batch of phase
+    C) into a sparse-Merkle state of ``n_keys`` keys, as the state's
+    device waves encode it. The commit runs on the card and must give the
+    root host waves give. Returns (refs, literals, offsets, levels,
+    widest); made once per process."""
+    from indy_plenum_tpu_torch.state import sparse_merkle_state as smt
+    from indy_plenum_tpu_torch.storage.kv_store import \
+        KeyValueStorageInMemory
+
+    if "commit" in _PLANS:
+        return _PLANS["commit"]
+    kv = KeyValueStorageInMemory()
+    base = smt.SparseMerkleState(kv=kv, commit_mode="host", device="cpu")
+    base.apply_batch([(b"key%08d" % i, b"v%d" % i) for i in range(n_keys)])
+    base.commit()
+    writes = [(b"new%08d" % i, b"w%d" % i) for i in range(batch)]
+    captured = []
+    encode = smt._plan_encode
+
+    def capture(waves, run):
+        plan = encode(waves, run)
+        captured.append(plan)
+        return plan
+
+    roots = []
+    smt._plan_encode = capture
+    try:
+        for mode in ("device", "host"):
+            state = smt.SparseMerkleState(
+                kv=kv, initial_root=base.committed_head_hash,
+                commit_mode=mode, device=dev if mode == "device" else "cpu")
+            roots.append(state.apply_batch(writes))
+    finally:
+        smt._plan_encode = encode
+    if roots[0] != roots[1] or len(captured) != 1:
+        raise AssertionError("K11 commit plan: device and host roots "
+                             "differ")
+    refs, lits, offs = captured[0]
+    _PLANS["commit"] = (refs, lits, offs, len(offs) - 1,
+                        int(np.diff(offs).max()))
+    return _PLANS["commit"]
+
+
+def wide_plan(rng, widths=(3000, 1500, 700, 40, 1), n_lits=4096):
+    """A seeded plan wider than a full cluster's threads (8 x 256): each
+    operand an earlier node (60%) or one of ``n_lits`` random literals."""
+    refs, offs = [], [0]
+    for w in widths:
+        node = rng.rand(w, 2) < 0.6 if offs[-1] else np.zeros((w, 2), bool)
+        earlier = rng.randint(0, max(offs[-1], 1), (w, 2))
+        lit = -1 - rng.randint(0, n_lits, (w, 2))
+        refs.append(np.where(node, earlier, lit))
+        offs.append(offs[-1] + w)
+    return (np.concatenate(refs).astype(np.int32),
+            rng.randint(0, 256, (n_lits, 32)).astype(np.uint8), offs)
+
+
+def chain_plan(levels, width=1):
+    """``levels`` levels of ``width`` nodes, node j of each level hashing
+    node j of the level below with a literal (the SMT's one-key paths):
+    at width 1, one thread's dependent chain through the plan kernel."""
+    refs = [[-1, -2]] * width
+    for lv in range(1, levels):
+        refs += [[(lv - 1) * width + j, -2] for j in range(width)]
+    return (np.array(refs, np.int32),
+            np.arange(64, dtype=np.uint8).reshape(2, 32),
+            [lv * width for lv in range(levels + 1)])
 
 
 def audit_corpus(n_leaves: int = AUDIT_TREE, first: int = AUDIT_FIRST,
@@ -1446,6 +1574,7 @@ H_BATCHES = 2  # bench.py bench_fabric: n, batches = 256, 2
 H_ARMS = (("single", None, 1), ("mesh8", (8,), 1),
           ("fabric4x2", (4, 2), 1), ("fabric4x2_resident", (4, 2), 4))
 R_NODES, R_SEED, R_FORCE_TICK = 64, 23, 12  # test_residency.py:155-171
+R_LOG_SIZE, R_CHK_FREQ = 15, 5
 R_SHAPES = ((4, 2), (8,))
 
 
@@ -1529,7 +1658,8 @@ def run_pool_r(device, shape, force_tick):
 
     config = getConfig({
         "Max3PCBatchWait": 0.1, "Max3PCBatchSize": 1,
-        "QuorumTickInterval": 0.05, "CHK_FREQ": 5, "LOG_SIZE": 15,
+        "QuorumTickInterval": 0.05, "CHK_FREQ": R_CHK_FREQ,
+        "LOG_SIZE": R_LOG_SIZE,
         "ResidentTickDepth": 4, "RebalanceForceTick": force_tick})
     pool = SimPool(R_NODES, seed=R_SEED, config=config, device_quorum=True,
                    shadow_check=False, mesh=fabric_mesh(device or "cuda",
@@ -1611,8 +1741,20 @@ def time_fused_g(dev, inputs):
 # --- phases C, D and E: real execution, proved reads, the state -------------
 
 C_NODES, C_INSTANCES = 4, 2  # a deployed 4-node pool: f + 1 = 2 instances
+
 E_KEYS, E_DELTA, E_WINDOWS = 100_000, 256, 20  # bench.py's state cell
 D_DRAIN, D_DRAINS = 4096, 4
+
+# K7 at the shapes the main path gives it: (M, N, S, C, W) of phases A/F1
+# and 4, B/F2, H's one-device arm, C's n = 4 x 2 members, and phase R's
+# 15-slot window (K7's unaligned-row path, S % 4 != 0, as phase B's)
+K7_SHAPES = (
+    ("A", N_VALIDATORS, N_VALIDATORS, LOG_SIZE, N_CHECKPOINTS, 128),
+    ("B", B_NODES * B_INSTANCES, B_NODES, B_LOG_SIZE,
+     B_LOG_SIZE // B_CHK_FREQ, 128),
+    ("H", FABRIC_N, FABRIC_N, LOG_SIZE, N_CHECKPOINTS, FABRIC_W),
+    ("C", C_NODES * C_INSTANCES, C_NODES, LOG_SIZE, N_CHECKPOINTS, 16),
+    ("R", R_NODES, R_NODES, R_LOG_SIZE, R_LOG_SIZE // R_CHK_FREQ, 128))
 
 
 def run_pool_c(device, mode):
@@ -1626,6 +1768,7 @@ def run_pool_c(device, mode):
         DOMAIN_LEDGER_ID
     from indy_plenum_tpu_torch.config import getConfig
     from indy_plenum_tpu_torch.simulation.pool import SimPool
+    from indy_plenum_tpu_torch.state import sparse_merkle_state
     from indy_plenum_tpu_torch.utils import kernel_build as kb
 
     config = getConfig({
@@ -1651,11 +1794,22 @@ def run_pool_c(device, mode):
 
     for nd in pool.nodes:
         # the executor seam the services call, and inside it the state's
-        # per-level hash waves (host or device, as the mode places them)
+        # hash resolution (host waves and device commit plans, as the
+        # mode places them)
         nd.executor.apply_batch = timed(nd.executor.apply_batch, exec_s)
         nd.executor.commit_batch = timed(nd.executor.commit_batch, exec_s)
         st = nd.boot.db.get_state(DOMAIN_LEDGER_ID)
-        st._hash_wave = timed(st._hash_wave, wave_s)
+        st._resolve_waves = timed(st._resolve_waves, wave_s)
+    # the commit plans the states encode: one per commit that goes to the
+    # card, each of its levels one former per-level wave
+    plans = [0, 0]
+    encode = sparse_merkle_state._plan_encode
+
+    def counted(waves, run):
+        plans[0] += 1
+        plans[1] += len(run)
+        return encode(waves, run)
+
     seq = [0]
 
     def submit(count):
@@ -1678,22 +1832,29 @@ def run_pool_c(device, mode):
     n_txns = POOL_BATCHES * POOL_BATCH
     submit(n_txns)
     exec_s[0] = wave_s[0] = 0.0
-    waves0 = kb.LAUNCHES["merkle_node_hash"]
+    launches0 = kb.LAUNCHES["merkle_node_hash"]
     hashes0 = sum(st.wave_device_hashes for st in states())
     sim_t0 = pool.timer.get_current_time()
-    t0 = time.perf_counter()
-    run_until(POOL_BATCH + n_txns)
-    if device != "cpu":
-        import torch
+    sparse_merkle_state._plan_encode = counted
+    try:
+        t0 = time.perf_counter()
+        run_until(POOL_BATCH + n_txns)
+        if device != "cpu":
+            import torch
 
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sparse_merkle_state._plan_encode = encode
     sim = pool.timer.get_current_time() - sim_t0
     if not pool.honest_nodes_agree():
         raise AssertionError("phase C: honest nodes disagree")
     ordered = min(len(nd.ordered_digests) for nd in pool.nodes) - POOL_BATCH
-    waves = kb.LAUNCHES["merkle_node_hash"] - waves0
-    wave_hashes = sum(st.wave_device_hashes for st in states()) - hashes0
+    k11_launches = kb.LAUNCHES["merkle_node_hash"] - launches0
+    if device != "cpu" and k11_launches != plans[0]:
+        raise AssertionError(f"phase C: {k11_launches} K11 launches for "
+                             f"{plans[0]} device commits")
+    plan_hashes = sum(st.wave_device_hashes for st in states()) - hashes0
     node0 = pool.nodes[0].boot.db
     return pool, _pool_result(
         pool, wall, ordered=ordered, sim_s=sim,
@@ -1701,8 +1862,10 @@ def run_pool_c(device, mode):
         ordered_txns_per_sim_s=ordered / sim,
         execution_s=exec_s[0], execution_share=exec_s[0] / wall,
         wave_hashing_s=wave_s[0],
-        device_waves=waves,
-        mean_wave_width=wave_hashes / waves if waves else 0.0,
+        device_commits=plans[0], device_levels=plans[1],
+        k11_launches=k11_launches,
+        mean_plan_width=plan_hashes / plans[1] if plans[1] else 0.0,
+        mean_plan_levels=plans[1] / plans[0] if plans[0] else 0.0,
         wave_device_hashes=sum(st.wave_device_hashes for st in states()),
         wave_host_hashes=sum(st.wave_host_hashes for st in states()),
         ledger_hashes=[pool.ledger_hash(nd.name) for nd in pool.nodes],
@@ -1951,11 +2114,17 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
 
 def sha256_report(dev, corpus, rng, launches, errs):
     """K10-K12 rows of the kernels line at the main path's shapes: K11 at
-    a 320-pair wave (phase C's widest: one 3PC batch of 320 new keys),
-    K10 at one 4,096-proof chunk of the catchup-proof corpus (the chunk
-    ``_ChunkedDeviceVerify`` launches; phase D's drains are the same
-    size), K12 at 4,096 64-byte messages (not on the main path: its
-    compression runs inside K10/K11)."""
+    one commit plan of phase C's shape (320 new keys into 3,200: ~250
+    levels of <= 320 nodes, ``commit_plan``), K10 at one 4,096-proof chunk
+    of the catchup-proof corpus (the chunk ``_ChunkedDeviceVerify``
+    launches; phase D's drains are the same size), K12 at 4,096 64-byte
+    messages (not on the main path: its compression runs inside K10/K11).
+    Beside K11's row: the same plan on one block and on clusters of 2, 4
+    and 8 blocks, 250-level chain plans of 32 .. 1,024 nodes a level the
+    same ways (where the block/cluster cut belongs), one 320-pair wave
+    (the per-wave form's shape), and one thread's chain through 256
+    one-node levels, whose time per level times the plan's levels is the
+    dependent-chain floor."""
     import torch
     from indy_plenum_tpu_torch.server.catchup import catchup_rep_service \
         as crs
@@ -1969,6 +2138,13 @@ def sha256_report(dev, corpus, rng, launches, errs):
         rng.randint(0, 256, (wave, 32)).astype(np.uint8)).to(dev)
     right = torch.from_numpy(
         rng.randint(0, 256, (wave, 32)).astype(np.uint8)).to(dev)
+    prefs, plits, poffs, plevels, pwidest = commit_plan(dev)
+    prt = torch.from_numpy(np.array(prefs)).to(dev)
+    plt = torch.from_numpy(np.array(plits)).to(dev)
+    n_nodes = prefs.shape[0]
+    crefs, clits, coffs = chain_plan(256)
+    crt = torch.from_numpy(crefs).to(dev)
+    clt = torch.from_numpy(clits).to(dev)
     tree, leaf_data, indices, paths = corpus
     t = _fold_inputs(dev, leaf_data[:chunk], indices[:chunk], paths[:chunk],
                      [tree.tree_size] * chunk, [tree.root_hash] * chunk)
@@ -1987,8 +2163,9 @@ def sha256_report(dev, corpus, rng, launches, errs):
     fns = {
         "sha256_fixed": (lambda: s2.sha256_fixed(msgs),
                          lambda: s2.sha256_fixed_plain(msgs)),
-        "merkle_node_hash": (lambda: s2.merkle_node_hash(left, right),
-                             lambda: s2.merkle_node_hash_plain(left, right)),
+        "merkle_node_hash": (
+            lambda: s2.merkle_plan_hash(prt, plt, poffs),
+            lambda: s2.merkle_plan_hash_plain(prt, plt, poffs)),
         "audit_paths": (lambda: s2.verify_audit_paths(*dense_args),
                         lambda: s2.verify_audit_paths_plain(*dense_args)),
         "audit_paths_indexed": (
@@ -2001,7 +2178,8 @@ def sha256_report(dev, corpus, rng, launches, errs):
     fold_bytes = chunk * (32 + 4 + 4 + 4 + 32 + 1)
     work = {  # (bytes moved once, 32-bit instructions)
         "sha256_fixed": (chunk * (64 + 32), chunk * SHA256_64B_OPS),
-        "merkle_node_hash": (wave * 96, wave * SHA256_NODE_OPS),
+        "merkle_node_hash": (n_nodes * (8 + 32) + plits.size,
+                             n_nodes * SHA256_NODE_OPS),
         "audit_paths": (fold_bytes + chunk * depth * 32,
                         levels * SHA256_NODE_OPS),
         "audit_paths_indexed": (fold_bytes + chunk * depth * 4
@@ -2015,7 +2193,10 @@ def sha256_report(dev, corpus, rng, launches, errs):
         "audit_paths_indexed": "indy_plenum_tpu/tpu/sha256.py:295",
     }
     rows, call_ms, shapes = [], {}, {
-        "sha256_fixed": f"{chunk} x 64 B", "merkle_node_hash": f"{wave} pairs",
+        "sha256_fixed": f"{chunk} x 64 B",
+        "merkle_node_hash": f"one commit plan: {n_nodes} nodes in "
+                            f"{plevels} levels, widest {pwidest}, "
+                            f"{plits.shape[0]} literals",
         "audit_paths": f"{chunk} proofs x {depth} levels",
         "audit_paths_indexed": f"{chunk} proofs x {depth} levels, "
                                f"{n_table} table rows"}
@@ -2030,7 +2211,33 @@ def sha256_report(dev, corpus, rng, launches, errs):
                      "max_abs_err": errs[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
-    return rows, call_ms, shapes
+    poffs32 = np.asarray(poffs, np.int32)
+    chain_ms = _kernel_ms(lambda: s2.merkle_plan_hash(crt, clt, coffs), 20)
+
+    def by_blocks(refs_t, lits_t, offs32, reps):
+        return {blocks: _kernel_ms(lambda: s2._plan_launch(
+            refs_t, lits_t, offs32, blocks), reps)
+            for blocks in K11_BLOCKS}
+
+    # the block/cluster cut: 250-level chain plans at widths around it
+    sweep = {}
+    for width in K11_SWEEP_WIDTHS:
+        srefs, slits, soffs = chain_plan(250, width)
+        sweep[width] = by_blocks(torch.from_numpy(srefs).to(dev),
+                                 torch.from_numpy(slits).to(dev),
+                                 np.asarray(soffs, np.int32), 5)
+    k11 = {"plan_ms": {r["name"]: r for r in rows}["merkle_node_hash"]["ms"],
+           "plan_blocks_ms": by_blocks(prt, plt, poffs32, 10),
+           "chain_plans_blocks_ms": sweep,
+           "wave_320_ms": _kernel_ms(
+               lambda: s2.merkle_node_hash(left, right), 20),
+           "wave_320_call_ms": _cuda_ms(
+               lambda: s2.merkle_node_hash(left, right), 20),
+           "chain_level_ms": chain_ms / 256,
+           "chain_floor_ms": chain_ms / 256 * plevels,
+           "plan_levels": plevels, "plan_nodes": n_nodes,
+           "plan_widest": pwidest}
+    return rows, call_ms, shapes, k11
 
 
 def residency_report(dev, rng, launches, errs, inputs):
@@ -2210,12 +2417,13 @@ def fabric_report(dev, rng, launches, errs, inputs):
 # the kernels each main-path run must launch
 PATH_KERNELS = {
     "ingress": ("sha512_blocks", "reduce_mod_l", "ed25519_verify"),
-    # K11 on the SMT waves; 11 batches stay below a checkpoint: no slide
+    # K11 once per SMT commit; 11 batches stay below a checkpoint: no slide
     "pool_c": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
                "quorum_step", "merkle_node_hash"),
-    # the default "auto" law places each wave where it measured cheaper
+    # the default "auto" law asks its policy once per commit; a fresh
+    # policy with no measurement tries the card first
     "pool_c_auto": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
-                    "quorum_step"),
+                    "quorum_step", "merkle_node_hash"),
     "reads_d": ("audit_paths_indexed",),
     "state_e": ("merkle_node_hash",),
     "quorum": ("quorum_step", "window_slide"),
@@ -2274,6 +2482,9 @@ def main() -> int:
     err_a, err_b = check_sha512_and_mod_l(dev, rng)
     err_c, n_ok, n_rows = check_verify(dev, signers, reqs, rng)
     err_d, q_steps = check_quorum(dev, rng)
+    # K7 from random states at every shape the main path gives it
+    err_d_shapes, k7_shapes = check_quorum_shapes(dev, rng)
+    err_d = max(err_d, err_d_shapes)
     # K8 at the shapes the main path gives it: phase 4's and phase A's
     # group (64 x 64 x 300) and phase B's (96 x 16 x 30)
     err_slide, err_zero = check_window(
@@ -2312,7 +2523,9 @@ def main() -> int:
             "ring_shift": err_k1, "rotate_merge": err_k15,
             "sharded_fused_step": err_sk14}
     _line("kernels", max_abs_err=errs, verify_accepted=n_ok,
-          verify_rows=n_rows, quorum_steps=q_steps,
+          verify_rows=n_rows, quorum_steps=q_steps, quorum_shapes=k7_shapes,
+          k11_plans={"levels": commit_plan(dev)[3],
+                     "widest": commit_plan(dev)[4]},
           audit_planted_faults=n_planted, resident_slots=RESIDENT_SLOTS,
           fused_votes=DRAIN, fused_accepted=k14_accepted,
           fused_oracle_checked=k14_oracle, fabric_checks=k13_checks,
@@ -2509,7 +2722,7 @@ def main() -> int:
           auto_wall_s=c_auto["wall_s"],
           auto_ordered_txns_per_s=c_auto["ordered_txns_per_s"],
           auto_wave_hashing_s=c_auto["wave_hashing_s"],
-          auto_device_waves=c_auto["device_waves"],
+          auto_device_commits=c_auto["device_commits"],
           auto_wave_device_hashes=c_auto["wave_device_hashes"],
           auto_wave_host_hashes=c_auto["wave_host_hashes"],
           auto_launches=c_auto_launches,
@@ -2534,8 +2747,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels, errs, times = kernel_report(dev, signers, reqs, rng, launches,
                                          errs)
-    sha_rows, sha_call_ms, sha_shapes = sha256_report(dev, corpus, rng,
-                                                      launches, errs)
+    sha_rows, sha_call_ms, sha_shapes, k11 = sha256_report(
+        dev, corpus, rng, launches, errs)
     kernels += sha_rows
     times["call_ms"].update(sha_call_ms)
     res_rows, res_call_ms, res_shapes = residency_report(
@@ -2564,6 +2777,7 @@ def main() -> int:
             reads["proofs_per_s_end_to_end"],
         "reads_d_proofs_per_s_kernel": reads["proofs_per_s_kernel"],
         "sha256_shapes": sha_shapes,
+        "k11_plan": k11,
         "residency_shapes": res_shapes,
         "pool_f1_ordered_txns_per_s": pool_f1["ordered_txns_per_s"],
         "dispatches_per_batch": {"pool_a": pool_a["dispatches_per_batch"],

@@ -63,7 +63,7 @@ __global__ void fabric_tile_kernel(qc::Planes p,
   const size_t mw = static_cast<size_t>(m) * W;
   qc::scatter_member_rows(p, m, words + mw,
                           ok != nullptr ? ok + mw : nullptr, N, S, C, W,
-                          j * nv, nv, j == 0);
+                          j * nv, nv, 0, S, j == 0, true);
   __syncthreads();
   qc::tile_partials(p, m, j, v, j * nv, nv, N, S, C, pc_part, cc_part,
                     kc_part);
@@ -121,10 +121,7 @@ extern "C" int fabric_step_launch(
     void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,
     void* frontier, const void* words, const void* ok, int M, int N, int S,
     int C, int W, int v, int n_validators, int cap, int compact,
-    void* pc_part, void* cc_part, void* kc_part, void* ev_prepared,
-    void* ev_newly, void* ev_ordered, void* ev_stable, void* ev_pc,
-    void* ev_cc, void* new_prep, void* n_prep, void* new_comm, void* n_comm,
-    void* stable_u8, void* stream) {
+    void* pc_part, void* cc_part, void* kc_part, void* out, void* stream) {
   if (S <= 0 || S > qc::kMaxSlots || v < 1 || N % v != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -140,9 +137,7 @@ extern "C" int fabric_step_launch(
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return qc::fabric_decide(
-      p,
-      qc::events(ev_prepared, ev_newly, ev_ordered, ev_stable, ev_pc, ev_cc,
-                 new_prep, n_prep, new_comm, n_comm, stable_u8),
+      p, qc::events_at(out, M, S, C, cap),
       static_cast<const int32_t*>(pc_part),
       static_cast<const int32_t*>(cc_part),
       static_cast<const int32_t*>(kc_part), M, v, S, C, n_validators, cap,

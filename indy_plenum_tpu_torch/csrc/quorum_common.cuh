@@ -2,7 +2,9 @@
 // (K7, quorum.cu), the window slide and zero (K8, window.cu), the
 // resident multi-slot step (K9 and its tiled form, resident.cu) and the
 // member x validator fabric step (K13, fabric.cu). K7, K9 and K13 decide
-// through one function (decide_member), so they cannot drift.
+// through one path (decide_slots, decide_checkpoints, compact_member;
+// decide_member chains them in one block, K7 spreads them over a
+// cluster), so they cannot drift.
 //
 // Every function here works on ONE member plane inside one thread block
 // and is called by all threads of the block alike (some hold a barrier).
@@ -33,7 +35,8 @@ struct Planes {
   int32_t* frontier;
 };
 
-// QuorumEvents, then the CompactEvents slot lists, counts and stable flags
+// QuorumEvents, then the CompactEvents slot lists, counts, stable flags
+// and the frontier snapshot the host reads (a copy, never the live state)
 struct Events {
   uint8_t* prepared;
   uint8_t* newly;
@@ -46,6 +49,7 @@ struct Events {
   int32_t* new_comm;
   int32_t* n_comm;
   uint8_t* stable_u8;
+  int32_t* frontier;
 };
 
 // row r of member m's slot-axis leaves: 0 preprepare_seen, 1 ordered,
@@ -62,19 +66,22 @@ __device__ __forceinline__ uint8_t* row_ptr(const Planes& p, int r, int m,
   return plane + (static_cast<size_t>(m) * N + n) * S;
 }
 
-// Decode member m's W words and store 1 into the hit planes of the
-// validator rows [row_lo, row_lo + rows) (a fabric tile's senders; the
-// whole plane for K7 and K9). The reference's scatter is a max of 0/1
-// bytes, idempotent, so plain stores are right in any thread order.
-// PRE-PREPARE hits regardless of the sender (quorum.py:170), stored only
-// by the block that owns the member's slot-axis rows (``pp_owner``);
-// checkpoints are bounded by C, not S (:153). ``okm`` (nullable) is a
-// per-word verdict: a word whose verdict is 0 is dropped like an invalid
-// one (K14's masked decode).
+// Decode member m's W words and store 1 into the hit planes: prepare and
+// commit votes of the validator rows [row_lo, row_lo + rows) (a fabric
+// tile's senders; the whole plane for K7 and K9) at the slots [s_lo,
+// s_hi) (a K7 cluster block's chunk; all S otherwise); PRE-PREPAREs at
+// those slots when ``pp_owner`` (per slot, whatever the sender:
+// quorum.py:170); checkpoint votes of those rows when ``ck_owner``
+// (bounded by C, not S: :153). So every byte has one writer. The
+// reference's scatter is a max of 0/1 bytes, idempotent, so plain stores
+// are right in any thread order. ``okm`` (nullable) is a per-word verdict:
+// a word whose verdict is 0 is dropped like an invalid one (K14's masked
+// decode).
 __device__ __forceinline__ void scatter_member_rows(
     const Planes& p, int m, const uint32_t* __restrict__ wm,
     const uint8_t* __restrict__ okm, int N, int S, int C, int W,
-    int row_lo, int rows, bool pp_owner) {
+    int row_lo, int rows, int s_lo, int s_hi, bool pp_owner,
+    bool ck_owner) {
   uint8_t* ppm = p.pp + static_cast<size_t>(m) * S;
   uint8_t* pvm = p.pv + static_cast<size_t>(m) * N * S;
   uint8_t* cvm = p.cv + static_cast<size_t>(m) * N * S;
@@ -86,25 +93,28 @@ __device__ __forceinline__ void scatter_member_rows(
     const int kind = (w >> 29) & 0x3;
     const int sender = (w >> 16) & 0x1FFF;
     const int slot = w & 0xFFFF;
+    const bool in_chunk = slot >= s_lo && slot < s_hi;
     if (kind == 0) {
-      if (pp_owner && slot < S) ppm[slot] = 1;
+      if (pp_owner && in_chunk) ppm[slot] = 1;
     } else if (sender >= row_lo && sender < row_lo + rows) {
       if (kind == 1) {
-        if (slot < S) pvm[static_cast<size_t>(sender) * S + slot] = 1;
+        if (in_chunk) pvm[static_cast<size_t>(sender) * S + slot] = 1;
       } else if (kind == 2) {
-        if (slot < S) cvm[static_cast<size_t>(sender) * S + slot] = 1;
+        if (in_chunk) cvm[static_cast<size_t>(sender) * S + slot] = 1;
       } else {
-        if (slot < C) ckm[static_cast<size_t>(sender) * C + slot] = 1;
+        if (ck_owner && slot < C) {
+          ckm[static_cast<size_t>(sender) * C + slot] = 1;
+        }
       }
     }
   }
 }
 
-// The whole plane: K7's and K9's scatter.
+// The whole plane: K9's scatter.
 __device__ __forceinline__ void scatter_member(
     const Planes& p, int m, const uint32_t* __restrict__ wm,
     const uint8_t* __restrict__ okm, int N, int S, int C, int W) {
-  scatter_member_rows(p, m, wm, okm, N, S, C, W, 0, N, true);
+  scatter_member_rows(p, m, wm, okm, N, S, C, W, 0, N, 0, S, true, true);
 }
 
 // Roll rows [r0, r0 + nr) of member m left by d > 0, zero-filling the
@@ -195,29 +205,101 @@ __device__ __forceinline__ int checkpoint_count(const Planes& p, int m,
   return kc;
 }
 
-// Quorum decision of member m from its column counts, and the compact
-// record. ``counts(s, &pc, &cc)`` gives slot s's prepare and commit
-// counts, ``chk_count(c)`` checkpoint slot c's:
-//   1. counts against n-f-1 (prepare) and n-f (commit, checkpoint), f from
-//      the REAL validator count; prepared / newly ordered / cumulative
-//      ordered; with ``compact`` prepared_acked is SET to prepared
-//      (quorum.py:274), not or-ed;
-//   2. ascending delta-slot lists capped at ``cap`` and padded with S,
-//      with the true counts (warp ballots + popcounts, one warp per
-//      list), and with ``compact`` the frontier max(old, leading run of
-//      ordered) (:272).
-// ``f_*`` are three kMaxSlots-byte flag arrays in shared memory.
-template <class Counts, class ChkCount>
-__device__ __forceinline__ void decide_member(
-    const Planes& p, const Events& e, int m, int S, int C, int n_validators,
-    int cap, int compact, Counts counts, ChkCount chk_count,
-    uint8_t* f_newprep, uint8_t* f_newly, uint8_t* f_ordered) {
+// Four slots' bytes of one row from slot s0 on (little-endian: slot s0 in
+// bits 0-7): one aligned word load, or bytes below s_hi one at a time.
+__device__ __forceinline__ uint32_t load4(const uint8_t* row, int s0,
+                                          int s_hi, bool aligned) {
+  if (aligned) return *reinterpret_cast<const uint32_t*>(row + s0);
+  uint32_t v = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (s0 + i < s_hi) v |= static_cast<uint32_t>(row[s0 + i]) << (8 * i);
+  }
+  return v;
+}
+
+// Prepare and commit column counts of member m at the slots [s_lo, s_hi)
+// into pc[s - s_lo] and cc[s - s_lo] (shared memory the caller zeroed
+// before a barrier). A thread takes one 4-slot word of the chunk and the
+// rows g, g + G, ... of it (G row groups), so neighbouring lanes read
+// neighbouring words of a row. Bytes are summed two to a 32-bit lane
+// (bytes 0 and 2, bytes 1 and 3, 16 bits each): exact for any byte
+// values over 256 rows, then widened to int; the G groups meet in shared
+// atomics. Rows are read a word at a time when S % 4 == 0 (every row then
+// starts 4-byte aligned, and the chunk bounds are multiples of 4), else a
+// byte at a time: both paths load the same bytes into the same lanes, so
+// they give the same sums.
+__device__ __forceinline__ void chunk_counts(const Planes& p, int m, int N,
+                                             int S, int s_lo, int s_hi,
+                                             int* pc, int* cc) {
+  const int span = s_hi - s_lo;
+  if (span <= 0) return;
+  const int words = (span + 3) / 4;
+  const int groups = static_cast<int>(blockDim.x) >= words
+                         ? static_cast<int>(blockDim.x) / words
+                         : 1;
+  const bool aligned = (S & 3) == 0;
+  const uint8_t* pvm = p.pv + static_cast<size_t>(m) * N * S;
+  const uint8_t* cvm = p.cv + static_cast<size_t>(m) * N * S;
+  for (int t = threadIdx.x; t < groups * words; t += blockDim.x) {
+    const int g = t / words;
+    if (g >= N) continue;  // more row groups than rows
+    const int s0 = s_lo + 4 * (t - g * words);
+    int tp[4] = {0, 0, 0, 0};
+    int tc[4] = {0, 0, 0, 0};
+    uint32_t p02 = 0, p13 = 0, c02 = 0, c13 = 0;
+    int k = 0;
+#pragma unroll 4
+    for (int n = g; n < N; n += groups) {
+      const uint32_t a = load4(pvm + static_cast<size_t>(n) * S, s0, s_hi,
+                               aligned);
+      const uint32_t b = load4(cvm + static_cast<size_t>(n) * S, s0, s_hi,
+                               aligned);
+      p02 += a & 0x00FF00FFu;
+      p13 += (a >> 8) & 0x00FF00FFu;
+      c02 += b & 0x00FF00FFu;
+      c13 += (b >> 8) & 0x00FF00FFu;
+      if (++k == 256 || n + groups >= N) {
+        tp[0] += p02 & 0xFFFF;
+        tp[1] += p13 & 0xFFFF;
+        tp[2] += p02 >> 16;
+        tp[3] += p13 >> 16;
+        tc[0] += c02 & 0xFFFF;
+        tc[1] += c13 & 0xFFFF;
+        tc[2] += c02 >> 16;
+        tc[3] += c13 >> 16;
+        p02 = p13 = c02 = c13 = 0;
+        k = 0;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (s0 + i < s_hi) {
+        atomicAdd(pc + (s0 - s_lo + i), tp[i]);
+        atomicAdd(cc + (s0 - s_lo + i), tc[i]);
+      }
+    }
+  }
+}
+
+// Quorum decision of member m at the slots [s_lo, s_hi) from their column
+// counts (``counts(s, &pc, &cc)``): against n-f-1 (prepare) and n-f
+// (commit), f from the REAL validator count; prepared / newly ordered /
+// cumulative ordered; with ``compact`` prepared_acked is SET to prepared
+// (quorum.py:274), not or-ed. The three flags of slot s go to
+// ``f_*[s]`` (the compacting block's shared memory: its own, or the
+// cluster leader's over DSMEM).
+template <class Counts>
+__device__ __forceinline__ void decide_slots(
+    const Planes& p, const Events& e, int m, int S, int s_lo, int s_hi,
+    int n_validators, int compact, Counts counts, uint8_t* f_newprep,
+    uint8_t* f_newly, uint8_t* f_ordered) {
   const size_t ms = static_cast<size_t>(m) * S;
   const uint8_t* ppm = p.pp + ms;
   const int f = (n_validators - 1) / 3;
   const int prepare_q = n_validators - f - 1;
   const int commit_q = n_validators - f;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
+  for (int s = s_lo + threadIdx.x; s < s_hi; s += blockDim.x) {
     int pc, cc;
     counts(s, &pc, &cc);
     const bool seen = ppm[s] != 0;
@@ -238,15 +320,31 @@ __device__ __forceinline__ void decide_member(
     f_newly[s] = newly;
     f_ordered[s] = now;
   }
+}
+
+// Stable checkpoints of member m: ``chk_count(c)`` against n-f.
+template <class ChkCount>
+__device__ __forceinline__ void decide_checkpoints(const Events& e, int m,
+                                                   int C, int n_validators,
+                                                   ChkCount chk_count) {
+  const int commit_q = n_validators - (n_validators - 1) / 3;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     const bool st = chk_count(c) >= commit_q;
     e.stable[static_cast<size_t>(m) * C + c] = st;
     e.stable_u8[static_cast<size_t>(m) * C + c] = st;
   }
-  __syncthreads();
+}
 
-  // compaction (warp 0: new prepared, warp 1: new committed) and the
-  // frontier (warp 2)
+// The compact record of member m from its S flags (after a barrier that
+// orders every flag's write before it): ascending delta-slot lists capped
+// at ``cap`` and padded with S, with the true counts (warp ballots +
+// popcounts; warp 0 new prepared, warp 1 new committed), and the frontier
+// max(old, leading run of ordered) (warp 2; :272) into the snapshot, and
+// into the state with ``compact``.
+__device__ __forceinline__ void compact_member(
+    const Planes& p, const Events& e, int m, int S, int cap, int compact,
+    const uint8_t* f_newprep, const uint8_t* f_newly,
+    const uint8_t* f_ordered) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const unsigned lt_mask = (1u << lane) - 1u;
@@ -276,16 +374,33 @@ __device__ __forceinline__ void decide_member(
         break;
       }
     }
-    if (lane == 0 && compact) {
+    if (lane == 0) {
       const int old = p.frontier[m];
-      p.frontier[m] = old > lead ? old : lead;
+      const int now = old > lead ? old : lead;
+      e.frontier[m] = now;
+      if (compact) p.frontier[m] = now;
     }
   }
 }
 
+// The whole decide of member m in one block (K9, K13): every slot, the
+// checkpoints, a barrier, the compact record. ``f_*`` are three
+// kMaxSlots-byte flag arrays in the block's shared memory.
+template <class Counts, class ChkCount>
+__device__ __forceinline__ void decide_member(
+    const Planes& p, const Events& e, int m, int S, int C, int n_validators,
+    int cap, int compact, Counts counts, ChkCount chk_count,
+    uint8_t* f_newprep, uint8_t* f_newly, uint8_t* f_ordered) {
+  decide_slots(p, e, m, S, 0, S, n_validators, compact, counts, f_newprep,
+               f_newly, f_ordered);
+  decide_checkpoints(e, m, C, n_validators, chk_count);
+  __syncthreads();
+  compact_member(p, e, m, S, cap, compact, f_newprep, f_newly, f_ordered);
+}
 
-// Quorum eval of member m over its current planes (K7, K9): the column
-// counts over all N rows, then the decide.
+
+// Quorum eval of member m over its current planes in one block (K9): the
+// column counts over all N rows, then the decide.
 __device__ __forceinline__ void eval_member(
     const Planes& p, const Events& e, int m, int N, int S, int C,
     int n_validators, int cap, int compact, uint8_t* f_newprep,
@@ -326,21 +441,32 @@ inline Planes planes(void* pp, void* pv, void* cv, void* ck, void* ordered,
                 static_cast<int32_t*>(frontier)};
 }
 
-inline Events events(void* prepared, void* newly, void* ordered,
-                     void* stable, void* pc, void* cc, void* new_prep,
-                     void* n_prep, void* new_comm, void* n_comm,
-                     void* stable_u8) {
-  return Events{static_cast<uint8_t*>(prepared),
-                static_cast<uint8_t*>(newly),
-                static_cast<uint8_t*>(ordered),
-                static_cast<uint8_t*>(stable),
-                static_cast<int32_t*>(pc),
-                static_cast<int32_t*>(cc),
-                static_cast<int32_t*>(new_prep),
-                static_cast<int32_t*>(n_prep),
-                static_cast<int32_t*>(new_comm),
-                static_cast<int32_t*>(n_comm),
-                static_cast<uint8_t*>(stable_u8)};
+// The outputs of one step, carved from ONE allocation in this order
+// (tpu/quorum.py _outputs carves the same views): int32 prepare counts
+// (M, S), commit counts (M, S), new_prepared (M, cap), n_prepared (M),
+// new_committed (M, cap), n_committed (M), the frontier snapshot (M); then
+// bytes: prepared, newly, ordered (M, S) each, stable (M, C) for the
+// events and (M, C) for the compact record.
+inline Events events_at(void* out, int M, int S, int C, int cap) {
+  const size_t ms = static_cast<size_t>(M) * S;
+  const size_t mc = static_cast<size_t>(M) * C;
+  const size_t md = static_cast<size_t>(M) * cap;
+  Events e;
+  int32_t* i = static_cast<int32_t*>(out);
+  e.pc = i;
+  e.cc = i + ms;
+  e.new_prep = i + 2 * ms;
+  e.n_prep = e.new_prep + md;
+  e.new_comm = e.n_prep + M;
+  e.n_comm = e.new_comm + md;
+  e.frontier = e.n_comm + M;
+  uint8_t* b = reinterpret_cast<uint8_t*>(e.frontier + M);
+  e.prepared = b;
+  e.newly = b + ms;
+  e.ordered = b + 2 * ms;
+  e.stable = b + 3 * ms;
+  e.stable_u8 = e.stable + mc;
+  return e;
 }
 
 // K13's second kernel (fabric.cu): one block per member sums the v tile

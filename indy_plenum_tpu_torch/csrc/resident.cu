@@ -17,8 +17,9 @@
 //       is a strict identity;
 //     - K7's decode and scatter of words[k][m] (an all-invalid row is a
 //       no-op);
-//   then K7's column counts, eval, prepared_acked / ordered / frontier
-//   update and compaction, with compact = 1.
+//   then the column counts over all N rows and the decide K7 and K13
+//   share (prepared_acked / ordered / frontier update and compaction,
+//   with compact = 1).
 // All of it is quorum_common.cuh's device code, shared with K7 and K8, so
 // the three agree bit for bit. State is updated in place.
 //
@@ -110,7 +111,7 @@ __global__ void resident_tile_kernel(qc::Planes p,
       __syncthreads();
     }
     qc::scatter_member_rows(p, m, words + km * W, nullptr, N, S, C, W, r0,
-                            nv, owner);
+                            nv, 0, S, owner, true);
     __syncthreads();
   }
   qc::tile_partials(p, m, j, v, r0, nv, N, S, C, pc_part, cc_part,
@@ -123,10 +124,7 @@ extern "C" int resident_tile_launch(
     void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,
     void* frontier, const void* slides, const void* words, int K, int M,
     int N, int S, int C, int W, int v, int n_validators, int cap,
-    void* pc_part, void* cc_part, void* kc_part, void* ev_prepared,
-    void* ev_newly, void* ev_ordered, void* ev_stable, void* ev_pc,
-    void* ev_cc, void* new_prep, void* n_prep, void* new_comm, void* n_comm,
-    void* stable_u8, void* stream) {
+    void* pc_part, void* cc_part, void* kc_part, void* out, void* stream) {
   if (S <= 0 || S > qc::kMaxSlots || K < 0 || v < 1 || N % v != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -145,9 +143,7 @@ extern "C" int resident_tile_launch(
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return qc::fabric_decide(
-      p,
-      qc::events(ev_prepared, ev_newly, ev_ordered, ev_stable, ev_pc, ev_cc,
-                 new_prep, n_prep, new_comm, n_comm, stable_u8),
+      p, qc::events_at(out, M, S, C, cap),
       static_cast<const int32_t*>(pc_part),
       static_cast<const int32_t*>(cc_part),
       static_cast<const int32_t*>(kc_part), M, v, S, C, n_validators, cap,
@@ -157,10 +153,8 @@ extern "C" int resident_tile_launch(
 extern "C" int resident_step_launch(
     void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,
     void* frontier, const void* slides, const void* words, int K, int M,
-    int N, int S, int C, int W, int n_validators, int cap,
-    void* ev_prepared, void* ev_newly, void* ev_ordered, void* ev_stable,
-    void* ev_pc, void* ev_cc, void* new_prep, void* n_prep, void* new_comm,
-    void* n_comm, void* stable_u8, void* stream) {
+    int N, int S, int C, int W, int n_validators, int cap, void* out,
+    void* stream) {
   if (S <= 0 || S > qc::kMaxSlots || K < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -173,9 +167,7 @@ extern "C" int resident_step_launch(
         qc::planes(pp, pv, cv, ck, ordered, acked, frontier),
         static_cast<const int32_t*>(slides),
         static_cast<const uint32_t*>(words), K, M, N, S, C, W,
-        n_validators, cap, per,
-        qc::events(ev_prepared, ev_newly, ev_ordered, ev_stable, ev_pc,
-                   ev_cc, new_prep, n_prep, new_comm, n_comm, stable_u8));
+        n_validators, cap, per, qc::events_at(out, M, S, C, cap));
   }
   return static_cast<int>(cudaGetLastError());
 }

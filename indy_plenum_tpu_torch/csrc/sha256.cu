@@ -5,25 +5,23 @@
 //   K12  sha256_fixed (sha256.py:103) / merkle_node_hash (:127) - SHA-256
 //        of fixed-length messages, padded at trace time there;
 //   K11  _merkle_node_hash_batch (:325, jit :334) via
-//        merkle_node_hash_bytes (:337) - one per-level wave of the batched
-//        SMT commit, (B, 32) x 2 -> (B, 32), in the uint32-lane word form
-//        of _merkle_node_hash_words (:195);
+//        merkle_node_hash_bytes (:337) - the per-level waves of the batched
+//        SMT commit, (B, 32) x 2 -> (B, 32) each, in the uint32-lane word
+//        form of _merkle_node_hash_words (:195). Here one launch resolves
+//        a whole commit plan: every level of it, bottom up;
 //   K10  _verify_audit_paths (:273) / _verify_audit_paths_indexed (:295),
 //        the fold _audit_fold (:221) - RFC 6962 audit paths against a
 //        root, dense (B, D, 32) siblings or a (U, 32) node table indexed
 //        by (B, D) int32.
 //
-// What bounds them on an H100: integer issue. One compression is 64
-// dependent rounds of 32-bit rotates, adds and logic (~1,400 instructions
-// with the schedule, 3-input logic and adds merged into LOP3 and IADD3)
-// for 64 bytes of message, so even K11, which reads 64 bytes and writes
-// 32 per node, needs ~2,600 instructions per 96 bytes moved - far above
-// the card's ~5 instructions per byte balance
-// (16.7e12 INT32/s over 3.35e12 B/s). K10 reads one 32-byte sibling per
-// level and does two compressions per level. At the main path's sizes
-// (waves of 32..320 pairs, chunks of 4,096 proofs) one thread per item
-// fills few SMs, so a call is bound by one thread's chain of dependent
-// rounds, not by the card's issue rate.
+// What bounds them on an H100: integer issue, and at the main path's sizes
+// one thread's chain. One compression is 64 dependent rounds of 32-bit
+// rotates, adds and logic (~1,400 instructions with the schedule, 3-input
+// logic and adds merged into LOP3 and IADD3) for 64 bytes of message, so
+// even a node hash, which reads 64 bytes and writes 32, needs ~2,600
+// instructions per 96 bytes moved - far above the card's ~5 instructions
+// per byte balance (16.7e12 INT32/s over 3.35e12 B/s). K10 reads one
+// 32-byte sibling per level and does two compressions per level.
 //
 // Design:
 //   - one device function for the compression: the state and a rolling
@@ -31,23 +29,47 @@
 //     unrolled, K sits in __constant__ memory (every thread of a warp
 //     reads the same round constant at once: a broadcast), rotates are
 //     __funnelshift_r; big-endian words are loaded with __byte_perm;
-//   - one thread per message / node / proof, 128-thread blocks: items
-//     are independent, so no block needs another's result; a 320-pair
-//     wave is 3 blocks and a 4,096-proof chunk 32, so the card's 132 SMs
-//     are mostly idle at these sizes (the main path's own batch sizes);
-//   - K11 builds the two message blocks straight from word-shifted halves
-//     as the reference's word path does (prefix word 0x01000000 | l0>>8,
-//     second block r7<<24 | 0x00800000, zeros, bit length 520): no byte
-//     round-trips;
-//   - K10 loops over its proof's levels and stops at path_len (levels past
-//     it change nothing in the reference either); the index/size shifting
-//     runs to completion as MerkleVerifier's while loop does (the
-//     reference bounds it by its padded depth, >= 16 there); index and
-//     tree size stay int32 so parity, >> and the comparisons agree;
-//   - making these fast (several threads per proof, merged waves) is
-//     later work: this first version is the simple right one.
+//   - node_hash builds the two message blocks straight from word-shifted
+//     halves as the reference's word path does (prefix word 0x01000000 |
+//     l0>>8, second block r7<<24 | 0x00800000, zeros, bit length 520): no
+//     byte round-trips. K10 and K11 share it;
+//   - K11 (merkle_plan_kernel) takes a commit plan: the planned nodes of
+//     every level in one array, bottom level first, each with two int32
+//     operand references (>= 0: an earlier node's digest; < 0: -(1 + i)
+//     into a table of 32-byte literals - siblings, defaults, leaf hashes)
+//     and the levels' start offsets. The SMT's levels are ~250 deep and
+//     each needs the one below, so the per-wave form paid a launch and a
+//     host round trip per level; here one launch walks the levels with a
+//     barrier between them. Node j of a level is thread j / blocks of
+//     block j % blocks (looping where a level is wider than the
+//     threads), so a narrow level still spreads over every block. The
+//     wrapper sizes the launch from the widest level: one block
+//     (__syncthreads between levels) up to PLAN_BLOCK_NODES (96) nodes,
+//     else one cluster of up to kPlanCluster blocks, ~96 nodes a block
+//     (cluster.sync between levels). Measured on the card: a 320-node
+//     level on one SM is issue-bound (~2,600 instructions a node hash
+//     over 64 INT32 lanes: ~8 us a level); spread over 4 SMs it is bound
+//     by one node hash's latency (~3.5 us a level, the floor) plus the
+//     cluster barrier. Digests go to an (n_nodes, 32) output in global
+//     memory: the host needs every one of them, and a parent reads its
+//     children there (L2, __ldcg: written in this launch, so never
+//     through the read-only path) - unless this thread wrote the child
+//     last, then from registers (the SMT's one-key chains: node j above
+//     node j). A node's refs and literal operands are read before the
+//     barrier that precedes its level. The bound that binds is the
+//     dependent chain: levels x one node hash's latency;
+//   - K12 and K10: one thread per message / proof, 128-thread blocks;
+//     items are independent. K10 loops over its proof's levels and stops
+//     at path_len (levels past it change nothing in the reference
+//     either); the index/size shifting runs to completion as
+//     MerkleVerifier's while loop does (the reference bounds it by its
+//     padded depth, >= 16 there); index and tree size stay int32 so
+//     parity, >> and the comparisons agree.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -181,17 +203,87 @@ __global__ void sha256_fixed_kernel(const uint8_t* __restrict__ msg,
   store_words(out + static_cast<size_t>(item) * 32, st);
 }
 
-// K11: one thread per pair.
-__global__ void merkle_node_kernel(const uint8_t* __restrict__ left,
-                                   const uint8_t* __restrict__ right,
-                                   uint8_t* __restrict__ out, int batch) {
-  int item = blockIdx.x * blockDim.x + threadIdx.x;
-  if (item >= batch) return;
-  uint32_t l[8], r[8], h[8];
-  load_words(left + static_cast<size_t>(item) * 32, l);
-  load_words(right + static_cast<size_t>(item) * 32, r);
-  node_hash(l, r, h);
-  store_words(out + static_cast<size_t>(item) * 32, h);
+// K11: a commit plan. The level offsets ride in the kernel's parameters.
+constexpr int kMaxPlanLevels = 256;  // the SMT's depth
+constexpr int kPlanThreads = 256;    // most threads a block
+constexpr int kPlanCluster = 8;      // blocks of the wide plans' cluster
+
+struct PlanLevels {
+  int n_levels;
+  int off[kMaxPlanLevels + 1];  // level l is nodes [off[l], off[l + 1])
+};
+
+// Before the barrier: node i's operand references and its literal
+// operands (read-only, so they may be read while the level below is
+// still being hashed).
+__device__ __forceinline__ void plan_prefetch(int i,
+                                              const int32_t* __restrict__ refs,
+                                              const uint8_t* __restrict__ lits,
+                                              int2& r, uint32_t a[8],
+                                              uint32_t b[8]) {
+  r = __ldg(reinterpret_cast<const int2*>(refs) + i);
+  if (r.x < 0) load_words(lits + static_cast<size_t>(-1 - r.x) * 32, a);
+  if (r.y < 0) load_words(lits + static_cast<size_t>(-1 - r.y) * 32, b);
+}
+
+// After the barrier: a node operand, from the registers when this thread
+// wrote it last, else from the output (written in this launch: read
+// through L2, never the read-only path).
+__device__ __forceinline__ void plan_resolve(int ref, const uint8_t* out,
+                                             int last, const uint32_t h[8],
+                                             uint32_t x[8]) {
+  if (ref < 0) return;  // a literal, prefetched
+  if (ref == last) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = h[k];
+    return;
+  }
+  const uint32_t* q =
+      reinterpret_cast<const uint32_t*>(out + static_cast<size_t>(ref) * 32);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) x[k] = bswap32(__ldcg(q + k));
+}
+
+// One launch: gridDim.x == 1 (one block, no cluster) or 2 .. kPlanCluster
+// blocks launched as one cluster. Node j of a level is thread
+// j / gridDim.x of block j % gridDim.x, so even a narrow level spreads
+// over every block of the cluster; a thread keeps the digest it wrote
+// last in registers, so a chain whose parent lands on the same thread
+// (the SMT's one-key paths: node j above node j) skips the L2 read.
+__global__ void __launch_bounds__(kPlanThreads)
+    merkle_plan_kernel(const int32_t* __restrict__ refs,
+                       const uint8_t* __restrict__ lits, uint8_t* out,
+                       const PlanLevels lv) {
+  const bool clustered = gridDim.x > 1;
+  const int stride = blockDim.x * gridDim.x;
+  const int t = threadIdx.x * gridDim.x + blockIdx.x;
+  int last = -1;
+  uint32_t h[8];
+  int2 r;
+  uint32_t a[8], b[8];
+  int i = t;
+  if (i < lv.off[1]) plan_prefetch(i, refs, lits, r, a, b);
+  for (int l = 0; l < lv.n_levels; ++l) {
+    const int hi = lv.off[l + 1];
+    while (i < hi) {
+      plan_resolve(r.x, out, last, h, a);
+      plan_resolve(r.y, out, last, h, b);
+      node_hash(a, b, h);
+      last = i;
+      store_words(out + static_cast<size_t>(i) * 32, h);
+      i += stride;
+      if (i < hi) plan_prefetch(i, refs, lits, r, a, b);
+    }
+    if (l + 1 < lv.n_levels) {
+      i = hi + t;
+      if (i < lv.off[l + 2]) plan_prefetch(i, refs, lits, r, a, b);
+      if (clustered) {
+        cg::this_cluster().sync();
+      } else {
+        __syncthreads();
+      }
+    }
+  }
 }
 
 // K10: one thread per proof. Siblings come from path[b, level] (dense,
@@ -273,15 +365,49 @@ extern "C" int sha256_fixed_launch(const void* msg, void* out, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int merkle_node_hash_launch(const void* left, const void* right,
-                                       void* out, int batch, void* stream) {
-  if (batch > 0) {
-    const int threads = 128;
-    merkle_node_kernel<<<grid_for(batch, threads), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(left), static_cast<const uint8_t*>(right),
-        static_cast<uint8_t*>(out), batch);
+// offsets: n_levels + 1 host ints, nondecreasing from 0; blocks: 1 (one
+// block) to kPlanCluster (one cluster; the wrapper picks it from the
+// widest level). Each block gets the threads the widest level needs.
+extern "C" int merkle_plan_launch(const void* refs, const void* lits,
+                                  void* out, const int* offsets,
+                                  int n_levels, int blocks, void* stream) {
+  if (n_levels < 0 || n_levels > kMaxPlanLevels || blocks < 1 ||
+      blocks > kPlanCluster) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (n_levels == 0) return static_cast<int>(cudaGetLastError());
+  PlanLevels lv;
+  lv.n_levels = n_levels;
+  int widest = 0;
+  for (int l = 0; l <= n_levels; ++l) {
+    lv.off[l] = offsets[l];
+    if (l > 0) {
+      const int width = offsets[l] - offsets[l - 1];
+      if (width < 0) return static_cast<int>(cudaErrorInvalidValue);
+      widest = width > widest ? width : widest;
+    }
+  }
+  if (offsets[0] != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int per_block = (widest + blocks - 1) / blocks;
+  int threads = ((per_block + 31) / 32) * 32;
+  if (threads < 32) threads = 32;
+  if (threads > kPlanThreads) threads = kPlanThreads;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = blocks > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, merkle_plan_kernel, static_cast<const int32_t*>(refs),
+      static_cast<const uint8_t*>(lits), static_cast<uint8_t*>(out), lv);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

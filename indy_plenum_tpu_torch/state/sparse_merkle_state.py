@@ -24,9 +24,9 @@ last-write-wins dedupe per key, entries sorted by path bits, the touched
 subtree rebuilt level by level so each distinct internal node on any
 updated path is hashed exactly once per batch (a Jellyfish-style batched
 version commit; the sequential ``set()`` loop pays ``writes x 256``
-hashes instead). Per-level hash waves are flat ``(left, right)`` arrays
-dispatched through the batched device SHA-256 kernel
-(:func:`indy_plenum_tpu_torch.tpu.sha256.merkle_node_hash`) under the same
+hashes instead). The wide per-level hash waves go to the device SHA-256
+kernel together, as one commit plan
+(:func:`indy_plenum_tpu_torch.tpu.sha256.merkle_plan_hash`), under the same
 MEASURED host-vs-device offload policy as catchup proof verification
 (``DEVICE_MIN_BATCH`` / ``_AdaptiveOffload`` in
 ``server/catchup/catchup_rep_service.py``) — the policy decides the
@@ -38,17 +38,20 @@ inside a 3PC batch observes earlier requests in the same batch exactly
 as it would under sequential application).
 
 Copy of ``indy_plenum_tpu/state/sparse_merkle_state.py``, with its
-imports bound to the port. The device waves run K11 (``tpu/sha256.py``
-``merkle_node_hash_bytes``) on the state's ``device``: the CUDA card unless
-the caller passes ``device="cpu"`` (the kernel's plain version). A failed
-launch raises; nothing falls back to the host quietly. State proofs
-(``generate_state_proof`` and the client-side ``verify_state_proof``) come
-with the state-proof/BLS slice of the port, the resource-ledger
-registration (``sized_resources``) with the telemetry slice.
+imports bound to the port. The device waves of a commit run as ONE K11
+commit plan (``tpu/sha256.py`` ``merkle_plan_hash_bytes``: one upload, one
+launch over every level, one readback) on the state's ``device``: the CUDA
+card unless the caller passes ``device="cpu"`` (the kernel's plain
+version). A failed launch raises; nothing falls back to the host
+quietly. State proofs (``generate_state_proof`` and the client-side
+``verify_state_proof``) come with the state-proof/BLS slice of the port,
+the resource-ledger registration (``sized_resources``) with the
+telemetry slice.
 """
 from __future__ import annotations
 
 import hashlib
+from array import array
 from collections import OrderedDict
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -119,12 +122,57 @@ class _PlanNode:
     hash. ``left``/``right`` are either concrete 32-byte hashes
     (untouched subtrees, defaults, leaf hashes) or child plan nodes."""
 
-    __slots__ = ("left", "right", "hash")
+    __slots__ = ("left", "right", "hash", "index")
 
     def __init__(self, left, right):
         self.left = left
         self.right = right
         self.hash = None
+        self.index = -1  # position in a device commit plan
+
+
+def _plan_encode(waves: List[List[_PlanNode]], run: List[int]):
+    """The levels ``run`` (bottom up, each level's nodes in wave order) as
+    a K11 commit plan, in one walk over the nodes: each node gets its plan
+    index; each operand becomes an int32 reference, the child's index for
+    a planned child, else ``-(1 + i)`` into the deduplicated literals
+    (siblings, defaults, leaf hashes). Returns refs (n, 2) int32, the
+    literals (L, 32) uint8 and the n_levels + 1 level offsets."""
+    import numpy as np
+
+    refs = array("i")
+    append = refs.append
+    lits: List[bytes] = []
+    lit_index: Dict[bytes, int] = {}
+    offsets = [0]
+    n = 0
+    for level in run:
+        for pn in waves[level]:
+            pn.index = n
+            n += 1
+            # unrolled over the two operands: this loop is the commit's
+            # per-node host cost on the device path
+            left, right = pn.left, pn.right
+            if left.__class__ is _PlanNode:
+                append(left.index)
+            else:
+                j = lit_index.get(left)
+                if j is None:
+                    j = lit_index[left] = len(lits)
+                    lits.append(left)
+                append(~j)
+            if right.__class__ is _PlanNode:
+                append(right.index)
+            else:
+                j = lit_index.get(right)
+                if j is None:
+                    j = lit_index[right] = len(lits)
+                    lits.append(right)
+                append(~j)
+        offsets.append(n)
+    return (np.frombuffer(refs, np.int32).reshape(-1, 2),
+            np.frombuffer(b"".join(lits), np.uint8).reshape(-1, 32),
+            offsets)
 
 
 class SparseMerkleState(State):
@@ -290,8 +338,8 @@ class SparseMerkleState(State):
         property tests). Entries are then sorted by path digest (= path
         bit order) and the touched subtree is rebuilt bottom-up: each
         distinct internal node on any updated path is hashed exactly
-        once, collected into per-level waves and dispatched through
-        :meth:`_hash_wave` (host SHA or the batched device kernel under
+        once, collected into per-level waves and resolved by
+        :meth:`_resolve_waves` (host SHA, or one device commit plan under
         the measured offload policy — identical digests either way).
         """
         final: Dict[bytes, Optional[bytes]] = {}
@@ -381,98 +429,123 @@ class SparseMerkleState(State):
         return pn
 
     def _resolve_waves(self, waves: List[List[_PlanNode]]) -> None:
-        """Hash the planned nodes bottom-up, one batched wave per level
-        (children at level+1 are resolved before level runs)."""
-        for level in range(DEPTH - 1, -1, -1):
-            wave = waves[level]
-            if not wave:
-                continue
-            pairs: List[Tuple[bytes, bytes]] = []
-            for pn in wave:
-                left, right = pn.left, pn.right
-                if isinstance(left, _PlanNode):
-                    left = left.hash
-                if isinstance(right, _PlanNode):
-                    right = right.hash
-                pairs.append((left, right))
-            digests = self._hash_wave(pairs)
-            default = DEFAULTS[level]
-            dirty = self._dirty
-            for pn, (left, right), digest in zip(wave, pairs, digests):
-                pn.hash = digest
-                if digest != default:
-                    dirty[b"n" + digest] = _NODE_PREFIX + left + right
-            self.hashes_total += len(wave)
+        """Hash the planned nodes bottom-up (children at level+1 are
+        resolved before level runs).
 
-    def _hash_wave(self, pairs: List[Tuple[bytes, bytes]]) -> List[bytes]:
-        """One per-level hash wave: H(0x01||l||r) for every pair.
-
-        Placement follows the catchup offload law: waves below
-        DEVICE_MIN_BATCH (or mode 'host') run the host SHA loop; larger
-        waves consult the measured policy in 'auto' mode or force the
-        device kernel in 'device' mode. Digests are bit-identical on
-        either path — only nanoseconds move.
+        A level is never wider than the one below it (every touched
+        node's parent is touched), so the levels of at least
+        DEVICE_MIN_BATCH nodes are one run at the bottom of the plan. In
+        'device' mode that run is ONE commit plan through K11
+        (:meth:`_resolve_plan`); in 'auto' mode the measured policy is
+        asked once per commit for the whole run, and its device time is
+        noted per hash. The narrower levels above the run, and every
+        level in 'host' mode, hash on the host, one wave per level (the
+        run's levels too when 'auto' picks the host, noting the host
+        time). Digests are bit-identical on either path - only
+        nanoseconds move.
         """
-        mode = self.commit_mode
-        if mode != "host":
+        levels = [lv for lv in range(DEPTH - 1, -1, -1) if waves[lv]]
+        run = 0
+        policy = None
+        if self.commit_mode != "host":
             from ..server.catchup.catchup_rep_service import (
                 DEVICE_MIN_BATCH,
             )
 
-            if len(pairs) >= DEVICE_MIN_BATCH:
+            while run < len(levels) \
+                    and len(waves[levels[run]]) >= DEVICE_MIN_BATCH:
+                run += 1
+            if run:
                 policy = _wave_offload_policy()
-                if mode == "device" or policy.use_device():
-                    return self._hash_wave_device(pairs, policy, mode)
-                return self._hash_wave_host(pairs, policy)
-        return self._hash_wave_host(pairs, None)
+                if self.commit_mode == "device" or policy.use_device():
+                    self._resolve_plan(waves, levels[:run], policy)
+                    levels, run = levels[run:], 0
+        for i, level in enumerate(levels):
+            self._resolve_level_host(waves[level], level,
+                                     policy if i < run else None)
 
-    def _hash_wave_host(self, pairs: List[Tuple[bytes, bytes]],
-                        policy) -> List[bytes]:
+    def _resolve_level_host(self, wave: List[_PlanNode], level: int,
+                            policy) -> None:
+        """One level's wave through the host SHA loop; ``policy`` (None
+        below the device floor) notes the host time per hash."""
         import time as _time
 
+        pairs: List[Tuple[bytes, bytes]] = []
+        for pn in wave:
+            left, right = pn.left, pn.right
+            if isinstance(left, _PlanNode):
+                left = left.hash
+            if isinstance(right, _PlanNode):
+                right = right.hash
+            pairs.append((left, right))
         # da: allow[nondet-source] -- perf_counter here (and below) feeds the offload policy's host EMA only: placement steering, never results/fingerprints
         t0 = _time.perf_counter()
         prefix = _NODE_PREFIX
         sha = hashlib.sha256
-        out = [sha(prefix + left + right).digest() for left, right in pairs]
+        digests = [sha(prefix + left + right).digest()
+                   for left, right in pairs]
         if policy is not None:
             dt = _time.perf_counter() - t0  # da: allow[nondet-source] -- offload-policy host EMA close (see t0 above)
             policy.note_host(dt * 1e9 / len(pairs))
         self.wave_host_hashes += len(pairs)
-        return out
+        default = DEFAULTS[level]
+        dirty = self._dirty
+        for pn, (left, right), digest in zip(wave, pairs, digests):
+            pn.hash = digest
+            if digest != default:
+                dirty[b"n" + digest] = _NODE_PREFIX + left + right
+        self.hashes_total += len(wave)
 
-    def _hash_wave_device(self, pairs: List[Tuple[bytes, bytes]],
-                          policy, mode: str) -> List[bytes]:
+    def _resolve_plan(self, waves: List[List[_PlanNode]], run: List[int],
+                      policy) -> None:
+        """The levels ``run`` (bottom up) as one commit plan on the
+        state's device (:func:`_plan_encode`): one
+        :func:`~indy_plenum_tpu_torch.tpu.sha256.merkle_plan_hash_bytes`
+        call resolves them all (one upload, one K11 launch, one
+        readback)."""
         import time as _time
 
-        import numpy as np
+        from ..tpu.sha256 import merkle_plan_hash_bytes
 
-        from ..tpu.sha256 import merkle_node_hash_bytes
-
-        n = len(pairs)
-        if mode == "auto" and policy.host_ns is None:
+        if self.commit_mode == "auto" and policy.host_ns is None:
             # one-time calibration: the policy cannot compare modes until
             # it has a host sample (same idiom as catchup's proof verify;
-            # the sampled digests are discarded — the device wave below
-            # recomputes them, keeping results placement-independent)
-            sample = pairs[:min(256, n)]
+            # the sampled digests are discarded - the plan below
+            # recomputes them, keeping results placement-independent).
+            # The bottom level's operands are all concrete hashes.
+            sample = waves[run[0]][:256]
             # da: allow[nondet-source] -- one-time host-calibration timing for the offload policy; sampled digests are discarded
             t0 = _time.perf_counter()
-            for left, right in sample:
-                _h(_NODE_PREFIX + left + right)
+            for pn in sample:
+                _h(_NODE_PREFIX + pn.left + pn.right)
             dt = _time.perf_counter() - t0  # da: allow[nondet-source] -- host-calibration EMA close (see t0 above)
             policy.note_host(dt * 1e9 / len(sample))
-        # da: allow[nondet-source] -- device-wave blocking time feeds the offload policy's device EMA only
+        refs, literals, offsets = _plan_encode(waves, run)
+        n = offsets[-1]
+        # da: allow[nondet-source] -- the plan's blocking time feeds the offload policy's device EMA only
         t0 = _time.perf_counter()
-        left = np.frombuffer(
-            b"".join(p[0] for p in pairs), np.uint8).reshape(n, 32)
-        right = np.frombuffer(
-            b"".join(p[1] for p in pairs), np.uint8).reshape(n, 32)
-        resolved = merkle_node_hash_bytes(left, right, self.device)
-        dt = _time.perf_counter() - t0  # da: allow[nondet-source] -- device-wave EMA close (see t0 above)
+        digests = merkle_plan_hash_bytes(refs, literals, offsets,
+                                         self.device).tobytes()
+        dt = _time.perf_counter() - t0  # da: allow[nondet-source] -- device-plan EMA close (see t0 above)
         policy.note_device(dt * 1e9 / n)
         self.wave_device_hashes += n
-        return [resolved[i].tobytes() for i in range(n)]
+        dirty = self._dirty
+        i = 0
+        for level in run:
+            default = DEFAULTS[level]
+            wave = waves[level]
+            for pn in wave:
+                digest = digests[i:i + 32]
+                i += 32
+                pn.hash = digest
+                if digest != default:
+                    left, right = pn.left, pn.right
+                    if left.__class__ is _PlanNode:
+                        left = left.hash
+                    if right.__class__ is _PlanNode:
+                        right = right.hash
+                    dirty[b"n" + digest] = _NODE_PREFIX + left + right
+            self.hashes_total += len(wave)
 
     # --- batch overlay (WriteRequestManager's per-3PC-batch seam) -------
 

@@ -344,17 +344,24 @@ def resident_step_plain(states: VoteState, slides, words_seq,
                                delta_cap)
 
 
-def _check_state(state: VoteState, dev: torch.device, what: str) -> None:
+def _state_ptrs(state: VoteState, dev: torch.device, what: str) -> list:
+    """The state leaves' pointers, each leaf checked to be a contiguous
+    tensor on ``dev`` (one pass)."""
+    ptrs = []
     for name, t in zip(VoteState._fields, state):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{what}: state.{name} must be a contiguous "
                              f"tensor on {dev}")
+        ptrs.append(t.data_ptr())
     if state.frontier.dtype != torch.int32:
         raise ValueError(f"{what}: frontier must be int32")
+    return ptrs
 
 
 def _check_words(state: VoteState, words: torch.Tensor, dims: int,
-                 what: str) -> None:
+                 what: str) -> list:
+    """Check the (M, W) or (k, M, W) words against the state; returns the
+    state's pointers."""
     if words.dtype != torch.int32 or words.dim() != dims \
             or not words.is_contiguous():
         shape = "(M, W)" if dims == 2 else "(k, M, W)"
@@ -362,7 +369,7 @@ def _check_words(state: VoteState, words: torch.Tensor, dims: int,
                          "int32 tensor of uint32 bit patterns")
     if words.shape[-2] != state.frontier.shape[0]:
         raise ValueError(f"{what}: one word row per member")
-    _check_state(state, words.device, what)
+    return _state_ptrs(state, words.device, what)
 
 
 def _check_ok(ok: Optional[torch.Tensor], words: torch.Tensor,
@@ -377,40 +384,41 @@ def _check_ok(ok: Optional[torch.Tensor], words: torch.Tensor,
                          f"{words.device}")
 
 
-def _outputs(state: VoteState, width: int, compact: bool
-             ) -> Tuple[QuorumEvents, CompactEvents]:
-    """Device outputs of a K7/K9 launch: the full events and the compact
-    record (whose frontier is the live state's with ``compact``)."""
-    m_count, _, s = state.prepare_votes.shape
+def _outputs(state: VoteState, width: int
+             ) -> Tuple[torch.Tensor, QuorumEvents, CompactEvents]:
+    """Device outputs of a K7/K9/K13 launch, carved from ONE allocation in
+    the order ``csrc/quorum_common.cuh`` ``events_at`` writes them: int32
+    prepare and commit counts, new_prepared, n_prepared, new_committed,
+    n_committed and the frontier snapshot, then the prepared, newly and
+    ordered bytes and the stable flags twice (events, compact). Returns
+    the allocation (its pointer is the kernel's one output operand) and
+    the views. The snapshot is the kernel's copy of the frontier, never
+    the live state."""
+    m, _, s = state.prepare_votes.shape
     c = state.checkpoint_votes.shape[-1]
-    dev = state.frontier.device
-
-    def empty(*shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
+    ms, md = m * s, m * width
+    n_int = 2 * ms + 2 * md + 3 * m
+    nbytes = 4 * n_int + 3 * ms + 2 * m * c
+    buf = torch.empty(nbytes + (-nbytes) % 4, dtype=torch.uint8,
+                      device=state.frontier.device)
+    i32, flags = buf.view(torch.int32), buf.view(torch.bool)
+    at = 4 * n_int  # the first byte past the int32 part
     events = QuorumEvents(
-        prepared=empty(m_count, s, dtype=torch.bool),
-        newly_ordered=empty(m_count, s, dtype=torch.bool),
-        ordered=empty(m_count, s, dtype=torch.bool),
-        stable_checkpoints=empty(m_count, c, dtype=torch.bool),
-        prepare_counts=empty(m_count, s, dtype=torch.int32),
-        commit_counts=empty(m_count, s, dtype=torch.int32))
+        prepared=flags.as_strided((m, s), (s, 1), at),
+        newly_ordered=flags.as_strided((m, s), (s, 1), at + ms),
+        ordered=flags.as_strided((m, s), (s, 1), at + 2 * ms),
+        stable_checkpoints=flags.as_strided((m, c), (c, 1), at + 3 * ms),
+        prepare_counts=i32.as_strided((m, s), (s, 1), 0),
+        commit_counts=i32.as_strided((m, s), (s, 1), ms))
     comp = CompactEvents(
-        frontier=state.frontier if compact else empty(m_count,
-                                                      dtype=torch.int32),
-        new_prepared=empty(m_count, width, dtype=torch.int32),
-        n_prepared=empty(m_count, dtype=torch.int32),
-        new_committed=empty(m_count, width, dtype=torch.int32),
-        n_committed=empty(m_count, dtype=torch.int32),
-        stable=empty(m_count, c, dtype=torch.uint8))
-    return events, comp
-
-
-def _output_ptrs(events: QuorumEvents, comp: CompactEvents) -> list:
-    return [t.data_ptr() for t in events] + [
-        comp.new_prepared.data_ptr(), comp.n_prepared.data_ptr(),
-        comp.new_committed.data_ptr(), comp.n_committed.data_ptr(),
-        comp.stable.data_ptr()]
+        frontier=i32.as_strided((m,), (1,), 2 * ms + 2 * md + 2 * m),
+        new_prepared=i32.as_strided((m, width), (width, 1), 2 * ms),
+        n_prepared=i32.as_strided((m,), (1,), 2 * ms + md),
+        new_committed=i32.as_strided((m, width), (width, 1),
+                                     2 * ms + md + m),
+        n_committed=i32.as_strided((m,), (1,), 2 * ms + 2 * md + m),
+        stable=buf.as_strided((m, c), (c, 1), at + 3 * ms + m * c))
+    return buf, events, comp
 
 
 def _step_kernel(state: VoteState, words: torch.Tensor, n_validators: int,
@@ -418,26 +426,23 @@ def _step_kernel(state: VoteState, words: torch.Tensor, n_validators: int,
                  ok: Optional[torch.Tensor] = None,
                  counter: str = "quorum_step"
                  ) -> Tuple[QuorumEvents, CompactEvents]:
-    """One ``quorum_step_kernel`` launch; ``ok`` ((M, W) bool or uint8 on
-    the card, optional) is K14's per-word verdict operand, counted under
-    ``counter``."""
-    _check_words(state, words, 2, "quorum step")
+    """One ``quorum_step_kernel`` launch, and nothing else on the card
+    (the outputs are one allocation; the kernel writes the frontier
+    snapshot). ``ok`` ((M, W) bool or uint8 on the card, optional) is
+    K14's per-word verdict operand, counted under ``counter``."""
+    ptrs = _check_words(state, words, 2, "quorum step")
     _check_ok(ok, words, "quorum step")
     m_count, n_rows, s = state.prepare_votes.shape
     c = state.checkpoint_votes.shape[-1]
     width = delta_width(s, delta_cap)
-    events, comp = _outputs(state, width, compact)
+    buf, events, comp = _outputs(state, width)
     code = kb.library().quorum_step_launch(
-        *[t.data_ptr() for t in state], words.data_ptr(),
-        None if ok is None else ok.data_ptr(),
+        *ptrs, words.data_ptr(), None if ok is None else ok.data_ptr(),
         m_count, n_rows, s, c, words.shape[1], n_validators, width,
-        1 if compact else 0, *_output_ptrs(events, comp),
+        1 if compact else 0, buf.data_ptr(),
         torch.cuda.current_stream(words.device).cuda_stream)
     kb.check(code, counter)
     kb.LAUNCHES[counter] += 1
-    if compact:
-        # the frontier the host reads is a snapshot, not the live state
-        comp = comp._replace(frontier=state.frontier.clone())
     return events, comp
 
 
@@ -474,7 +479,7 @@ def _resident_kernel(states: VoteState, slides: torch.Tensor,
                      words: torch.Tensor, n_validators: int,
                      delta_cap: int) -> Tuple[QuorumEvents, CompactEvents]:
     dev = words.device
-    _check_words(states, words, 3, "resident step")
+    ptrs = _check_words(states, words, 3, "resident step")
     k, m_count, w = words.shape
     if tuple(slides.shape) != (k, m_count):
         raise ValueError("resident step: slides must be (k, M)")
@@ -482,15 +487,14 @@ def _resident_kernel(states: VoteState, slides: torch.Tensor,
     _, n_rows, s = states.prepare_votes.shape
     c = states.checkpoint_votes.shape[-1]
     width = delta_width(s, delta_cap)
-    events, comp = _outputs(states, width, True)
+    buf, events, comp = _outputs(states, width)
     code = kb.library().resident_step_launch(
-        *[t.data_ptr() for t in states], slides.data_ptr(),
-        words.data_ptr(), k, m_count, n_rows, s, c, w, n_validators, width,
-        *_output_ptrs(events, comp),
+        *ptrs, slides.data_ptr(), words.data_ptr(), k, m_count, n_rows, s,
+        c, w, n_validators, width, buf.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     kb.check(code, "resident_step")
     kb.LAUNCHES["resident_step"] += 1
-    return events, comp._replace(frontier=states.frontier.clone())
+    return events, comp
 
 
 def resident_step(states: VoteState, slides: torch.Tensor,
@@ -582,25 +586,21 @@ def _fabric_kernel(state: VoteState, words: torch.Tensor, n_validators: int,
                    v_shards: int, delta_cap: int, compact: bool,
                    ok: Optional[torch.Tensor], counter: str
                    ) -> Tuple[QuorumEvents, CompactEvents]:
-    _check_words(state, words, 2, "fabric step")
+    ptrs = _check_words(state, words, 2, "fabric step")
     _check_ok(ok, words, "fabric step")
     _tile_rows(state, v_shards)
     m_count, n_rows, s = state.prepare_votes.shape
     c = state.checkpoint_votes.shape[-1]
     width = delta_width(s, delta_cap)
-    events, comp = _outputs(state, width, compact)
+    buf, events, comp = _outputs(state, width)
     parts = _partials_out(state, v_shards)
     code = kb.library().fabric_step_launch(
-        *[t.data_ptr() for t in state], words.data_ptr(),
-        None if ok is None else ok.data_ptr(),
+        *ptrs, words.data_ptr(), None if ok is None else ok.data_ptr(),
         m_count, n_rows, s, c, words.shape[1], v_shards, n_validators, width,
-        1 if compact else 0, *[t.data_ptr() for t in parts],
-        *_output_ptrs(events, comp),
+        1 if compact else 0, *[t.data_ptr() for t in parts], buf.data_ptr(),
         torch.cuda.current_stream(words.device).cuda_stream)
     kb.check(code, counter)
     kb.LAUNCHES[counter] += 1
-    if compact:
-        comp = comp._replace(frontier=state.frontier.clone())
     return events, comp
 
 
@@ -650,7 +650,7 @@ def _resident_tile_kernel(states: VoteState, slides: torch.Tensor,
                           v_shards: int, delta_cap: int
                           ) -> Tuple[QuorumEvents, CompactEvents]:
     dev = words.device
-    _check_words(states, words, 3, "resident tile step")
+    ptrs = _check_words(states, words, 3, "resident tile step")
     k, m_count, w = words.shape
     if tuple(slides.shape) != (k, m_count):
         raise ValueError("resident tile step: slides must be (k, M)")
@@ -659,17 +659,15 @@ def _resident_tile_kernel(states: VoteState, slides: torch.Tensor,
     _, n_rows, s = states.prepare_votes.shape
     c = states.checkpoint_votes.shape[-1]
     width = delta_width(s, delta_cap)
-    events, comp = _outputs(states, width, True)
+    buf, events, comp = _outputs(states, width)
     parts = _partials_out(states, v_shards)
     code = kb.library().resident_tile_launch(
-        *[t.data_ptr() for t in states], slides.data_ptr(),
-        words.data_ptr(), k, m_count, n_rows, s, c, w, v_shards,
-        n_validators, width, *[t.data_ptr() for t in parts],
-        *_output_ptrs(events, comp),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *ptrs, slides.data_ptr(), words.data_ptr(), k, m_count, n_rows, s,
+        c, w, v_shards, n_validators, width, *[t.data_ptr() for t in parts],
+        buf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     kb.check(code, "resident_tile")
     kb.LAUNCHES["resident_tile"] += 1
-    return events, comp._replace(frontier=states.frontier.clone())
+    return events, comp
 
 
 def resident_tile_step(states: VoteState, slides: torch.Tensor,
@@ -783,11 +781,11 @@ def _member_operand(state: VoteState, values: torch.Tensor, dtype,
 def _window_launch(state: VoteState, operand: torch.Tensor, entry: str,
                    name: str) -> None:
     dev = state.frontier.device
-    _check_state(state, dev, f"window {name}")
+    ptrs = _state_ptrs(state, dev, f"window {name}")
     m_count, n_rows, s = state.prepare_votes.shape
     c = state.checkpoint_votes.shape[-1]
     code = getattr(kb.library(), entry)(
-        *[t.data_ptr() for t in state], operand.data_ptr(),
+        *ptrs, operand.data_ptr(),
         m_count, n_rows, s, c, torch.cuda.current_stream(dev).cuda_stream)
     kb.check(code, name)
     kb.LAUNCHES[name] += 1

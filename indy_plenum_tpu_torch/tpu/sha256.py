@@ -5,10 +5,13 @@ Port of ``indy_plenum_tpu/tpu/sha256.py``. Three kernels in
 
 - :func:`sha256_fixed` (K12, reference ``sha256.py:103``): SHA-256 of
   fixed-length messages, (B, L) uint8 -> (B, 32);
-- :func:`merkle_node_hash` (K11, reference ``_merkle_node_hash_batch``
-  ``:325``): H(0x01 || l || r) per pair, one wave of the batched SMT
-  commit; :func:`merkle_node_hash_bytes` (``:337``) is the host seam the
-  state calls with (n, 32) numpy arrays;
+- :func:`merkle_plan_hash` (K11, reference ``_merkle_node_hash_batch``
+  ``:325``, one call per level there): H(0x01 || l || r) for every node
+  of a commit plan, all levels of the batched SMT commit in one launch;
+  :func:`merkle_plan_hash_bytes` is the host seam the state calls once per
+  commit with numpy arrays. :func:`merkle_node_hash` and
+  :func:`merkle_node_hash_bytes` (``:337``) keep the reference's
+  one-wave signatures and run a one-level plan;
 - :func:`verify_audit_paths` / :func:`verify_audit_paths_indexed` (K10,
   ``:273`` / ``:295``): the RFC 6962 audit-path fold to a (B,) verdict,
   siblings dense (B, D, 32) or from a (U, 32) node table by (B, D) int32.
@@ -56,6 +59,16 @@ _H0 = [0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
        0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19]
 
 M32 = 0xFFFFFFFF
+
+# K11's plans: at most the SMT's depth of levels. A plan runs in one block
+# while its widest level has at most PLAN_BLOCK_NODES nodes, else in one
+# cluster of up to PLAN_CLUSTER blocks, PLAN_BLOCK_NODES nodes a block
+# (csrc/sha256.cu). The cut is measured (chip_smoke.py sha256_report):
+# above ~100 nodes a level one SM is issue-bound, below it one node
+# hash's latency binds and a cluster barrier only adds to it.
+MAX_PLAN_LEVELS = 256
+PLAN_BLOCK_NODES = 96
+PLAN_CLUSTER = 8
 
 # --- the plain versions: uint32 words in int64 lanes ------------------------
 
@@ -142,6 +155,61 @@ def merkle_node_hash_plain(left: torch.Tensor,
     """The plain version of K11: (B, 32) uint8 x 2 -> (B, 32) uint8."""
     return _words_to_bytes(_node_words(_bytes_to_words(left),
                                        _bytes_to_words(right)))
+
+
+def _plan_offsets(level_offsets) -> np.ndarray:
+    """Host int32 level offsets of a plan: 1 + n_levels entries (at most
+    1 + :data:`MAX_PLAN_LEVELS`), nondecreasing from 0."""
+    offs = np.asarray(level_offsets)
+    if offs.ndim != 1 or not 1 <= offs.size <= MAX_PLAN_LEVELS + 1 \
+            or offs[0] != 0 or (np.diff(offs) < 0).any() \
+            or offs[-1] > np.iinfo(np.int32).max:
+        raise ValueError(f"plan level offsets must be 1 + n_levels <= "
+                         f"{MAX_PLAN_LEVELS + 1} nondecreasing ints from 0")
+    return np.ascontiguousarray(offs, dtype=np.int32)
+
+
+def check_plan_refs(refs: np.ndarray, n_literals: int,
+                    offs: np.ndarray) -> None:
+    """Raise unless every operand of level l refers to a node of an
+    earlier level (``[0, offs[l])``) or to a literal (``[-n_literals,
+    -1]``): the kernel resolves levels in order and reads what it is
+    told."""
+    if refs.shape != (int(offs[-1]), 2):
+        raise ValueError(f"plan refs must be ({int(offs[-1])}, 2), got "
+                         f"{refs.shape}")
+    if refs.size:
+        starts = np.repeat(offs[:-1], np.diff(offs))[:, None]
+        if not (refs < starts).all() or int(refs.min()) < -n_literals:
+            raise ValueError("a plan operand refers to a node of its own "
+                             "or a later level, or past the literals")
+
+
+def merkle_plan_hash_plain(refs: torch.Tensor, literals: torch.Tensor,
+                           level_offsets) -> torch.Tensor:
+    """The plain version of K11: the plan's levels in order, each one
+    batched :func:`merkle_node_hash_plain` over its operands. ``refs``
+    (n, 2) int32, ``literals`` (L, 32) uint8, ``level_offsets`` host ints
+    -> (n, 32) uint8 digests."""
+    offs = _plan_offsets(level_offsets)
+    check_plan_refs(refs.cpu().numpy(), literals.shape[0], offs)
+    out = torch.empty((int(offs[-1]), 32), dtype=torch.uint8,
+                      device=refs.device)
+    lits = literals if literals.shape[0] else torch.zeros(
+        (1, 32), dtype=torch.uint8, device=refs.device)
+    for lo, hi in zip(offs[:-1].tolist(), offs[1:].tolist()):
+        if hi == lo:
+            continue
+        r = refs[lo:hi].to(torch.int64)
+
+        def operand(x):
+            node = (x >= 0).unsqueeze(1)
+            return torch.where(node, out[x.clamp(min=0)],
+                               lits[(-1 - x).clamp(min=0)])
+
+        out[lo:hi] = merkle_node_hash_plain(operand(r[:, 0]),
+                                            operand(r[:, 1]))
+    return out
 
 
 def _int32(x: torch.Tensor) -> torch.Tensor:
@@ -255,24 +323,70 @@ def sha256_fixed(msg: torch.Tensor,
     return out
 
 
+def merkle_plan_hash(refs: torch.Tensor, literals: torch.Tensor,
+                     level_offsets) -> torch.Tensor:
+    """K11: every node of a commit plan in one launch. ``refs`` (n, 2)
+    int32 operand references (>= 0: an earlier level's node; < 0:
+    ``-(1 + i)``, literal i), ``literals`` (L, 32) uint8, and
+    ``level_offsets``, 1 + n_levels host ints (level l is nodes
+    ``[offs[l], offs[l + 1])``, bottom level first) -> (n, 32) uint8. The
+    offsets stay on the host: the widest level sets the launch (one block
+    up to :data:`PLAN_BLOCK_NODES` nodes, else one cluster of up to
+    :data:`PLAN_CLUSTER` blocks) and they ride in the kernel's
+    parameters. CPU tensors take the plain version; CUDA tensors
+    launch ``merkle_plan_kernel`` or raise. On the card the operands are
+    the caller's to keep in range (:func:`check_plan_refs`, which
+    :func:`merkle_plan_hash_bytes` runs on its host arrays)."""
+    if refs.device.type == "cpu":
+        return merkle_plan_hash_plain(refs, literals, level_offsets)
+    dev = _cuda_device(refs, "merkle_plan_hash")
+    offs = _plan_offsets(level_offsets)
+    n = int(offs[-1])
+    _check(refs, "merkle_plan_hash: refs", torch.int32, (n, 2), dev)
+    _check(literals, "merkle_plan_hash: literals", torch.uint8, (None, 32),
+           dev)
+    if refs.data_ptr() % 8:
+        raise ValueError("merkle_plan_hash: refs must be 8-byte aligned")
+    widest = int(np.diff(offs).max(initial=0))
+    blocks = min(PLAN_CLUSTER, max(1, -(-widest // PLAN_BLOCK_NODES)))
+    return _plan_launch(refs, literals, offs, blocks)
+
+
+def _plan_launch(refs: torch.Tensor, literals: torch.Tensor,
+                 offs: np.ndarray, blocks: int) -> torch.Tensor:
+    """One ``merkle_plan_kernel`` launch on checked operands, in one block
+    (``blocks`` 1) or one cluster of ``blocks`` (2 .. PLAN_CLUSTER)."""
+    out = torch.empty((int(offs[-1]), 32), dtype=torch.uint8,
+                      device=refs.device)
+    code = kb.library().merkle_plan_launch(
+        refs.data_ptr(), literals.data_ptr(), out.data_ptr(),
+        offs.ctypes.data, offs.size - 1, blocks, _stream(refs.device))
+    kb.check(code, "merkle_plan")
+    kb.LAUNCHES["merkle_node_hash"] += 1
+    return out
+
+
+def _wave_refs(n: int) -> np.ndarray:
+    """A one-level plan over literals ``[left; right]``: node i hashes
+    literal i with literal n + i."""
+    idx = np.arange(1, n + 1, dtype=np.int32)
+    return np.stack([-idx, -idx - n], axis=1)
+
+
 def merkle_node_hash(left: torch.Tensor, right: torch.Tensor
                      ) -> torch.Tensor:
-    """K11: H(0x01 || left || right), (B, 32) uint8 x 2 -> (B, 32). CPU
-    tensors take the plain version; CUDA tensors launch
-    ``merkle_node_kernel`` or raise."""
+    """K11 as one wave: H(0x01 || left || right), (B, 32) uint8 x 2 ->
+    (B, 32). CPU tensors take the plain version; CUDA tensors launch
+    ``merkle_plan_kernel`` on a one-level, literal-only plan, or raise."""
     if left.device.type == "cpu":
         return merkle_node_hash_plain(left, right)
     dev = _cuda_device(left, "merkle_node_hash")
     batch = left.shape[0]
     for name, t in (("left", left), ("right", right)):
         _check(t, f"merkle_node_hash: {name}", torch.uint8, (batch, 32), dev)
-    out = torch.empty((batch, 32), dtype=torch.uint8, device=dev)
-    code = kb.library().merkle_node_hash_launch(
-        left.data_ptr(), right.data_ptr(), out.data_ptr(), batch,
-        _stream(dev))
-    kb.check(code, "merkle_node_hash")
-    kb.LAUNCHES["merkle_node_hash"] += 1
-    return out
+    idx = torch.arange(1, batch + 1, dtype=torch.int32, device=dev)
+    refs = torch.stack([-idx, -idx - batch], dim=1)  # as _wave_refs
+    return merkle_plan_hash(refs, torch.cat([left, right]), [0, batch])
 
 
 def _check_fold(leaf, index, path_len, tree_size, root, name):
@@ -341,31 +455,50 @@ def verify_audit_paths_indexed(leaf: torch.Tensor, index: torch.Tensor,
     return ok.bool()
 
 
-def merkle_node_hash_bytes(left: np.ndarray, right: np.ndarray,
+def merkle_plan_hash_bytes(refs: np.ndarray, literals: np.ndarray,
+                           level_offsets,
                            device: DeviceLike = None) -> np.ndarray:
-    """Host-array seam for the state-commit hash waves: (n, 32) uint8
-    host arrays in, the resolved (n, 32) uint8 host array out - one
-    per-level wave of the batched SMT commit rides one call. On the card
-    the pairs cross from pinned memory with a non-blocking copy, K11 runs
-    on the current stream and the digests come back into pinned memory
-    behind one event. The wave result is the product (the commit cannot
-    go on to the next level without these digests) and commits run off
-    the vote-plane tick loop, so the call blocks, as the reference's
-    does."""
+    """Host-array seam for a commit plan: ``refs`` (n, 2) int32,
+    ``literals`` (L, 32) uint8 and the level offsets in, the (n, 32)
+    uint8 digests out. The operands are checked on the host
+    (:func:`check_plan_refs`). On the card refs and literals cross in
+    ONE pinned buffer with a non-blocking copy, K11 runs once on the
+    current stream and every digest comes back into pinned memory behind
+    one event. The digests are the product (the commit's dirty nodes and
+    its root) and commits run off the vote-plane tick loop, so the call
+    blocks, as the reference's per-wave call does."""
     dev = resolve_device(device)
-    n = left.shape[0]
+    offs = _plan_offsets(level_offsets)
+    refs = np.ascontiguousarray(refs, dtype=np.int32)
+    literals = np.ascontiguousarray(literals, dtype=np.uint8).reshape(-1, 32)
+    check_plan_refs(refs, literals.shape[0], offs)
+    n = refs.shape[0]
     if dev.type == "cpu":
-        return merkle_node_hash(torch.tensor(left),
-                                torch.tensor(right)).numpy()
-    staged = torch.empty((2, n, 32), dtype=torch.uint8, pin_memory=True)
+        return merkle_plan_hash_plain(torch.tensor(refs),
+                                      torch.tensor(literals), offs).numpy()
+    ref_bytes = 8 * n
+    staged = torch.empty(ref_bytes + literals.size, dtype=torch.uint8,
+                         pin_memory=True)
     view = staged.numpy()
-    view[0] = left
-    view[1] = right
-    pairs = staged.to(dev, non_blocking=True)
-    out = merkle_node_hash(pairs[0], pairs[1])
+    view[:ref_bytes] = refs.view(np.uint8).reshape(-1)
+    view[ref_bytes:] = literals.reshape(-1)
+    on_card = staged.to(dev, non_blocking=True)
+    out = merkle_plan_hash(on_card[:ref_bytes].view(torch.int32).view(n, 2),
+                           on_card[ref_bytes:].view(-1, 32), offs)
     host = torch.empty((n, 32), dtype=torch.uint8, pin_memory=True)
     host.copy_(out, non_blocking=True)
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(dev))
     done.synchronize()
-    return host.numpy().copy()
+    return host.numpy()
+
+
+def merkle_node_hash_bytes(left: np.ndarray, right: np.ndarray,
+                           device: DeviceLike = None) -> np.ndarray:
+    """Host-array seam of one wave, the reference's signature: (n, 32)
+    uint8 host arrays in, the resolved (n, 32) uint8 host array out. It
+    rides :func:`merkle_plan_hash_bytes` as a one-level plan."""
+    n = left.shape[0]
+    return merkle_plan_hash_bytes(_wave_refs(n),
+                                  np.concatenate([left, right]), [0, n],
+                                  device)

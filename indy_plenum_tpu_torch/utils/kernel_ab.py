@@ -1,0 +1,153 @@
+"""A/B timing of the PyTorch + CUDA port's quorum-step and commit-hash
+kernels, for comparing two checkouts of the repo inside one call on one
+card. Run this one file by its path from each checkout's root, in turns
+(parent, change, change, parent):
+
+    python3 <checkout>/indy_plenum_tpu_torch/utils/kernel_ab.py --tag change
+
+It imports the port and ``chip_smoke.py`` of the checkout it runs from
+(the current directory), and uses only what both the per-wave K11
+(before its redesign) and the commit-plan K11 offer, so the same file
+times either. One JSON line:
+
+- K7 (64 x 64 x 300, W 128: phases A and 4), K9 (k = 4 slots of that
+  group), K13 on (4, 2) and the tiled K9 at phase H's n = 256: device ms
+  per call behind a spin (``chip_smoke._kernel_ms``) and call ms (CUDA
+  events around back-to-back calls, host included);
+- K11 per SMT commit of phase C's shape (320 new keys into 3,200): the
+  call ms of the commit's hashing run as per-level waves
+  (``merkle_node_hash`` at each device level's width, one call after
+  another: host gaps included) and their device ms where K11 is the
+  per-wave kernel; where the checkout has it, the device and call ms of
+  ONE commit plan (``merkle_plan_hash``); and the
+  wall ms of one ``apply_batch`` of those keys with device and with host
+  waves, each the median of five fresh states on one populated tree;
+- the card's name and power limit.
+
+It exits non-zero without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+
+def _commit_inputs(n_keys, batch):
+    """A populated state's key-value store and root, the writes of one
+    commit, and the widths of its device levels (the waves of at least
+    DEVICE_MIN_BATCH nodes, bottom up), recorded from a host commit."""
+    from indy_plenum_tpu_torch.server.catchup.catchup_rep_service import \
+        DEVICE_MIN_BATCH
+    from indy_plenum_tpu_torch.state.sparse_merkle_state import \
+        SparseMerkleState
+    from indy_plenum_tpu_torch.storage.kv_store import \
+        KeyValueStorageInMemory
+
+    kv = KeyValueStorageInMemory()
+    base = SparseMerkleState(kv=kv, commit_mode="host", device="cpu")
+    base.apply_batch([(b"key%08d" % i, b"v%d" % i) for i in range(n_keys)])
+    base.commit()
+    writes = [(b"new%08d" % i, b"w%d" % i) for i in range(batch)]
+    probe = SparseMerkleState(kv=kv, initial_root=base.committed_head_hash,
+                              commit_mode="host", device="cpu")
+    widths = []
+    resolve = probe._resolve_waves
+
+    def record(waves):
+        widths.extend(len(w) for w in reversed(waves)
+                      if len(w) >= DEVICE_MIN_BATCH)
+        return resolve(waves)
+
+    probe._resolve_waves = record
+    probe.apply_batch(writes)
+    return kv, base.committed_head_hash, writes, widths
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tag", required=True)
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from indy_plenum_tpu_torch.state.sparse_merkle_state import \
+        SparseMerkleState
+    from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.tpu import sha256 as s2
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(7)
+    out = {"tag": args.tag, "card": cs._nvidia_smi(), "device_ms": {},
+           "call_ms": {}}
+
+    def timed(name, fn, reps):
+        out["device_ms"][name] = cs._kernel_ms(fn, reps)
+        out["call_ms"][name] = cs._cuda_ms(fn, reps)
+
+    m = n = cs.N_VALIDATORS
+    s, c, w = cs.LOG_SIZE, cs.N_CHECKPOINTS, 128
+    state = q.init_state(n, s, c, m, dev)
+    words = q.words_tensor(cs._wave_words(m, w, n, s, [10], rng), dev)
+    timed("quorum_step", lambda: q.step_compact(state, words, n), 50)
+    votes = cs._random_votes(dev, rng, m, n, s, c)
+    slot_words = q.words_tensor(cs.resident_words(rng, 4, m, w, n, s), dev)
+    slides = torch.zeros((4, m), dtype=torch.int32, device=dev)
+    timed("resident_step",
+          lambda: q.resident_step(votes, slides, slot_words, n), 20)
+    fm, fw = cs.FABRIC_N, cs.FABRIC_W
+    fstate = cs.fabric_state(dev, rng, fm, fm, c)
+    fwords = q.words_tensor(cs.fabric_words(rng, fm, fw, fm, s, c), dev)
+    ftile = q.words_tensor(np.stack([cs.fabric_words(rng, fm, fw, fm, s, c)
+                                     for _ in range(4)]), dev)
+    fslides = torch.zeros((4, fm), dtype=torch.int32, device=dev)
+    timed("fabric_step", lambda: q.fabric_step(fstate, fwords, fm, 2), 20)
+    timed("resident_tile",
+          lambda: q.resident_tile_step(fstate, fslides, ftile, fm, 2), 20)
+
+    kv, root, writes, widths = _commit_inputs(3200, 320)
+    waves = [(torch.from_numpy(rng.randint(0, 256, (wd, 32)).astype(
+        np.uint8)).to(dev), torch.from_numpy(rng.randint(
+            0, 256, (wd, 32)).astype(np.uint8)).to(dev)) for wd in widths]
+
+    def per_level():
+        for left, right in waves:
+            s2.merkle_node_hash(left, right)
+
+    out["k11_levels"] = len(widths)
+    out["k11_nodes"] = sum(widths)
+    out["call_ms"]["k11_commit_per_level_waves"] = cs._cuda_ms(per_level, 3)
+    if hasattr(s2, "merkle_plan_hash"):
+        plan = cs.commit_plan(dev)
+        refs = torch.from_numpy(np.array(plan[0])).to(dev)
+        lits = torch.from_numpy(np.array(plan[1])).to(dev)
+        timed("k11_commit_plan",
+              lambda: s2.merkle_plan_hash(refs, lits, plan[2]), 10)
+    else:  # the per-wave K11: its device time behind the spin too
+        out["device_ms"]["k11_commit_per_level_waves"] = cs._kernel_ms(
+            per_level, 3)
+    for mode in ("device", "host"):
+        walls = []
+        for _ in range(5):
+            st = SparseMerkleState(kv=kv, initial_root=root,
+                                   commit_mode=mode, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.apply_batch(writes)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[f"commit_wall_ms_{mode}"] = float(np.median(walls))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

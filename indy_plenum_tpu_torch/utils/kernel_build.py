@@ -71,18 +71,16 @@ _SIGNATURES = {
         # words, ok (NULL but for K14), M, N, S, C, W, n_validators,
         # delta_cap, compact
         _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-        # events: prepared, newly, ordered, stable, prepare/commit counts
-        _P, _P, _P, _P, _P, _P,
-        # compact: new_prepared, n_prepared, new_committed, n_committed,
-        # stable, then the stream
-        _P, _P, _P, _P, _P, _P),
+        # the one output allocation (events, compact record, frontier
+        # snapshot: quorum_common.cuh events_at), then the stream
+        _P, _P),
     "resident_step_launch": (
         # state (as quorum_step), slides (k, M), words (k, M, W)
         _P, _P, _P, _P, _P, _P, _P, _P, _P,
         # k, M, N, S, C, W, n_validators, delta_cap
         _I, _I, _I, _I, _I, _I, _I, _I,
-        # events and compact outputs (as quorum_step), then the stream
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+        # the output allocation (as quorum_step), then the stream
+        _P, _P),
     "fabric_step_launch": (
         # state (as quorum_step), words, ok (NULL but for the sharded K14)
         _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -90,16 +88,16 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I, _I,
         # partial counts (M, v, S) prepare, commit, (M, v, C) checkpoint
         _P, _P, _P,
-        # events and compact outputs (as quorum_step), then the stream
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+        # the output allocation (as quorum_step), then the stream
+        _P, _P),
     "resident_tile_launch": (
         # state (as quorum_step), slides (k, M), words (k, M, W)
         _P, _P, _P, _P, _P, _P, _P, _P, _P,
         # k, M, N, S, C, W, v, n_validators, delta_cap
         _I, _I, _I, _I, _I, _I, _I, _I, _I,
-        # partial counts (as fabric_step), events and compact outputs,
-        # then the stream
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+        # partial counts (as fabric_step), the output allocation, then
+        # the stream
+        _P, _P, _P, _P, _P),
     # host table of (src, dst, row_bytes) per leaf, leaves, rows,
     # shift_rows, stream
     "ring_shift_launch": (_P, _I, _I, _I, _P),
@@ -113,8 +111,8 @@ _SIGNATURES = {
                            _P),
     # msg, out, batch, msg_len, stream
     "sha256_fixed_launch": (_P, _P, _I, _I, _P),
-    # left, right, out, batch, stream
-    "merkle_node_hash_launch": (_P, _P, _P, _I, _P),
+    # refs, literals, out, host level offsets, n_levels, blocks, stream
+    "merkle_plan_launch": (_P, _P, _P, _P, _I, _I, _P),
     # leaf, index, path, path_len, tree_size, root, ok, batch, depth, stream
     "audit_paths_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # leaf, index, table, path_idx, path_len, tree_size, root, ok, batch,

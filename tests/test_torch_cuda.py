@@ -12,6 +12,10 @@ so it also runs where JAX is not installed:
   same pool per tick;
 - the SHA-256 kernels (K10-K12, ``csrc/sha256.cu``) against their plain
   versions, hashlib and the host MerkleVerifier, planted faults included;
+- K11's commit-plan kernel at ``chip_smoke.py``'s three plan shapes (a
+  real 320-key commit, a plan whose levels loop over a full cluster, a
+  one-level wave) and
+  K7 at S = 30, 15 and 300, each one launch, bit-equal to plain;
 - a small real-execution pool whose state waves run on the card against
   the same pool with host waves;
 - a small signed pool on the card against the same pool on the CPU, through
@@ -236,3 +240,62 @@ def test_rebalance_pool_on_card_matches_cpu(card):
         == (on_cpu["rebalances"], on_cpu["row_shift"])
     for name in chip_smoke.PATH_KERNELS["rebalance_forced"]:
         assert launches[name] > 0, name
+
+
+@pytest.mark.cuda
+def test_plan_kernel_matches_plain(card):
+    """K11 on a real 320-key commit plan of ~250 levels (a cluster of 4;
+    the commit's root equals host waves, ``commit_plan`` asserts it), on
+    a plan wider than 8 blocks of 256 threads (the threads loop) and on a
+    one-level wave: one launch each, bit-equal to the plain version (the
+    one-block path: ``test_sha256_kernels_match_plain``'s narrow
+    waves)."""
+    import chip_smoke
+
+    from indy_plenum_tpu_torch.tpu import sha256 as s2
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    rng = np.random.RandomState(8)
+    plans = [chip_smoke.commit_plan(card)[:3], chip_smoke.wide_plan(rng),
+             (s2._wave_refs(320),
+              rng.randint(0, 256, (640, 32)).astype(np.uint8), [0, 320])]
+    for refs, lits, offs in plans:
+        rt = torch.from_numpy(np.array(refs)).to(card)
+        lt = torch.from_numpy(np.array(lits)).to(card)
+        before = kb.LAUNCHES["merkle_node_hash"]
+        got = s2.merkle_plan_hash(rt, lt, offs)
+        torch.cuda.synchronize()
+        assert kb.LAUNCHES["merkle_node_hash"] == before + 1
+        assert torch.equal(got, s2.merkle_plan_hash_plain(rt, lt, offs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", ["B", "R", "A"])
+def test_quorum_step_matches_plain_at_path_shapes(card, tag):
+    """K7 at phase B's S = 30, phase R's S = 15 (rows not 4-byte aligned:
+    the byte path) and phase A's S = 300 (the word path), from random
+    vote states: one launch a step, state, events and compact record
+    bit-equal to plain, with and without the compact record; the frontier
+    snapshot never the live state."""
+    import chip_smoke
+
+    from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    _, m, n, s, c, w = next(shape for shape in chip_smoke.K7_SHAPES
+                            if shape[0] == tag)
+    rng = np.random.RandomState(len(tag) + s)
+    state = chip_smoke._random_votes(card, rng, m, n, s, c)
+    for compact in (True, True, False):
+        words = q.words_tensor(chip_smoke._random_words(rng, m, w, n, s),
+                               card)
+        shadow = q.clone_state(state)
+        before = kb.LAUNCHES["quorum_step"]
+        ev, comp = q._dispatch(state, words, n, q.ORDER_DELTA_CAP, compact)
+        torch.cuda.synchronize()
+        assert kb.LAUNCHES["quorum_step"] == before + 1
+        pev, pcomp = q.step_plain(shadow, words, n, compact=compact)
+        for got, want in zip(list(state) + list(ev) + list(comp),
+                             list(shadow) + list(pev) + list(pcomp)):
+            assert torch.equal(got.cpu(), want.cpu())
+        assert comp.frontier.data_ptr() != state.frontier.data_ptr()

@@ -265,8 +265,8 @@ def test_ctypes_signatures_match_cuda_sources():
     with open(os.path.join(kb.CSRC_DIR, "sha256.cu")) as fh:
         sha_src = fh.read()
     sha_entries = {fn for fn in kb._SIGNATURES
-                   if fn.startswith(("sha256_", "audit_", "merkle_node_"))}
-    assert sha_entries == {"sha256_fixed_launch", "merkle_node_hash_launch",
+                   if fn.startswith(("sha256_", "audit_", "merkle_"))}
+    assert sha_entries == {"sha256_fixed_launch", "merkle_plan_launch",
                            "audit_paths_launch", "audit_paths_indexed_launch"}
     for fn in sha_entries:
         assert f'extern "C" int {fn}(' in sha_src, fn

@@ -198,3 +198,60 @@ def test_mesh_plans_raise():
         tcp.plan_for(tq.make_fabric_mesh(["cpu", "cuda:0"], (2,)), 4, 4, 16)
     with pytest.raises(TypeError):
         tcp.plan_for(object(), 4, 4, 16)
+
+
+def test_step_outputs_carve_one_allocation(monkeypatch):
+    """The outputs of a K7 / K9 / K13 launch: views of ONE allocation in
+    ``csrc/quorum_common.cuh`` ``events_at``'s order, disjoint and covering
+    it, shaped and typed as the plain step's; the frontier snapshot is
+    one of them, never the live state's storage. A K7 step is exactly one
+    library call (a fake library on the CPU stands in for the card), with
+    the allocation as its one output operand."""
+    import types
+
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    m, n, s, c = 3, 5, 30, 4
+    state = tq.init_state(n, s, c, m)
+    width = tq.delta_width(s, tq.ORDER_DELTA_CAP)
+    buf, events, comp = tq._outputs(state, width)
+    words = torch.zeros((m, 16), dtype=torch.int32)
+    pev, pcomp = tq.step_plain(tq.clone_state(state), words, n)
+    for got, want in zip(list(events) + list(comp),
+                         list(pev) + list(pcomp)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+    order = [events.prepare_counts, events.commit_counts,
+             comp.new_prepared, comp.n_prepared, comp.new_committed,
+             comp.n_committed, comp.frontier, events.prepared,
+             events.newly_ordered, events.ordered,
+             events.stable_checkpoints, comp.stable]
+    assert len({id(v) for v in order}) == len(events) + len(comp)
+    at = buf.data_ptr()
+    for view in order:
+        assert view.untyped_storage().data_ptr() \
+            == buf.untyped_storage().data_ptr()
+        assert view.is_contiguous() and view.data_ptr() == at
+        at += view.numel() * view.element_size()
+    assert 0 <= buf.data_ptr() + buf.numel() - at < 4  # padded to words
+    assert comp.frontier.untyped_storage().data_ptr() \
+        != state.frontier.untyped_storage().data_ptr()
+
+    calls = []
+
+    class FakeLibrary:
+        def quorum_step_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(kb, "library", FakeLibrary)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    monkeypatch.setitem(kb.LAUNCHES, "quorum_step", 0)
+    _, step_comp = tq._step_kernel(state, words, n, tq.ORDER_DELTA_CAP,
+                                   True)
+    assert len(calls) == 1 and kb.LAUNCHES["quorum_step"] == 1
+    assert len(calls[0]) == len(kb._SIGNATURES["quorum_step_launch"])
+    assert calls[0][-2] == step_comp.new_prepared.untyped_storage() \
+        .data_ptr()
+    assert step_comp.frontier.untyped_storage().data_ptr() == calls[0][-2]
