@@ -11,11 +11,13 @@ drives the signed write path through its entry points at the size of
 member planes; LOG_SIZE 300, CHK_FREQ 100):
 
 1. build      - nvcc for sm_90a, seconds; the card's name and power limit;
-2. kernels    - K-a SHA-512, K-b mod L, K-c Ed25519 verify, K-d (K7)
-                quorum step (from an empty state, and from random states
-                at the shapes of phases A, B, H, C and R), K8 window slide
-                and zero, each against its plain version on the same
-                inputs; K12 SHA-256 (11 padding-edge lengths) and K11
+2. kernels    - K-a SHA-512, K-b mod L, K-c Ed25519 verify (the drain,
+                its first 1, 3 and 7 rows, the drain four times, the edge
+                rows), K-d (K7) quorum step (from an empty state, and
+                from random states at the shapes of phases A, B, H, C and
+                R), K8 window slide (host and device deltas, 520 sliding
+                members) and zero, each against its plain version on the
+                same inputs; K12 SHA-256 (11 padding-edge lengths) and K11
                 (waves of 1 .. 65,536 as one-level plans, a real 320-key
                 commit plan of ~250 levels, a plan whose levels loop over
                 a full cluster)
@@ -424,7 +426,65 @@ def _flip(data: bytes, bit: int) -> bytes:
     return bytes(out)
 
 
+def verify_edge_inputs():
+    """The curve check's edge rows (a good signature, A with y >= p, A = (0,
+    1) with the sign bit set, a y with no square root, S + L), then 61
+    rows whose A fails to decompress in some groups of a warp and not in
+    others, and in every group of one warp (rows 40-47): 66 rows, no
+    multiple of a block's 16 signatures. Returns the (pk, R, S, h) arrays,
+    the padded SHA-512 blocks and counts of R || A || M, and the expected
+    verdicts."""
+    from indy_plenum_tpu_torch.crypto import ed25519 as ed
+    from indy_plenum_tpu_torch.tpu import sha512 as s5
+
+    seed = bytes(range(1, 33))
+    pk, msg = ed.public_key(seed), b"edge"
+    sig = ed.sign(seed, msg)
+    s_big = (int.from_bytes(sig[32:], "little") + ed.L).to_bytes(32,
+                                                                "little")
+    bad = ((ed.P + 1).to_bytes(32, "little"),
+           (1 | (1 << 255)).to_bytes(32, "little"),
+           (2).to_bytes(32, "little"))
+    rows = [(pk, sig, True)] + [(b, sig, False) for b in bad] \
+        + [(pk, sig[:32] + s_big, True)]
+    for i in range(61):
+        fail = i % 5 == 2 or 35 <= i < 43
+        rows.append((bad[i % 3], sig, False) if fail else (pk, sig, True))
+    pk_a = np.stack([np.frombuffer(p, np.uint8) for p, _, _ in rows])
+    r_a = np.stack([np.frombuffer(g[:32], np.uint8) for _, g, _ in rows])
+    s_a = np.stack([np.frombuffer(g[32:], np.uint8) for _, g, _ in rows])
+    h_a = np.stack([np.frombuffer((int.from_bytes(hashlib.sha512(
+        g[:32] + p + msg).digest(), "little") % ed.L).to_bytes(32, "little"),
+        np.uint8) for p, g, _ in rows])
+    blocks, counts = s5.pad_ed25519_messages(
+        [g[:32] + p for p, g, _ in rows], [msg] * len(rows), 1)
+    return ([np.ascontiguousarray(a) for a in (pk_a, r_a, s_a, h_a)],
+            blocks, counts, np.array([ok for _, _, ok in rows]))
+
+
+def check_verify_edges(dev):
+    """K-c and the full chain on :func:`verify_edge_inputs`, against the
+    plain version and the expected verdicts."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import ed25519 as ted
+
+    arrays, blocks, counts, expect = verify_edge_inputs()
+    t = [torch.from_numpy(a).to(dev) for a in arrays]
+    got = ted.verify_kernel(*t)
+    full = ted.verify_kernel_full(t[0], t[1], t[2],
+                                  torch.from_numpy(blocks).to(dev),
+                                  torch.from_numpy(counts).to(dev))
+    err = _max_abs_err([(got, ted.verify_kernel_plain(*t)), (full, got)])
+    if err or not np.array_equal(got.cpu().numpy(), expect):
+        raise AssertionError(f"K-c on the edge rows: err {err}, verdicts "
+                             f"{got.cpu().numpy().astype(int).tolist()}")
+    return err
+
+
 def check_verify(dev, signers, reqs, rng):
+    """K-c against its plain version on the drain's 8,192 rows, on its
+    first 1, 3 and 7 rows, on the drain four times (32,768) and on the edge
+    rows; verdicts against the oracle on a sample."""
     import torch
     from indy_plenum_tpu_torch.crypto import ed25519 as ed
     from indy_plenum_tpu_torch.tpu import ed25519 as ted
@@ -433,7 +493,14 @@ def check_verify(dev, signers, reqs, rng):
     tensors = [torch.from_numpy(a).to(dev) for a in arrays]
     got = ted.verify_kernel(*tensors)
     ref = ted.verify_kernel_plain(*tensors)
-    err = _max_abs_err([(got, ref)])
+    pairs = [(got, ref)]
+    for n in (1, 3, 7):
+        pairs.append((ted.verify_kernel(*[t[:n].contiguous()
+                                          for t in tensors]), ref[:n]))
+    big = BENCH_VERIFY_BATCH // DRAIN
+    pairs.append((ted.verify_kernel(*[t.repeat(big, 1) for t in tensors]),
+                  ref.repeat(big)))
+    err = max(_max_abs_err(pairs), check_verify_edges(dev))
     got_np = got.cpu().numpy()
     if not got_np[:3].all():
         raise AssertionError("RFC 8032 vectors rejected")
@@ -587,21 +654,39 @@ def _random_votes(dev, rng, m, n, s, c):
 def check_window(dev, rng, m, n, s, c, chk_freq):
     """K8 against its plain versions on an (M, N, S, C) vote group: slides
     with the edge deltas (0, 1, S-1, S, > S), the pool's pattern (one
-    member sliding by a checkpoint interval), every member sliding, and
-    zeros under random masks."""
+    member sliding by a checkpoint interval), every member sliding, all
+    deltas 0 (no launch, the state unchanged), the same edges as device
+    deltas, and more sliding members than one launch's pairs (2 x 256 + 8
+    members of N = 4, deltas 1 .. S + 1: three launches); zeros under
+    random masks. Host deltas make ceil(sliding members / 256) launches,
+    device deltas one."""
     import torch
     from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
 
-    slides = [np.zeros(m, np.int32) for _ in range(3)]
+    slides = [np.zeros(m, np.int32) for _ in range(4)]
     slides[0][:8] = [0, 1, s - 1, s, s + 1, 3 * s, chk_freq, 7]
     slides[1][rng.randint(m)] = chk_freq
     slides[2][:] = rng.randint(1, s, m)
+    wide = 2 * q.SLIDE_PAIRS_PER_LAUNCH + 8
+    cases = [(m, n, d, False) for d in slides] \
+        + [(m, n, slides[0], True),
+           (wide, 4, (1 + np.arange(wide) % (s + 1)).astype(np.int32),
+            False)]
     err_slide = err_zero = 0
-    for deltas in slides:
-        state = _random_votes(dev, rng, m, n, s, c)
+    for mm, nn, deltas, on_card in cases:
+        state = _random_votes(dev, rng, mm, nn, s, c)
         shadow = q.clone_state(state)
-        q.slide_state(state, torch.from_numpy(deltas))
-        q.slide_plain(shadow, torch.from_numpy(deltas))
+        before = kb.LAUNCHES["window_slide"]
+        t = torch.from_numpy(deltas)
+        q.slide_state(state, t.to(dev) if on_card else t)
+        q.slide_plain(shadow, t)
+        sliding = int((deltas > 0).sum())
+        want = 1 if on_card else -(-sliding // q.SLIDE_PAIRS_PER_LAUNCH)
+        if kb.LAUNCHES["window_slide"] - before != want:
+            raise AssertionError(f"K8 slide of {sliding} members: "
+                                 f"{kb.LAUNCHES['window_slide'] - before} "
+                                 f"launches, not {want}")
         err_slide = max(err_slide, _max_abs_err(list(zip(state, shadow))))
     for p_hit in (0.1, 0.5, 1.0):
         state = _random_votes(dev, rng, m, n, s, c)

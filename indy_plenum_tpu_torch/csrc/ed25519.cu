@@ -1,4 +1,5 @@
-// Batched Ed25519 verification: one CUDA thread per signature.
+// Batched Ed25519 verification: a group of L neighbouring lanes of a warp
+// per signature (L = 2 on the main path, or L = 4, a quad).
 //
 // Replaces (JAX reference): indy_plenum_tpu/tpu/ed25519.py:165-207
 // `_verify_kernel` (K-c), with the field ops of tpu/field25519.py inlined
@@ -17,19 +18,50 @@
 // about 2,200 field multiplies of 25 64x64->128-bit products and 1,530
 // squares of 15 (several IMAD instructions apiece) plus carries, for 128
 // bytes of input - orders of magnitude above the card's
-// bytes-per-operation balance.
+// bytes-per-operation balance. But one signature is a serial chain of
+// ~3,700 dependent field operations, and with one thread a signature an
+// ingress drain of 8,192 leaves 2 warps on an SM: nothing hides the
+// chain's latency.
 //
-// Design against that bound and the register file:
-//   - radix 2^51 in uint64 (fe25519.cuh): 25 wide products per multiply
-//     (15 per square) instead of the reference's 484 narrow ones;
-//   - the per-signature table of 16 cached points (16 x 4 x 5 uint64 =
-//     2.5 KB) is indexed by a data-dependent nibble, so it lives in LOCAL
-//     memory (per-thread, L1-cached), not registers; the base-point table
-//     and the curve constants are one small global array every thread
-//     reads (L1/L2-resident broadcast);
-//   - no shared memory; 64 threads per block, so an 8192-entry ingress
-//     drain spreads over 128 blocks (one per SM) instead of 64, and
-//     occupancy is set by registers alone (~224 per thread).
+// Design: the point arithmetic of one signature is spread over L lanes,
+// after the four-processor schedule of Hisil, Wong, Carter and Dawson,
+// "Twisted Edwards Curves Revisited" (ASIACRYPT 2008):
+//   - coordinate c of the accumulator (X, Y, Z, T) and of a cached point
+//     (Y + X, Y - X, 2d * T, 2Z) lives on lane c % L of the group, in its
+//     slot c / L, as carried radix-2^51 limbs;
+//   - a doubling is two stages: one square a coordinate (X^2, Y^2, Z^2,
+//     (X + Y)^2), then one product a coordinate (E*F, G*H, F*G, E*H); a
+//     cached addition is two stages of one product a coordinate ((Y + X)
+//     * ypx, (Y - X) * ymx, T * t2d, Z * z2, then the same four outputs);
+//   - between stages the lanes exchange carried elements with
+//     __shfl_sync of width L, two 32-bit shuffles a limb;
+//   - the serial parts (decompression with its pow_p58, the final
+//     inversion and encoding) run on every lane of the group: on SIMT
+//     that costs the warp the same instructions as one lane with the rest
+//     idle.
+// So the ladder keeps the reference's sequence of field operations (64
+// windows of 4 doublings and 2 cached additions), spread over lanes, and a
+// signature's chain falls from ~3,700 dependent field operations to
+// ~1,300 stages at L = 4 (of one field operation a lane) or at L = 2 (of
+// two), with L times the warps in flight.
+//   - The main path launches L = 2 with the table in local memory: of the
+//     four variants the fastest at 8,192 signatures and at 32,768 on an
+//     H100 (utils/verify_lanes_probe.py builds all four from
+//     csrc/probe/ed25519_variants.cu and times them). At L = 4 the
+//     serial parts' redundant instructions cost what the shorter chain
+//     saves; at
+//     32,768 the shared table caps an SM at ~11 warps, while the local
+//     one lets the 128-register cap fit 32,768 x 2 lanes in one wave.
+//   - Every lane stays to the end, since a shuffle over lanes that have
+//     left is undefined: a group past the batch works on the batch's last
+//     row and writes nothing, and an A that fails to decompress runs the
+//     ladder on whatever x came out, its verdict masked.
+//   - A lane reads only the table coordinates it wrote itself, so the
+//     table of j * (-A) needs no barrier: in local memory (640 bytes a
+//     coordinate) or in shared memory (16 signatures a block, 2,592 bytes
+//     each, rows padded by 32 bytes), by the template's choice.
+//   - The base table j * B (2.5 KB) is loaded into shared memory once a
+//     block; a lane reads only its coordinate of an entry.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -39,12 +71,23 @@ namespace {
 
 using fe25519::fe;
 
-struct ge {  // extended (X, Y, Z, T)
-  fe X, Y, Z, T;
-};
-struct gc {  // cached (Y + X, Y - X, 2d * T, 2Z)
-  fe ypx, ymx, t2d, z2;
-};
+// the main path's launch: 2 lanes a signature, the table in local memory
+constexpr int kMainLanes = 2;
+constexpr bool kMainSharedTable = false;
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSigsPerBlock = 16;
+constexpr int kRegisterCap = 128;  // registers a thread, via launch bounds
+
+// consts layout (uint64): base table 16 x 4 x 5 (cached j*B, j = 0..15,
+// coordinates Y + X, Y - X, 2d * T, 2Z), then d, 2d, sqrt(-1) (5 limbs
+// each)
+constexpr int kD = 16 * 4 * 5;
+constexpr int kD2 = kD + 5;
+constexpr int kSqrtM1 = kD2 + 5;
+// a table in shared memory: [j][limb][coordinate]
+constexpr int kTableWords = 16 * 5 * 4;
+constexpr int kSigStride = kTableWords + 4;
 
 __device__ __forceinline__ fe load_fe(const uint64_t* p) {
   fe r;
@@ -53,90 +96,152 @@ __device__ __forceinline__ fe load_fe(const uint64_t* p) {
   return r;
 }
 
-__device__ __forceinline__ ge point_double(const ge& p) {
-  fe A = fe25519::sqr(p.X);
-  fe B = fe25519::sqr(p.Y);
-  fe zz = fe25519::sqr(p.Z);
-  fe C = fe25519::add(zz, zz);
-  fe Dd = fe25519::neg(A);
-  fe E = fe25519::sub(fe25519::sub(fe25519::sqr(fe25519::add(p.X, p.Y)), A),
-                      B);
-  fe G = fe25519::add(Dd, B);
-  fe F = fe25519::sub(G, C);
-  fe H = fe25519::sub(Dd, B);
-  ge r;
-  r.X = fe25519::mul(E, F);
-  r.Y = fe25519::mul(G, H);
-  r.Z = fe25519::mul(F, G);
-  r.T = fe25519::mul(E, H);
+__device__ __forceinline__ fe pick(bool c, const fe& a, const fe& b) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) r.v[i] = c ? a.v[i] : b.v[i];
   return r;
 }
 
-// extended + cached (add-2008-hwcd-3, a = -1)
-__device__ __forceinline__ ge point_add_cached(const ge& p, const gc& q) {
-  fe A = fe25519::mul(fe25519::sub(p.Y, p.X), q.ymx);
-  fe B = fe25519::mul(fe25519::add(p.Y, p.X), q.ypx);
-  fe C = fe25519::mul(q.t2d, p.T);
-  fe Dd = fe25519::mul(q.z2, p.Z);
-  fe E = fe25519::sub(B, A);
-  fe F = fe25519::sub(Dd, C);
-  fe G = fe25519::add(Dd, C);
-  fe H = fe25519::add(B, A);
-  ge r;
-  r.X = fe25519::mul(E, F);
-  r.Y = fe25519::mul(G, H);
-  r.Z = fe25519::mul(F, G);
-  r.T = fe25519::mul(E, H);
+// element ``a`` of lane ``src`` of this lane's group of L
+template <int L>
+__device__ __forceinline__ fe shfl(const fe& a, int src) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const uint32_t lo =
+        __shfl_sync(kFull, static_cast<uint32_t>(a.v[i]), src, L);
+    const uint32_t hi =
+        __shfl_sync(kFull, static_cast<uint32_t>(a.v[i] >> 32), src, L);
+    r.v[i] = (static_cast<uint64_t>(hi) << 32) | lo;
+  }
   return r;
 }
 
-__device__ __forceinline__ gc to_cached(const ge& p, const fe& d2) {
-  gc c;
-  c.ypx = fe25519::add(p.Y, p.X);
-  c.ymx = fe25519::sub(p.Y, p.X);
-  c.t2d = fe25519::mul(p.T, d2);
-  c.z2 = fe25519::add(p.Z, p.Z);
-  return c;
+// coordinate C of a point spread over the group, on every lane
+template <int L, int C>
+__device__ __forceinline__ fe coord(const fe (&own)[4 / L]) {
+  return shfl<L>(own[C / L], C % L);
 }
 
-// consts layout (uint64): base table 16 x 4 x 5 (cached j*B, j = 0..15),
-// then d, 2d, sqrt(-1) (5 limbs each)
-constexpr int kBase = 0;
-constexpr int kD = 16 * 4 * 5;
-constexpr int kD2 = kD + 5;
-constexpr int kSqrtM1 = kD2 + 5;
-
-__device__ __forceinline__ gc load_base(const uint64_t* consts, int j) {
-  const uint64_t* p = consts + kBase + j * 20;
-  gc c;
-  c.ypx = load_fe(p);
-  c.ymx = load_fe(p + 5);
-  c.t2d = load_fe(p + 10);
-  c.z2 = load_fe(p + 15);
-  return c;
+// the second stage of a doubling or a cached addition: r holds the four
+// first-stage results (A, B, C, D) as every lane sees them; coordinate c
+// of the result is E*F, G*H, F*G or E*H
+__device__ __forceinline__ fe second_stage(int c, const fe& E, const fe& F,
+                                           const fe& G, const fe& H) {
+  const fe u = pick(c == 0 || c == 3, E, pick(c == 1, G, F));
+  const fe v = pick(c == 0, F, pick(c == 2, G, H));
+  return fe25519::mul(u, v);
 }
 
-__global__ void ed25519_verify_kernel(const uint8_t* __restrict__ pk,
-                                      const uint8_t* __restrict__ rb,
-                                      const uint8_t* __restrict__ sb,
-                                      const uint8_t* __restrict__ hb,
-                                      uint8_t* __restrict__ ok_out,
-                                      const uint64_t* __restrict__ consts,
-                                      int batch) {
-  int item = blockIdx.x * blockDim.x + threadIdx.x;
-  if (item >= batch) return;
+// dbl-2008-hwcd (a = -1) over the group
+template <int L>
+__device__ __forceinline__ void point_double(fe (&own)[4 / L], int lane) {
+  constexpr int K = 4 / L;
+  const fe X = coord<L, 0>(own);
+  const fe Y = coord<L, 1>(own);
+  const fe xy = fe25519::add(X, Y);
+  fe r[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c = lane + L * k;
+    r[k] = fe25519::sqr(pick(c == 3, xy, own[k]));
+  }
+  const fe A = coord<L, 0>(r);
+  const fe B = coord<L, 1>(r);
+  const fe zz = coord<L, 2>(r);
+  const fe S3 = coord<L, 3>(r);
+  const fe C = fe25519::add(zz, zz);
+  const fe Dd = fe25519::neg(A);
+  const fe E = fe25519::sub(fe25519::sub(S3, A), B);
+  const fe G = fe25519::add(Dd, B);
+  const fe F = fe25519::sub(G, C);
+  const fe H = fe25519::sub(Dd, B);
+#pragma unroll
+  for (int k = 0; k < K; ++k) own[k] = second_stage(lane + L * k, E, F, G, H);
+}
+
+// extended + cached (add-2008-hwcd-3, a = -1) over the group; q holds
+// this lane's coordinates of the cached point
+template <int L>
+__device__ __forceinline__ void point_add_cached(fe (&own)[4 / L],
+                                                 const fe (&q)[4 / L],
+                                                 int lane) {
+  constexpr int K = 4 / L;
+  fe r[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    // coordinate c ^ 1 of the point: Y beside X, T beside Z
+    const fe partner = shfl<L>(own[k], lane ^ 1);
+    const int c = lane + L * k;
+    const fe op = pick(c == 0, fe25519::add(partner, own[k]),
+                       pick(c == 1, fe25519::sub(own[k], partner), partner));
+    r[k] = fe25519::mul(op, q[k]);  // B, A, C, D by coordinate
+  }
+  const fe B = coord<L, 0>(r);
+  const fe A = coord<L, 1>(r);
+  const fe C = coord<L, 2>(r);
+  const fe Dd = coord<L, 3>(r);
+  const fe E = fe25519::sub(B, A);
+  const fe F = fe25519::sub(Dd, C);
+  const fe G = fe25519::add(Dd, C);
+  const fe H = fe25519::add(B, A);
+#pragma unroll
+  for (int k = 0; k < K; ++k) own[k] = second_stage(lane + L * k, E, F, G, H);
+}
+
+// this lane's coordinates of the cached form of the point
+template <int L>
+__device__ __forceinline__ void to_cached(fe (&out)[4 / L],
+                                          const fe (&own)[4 / L],
+                                          const fe& d2, int lane) {
+#pragma unroll
+  for (int k = 0; k < 4 / L; ++k) {
+    const fe partner = shfl<L>(own[k], lane ^ 1);
+    const int c = lane + L * k;
+    // Y + X on X's lane, Y - X on Y's, 2d * T on Z's, 2Z on T's
+    const fe t2d = fe25519::mul(partner, d2);
+    out[k] = pick(c == 0, fe25519::add(partner, own[k]),
+                  pick(c == 1, fe25519::sub(own[k], partner),
+                       pick(c == 2, t2d,
+                            fe25519::add(partner, partner))));
+  }
+}
+
+template <int L, bool kSharedTable>
+__global__ void __launch_bounds__(kSigsPerBlock * L,
+                                  65536 / (kSigsPerBlock * L * kRegisterCap))
+ed25519_verify_kernel(const uint8_t* __restrict__ pk,
+                      const uint8_t* __restrict__ rb,
+                      const uint8_t* __restrict__ sb,
+                      const uint8_t* __restrict__ hb,
+                      uint8_t* __restrict__ ok_out,
+                      const uint64_t* __restrict__ consts, int batch) {
+  constexpr int K = 4 / L;
+  extern __shared__ uint64_t smem[];  // base table, then signature tables
+  const int lane = threadIdx.x % L;
+  const int sig = threadIdx.x / L;
+  int item = blockIdx.x * kSigsPerBlock + sig;
+  const bool live = item < batch;
+  if (!live) item = batch - 1;
+
+  for (int t = threadIdx.x; t < kTableWords; t += blockDim.x) {
+    const int j = t / 20, c = (t % 20) / 5, i = t % 5;
+    smem[(j * 5 + i) * 4 + c] = __ldg(consts + t);
+  }
+  __syncthreads();  // no lane has left: groups past the batch stay
+
+  // --- decompress A (RFC 8032 5.1.3), on every lane of the group ---
   const uint8_t* a_bytes = pk + static_cast<size_t>(item) * 32;
-
   uint8_t a_enc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) a_enc[i] = a_bytes[i];
   const int sign = a_enc[31] >> 7;
   a_enc[31] &= 0x7F;
-
-  // --- decompress A (RFC 8032 5.1.3) ---
   const fe d = load_fe(consts + kD);
   const fe d2 = load_fe(consts + kD2);
   const fe one = fe25519::from_u64(1);
+  const fe zero = fe25519::from_u64(0);
   fe y = fe25519::from_bytes(a_enc);
   uint8_t y_canon[32];
   fe25519::contract(y_canon, y);
@@ -151,61 +256,103 @@ __global__ void ed25519_verify_kernel(const uint8_t* __restrict__ pk,
   fe t = fe25519::pow_p58(fe25519::mul(u, v7));
   fe x = fe25519::mul(fe25519::mul(u, v3), t);
   fe vx2 = fe25519::mul(v, fe25519::sqr(x));
-  bool ok_direct = fe25519::eq(vx2, u);
-  bool ok_flipped = fe25519::eq(vx2, fe25519::neg(u));
+  const bool ok_direct = fe25519::eq(vx2, u);
+  const bool ok_flipped = fe25519::eq(vx2, fe25519::neg(u));
   if (ok_flipped) x = fe25519::mul(x, load_fe(consts + kSqrtM1));
   bool ok = canonical && (ok_direct || ok_flipped);
   if (fe25519::is_zero(x) && sign == 1) ok = false;
-  if (!ok) {
-    ok_out[item] = 0;
-    return;
-  }
   if (fe25519::parity(x) != sign) x = fe25519::neg(x);
 
-  // -A = (-x, y, 1, -x*y)
-  ge a_neg;
-  a_neg.X = fe25519::neg(x);
-  a_neg.Y = y;
-  a_neg.Z = one;
-  a_neg.T = fe25519::neg(fe25519::mul(x, y));
+  // this lane's coordinates of -A = (-x, y, 1, -x*y)
+  const fe nx = fe25519::neg(x);
+  const fe nxy = fe25519::neg(fe25519::mul(x, y));
+  fe pt[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c = lane + L * k;
+    pt[k] = pick(c == 0, nx, pick(c == 1, y, pick(c == 2, one, nxy)));
+  }
 
-  // --- table of cached j * (-A), j = 0..15 (local memory) ---
-  gc table[16];
-  table[0].ypx = one;
-  table[0].ymx = one;
-  table[0].t2d = fe25519::from_u64(0);
-  table[0].z2 = fe25519::from_u64(2);
-  table[1] = to_cached(a_neg, d2);
-  ge pt = a_neg;
+  // --- table of cached j * (-A), j = 0..15: this lane's coordinates ---
+  uint64_t local_table[kSharedTable ? 1 : 16 * K * 5];
+  uint64_t* shared_table = smem + kTableWords + sig * kSigStride;
+  auto put = [&](int j, const fe (&e)[K]) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        if constexpr (kSharedTable) {
+          shared_table[(j * 5 + i) * 4 + lane + L * k] = e[k].v[i];
+        } else {
+          local_table[(j * K + k) * 5 + i] = e[k].v[i];
+        }
+      }
+    }
+  };
+  auto get = [&](int j, fe (&e)[K]) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        if constexpr (kSharedTable) {
+          e[k].v[i] = shared_table[(j * 5 + i) * 4 + lane + L * k];
+        } else {
+          e[k].v[i] = local_table[(j * K + k) * 5 + i];
+        }
+      }
+    }
+  };
+  fe entry[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {  // the identity, cached: (1, 1, 0, 2)
+    const int c = lane + L * k;
+    entry[k] = pick(c < 2, one, pick(c == 2, zero, fe25519::from_u64(2)));
+  }
+  put(0, entry);
+  fe a1[K];
+  to_cached<L>(a1, pt, d2, lane);
+  put(1, a1);
   for (int j = 2; j < 16; ++j) {
-    pt = point_add_cached(pt, table[1]);
-    table[j] = to_cached(pt, d2);
+    point_add_cached<L>(pt, a1, lane);
+    to_cached<L>(entry, pt, d2, lane);
+    put(j, entry);
   }
 
   // --- 64 msb-first 4-bit windows of S*B + h*(-A) ---
   const uint8_t* s_bytes = sb + static_cast<size_t>(item) * 32;
   const uint8_t* h_bytes = hb + static_cast<size_t>(item) * 32;
-  ge acc;
-  acc.X = fe25519::from_u64(0);
-  acc.Y = one;
-  acc.Z = one;
-  acc.T = fe25519::from_u64(0);
+  fe acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {  // the identity: (0, 1, 1, 0)
+    const int c = lane + L * k;
+    acc[k] = pick(c == 1 || c == 2, one, zero);
+  }
   for (int w = 63; w >= 0; --w) {
-    acc = point_double(acc);
-    acc = point_double(acc);
-    acc = point_double(acc);
-    acc = point_double(acc);
+    point_double<L>(acc, lane);
+    point_double<L>(acc, lane);
+    point_double<L>(acc, lane);
+    point_double<L>(acc, lane);
     const int shift = (w & 1) * 4;
-    const int sn = (s_bytes[w >> 1] >> shift) & 0xF;
-    const int hn = (h_bytes[w >> 1] >> shift) & 0xF;
-    acc = point_add_cached(acc, load_base(consts, sn));
-    acc = point_add_cached(acc, table[hn]);
+    const int sn = (__ldg(s_bytes + (w >> 1)) >> shift) & 0xF;
+    const int hn = (__ldg(h_bytes + (w >> 1)) >> shift) & 0xF;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        entry[k].v[i] = smem[(sn * 5 + i) * 4 + lane + L * k];
+      }
+    }
+    point_add_cached<L>(acc, entry, lane);
+    get(hn, entry);
+    point_add_cached<L>(acc, entry, lane);
   }
 
-  // --- compress and compare with R ---
-  fe zi = fe25519::invert(acc.Z);
-  fe ax = fe25519::mul(acc.X, zi);
-  fe ay = fe25519::mul(acc.Y, zi);
+  // --- compress and compare with R, on every lane of the group ---
+  const fe ax0 = coord<L, 0>(acc);
+  const fe ay0 = coord<L, 1>(acc);
+  const fe zi = fe25519::invert(coord<L, 2>(acc));
+  const fe ax = fe25519::mul(ax0, zi);
+  const fe ay = fe25519::mul(ay0, zi);
   uint8_t enc[32];
   fe25519::contract(enc, ay);
   enc[31] |= static_cast<uint8_t>(fe25519::parity(ax) << 7);
@@ -213,7 +360,23 @@ __global__ void ed25519_verify_kernel(const uint8_t* __restrict__ pk,
   uint8_t diff = 0;
 #pragma unroll
   for (int i = 0; i < 32; ++i) diff |= enc[i] ^ r_bytes[i];
-  ok_out[item] = diff == 0 ? 1 : 0;
+  if (live && lane == 0) ok_out[item] = ok && diff == 0 ? 1 : 0;
+}
+
+template <int L, bool kSharedTable>
+void launch(const void* pk, const void* rb, const void* sb, const void* hb,
+            void* ok_out, const void* consts, int batch,
+            cudaStream_t stream) {
+  const int grid = (batch + kSigsPerBlock - 1) / kSigsPerBlock;
+  const size_t smem =
+      (kTableWords + (kSharedTable ? kSigsPerBlock * kSigStride : 0)) *
+      sizeof(uint64_t);
+  ed25519_verify_kernel<L, kSharedTable>
+      <<<grid, kSigsPerBlock * L, smem, stream>>>(
+          static_cast<const uint8_t*>(pk), static_cast<const uint8_t*>(rb),
+          static_cast<const uint8_t*>(sb), static_cast<const uint8_t*>(hb),
+          static_cast<uint8_t*>(ok_out),
+          static_cast<const uint64_t*>(consts), batch);
 }
 
 }  // namespace
@@ -223,14 +386,9 @@ extern "C" int ed25519_verify_launch(const void* pk, const void* rb,
                                      void* ok_out, const void* consts,
                                      int batch, void* stream) {
   if (batch > 0) {
-    const int threads = 64;
-    const int grid = (batch + threads - 1) / threads;
-    ed25519_verify_kernel<<<grid, threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(pk), static_cast<const uint8_t*>(rb),
-        static_cast<const uint8_t*>(sb), static_cast<const uint8_t*>(hb),
-        static_cast<uint8_t*>(ok_out), static_cast<const uint64_t*>(consts),
-        batch);
+    launch<kMainLanes, kMainSharedTable>(pk, rb, sb, hb, ok_out, consts,
+                                         batch,
+                                         static_cast<cudaStream_t>(stream));
   }
   return static_cast<int>(cudaGetLastError());
 }

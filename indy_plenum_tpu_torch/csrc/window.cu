@@ -1,5 +1,5 @@
 // The vote window's rare-path ops: the checkpoint slide and the view-change
-// zero, one thread block per member plane, both in place.
+// zero, a grid of (member, chunk of rows) blocks, both in place.
 //
 // Replaces (JAX reference): indy_plenum_tpu/tpu/quorum.py:358
 // `slide_state` (vmapped over members as compile_plan.py:83 `_slide_body`,
@@ -21,17 +21,27 @@
 // 24 ns of HBM time; with one sliding member per launch the launch itself
 // (a few microseconds) is the real cost.
 //
-// Design: the grid is (member, chunk of rows). A row's shift never leaves
-// the row, so blocks are independent. The shift is in place, so a thread
-// must not overwrite a column that another thread has still to read: each
-// block stages its rows (kRowsPerBlock of them, fewer when S is large) in
-// shared memory, synchronizes, then writes the shifted rows back.
-// Neighbour threads touch neighbour bytes of a row on both passes
-// (coalesced). A member with d >= S skips the read pass. Spreading one
-// member's rows over many blocks keeps the lone sliding member of the
-// pool's pattern from running on one SM; the other members' blocks exit
-// at once. The zero uses the same grid. The row roll itself is
-// quorum_common.cuh's, which K9 runs for the slides it folds in.
+// Design: a row's shift never leaves the row, so blocks are independent.
+// The shift is in place, so a thread must not overwrite a column that
+// another thread has still to read: each block stages its rows
+// (kRowsPerBlock of them, fewer when S is large) in shared memory,
+// synchronizes, then writes the shifted rows back. Neighbour threads touch
+// neighbour bytes of a row on both passes (coalesced). A member with d >=
+// S skips the read pass. Spreading one member's rows over many blocks
+// keeps the lone sliding member of the pool's pattern from running on one
+// SM. The row roll itself is quorum_common.cuh's, which K9 runs for the
+// slides it folds in.
+//   - Host deltas (every pool path): the wrapper keeps the members whose
+//     delta is positive and passes their (row, delta) pairs in the
+//     kernel's parameters, kMaxPairs a launch (2 KB of the 4 KB parameter
+//     space), so no operand crosses to the card. The grid is (pair, chunk
+//     of rows), a chunk about kThreads bytes so that each thread loads
+//     about one byte: at 64 x 64 x 300 one sliding member is 131 blocks
+//     of one row (a block of 8 rows loads 10 bytes a thread, one after
+//     another, and took 5.9 us on an H100).
+//   - Device deltas: the grid is (member, chunk of rows) and every block
+//     reads deltas[m]; a member with d <= 0 leaves at once.
+// The zero uses the (member, chunk of rows) grid with a device mask.
 #include "quorum_common.cuh"
 
 namespace {
@@ -39,19 +49,40 @@ namespace {
 constexpr int kThreads = qc::kThreads;
 constexpr int kStageBytes = 48 * 1024;  // dynamic shared memory, no opt-in
 constexpr int kRowsPerBlock = 8;
+constexpr int kMaxPairs = 256;
 
-__global__ void slide_kernel(qc::Planes p,
-                             const int32_t* __restrict__ deltas, int N,
-                             int S, int C, int rows_per_block) {
+// the sliding members of a host-deltas slide, in the kernel's parameters
+struct SlidePairs {
+  int32_t row[kMaxPairs];
+  int32_t delta[kMaxPairs];  // > 0
+};
+
+// block (., blockIdx.y)'s rows of member m's slide by d > 0
+__device__ __forceinline__ void slide_block(const qc::Planes& p, int m,
+                                            int d, int N, int S, int C,
+                                            int rows_per_block) {
   extern __shared__ uint8_t stage[];  // rows_per_block x S bytes
-  const int m = blockIdx.x;
-  const int d = deltas[m];
-  if (d <= 0) return;
   const int rows = 2 * N + 3;
   const int r0 = blockIdx.y * rows_per_block;
   const int nr = rows - r0 < rows_per_block ? rows - r0 : rows_per_block;
   qc::slide_rows(p, m, r0, nr, d, N, S, stage);
   if (blockIdx.y == 0) qc::slide_tail(p, m, d, N, C);
+}
+
+__global__ void slide_kernel(qc::Planes p,
+                             const int32_t* __restrict__ deltas, int N,
+                             int S, int C, int rows_per_block) {
+  const int m = blockIdx.x;
+  const int d = deltas[m];
+  if (d <= 0) return;
+  slide_block(p, m, d, N, S, C, rows_per_block);
+}
+
+__global__ void slide_pairs_kernel(qc::Planes p,
+                                   const __grid_constant__ SlidePairs pairs,
+                                   int N, int S, int C, int rows_per_block) {
+  slide_block(p, pairs.row[blockIdx.x], pairs.delta[blockIdx.x], N, S, C,
+              rows_per_block);
 }
 
 __global__ void zero_kernel(qc::Planes p, const uint8_t* __restrict__ mask,
@@ -97,6 +128,32 @@ extern "C" int window_slide_launch(
         qc::planes(pp, pv, cv, ck, ordered, acked, frontier),
         static_cast<const int32_t*>(deltas), N, S, C, per);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ``pairs``: host int32 (row, delta) pairs, each delta > 0 and each row a
+// member of the state; 1 <= n_pairs <= kMaxPairs
+extern "C" int window_slide_pairs_launch(
+    void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,
+    void* frontier, const void* pairs, int n_pairs, int N, int S, int C,
+    void* stream) {
+  if (S <= 0 || S > kStageBytes || n_pairs < 1 || n_pairs > kMaxPairs) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int32_t* in = static_cast<const int32_t*>(pairs);
+  SlidePairs t;
+  for (int i = 0; i < n_pairs; ++i) {
+    t.row[i] = in[2 * i];
+    t.delta[i] = in[2 * i + 1];
+  }
+  // about one row element a thread: the rows' loads run in one round
+  int per = kThreads / S;
+  per = per < 1 ? 1 : (per > kRowsPerBlock ? kRowsPerBlock : per);
+  const int rows = 2 * N + 3;
+  const dim3 grid(n_pairs, (rows + per - 1) / per);
+  slide_pairs_kernel<<<grid, kThreads, per * S,
+                       static_cast<cudaStream_t>(stream)>>>(
+      qc::planes(pp, pv, cv, ck, ordered, acked, frontier), t, N, S, C, per);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,7 +5,9 @@ Port of ``indy_plenum_tpu/tpu/ed25519.py``, the device half of
 
 - :func:`verify_kernel` (K-c, reference ``ed25519.py:165-207``): point
   decompression of A, a 16-entry table of cached multiples of -A, 64
-  four-bit windows of ``S*B + h*(-A)``, compress and compare with R;
+  four-bit windows of ``S*B + h*(-A)``, compress and compare with R; on
+  the card each signature's point arithmetic is spread over two lanes of
+  a warp;
 - :func:`verify_kernel_full` (reference ``:210-226``): K-a -> K-b -> K-c
   on one stream (:mod:`.sha512`), so SHA512(R || A || M) mod L never
   touches the host;

@@ -799,17 +799,50 @@ def _window_device(state: VoteState) -> str:
     return dev
 
 
+SLIDE_PAIRS_PER_LAUNCH = 256  # csrc/window.cu kMaxPairs
+
+
+def slide_pair_chunks(deltas: np.ndarray,
+                      per_launch: int = SLIDE_PAIRS_PER_LAUNCH):
+    """The (row, delta) int32 pairs of a host slide, one (k, 2) array per
+    launch of at most ``per_launch`` pairs: the rows whose delta is
+    positive, in row order (a delta <= 0 is skipped, as the device-deltas
+    kernel skips it). No pairs, no launch."""
+    d = np.asarray(deltas).astype(np.int64)
+    rows = np.flatnonzero(d > 0)
+    pairs = np.stack([rows, d[rows]], axis=1).astype(np.int32)
+    return [np.ascontiguousarray(pairs[i:i + per_launch])
+            for i in range(0, len(pairs), per_launch)]
+
+
 def slide_state(state: VoteState, deltas: torch.Tensor) -> None:
     """K8's slide: each member's window moves forward by its
     ``deltas[m]`` (>= 0), in place. CPU state takes :func:`slide_plain`;
-    CUDA state launches ``slide_kernel`` (``csrc/window.cu``) or raises.
-    Host ``deltas`` cross to the card without a blocking copy."""
+    CUDA state launches a ``csrc/window.cu`` kernel or raises. Host
+    ``deltas`` (the pool's) travel in the launch's parameters as the
+    sliding members' (row, delta) pairs (:func:`slide_pair_chunks`): no
+    copy to the card, no launch when no delta is positive. CUDA
+    ``deltas`` are read by the kernel on the card."""
     if _window_device(state) == "cpu":
         slide_plain(state, deltas)
         return
-    _window_launch(state, _member_operand(state, deltas, torch.int32,
-                                          "slide"),
-                   "window_slide_launch", "window_slide")
+    if deltas.device.type != "cpu":
+        _window_launch(state, _member_operand(state, deltas, torch.int32,
+                                              "slide"),
+                       "window_slide_launch", "window_slide")
+        return
+    if deltas.dim() != 1 or deltas.shape[0] != state.frontier.shape[0]:
+        raise ValueError("window slide: one entry per member")
+    dev = state.frontier.device
+    ptrs = _state_ptrs(state, dev, "window slide")
+    _, n_rows, s = state.prepare_votes.shape
+    c = state.checkpoint_votes.shape[-1]
+    for pairs in slide_pair_chunks(deltas.numpy()):
+        code = kb.library().window_slide_pairs_launch(
+            *ptrs, pairs.ctypes.data, len(pairs), n_rows, s, c,
+            torch.cuda.current_stream(dev).cuda_stream)
+        kb.check(code, "window_slide")
+        kb.LAUNCHES["window_slide"] += 1
 
 
 def zero_members(state: VoteState, mask: torch.Tensor) -> None:

@@ -1,7 +1,7 @@
-"""A/B timing of the PyTorch + CUDA port's quorum-step and commit-hash
-kernels, for comparing two checkouts of the repo inside one call on one
-card. Run this one file by its path from each checkout's root, in turns
-(parent, change, change, parent):
+"""A/B timing of the PyTorch + CUDA port's verify, quorum-step, slide and
+commit-hash kernels, for comparing two checkouts of the repo inside one
+call on one card. Run this one file by its path from each checkout's
+root, in turns (parent, change, change, parent):
 
     python3 <checkout>/indy_plenum_tpu_torch/utils/kernel_ab.py --tag change
 
@@ -22,6 +22,15 @@ times either. One JSON line:
   ONE commit plan (``merkle_plan_hash``); and the
   wall ms of one ``apply_batch`` of those keys with device and with host
   waves, each the median of five fresh states on one populated tree;
+- K-c (``ted.verify_kernel``) at the ingress drain's 8,192 signatures
+  and at ``bench.py``'s 32,768, ``verify_kernel_full`` at 32,768 beside
+  it, and K14 (``step.fused_step``) on phase G's 8,192 signed votes:
+  device ms behind the spin and call ms;
+- K8's slide through ``q.slide_state`` with host deltas, one member
+  sliding: at 64 x 64 x 300 by ``CHK_FREQ`` and at phase B's shape (96 x
+  16 x 30, C 6) by 5, device and call ms; then one ``torch.profiler``
+  profile of 20 slides at 64 x 64 x 300, the device's work split by
+  name (a copy to the card shows as ``Memcpy HtoD``);
 - the card's name and power limit.
 
 It exits non-zero without a card.
@@ -68,6 +77,87 @@ def _commit_inputs(n_keys, batch):
     return kv, base.committed_head_hash, writes, widths
 
 
+def verify_and_fused(out, timed, cs, dev, rng):
+    """K-c at 8,192 and 32,768, verify_kernel_full at 32,768, K14 at phase
+    G's 8,192 votes."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import ed25519 as ted
+    from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.tpu import sha512 as s5
+    from indy_plenum_tpu_torch.tpu import step as st
+
+    signers, reqs = cs.make_signed_requests(seed=64)
+    _, arrays = cs.verify_inputs(signers, reqs, rng, cs.DRAIN)
+    sig = [torch.from_numpy(a).to(dev) for a in arrays]
+    big_n = cs.BENCH_VERIFY_BATCH // cs.DRAIN
+    big = [t.repeat(big_n, 1) for t in sig]
+    msgs = [r.signing_bytes() for r in reqs]
+    prefixes = [bytes(arrays[1][i]) + bytes(arrays[0][i])
+                for i in range(cs.DRAIN)]
+    blocks_np, counts_np = s5.pad_ed25519_messages(
+        prefixes, [msgs[i % len(msgs)] for i in range(cs.DRAIN)],
+        ted.max_blocks_for(msgs))
+    blocks = torch.from_numpy(blocks_np).to(dev).repeat(big_n, 1, 1)
+    counts = torch.from_numpy(counts_np).to(dev).repeat(big_n)
+    timed("verify_8192", lambda: ted.verify_kernel(*sig), 5)
+    timed("verify_32768", lambda: ted.verify_kernel(*big), 3)
+    timed("verify_full_32768", lambda: ted.verify_kernel_full(
+        big[0], big[1], big[2], blocks, counts), 3)
+    out["verifies_per_s_32768"] = cs.BENCH_VERIFY_BATCH / (
+        out["call_ms"]["verify_full_32768"] / 1e3)
+    _, words_np, farrays, _ = cs.fused_inputs(rng, cs.N_VALIDATORS,
+                                              cs.LOG_SIZE, cs.DRAIN)
+    words = q.words_tensor(words_np, dev)
+    fsig = [torch.from_numpy(a).to(dev) for a in farrays]
+    state = q.init_state(cs.N_VALIDATORS, cs.LOG_SIZE, cs.N_CHECKPOINTS, 1,
+                         dev)
+    timed("fused_step_8192", lambda: st.fused_step(
+        state, words, *fsig, n_validators=cs.N_VALIDATORS, device=dev), 5)
+
+
+def slide_report(out, timed, cs, dev, rng):
+    """K8's slide with host deltas at the main path's two group shapes,
+    then one profile of 20 slides at 64 x 64 x 300."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from indy_plenum_tpu_torch.tpu import quorum as q
+
+    shapes = {"slide_64x64x300": (cs.N_VALIDATORS, cs.N_VALIDATORS,
+                                  cs.LOG_SIZE, cs.N_CHECKPOINTS,
+                                  cs.CHK_FREQ),
+              "slide_96x16x30": (cs.B_NODES * cs.B_INSTANCES, cs.B_NODES,
+                                 cs.B_LOG_SIZE,
+                                 cs.B_LOG_SIZE // cs.B_CHK_FREQ,
+                                 cs.B_CHK_FREQ)}
+    for name, (m, n, s, c, d) in shapes.items():
+        votes = cs._random_votes(dev, rng, m, n, s, c)
+        deltas = torch.zeros(m, dtype=torch.int32)
+        deltas[rng.randint(m)] = d
+        timed(name, lambda: q.slide_state(votes, deltas), 50)
+    m, n, s, c, d = shapes["slide_64x64x300"]
+    votes = cs._random_votes(dev, rng, m, n, s, c)
+    deltas = torch.zeros(m, dtype=torch.int32)
+    deltas[rng.randint(m)] = d
+    calls = 20
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            q.slide_state(votes, deltas)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = e.name[:48]
+            count, us = split.get(key, (0, 0.0))
+            split[key] = (count + 1, us + e.time_range.elapsed_us())
+    out["slide_profile"] = {
+        "calls": calls,
+        "device": {k: {"count": cnt, "us_per_call": us / calls}
+                   for k, (cnt, us) in split.items()}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tag", required=True)
@@ -112,6 +202,9 @@ def main() -> int:
     timed("fabric_step", lambda: q.fabric_step(fstate, fwords, fm, 2), 20)
     timed("resident_tile",
           lambda: q.resident_tile_step(fstate, fslides, ftile, fm, 2), 20)
+
+    verify_and_fused(out, timed, cs, dev, rng)
+    slide_report(out, timed, cs, dev, rng)
 
     kv, root, writes, widths = _commit_inputs(3200, 320)
     waves = [(torch.from_numpy(rng.randint(0, 256, (wd, 32)).astype(

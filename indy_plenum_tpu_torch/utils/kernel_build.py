@@ -109,6 +109,10 @@ _SIGNATURES = {
                             _P),
     "window_zero_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P),
+    # state (as quorum_step), host int32 (row, delta) pairs, n_pairs, N,
+    # S, C, stream
+    "window_slide_pairs_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _P),
     # msg, out, batch, msg_len, stream
     "sha256_fixed_launch": (_P, _P, _I, _I, _P),
     # refs, literals, out, host level offsets, n_levels, blocks, stream

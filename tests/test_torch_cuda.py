@@ -5,7 +5,10 @@ so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 - the window kernels (K8, ``csrc/window.cu``) against their plain versions
-  at the main path's size, bit-equal;
+  at the main path's size, bit-equal, with the slide's launch counts;
+- the Ed25519 verify (K-c, ``csrc/ed25519.cu``) against its plain version
+  at batches of 1, 3, 7, 8,192 and 32,768 and on the edge rows, and each
+  of its four launch variants on the edge rows;
 - the resident step (K9, ``csrc/resident.cu``) and the fused verify +
   quorum step (K14, ``tpu/step.py``) against their plain versions at small
   shapes, bit-equal, and a small resident pool on the card against the
@@ -43,7 +46,8 @@ def card():
 @pytest.mark.cuda
 def test_window_kernels_match_plain(card):
     """``chip_smoke.py``'s K8 check: edge deltas, one sliding member,
-    every member sliding, random masks, at M = N = 64, S = 300."""
+    every member sliding, all deltas 0, device deltas, 520 sliding members
+    (three launches), random masks, at M = N = 64, S = 300."""
     import chip_smoke
 
     from indy_plenum_tpu_torch.utils import kernel_build as kb
@@ -53,8 +57,42 @@ def test_window_kernels_match_plain(card):
         card, np.random.RandomState(4), chip_smoke.N_VALIDATORS,
         chip_smoke.N_VALIDATORS, chip_smoke.LOG_SIZE,
         chip_smoke.N_CHECKPOINTS, chip_smoke.CHK_FREQ) == (0, 0)
-    assert kb.LAUNCHES["window_slide"] == before["window_slide"] + 3
+    assert kb.LAUNCHES["window_slide"] == before["window_slide"] + 7
     assert kb.LAUNCHES["window_zero"] == before["window_zero"] + 3
+
+
+@pytest.mark.cuda
+def test_verify_kernel_matches_plain(card):
+    """``chip_smoke.py``'s K-c check: the drain's 8,192 rows (RFC vectors,
+    signed requests, planted faults), its first 1, 3 and 7 rows, the drain
+    four times (32,768) and the edge rows, bit-equal to the plain
+    version."""
+    import chip_smoke
+
+    signers, reqs = chip_smoke.make_signed_requests(seed=64)
+    err, n_ok, n_rows = chip_smoke.check_verify(
+        card, signers, reqs, np.random.RandomState(5))
+    assert err == 0 and n_rows == chip_smoke.DRAIN and 0 < n_ok < n_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,shared", [(2, 0), (2, 1), (4, 0), (4, 1)])
+def test_verify_variants_match_plain_on_edge_rows(card, lanes, shared):
+    """Every launch variant of K-c (``csrc/probe/ed25519_variants.cu``, the
+    lane probe's library) on the edge rows: a good signature, y >= p, x = 0
+    with the sign bit, no square root, S + L, and 61 rows whose
+    undecompressible A fall in some groups of a warp and in every group of
+    one warp (66 rows, no multiple of a block)."""
+    import chip_smoke
+
+    from indy_plenum_tpu_torch.tpu import ed25519 as ted
+    from indy_plenum_tpu_torch.utils import verify_lanes_probe as probe
+
+    arrays, _, _, expect = chip_smoke.verify_edge_inputs()
+    t = [torch.from_numpy(a).to(card) for a in arrays]
+    ok = probe.run_variant(probe.variant_launcher(), t, lanes, bool(shared))
+    assert ok.cpu().numpy().tolist() == expect.tolist()
+    assert torch.equal(ok, ted.verify_kernel_plain(*t))
 
 
 def _pool_run(device):
