@@ -11,7 +11,9 @@ drives the signed write path through its entry points at the size of
 member planes; LOG_SIZE 300, CHK_FREQ 100):
 
 1. build      - nvcc for sm_90a, seconds; the card's name and power limit;
-2. kernels    - K-a SHA-512, K-b mod L, K-c Ed25519 verify (the drain,
+2. kernels    - K-a SHA-512, K-b mod L (at 8,192 and 32,768 rows with
+                its edge values, also against Python ints), K-c Ed25519
+                verify (the drain,
                 its first 1, 3 and 7 rows, the drain four times, the edge
                 rows), K-d (K7) quorum step (from an empty state, and
                 from random states at the shapes of phases A, B, H, C and
@@ -33,7 +35,9 @@ member planes; LOG_SIZE 300, CHK_FREQ 100):
                 and K7 alone on the good votes; K13 fabric step at M = N =
                 256, S = 300 on (8,) and (4, 2) and N = 250 on v = 4, with
                 and without ``ok``, and against K7 at v = 1; the tiled K9
-                at k = 1, 2, 4 on (8,) and (4, 2); K1 ring shift for every
+                at k = 1, 2, 4 on phase H's and R's shapes, v = 1, 2 and
+                4, padded rows, S % 4 != 0, every slide class, and every
+                cluster size of 1 to 8 blocks; K1 ring shift for every
                 shift 1 .. m + 1 and K15 rotation merge for 13 rotations,
                 on (8,), (4, 2) and (K15) without a mesh; the sharded K14
                 on 4 validator tiles with phase G's votes;
@@ -154,12 +158,19 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # two 64-bit adds, not 28 instructions.
 SHA512_OPS_PER_BLOCK = 80 * 28 + 64 * 20 + 32 + 16
 SHA512_IV_ROUND_SAVING = 28 - 4
-# h mod L, per item, as a Barrett reduction on 64-bit limbs needs it
-# (not the subtract ladder the kernel runs): q1 * mu (5 x 5 = 25
-# products) and q3 * L mod 2^320 (14 products), each 64x64->128 product
-# ~8 instructions + ~4 to accumulate, then two conditional 5-limb
-# subtracts of ~6 instructions per limb.
-MOD_L_OPS_PER_ITEM = 39 * (8 + 4) + 2 * 5 * 6
+# h mod L, per item, as the least Barrett reduction on 64-bit limbs
+# needs it (b = 2^64, k = 4, mu = floor(2^512 / L)): q3 from the columns
+# 3..8 of q1 * mu only (HAC 14.44: the dropped columns sum below 2^259, so
+# q3 falls at most one further short, 19 of the 25 products), q3 * L mod
+# 2^256 (10 products, since 3L < 2^256), h - q3 L over 4 limbs (2 each
+# with the hardware's borrow chain), then two conditional 4-limb
+# subtractions of L (~6 a limb: the subtraction and the select on two
+# 32-bit halves, the borrow). A 64x64->128 product is 4 32-bit wide
+# multiply-adds and ~4 carries, + ~4 to accumulate. The kernel
+# (csrc/sha512.cu) does all 25 products and issues more a product: its
+# SASS holds 154 IMAD.WIDE for 35 products and 754 integer instructions
+# an item (utils/sass_count.py), its carries taken by compare and select.
+MOD_L_OPS_PER_ITEM = (19 + 10) * (8 + 4) + 4 * 2 + 2 * 4 * 6
 # Ed25519 verify, per signature, counted from csrc/ed25519.cu and
 # fe25519.cuh: a field multiply is 25 64x64->128 products x 8
 # instructions + ~110 for the 128-bit column sums and carries; a square
@@ -337,24 +348,58 @@ def check_sha512_and_mod_l(dev, rng):
     for row, m in zip(dig, msgs):
         if row.tobytes() != hashlib.sha512(m).digest():
             raise AssertionError("sha512_blocks disagrees with hashlib")
-    L = s5.L
-    edge = [0, 1, L - 1, L, L + 1, 2 * L, 5 * L, (1 << 512) - 1,
-            ((1 << 512) - 1) // L * L]
-    hs = np.concatenate([
-        rng.randint(0, 256, (4096 - len(edge), 64)).astype(np.uint8),
-        np.stack([np.frombuffer(v.to_bytes(64, "little"), np.uint8)
-                  for v in edge])])
-    h = torch.from_numpy(hs).to(dev)
-    red = s5.reduce_mod_l(h)
-    err_b = _max_abs_err([(red, s5.reduce_mod_l_plain(h))])
-    red_np = red.cpu().numpy()
-    for i in range(len(hs) - len(edge), len(hs)):
-        v = int.from_bytes(hs[i].tobytes(), "little") % L
-        if int.from_bytes(red_np[i].tobytes(), "little") != v:
-            raise AssertionError("reduce_mod_l disagrees with Python ints")
+    err_b = max(check_mod_l(dev, rng, DRAIN),
+                check_mod_l(dev, rng, BENCH_VERIFY_BATCH))
     if err_a or err_b:
         raise AssertionError(f"K-a/K-b differ from plain: {err_a} {err_b}")
     return err_a, err_b
+
+
+def mod_l_edges():
+    """Edge values of h mod L: around 0, L, 2L and 3L, a large multiple of
+    L, 2^512 - 1, and just under and over the multiples of L nearest
+    2^512."""
+    from indy_plenum_tpu_torch.tpu import sha512 as s5
+
+    L, top = s5.L, (1 << 512) - 1
+    vals = [0, 1, L - 1, L, L + 1, 2 * L - 1, 2 * L, 3 * L - 1,
+            (1 << 300) // L * L, top, 1 << 511, (1 << 256) - 1, 1 << 256,
+            (1 << 192) - 1, 1 << 192, (1 << 256) * L - 1]
+    for q in range(top // L - 3, top // L + 1):
+        vals += [q * L - 1, q * L, q * L + 1]
+    return [v for v in vals if v <= top]
+
+
+def check_mod_l_ints(h_np, red_np, where):
+    """Every row of K-b's output against Python's h % L."""
+    from indy_plenum_tpu_torch.tpu import sha512 as s5
+
+    for row, got in zip(h_np, red_np):
+        if int.from_bytes(got.tobytes(), "little") != \
+                int.from_bytes(row.tobytes(), "little") % s5.L:
+            raise AssertionError(f"reduce_mod_l disagrees with Python ints "
+                                 f"at {where}")
+
+
+def check_mod_l(dev, rng, batch):
+    """K-b on ``batch`` rows - the edge values, then seeded hashes - against
+    its plain version (the reference's ladder) and Python's h % L on
+    every row."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import sha512 as s5
+
+    edge = mod_l_edges()
+    hs = np.concatenate([
+        np.stack([np.frombuffer(v.to_bytes(64, "little"), np.uint8)
+                  for v in edge]),
+        rng.randint(0, 256, (batch - len(edge), 64)).astype(np.uint8)])
+    h = torch.from_numpy(hs).to(dev)
+    red = s5.reduce_mod_l(h)
+    err = _max_abs_err([(red, s5.reduce_mod_l_plain(h))])
+    check_mod_l_ints(hs, red.cpu().numpy(), f"a batch of {batch}")
+    if err:
+        raise AssertionError(f"K-b differs from plain at {batch}: {err}")
+    return err
 
 
 RFC8032 = [  # (seed, message, signature), RFC 8032 section 7.1
@@ -937,38 +982,104 @@ def check_fabric(dev, rng):
     return err, checks
 
 
+R_NODES, R_SEED, R_FORCE_TICK = 64, 23, 12  # test_residency.py:155-171
+R_LOG_SIZE, R_CHK_FREQ = 15, 5
+# the tiled K9's shapes: (tag, M, real validators, rows, S, C, W, v, k);
+# full width (phase H), phase R's (8,) and (4, 2) arms, phase B's S = 30
+# with N padded to a multiple of v = 4, and a tile of one row a block
+TILE_SHAPES = (
+    ("h_v1", FABRIC_N, FABRIC_N, FABRIC_N, LOG_SIZE, N_CHECKPOINTS,
+     FABRIC_W, 1, 4),
+    ("h_v2", FABRIC_N, FABRIC_N, FABRIC_N, LOG_SIZE, N_CHECKPOINTS,
+     FABRIC_W, 2, 4),
+    ("r_v1", R_NODES, R_NODES, R_NODES, R_LOG_SIZE,
+     R_LOG_SIZE // R_CHK_FREQ, RESIDENT_WIDTH, 1, 4),
+    ("r_v2", R_NODES, R_NODES, R_NODES, R_LOG_SIZE,
+     R_LOG_SIZE // R_CHK_FREQ, RESIDENT_WIDTH, 2, 4),
+    ("pad_v4", 96, 250, 252, B_LOG_SIZE, B_LOG_SIZE // B_CHK_FREQ, 512, 4,
+     4),
+    ("small_v4", 16, 7, 8, 22, 4, 64, 4, 2),
+)
+
+
+def tile_case(dev, rng, m, n, rows, s, c, w, v, k):
+    """A tiled K9 consume's operands: a seeded state (pad rows empty),
+    (k, M) slides mixing 0, 1, 2, 3, 5, S - 1, S and S + 3 (member 0
+    never slides, the last member by 0 < d < S in every slot), k slots of
+    words with a quorum wave in the first; member 1 hit only in its pad
+    rows (when there are any), the last member's words all invalid and,
+    for k > 1, one slot of nothing but invalid words."""
+    import torch
+
+    state = fabric_state(dev, rng, rows, n, c, m=m, s=s)
+    mix = np.array([0, 1, 2, 3, 5, s - 1, s, s + 3], np.int32)
+    slides = mix[rng.randint(0, len(mix), (k, m))]
+    slides[:, 0] = 0
+    slides[:, -1] = 1 + (s - 2) // 2
+    words = np.stack([fabric_words(rng, m, w, n, s, c) for _ in range(k)])
+    if rows > n:
+        kinds = rng.randint(1, 4, (k, w)).astype(np.uint32)
+        pads = rng.randint(n, rows, (k, w)).astype(np.uint32)
+        words[:, 1] = (0x80000000 | (kinds << 29) | (pads << 16)
+                       | rng.randint(0, c, (k, w)).astype(np.uint32))
+    words[:, -1] &= 0x7FFFFFFF
+    if k > 1:
+        words[k - 1] &= 0x7FFFFFFF
+    return state, torch.from_numpy(slides), words
+
+
 def check_resident_tile(dev, rng):
-    """The tiled K9 against its plain version at full width (M = N = 256,
-    S = 300, C = 3, W = 512) on (8,) and (4, 2), k = 1, 2 and 4, slides
-    of 0, 1, S - 1 and S, one all-empty slot."""
+    """The tiled K9 against its plain version on ``TILE_SHAPES`` (v = 1, 2
+    and 4, N padded, S % 4 != 0, slides of d = 0, 0 < d < S and d >= S, a
+    member hit only in pad rows, all-invalid word rows) at k = 1, 2 and
+    4, with the cluster the wrapper picks and with every cluster size
+    of 1 to 8 blocks at the largest k; then phase H's consume (no
+    slide).
+    Every state leaf, event and compact output equal."""
     import torch
     from indy_plenum_tpu_torch.tpu import quorum as q
 
+    err = checks = 0
+    for tag, m, n, rows, s, c, w, v, k_top in TILE_SHAPES:
+        for k in sorted({1, 2, k_top}):
+            sizes = [None] + ([b for b in range(1, q.TILE_CLUSTER_MAX + 1)
+                               if b <= rows] if k == k_top else [])
+            for blocks in sizes:
+                state, slides, words_np = tile_case(dev, rng, m, n, rows, s,
+                                                    c, w, v, k)
+                words = q.words_tensor(words_np, dev)
+                shadow = q.clone_state(state)
+                if blocks is None:
+                    ev, comp = q.resident_tile_step(state, slides, words, n,
+                                                    v)
+                else:
+                    ev, comp = q._resident_tile_kernel(
+                        state, slides, words, n, v, q.ORDER_DELTA_CAP,
+                        blocks)
+                pev, pcomp = q.resident_tile_plain(
+                    shadow, slides.to(dev), words, n, v)
+                e = _max_abs_err(list(zip(state, shadow))
+                                 + list(zip(ev, pev))
+                                 + list(zip(comp, pcomp)))
+                if e:
+                    raise AssertionError(
+                        f"tiled K9 differs from plain at {tag}, k={k}, "
+                        f"blocks={blocks}: {e}")
+                err, checks = max(err, e), checks + 1
     m, n, s, c = FABRIC_N, FABRIC_N, LOG_SIZE, N_CHECKPOINTS
-    mix = np.array([0, 1, s - 1, s], np.int32)
-    err = 0
-    for shape in FABRIC_SHAPES:
-        v = shape[1] if len(shape) > 1 else 1
-        for k in (1, 2, 4):
-            state = fabric_state(dev, rng, n, n, c)
-            shadow = q.clone_state(state)
-            slides = mix[rng.randint(0, len(mix), (k, m))]
-            slides[:, 0] = 0
-            words = np.stack([fabric_words(rng, m, FABRIC_W, n, s, c)
-                              for _ in range(k)])
-            if k > 1:
-                words[k // 2] = 0
-            words = q.words_tensor(words, dev)
-            ev, comp = q.resident_tile_step(
-                state, torch.from_numpy(slides), words, n, v)
-            pev, pcomp = q.resident_tile_plain(
-                shadow, torch.from_numpy(slides).to(dev), words, n, v)
-            err = max(err, _max_abs_err(list(zip(state, shadow))
-                                        + list(zip(ev, pev))
-                                        + list(zip(comp, pcomp))))
-    if err:
-        raise AssertionError(f"tiled K9 differs from plain: {err}")
-    return err
+    state = fabric_state(dev, rng, n, n, c)
+    shadow = q.clone_state(state)
+    words = q.words_tensor(np.stack([fabric_words(rng, m, FABRIC_W, n, s, c)
+                                     for _ in range(4)]), dev)
+    slides = torch.zeros((4, m), dtype=torch.int32)
+    ev, comp = q.resident_tile_step(state, slides, words, n, 2)
+    pev, pcomp = q.resident_tile_plain(shadow, slides, words, n, 2)
+    err = max(err, _max_abs_err(list(zip(state, shadow)) + list(zip(ev, pev))
+                                + list(zip(comp, pcomp))))
+    if err or int(ev.ordered.sum()) == 0:
+        raise AssertionError(f"tiled K9 differs from plain ({err}) or "
+                             "ordered nothing at phase H's consume")
+    return err, checks
 
 
 def check_ring_rotate(dev, rng):
@@ -1658,8 +1769,6 @@ def run_pool_b(device, depth=1):
 H_BATCHES = 2  # bench.py bench_fabric: n, batches = 256, 2
 H_ARMS = (("single", None, 1), ("mesh8", (8,), 1),
           ("fabric4x2", (4, 2), 1), ("fabric4x2_resident", (4, 2), 4))
-R_NODES, R_SEED, R_FORCE_TICK = 64, 23, 12  # test_residency.py:155-171
-R_LOG_SIZE, R_CHK_FREQ = 15, 5
 R_SHAPES = ((4, 2), (8,))
 
 
@@ -2073,6 +2182,8 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
     scalar = s5.reduce_mod_l(digest)
     err_a = _max_abs_err([(digest, s5.sha512_blocks_plain(blocks, counts))])
     err_b = _max_abs_err([(scalar, s5.reduce_mod_l_plain(digest))])
+    check_mod_l_ints(digest.cpu().numpy(), scalar.cpu().numpy(),
+                     "the drain")
     if err_a or err_b:
         raise AssertionError(f"K-a/K-b differ from plain on the drain: "
                              f"{err_a} {err_b}")
@@ -2133,6 +2244,14 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
     t_zero = _kernel_ms(zero, 50)
     call_zero = _cuda_ms(zero, 50)
     t_zero_plain = _cuda_ms(lambda: q.zero_plain(votes, mask), 5)
+    # the library's zero: masked_fill_ of each leaf by a mask on the card
+    hit = mask.to(dev)
+
+    def fill():
+        for x in votes:
+            x.masked_fill_(hit.view((-1,) + (1,) * (x.dim() - 1)), 0)
+
+    lib_zero = _kernel_ms(fill, 50)
 
     n_blocks = int(counts_np.sum())
     # K8 moves bytes and computes nothing: the sliding member's rows read
@@ -2168,13 +2287,15 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
          "indy_plenum_tpu/tpu/compile_plan.py:83", t_zero, t_zero_plain,
          bound(zero_bytes, 0)),
     ]
+    library = {"window_zero": lib_zero}
     out = []
     for name, src, replaces, ms, plain_ms, (bound_ms, bound_by) in rows:
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": errs[name], "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None})
+                    "bound_by": bound_by,
+                    "library_ms": library.get(name)})
 
     # bench.py's Ed25519 metric: verify_kernel_full at 32768
     big = BENCH_VERIFY_BATCH // DRAIN
@@ -2402,9 +2523,11 @@ def fabric_report(dev, rng, launches, errs, inputs):
     the tiled K9 at its resident arm's consume (k = 4 slots, no slide);
     K1 (one ring step of every leaf on (8,)) and K15 (the merge of a
     rotation by R / 2 on (8,)) on phase H's state; the sharded K14 at
-    phase G's 8,192 votes on 4 tiles. Bounds (bytes): K13 and the tiled
-    K9 are ``step_work`` plus the partials written and read (2 x M x v x
-    (2S + C) x 4) and the slides; K1 reads and writes every leaf once;
+    phase G's 8,192 votes on 4 tiles. Bounds (bytes) count the work, not
+    a design's traffic: K13 is ``step_work``, the tiled K9 ``step_work``
+    of its k slots' words plus the slides read; K1 reads and writes every
+    leaf once (its library call: ``torch.roll`` of each leaf by shift x R
+    rows, behind the spin as the kernels);
     K15 reads one arm's row for each row it writes and writes the state
     (K1's bytes); the sharded K14 is K-c's bound plus K13's at (1, N, S)
     with B words. Also K13 at v = 1 (the (8,) member mesh's step) against
@@ -2424,7 +2547,6 @@ def fabric_report(dev, rng, launches, errs, inputs):
                               for _ in range(k)])
     slot_words = q.words_tensor(slot_words_np, dev)
     slides = torch.zeros((k, m), dtype=torch.int32, device=dev)
-    partials = 2 * m * v * (2 * s + c) * 4
     mesh8 = fabric_mesh(dev, (8,))
     r = m // 8
     arm_a = rx.ring_shift_planes(state, mesh8, 0)
@@ -2440,20 +2562,20 @@ def fabric_report(dev, rng, launches, errs, inputs):
         q.make_fabric_mesh([dev] * 4, (4,), ("validators",)), N_VALIDATORS)
     kc_ms, kc_by = bound(batch * (4 * 32 + 1), batch * VERIFY_OPS_PER_ITEM)
     g_bytes, g_ops = step_work(1, N_VALIDATORS, s, c, words_g)
-    k13g_ms, _ = bound(g_bytes + 2 * 4 * (2 * s + c) * 4, g_ops)
+    k13g_ms, _ = bound(g_bytes, g_ops)
     nb, ops = step_work(m, n, s, c, words_np)
     nb_t, ops_t = step_work(m, n, s, c, slot_words_np)
     rows = [
         ("fabric_step",
          lambda: q.fabric_step(state, words, n, v),
          lambda: q.fabric_step_plain(state, words, n, v),
-         bound(nb + partials, ops), "indy_plenum_tpu_torch/csrc/fabric.cu",
+         bound(nb, ops), "indy_plenum_tpu_torch/csrc/fabric.cu",
          "indy_plenum_tpu/tpu/quorum.py:306", 20),
         ("resident_tile",
          lambda: q.resident_tile_step(state, slides, slot_words, n, v),
          lambda: q.resident_tile_plain(state, slides, slot_words, n, v),
-         bound(nb_t + 4 * k * m + partials, ops_t),
-         "indy_plenum_tpu_torch/csrc/resident.cu (+ csrc/fabric.cu)",
+         bound(nb_t + 4 * k * m, ops_t),
+         "indy_plenum_tpu_torch/csrc/resident_tile.cu",
          "indy_plenum_tpu/tpu/compile_plan.py:141", 20),
         ("ring_shift",
          lambda: rx.ring_shift_planes(state, mesh8, 1),
@@ -2473,6 +2595,10 @@ def fabric_report(dev, rng, launches, errs, inputs):
          "indy_plenum_tpu_torch/tpu/step.py (csrc/ed25519.cu + "
          "csrc/fabric.cu)", "indy_plenum_tpu/tpu/step.py:46", 5),
     ]
+    tile_blocks = q.tile_cluster_blocks(n, s, m, q._tile_resident(
+        torch.cuda.current_device(), s, c))
+    library = {"ring_shift": _kernel_ms(
+        lambda: [torch.roll(x, r, dims=0) for x in state], 20)}
     out, call_ms = [], {}
     for name, fn, plain, (bound_ms, bound_by), src, replaces, reps in rows:
         ms = _kernel_ms(fn, reps)
@@ -2482,7 +2608,8 @@ def fabric_report(dev, rng, launches, errs, inputs):
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": errs[name], "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None})
+                    "bound_by": bound_by,
+                    "library_ms": library.get(name)})
     v1 = {"k13_v1_ms": [], "k7_ms": [], "k13_v1_call_ms": [],
           "k7_call_ms": []}
     for _ in range(3):
@@ -2492,7 +2619,8 @@ def fabric_report(dev, rng, launches, errs, inputs):
             v1[f"{tag}_call_ms"].append(_cuda_ms(fn, 20))
     return out, call_ms, v1, {
         "fabric_step": f"{m} x {n} x {s}, v={v}, {w} words",
-        "resident_tile": f"k={k} x {m} x {w} words, {m} x {n} x {s}, v={v}",
+        "resident_tile": f"k={k} x {m} x {w} words, {m} x {n} x {s}, v={v}, "
+                         f"{tile_blocks} blocks a member",
         "ring_shift": f"every leaf of {m} x {n} x {s}, (8,), shift 1",
         "rotate_merge": f"every leaf of {m} x {n} x {s}, R={r}, s={r // 2}",
         "sharded_fused_step": f"{batch} votes, 1 x {N_VALIDATORS} x {s}, "
@@ -2595,7 +2723,7 @@ def main() -> int:
     err_k14, k14_accepted, k14_oracle = check_fused(dev, rng, fused)
     # K13, the tiled K9, K1, K15 and the sharded K14 at full width
     err_k13, k13_checks = check_fabric(dev, rng)
-    err_tile = check_resident_tile(dev, rng)
+    err_tile, tile_checks = check_resident_tile(dev, rng)
     err_k1, err_k15 = check_ring_rotate(dev, rng)
     err_sk14 = check_sharded_fused(dev, fused)
     errs = {"sha512_blocks": err_a, "reduce_mod_l": err_b,
@@ -2614,6 +2742,7 @@ def main() -> int:
           audit_planted_faults=n_planted, resident_slots=RESIDENT_SLOTS,
           fused_votes=DRAIN, fused_accepted=k14_accepted,
           fused_oracle_checked=k14_oracle, fabric_checks=k13_checks,
+          tile_checks=tile_checks,
           phase_s=time.perf_counter() - t0, card=card)
 
     # 3, 4, A, B: the main path. Every launch counter is 0 just before

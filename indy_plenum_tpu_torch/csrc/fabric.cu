@@ -43,9 +43,9 @@
 // slots, so each row read is coalesced (neighbouring threads,
 // neighbouring slots). (b) keeps K7's one block per member, and its
 // decide is K7's code, so K7, K9 and K13 decide alike bit for bit. Known
-// later work: one kernel with a cluster of v blocks per member summing
-// the partials in distributed shared memory, which saves the partials'
-// round trip through HBM and one launch.
+// later work: the tiled K9's one-launch cluster kernel
+// (resident_tile.cu: partials in distributed shared memory, no round trip
+// through HBM) at k = 1 with the ``ok`` operand.
 #include "quorum_common.cuh"
 
 namespace {
@@ -99,23 +99,21 @@ __global__ void fabric_decide_kernel(qc::Planes p,
       f_newprep, f_newly, f_ordered);
 }
 
-}  // namespace
-
-namespace qc {
-
-int fabric_decide(const Planes& p, const Events& e, const int32_t* pc_part,
-                  const int32_t* cc_part, const int32_t* kc_part, int M,
-                  int v, int S, int C, int n_validators, int cap,
-                  int compact, cudaStream_t stream) {
+// one block per member sums the v tile partials and decides
+int fabric_decide(const qc::Planes& p, const qc::Events& e,
+                  const int32_t* pc_part, const int32_t* cc_part,
+                  const int32_t* kc_part, int M, int v, int S, int C,
+                  int n_validators, int cap, int compact,
+                  cudaStream_t stream) {
   if (M > 0) {
-    fabric_decide_kernel<<<M, kThreads, 0, stream>>>(
+    fabric_decide_kernel<<<M, qc::kThreads, 0, stream>>>(
         p, pc_part, cc_part, kc_part, v, S, C, n_validators, cap, compact,
         e);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace qc
+}  // namespace
 
 extern "C" int fabric_step_launch(
     void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,
@@ -136,7 +134,7 @@ extern "C" int fabric_step_launch(
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return qc::fabric_decide(
+  return fabric_decide(
       p, qc::events_at(out, M, S, C, cap),
       static_cast<const int32_t*>(pc_part),
       static_cast<const int32_t*>(cc_part),

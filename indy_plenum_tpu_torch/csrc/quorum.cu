@@ -88,7 +88,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
     cc_s[i] = 0;
   }
   __syncthreads();
-  qc::chunk_counts(p, m, N, S, s_lo, s_hi, pc_s, cc_s);
+  qc::chunk_counts(p, m, N, S, 0, N, s_lo, s_hi, pc_s, cc_s);
   __syncthreads();
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   qc::decide_slots(

@@ -1,10 +1,11 @@
 // Device code shared by the vote-plane kernels: the grouped quorum step
 // (K7, quorum.cu), the window slide and zero (K8, window.cu), the
-// resident multi-slot step (K9 and its tiled form, resident.cu) and the
-// member x validator fabric step (K13, fabric.cu). K7, K9 and K13 decide
-// through one path (decide_slots, decide_checkpoints, compact_member;
-// decide_member chains them in one block, K7 spreads them over a
-// cluster), so they cannot drift.
+// resident multi-slot step (K9, resident.cu), its tiled form
+// (resident_tile.cu) and the member x validator fabric step (K13,
+// fabric.cu). K7, both K9s and K13 decide through one path (decide_slots,
+// decide_checkpoints, compact_member; decide_member chains them in one
+// block, K7 and the tiled K9 spread them over a cluster), so they cannot
+// drift.
 //
 // Every function here works on ONE member plane inside one thread block
 // and is called by all threads of the block alike (some hold a barrier).
@@ -140,6 +141,87 @@ __device__ __forceinline__ void slide_rows(const Planes& p, int m, int r0,
   }
 }
 
+constexpr int kSlideUnroll = 4;  // words a thread holds between barriers
+
+// Roll the len = nr x S bytes at ``run`` (nr whole rows of S bytes, one
+// after another) left by d > 0 row by row, zero-filling the vacated
+// columns: slide_rows' function on a contiguous run, with no shared-memory
+// stage. Called by every thread of the block (it holds barriers). The run
+// moves as one flat stretch: out[i] = in[i + d] unless i's column i mod S
+// is >= S - d, then 0. A thread writes whole aligned 4-byte words: each
+// from one or two aligned loads joined by a funnel shift when d % 4 != 0,
+// its columns walked incrementally (no division a byte); the words at the
+// ends of a run, which hold bytes of a neighbouring run, are written a
+// byte at a time. A read can fall outside the run (the aligned words at
+// its ends, or past the run's end), but such bytes only feed bytes outside
+// the run or masked columns, and a load never starts past the run's end.
+// The run is moved in stretches of kSlideUnroll words a thread: every
+// read of a stretch before a barrier, then its writes; a later stretch
+// reads only words at or past its own, which this one does not write.
+__device__ __forceinline__ void slide_run(uint8_t* run, int len, int S,
+                                          int d) {
+  const int pre = static_cast<int>(reinterpret_cast<uintptr_t>(run) & 3);
+  uint8_t* base = run - pre;  // the aligned word holding the run's first byte
+  const uint8_t* end = run + len;
+  const int words = (pre + len + 3) >> 2;
+  const int keep = d < S ? S - d : 0;  // columns that survive
+  const int sh = 8 * (d & 3);
+  const int hop = d & ~3;
+  const int t = static_cast<int>(threadIdx.x);
+  const int stride = static_cast<int>(blockDim.x);
+  // the column of the first byte of this thread's first word, then the
+  // step between its words (4 x blockDim bytes)
+  int col = (4 * t - pre) % S;
+  if (col < 0) col += S;
+  const int step = (4 * stride) % S;
+  for (int w0 = 0; w0 < words; w0 += kSlideUnroll * stride) {
+    uint32_t val[kSlideUnroll];
+#pragma unroll
+    for (int u = 0; u < kSlideUnroll; ++u) {
+      const int w = w0 + u * stride + t;
+      uint32_t x = 0;
+      if (w < words && keep > 0) {
+        const uint8_t* src = base + 4 * w + hop;
+        const uint32_t lo =
+            src < end ? *reinterpret_cast<const uint32_t*>(src) : 0u;
+        const uint32_t hi =
+            sh != 0 && src + 4 < end
+                ? *reinterpret_cast<const uint32_t*>(src + 4)
+                : 0u;
+        x = __funnelshift_r(lo, hi, sh);
+      }
+      val[u] = x;
+    }
+    __syncthreads();  // every read of this stretch before any write
+#pragma unroll
+    for (int u = 0; u < kSlideUnroll; ++u) {
+      const int w = w0 + u * stride + t;
+      if (w < words) {
+        uint32_t mask = 0;
+        int c = col;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          if (c < keep) mask |= 0xFFu << (8 * b);
+          if (++c == S) c = 0;
+        }
+        const uint32_t x = val[u] & mask;
+        const int o = 4 * w - pre;  // the word's first byte in the run
+        uint8_t* dst = base + 4 * w;
+        if (o >= 0 && o + 4 <= len) {
+          *reinterpret_cast<uint32_t*>(dst) = x;
+        } else {
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            if (o + b >= 0 && o + b < len) dst[b] = (x >> (8 * b)) & 0xFF;
+          }
+        }
+      }
+      col += step;
+      if (col >= S) col -= S;
+    }
+  }
+}
+
 // The member-wide rest of a slide by d > 0: checkpoint votes cleared, the
 // frontier slid with the window and clamped at 0.
 __device__ __forceinline__ void slide_tail(const Planes& p, int m, int d,
@@ -147,33 +229,6 @@ __device__ __forceinline__ void slide_tail(const Planes& p, int m, int d,
   uint8_t* ckm = p.ck + static_cast<size_t>(m) * N * C;
   for (int i = threadIdx.x; i < N * C; i += blockDim.x) ckm[i] = 0;
   if (threadIdx.x == 0) {
-    const int f = p.frontier[m] - d;
-    p.frontier[m] = f > 0 ? f : 0;
-  }
-}
-
-// A fabric tile's part of a slide by d > 0 of member m: its validator rows
-// [r0, r0 + nv) of the prepare and commit planes and of the checkpoint
-// votes, and, for the tile that owns the member's slot-axis rows, the
-// preprepare_seen, ordered and prepared_acked rows and the frontier.
-// Rows are staged ``per`` at a time through ``stage`` (per x S bytes).
-__device__ __forceinline__ void slide_tile(const Planes& p, int m, int r0,
-                                           int nv, bool owner, int d, int N,
-                                           int S, int C, int per,
-                                           uint8_t* stage) {
-  // row_ptr numbering: 0..2 slot-axis rows, 3 + n prepare, 3 + N + n commit
-  const int lo[3] = {0, 3 + r0, 3 + N + r0};
-  const int cnt[3] = {owner ? 3 : 0, nv, nv};
-  for (int g = 0; g < 3; ++g) {
-    for (int a = 0; a < cnt[g]; a += per) {
-      const int nr = cnt[g] - a < per ? cnt[g] - a : per;
-      slide_rows(p, m, lo[g] + a, nr, d, N, S, stage);
-      __syncthreads();  // the stage is reused by the next chunk
-    }
-  }
-  uint8_t* ckm = p.ck + (static_cast<size_t>(m) * N + r0) * C;
-  for (int i = threadIdx.x; i < nv * C; i += blockDim.x) ckm[i] = 0;
-  if (owner && threadIdx.x == 0) {
     const int f = p.frontier[m] - d;
     p.frontier[m] = f > 0 ? f : 0;
   }
@@ -218,11 +273,11 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* row, int s0,
   return v;
 }
 
-// Prepare and commit column counts of member m at the slots [s_lo, s_hi)
-// into pc[s - s_lo] and cc[s - s_lo] (shared memory the caller zeroed
-// before a barrier). A thread takes one 4-slot word of the chunk and the
-// rows g, g + G, ... of it (G row groups), so neighbouring lanes read
-// neighbouring words of a row. Bytes are summed two to a 32-bit lane
+// Prepare and commit column counts of member m's validator rows [r0, r0 +
+// nr) at the slots [s_lo, s_hi) into pc[s - s_lo] and cc[s - s_lo]
+// (shared memory the caller zeroed before a barrier). A thread takes one
+// 4-slot word of the chunk and the rows g, g + G, ... of the run (G row
+// groups), so neighbouring lanes read neighbouring words of a row. Bytes are summed two to a 32-bit lane
 // (bytes 0 and 2, bytes 1 and 3, 16 bits each): exact for any byte
 // values over 256 rows, then widened to int; the G groups meet in shared
 // atomics. Rows are read a word at a time when S % 4 == 0 (every row then
@@ -230,8 +285,9 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* row, int s0,
 // byte at a time: both paths load the same bytes into the same lanes, so
 // they give the same sums.
 __device__ __forceinline__ void chunk_counts(const Planes& p, int m, int N,
-                                             int S, int s_lo, int s_hi,
-                                             int* pc, int* cc) {
+                                             int S, int r0, int nr,
+                                             int s_lo, int s_hi, int* pc,
+                                             int* cc) {
   const int span = s_hi - s_lo;
   if (span <= 0) return;
   const int words = (span + 3) / 4;
@@ -239,18 +295,18 @@ __device__ __forceinline__ void chunk_counts(const Planes& p, int m, int N,
                          ? static_cast<int>(blockDim.x) / words
                          : 1;
   const bool aligned = (S & 3) == 0;
-  const uint8_t* pvm = p.pv + static_cast<size_t>(m) * N * S;
-  const uint8_t* cvm = p.cv + static_cast<size_t>(m) * N * S;
+  const uint8_t* pvm = p.pv + (static_cast<size_t>(m) * N + r0) * S;
+  const uint8_t* cvm = p.cv + (static_cast<size_t>(m) * N + r0) * S;
   for (int t = threadIdx.x; t < groups * words; t += blockDim.x) {
     const int g = t / words;
-    if (g >= N) continue;  // more row groups than rows
+    if (g >= nr) continue;  // more row groups than rows
     const int s0 = s_lo + 4 * (t - g * words);
     int tp[4] = {0, 0, 0, 0};
     int tc[4] = {0, 0, 0, 0};
     uint32_t p02 = 0, p13 = 0, c02 = 0, c13 = 0;
     int k = 0;
 #pragma unroll 4
-    for (int n = g; n < N; n += groups) {
+    for (int n = g; n < nr; n += groups) {
       const uint32_t a = load4(pvm + static_cast<size_t>(n) * S, s0, s_hi,
                                aligned);
       const uint32_t b = load4(cvm + static_cast<size_t>(n) * S, s0, s_hi,
@@ -259,7 +315,7 @@ __device__ __forceinline__ void chunk_counts(const Planes& p, int m, int N,
       p13 += (a >> 8) & 0x00FF00FFu;
       c02 += b & 0x00FF00FFu;
       c13 += (b >> 8) & 0x00FF00FFu;
-      if (++k == 256 || n + groups >= N) {
+      if (++k == 256 || n + groups >= nr) {
         tp[0] += p02 & 0xFFFF;
         tp[1] += p13 & 0xFFFF;
         tp[2] += p02 >> 16;
@@ -468,12 +524,5 @@ inline Events events_at(void* out, int M, int S, int C, int cap) {
   e.stable_u8 = e.stable + mc;
   return e;
 }
-
-// K13's second kernel (fabric.cu): one block per member sums the v tile
-// partials and decides; also run after the tiled K9 (resident.cu).
-int fabric_decide(const Planes& p, const Events& e, const int32_t* pc_part,
-                  const int32_t* cc_part, const int32_t* kc_part, int M,
-                  int v, int S, int C, int n_validators, int cap,
-                  int compact, cudaStream_t stream);
 
 }  // namespace qc

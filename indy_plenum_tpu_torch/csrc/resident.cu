@@ -38,18 +38,7 @@
 // hold a member's whole plane set (~40 KB at n = 64) in shared memory
 // across the k slots, so a consume reads and writes the state once.
 //
-// The tiled K9 (resident_tile_kernel, then fabric.cu's decide) replaces
-// compile_plan.py:141-173, resident_plan_for's mesh branches: the same
-// slots on the fabric's tiles (see fabric.cu for the one-device layout).
-// Block (m, j) of grid (M, v), per slot in the same slide-then-scatter
-// order: K8's slide of tile j's prepare, commit and checkpoint rows (and,
-// for tile 0, of the member's preprepare_seen / ordered / prepared_acked
-// rows and frontier), then the scatter of the tile's senders (the
-// PRE-PREPARE by tile 0, the block that slides it); after the last slot,
-// the tile's partial counts. fabric.cu's decide kernel then sums the v
-// partials and decides with compact = 1, as K13 does. Bound: bytes, as
-// the unsharded K9 plus the partials' write and read (2 x M x v x (2S +
-// C) x 4 bytes).
+// The tiled K9 is resident_tile.cu.
 #include "quorum_common.cuh"
 
 namespace {
@@ -88,67 +77,7 @@ __global__ void resident_step_kernel(qc::Planes p,
                   f_newly, f_ordered);
 }
 
-__global__ void resident_tile_kernel(qc::Planes p,
-                                     const int32_t* __restrict__ slides,
-                                     const uint32_t* __restrict__ words,
-                                     int K, int M, int N, int S, int C,
-                                     int W, int v, int rows_per_chunk,
-                                     int32_t* __restrict__ pc_part,
-                                     int32_t* __restrict__ cc_part,
-                                     int32_t* __restrict__ kc_part) {
-  extern __shared__ uint8_t stage[];  // rows_per_chunk x S bytes
-  const int m = blockIdx.x;
-  const int j = blockIdx.y;
-  const int nv = N / v;
-  const int r0 = j * nv;
-  const bool owner = j == 0;
-  for (int k = 0; k < K; ++k) {
-    const size_t km = static_cast<size_t>(k) * M + m;
-    const int d = slides[km];
-    if (d > 0) {
-      qc::slide_tile(p, m, r0, nv, owner, d, N, S, C, rows_per_chunk,
-                     stage);
-      __syncthreads();
-    }
-    qc::scatter_member_rows(p, m, words + km * W, nullptr, N, S, C, W, r0,
-                            nv, 0, S, owner, true);
-    __syncthreads();
-  }
-  qc::tile_partials(p, m, j, v, r0, nv, N, S, C, pc_part, cc_part,
-                    kc_part);
-}
-
 }  // namespace
-
-extern "C" int resident_tile_launch(
-    void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,
-    void* frontier, const void* slides, const void* words, int K, int M,
-    int N, int S, int C, int W, int v, int n_validators, int cap,
-    void* pc_part, void* cc_part, void* kc_part, void* out, void* stream) {
-  if (S <= 0 || S > qc::kMaxSlots || K < 0 || v < 1 || N % v != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const qc::Planes p = qc::planes(pp, pv, cv, ck, ordered, acked, frontier);
-  const int fit = kStageBytes / S;
-  const int most = N / v > 3 ? N / v : 3;  // rows of a tile's largest group
-  const int per = fit < most ? fit : most;
-  if (M > 0) {
-    resident_tile_kernel<<<dim3(M, v), qc::kThreads, per * S, st>>>(
-        p, static_cast<const int32_t*>(slides),
-        static_cast<const uint32_t*>(words), K, M, N, S, C, W, v, per,
-        static_cast<int32_t*>(pc_part), static_cast<int32_t*>(cc_part),
-        static_cast<int32_t*>(kc_part));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return qc::fabric_decide(
-      p, qc::events_at(out, M, S, C, cap),
-      static_cast<const int32_t*>(pc_part),
-      static_cast<const int32_t*>(cc_part),
-      static_cast<const int32_t*>(kc_part), M, v, S, C, n_validators, cap,
-      1, st);
-}
 
 extern "C" int resident_step_launch(
     void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,

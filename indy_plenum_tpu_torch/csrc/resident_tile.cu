@@ -1,0 +1,217 @@
+// The tiled resident step (the tiled K9): k ring slots consumed over the
+// fabric's tiles, one launch a consume, a thread-block cluster a member.
+//
+// Replaces (JAX reference): indy_plenum_tpu/tpu/compile_plan.py:141-173,
+// `resident_plan_for`'s mesh branches: per slot, `slide_state` by the
+// slot's deltas, then every tile's `_scatter_local` of its senders; then
+// the tiles' column counts, their `psum` over the validator axis, and ONE
+// `_quorum_events` + `compact_from_events` with the compact deltas. On
+// one card every tile lives in one member-stacked VoteState whose N
+// validator rows are padded to a multiple of v (fabric.cu); the tiles'
+// counts sum to the counts over all N rows, so the result does not depend
+// on v, and v is only checked (N % v == 0).
+//
+// Per member m, in the reference's order (slot by slot, slide then
+// scatter; a vote staged before a slide is rolled with the window):
+//   1. for each slot k: d = slides[k][m]; when d > 0 every slot-axis row
+//      is rolled left by d with the vacated columns zeroed (d >= S
+//      clears), the checkpoint votes cleared and the frontier set to
+//      max(frontier - d, 0); then words[k][m] decoded and scattered
+//      (quorum_common.cuh scatter_member_rows);
+//   2. the prepare, commit and checkpoint column counts over all N rows;
+//   3. the decide K7, K9 and K13 share (decide_slots, decide_checkpoints,
+//      compact_member, compact = 1).
+//
+// Design: a cluster of B <= 8 blocks (the portable cluster size; the
+// wrapper picks B, one block per 64 rows) owns member m. Block b owns
+// the validator rows [b N / B, (b + 1) N / B): their prepare, commit and
+// checkpoint rows, and it alone slides and scatters them; block 0 also
+// owns the member's preprepare_seen / ordered / prepared_acked rows, the
+// PRE-PREPAREs and the frontier. So the k slot passes need no cluster
+// barrier: a block's slides and scatters touch only its own bytes, and
+// __syncthreads orders slide before scatter and one slot before the next.
+// After the last slot each block counts its rows over every slot, a
+// 4-slot word a load with two byte sums packed in each 32-bit lane
+// (quorum_common.cuh chunk_counts), into its own shared memory (2S + C
+// int32). cluster.sync(); then block b sums the B partials of the slots
+// of its chunk (a multiple of 4 slots, as K7's) over distributed shared
+// memory, decides them and writes their flags into block 0's shared
+// memory; block 0 also decides the checkpoints. cluster.sync(); block 0
+// compacts the member and writes the frontier snapshot. No partial count
+// reaches device memory.
+//
+// The slide is quorum_common.cuh's slide_run: a block's row run of a plane
+// moved a 4-byte word at a time.
+//
+// What bounds it on an H100: bytes. Phase H's consume (M = N = 256, S =
+// 300, C = 3, W = 512, k = 4, no slide) reads the planes once for the
+// counts (39 MB) and the words, and writes the hits, the events and the
+// compact record: ~12 us of HBM time.
+#include <cooperative_groups.h>
+
+#include "quorum_common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kMaxBlocks = 8;  // the portable cluster size
+
+__global__ void __launch_bounds__(qc::kThreads)
+    resident_tile_kernel(qc::Planes p, const int32_t* __restrict__ slides,
+                         const uint32_t* __restrict__ words, int K, int M,
+                         int N, int S, int C, int W, int n_validators,
+                         int cap, qc::Events e) {
+  // this block's partial counts, then the member's flags (block 0's are
+  // the ones written)
+  extern __shared__ int32_t part[];
+  int32_t* pc_s = part;
+  int32_t* cc_s = part + S;
+  int32_t* kc_s = part + 2 * S;
+  uint8_t* f_newprep = reinterpret_cast<uint8_t*>(part + 2 * S + C);
+  uint8_t* f_newly = f_newprep + S;
+  uint8_t* f_ordered = f_newly + S;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int B = static_cast<int>(gridDim.x);  // the cluster spans x
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int m = blockIdx.y;
+  const int r_lo = rank * N / B;
+  const int nr = (rank + 1) * N / B - r_lo;
+  const bool lead = rank == 0;
+  const size_t ms = static_cast<size_t>(m) * S;
+  for (int k = 0; k < K; ++k) {
+    const size_t km = static_cast<size_t>(k) * M + m;
+    const int d = slides[km];
+    if (d > 0) {
+      __syncthreads();  // the earlier slots' scatters before the slide
+      const size_t run = (static_cast<size_t>(m) * N + r_lo) * S;
+      qc::slide_run(p.pv + run, nr * S, S, d);
+      qc::slide_run(p.cv + run, nr * S, S, d);
+      if (lead) {
+        qc::slide_run(p.pp + ms, S, S, d);
+        qc::slide_run(p.ordered + ms, S, S, d);
+        qc::slide_run(p.acked + ms, S, S, d);
+      }
+      uint8_t* ckm = p.ck + (static_cast<size_t>(m) * N + r_lo) * C;
+      for (int i = threadIdx.x; i < nr * C; i += blockDim.x) ckm[i] = 0;
+      if (lead && threadIdx.x == 0) {
+        const int f = p.frontier[m] - d;
+        p.frontier[m] = f > 0 ? f : 0;
+      }
+      __syncthreads();  // the slide before this slot's scatter
+    }
+    // the scatter stores 1s only, so the stores of slots that no slide
+    // separates may land in any order: no barrier between them
+    qc::scatter_member_rows(p, m, words + km * W, nullptr, N, S, C, W, r_lo,
+                            nr, 0, S, lead, true);
+  }
+  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+    pc_s[i] = 0;
+    cc_s[i] = 0;
+  }
+  __syncthreads();  // every scatter, and the zeroed counts, before counting
+  qc::chunk_counts(p, m, N, S, r_lo, nr, 0, S, pc_s, cc_s);
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    kc_s[c] = qc::checkpoint_count(p, m, r_lo, nr, N, C, c);
+  }
+  // every block's partials (and block 0's slides and PRE-PREPAREs) before
+  // any block reads them
+  cluster.sync();
+  const int chunk = ((S + B - 1) / B + 3) & ~3;
+  const int lo = rank * chunk;
+  const int s_lo = lo < S ? lo : S;
+  const int s_hi = s_lo + chunk < S ? s_lo + chunk : S;
+  qc::decide_slots(
+      p, e, m, S, s_lo, s_hi, n_validators, 1,
+      [&](int s, int* pc, int* cc) {
+        int a = 0, b = 0;
+        for (int r = 0; r < B; ++r) {
+          a += cluster.map_shared_rank(pc_s, r)[s];
+          b += cluster.map_shared_rank(cc_s, r)[s];
+        }
+        *pc = a;
+        *cc = b;
+      },
+      cluster.map_shared_rank(f_newprep, 0),
+      cluster.map_shared_rank(f_newly, 0),
+      cluster.map_shared_rank(f_ordered, 0));
+  if (lead) {
+    qc::decide_checkpoints(e, m, C, n_validators, [&](int c) {
+      int kc = 0;
+      for (int r = 0; r < B; ++r) kc += cluster.map_shared_rank(kc_s, r)[c];
+      return kc;
+    });
+  }
+  // every flag written, and every partial read, before block 0 compacts
+  // and any block exits
+  cluster.sync();
+  if (lead) {
+    qc::compact_member(p, e, m, S, cap, 1, f_newprep, f_newly, f_ordered);
+  }
+}
+
+// the dynamic shared memory of a block: 2S + C int32 partials, 3S flags
+size_t shared_bytes(int S, int C) {
+  return 4 * static_cast<size_t>(2 * S + C) + 3 * static_cast<size_t>(S);
+}
+
+// above 48 KB a block's dynamic shared memory needs the kernel's opt-in
+cudaError_t allow_shared(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(resident_tile_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+}  // namespace
+
+// How many of the kernel's blocks one SM holds at S slots and C
+// checkpoints (its registers and shared memory), into *blocks_per_sm:
+// the wrapper sizes the cluster so that every member's blocks fit the
+// card at once.
+extern "C" int resident_tile_occupancy(int S, int C, void* blocks_per_sm) {
+  int n = 0;
+  cudaError_t err = allow_shared(shared_bytes(S, C));
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, resident_tile_kernel, qc::kThreads, shared_bytes(S, C));
+  }
+  *static_cast<int*>(blocks_per_sm) = n;
+  return static_cast<int>(err);
+}
+
+extern "C" int resident_tile_launch(
+    void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,
+    void* frontier, const void* slides, const void* words, int K, int M,
+    int N, int S, int C, int W, int v, int blocks, int n_validators,
+    int cap, void* out, void* stream) {
+  if (S <= 0 || S > qc::kMaxSlots || K < 0 || C < 0 || v < 1 || N < 1 ||
+      N % v != 0 || blocks < 1 || blocks > kMaxBlocks || blocks > N ||
+      M > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (M == 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = shared_bytes(S, C);
+  const cudaError_t opt = allow_shared(smem);
+  if (opt != cudaSuccess) return static_cast<int>(opt);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, M, 1);
+  cfg.blockDim = dim3(qc::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, resident_tile_kernel,
+      qc::planes(pp, pv, cv, ck, ordered, acked, frontier),
+      static_cast<const int32_t*>(slides),
+      static_cast<const uint32_t*>(words), K, M, N, S, C, W, n_validators,
+      cap, qc::events_at(out, M, S, C, cap));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}

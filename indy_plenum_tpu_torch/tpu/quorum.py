@@ -645,9 +645,47 @@ def resident_tile_plain(states: VoteState, slides, words_seq,
                                  n_validators, delta_cap, True)
 
 
+TILE_CLUSTER_MAX = 8  # csrc/resident_tile.cu kMaxBlocks: portable clusters
+TILE_BLOCK_BYTES = 16384  # bytes of each vote plane a block counts, at most
+
+
+def tile_cluster_blocks(n_rows: int, s: int, members: int,
+                        resident: int) -> int:
+    """Blocks of the tiled K9's cluster a member: enough that none counts
+    more than :data:`TILE_BLOCK_BYTES` of a vote plane (its ``n_rows`` x
+    ``s`` bytes), but no more than let every member's blocks run at once
+    on a card that holds ``resident`` of the kernel's blocks; 1 to
+    :data:`TILE_CLUSTER_MAX`, never more than the rows. Each block pays
+    fixed costs (it decodes every word of its member's slots, and the
+    cluster meets twice), so past the count's need, or past one wave,
+    more blocks cost time. The 16 KB threshold is fitted to two timed
+    shapes, phase H's consume (B = 2, from the wave) and phase R's (B = 1,
+    from the threshold); what it picks elsewhere is held bit-equal on the
+    card but was never timed."""
+    want = -(-n_rows * s // TILE_BLOCK_BYTES)
+    return max(1, min(want, TILE_CLUSTER_MAX, n_rows,
+                      resident // max(1, members)))
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_resident(index: int, s: int, c: int) -> int:
+    """The tiled K9's blocks that card ``index`` holds at once at S slots
+    and C checkpoints: its SMs times the blocks one SM holds (the CUDA
+    occupancy calculator, from the kernel's registers and shared
+    memory)."""
+    import ctypes
+
+    per_sm = ctypes.c_int(0)
+    kb.check(kb.library().resident_tile_occupancy(
+        s, c, ctypes.addressof(per_sm)), "resident_tile")
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count * per_sm.value
+
+
 def _resident_tile_kernel(states: VoteState, slides: torch.Tensor,
                           words: torch.Tensor, n_validators: int,
-                          v_shards: int, delta_cap: int
+                          v_shards: int, delta_cap: int,
+                          blocks: Optional[int] = None
                           ) -> Tuple[QuorumEvents, CompactEvents]:
     dev = words.device
     ptrs = _check_words(states, words, 3, "resident tile step")
@@ -659,12 +697,16 @@ def _resident_tile_kernel(states: VoteState, slides: torch.Tensor,
     _, n_rows, s = states.prepare_votes.shape
     c = states.checkpoint_votes.shape[-1]
     width = delta_width(s, delta_cap)
+    if blocks is None:
+        index = torch.cuda.current_device() if dev.index is None \
+            else dev.index
+        blocks = tile_cluster_blocks(n_rows, s, m_count,
+                                     _tile_resident(index, s, c))
     buf, events, comp = _outputs(states, width)
-    parts = _partials_out(states, v_shards)
     code = kb.library().resident_tile_launch(
         *ptrs, slides.data_ptr(), words.data_ptr(), k, m_count, n_rows, s,
-        c, w, v_shards, n_validators, width, *[t.data_ptr() for t in parts],
-        buf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        c, w, v_shards, blocks, n_validators, width, buf.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     kb.check(code, "resident_tile")
     kb.LAUNCHES["resident_tile"] += 1
     return events, comp
@@ -677,11 +719,11 @@ def resident_tile_step(states: VoteState, slides: torch.Tensor,
     """The tiled K9: k ring slots over the fabric's tiles in one step.
     ``slides`` (k, M) window deltas, each applied before its slot's
     scatter; ``words`` (k, M, W); every tile slides and scatters its own
-    rows, then K13's reduce and decide. Updates ``states`` in place and
-    returns (events, compact). CPU tensors take
+    rows, then the tiles' counts are summed and decided once. Updates
+    ``states`` in place and returns (events, compact). CPU tensors take
     :func:`resident_tile_plain`; CUDA tensors launch
-    ``resident_tile_kernel`` (``csrc/resident.cu``), then K13's decide,
-    or raise."""
+    ``resident_tile_kernel`` (``csrc/resident_tile.cu``: one launch, a
+    cluster of :func:`tile_cluster_blocks` blocks a member) or raise."""
     if words.device.type == "cpu":
         return resident_tile_plain(states, slides, words, n_validators,
                                    v_shards, delta_cap)

@@ -76,21 +76,21 @@ def _sha_consts(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_as_int64(_K64 + _H064)).to(device)
 
 
-def _l_shift_words():
-    """260 rows of 8 little-endian uint64 limbs: row r = L << (259 - r)."""
-    rows = []
-    for i in range(_LADDER - 1, -1, -1):
-        v = L << i
-        rows.append([(v >> (64 * j)) & ((1 << 64) - 1) for j in range(8)])
-    return rows
+# Barrett's constant for the kernel: mu = floor(2^512 / L), 5 limbs of 64
+# bits (2^259 <= mu < 2^260)
+MU = (1 << 512) // L
 
 
-_L_SHIFT_WORDS = _l_shift_words()
+def limbs64(value: int, n: int):
+    """``value`` as ``n`` little-endian 64-bit limbs."""
+    return [(value >> (64 * j)) & ((1 << 64) - 1) for j in range(n)]
 
 
 @functools.lru_cache(maxsize=None)
-def _l_shift_table(device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_as_int64(_L_SHIFT_WORDS)).to(device)
+def _barrett_table(device: torch.device) -> torch.Tensor:
+    """The kernel's constants: L in 4 limbs, then mu in 5."""
+    return torch.from_numpy(_as_int64(limbs64(L, 4) + limbs64(MU, 5))).to(
+        device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -287,8 +287,9 @@ def sha512_blocks(blocks: torch.Tensor, n_blocks: torch.Tensor
 
 
 def reduce_mod_l(h_le_bytes: torch.Tensor) -> torch.Tensor:
-    """K-b. CPU tensors take the plain version; CUDA tensors launch
-    ``reduce_mod_l_kernel`` or raise."""
+    """K-b. CPU tensors take the plain version (the reference's ladder);
+    CUDA tensors launch ``reduce_mod_l_kernel`` (a Barrett reduction) or
+    raise."""
     if h_le_bytes.device.type == "cpu":
         return reduce_mod_l_plain(h_le_bytes)
     _require_cuda(h_le_bytes, "reduce_mod_l")
@@ -302,7 +303,7 @@ def reduce_mod_l(h_le_bytes: torch.Tensor) -> torch.Tensor:
     lib = kb.library()
     code = lib.reduce_mod_l_launch(
         h_le_bytes.data_ptr(), out.data_ptr(),
-        _l_shift_table(h_le_bytes.device).data_ptr(), batch,
+        _barrett_table(h_le_bytes.device).data_ptr(), batch,
         _stream(h_le_bytes))
     kb.check(code, "reduce_mod_l")
     kb.LAUNCHES["reduce_mod_l"] += 1

@@ -1,6 +1,6 @@
-"""A/B timing of the PyTorch + CUDA port's verify, quorum-step, slide and
-commit-hash kernels, for comparing two checkouts of the repo inside one
-call on one card. Run this one file by its path from each checkout's
+"""A/B timing of the PyTorch + CUDA port's verify, mod-L, quorum-step,
+slide and commit-hash kernels, for comparing two checkouts of the repo
+inside one call on one card. Run this one file by its path from each checkout's
 root, in turns (parent, change, change, parent):
 
     python3 <checkout>/indy_plenum_tpu_torch/utils/kernel_ab.py --tag change
@@ -11,9 +11,15 @@ It imports the port and ``chip_smoke.py`` of the checkout it runs from
 times either. One JSON line:
 
 - K7 (64 x 64 x 300, W 128: phases A and 4), K9 (k = 4 slots of that
-  group), K13 on (4, 2) and the tiled K9 at phase H's n = 256: device ms
-  per call behind a spin (``chip_smoke._kernel_ms``) and call ms (CUDA
-  events around back-to-back calls, host included);
+  group), K13 on (4, 2) and the tiled K9 at phase H's n = 256 (k = 4, no
+  slide) and at phase R's shape (M = N = 64, S = 15, C = 3, W = 128, k =
+  4 on (4, 2), one member in four sliding by 5 in the first slot): device
+  ms per call behind a spin (``chip_smoke._kernel_ms``) and call ms (CUDA
+  events around back-to-back calls, host included); where the checkout
+  picks the tiled K9's cluster size (``tile_cluster_blocks``), both
+  consumes at cluster sizes of 1, 2, 4 and 8 blocks too;
+- K-b (``reduce_mod_l``) on seeded digests at the drain's 8,192 rows and
+  at 32,768;
 - K11 per SMT commit of phase C's shape (320 new keys into 3,200): the
   call ms of the commit's hashing run as per-level waves
   (``merkle_node_hash`` at each device level's width, one call after
@@ -28,9 +34,11 @@ times either. One JSON line:
   device ms behind the spin and call ms;
 - K8's slide through ``q.slide_state`` with host deltas, one member
   sliding: at 64 x 64 x 300 by ``CHK_FREQ`` and at phase B's shape (96 x
-  16 x 30, C 6) by 5, device and call ms; then one ``torch.profiler``
-  profile of 20 slides at 64 x 64 x 300, the device's work split by
-  name (a copy to the card shows as ``Memcpy HtoD``);
+  16 x 30, C 6) by 5, device and call ms; then ONE ``torch.profiler``
+  session (a second in one process has come back empty) over 20 such
+  slides and 20 tiled K9 consumes at phase H's shape, the device's work
+  split by kernel name (a copy to the card shows as ``Memcpy HtoD``; the
+  tiled K9 shows as one kernel, or as its tile kernel and K13's decide);
 - the card's name and power limit.
 
 It exits non-zero without a card.
@@ -115,9 +123,10 @@ def verify_and_fused(out, timed, cs, dev, rng):
         state, words, *fsig, n_validators=cs.N_VALIDATORS, device=dev), 5)
 
 
-def slide_report(out, timed, cs, dev, rng):
+def slide_report(out, timed, cs, dev, rng, tile_consume):
     """K8's slide with host deltas at the main path's two group shapes,
-    then one profile of 20 slides at 64 x 64 x 300."""
+    then one profile of 20 slides at 64 x 64 x 300 and 20 calls of
+    ``tile_consume`` (the tiled K9 at phase H's shape)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -145,17 +154,55 @@ def slide_report(out, timed, cs, dev, rng):
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             q.slide_state(votes, deltas)
+        for _ in range(calls):
+            tile_consume()
         torch.cuda.synchronize()
     split = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            key = e.name[:48]
+            key = e.name[:64]
             count, us = split.get(key, (0, 0.0))
             split[key] = (count + 1, us + e.time_range.elapsed_us())
-    out["slide_profile"] = {
+    out["profile"] = {
         "calls": calls,
         "device": {k: {"count": cnt, "us_per_call": us / calls}
                    for k, (cnt, us) in split.items()}}
+
+
+def mod_l_report(timed, cs, dev, rng):
+    """K-b at the drain's 8,192 rows and at 32,768."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import sha512 as s5
+
+    for batch in (cs.DRAIN, cs.BENCH_VERIFY_BATCH):
+        digest = torch.from_numpy(rng.randint(0, 256, (batch, 64)).astype(
+            np.uint8)).to(dev)
+        timed(f"reduce_mod_l_{batch}", lambda: s5.reduce_mod_l(digest), 20)
+
+
+def tile_report(timed, cs, dev, rng, fstate, ftile, fslides):
+    """The tiled K9 at phase R's shape with slides and, where the checkout
+    has a cluster size to pick, at both shapes on cluster sizes of 1, 2,
+    4 and 8 blocks."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import quorum as q
+
+    n, s, k = 64, 15, 4
+    c = s // 5
+    rstate = cs.fabric_state(dev, rng, n, n, c, m=n, s=s)
+    rwords = q.words_tensor(np.stack([cs.fabric_words(rng, n, 128, n, s, c)
+                                      for _ in range(k)]), dev)
+    rslides = torch.zeros((k, n), dtype=torch.int32)
+    rslides[0, ::4] = 5
+    timed("resident_tile_r",
+          lambda: q.resident_tile_step(rstate, rslides, rwords, n, 2), 20)
+    if hasattr(q, "tile_cluster_blocks"):
+        fm = fstate.frontier.shape[0]
+        for b in (1, 2, 4, 8):
+            timed(f"resident_tile_b{b}", lambda: q._resident_tile_kernel(
+                fstate, fslides, ftile, fm, 2, q.ORDER_DELTA_CAP, b), 20)
+            timed(f"resident_tile_r_b{b}", lambda: q._resident_tile_kernel(
+                rstate, rslides, rwords, n, 2, q.ORDER_DELTA_CAP, b), 20)
 
 
 def main() -> int:
@@ -202,9 +249,12 @@ def main() -> int:
     timed("fabric_step", lambda: q.fabric_step(fstate, fwords, fm, 2), 20)
     timed("resident_tile",
           lambda: q.resident_tile_step(fstate, fslides, ftile, fm, 2), 20)
+    tile_report(timed, cs, dev, rng, fstate, ftile, fslides)
+    mod_l_report(timed, cs, dev, rng)
 
     verify_and_fused(out, timed, cs, dev, rng)
-    slide_report(out, timed, cs, dev, rng)
+    slide_report(out, timed, cs, dev, rng, lambda: q.resident_tile_step(
+        fstate, fslides, ftile, fm, 2))
 
     kv, root, writes, widths = _commit_inputs(3200, 320)
     waves = [(torch.from_numpy(rng.randint(0, 256, (wd, 32)).astype(

@@ -61,7 +61,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # blocks, n_blocks, out, consts, batch, nb, stream
     "sha512_blocks_launch": (_P, _P, _P, _P, _I, _I, _P),
-    # h, out, L << i table, batch, stream
+    # h, out, Barrett constants (L, mu), batch, stream
     "reduce_mod_l_launch": (_P, _P, _P, _I, _P),
     # pk, R, S, h, ok, consts, batch, stream
     "ed25519_verify_launch": (_P, _P, _P, _P, _P, _P, _I, _P),
@@ -93,11 +93,12 @@ _SIGNATURES = {
     "resident_tile_launch": (
         # state (as quorum_step), slides (k, M), words (k, M, W)
         _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        # k, M, N, S, C, W, v, n_validators, delta_cap
-        _I, _I, _I, _I, _I, _I, _I, _I, _I,
-        # partial counts (as fabric_step), the output allocation, then
-        # the stream
-        _P, _P, _P, _P, _P),
+        # k, M, N, S, C, W, v, cluster blocks, n_validators, delta_cap
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        # the output allocation (as quorum_step), then the stream
+        _P, _P),
+    # S, C, host int out: the tiled K9's blocks one SM holds
+    "resident_tile_occupancy": (_I, _I, _P),
     # host table of (src, dst, row_bytes) per leaf, leaves, rows,
     # shift_rows, stream
     "ring_shift_launch": (_P, _I, _I, _I, _P),

@@ -1,6 +1,6 @@
 """Count the SASS instructions of the port's CUDA kernels.
 
-    python -m indy_plenum_tpu_torch.utils.sass_count [sha256.cu sha512.cu ...]
+    python -m indy_plenum_tpu_torch.utils.sass_count [--ptxas] [sha256.cu ...]
 
 Compiles each named source under ``csrc/`` (all of them by default) to a
 cubin with the library's own ``nvcc`` flags, disassembles it with
@@ -8,8 +8,10 @@ cubin with the library's own ``nvcc`` flags, disassembles it with
 count, the count of integer ALU instructions (everything but moves,
 loads, stores, branches, NOPs and the uniform datapath), and a histogram
 by opcode. It is how ``chip_smoke.py``'s hand-counted instructions per
-unit of work are checked against what the compiler emits. Needs the CUDA
-toolkit (``nvcc`` and ``cuobjdump``); no card.
+unit of work are checked against what the compiler emits. With
+``--ptxas``, one JSON line per source instead: what ``nvcc -Xptxas -v``
+reports for each kernel (registers, stack, spill stores and loads).
+Needs the CUDA toolkit (``nvcc`` and ``cuobjdump``); no card.
 """
 from __future__ import annotations
 
@@ -42,6 +44,20 @@ def disassemble(source: str) -> str:
                               capture_output=True, text=True).stdout
 
 
+def ptxas_report(source: str, nvcc: str = None) -> list:
+    """The ``-Xptxas -v`` lines of one source's compile (entry names,
+    stack and spills, registers)."""
+    proc = subprocess.run(
+        [nvcc or find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", source,
+         "-o", os.devnull, "-I", CSRC_DIR],
+        capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}: {proc.stderr[-2000:]}")
+    keep = ("Compiling entry", "spill", "Used")
+    return [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+            if any(k in line for k in keep)]
+
+
 def count(sass: str):
     """{kernel: Counter of base opcodes}, kernels by mangled name."""
     out, current = {}, None
@@ -66,9 +82,15 @@ def int_alu(hist) -> int:
 
 
 def main(argv) -> int:
+    ptxas = "--ptxas" in argv
+    argv = [a for a in argv if a != "--ptxas"]
     names = argv or sorted(n for n in os.listdir(CSRC_DIR)
                            if n.endswith(".cu"))
     for name in names:
+        if ptxas:
+            print(json.dumps({"source": name, "ptxas": ptxas_report(
+                os.path.join(CSRC_DIR, name))}))
+            continue
         for kernel, hist in count(disassemble(
                 os.path.join(CSRC_DIR, name))).items():
             print(json.dumps({"source": name, "kernel": kernel,

@@ -44,22 +44,6 @@ def _variants_source() -> str:
     return os.path.join(kb.CSRC_DIR, "probe", "ed25519_variants.cu")
 
 
-def ptxas_report(nvcc: str, source: str) -> list:
-    """The ``-Xptxas -v`` lines of one source's compile (entry names,
-    stack and spills, registers)."""
-    from indy_plenum_tpu_torch.utils import kernel_build as kb
-
-    proc = subprocess.run(
-        [nvcc, *kb.NVCC_FLAGS, "-Xptxas", "-v", "-c", source, "-o",
-         os.devnull, "-I", kb.CSRC_DIR],
-        capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}: {proc.stderr[-2000:]}")
-    keep = ("Compiling entry", "spill", "Used")
-    return [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
-            if any(k in line for k in keep)]
-
-
 def variant_launcher():
     """``ed25519_verify_variant_launch`` of the variants' own library,
     built once per source into the kernel build directory."""
@@ -119,13 +103,14 @@ def main() -> int:
     import chip_smoke as cs
     from indy_plenum_tpu_torch.tpu import ed25519 as ted
     from indy_plenum_tpu_torch.utils import kernel_build as kb
+    from indy_plenum_tpu_torch.utils.sass_count import ptxas_report
 
     nvcc = kb.find_nvcc()
     out = {"card": cs._nvidia_smi(),
-           "ptxas": {"this": ptxas_report(nvcc, _variants_source())}}
+           "ptxas": {"this": ptxas_report(_variants_source(), nvcc)}}
     if args.other_csrc:
         out["ptxas"]["other"] = ptxas_report(
-            nvcc, os.path.join(args.other_csrc, "ed25519.cu"))
+            os.path.join(args.other_csrc, "ed25519.cu"), nvcc)
     dev = torch.device("cuda")
     launcher = variant_launcher()
     rng = np.random.RandomState(20261016)

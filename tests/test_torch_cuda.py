@@ -24,10 +24,12 @@ so it also runs where JAX is not installed:
 - a small signed pool on the card against the same pool on the CPU, through
   checkpoint slides and a view change: the same ordering, the same
   protocol timeline, and every kernel of the path launched;
-- the fabric step (K13, ``csrc/fabric.cu``), the tiled resident step, the
-  ring shift and the rotation's merge (K1, K15, ``csrc/ring.cu``) and the
-  sharded fused step against their plain versions, bit-equal, at
-  ``chip_smoke.py``'s full-width shapes (the sharded step at n = 16);
+- the fabric step (K13, ``csrc/fabric.cu``), the tiled resident step
+  (``csrc/resident_tile.cu``), the ring shift and the rotation's merge
+  (K1, K15, ``csrc/ring.cu``) and the sharded fused step against their
+  plain versions, bit-equal, at ``chip_smoke.py``'s full-width shapes (the
+  sharded step at n = 16; the tiled step also on its edge shapes), and
+  h mod L (K-b) at 8,192 and 32,768 rows against plain and Python ints;
 - the forced-rebalance pool (n = 64 on the (2, 2) fabric) on the card
   against the same pool on the CPU, and against its unforced arm.
 """
@@ -230,19 +232,29 @@ def test_resident_pool_on_card_orders_as_per_tick(card):
 
 @pytest.mark.cuda
 def test_fabric_kernels_match_plain(card):
-    """``chip_smoke.py``'s K13, tiled K9, K1 and K15 checks at full width:
-    M = N = 256, S = 300."""
+    """``chip_smoke.py``'s K13, tiled K9, K1 and K15 checks at full width
+    (M = N = 256, S = 300; the tiled K9 also on its edge shapes and every
+    cluster size), and K-b at 8,192 and 32,768 rows with its edge values,
+    against plain and Python ints."""
     import chip_smoke
 
+    from indy_plenum_tpu_torch.tpu.quorum import TILE_CLUSTER_MAX
     from indy_plenum_tpu_torch.utils import kernel_build as kb
 
     rng = np.random.RandomState(13)
     before = dict(kb.LAUNCHES)
     assert chip_smoke.check_fabric(card, rng) == (0, 9)
-    assert chip_smoke.check_resident_tile(card, rng) == 0
+    # the tiled K9: each shape at k = 1, 2 and its own k, and at its own k
+    # once more with every cluster size of 1 to 8 that its rows allow
+    want = sum(len({1, 2, k}) + min(rows, TILE_CLUSTER_MAX)
+               for _, _, _, rows, _, _, _, _, k in chip_smoke.TILE_SHAPES)
+    assert want == 65
+    assert chip_smoke.check_resident_tile(card, rng) == (0, want)
     assert chip_smoke.check_ring_rotate(card, rng) == (0, 0)
+    for batch in (8192, 32768):
+        assert chip_smoke.check_mod_l(card, rng, batch) == 0
     for name in ("fabric_step", "resident_tile", "ring_shift",
-                 "rotate_merge"):
+                 "rotate_merge", "reduce_mod_l"):
         assert kb.LAUNCHES[name] > before[name], name
 
 

@@ -71,10 +71,11 @@ def test_reduce_mod_l_matches_jax_and_ints():
 
 def test_kernel_constant_tables():
     """The operands handed to the CUDA kernels, rebuilt from Python ints:
-    round constants + IV, and the L << i ladder rows."""
+    round constants + IV, and the Barrett reduction's L and mu."""
     consts = ts5._sha_consts(torch.device("cpu")).numpy().view(np.uint64)
     assert [int(v) for v in consts] == ts5._K64 + ts5._H064
-    table = ts5._l_shift_table(torch.device("cpu")).numpy().view(np.uint64)
-    for r in (0, 100, 259):
-        value = sum(int(table[r, j]) << (64 * j) for j in range(8))
-        assert value == L << (259 - r)
+    table = ts5._barrett_table(torch.device("cpu")).numpy().view(np.uint64)
+    assert table.shape == (9,)
+    assert sum(int(table[j]) << (64 * j) for j in range(4)) == L
+    mu = sum(int(table[4 + j]) << (64 * j) for j in range(5))
+    assert mu == (1 << 512) // L and 1 << 259 <= mu < 1 << 260

@@ -1,0 +1,349 @@
+"""The partition of the port's tiled resident step (the tiled K9,
+``csrc/resident_tile.cu``), modelled in Python, against the port's plain
+version (``resident_tile_plain``) and JAX's ``resident_plan_for(mesh)``.
+
+The model runs the kernel's cluster block by block: block b of B owns the
+validator rows [b N / B, (b + 1) N / B), block 0 also the slot-axis rows,
+the PRE-PREPAREs and the frontier. Each block runs every slot on its own
+bytes (blocks run one after another here, in any order on the card: a
+block never reads what another writes, which the model enforces by
+poisoning every byte a load takes from outside the block's own run). A
+slide moves a run a 4-byte aligned word at a time, as ``slide_run`` does:
+two aligned loads joined by a funnel shift, columns walked thread by
+thread without a division, whole-word stores inside the run and byte
+stores at its ends, in stretches of 4 words a thread. After the last
+slot each block counts its rows with ``chunk_counts``' packed 16-bit
+lanes (flushed every 256 rows); the slot chunks (multiples of 4 slots)
+must cover every slot once, and the chunk's owner sums the B partials;
+block 0 sums the checkpoint partials. The decide is the one K7, K9 and
+K13 share (``decide_plain``). Exact: the outputs are integers and bools.
+"""
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from indy_plenum_tpu.tpu import compile_plan as jcp  # noqa: E402
+from indy_plenum_tpu.tpu import quorum as jq  # noqa: E402
+from indy_plenum_tpu_torch.tpu import compile_plan as tcp  # noqa: E402
+from indy_plenum_tpu_torch.tpu import quorum as tq  # noqa: E402
+
+THREADS = 256  # quorum_common.cuh kThreads
+UNROLL = 4  # quorum_common.cuh kSlideUnroll
+POISON = 0xA5  # what a load sees of any byte outside the block's run
+M32 = 0xFFFFFFFF
+
+
+def rows_of(rank, n_rows, blocks):
+    lo = rank * n_rows // blocks
+    return lo, (rank + 1) * n_rows // blocks - lo
+
+
+def slot_chunk(rank, s, blocks):
+    chunk = ((s + blocks - 1) // blocks + 3) & ~3
+    lo = min(rank * chunk, s)
+    return lo, min(lo + chunk, s)
+
+
+def slide_run(buf, start, length, s, d):
+    """``slide_run`` on the bytes [start, start + length) of ``buf`` (an
+    allocation starting 4-byte aligned), rolled row by row left by d > 0.
+    Returns the set of words written whole."""
+    pre = start & 3
+    base = start - pre
+    end = start + length
+    words = (pre + length + 3) >> 2
+    keep = s - d if d < s else 0
+    sh = 8 * (d & 3)
+    hop = d & ~3
+    whole = set()
+
+    def byte(i):
+        return int(buf[i]) if start <= i < end else POISON
+
+    def word(i):
+        return sum(byte(i + b) << (8 * b) for b in range(4))
+
+    cols = [(4 * t - pre) % s for t in range(THREADS)]
+    step = (4 * THREADS) % s
+    for w0 in range(0, words, UNROLL * THREADS):
+        vals = {}
+        for t in range(THREADS):
+            for u in range(UNROLL):
+                w = w0 + u * THREADS + t
+                x = 0
+                if w < words and keep > 0:
+                    src = base + 4 * w + hop
+                    lo = word(src) if src < end else 0
+                    hi = word(src + 4) if sh and src + 4 < end else 0
+                    x = (((hi << 32) | lo) >> sh) & M32
+                vals[(t, u)] = x
+        # every read of the stretch above, then its writes
+        for t in range(THREADS):
+            for u in range(UNROLL):
+                w = w0 + u * THREADS + t
+                if w < words:
+                    assert cols[t] == (4 * w - pre) % s
+                    mask, c = 0, cols[t]
+                    for b in range(4):
+                        if c < keep:
+                            mask |= 0xFF << (8 * b)
+                        c = 0 if c + 1 == s else c + 1
+                    x = vals[(t, u)] & mask
+                    o = 4 * w - pre
+                    if o >= 0 and o + 4 <= length:
+                        whole.add(base + 4 * w)
+                    for b in range(4):
+                        if 0 <= o + b < length:
+                            buf[base + 4 * w + b] = (x >> (8 * b)) & 0xFF
+                cols[t] += step
+                if cols[t] >= s:
+                    cols[t] -= s
+    return whole
+
+
+def chunk_counts(pv, cv, m, n_rows, s, r0, nr):
+    """``chunk_counts`` over rows [r0, r0 + nr) at every slot: packed byte
+    sums two to a 32-bit lane, 16 bits each, flushed every 256 rows."""
+    pc, cc = [0] * s, [0] * s
+    words = (s + 3) // 4
+    groups = THREADS // words if THREADS >= words else 1
+    for t in range(groups * words):
+        g = t // words
+        if g >= nr:
+            continue
+        s0 = 4 * (t - g * words)
+        tp, tc = [0] * 4, [0] * 4
+        p02 = p13 = c02 = c13 = 0
+        k = 0
+        rows = list(range(g, nr, groups))
+        for i, n in enumerate(rows):
+            row = (m * n_rows + r0 + n) * s
+            a = sum(int(pv[row + s0 + b]) << (8 * b) for b in range(4)
+                    if s0 + b < s)
+            c = sum(int(cv[row + s0 + b]) << (8 * b) for b in range(4)
+                    if s0 + b < s)
+            p02 += a & 0x00FF00FF
+            p13 += (a >> 8) & 0x00FF00FF
+            c02 += c & 0x00FF00FF
+            c13 += (c >> 8) & 0x00FF00FF
+            for lane in (p02, p13, c02, c13):  # no 16-bit field overflows
+                assert lane <= M32 and (lane & 0xFFFF) < 0x10000
+            k += 1
+            if k == 256 or i == len(rows) - 1:
+                tp = [tp[0] + (p02 & 0xFFFF), tp[1] + (p13 & 0xFFFF),
+                      tp[2] + (p02 >> 16), tp[3] + (p13 >> 16)]
+                tc = [tc[0] + (c02 & 0xFFFF), tc[1] + (c13 & 0xFFFF),
+                      tc[2] + (c02 >> 16), tc[3] + (c13 >> 16)]
+                p02 = p13 = c02 = c13 = k = 0
+        for i in range(4):
+            if s0 + i < s:
+                pc[s0 + i] += tp[i]
+                cc[s0 + i] += tc[i]
+    return pc, cc
+
+
+def scatter(st, m, words_row, n_rows, s, c, r0, nr, lead):
+    """``scatter_member_rows`` over the block's rows [r0, r0 + nr)."""
+    for w in (int(x) for x in words_row):
+        if not w >> 31:
+            continue
+        kind, sender, slot = (w >> 29) & 3, (w >> 16) & 0x1FFF, w & 0xFFFF
+        if kind == 0:
+            if lead and slot < s:
+                st["pp"][m * s + slot] = 1
+        elif r0 <= sender < r0 + nr:
+            if kind in (1, 2) and slot < s:
+                plane = st["pv"] if kind == 1 else st["cv"]
+                plane[(m * n_rows + sender) * s + slot] = 1
+            elif kind == 3 and slot < c:
+                st["ck"][(m * n_rows + sender) * c + slot] = 1
+
+
+def model_consume(leaves, slides, words_seq, n_validators, blocks):
+    """The kernel on every member: returns the final leaves (numpy) and
+    (events, compact) from the decide."""
+    pp, pv, cv, ck, ordered, acked, frontier = [a.copy() for a in leaves]
+    m_count, n_rows, s = pv.shape
+    c = ck.shape[-1]
+    st = {"pp": pp.reshape(-1), "pv": pv.reshape(-1), "cv": cv.reshape(-1),
+          "ck": ck.reshape(-1), "ordered": ordered.reshape(-1),
+          "acked": acked.reshape(-1)}
+    pc = np.zeros((m_count, s), np.int32)
+    cc = np.zeros((m_count, s), np.int32)
+    kc = np.zeros((m_count, c), np.int32)
+    for m in range(m_count):
+        parts = []
+        for rank in range(blocks):
+            r0, nr = rows_of(rank, n_rows, blocks)
+            lead = rank == 0
+            for k in range(len(words_seq)):
+                d = int(slides[k][m])
+                if d > 0:
+                    run = (m * n_rows + r0) * s
+                    slide_run(st["pv"], run, nr * s, s, d)
+                    slide_run(st["cv"], run, nr * s, s, d)
+                    if lead:
+                        for name in ("pp", "ordered", "acked"):
+                            slide_run(st[name], m * s, s, s, d)
+                        frontier[m] = max(int(frontier[m]) - d, 0)
+                    ck[m, r0:r0 + nr] = 0
+                scatter(st, m, words_seq[k][m], n_rows, s, c, r0, nr, lead)
+            part_p, part_c = chunk_counts(st["pv"], st["cv"], m, n_rows, s,
+                                          r0, nr)
+            part_k = [int(ck[m, r0:r0 + nr, x].sum()) for x in range(c)]
+            parts.append((part_p, part_c, part_k))
+        owned = []
+        for rank in range(blocks):
+            lo, hi = slot_chunk(rank, s, blocks)
+            assert lo % 4 == 0 or lo == s
+            owned += range(lo, hi)
+            for slot in range(lo, hi):
+                pc[m, slot] = sum(p[0][slot] for p in parts)
+                cc[m, slot] = sum(p[1][slot] for p in parts)
+        assert owned == list(range(s))  # each slot decided once
+        kc[m] = [sum(p[2][x] for p in parts) for x in range(c)]
+    state = tq.VoteState(*[torch.from_numpy(a) for a in
+                           (pp, pv, cv, ck, ordered, acked, frontier)])
+    events, comp = tq.decide_plain(state, torch.from_numpy(pc),
+                                   torch.from_numpy(cc), torch.from_numpy(kc),
+                                   n_validators)
+    return state, events, comp
+
+
+def _leaves(rng, m, n_rows, n_real, s, c):
+    def bits(*shape):
+        return (rng.rand(*shape) < 0.4).astype(np.uint8)
+
+    leaves = [bits(m, s), bits(m, n_rows, s), bits(m, n_rows, s),
+              bits(m, n_rows, c), bits(m, s), bits(m, s),
+              rng.randint(0, s + 1, m).astype(np.int32)]
+    for i in (1, 2, 3):
+        leaves[i][:, n_real:] = 0
+    return leaves
+
+
+def _words(rng, m, w, n_rows, n_real, s, c):
+    """Random words (some invalid, slots past S and C), a full wave of one
+    slot for member 0, only pad-row senders for member 1 (when there are
+    pad rows), and an all-invalid row for the last member."""
+    kind = rng.randint(0, 4, (m, w))
+    sender = rng.randint(0, n_rows + 2, (m, w))
+    hi = np.where(kind == jq.CHECKPOINT, c + 2, s + 4)
+    slot = (rng.rand(m, w) * hi).astype(np.int64)
+    valid = rng.rand(m, w) < 0.85
+    out = ((valid.astype(np.uint64) << 31) | (kind.astype(np.uint64) << 29)
+           | (sender.astype(np.uint64) << 16)
+           | slot.astype(np.uint64)).astype(np.uint32)
+    wave = [jq.pack_vote(jq.PREPREPARE, 0, 3)]
+    wave += [jq.pack_vote(jq.PREPARE, v, 3) for v in range(1, n_real)]
+    wave += [jq.pack_vote(jq.COMMIT, v, 3) for v in range(n_real)]
+    out[0, :min(w, len(wave))] = wave[:w]
+    if n_rows > n_real:
+        pads = rng.randint(n_real, n_rows, w)
+        out[1] = [jq.pack_vote(int(rng.randint(1, 4)), int(p),
+                               int(rng.randint(0, c))) for p in pads]
+    out[-1] = out[-1] & 0x7FFFFFFF
+    return out
+
+
+# (mesh shape, members, real validators, rows, S, C, slots, width, B)
+CASES = {
+    "v1_s15_k4_b4": ((8,), 8, 6, 6, 15, 3, 4, 32, 4),
+    "v2_pad_s30_k2_b3": ((4, 2), 4, 5, 6, 30, 6, 2, 32, 3),
+    "v4_pad_s20_k4_b8": ((2, 4), 2, 7, 8, 20, 4, 4, 24, 8),
+    "v2_s15_k1_b5": ((4, 2), 4, 10, 10, 15, 3, 1, 32, 5),
+    "v2_pad_s300_k2_b3": ((4, 2), 4, 5, 6, 300, 3, 2, 48, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cluster_model_matches_plain_and_jax(case):
+    shape, m, n, rows, s, c, k, w, blocks = CASES[case]
+    v = shape[1] if len(shape) > 1 else 1
+    assert blocks > v and rows % v == 0
+    rng = np.random.RandomState(sorted(CASES).index(case) + 70)
+    leaves = _leaves(rng, m, rows, n, s, c)
+    mix = np.array([0, 1, 2, 3, 4, 5, s - 1, s, s + 3], np.int32)
+    slides = mix[rng.randint(0, len(mix), (k, m))]
+    slides[:, 0] = 0
+    if k > 1:
+        slides[1, -1] = 1 + (s - 2) // 2  # 0 < d < S on the invalid row
+    words = [_words(rng, m, w, rows, n, s, c) for _ in range(k)]
+    if k > 1:
+        words[k - 1][:] = 0  # a slot of nothing but invalid words
+    state, events, comp = model_consume(leaves, slides, words, n, blocks)
+    plain_state = tq.VoteState(*[torch.from_numpy(a.copy())
+                                 for a in leaves])
+    pev, pcomp = tq.resident_tile_plain(
+        plain_state, torch.from_numpy(slides),
+        [tq.words_tensor(x) for x in words], n, v)
+    for a, b in zip(list(state) + list(events) + list(comp),
+                    list(plain_state) + list(pev) + list(pcomp)):
+        assert torch.equal(a, b)
+    jmesh = jq.make_fabric_mesh(jax.devices()[:8], shape)
+    jstep = jcp.resident_plan_for(jmesh, n, rows, jq.ORDER_DELTA_CAP, k, w)
+    jout = jstep(jq.VoteState(*[jnp.asarray(a) for a in leaves]),
+                 jnp.asarray(slides), *[jnp.asarray(x) for x in words])
+    for j_all, t_all in zip(jout, (state, events, comp)):
+        for a, b in zip(j_all, t_all):
+            assert np.array_equal(np.asarray(a), b.numpy())
+    tstep = tcp.resident_plan_for(tq.make_fabric_mesh(["cpu"] * 8, shape),
+                                  n, rows, tq.ORDER_DELTA_CAP, k, w, "cpu")
+    assert tstep is not None
+    assert int(events.ordered.sum()) > 0 or (slides > 0).any()
+
+
+def test_slide_run_words_and_edges():
+    """``slide_run`` alone on runs at every start offset mod 4, S % 4 of 0
+    to 3, d of 1 to S + 1: equal to a row-by-row roll; the bytes around
+    the run untouched; whole-word stores only inside the run."""
+    rng = np.random.RandomState(5)
+    for s in (4, 5, 6, 7, 13, 300):
+        for nr in (1, 3):
+            for start in range(4, 8):
+                for d in sorted({1, 2, 3, 4, 5, s - 1, s, s + 1} - {0}):
+                    if d < 1:
+                        continue
+                    buf = rng.randint(0, 256, start + nr * s + 9).astype(
+                        np.uint8)
+                    before = buf.copy()
+                    whole = slide_run(buf, start, nr * s, s, d)
+                    rows_in = before[start:start + nr * s].reshape(nr, s)
+                    want = np.zeros_like(rows_in)
+                    if d < s:
+                        want[:, :s - d] = rows_in[:, d:]
+                    got = buf[start:start + nr * s].reshape(nr, s)
+                    assert np.array_equal(got, want), (s, nr, start, d)
+                    assert np.array_equal(buf[:start], before[:start])
+                    assert np.array_equal(buf[start + nr * s:],
+                                          before[start + nr * s:])
+                    for a in whole:
+                        assert a % 4 == 0 and start <= a
+                        assert a + 4 <= start + nr * s
+
+
+def test_cluster_blocks_choice():
+    """Enough blocks that none counts more than TILE_BLOCK_BYTES of a
+    plane, within one wave of the card (M x B blocks resident at once), B
+    of 1 to 8 and at most the rows; the rows split with none empty."""
+    resident = 132 * 4  # an H100's SMs x 4 blocks of 64 registers a thread
+    assert tq.tile_cluster_blocks(256, 300, 256, resident) == 2  # phase H
+    assert tq.tile_cluster_blocks(64, 15, 64, resident) == 1  # phase R
+    assert tq.tile_cluster_blocks(252, 30, 96, resident) == 1
+    assert tq.tile_cluster_blocks(256, 300, 64, resident) == 5
+    assert tq.tile_cluster_blocks(8, 4096, 16, resident) == 2
+    assert tq.tile_cluster_blocks(3, 4096, 1, resident) == 1
+    assert tq.tile_cluster_blocks(1024, 4096, 1, resident) == 8
+    assert tq.tile_cluster_blocks(256, 300, 1024, resident) == 1
+    for n in (1, 5, 64, 256, 600):
+        for s in (15, 300, 4096):
+            for m in (1, 64, 256):
+                b = tq.tile_cluster_blocks(n, s, m, resident)
+                assert 1 <= b <= min(n, tq.TILE_CLUSTER_MAX)
+                assert m * b <= resident or b == 1
+                spans = [rows_of(r, n, b) for r in range(b)]
+                assert sum(nr for _, nr in spans) == n
+                assert all(nr >= 1 for _, nr in spans)
