@@ -34,7 +34,9 @@ member planes; LOG_SIZE 300, CHK_FREQ 100):
                 faults, against its plain version, the pure-Python oracle
                 and K7 alone on the good votes; K13 fabric step at M = N =
                 256, S = 300 on (8,) and (4, 2) and N = 250 on v = 4, with
-                and without ``ok``, and against K7 at v = 1; the tiled K9
+                and without ``ok`` and the compact record, at the
+                wrapper's cluster size and at 1, 2, 4 and 8 blocks, and
+                against K7 at v = 1; the tiled K9
                 at k = 1, 2, 4 on phase H's and R's shapes, v = 1, 2 and
                 4, padded rows, S % 4 != 0, every slide class, and every
                 cluster size of 1 to 8 blocks; K1 ring shift for every
@@ -104,7 +106,9 @@ E. state      - ``run_commit_arms`` host vs device waves at the
                 windows): equal per-window roots;
 5. report     - a ``kernels`` JSON line (launches of the main path's runs,
                 K-a/K-b held against their plain versions at the drain's
-                shapes, times, bounds), a times line, the card, and last
+                shapes, times, bounds), a times line (with K11's and K10's
+                dependent-chain floors, K10 at 32, 64 and 128 threads a
+                block, K13 at v = 1 against K7), the card, and last
                 ``{"ok": true, "device": {...}}``.
 
 Each main-path run (phases 3, 4, A, B, F, G, H, R, C, D and E on the card)
@@ -935,12 +939,18 @@ def fabric_words(rng, m, w, n, s, c):
     return words
 
 
+K13_BLOCKS = (1, 2, 4, 8)  # the cluster sizes K13 is held and timed at
+
+
 def check_fabric(dev, rng):
     """K13 against its plain version at full width: M = N = 256, S = 300,
     C = 4 on (8,) and (4, 2), and N = 250 (padded to 252) on v = 4 with
-    the path's C = 3; each with and without an ``ok`` operand and once
-    without the compact record; then K13 at v = 1 on an unpadded state
-    against K7. Every state leaf, event and compact output equal."""
+    the path's C = 3; at the wrapper's cluster size with and without an
+    ``ok`` operand and once without the compact record, then at each of
+    ``K13_BLOCKS`` once plainly and once with ``ok`` and without the
+    compact record (the sharded K14's form); then K13 at v = 1 on an
+    unpadded state against K7. Every state leaf, event and compact output
+    equal."""
     import torch
     from indy_plenum_tpu_torch.tpu import quorum as q
 
@@ -951,14 +961,22 @@ def check_fabric(dev, rng):
         v = shape[1] if len(shape) > 1 else 1
         rows = -(-n // v) * v
         state = fabric_state(dev, rng, rows, n, c)
-        for ok_p, compact in ((None, True), (0.9, True), (None, False)):
+        cases = [(None, True, None), (0.9, True, None), (None, False, None)]
+        cases += [(ok_p, compact, b) for b in K13_BLOCKS
+                  for ok_p, compact in ((None, True), (0.9, False))]
+        for ok_p, compact, blocks in cases:
             words = q.words_tensor(fabric_words(rng, m, FABRIC_W, n, s, c),
                                    dev)
             ok = None if ok_p is None else torch.from_numpy(
                 rng.rand(m, FABRIC_W) < ok_p).to(dev)
             shadow = q.clone_state(state)
-            ev, comp = q.fabric_step(state, words, n, v, compact=compact,
-                                     ok=ok)
+            if blocks is None:
+                ev, comp = q.fabric_step(state, words, n, v,
+                                         compact=compact, ok=ok)
+            else:
+                ev, comp = q._fabric_kernel(state, words, n, v,
+                                            q.ORDER_DELTA_CAP, compact, ok,
+                                            "fabric_step", blocks)
             pev, pcomp = q.fabric_step_plain(shadow, words, n, v,
                                              compact=compact, ok=ok)
             outs = list(zip(state, shadow)) + list(zip(ev, pev))
@@ -2318,6 +2336,9 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
                  "verify_full_rows": n_full}
 
 
+K10_THREADS = (32, 64, 128)  # K10's block sizes timed in the report
+
+
 def sha256_report(dev, corpus, rng, launches, errs):
     """K10-K12 rows of the kernels line at the main path's shapes: K11 at
     one commit plan of phase C's shape (320 new keys into 3,200: ~250
@@ -2330,7 +2351,9 @@ def sha256_report(dev, corpus, rng, launches, errs):
     same ways (where the block/cluster cut belongs), one 320-pair wave
     (the per-wave form's shape), and one thread's chain through 256
     one-node levels, whose time per level times the plan's levels is the
-    dependent-chain floor."""
+    dependent-chain floor. Beside K10's rows: one proof of the chunk
+    alone (K10's dependent-chain floor: one thread's 17 node hashes and
+    the launch) and the chunk at 32, 64 and 128 threads a block."""
     import torch
     from indy_plenum_tpu_torch.server.catchup import catchup_rep_service \
         as crs
@@ -2443,7 +2466,20 @@ def sha256_report(dev, corpus, rng, launches, errs):
            "chain_floor_ms": chain_ms / 256 * plevels,
            "plan_levels": plevels, "plan_nodes": n_nodes,
            "plan_widest": pwidest}
-    return rows, call_ms, shapes, k11
+    # K10: its dependent-chain floor, one proof of the chunk's first (one
+    # thread, no barrier), and the chunk at each block size
+    one = [a if a is t["table"] else a[:1] for a in idx_args]
+    k10 = {"chain_levels": int(t["path_len"][0]),
+           "chain_floor_ms": _kernel_ms(
+               lambda: s2.verify_audit_paths_indexed(*one), 20),
+           "indexed_threads_ms": {th: _kernel_ms(
+               lambda: s2._audit_indexed_kernel(*idx_args, th), 20)
+               for th in K10_THREADS},
+           "dense_threads_ms": {th: _kernel_ms(
+               lambda: s2._audit_dense_kernel(*dense_args, th), 20)
+               for th in K10_THREADS},
+           "threads": s2.AUDIT_THREADS}
+    return rows, call_ms, shapes, k11, k10
 
 
 def residency_report(dev, rng, launches, errs, inputs):
@@ -2569,7 +2605,7 @@ def fabric_report(dev, rng, launches, errs, inputs):
         ("fabric_step",
          lambda: q.fabric_step(state, words, n, v),
          lambda: q.fabric_step_plain(state, words, n, v),
-         bound(nb, ops), "indy_plenum_tpu_torch/csrc/fabric.cu",
+         bound(nb, ops), "indy_plenum_tpu_torch/csrc/resident_tile.cu",
          "indy_plenum_tpu/tpu/quorum.py:306", 20),
         ("resident_tile",
          lambda: q.resident_tile_step(state, slides, slot_words, n, v),
@@ -2593,10 +2629,10 @@ def fabric_report(dev, rng, launches, errs, inputs):
              gstate, gwords, *sig, n_validators=N_VALIDATORS, v_shards=4),
          (kc_ms + k13g_ms, kc_by),
          "indy_plenum_tpu_torch/tpu/step.py (csrc/ed25519.cu + "
-         "csrc/fabric.cu)", "indy_plenum_tpu/tpu/step.py:46", 5),
+         "csrc/resident_tile.cu)", "indy_plenum_tpu/tpu/step.py:46", 5),
     ]
-    tile_blocks = q.tile_cluster_blocks(n, s, m, q._tile_resident(
-        torch.cuda.current_device(), s, c))
+    tile_blocks = q._cluster_blocks(dev, n, s, c, m, False)
+    k13_blocks = q._cluster_blocks(dev, n, s, c, m, True)
     library = {"ring_shift": _kernel_ms(
         lambda: [torch.roll(x, r, dims=0) for x in state], 20)}
     out, call_ms = [], {}
@@ -2618,7 +2654,8 @@ def fabric_report(dev, rng, launches, errs, inputs):
             v1[f"{tag}_ms"].append(_kernel_ms(fn, 20))
             v1[f"{tag}_call_ms"].append(_cuda_ms(fn, 20))
     return out, call_ms, v1, {
-        "fabric_step": f"{m} x {n} x {s}, v={v}, {w} words",
+        "fabric_step": f"{m} x {n} x {s}, v={v}, {w} words, "
+                       f"{k13_blocks} blocks a member",
         "resident_tile": f"k={k} x {m} x {w} words, {m} x {n} x {s}, v={v}, "
                          f"{tile_blocks} blocks a member",
         "ring_shift": f"every leaf of {m} x {n} x {s}, (8,), shift 1",
@@ -2961,7 +2998,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels, errs, times = kernel_report(dev, signers, reqs, rng, launches,
                                          errs)
-    sha_rows, sha_call_ms, sha_shapes, k11 = sha256_report(
+    sha_rows, sha_call_ms, sha_shapes, k11, k10 = sha256_report(
         dev, corpus, rng, launches, errs)
     kernels += sha_rows
     times["call_ms"].update(sha_call_ms)
@@ -2992,6 +3029,7 @@ def main() -> int:
         "reads_d_proofs_per_s_kernel": reads["proofs_per_s_kernel"],
         "sha256_shapes": sha_shapes,
         "k11_plan": k11,
+        "k10_fold": k10,
         "residency_shapes": res_shapes,
         "pool_f1_ordered_txns_per_s": pool_f1["ordered_txns_per_s"],
         "dispatches_per_batch": {"pool_a": pool_a["dispatches_per_batch"],

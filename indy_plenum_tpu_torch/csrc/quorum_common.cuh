@@ -1,11 +1,11 @@
 // Device code shared by the vote-plane kernels: the grouped quorum step
 // (K7, quorum.cu), the window slide and zero (K8, window.cu), the
-// resident multi-slot step (K9, resident.cu), its tiled form
-// (resident_tile.cu) and the member x validator fabric step (K13,
-// fabric.cu). K7, both K9s and K13 decide through one path (decide_slots,
-// decide_checkpoints, compact_member; decide_member chains them in one
-// block, K7 and the tiled K9 spread them over a cluster), so they cannot
-// drift.
+// resident multi-slot step (K9, resident.cu), and its tiled form and the
+// member x validator fabric step (the tiled K9 and K13, one kernel in
+// resident_tile.cu). K7, both K9s and K13 decide through one path
+// (decide_slots, decide_checkpoints, compact_member; decide_member chains
+// them in one block for K9, K7 and resident_tile.cu spread them over a
+// cluster), so they cannot drift.
 //
 // Every function here works on ONE member plane inside one thread block
 // and is called by all threads of the block alike (some hold a barrier).
@@ -439,7 +439,7 @@ __device__ __forceinline__ void compact_member(
   }
 }
 
-// The whole decide of member m in one block (K9, K13): every slot, the
+// The whole decide of member m in one block (K9): every slot, the
 // checkpoints, a barrier, the compact record. ``f_*`` are three
 // kMaxSlots-byte flag arrays in the block's shared memory.
 template <class Counts, class ChkCount>
@@ -467,26 +467,6 @@ __device__ __forceinline__ void eval_member(
                                                    cc); },
       [&](int c) { return checkpoint_count(p, m, 0, N, N, C, c); },
       f_newprep, f_newly, f_ordered);
-}
-
-// A fabric tile's partial counts: member m's validator rows [r0, r0 + nv)
-// (tile j of v) summed per slot into pc/cc_part[(m v + j) S + s] and per
-// checkpoint slot into kc_part[(m v + j) C + c].
-__device__ __forceinline__ void tile_partials(const Planes& p, int m, int j,
-                                              int v, int r0, int nv, int N,
-                                              int S, int C, int32_t* pc_part,
-                                              int32_t* cc_part,
-                                              int32_t* kc_part) {
-  const size_t row = static_cast<size_t>(m) * v + j;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    int pc, cc;
-    column_counts(p, m, r0, nv, N, S, s, &pc, &cc);
-    pc_part[row * S + s] = pc;
-    cc_part[row * S + s] = cc;
-  }
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    kc_part[row * C + c] = checkpoint_count(p, m, r0, nv, N, C, c);
-  }
 }
 
 inline Planes planes(void* pp, void* pv, void* cv, void* ck, void* ordered,

@@ -1,29 +1,42 @@
-// The tiled resident step (the tiled K9): k ring slots consumed over the
-// fabric's tiles, one launch a consume, a thread-block cluster a member.
+// The tiled resident step (the tiled K9) and the member x validator fabric
+// step (K13): k ring slots (K13: one) consumed over the fabric's tiles, one
+// launch a consume, a thread-block cluster a member.
 //
-// Replaces (JAX reference): indy_plenum_tpu/tpu/compile_plan.py:141-173,
-// `resident_plan_for`'s mesh branches: per slot, `slide_state` by the
-// slot's deltas, then every tile's `_scatter_local` of its senders; then
-// the tiles' column counts, their `psum` over the validator axis, and ONE
-// `_quorum_events` + `compact_from_events` with the compact deltas. On
-// one card every tile lives in one member-stacked VoteState whose N
-// validator rows are padded to a multiple of v (fabric.cu); the tiles'
-// counts sum to the counts over all N rows, so the result does not depend
-// on v, and v is only checked (N % v == 0).
+// Replaces (JAX reference):
+//   - the tiled K9: indy_plenum_tpu/tpu/compile_plan.py:141-173,
+//     `resident_plan_for`'s mesh branches: per slot, `slide_state` by the
+//     slot's deltas, then every tile's `_scatter_local` of its senders;
+//     then the tiles' column counts, their `psum` over the validator axis,
+//     and ONE `_quorum_events` + `compact_from_events` with the compact
+//     deltas;
+//   - K13: indy_plenum_tpu/tpu/quorum.py:306 `step_compact_local` as
+//     compile_plan.py:201-245's shard_map step runs it on every (member
+//     block, validator block) tile, and quorum.py:402 `make_sharded_step`
+//     (one plane, full events, no compact record): the same consume at
+//     k = 1 with no slide, an optional per-word verdict ``ok`` (the sharded
+//     fused step, indy_plenum_tpu/tpu/step.py:46; on one card the
+//     reference's all_gather of the verdicts is the identity) and a
+//     ``compact`` flag (0: prepared_acked and the frontier stay).
+// On one card every tile lives in one member-stacked VoteState whose N
+// validator rows are padded to a multiple of v; the tiles' counts sum to
+// the counts over all N rows, so the result does not depend on v, and v
+// is only checked (N % v == 0). Thresholds come from the REAL validator
+// count: pad rows receive only what a sender addresses to them.
 //
 // Per member m, in the reference's order (slot by slot, slide then
 // scatter; a vote staged before a slide is rolled with the window):
-//   1. for each slot k: d = slides[k][m]; when d > 0 every slot-axis row
-//      is rolled left by d with the vacated columns zeroed (d >= S
-//      clears), the checkpoint votes cleared and the frontier set to
-//      max(frontier - d, 0); then words[k][m] decoded and scattered
-//      (quorum_common.cuh scatter_member_rows);
+//   1. for each slot k: d = slides[k][m] (no slides: 0); when d > 0 every
+//      slot-axis row is rolled left by d with the vacated columns zeroed
+//      (d >= S clears), the checkpoint votes cleared and the frontier set
+//      to max(frontier - d, 0); then words[k][m] decoded and scattered,
+//      a word whose ok[k][m] is 0 dropped (quorum_common.cuh
+//      scatter_member_rows);
 //   2. the prepare, commit and checkpoint column counts over all N rows;
 //   3. the decide K7, K9 and K13 share (decide_slots, decide_checkpoints,
-//      compact_member, compact = 1).
+//      compact_member).
 //
 // Design: a cluster of B <= 8 blocks (the portable cluster size; the
-// wrapper picks B, one block per 64 rows) owns member m. Block b owns
+// wrapper picks B) owns member m. Block b owns
 // the validator rows [b N / B, (b + 1) N / B): their prepare, commit and
 // checkpoint rows, and it alone slides and scatters them; block 0 also
 // owns the member's preprepare_seen / ordered / prepared_acked rows, the
@@ -46,7 +59,8 @@
 // What bounds it on an H100: bytes. Phase H's consume (M = N = 256, S =
 // 300, C = 3, W = 512, k = 4, no slide) reads the planes once for the
 // counts (39 MB) and the words, and writes the hits, the events and the
-// compact record: ~12 us of HBM time.
+// compact record: ~12 us of HBM time; K13 at that shape (k = 1) the same
+// less three slots of words.
 #include <cooperative_groups.h>
 
 #include "quorum_common.cuh"
@@ -57,11 +71,16 @@ namespace {
 
 constexpr int kMaxBlocks = 8;  // the portable cluster size
 
+// ``Step`` instantiates K13 (one slot, no slide, ``ok`` and ``compact``
+// read at run time); the tiled K9's instantiation reads neither (no
+// per-word verdict test in its decode, compact fixed at 1).
+template <bool Step>
 __global__ void __launch_bounds__(qc::kThreads)
     resident_tile_kernel(qc::Planes p, const int32_t* __restrict__ slides,
-                         const uint32_t* __restrict__ words, int K, int M,
-                         int N, int S, int C, int W, int n_validators,
-                         int cap, qc::Events e) {
+                         const uint32_t* __restrict__ words,
+                         const uint8_t* __restrict__ ok, int K, int M, int N,
+                         int S, int C, int W, int n_validators, int cap,
+                         int compact, qc::Events e) {
   // this block's partial counts, then the member's flags (block 0's are
   // the ones written)
   extern __shared__ int32_t part[];
@@ -81,7 +100,7 @@ __global__ void __launch_bounds__(qc::kThreads)
   const size_t ms = static_cast<size_t>(m) * S;
   for (int k = 0; k < K; ++k) {
     const size_t km = static_cast<size_t>(k) * M + m;
-    const int d = slides[km];
+    const int d = Step ? 0 : slides[km];
     if (d > 0) {
       __syncthreads();  // the earlier slots' scatters before the slide
       const size_t run = (static_cast<size_t>(m) * N + r_lo) * S;
@@ -102,8 +121,9 @@ __global__ void __launch_bounds__(qc::kThreads)
     }
     // the scatter stores 1s only, so the stores of slots that no slide
     // separates may land in any order: no barrier between them
-    qc::scatter_member_rows(p, m, words + km * W, nullptr, N, S, C, W, r_lo,
-                            nr, 0, S, lead, true);
+    qc::scatter_member_rows(p, m, words + km * W,
+                            Step && ok != nullptr ? ok + km * W : nullptr, N,
+                            S, C, W, r_lo, nr, 0, S, lead, true);
   }
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
     pc_s[i] = 0;
@@ -122,7 +142,7 @@ __global__ void __launch_bounds__(qc::kThreads)
   const int s_lo = lo < S ? lo : S;
   const int s_hi = s_lo + chunk < S ? s_lo + chunk : S;
   qc::decide_slots(
-      p, e, m, S, s_lo, s_hi, n_validators, 1,
+      p, e, m, S, s_lo, s_hi, n_validators, Step ? compact : 1,
       [&](int s, int* pc, int* cc) {
         int a = 0, b = 0;
         for (int r = 0; r < B; ++r) {
@@ -146,7 +166,8 @@ __global__ void __launch_bounds__(qc::kThreads)
   // and any block exits
   cluster.sync();
   if (lead) {
-    qc::compact_member(p, e, m, S, cap, 1, f_newprep, f_newly, f_ordered);
+    qc::compact_member(p, e, m, S, cap, Step ? compact : 1, f_newprep,
+                       f_newly, f_ordered);
   }
 }
 
@@ -156,35 +177,21 @@ size_t shared_bytes(int S, int C) {
 }
 
 // above 48 KB a block's dynamic shared memory needs the kernel's opt-in
+template <bool Step>
 cudaError_t allow_shared(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(resident_tile_kernel,
+  return cudaFuncSetAttribute(resident_tile_kernel<Step>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-}  // namespace
-
-// How many of the kernel's blocks one SM holds at S slots and C
-// checkpoints (its registers and shared memory), into *blocks_per_sm:
-// the wrapper sizes the cluster so that every member's blocks fit the
-// card at once.
-extern "C" int resident_tile_occupancy(int S, int C, void* blocks_per_sm) {
-  int n = 0;
-  cudaError_t err = allow_shared(shared_bytes(S, C));
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, resident_tile_kernel, qc::kThreads, shared_bytes(S, C));
-  }
-  *static_cast<int*>(blocks_per_sm) = n;
-  return static_cast<int>(err);
-}
-
-extern "C" int resident_tile_launch(
-    void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,
-    void* frontier, const void* slides, const void* words, int K, int M,
-    int N, int S, int C, int W, int v, int blocks, int n_validators,
-    int cap, void* out, void* stream) {
+// One launch of the kernel: a cluster of ``blocks`` blocks a member.
+template <bool Step>
+int launch(void* pp, void* pv, void* cv, void* ck, void* ordered,
+           void* acked, void* frontier, const void* slides, const void* words,
+           const void* ok, int K, int M, int N, int S, int C, int W, int v,
+           int blocks, int n_validators, int cap, int compact, void* out,
+           void* stream) {
   if (S <= 0 || S > qc::kMaxSlots || K < 0 || C < 0 || v < 1 || N < 1 ||
       N % v != 0 || blocks < 1 || blocks > kMaxBlocks || blocks > N ||
       M > 65535) {
@@ -192,7 +199,7 @@ extern "C" int resident_tile_launch(
   }
   if (M == 0) return static_cast<int>(cudaGetLastError());
   const size_t smem = shared_bytes(S, C);
-  const cudaError_t opt = allow_shared(smem);
+  const cudaError_t opt = allow_shared<Step>(smem);
   if (opt != cudaSuccess) return static_cast<int>(opt);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks, M, 1);
@@ -207,11 +214,57 @@ extern "C" int resident_tile_launch(
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, resident_tile_kernel,
+      &cfg, resident_tile_kernel<Step>,
       qc::planes(pp, pv, cv, ck, ordered, acked, frontier),
       static_cast<const int32_t*>(slides),
-      static_cast<const uint32_t*>(words), K, M, N, S, C, W, n_validators,
-      cap, qc::events_at(out, M, S, C, cap));
+      static_cast<const uint32_t*>(words), static_cast<const uint8_t*>(ok),
+      K, M, N, S, C, W, n_validators, cap, compact,
+      qc::events_at(out, M, S, C, cap));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// How many blocks of the kernel (K13's instantiation when ``step``) one
+// SM holds at S slots and C checkpoints (its registers and shared
+// memory), into *blocks_per_sm: the wrapper sizes the cluster so that
+// every member's blocks fit the card at once.
+extern "C" int resident_tile_occupancy(int S, int C, int step,
+                                       void* blocks_per_sm) {
+  int n = 0;
+  const size_t smem = shared_bytes(S, C);
+  cudaError_t err =
+      step ? allow_shared<true>(smem) : allow_shared<false>(smem);
+  if (err == cudaSuccess) {
+    err = step ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &n, resident_tile_kernel<true>, qc::kThreads, smem)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &n, resident_tile_kernel<false>, qc::kThreads, smem);
+  }
+  *static_cast<int*>(blocks_per_sm) = n;
+  return static_cast<int>(err);
+}
+
+// The tiled K9: K slots, their (K, M) slides, the compact record.
+extern "C" int resident_tile_launch(
+    void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,
+    void* frontier, const void* slides, const void* words, int K, int M,
+    int N, int S, int C, int W, int v, int blocks, int n_validators,
+    int cap, void* out, void* stream) {
+  return launch<false>(pp, pv, cv, ck, ordered, acked, frontier, slides,
+                       words, nullptr, K, M, N, S, C, W, v, blocks,
+                       n_validators, cap, 1, out, stream);
+}
+
+// K13: one slot, no slide; ``ok`` (M, W) nullable; ``compact`` 0 leaves
+// prepared_acked and the frontier as they are.
+extern "C" int fabric_step_launch(
+    void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,
+    void* frontier, const void* words, const void* ok, int M, int N, int S,
+    int C, int W, int v, int blocks, int n_validators, int cap, int compact,
+    void* out, void* stream) {
+  return launch<true>(pp, pv, cv, ck, ordered, acked, frontier, nullptr,
+                      words, ok, 1, M, N, S, C, W, v, blocks, n_validators,
+                      cap, compact, out, stream);
 }

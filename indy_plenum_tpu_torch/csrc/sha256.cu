@@ -26,9 +26,11 @@
 // Design:
 //   - one device function for the compression: the state and a rolling
 //     16-word schedule window stay in registers, the 64 rounds are
-//     unrolled, K sits in __constant__ memory (every thread of a warp
-//     reads the same round constant at once: a broadcast), rotates are
-//     __funnelshift_r; big-endian words are loaded with __byte_perm;
+//     unrolled (K11, K12; K10 rolls the 48 scheduled ones 16 a loop
+//     iteration, node_hash_rolled), K sits in __constant__ memory (every
+//     thread of a warp reads the same round constant at once: a
+//     broadcast), rotates are __funnelshift_r; big-endian words are
+//     loaded with __byte_perm;
 //   - node_hash builds the two message blocks straight from word-shifted
 //     halves as the reference's word path does (prefix word 0x01000000 |
 //     l0>>8, second block r7<<24 | 0x00800000, zeros, bit length 520): no
@@ -58,13 +60,31 @@
 //     node j). A node's refs and literal operands are read before the
 //     barrier that precedes its level. The bound that binds is the
 //     dependent chain: levels x one node hash's latency;
-//   - K12 and K10: one thread per message / proof, 128-thread blocks;
-//     items are independent. K10 loops over its proof's levels and stops
-//     at path_len (levels past it change nothing in the reference
-//     either); the index/size shifting runs to completion as
-//     MerkleVerifier's while loop does (the reference bounds it by its
-//     padded depth, >= 16 there); index and tree size stay int32 so
-//     parity, >> and the comparisons agree.
+//   - K12: one thread per message, 128-thread blocks;
+//   - K10: one thread per proof; items are independent, so a proof's
+//     time is its chain of min(depth, path_len) node hashes (levels past
+//     path_len change nothing in the reference either), and the kernel
+//     keeps everything else off that chain. Each level makes ONE
+//     node_hash call on operands selected word by word (sibling left when
+//     the index is odd or at the subtree's right edge): lanes of a warp
+//     whose parities differ run the same instructions, where an if/else
+//     around two calls would run both bodies. The verifier's shift loop
+//     (while the index is even and not 0, halve index and size) is its
+//     closed form, a shift by the index's trailing zeros (__ffs), so it
+//     runs to completion as MerkleVerifier's while loop does (the
+//     reference bounds it by its padded depth, >= 16 there) with no loop
+//     on the chain; index and tree size stay int32 so parity, >> and the
+//     comparisons agree. The next level's sibling row, and the table
+//     index after it, are loaded while the current level hashes: no
+//     memory latency on the chain but the first level's. Rows are read
+//     as two 16-byte loads (the wrapper checks every operand's
+//     alignment). The node hash's compressions are the rolled ones: with
+//     the fully unrolled body (~2,900 SASS instructions, ~46 KB of code)
+//     a card of warps streaming it took longer for 4,096 proofs than one
+//     proof's chain, with the rolled body (~1,500) about as long
+//     (utils/audit_fold_probe.py times both). The block size comes from
+//     the wrapper (AUDIT_THREADS; at 4,096 proofs every size from 32 to
+//     128 runs one warp a scheduler).
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -150,10 +170,98 @@ __device__ __forceinline__ void node_hash(const uint32_t l[8],
   compress(out, w);
 }
 
+// K10's node hash: the same two blocks with the compression's 48
+// scheduled rounds rolled, three loop iterations of 16 unrolled rounds
+// (the window's indices stay static), and the two blocks as one unrolled
+// loop. About half the code of node_hash, which a card full of warps
+// streaming the same long body fetches slower than it runs
+// (utils/audit_fold_probe.py times both). K11 and K12 keep node_hash as
+// it is written: routing it through these helpers changed K11's code and
+// made its plans slower on the card.
+__device__ __forceinline__ uint32_t schedule(uint32_t w[16], int j) {
+  const uint32_t w15 = w[(j + 1) & 15], w2 = w[(j + 14) & 15];
+  const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
+  const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
+  w[j] = w[j] + s0 + w[(j + 9) & 15] + s1;
+  return w[j];
+}
+
+__device__ __forceinline__ void sha_round(uint32_t& a, uint32_t& b,
+                                          uint32_t& c, uint32_t& d,
+                                          uint32_t& e, uint32_t& f,
+                                          uint32_t& g, uint32_t& h,
+                                          uint32_t k, uint32_t wt) {
+  const uint32_t S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+  const uint32_t ch = (e & f) ^ (~e & g);
+  const uint32_t t1 = h + S1 + ch + k + wt;
+  const uint32_t S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+  const uint32_t mj = (a & b) ^ (a & c) ^ (b & c);
+  const uint32_t t2 = S0 + mj;
+  h = g; g = f; f = e; e = d + t1;
+  d = c; c = b; b = a; a = t1 + t2;
+}
+
+__device__ __forceinline__ void compress_rolled(uint32_t st[8],
+                                                uint32_t w[16]) {
+  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
+  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
+#pragma unroll
+  for (int t = 0; t < 16; ++t) sha_round(a, b, c, d, e, f, g, h, kK[t], w[t]);
+#pragma unroll 1
+  for (int base = 16; base < 64; base += 16) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      sha_round(a, b, c, d, e, f, g, h, kK[base + j], schedule(w, j));
+    }
+  }
+  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
+  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+}
+
+__device__ __forceinline__ void node_hash_rolled(const uint32_t l[8],
+                                                 const uint32_t r[8],
+                                                 uint32_t out[8]) {
+  uint32_t w[16];
+  w[0] = 0x01000000u | (l[0] >> 8);
+#pragma unroll
+  for (int i = 1; i < 8; ++i) w[i] = (l[i - 1] << 24) | (l[i] >> 8);
+  w[8] = (l[7] << 24) | (r[0] >> 8);
+#pragma unroll
+  for (int i = 1; i < 8; ++i) w[8 + i] = (r[i - 1] << 24) | (r[i] >> 8);
+  init_state(out);
+#pragma unroll
+  for (int blk = 0; blk < 2; ++blk) {
+    compress_rolled(out, w);
+    if (blk == 0) {
+      w[0] = (r[7] << 24) | 0x00800000u;
+#pragma unroll
+      for (int i = 1; i < 15; ++i) w[i] = 0;
+      w[15] = 520;  // 65 bytes * 8
+    }
+  }
+}
+
 __device__ __forceinline__ void load_words(const uint8_t* p, uint32_t x[8]) {
   const uint32_t* q = reinterpret_cast<const uint32_t*>(p);
 #pragma unroll
   for (int i = 0; i < 8; ++i) x[i] = bswap32(__ldg(q + i));
+}
+
+// A 32-byte row as two 16-byte loads (the row must be 16-byte aligned),
+// kept raw until row_words turns it into big-endian words.
+__device__ __forceinline__ void load_row16(const uint8_t* p, uint4& a,
+                                           uint4& b) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  a = __ldg(q);
+  b = __ldg(q + 1);
+}
+
+__device__ __forceinline__ void row_words(const uint4& a, const uint4& b,
+                                          uint32_t x[8]) {
+  x[0] = bswap32(a.x); x[1] = bswap32(a.y);
+  x[2] = bswap32(a.z); x[3] = bswap32(a.w);
+  x[4] = bswap32(b.x); x[5] = bswap32(b.y);
+  x[6] = bswap32(b.z); x[7] = bswap32(b.w);
 }
 
 __device__ __forceinline__ void store_words(uint8_t* p, const uint32_t x[8]) {
@@ -286,8 +394,11 @@ __global__ void __launch_bounds__(kPlanThreads)
   }
 }
 
-// K10: one thread per proof. Siblings come from path[b, level] (dense,
-// table == nullptr) or table[path_idx[b, level]] (indexed).
+// K10: one thread per proof, one node hash a level. Siblings come from
+// path[b, level] (dense) or table[path_idx[b, level]] (``Indexed``). The
+// library launches node_hash_rolled; node_hash (``Rolled`` false) is built
+// by csrc/probe/audit_fold_variants.cu only.
+template <bool Rolled, bool Indexed>
 __global__ void audit_fold_kernel(const uint8_t* __restrict__ leaf,
                                   const int32_t* __restrict__ index,
                                   const uint8_t* __restrict__ path,
@@ -298,50 +409,68 @@ __global__ void audit_fold_kernel(const uint8_t* __restrict__ leaf,
                                   const uint8_t* __restrict__ root,
                                   uint8_t* __restrict__ ok_out, int batch,
                                   int depth) {
-  int item = blockIdx.x * blockDim.x + threadIdx.x;
+  const int item = blockIdx.x * blockDim.x + threadIdx.x;
   if (item >= batch) return;
+  const int32_t plen = path_len[item];
+  const int levels = plen < depth ? plen : depth;
+  const int consumed = levels > 0 ? levels : 0;
+  const size_t row0 = static_cast<size_t>(item) * depth;
+  // level l's sibling row; ``idx`` is its table index when indexed
+  auto sibling = [&](int l, int32_t idx) {
+    return Indexed ? table + static_cast<size_t>(idx) * 32
+                   : path + (row0 + l) * 32;
+  };
+  uint4 sa = make_uint4(0, 0, 0, 0), sb = sa;  // this level's sibling, raw
+  int32_t idx_next = 0;  // the next level's table index
+  if (consumed > 0) {
+    load_row16(sibling(0, Indexed ? __ldg(path_idx + row0) : 0), sa, sb);
+    if (Indexed && consumed > 1) idx_next = __ldg(path_idx + row0 + 1);
+  }
   uint32_t r[8];
-  load_words(leaf + static_cast<size_t>(item) * 32, r);
+  {
+    uint4 la, lb;
+    load_row16(leaf + static_cast<size_t>(item) * 32, la, lb);
+    row_words(la, lb, r);
+  }
   int32_t fn = index[item];
   int32_t fsn = tree_size[item] - 1;
-  const int32_t plen = path_len[item];
-  int32_t consumed = 0;
   bool ok = true;
-  for (int level = 0; level < depth && level < plen; ++level) {
-    const uint8_t* sp;
-    if (table == nullptr) {
-      sp = path + (static_cast<size_t>(item) * depth + level) * 32;
-    } else {
-      sp = table + static_cast<size_t>(
-                       path_idx[static_cast<size_t>(item) * depth + level]) *
-                       32;
-    }
+  for (int level = 0; level < consumed; ++level) {
     uint32_t s[8];
-    load_words(sp, s);
+    row_words(sa, sb, s);
+    // the next level's sibling, and the index after it, in flight while
+    // this level hashes
+    if (level + 1 < consumed) {
+      load_row16(sibling(level + 1, idx_next), sa, sb);
+      if (Indexed && level + 2 < consumed) {
+        idx_next = __ldg(path_idx + row0 + level + 2);
+      }
+    }
     // int32 parity as the reference's floor-mod: (fn & 1) == fn % 2
     const bool use_left = (fn & 1) || (fn == fsn);
     ok = ok && (fsn > 0);  // a level consumed with fsn exhausted
-    uint32_t h[8];
-    if (use_left) {
-      node_hash(s, r, h);
-    } else {
-      node_hash(r, s, h);
-    }
+    uint32_t lo[8], hi[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) r[i] = h[i];
-    if (use_left) {
-      while (!(fn & 1) && fn != 0) {
-        fn >>= 1;
-        fsn >>= 1;
-      }
+    for (int i = 0; i < 8; ++i) {
+      lo[i] = use_left ? s[i] : r[i];
+      hi[i] = use_left ? r[i] : s[i];
     }
-    fn >>= 1;
-    fsn >>= 1;
-    ++consumed;
+    if (Rolled) {
+      node_hash_rolled(lo, hi, r);
+    } else {
+      node_hash(lo, hi, r);
+    }
+    // the verifier's ``while fn even and fn != 0: halve fn and fsn`` after
+    // a left sibling, in closed form, then the level's own halving
+    const int tz = use_left && fn != 0 ? __ffs(fn) - 1 : 0;
+    fn = (fn >> tz) >> 1;
+    fsn = (fsn >> tz) >> 1;
   }
   ok = ok && (fsn == 0) && (consumed == plen);
+  uint4 ra, rb;
+  load_row16(root + static_cast<size_t>(item) * 32, ra, rb);
   uint32_t want[8];
-  load_words(root + static_cast<size_t>(item) * 32, want);
+  row_words(ra, rb, want);
 #pragma unroll
   for (int i = 0; i < 8; ++i) ok = ok && (r[i] == want[i]);
   ok_out[item] = ok ? 1 : 0;
@@ -349,6 +478,11 @@ __global__ void audit_fold_kernel(const uint8_t* __restrict__ leaf,
 
 inline int grid_for(int batch, int threads) {
   return (batch + threads - 1) / threads;
+}
+
+// K10's block size: whole warps, at most 1,024 threads
+inline bool fold_threads_ok(int threads) {
+  return threads >= 32 && threads <= 1024 && threads % 32 == 0;
 }
 
 }  // namespace
@@ -415,11 +549,13 @@ extern "C" int audit_paths_launch(const void* leaf, const void* index,
                                   const void* path, const void* path_len,
                                   const void* tree_size, const void* root,
                                   void* ok, int batch, int depth,
-                                  void* stream) {
+                                  int threads, void* stream) {
+  if (!fold_threads_ok(threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (batch > 0) {
-    const int threads = 128;
-    audit_fold_kernel<<<grid_for(batch, threads), threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+    audit_fold_kernel<true, false><<<grid_for(batch, threads), threads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(leaf), static_cast<const int32_t*>(index),
         static_cast<const uint8_t*>(path), nullptr, nullptr,
         static_cast<const int32_t*>(path_len),
@@ -433,11 +569,14 @@ extern "C" int audit_paths_launch(const void* leaf, const void* index,
 extern "C" int audit_paths_indexed_launch(
     const void* leaf, const void* index, const void* table,
     const void* path_idx, const void* path_len, const void* tree_size,
-    const void* root, void* ok, int batch, int depth, void* stream) {
+    const void* root, void* ok, int batch, int depth, int threads,
+    void* stream) {
+  if (!fold_threads_ok(threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (batch > 0) {
-    const int threads = 128;
-    audit_fold_kernel<<<grid_for(batch, threads), threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+    audit_fold_kernel<true, true><<<grid_for(batch, threads), threads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(leaf), static_cast<const int32_t*>(index),
         nullptr, static_cast<const uint8_t*>(table),
         static_cast<const int32_t*>(path_idx),

@@ -40,13 +40,14 @@ one member-stacked :class:`VoteState`, its validator rows padded to a
 multiple of v, so tile (i, j) is member rows ``[i R, (i+1) R)`` x
 validator rows ``[j V, (j+1) V)``. :func:`fabric_step` (K13, reference
 ``step_compact_local`` ``:306`` under ``compile_plan.py:201-245``) scatters
-each tile's own senders and writes its partial column counts, sums the v
-partials (the reference's ``psum`` over the validator axis) and decides,
-in two launches of ``csrc/fabric.cu``; its plain version is
+each tile's own senders, sums the tiles' column counts (the reference's
+``psum`` over the validator axis) and decides; its plain version is
 :func:`fabric_step_plain`. :func:`resident_tile_step` is K9 per tile
 (``compile_plan.py:141-173``): the slides and scatters of k ring slots
-restricted to each tile's rows, then K13's decide. :func:`make_sharded_step`
-(``:402``) is K13 on one plane without the compact record.
+restricted to each tile's rows, then K13's decide. Both are one launch of
+``csrc/resident_tile.cu``'s cluster kernel (K13 at k = 1, no slide).
+:func:`make_sharded_step` (``:402``) is K13 on one plane without the
+compact record.
 
 Words are uint32 bit patterns carried in int32 tensors; the plain version
 decodes them in int64 lanes masked to 0xFFFFFFFF (CPU torch has no uint32
@@ -574,31 +575,26 @@ def fabric_step_plain(state: VoteState, words: torch.Tensor,
                                  n_validators, delta_cap, compact)
 
 
-def _partials_out(state: VoteState, v_shards: int):
-    m_count, _, s = state.prepare_votes.shape
-    c = state.checkpoint_votes.shape[-1]
-    dev = state.frontier.device
-    return [torch.empty((m_count, v_shards, x), dtype=torch.int32,
-                        device=dev) for x in (s, s, c)]
-
-
 def _fabric_kernel(state: VoteState, words: torch.Tensor, n_validators: int,
                    v_shards: int, delta_cap: int, compact: bool,
-                   ok: Optional[torch.Tensor], counter: str
+                   ok: Optional[torch.Tensor], counter: str,
+                   blocks: Optional[int] = None
                    ) -> Tuple[QuorumEvents, CompactEvents]:
+    dev = words.device
     ptrs = _check_words(state, words, 2, "fabric step")
     _check_ok(ok, words, "fabric step")
     _tile_rows(state, v_shards)
     m_count, n_rows, s = state.prepare_votes.shape
     c = state.checkpoint_votes.shape[-1]
     width = delta_width(s, delta_cap)
+    if blocks is None:
+        blocks = _cluster_blocks(dev, n_rows, s, c, m_count, True)
     buf, events, comp = _outputs(state, width)
-    parts = _partials_out(state, v_shards)
     code = kb.library().fabric_step_launch(
         *ptrs, words.data_ptr(), None if ok is None else ok.data_ptr(),
-        m_count, n_rows, s, c, words.shape[1], v_shards, n_validators, width,
-        1 if compact else 0, *[t.data_ptr() for t in parts], buf.data_ptr(),
-        torch.cuda.current_stream(words.device).cuda_stream)
+        m_count, n_rows, s, c, words.shape[1], v_shards, blocks,
+        n_validators, width, 1 if compact else 0, buf.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     kb.check(code, counter)
     kb.LAUNCHES[counter] += 1
     return events, comp
@@ -616,8 +612,9 @@ def fabric_step(state: VoteState, words: torch.Tensor, n_validators: int,
     compact); without ``compact`` neither ``prepared_acked`` nor the
     frontier moves (the reference's ``make_sharded_step``). CPU tensors
     take :func:`fabric_step_plain`; CUDA tensors launch
-    ``csrc/fabric.cu`` (tile scatter + partials, then reduce + decide) or
-    raise."""
+    ``resident_tile_kernel`` (``csrc/resident_tile.cu`` at one slot, no
+    slide: a cluster of :func:`tile_cluster_blocks` blocks a member, no
+    partial count in device memory) or raise."""
     if words.device.type == "cpu":
         return fabric_step_plain(state, words, n_validators, v_shards,
                                  delta_cap, compact, ok)
@@ -651,15 +648,16 @@ TILE_BLOCK_BYTES = 16384  # bytes of each vote plane a block counts, at most
 
 def tile_cluster_blocks(n_rows: int, s: int, members: int,
                         resident: int) -> int:
-    """Blocks of the tiled K9's cluster a member: enough that none counts
-    more than :data:`TILE_BLOCK_BYTES` of a vote plane (its ``n_rows`` x
-    ``s`` bytes), but no more than let every member's blocks run at once
-    on a card that holds ``resident`` of the kernel's blocks; 1 to
-    :data:`TILE_CLUSTER_MAX`, never more than the rows. Each block pays
-    fixed costs (it decodes every word of its member's slots, and the
-    cluster meets twice), so past the count's need, or past one wave,
-    more blocks cost time. The 16 KB threshold is fitted to two timed
-    shapes, phase H's consume (B = 2, from the wave) and phase R's (B = 1,
+    """Blocks of the cluster a member of the tiled K9 and of K13 (one
+    kernel): enough that none counts more than :data:`TILE_BLOCK_BYTES`
+    of a vote plane (its ``n_rows`` x ``s`` bytes), but no more than let
+    every member's blocks run at once on a card that holds ``resident``
+    of the kernel's blocks; 1 to :data:`TILE_CLUSTER_MAX`, never more
+    than the rows. Each block pays fixed costs (it decodes every word of
+    its member's slots, and the cluster meets twice), so past the count's
+    need, or past one wave, more blocks cost time. The 16 KB threshold is
+    fitted to three timed shapes, phase H's consume and K13's step at
+    phase H's shape (B = 2, from the wave) and phase R's consume (B = 1,
     from the threshold); what it picks elsewhere is held bit-equal on the
     card but was never timed."""
     want = -(-n_rows * s // TILE_BLOCK_BYTES)
@@ -668,18 +666,27 @@ def tile_cluster_blocks(n_rows: int, s: int, members: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _tile_resident(index: int, s: int, c: int) -> int:
-    """The tiled K9's blocks that card ``index`` holds at once at S slots
-    and C checkpoints: its SMs times the blocks one SM holds (the CUDA
-    occupancy calculator, from the kernel's registers and shared
-    memory)."""
+def _tile_resident(index: int, s: int, c: int, step: bool = False) -> int:
+    """The blocks of the tiled K9 (of K13 with ``step``) that card
+    ``index`` holds at once at S slots and C checkpoints: its SMs times
+    the blocks one SM holds (the CUDA occupancy calculator, from the
+    kernel's registers and shared memory)."""
     import ctypes
 
     per_sm = ctypes.c_int(0)
     kb.check(kb.library().resident_tile_occupancy(
-        s, c, ctypes.addressof(per_sm)), "resident_tile")
+        s, c, int(step), ctypes.addressof(per_sm)), "resident_tile")
     props = torch.cuda.get_device_properties(index)
     return props.multi_processor_count * per_sm.value
+
+
+def _cluster_blocks(dev: torch.device, n_rows: int, s: int, c: int,
+                    m_count: int, step: bool) -> int:
+    """:func:`tile_cluster_blocks` on the card that holds ``dev``, for
+    K13 (``step``) or the tiled K9."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return tile_cluster_blocks(n_rows, s, m_count,
+                               _tile_resident(index, s, c, step))
 
 
 def _resident_tile_kernel(states: VoteState, slides: torch.Tensor,
@@ -698,10 +705,7 @@ def _resident_tile_kernel(states: VoteState, slides: torch.Tensor,
     c = states.checkpoint_votes.shape[-1]
     width = delta_width(s, delta_cap)
     if blocks is None:
-        index = torch.cuda.current_device() if dev.index is None \
-            else dev.index
-        blocks = tile_cluster_blocks(n_rows, s, m_count,
-                                     _tile_resident(index, s, c))
+        blocks = _cluster_blocks(dev, n_rows, s, c, m_count, False)
     buf, events, comp = _outputs(states, width)
     code = kb.library().resident_tile_launch(
         *ptrs, slides.data_ptr(), words.data_ptr(), k, m_count, n_rows, s,

@@ -69,6 +69,10 @@ M32 = 0xFFFFFFFF
 MAX_PLAN_LEVELS = 256
 PLAN_BLOCK_NODES = 96
 PLAN_CLUSTER = 8
+# K10's threads a block (csrc/sha256.cu audit_fold_kernel); at 4,096 proofs
+# 32, 64 and 128 all run one warp a scheduler (chip_smoke.py
+# sha256_report times each)
+AUDIT_THREADS = 128
 
 # --- the plain versions: uint32 words in int64 lanes ------------------------
 
@@ -274,19 +278,21 @@ def verify_audit_paths_indexed_plain(leaf, index, table, path_idx, path_len,
 # --- kernel wrappers --------------------------------------------------------
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+def _check(t: torch.Tensor, name: str, dtype, shape, device,
+           align: int = 4) -> None:
     """A contiguous tensor of ``dtype`` on ``device`` whose shape matches
-    ``shape`` (None = any size), 4-byte aligned for word loads."""
+    ``shape`` (None = any size), ``align``-byte aligned: 4 for word loads,
+    16 for K10's 16-byte row loads."""
     ok = (t.dtype == dtype and t.is_contiguous() and t.device == device
           and t.dim() == len(shape)
           and all(want is None or got == want
-                  for got, want in zip(t.shape, shape))
-          and t.data_ptr() % 4 == 0)
+                  for got, want in zip(t.shape, shape)))
     if not ok:
         raise ValueError(
-            f"{name}: expected a contiguous, aligned {dtype} tensor of "
-            f"shape {shape} on {device}, got {t.dtype} {tuple(t.shape)} on "
-            f"{t.device}")
+            f"{name}: expected a contiguous {dtype} tensor of shape {shape} "
+            f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: the data must be {align}-byte aligned")
 
 
 def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
@@ -390,14 +396,57 @@ def merkle_node_hash(left: torch.Tensor, right: torch.Tensor
 
 
 def _check_fold(leaf, index, path_len, tree_size, root, name):
+    """K10's per-proof operands, each 16-byte aligned (the kernel reads
+    rows as 16-byte vectors)."""
     dev = _cuda_device(leaf, name)
     batch = leaf.shape[0]
-    _check(leaf, f"{name}: leaf", torch.uint8, (batch, 32), dev)
-    _check(root, f"{name}: root", torch.uint8, (batch, 32), dev)
+    _check(leaf, f"{name}: leaf", torch.uint8, (batch, 32), dev, 16)
+    _check(root, f"{name}: root", torch.uint8, (batch, 32), dev, 16)
     for what, t in (("index", index), ("path_len", path_len),
                     ("tree_size", tree_size)):
-        _check(t, f"{name}: {what}", torch.int32, (batch,), dev)
+        _check(t, f"{name}: {what}", torch.int32, (batch,), dev, 16)
     return dev, batch
+
+
+def _fold_launch(entry: str, counter: str, operands, batch: int,
+                 depth: int, threads: int) -> torch.Tensor:
+    """One ``audit_fold_kernel`` launch of ``threads`` a block on checked
+    operands: the (B,) verdicts."""
+    dev = operands[0].device
+    ok = torch.empty(batch, dtype=torch.uint8, device=dev)
+    code = getattr(kb.library(), entry)(
+        *[t.data_ptr() for t in operands], ok.data_ptr(), batch, depth,
+        threads, _stream(dev))
+    kb.check(code, counter)
+    kb.LAUNCHES[counter] += 1
+    return ok.bool()
+
+
+def _audit_dense_kernel(leaf, index, path, path_len, tree_size, root,
+                        threads: int = AUDIT_THREADS) -> torch.Tensor:
+    dev, batch = _check_fold(leaf, index, path_len, tree_size, root,
+                             "verify_audit_paths")
+    depth = path.shape[1] if path.dim() == 3 else -1
+    _check(path, "verify_audit_paths: path", torch.uint8,
+           (batch, depth, 32), dev, 16)
+    return _fold_launch("audit_paths_launch", "audit_paths",
+                        (leaf, index, path, path_len, tree_size, root),
+                        batch, depth, threads)
+
+
+def _audit_indexed_kernel(leaf, index, table, path_idx, path_len,
+                          tree_size, root,
+                          threads: int = AUDIT_THREADS) -> torch.Tensor:
+    dev, batch = _check_fold(leaf, index, path_len, tree_size, root,
+                             "verify_audit_paths_indexed")
+    depth = path_idx.shape[1] if path_idx.dim() == 2 else -1
+    _check(table, "verify_audit_paths_indexed: table", torch.uint8,
+           (None, 32), dev, 16)
+    _check(path_idx, "verify_audit_paths_indexed: path_idx", torch.int32,
+           (batch, depth), dev, 16)
+    return _fold_launch("audit_paths_indexed_launch", "audit_paths_indexed",
+                        (leaf, index, table, path_idx, path_len, tree_size,
+                         root), batch, depth, threads)
 
 
 def verify_audit_paths(leaf: torch.Tensor, index: torch.Tensor,
@@ -407,23 +456,12 @@ def verify_audit_paths(leaf: torch.Tensor, index: torch.Tensor,
     """K10, dense: leaf hashes (B, 32) uint8, index (B,) int32, path
     (B, D, 32) uint8, path_len (B,) int32, tree_size (B,) int32, root
     (B, 32) -> (B,) bool. CPU tensors take the plain version; CUDA
-    tensors launch ``audit_fold_kernel`` or raise."""
+    tensors launch ``audit_fold_kernel`` or raise (a misaligned operand
+    raises: every one must be 16-byte aligned)."""
     if leaf.device.type == "cpu":
         return verify_audit_paths_plain(leaf, index, path, path_len,
                                         tree_size, root)
-    dev, batch = _check_fold(leaf, index, path_len, tree_size, root,
-                             "verify_audit_paths")
-    depth = path.shape[1] if path.dim() == 3 else -1
-    _check(path, "verify_audit_paths: path", torch.uint8,
-           (batch, depth, 32), dev)
-    ok = torch.empty(batch, dtype=torch.uint8, device=dev)
-    code = kb.library().audit_paths_launch(
-        leaf.data_ptr(), index.data_ptr(), path.data_ptr(),
-        path_len.data_ptr(), tree_size.data_ptr(), root.data_ptr(),
-        ok.data_ptr(), batch, depth, _stream(dev))
-    kb.check(code, "audit_paths")
-    kb.LAUNCHES["audit_paths"] += 1
-    return ok.bool()
+    return _audit_dense_kernel(leaf, index, path, path_len, tree_size, root)
 
 
 def verify_audit_paths_indexed(leaf: torch.Tensor, index: torch.Tensor,
@@ -434,25 +472,13 @@ def verify_audit_paths_indexed(leaf: torch.Tensor, index: torch.Tensor,
     """K10 over a deduplicated node table: table (U, 32) uint8 and
     path_idx (B, D) int32 (every entry in [0, U)) instead of dense paths.
     CPU tensors take the plain version; CUDA tensors launch
-    ``audit_fold_kernel`` or raise."""
+    ``audit_fold_kernel`` or raise (a misaligned operand raises: every
+    one must be 16-byte aligned)."""
     if leaf.device.type == "cpu":
         return verify_audit_paths_indexed_plain(
             leaf, index, table, path_idx, path_len, tree_size, root)
-    dev, batch = _check_fold(leaf, index, path_len, tree_size, root,
-                             "verify_audit_paths_indexed")
-    depth = path_idx.shape[1] if path_idx.dim() == 2 else -1
-    _check(table, "verify_audit_paths_indexed: table", torch.uint8,
-           (None, 32), dev)
-    _check(path_idx, "verify_audit_paths_indexed: path_idx", torch.int32,
-           (batch, depth), dev)
-    ok = torch.empty(batch, dtype=torch.uint8, device=dev)
-    code = kb.library().audit_paths_indexed_launch(
-        leaf.data_ptr(), index.data_ptr(), table.data_ptr(),
-        path_idx.data_ptr(), path_len.data_ptr(), tree_size.data_ptr(),
-        root.data_ptr(), ok.data_ptr(), batch, depth, _stream(dev))
-    kb.check(code, "audit_paths_indexed")
-    kb.LAUNCHES["audit_paths_indexed"] += 1
-    return ok.bool()
+    return _audit_indexed_kernel(leaf, index, table, path_idx, path_len,
+                                 tree_size, root)
 
 
 def merkle_plan_hash_bytes(refs: np.ndarray, literals: np.ndarray,

@@ -22,8 +22,8 @@ nor moves the frontier.
 :func:`make_sharded_fused_step` (reference ``step.py:46``) is the same
 step on a 1-D validator fabric: K-c over the whole batch (on one device
 the reference's ``all_gather`` of the verdicts, ``:62``, is the identity),
-then K13 (``csrc/fabric.cu``) with the verdicts as its ``ok`` operand,
-each tile scattering its own senders.
+then K13 (``csrc/resident_tile.cu``, one cluster launch) with the
+verdicts as its ``ok`` operand, each block scattering its own senders.
 """
 from __future__ import annotations
 

@@ -18,6 +18,13 @@ times either. One JSON line:
   events around back-to-back calls, host included); where the checkout
   picks the tiled K9's cluster size (``tile_cluster_blocks``), both
   consumes at cluster sizes of 1, 2, 4 and 8 blocks too;
+- K13 at phase H's shape on v = 1 (the (8,) mesh's step) beside K7 on
+  the same state and words, and where the checkout can force K13's
+  cluster size, on v = 1 and 2 at 1, 2, 4 and 8 blocks; K13 at phase G's
+  shape with the verdicts as ``ok`` (the sharded K14's second half);
+- K10 at a 4,096-proof chunk of the catchup-proof tree (17 levels),
+  dense and indexed, one proof alone (its dependent-chain floor) and,
+  where the checkout sets the block size, at 32, 64 and 128 threads;
 - K-b (``reduce_mod_l``) on seeded digests at the drain's 8,192 rows and
   at 32,768;
 - K11 per SMT commit of phase C's shape (320 new keys into 3,200): the
@@ -36,9 +43,11 @@ times either. One JSON line:
   sliding: at 64 x 64 x 300 by ``CHK_FREQ`` and at phase B's shape (96 x
   16 x 30, C 6) by 5, device and call ms; then ONE ``torch.profiler``
   session (a second in one process has come back empty) over 20 such
-  slides and 20 tiled K9 consumes at phase H's shape, the device's work
-  split by kernel name (a copy to the card shows as ``Memcpy HtoD``; the
-  tiled K9 shows as one kernel, or as its tile kernel and K13's decide);
+  slides and 20 tiled K9 consumes and K13 steps at phase H's shape, the
+  device's work split by kernel name (a copy to the card shows as
+  ``Memcpy HtoD``; the tiled K9 and K13 each as one launch of
+  ``resident_tile_kernel``, or K13 as ``fabric_tile_kernel`` +
+  ``fabric_decide_kernel``);
 - the card's name and power limit.
 
 It exits non-zero without a card.
@@ -113,20 +122,27 @@ def verify_and_fused(out, timed, cs, dev, rng):
         big[0], big[1], big[2], blocks, counts), 3)
     out["verifies_per_s_32768"] = cs.BENCH_VERIFY_BATCH / (
         out["call_ms"]["verify_full_32768"] / 1e3)
-    _, words_np, farrays, _ = cs.fused_inputs(rng, cs.N_VALIDATORS,
-                                              cs.LOG_SIZE, cs.DRAIN)
+    _, words_np, farrays, expect = cs.fused_inputs(rng, cs.N_VALIDATORS,
+                                                   cs.LOG_SIZE, cs.DRAIN)
     words = q.words_tensor(words_np, dev)
     fsig = [torch.from_numpy(a).to(dev) for a in farrays]
     state = q.init_state(cs.N_VALIDATORS, cs.LOG_SIZE, cs.N_CHECKPOINTS, 1,
                          dev)
     timed("fused_step_8192", lambda: st.fused_step(
         state, words, *fsig, n_validators=cs.N_VALIDATORS, device=dev), 5)
+    # the sharded K14's second half: K13 on 4 tiles with the verdicts
+    ok = torch.from_numpy(expect[None, :]).to(dev)
+    gstate = q.init_state(cs.N_VALIDATORS, cs.LOG_SIZE, cs.N_CHECKPOINTS,
+                          1, dev)
+    timed("fabric_step_g", lambda: q.fabric_step(
+        gstate, words, cs.N_VALIDATORS, 4, compact=False, ok=ok), 20)
 
 
 def slide_report(out, timed, cs, dev, rng, tile_consume):
     """K8's slide with host deltas at the main path's two group shapes,
     then one profile of 20 slides at 64 x 64 x 300 and 20 calls of
-    ``tile_consume`` (the tiled K9 at phase H's shape)."""
+    ``tile_consume`` (the tiled K9's consume and K13's step at phase H's
+    shape)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -205,6 +221,59 @@ def tile_report(timed, cs, dev, rng, fstate, ftile, fslides):
                 rstate, rslides, rwords, n, 2, q.ORDER_DELTA_CAP, b), 20)
 
 
+def fabric_report(timed, cs, dev, fstate, fwords):
+    """K13 at phase H's shape on v = 1 (the (8,) mesh's step) beside K7 on
+    the same state and words and, where the checkout can force the
+    cluster size, K13 on v = 1 and 2 at each of 1, 2, 4 and 8 blocks."""
+    import inspect
+
+    from indy_plenum_tpu_torch.tpu import quorum as q
+
+    fm = fstate.frontier.shape[0]
+    timed("fabric_step_v1", lambda: q.fabric_step(fstate, fwords, fm, 1), 20)
+    timed("quorum_step_h", lambda: q.step_compact(fstate, fwords, fm), 20)
+    if "blocks" not in inspect.signature(q._fabric_kernel).parameters:
+        return
+    for v in (1, 2):
+        for b in (1, 2, 4, 8):
+            timed(f"fabric_step_v{v}_b{b}", lambda: q._fabric_kernel(
+                fstate, fwords, fm, v, q.ORDER_DELTA_CAP, True, None,
+                "fabric_step", b), 20)
+
+
+def audit_report(timed, cs, dev):
+    """K10 at one 4,096-proof chunk of the catchup-proof tree (17 levels),
+    dense and indexed; one proof of it alone (the dependent-chain floor);
+    where the checkout can set the block size, the chunk at 32, 64 and
+    128 threads a block."""
+    from indy_plenum_tpu_torch.server.catchup import catchup_rep_service \
+        as crs
+    from indy_plenum_tpu_torch.tpu import sha256 as s2
+
+    chunk = crs._ChunkedDeviceVerify.CHUNK
+    tree, leaf_data, indices, paths = cs.audit_corpus(count=chunk)
+    t = cs._fold_inputs(dev, leaf_data, indices, paths,
+                        [tree.tree_size] * chunk, [tree.root_hash] * chunk)
+    dense = [t[k] for k in ("leaf", "index", "path", "path_len",
+                            "tree_size", "root")]
+    idx = [t[k] for k in ("leaf", "index", "table", "path_idx", "path_len",
+                          "tree_size", "root")]
+    one = [a if a is t["table"] else a[:1] for a in idx]
+    if not (bool(s2.verify_audit_paths(*dense).all())
+            and bool(s2.verify_audit_paths_indexed(*idx).all())):
+        raise AssertionError("K10: a good proof failed")
+    timed("audit_paths", lambda: s2.verify_audit_paths(*dense), 20)
+    timed("audit_paths_indexed",
+          lambda: s2.verify_audit_paths_indexed(*idx), 20)
+    timed("audit_chain_1", lambda: s2.verify_audit_paths_indexed(*one), 20)
+    if hasattr(s2, "_audit_indexed_kernel"):
+        for th in (32, 64, 128):
+            timed(f"audit_paths_indexed_t{th}",
+                  lambda: s2._audit_indexed_kernel(*idx, th), 20)
+            timed(f"audit_paths_t{th}",
+                  lambda: s2._audit_dense_kernel(*dense, th), 20)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tag", required=True)
@@ -250,11 +319,17 @@ def main() -> int:
     timed("resident_tile",
           lambda: q.resident_tile_step(fstate, fslides, ftile, fm, 2), 20)
     tile_report(timed, cs, dev, rng, fstate, ftile, fslides)
+    fabric_report(timed, cs, dev, fstate, fwords)
+    audit_report(timed, cs, dev)
     mod_l_report(timed, cs, dev, rng)
 
     verify_and_fused(out, timed, cs, dev, rng)
-    slide_report(out, timed, cs, dev, rng, lambda: q.resident_tile_step(
-        fstate, fslides, ftile, fm, 2))
+
+    def consumes():
+        q.resident_tile_step(fstate, fslides, ftile, fm, 2)
+        q.fabric_step(fstate, fwords, fm, 2)
+
+    slide_report(out, timed, cs, dev, rng, consumes)
 
     kv, root, writes, widths = _commit_inputs(3200, 320)
     waves = [(torch.from_numpy(rng.randint(0, 256, (wd, 32)).astype(

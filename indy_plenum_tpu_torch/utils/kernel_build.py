@@ -84,10 +84,9 @@ _SIGNATURES = {
     "fabric_step_launch": (
         # state (as quorum_step), words, ok (NULL but for the sharded K14)
         _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        # M, N, S, C, W, v, n_validators, delta_cap, compact
-        _I, _I, _I, _I, _I, _I, _I, _I, _I,
-        # partial counts (M, v, S) prepare, commit, (M, v, C) checkpoint
-        _P, _P, _P,
+        # M, N, S, C, W, v, cluster blocks, n_validators, delta_cap,
+        # compact
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         # the output allocation (as quorum_step), then the stream
         _P, _P),
     "resident_tile_launch": (
@@ -97,8 +96,9 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         # the output allocation (as quorum_step), then the stream
         _P, _P),
-    # S, C, host int out: the tiled K9's blocks one SM holds
-    "resident_tile_occupancy": (_I, _I, _P),
+    # S, C, K13's instantiation (0/1), host int out: the blocks one SM
+    # holds
+    "resident_tile_occupancy": (_I, _I, _I, _P),
     # host table of (src, dst, row_bytes) per leaf, leaves, rows,
     # shift_rows, stream
     "ring_shift_launch": (_P, _I, _I, _I, _P),
@@ -118,12 +118,13 @@ _SIGNATURES = {
     "sha256_fixed_launch": (_P, _P, _I, _I, _P),
     # refs, literals, out, host level offsets, n_levels, blocks, stream
     "merkle_plan_launch": (_P, _P, _P, _P, _I, _I, _P),
-    # leaf, index, path, path_len, tree_size, root, ok, batch, depth, stream
-    "audit_paths_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # leaf, index, path, path_len, tree_size, root, ok, batch, depth,
+    # threads a block, stream
+    "audit_paths_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # leaf, index, table, path_idx, path_len, tree_size, root, ok, batch,
-    # depth, stream
+    # depth, threads a block, stream
     "audit_paths_indexed_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _P),
+                                   _I, _P),
 }
 
 _lock = threading.Lock()

@@ -15,6 +15,8 @@ so it also runs where JAX is not installed:
   same pool per tick;
 - the SHA-256 kernels (K10-K12, ``csrc/sha256.cu``) against their plain
   versions, hashlib and the host MerkleVerifier, planted faults included;
+  K10 at each block size, a 17-shift proof, and a misaligned operand
+  refused;
 - K11's commit-plan kernel at ``chip_smoke.py``'s three plan shapes (a
   real 320-key commit, a plan whose levels loop over a full cluster, a
   one-level wave) and
@@ -24,8 +26,10 @@ so it also runs where JAX is not installed:
 - a small signed pool on the card against the same pool on the CPU, through
   checkpoint slides and a view change: the same ordering, the same
   protocol timeline, and every kernel of the path launched;
-- the fabric step (K13, ``csrc/fabric.cu``), the tiled resident step
-  (``csrc/resident_tile.cu``), the ring shift and the rotation's merge
+- the fabric step (K13) and the tiled resident step, one cluster kernel
+  (``csrc/resident_tile.cu``), the first also at every cluster size the
+  report times it at, with ``ok`` and without the compact record; the
+  ring shift and the rotation's merge
   (K1, K15, ``csrc/ring.cu``) and the sharded fused step against their
   plain versions, bit-equal, at ``chip_smoke.py``'s full-width shapes (the
   sharded step at n = 16; the tiled step also on its edge shapes), and
@@ -159,6 +163,57 @@ def test_sha256_kernels_match_plain(card):
 
 
 @pytest.mark.cuda
+def test_audit_fold_block_sizes_and_alignment(card):
+    """K10 at 32, 64, 96 and 128 threads a block, dense and indexed,
+    against its plain version on proofs with planted faults (every fifth
+    index off by one, every seventh leaf flipped); the last leaf of a
+    2^17 + 1 tree (17 index shifts at its one level) verifies; a
+    misaligned operand raises instead of launching."""
+    import chip_smoke
+
+    from indy_plenum_tpu_torch.ledger.compact_merkle_tree import \
+        CompactMerkleTree
+    from indy_plenum_tpu_torch.tpu import sha256 as s2
+
+    tree, leaf_data, indices, paths = chip_smoke.audit_corpus(4096, 1000,
+                                                              1000)
+    indices = [i + (k % 5 == 0) for k, i in enumerate(indices)]
+    leaf_data = [d[::-1] if k % 7 == 0 else d
+                 for k, d in enumerate(leaf_data)]
+    n = len(leaf_data)
+    t = chip_smoke._fold_inputs(card, leaf_data, indices, paths,
+                                [tree.tree_size] * n, [tree.root_hash] * n)
+    dense = [t[k] for k in ("leaf", "index", "path", "path_len",
+                            "tree_size", "root")]
+    idx = [t[k] for k in ("leaf", "index", "table", "path_idx", "path_len",
+                          "tree_size", "root")]
+    want = s2.verify_audit_paths_plain(*dense).cpu()
+    assert torch.equal(want, s2.verify_audit_paths_indexed_plain(*idx).cpu())
+    assert 0 < int(want.sum()) < n
+    for threads in (32, 64, 96, 128):
+        assert torch.equal(s2._audit_dense_kernel(*dense, threads).cpu(),
+                           want)
+        assert torch.equal(s2._audit_indexed_kernel(*idx, threads).cpu(),
+                           want)
+    big = (1 << 17) + 1
+    long_tree = CompactMerkleTree()
+    long_tree.extend([b"%d" % i for i in range(big)])
+    last = chip_smoke._fold_inputs(
+        card, [b"%d" % (big - 1)], [big - 1],
+        [long_tree.audit_path(big - 1)], [big], [long_tree.root_hash])
+    assert bool(s2.verify_audit_paths_indexed(*[last[k] for k in (
+        "leaf", "index", "table", "path_idx", "path_len", "tree_size",
+        "root")]).all())
+    skewed = torch.empty(n * 32 + 4, dtype=torch.uint8, device=card)
+    skewed = skewed[4:].view(n, 32)
+    skewed.copy_(t["leaf"])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        s2.verify_audit_paths_indexed(skewed, *idx[1:])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        s2.verify_audit_paths(skewed, *dense[1:])
+
+
+@pytest.mark.cuda
 def test_state_waves_on_card_match_host_waves(card):
     from indy_plenum_tpu_torch.simulation.state_commit_bench import (
         run_commit_arms,
@@ -243,7 +298,10 @@ def test_fabric_kernels_match_plain(card):
 
     rng = np.random.RandomState(13)
     before = dict(kb.LAUNCHES)
-    assert chip_smoke.check_fabric(card, rng) == (0, 9)
+    # K13: 3 shapes x (3 cases at the wrapper's cluster size + 2 at each
+    # of K13_BLOCKS)
+    assert chip_smoke.check_fabric(card, rng) == (
+        0, 3 * (3 + 2 * len(chip_smoke.K13_BLOCKS)))
     # the tiled K9: each shape at k = 1, 2 and its own k, and at its own k
     # once more with every cluster size of 1 to 8 that its rows allow
     want = sum(len({1, 2, k}) + min(rows, TILE_CLUSTER_MAX)

@@ -46,7 +46,7 @@ def test_port_imports_without_jax_or_reference():
     for mod in ("tpu.ring_exchange", "tpu.rebalance"):
         assert "indy_plenum_tpu_torch." + mod in mods
     for src in ("resident.cu", "resident_tile.cu", "quorum_common.cuh",
-                "quorum.cu", "window.cu", "fabric.cu", "ring.cu"):
+                "quorum.cu", "window.cu", "ring.cu"):
         assert os.path.isfile(os.path.join(PKG, "csrc", src)), src
     blocked = ("jax", "indy_plenum_tpu", "msgpack", "cryptography")
     code = (
@@ -287,16 +287,22 @@ def test_ctypes_signatures_match_cuda_sources():
                                 "fabric_step", "resident_tile",
                                 "sharded_fused_step", "ring_shift",
                                 "rotate_merge"}
-    # K13 keeps fabric.cu's two kernels; the tiled K9 is one cluster
-    # launch of its own; K1 and K15 are csrc/ring.cu
-    with open(os.path.join(kb.CSRC_DIR, "fabric.cu")) as fh:
-        fabric = fh.read()
-    assert 'extern "C" int fabric_step_launch(' in fabric
-    assert "int fabric_decide(" in fabric
+    # K13 and the tiled K9 are one cluster kernel's two entry points; no
+    # partial counts and no second kernel anywhere; K1 and K15 are
+    # csrc/ring.cu
+    assert not os.path.exists(os.path.join(kb.CSRC_DIR, "fabric.cu"))
     with open(os.path.join(kb.CSRC_DIR, "resident_tile.cu")) as fh:
         tile = fh.read()
-    assert 'extern "C" int resident_tile_launch(' in tile
-    assert "fabric_decide" not in tile
+    for fn in ("resident_tile_launch", "fabric_step_launch"):
+        assert f'extern "C" int {fn}(' in tile, fn
+    assert tile.count("__global__") == 1
+    for name in os.listdir(kb.CSRC_DIR):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(kb.CSRC_DIR, name)) as fh:
+                src = fh.read()
+            for gone in ("fabric_tile_kernel", "fabric_decide",
+                         "tile_partials"):
+                assert gone not in src, (name, gone)
     with open(os.path.join(kb.CSRC_DIR, "ring.cu")) as fh:
         ring = fh.read()
     for fn in ("ring_shift_launch", "rotate_merge_launch"):

@@ -1,6 +1,10 @@
 """The partition of the port's tiled resident step (the tiled K9,
 ``csrc/resident_tile.cu``), modelled in Python, against the port's plain
-version (``resident_tile_plain``) and JAX's ``resident_plan_for(mesh)``.
+version (``resident_tile_plain``) and JAX's ``resident_plan_for(mesh)``;
+and the same kernel at one slot with no slide, an optional per-word
+verdict ``ok`` and the compact record optional (K13, ``fabric_step``)
+against ``fabric_step_plain`` and JAX's fabric step (``plan_for(mesh)``:
+``step_compact_local`` on a validator axis) and ``make_sharded_step``.
 
 The model runs the kernel's cluster block by block: block b of B owns the
 validator rows [b N / B, (b + 1) N / B), block 0 also the slot-axis rows,
@@ -145,10 +149,11 @@ def chunk_counts(pv, cv, m, n_rows, s, r0, nr):
     return pc, cc
 
 
-def scatter(st, m, words_row, n_rows, s, c, r0, nr, lead):
-    """``scatter_member_rows`` over the block's rows [r0, r0 + nr)."""
-    for w in (int(x) for x in words_row):
-        if not w >> 31:
+def scatter(st, m, words_row, n_rows, s, c, r0, nr, lead, ok_row=None):
+    """``scatter_member_rows`` over the block's rows [r0, r0 + nr); a word
+    whose ``ok_row`` verdict is 0 is dropped."""
+    for j, w in enumerate(int(x) for x in words_row):
+        if not w >> 31 or (ok_row is not None and not ok_row[j]):
             continue
         kind, sender, slot = (w >> 29) & 3, (w >> 16) & 0x1FFF, w & 0xFFFF
         if kind == 0:
@@ -162,9 +167,12 @@ def scatter(st, m, words_row, n_rows, s, c, r0, nr, lead):
                 st["ck"][(m * n_rows + sender) * c + slot] = 1
 
 
-def model_consume(leaves, slides, words_seq, n_validators, blocks):
+def model_consume(leaves, slides, words_seq, n_validators, blocks,
+                  ok_seq=None, compact=True):
     """The kernel on every member: returns the final leaves (numpy) and
-    (events, compact) from the decide."""
+    (events, compact) from the decide. ``slides`` None slides nothing (K13);
+    ``ok_seq`` (per slot, (M, W)) drops words; without ``compact`` the
+    decide leaves prepared_acked and the frontier."""
     pp, pv, cv, ck, ordered, acked, frontier = [a.copy() for a in leaves]
     m_count, n_rows, s = pv.shape
     c = ck.shape[-1]
@@ -180,7 +188,7 @@ def model_consume(leaves, slides, words_seq, n_validators, blocks):
             r0, nr = rows_of(rank, n_rows, blocks)
             lead = rank == 0
             for k in range(len(words_seq)):
-                d = int(slides[k][m])
+                d = 0 if slides is None else int(slides[k][m])
                 if d > 0:
                     run = (m * n_rows + r0) * s
                     slide_run(st["pv"], run, nr * s, s, d)
@@ -190,7 +198,8 @@ def model_consume(leaves, slides, words_seq, n_validators, blocks):
                             slide_run(st[name], m * s, s, s, d)
                         frontier[m] = max(int(frontier[m]) - d, 0)
                     ck[m, r0:r0 + nr] = 0
-                scatter(st, m, words_seq[k][m], n_rows, s, c, r0, nr, lead)
+                scatter(st, m, words_seq[k][m], n_rows, s, c, r0, nr, lead,
+                        None if ok_seq is None else ok_seq[k][m])
             part_p, part_c = chunk_counts(st["pv"], st["cv"], m, n_rows, s,
                                           r0, nr)
             part_k = [int(ck[m, r0:r0 + nr, x].sum()) for x in range(c)]
@@ -209,7 +218,7 @@ def model_consume(leaves, slides, words_seq, n_validators, blocks):
                            (pp, pv, cv, ck, ordered, acked, frontier)])
     events, comp = tq.decide_plain(state, torch.from_numpy(pc),
                                    torch.from_numpy(cc), torch.from_numpy(kc),
-                                   n_validators)
+                                   n_validators, compact=compact)
     return state, events, comp
 
 
@@ -249,23 +258,100 @@ def _words(rng, m, w, n_rows, n_real, s, c):
     return out
 
 
-# (mesh shape, members, real validators, rows, S, C, slots, width, B)
+# (mesh shape, members, real validators, rows, S, C, slots, width, B,
+# K13's (ok, compact) or None for the tiled K9). A K13 case whose mesh
+# is one validator axis (``("validators",)`` of v tiles, one member, no
+# pad rows) is also held against JAX's ``make_sharded_step``.
 CASES = {
-    "v1_s15_k4_b4": ((8,), 8, 6, 6, 15, 3, 4, 32, 4),
-    "v2_pad_s30_k2_b3": ((4, 2), 4, 5, 6, 30, 6, 2, 32, 3),
-    "v4_pad_s20_k4_b8": ((2, 4), 2, 7, 8, 20, 4, 4, 24, 8),
-    "v2_s15_k1_b5": ((4, 2), 4, 10, 10, 15, 3, 1, 32, 5),
-    "v2_pad_s300_k2_b3": ((4, 2), 4, 5, 6, 300, 3, 2, 48, 3),
+    "v1_s15_k4_b4": ((8,), 8, 6, 6, 15, 3, 4, 32, 4, None),
+    "v2_pad_s30_k2_b3": ((4, 2), 4, 5, 6, 30, 6, 2, 32, 3, None),
+    "v4_pad_s20_k4_b8": ((2, 4), 2, 7, 8, 20, 4, 4, 24, 8, None),
+    "v2_s15_k1_b5": ((4, 2), 4, 10, 10, 15, 3, 1, 32, 5, None),
+    "v2_pad_s300_k2_b3": ((4, 2), 4, 5, 6, 300, 3, 2, 48, 3, None),
+    "k13_v1_ok_b3": ((8,), 8, 6, 6, 15, 3, 1, 32, 3, (True, True)),
+    "k13_v1_nocompact_b1": ((8,), 8, 6, 6, 15, 3, 1, 32, 1, (False, False)),
+    "k13_v2_pad_ok_b4": ((4, 2), 4, 5, 6, 30, 6, 1, 32, 4, (True, True)),
+    "k13_v2_pad_ok_nocompact_b3": ((4, 2), 4, 5, 6, 300, 3, 1, 48, 3,
+                                   (True, False)),
+    "k13_v4_pad_b8": ((2, 4), 2, 7, 8, 20, 4, 1, 24, 8, (False, True)),
+    "k13_v4_pad_ok_nocompact_b2": ((2, 4), 2, 7, 8, 22, 4, 1, 24, 2,
+                                   (True, False)),
+    "k13_sharded_v2_ok_b3": ((2,), 1, 6, 6, 30, 4, 1, 48, 3,
+                             (True, False)),
+    "k13_sharded_v4_b8": ((4,), 1, 8, 8, 32, 4, 1, 64, 8, (False, False)),
 }
+
+
+def _check_k13(case, rng, leaves, shape, m, n, rows, s, c, w, blocks, v,
+               use_ok, compact):
+    """K13: one slot, no slide, ``ok`` and ``compact`` as the case says:
+    the model against ``fabric_step_plain`` and JAX (the same words with
+    every dropped one marked invalid, the reference's ``valid &= ok``)."""
+    # one member more than needed: the last one's row is all invalid
+    words = _words(rng, m + 1, w, rows, n, s, c)[:m]
+    ok = rng.rand(m, w) < 0.8 if use_ok else None
+    state, events, comp = model_consume(
+        leaves, None, [words], n, blocks, None if ok is None else [ok],
+        compact)
+    plain_state = tq.VoteState(*[torch.from_numpy(a.copy())
+                                 for a in leaves])
+    pev, pcomp = tq.fabric_step_plain(
+        plain_state, tq.words_tensor(words), n, v, compact=compact,
+        ok=None if ok is None else torch.from_numpy(ok))
+    ours = list(state) + list(events) + (list(comp) if compact else [])
+    theirs = list(plain_state) + list(pev) + (list(pcomp) if compact
+                                              else [])
+    for a, b in zip(ours, theirs):
+        assert torch.equal(a, b)
+    if not compact:  # prepared_acked and the frontier as they were
+        assert np.array_equal(state.prepared_acked.numpy(), leaves[5])
+        assert np.array_equal(state.frontier.numpy(), leaves[6])
+    jw = words if ok is None else np.where(ok, words, words & 0x7FFFFFFF)
+    jstate = jq.VoteState(*[jnp.asarray(a) for a in leaves])
+    if case.startswith("k13_sharded"):
+        from jax.sharding import Mesh
+
+        assert m == 1 and rows == n and not compact
+        jfn = jq.make_sharded_step(
+            Mesh(np.array(jax.devices()[:v]), ("validators",)), n)
+        jst, jev = jfn(jq.VoteState(*[x[0] for x in jstate]),
+                       jq.unpack_words(jnp.asarray(jw[0])))
+        for a_all, b_all in ((jst, state), (jev, events)):
+            for a, b in zip(a_all, b_all):
+                assert np.array_equal(np.asarray(a), b.numpy()[0])
+        return events
+    jplan = jcp.plan_for(jq.make_fabric_mesh(jax.devices()[:8], shape), n,
+                         rows, jq.ORDER_DELTA_CAP)
+    jst, jev, jcomp = jplan.step(jstate, jnp.asarray(jw))
+    if not compact:  # the reference's full-events step keeps both
+        jst = jst._replace(prepared_acked=jnp.asarray(leaves[5]),
+                           frontier=jnp.asarray(leaves[6]))
+    outs = [(jst, state), (jev, events)] + ([(jcomp, comp)] if compact
+                                            else [])
+    for a_all, b_all in outs:
+        for a, b in zip(a_all, b_all):
+            assert np.array_equal(np.asarray(a), b.numpy())
+    return events
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_cluster_model_matches_plain_and_jax(case):
-    shape, m, n, rows, s, c, k, w, blocks = CASES[case]
-    v = shape[1] if len(shape) > 1 else 1
-    assert blocks > v and rows % v == 0
-    rng = np.random.RandomState(sorted(CASES).index(case) + 70)
+    shape, m, n, rows, s, c, k, w, blocks, k13 = CASES[case]
+    if k13 is not None and case.startswith("k13_sharded"):
+        v = shape[0]  # one validator axis
+    else:
+        v = shape[1] if len(shape) > 1 else 1
+    assert rows % v == 0 and 1 <= blocks <= rows
+    assert k13 is not None or blocks > v
+    kin = sorted(x for x in CASES if (CASES[x][-1] is None) == (k13 is None))
+    rng = np.random.RandomState(kin.index(case) + (70 if k13 is None else 90))
     leaves = _leaves(rng, m, rows, n, s, c)
+    if k13 is not None:
+        assert k == 1
+        events = _check_k13(case, rng, leaves, shape, m, n, rows, s, c, w,
+                            blocks, v, *k13)
+        assert int(events.ordered.sum()) > 0
+        return
     mix = np.array([0, 1, 2, 3, 4, 5, s - 1, s, s + 3], np.int32)
     slides = mix[rng.randint(0, len(mix), (k, m))]
     slides[:, 0] = 0
