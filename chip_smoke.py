@@ -18,8 +18,9 @@ member planes; LOG_SIZE 300, CHK_FREQ 100):
                 rows), K-d (K7) quorum step (from an empty state, and
                 from random states at the shapes of phases A, B, H, C and
                 R), K8 window slide (host and device deltas, 520 sliding
-                members) and zero, each against its plain version on the
-                same inputs; K12 SHA-256 (11 padding-edge lengths) and K11
+                members) and zero (host and device masks: none, one,
+                every and 520 members), each against its plain version on
+                the same inputs; K12 SHA-256 (11 padding-edge lengths) and K11
                 (waves of 1 .. 65,536 as one-level plans, a real 320-key
                 commit plan of ~250 levels, a plan whose levels loop over
                 a full cluster)
@@ -27,11 +28,13 @@ member planes; LOG_SIZE 300, CHK_FREQ 100):
                 and indexed, on 16,384 proofs of a 131,072-leaf tree with
                 planted faults, against the plain versions and the host
                 MerkleVerifier, and a chunk with a 49+-level path; K9
-                resident step at phase A's and B's group shapes for k =
-                1, 2, 4 and 7 slots (edge slides, an empty slot), and
-                against K7 at k = 1; K14 fused verify + quorum step at the
-                graft entry's shape and on 8,192 signed votes with planted
-                faults, against its plain version, the pure-Python oracle
+                resident step at phase A's and B's group shapes and an odd
+                N for k = 1, 2, 4 and 7 slots (edge slides, an empty
+                slot), with one member sliding at 1, 2, 4 and 8 blocks a
+                member, and against K7 at k = 1; K14 fused verify +
+                quorum step at the graft entry's shape and on 8,192
+                signed votes with planted faults, against its plain
+                version, the pure-Python oracle
                 and K7 alone on the good votes; K13 fabric step at M = N =
                 256, S = 300 on (8,) and (4, 2) and N = 250 on v = 4, with
                 and without ``ok`` and the compact record, at the
@@ -706,9 +709,12 @@ def check_window(dev, rng, m, n, s, c, chk_freq):
     member sliding by a checkpoint interval), every member sliding, all
     deltas 0 (no launch, the state unchanged), the same edges as device
     deltas, and more sliding members than one launch's pairs (2 x 256 + 8
-    members of N = 4, deltas 1 .. S + 1: three launches); zeros under
-    random masks. Host deltas make ceil(sliding members / 256) launches,
-    device deltas one."""
+    members of N = 4, deltas 1 .. S + 1: three launches); zeros with an
+    empty mask (no launch), one member (the pool's reset), every member,
+    random members as a host and as a CUDA mask, and more members than
+    one launch's rows (2 x 256 + 8 members of N = 4: three launches).
+    Host deltas and masks make ceil(members / 256) launches, device ones
+    one: 7 slide and 7 zero launches a call."""
     import torch
     from indy_plenum_tpu_torch.tpu import quorum as q
     from indy_plenum_tpu_torch.utils import kernel_build as kb
@@ -737,12 +743,28 @@ def check_window(dev, rng, m, n, s, c, chk_freq):
                                  f"{kb.LAUNCHES['window_slide'] - before} "
                                  f"launches, not {want}")
         err_slide = max(err_slide, _max_abs_err(list(zip(state, shadow))))
-    for p_hit in (0.1, 0.5, 1.0):
-        state = _random_votes(dev, rng, m, n, s, c)
+    one = np.zeros(m, bool)
+    one[rng.randint(m)] = True
+    some = rng.rand(m) < 0.3
+    some[0] = True
+    wide = 2 * q.ZERO_ROWS_PER_LAUNCH + 8
+    for mm, nn, mask, on_card in ((m, n, np.zeros(m, bool), False),
+                                  (m, n, one, False),
+                                  (m, n, np.ones(m, np.uint8), False),
+                                  (m, n, some, False), (m, n, some, True),
+                                  (wide, 4, np.ones(wide, bool), False)):
+        state = _random_votes(dev, rng, mm, nn, s, c)
         shadow = q.clone_state(state)
-        mask = torch.from_numpy((rng.rand(m) < p_hit).astype(np.uint8))
-        q.zero_members(state, mask)
-        q.zero_plain(shadow, mask)
+        before = kb.LAUNCHES["window_zero"]
+        t = torch.from_numpy(mask)
+        q.zero_members(state, t.to(dev) if on_card else t)
+        q.zero_plain(shadow, t)
+        hits = int(np.count_nonzero(mask))
+        want = 1 if on_card else -(-hits // q.ZERO_ROWS_PER_LAUNCH)
+        if kb.LAUNCHES["window_zero"] - before != want:
+            raise AssertionError(f"K8 zero of {hits} members: "
+                                 f"{kb.LAUNCHES['window_zero'] - before} "
+                                 f"launches, not {want}")
         err_zero = max(err_zero, _max_abs_err(list(zip(state, shadow))))
     if err_slide or err_zero:
         raise AssertionError(f"K8 differs from plain: slide {err_slide}, "
@@ -752,6 +774,7 @@ def check_window(dev, rng, m, n, s, c, chk_freq):
 
 RESIDENT_SLOTS = (1, 2, 4, 7)  # K9's ring slots per consume, checked
 RESIDENT_WIDTH = 128  # the group's slot width (flush_batch) at n <= 64
+RESIDENT_BLOCKS = (1, 2, 4, 8)  # K9's cluster sizes, forced and checked
 
 
 def resident_words(rng, k, m, w, n, s):
@@ -770,10 +793,14 @@ def resident_words(rng, k, m, w, n, s):
 def check_resident(dev, rng, m, n, s, c, chk_freq, w=RESIDENT_WIDTH):
     """K9 against its plain version on an (M, N, S, C) group with W-wide
     slots, k = 1, 2, 4 and 7: seeded vote states and words, slides mixing
-    0, 1, the checkpoint interval, S - 1, S and 2S, one all-empty slot and
-    a member whose frontier is below its delta; every state leaf, event
-    and compact output equal. Then K9 with one zero-slide slot against K7
-    on the same state and words."""
+    0, 1, the checkpoint interval, S - 1, S and 2S (host slides at even k,
+    slides on the card at odd k), one all-empty slot and a member whose
+    frontier is below its delta; every state leaf, event and compact
+    output equal. Then the pool's slide pattern (k = 4, one
+    member sliding by the checkpoint interval in the first slot) with the
+    cluster forced to each of ``RESIDENT_BLOCKS`` up to N blocks, counted
+    as K9's launches; then K9 with one zero-slide slot against K7 on the
+    same state and words."""
     import torch
     from indy_plenum_tpu_torch.tpu import quorum as q
 
@@ -787,9 +814,24 @@ def check_resident(dev, rng, m, n, s, c, chk_freq, w=RESIDENT_WIDTH):
         slides[:, 0] = 0  # one member never slides
         slides[0, m - 1] = chk_freq
         words = q.words_tensor(resident_words(rng, k, m, w, n, s), dev)
-        ev, comp = q.resident_step(state, torch.from_numpy(slides), words, n)
+        host = torch.from_numpy(slides)  # on the card at odd k
+        ev, comp = q.resident_step(state, host.to(dev) if k % 2 else host,
+                                   words, n)
         pev, pcomp = q.resident_step_plain(
             shadow, torch.from_numpy(slides).to(dev), words, n)
+        err = max(err, _max_abs_err(list(zip(state, shadow))
+                                    + list(zip(ev, pev))
+                                    + list(zip(comp, pcomp))))
+    for blocks in [b for b in RESIDENT_BLOCKS if b <= n]:
+        state = _random_votes(dev, rng, m, n, s, c)
+        shadow = q.clone_state(state)
+        slides = torch.zeros((4, m), dtype=torch.int32)
+        slides[0, rng.randint(m)] = chk_freq
+        words = q.words_tensor(resident_words(rng, 4, m, w, n, s), dev)
+        ev, comp = q._resident_tile_kernel(state, slides, words, n, 1,
+                                           q.ORDER_DELTA_CAP, blocks,
+                                           "resident_step")
+        pev, pcomp = q.resident_step_plain(shadow, slides.to(dev), words, n)
         err = max(err, _max_abs_err(list(zip(state, shadow))
                                     + list(zip(ev, pev))
                                     + list(zip(comp, pcomp))))
@@ -2275,11 +2317,12 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
     # K8 moves bytes and computes nothing: the sliding member's rows read
     # where they survive (S - d columns) and written whole, its
     # checkpoint votes written, its frontier read and written, the deltas
-    # read; the zero writes every leaf of the masked member, reads the mask
+    # read; the zero writes every leaf of the reset member (its row, like
+    # the host mask it comes from, travels in the launch's parameters)
     leaf_rows = 2 * n + 3
     slide_bytes = (leaf_rows * (s - CHK_FREQ) + leaf_rows * s + n * c + 8
                    + 4 * m)
-    zero_bytes = leaf_rows * s + n * c + 4 + m
+    zero_bytes = leaf_rows * s + n * c + 4
 
     rows = [
         ("sha512_blocks", "indy_plenum_tpu_torch/csrc/sha512.cu",
@@ -2485,7 +2528,13 @@ def sha256_report(dev, corpus, rng, launches, errs):
 def residency_report(dev, rng, launches, errs, inputs):
     """K9 and K14 rows of the kernels line. K9 at phase F1's consume: a
     (64, 64, 300, 3) group, k = 4 slots of 128 words (phase A's waves and
-    votes), no slide (F1's 11 batches stay below a checkpoint). K14 at
+    votes), no slide (F1's 11 batches stay below a checkpoint); beside it
+    the same consume with one member sliding by ``CHK_FREQ`` in the first
+    slot (the slide fold's pattern), and the cluster size the wrapper
+    picks for each from host slides, as the ring passes them. K9's ms
+    times that launch with the slides already on the card (the kernel
+    alone); its call ms times ``q.resident_step`` with host slides (their
+    copy to the card included). K14 at
     phase G's 8,192 signed votes into one (64, 300) member. Bounds: K9's
     bytes are the words and slides read, the planes read once for the
     eval and the step's writes (``step_work``), and 2 x (2N + 3) x S + N x
@@ -2501,8 +2550,17 @@ def residency_report(dev, rng, launches, errs, inputs):
     state = _random_votes(dev, rng, m, n, s, c)
     words_np = resident_words(rng, k, m, w, n, s)
     words = q.words_tensor(words_np, dev)
-    slides = torch.zeros((k, m), dtype=torch.int32, device=dev)
+    slides = torch.zeros((k, m), dtype=torch.int32)
     sliding = int((slides != 0).any(dim=0).sum())
+    slides_one = slides.clone()
+    slides_one[0, rng.randint(m)] = CHK_FREQ
+    blocks = q._cluster_blocks(dev, n, s, c, m, False, sliding > 0)
+    blocks_one = q._cluster_blocks(dev, n, s, c, m, False, True)
+
+    def launch(on_card, b):
+        return lambda: q._resident_tile_kernel(
+            state, on_card, words, n, 1, q.ORDER_DELTA_CAP, b,
+            "resident_step")
 
     def resident():
         return q.resident_step(state, slides, words, n)
@@ -2522,19 +2580,22 @@ def residency_report(dev, rng, launches, errs, inputs):
     nbytes += 4 * k * m + sliding * (2 * (2 * n + 3) * s + n * c)
     kc_ms, kc_by = bound(batch * (4 * 32 + 1), batch * VERIFY_OPS_PER_ITEM)
     k7_ms, _ = bound(*step_work(1, n, s, c, words_g))
-    for name, fn, plain, (bound_ms, bound_by), src, replaces in (
-            ("resident_step", resident,
-             lambda: q.resident_step_plain(state, slides, words, n),
-             bound(nbytes, ops), "indy_plenum_tpu_torch/csrc/resident.cu",
+    for name, fn, call, plain, (bound_ms, bound_by), src, replaces in (
+            ("resident_step", launch(slides.to(dev), blocks), resident,
+             lambda: q.resident_step_plain(state, slides.to(dev), words,
+                                           n),
+             bound(nbytes, ops),
+             "indy_plenum_tpu_torch/csrc/resident_tile.cu",
              "indy_plenum_tpu/tpu/compile_plan.py:100"),
-            ("fused_step", fused,
+            ("fused_step", fused, fused,
              lambda: st.fused_step_plain(gstate, gwords, *sig,
                                          n_validators=n),
              (kc_ms + k7_ms, kc_by),
              "indy_plenum_tpu_torch/tpu/step.py (csrc/ed25519.cu + "
              "csrc/quorum.cu)", "indy_plenum_tpu/tpu/step.py:29")):
         ms = _kernel_ms(fn, 20 if name == "resident_step" else 5)
-        call_ms[name] = _cuda_ms(fn, 20 if name == "resident_step" else 5)
+        call_ms[name] = _cuda_ms(call, 20 if name == "resident_step"
+                                 else 5)
         plain_ms = _cuda_ms(plain, 1, 0)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
@@ -2542,8 +2603,12 @@ def residency_report(dev, rng, launches, errs, inputs):
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
     kc_alone = _kernel_ms(lambda: ted.verify_kernel(*sig), 5)
+    one_sliding = _kernel_ms(launch(slides_one.to(dev), blocks_one), 20)
     return rows, call_ms, {"resident_step": f"k={k} x {m} x {w} words, "
-                           f"{m} x {n} x {s}, {sliding} sliding",
+                           f"{m} x {n} x {s}, {sliding} sliding, "
+                           f"{blocks} blocks a member ({blocks_one} with "
+                           f"one sliding)",
+                           "resident_step_one_sliding_ms": one_sliding,
                            "fused_step": f"{batch} votes, 1 x {n} x {s}",
                            "fused_step_verify_ms": kc_alone}
 
@@ -2631,7 +2696,7 @@ def fabric_report(dev, rng, launches, errs, inputs):
          "indy_plenum_tpu_torch/tpu/step.py (csrc/ed25519.cu + "
          "csrc/resident_tile.cu)", "indy_plenum_tpu/tpu/step.py:46", 5),
     ]
-    tile_blocks = q._cluster_blocks(dev, n, s, c, m, False)
+    tile_blocks = q._cluster_blocks(dev, n, s, c, m, False, True)
     k13_blocks = q._cluster_blocks(dev, n, s, c, m, True)
     library = {"ring_shift": _kernel_ms(
         lambda: [torch.roll(x, r, dims=0) for x in state], 20)}
@@ -2749,13 +2814,15 @@ def main() -> int:
     err_k12, err_k11 = check_sha256(dev, rng)
     corpus = audit_corpus()
     err_k10, n_planted = check_audit(dev, corpus, rng)
-    # K9 at phase A's / F1's group and at phase B's / F2's; K14 at the
-    # graft entry's shape and at full width (phase G's votes)
+    # K9 at phase A's / F1's group, at phase B's / F2's and at an odd N,
+    # each also at 1, 2, 4 and 8 blocks a member; K14 at the graft entry's
+    # shape and at full width (phase G's votes)
     err_k9 = max(check_resident(dev, rng, N_VALIDATORS, N_VALIDATORS,
                                 LOG_SIZE, N_CHECKPOINTS, CHK_FREQ),
                  check_resident(dev, rng, B_NODES * B_INSTANCES, B_NODES,
                                 B_LOG_SIZE, B_LOG_SIZE // B_CHK_FREQ,
-                                B_CHK_FREQ))
+                                B_CHK_FREQ),
+                 check_resident(dev, rng, 6, 7, 40, 2, 5, w=32))
     fused = fused_inputs(rng, N_VALIDATORS, LOG_SIZE, DRAIN)
     err_k14, k14_accepted, k14_oracle = check_fused(dev, rng, fused)
     # K13, the tiled K9, K1, K15 and the sharded K14 at full width

@@ -1,11 +1,10 @@
 // Device code shared by the vote-plane kernels: the grouped quorum step
-// (K7, quorum.cu), the window slide and zero (K8, window.cu), the
-// resident multi-slot step (K9, resident.cu), and its tiled form and the
-// member x validator fabric step (the tiled K9 and K13, one kernel in
-// resident_tile.cu). K7, both K9s and K13 decide through one path
-// (decide_slots, decide_checkpoints, compact_member; decide_member chains
-// them in one block for K9, K7 and resident_tile.cu spread them over a
-// cluster), so they cannot drift.
+// (K7, quorum.cu), the window slide and zero (K8, window.cu), and the
+// resident step in its one form for every validator tile count (K9 at one
+// tile, the tiled K9) with the member x validator fabric step (K13): one
+// kernel in resident_tile.cu. K7, K9 and K13 decide through one path
+// (decide_slots, decide_checkpoints, compact_member), spread over a
+// cluster, so they cannot drift.
 //
 // Every function here works on ONE member plane inside one thread block
 // and is called by all threads of the block alike (some hold a barrier).
@@ -53,27 +52,13 @@ struct Events {
   int32_t* frontier;
 };
 
-// row r of member m's slot-axis leaves: 0 preprepare_seen, 1 ordered,
-// 2 prepared_acked, then N prepare rows, then N commit rows
-__device__ __forceinline__ uint8_t* row_ptr(const Planes& p, int r, int m,
-                                            int N, int S) {
-  const size_t ms = static_cast<size_t>(m) * S;
-  if (r == 0) return p.pp + ms;
-  if (r == 1) return p.ordered + ms;
-  if (r == 2) return p.acked + ms;
-  r -= 3;
-  uint8_t* plane = r < N ? p.pv : p.cv;
-  const int n = r < N ? r : r - N;
-  return plane + (static_cast<size_t>(m) * N + n) * S;
-}
-
 // Decode member m's W words and store 1 into the hit planes: prepare and
-// commit votes of the validator rows [row_lo, row_lo + rows) (a fabric
-// tile's senders; the whole plane for K7 and K9) at the slots [s_lo,
-// s_hi) (a K7 cluster block's chunk; all S otherwise); PRE-PREPAREs at
-// those slots when ``pp_owner`` (per slot, whatever the sender:
-// quorum.py:170); checkpoint votes of those rows when ``ck_owner``
-// (bounded by C, not S: :153). So every byte has one writer. The
+// commit votes of the validator rows [row_lo, row_lo + rows) (a
+// resident_tile.cu cluster block's rows; the whole plane for K7) at the
+// slots [s_lo, s_hi) (a K7 cluster block's chunk; all S otherwise);
+// PRE-PREPAREs at those slots when ``pp_owner`` (per slot, whatever the
+// sender: quorum.py:170); checkpoint votes of those rows when
+// ``ck_owner`` (bounded by C, not S: :153). So every byte has one writer. The
 // reference's scatter is a max of 0/1 bytes, idempotent, so plain stores
 // are right in any thread order. ``okm`` (nullable) is a per-word verdict:
 // a word whose verdict is 0 is dropped like an invalid one (K14's masked
@@ -111,53 +96,23 @@ __device__ __forceinline__ void scatter_member_rows(
   }
 }
 
-// The whole plane: K9's scatter.
-__device__ __forceinline__ void scatter_member(
-    const Planes& p, int m, const uint32_t* __restrict__ wm,
-    const uint8_t* __restrict__ okm, int N, int S, int C, int W) {
-  scatter_member_rows(p, m, wm, okm, N, S, C, W, 0, N, 0, S, true, true);
-}
-
-// Roll rows [r0, r0 + nr) of member m left by d > 0, zero-filling the
-// vacated columns: out[c] = c < S - d ? in[c + d] : 0, so d >= S clears
-// the rows. The shift is in place, so the rows are staged in ``stage``
-// (nr x S bytes of shared memory) before any is written back; a caller
-// reusing ``stage`` for more rows must synchronize first.
-__device__ __forceinline__ void slide_rows(const Planes& p, int m, int r0,
-                                           int nr, int d, int N, int S,
-                                           uint8_t* stage) {
-  const int span = nr * S;
-  const int keep = d < S ? S - d : 0;
-  if (keep > 0) {
-    for (int i = threadIdx.x; i < span; i += blockDim.x) {
-      const int r = i / S, c = i - r * S;
-      stage[i] = row_ptr(p, r0 + r, m, N, S)[c];
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < span; i += blockDim.x) {
-    const int r = i / S, c = i - r * S;
-    row_ptr(p, r0 + r, m, N, S)[c] = c < keep ? stage[i + d] : 0;
-  }
-}
-
 constexpr int kSlideUnroll = 4;  // words a thread holds between barriers
 
-// Roll the len = nr x S bytes at ``run`` (nr whole rows of S bytes, one
-// after another) left by d > 0 row by row, zero-filling the vacated
-// columns: slide_rows' function on a contiguous run, with no shared-memory
-// stage. Called by every thread of the block (it holds barriers). The run
-// moves as one flat stretch: out[i] = in[i + d] unless i's column i mod S
-// is >= S - d, then 0. A thread writes whole aligned 4-byte words: each
-// from one or two aligned loads joined by a funnel shift when d % 4 != 0,
-// its columns walked incrementally (no division a byte); the words at the
-// ends of a run, which hold bytes of a neighbouring run, are written a
-// byte at a time. A read can fall outside the run (the aligned words at
-// its ends, or past the run's end), but such bytes only feed bytes outside
-// the run or masked columns, and a load never starts past the run's end.
-// The run is moved in stretches of kSlideUnroll words a thread: every
-// read of a stretch before a barrier, then its writes; a later stretch
-// reads only words at or past its own, which this one does not write.
+// Roll the len = nr x S bytes at ``run`` (nr whole rows of S bytes, one after
+// another) left by d > 0 row by row, zero-filling the vacated columns (out[c]
+// = c < S - d ? in[c + d] : 0, so d >= S clears the rows), in place with no
+// shared-memory stage. Called by every thread of the block (it holds
+// barriers). The run moves as one flat stretch: out[i] = in[i + d] unless i's
+// column i mod S is >= S - d, then 0. A thread writes whole aligned 4-byte
+// words: each from one or two aligned loads joined by a funnel shift when d %
+// 4 != 0, its columns walked incrementally (no division a byte); the words at
+// the ends of a run, which hold bytes of a neighbouring run, are written a
+// byte at a time. A read can fall outside the run (the aligned words at its
+// ends, or past the run's end), but such bytes only feed bytes outside the run
+// or masked columns, and a load never starts past the run's end. The run is
+// moved in stretches of kSlideUnroll words a thread: every read of a stretch
+// before a barrier, then its writes; a later stretch reads only words at or
+// past its own, which this one does not write.
 __device__ __forceinline__ void slide_run(uint8_t* run, int len, int S,
                                           int d) {
   const int pre = static_cast<int>(reinterpret_cast<uintptr_t>(run) & 3);
@@ -222,6 +177,27 @@ __device__ __forceinline__ void slide_run(uint8_t* run, int len, int S,
   }
 }
 
+// Zero the len >= 0 bytes at ``run``, by every thread of the block alike:
+// the bytes before the run's first 16-byte boundary one a thread, its
+// aligned body as 16-byte stores, the bytes after its last whole 16-byte
+// word one a thread. Every byte of the run is written once and no byte
+// outside it.
+__device__ __forceinline__ void zero_run(uint8_t* run, int len) {
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(run) & 15);
+  int head = (16 - mis) & 15;
+  if (head > len) head = len;
+  const int body = (len - head) >> 4;
+  const int tail = (len - head) & 15;
+  const int t = static_cast<int>(threadIdx.x);
+  if (t < head) run[t] = 0;
+  uint4* words = reinterpret_cast<uint4*>(run + head);
+  for (int i = t; i < body; i += static_cast<int>(blockDim.x)) {
+    words[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  uint8_t* end = run + head + 16 * body;
+  if (t < tail) end[t] = 0;
+}
+
 // The member-wide rest of a slide by d > 0: checkpoint votes cleared, the
 // frontier slid with the window and clamped at 0.
 __device__ __forceinline__ void slide_tail(const Planes& p, int m, int d,
@@ -232,23 +208,6 @@ __device__ __forceinline__ void slide_tail(const Planes& p, int m, int d,
     const int f = p.frontier[m] - d;
     p.frontier[m] = f > 0 ? f : 0;
   }
-}
-
-// Column counts of member m's validator rows [r0, r0 + nr) at slot s (the
-// prepare and commit planes) and at checkpoint slot c. Threads walk
-// slots, so the reads of each validator row are coalesced.
-__device__ __forceinline__ void column_counts(const Planes& p, int m, int r0,
-                                              int nr, int N, int S, int s,
-                                              int* pc, int* cc) {
-  const uint8_t* pvm = p.pv + (static_cast<size_t>(m) * N + r0) * S;
-  const uint8_t* cvm = p.cv + (static_cast<size_t>(m) * N + r0) * S;
-  int a = 0, b = 0;
-  for (int n = 0; n < nr; ++n) {
-    a += pvm[static_cast<size_t>(n) * S + s];
-    b += cvm[static_cast<size_t>(n) * S + s];
-  }
-  *pc = a;
-  *cc = b;
 }
 
 __device__ __forceinline__ int checkpoint_count(const Planes& p, int m,
@@ -273,17 +232,17 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* row, int s0,
   return v;
 }
 
-// Prepare and commit column counts of member m's validator rows [r0, r0 +
-// nr) at the slots [s_lo, s_hi) into pc[s - s_lo] and cc[s - s_lo]
-// (shared memory the caller zeroed before a barrier). A thread takes one
-// 4-slot word of the chunk and the rows g, g + G, ... of the run (G row
-// groups), so neighbouring lanes read neighbouring words of a row. Bytes are summed two to a 32-bit lane
-// (bytes 0 and 2, bytes 1 and 3, 16 bits each): exact for any byte
-// values over 256 rows, then widened to int; the G groups meet in shared
-// atomics. Rows are read a word at a time when S % 4 == 0 (every row then
-// starts 4-byte aligned, and the chunk bounds are multiples of 4), else a
-// byte at a time: both paths load the same bytes into the same lanes, so
-// they give the same sums.
+// Prepare and commit column counts of member m's validator rows [r0, r0 + nr)
+// at the slots [s_lo, s_hi) into pc[s - s_lo] and cc[s - s_lo] (shared memory
+// the caller zeroed before a barrier). A thread takes one 4-slot word of the
+// chunk and the rows g, g + G, ... of the run (G row groups), so neighbouring
+// lanes read neighbouring words of a row. Bytes are summed two to a 32-bit
+// lane (bytes 0 and 2, bytes 1 and 3, 16 bits each): exact for any byte values
+// over 256 rows, then widened to int; the G groups meet in shared atomics.
+// Rows are read a word at a time when S % 4 == 0 (every row then starts 4-byte
+// aligned, and the chunk bounds are multiples of 4), else a byte at a time:
+// both paths load the same bytes into the same lanes, so they give the same
+// sums.
 __device__ __forceinline__ void chunk_counts(const Planes& p, int m, int N,
                                              int S, int r0, int nr,
                                              int s_lo, int s_hi, int* pc,
@@ -437,36 +396,6 @@ __device__ __forceinline__ void compact_member(
       if (compact) p.frontier[m] = now;
     }
   }
-}
-
-// The whole decide of member m in one block (K9): every slot, the
-// checkpoints, a barrier, the compact record. ``f_*`` are three
-// kMaxSlots-byte flag arrays in the block's shared memory.
-template <class Counts, class ChkCount>
-__device__ __forceinline__ void decide_member(
-    const Planes& p, const Events& e, int m, int S, int C, int n_validators,
-    int cap, int compact, Counts counts, ChkCount chk_count,
-    uint8_t* f_newprep, uint8_t* f_newly, uint8_t* f_ordered) {
-  decide_slots(p, e, m, S, 0, S, n_validators, compact, counts, f_newprep,
-               f_newly, f_ordered);
-  decide_checkpoints(e, m, C, n_validators, chk_count);
-  __syncthreads();
-  compact_member(p, e, m, S, cap, compact, f_newprep, f_newly, f_ordered);
-}
-
-
-// Quorum eval of member m over its current planes in one block (K9): the
-// column counts over all N rows, then the decide.
-__device__ __forceinline__ void eval_member(
-    const Planes& p, const Events& e, int m, int N, int S, int C,
-    int n_validators, int cap, int compact, uint8_t* f_newprep,
-    uint8_t* f_newly, uint8_t* f_ordered) {
-  decide_member(
-      p, e, m, S, C, n_validators, cap, compact,
-      [&](int s, int* pc, int* cc) { column_counts(p, m, 0, N, N, S, s, pc,
-                                                   cc); },
-      [&](int c) { return checkpoint_count(p, m, 0, N, N, C, c); },
-      f_newprep, f_newly, f_ordered);
 }
 
 inline Planes planes(void* pp, void* pv, void* cv, void* ck, void* ordered,

@@ -1,8 +1,11 @@
-// The tiled resident step (the tiled K9) and the member x validator fabric
-// step (K13): k ring slots (K13: one) consumed over the fabric's tiles, one
-// launch a consume, a thread-block cluster a member.
+// The resident step (K9 at one validator tile, the tiled K9 at v tiles)
+// and the member x validator fabric step (K13): k ring slots (K13: one)
+// consumed over the fabric's tiles, one launch a consume, a thread-block
+// cluster a member.
 //
 // Replaces (JAX reference):
+//   - K9: indy_plenum_tpu/tpu/compile_plan.py:100 `resident_plan_for`,
+//     its unsharded body (:119-130): the tiled K9 below at v = 1;
 //   - the tiled K9: indy_plenum_tpu/tpu/compile_plan.py:141-173,
 //     `resident_plan_for`'s mesh branches: per slot, `slide_state` by the
 //     slot's deltas, then every tile's `_scatter_local` of its senders;
@@ -51,7 +54,8 @@
 // memory, decides them and writes their flags into block 0's shared
 // memory; block 0 also decides the checkpoints. cluster.sync(); block 0
 // compacts the member and writes the frontier snapshot. No partial count
-// reaches device memory.
+// reaches device memory. A one-block cluster (B = 1) decides from its own
+// shared memory behind block barriers: no cluster barrier (~0.5 us each).
 //
 // The slide is quorum_common.cuh's slide_run: a block's row run of a plane
 // moved a 4-byte word at a time.
@@ -60,7 +64,9 @@
 // 300, C = 3, W = 512, k = 4, no slide) reads the planes once for the
 // counts (39 MB) and the words, and writes the hits, the events and the
 // compact record: ~12 us of HBM time; K13 at that shape (k = 1) the same
-// less three slots of words.
+// less three slots of words. K9 at phase F1's consume (M = N = 64, S =
+// 300, W = 128, k = 4) moves ~2.9 MB, under 1 us, so there a launch's
+// latency and the cluster's two barriers are the real cost.
 #include <cooperative_groups.h>
 
 #include "quorum_common.cuh"
@@ -72,8 +78,8 @@ namespace {
 constexpr int kMaxBlocks = 8;  // the portable cluster size
 
 // ``Step`` instantiates K13 (one slot, no slide, ``ok`` and ``compact``
-// read at run time); the tiled K9's instantiation reads neither (no
-// per-word verdict test in its decode, compact fixed at 1).
+// read at run time); the resident step's (K9, the tiled K9) reads neither
+// (no per-word verdict test in its decode, compact fixed at 1).
 template <bool Step>
 __global__ void __launch_bounds__(qc::kThreads)
     resident_tile_kernel(qc::Planes p, const int32_t* __restrict__ slides,
@@ -133,6 +139,24 @@ __global__ void __launch_bounds__(qc::kThreads)
   qc::chunk_counts(p, m, N, S, r_lo, nr, 0, S, pc_s, cc_s);
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     kc_s[c] = qc::checkpoint_count(p, m, r_lo, nr, N, C, c);
+  }
+  if (B == 1) {
+    // one block a member: its partials are the counts, and a block
+    // barrier orders what the cluster barriers order below
+    __syncthreads();
+    qc::decide_slots(
+        p, e, m, S, 0, S, n_validators, Step ? compact : 1,
+        [&](int s, int* pc, int* cc) {
+          *pc = pc_s[s];
+          *cc = cc_s[s];
+        },
+        f_newprep, f_newly, f_ordered);
+    qc::decide_checkpoints(e, m, C, n_validators,
+                           [&](int c) { return kc_s[c]; });
+    __syncthreads();
+    qc::compact_member(p, e, m, S, cap, Step ? compact : 1, f_newprep,
+                       f_newly, f_ordered);
+    return;
   }
   // every block's partials (and block 0's slides and PRE-PREPAREs) before
   // any block reads them
@@ -246,7 +270,8 @@ extern "C" int resident_tile_occupancy(int S, int C, int step,
   return static_cast<int>(err);
 }
 
-// The tiled K9: K slots, their (K, M) slides, the compact record.
+// K9 (v = 1) and the tiled K9: K slots, their (K, M) slides, the compact
+// record.
 extern "C" int resident_tile_launch(
     void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,
     void* frontier, const void* slides, const void* words, int K, int M,

@@ -30,7 +30,8 @@ caller rebinding its state reads like the JAX code.
 :func:`resident_plan_for` (``:99-173``) binds the residency ring's
 consume: K9 (:func:`~indy_plenum_tpu_torch.tpu.quorum.resident_step`)
 unsharded, the tiled K9 (:func:`~indy_plenum_tpu_torch.tpu.quorum.
-resident_tile_step`) on the fabric.
+resident_tile_step`) on the fabric; on the card both are one launch of
+``csrc/resident_tile.cu``'s cluster kernel, K9 at one validator tile.
 """
 from __future__ import annotations
 

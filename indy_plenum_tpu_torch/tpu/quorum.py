@@ -23,12 +23,13 @@ tensors. The state is updated IN PLACE (the reference donates it).
 :func:`slide_state` and :func:`zero_members` (K8, reference
 ``quorum.py:358`` ``slide_state`` and ``compile_plan.py:83`` ``_zero_body``)
 are the window's rare-path ops, the checkpoint slide and the view-change
-zero: one launch each of ``csrc/window.cu`` for CUDA tensors, their plain
-versions (:func:`slide_plain`, :func:`zero_plain`) for CPU tensors, the
-state in place either way. :func:`resident_step` (K9, reference
-``compile_plan.py:100`` ``resident_plan_for``) chains k (slide, scatter)
-slots and evaluates once, in one launch of ``csrc/resident.cu``; its
-plain version is :func:`resident_step_plain`, built like
+zero: ``csrc/window.cu`` kernels for CUDA tensors (none when no member
+slides or resets), their plain versions (:func:`slide_plain`,
+:func:`zero_plain`) for CPU tensors, the state in place either way.
+:func:`resident_step` (K9, reference ``compile_plan.py:100``
+``resident_plan_for``) chains k (slide, scatter) slots and evaluates
+once, in one launch of ``csrc/resident_tile.cu``'s cluster kernel at one
+validator tile; its plain version is :func:`resident_step_plain`, built like
 :func:`step_plain` from the scatter and decide halves (:func:`scatter_plain`,
 :func:`decide_plain`, the reference's ``scatter_batch``/``eval_compact``).
 
@@ -287,7 +288,8 @@ def decide_plain(state: VoteState, prep_counts: torch.Tensor,
     """The decide half of the eval, from column counts ((M, S), (M, S),
     (M, C) int32): thresholds from the REAL ``n_validators``, events, and
     with ``compact`` the frontier and compact deltas; ``state`` in place.
-    The one decide path of K7, K9 and K13 (``qc::decide_member``)."""
+    The one decide path of K7, K9 and K13 (``csrc/quorum_common.cuh``
+    ``decide_slots``, ``decide_checkpoints``, ``compact_member``)."""
     s = state.prepare_votes.shape[-1]
     f = (n_validators - 1) // 3
     prepare_q = n_validators - f - 1
@@ -476,28 +478,6 @@ def step(state: VoteState, words: torch.Tensor, n_validators: int
     return events
 
 
-def _resident_kernel(states: VoteState, slides: torch.Tensor,
-                     words: torch.Tensor, n_validators: int,
-                     delta_cap: int) -> Tuple[QuorumEvents, CompactEvents]:
-    dev = words.device
-    ptrs = _check_words(states, words, 3, "resident step")
-    k, m_count, w = words.shape
-    if tuple(slides.shape) != (k, m_count):
-        raise ValueError("resident step: slides must be (k, M)")
-    slides = _to_card(slides, torch.int32, dev, "resident step")
-    _, n_rows, s = states.prepare_votes.shape
-    c = states.checkpoint_votes.shape[-1]
-    width = delta_width(s, delta_cap)
-    buf, events, comp = _outputs(states, width)
-    code = kb.library().resident_step_launch(
-        *ptrs, slides.data_ptr(), words.data_ptr(), k, m_count, n_rows, s,
-        c, w, n_validators, width, buf.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    kb.check(code, "resident_step")
-    kb.LAUNCHES["resident_step"] += 1
-    return events, comp
-
-
 def resident_step(states: VoteState, slides: torch.Tensor,
                   words: torch.Tensor, n_validators: int,
                   delta_cap: int = ORDER_DELTA_CAP
@@ -507,14 +487,17 @@ def resident_step(states: VoteState, slides: torch.Tensor,
     then one quorum eval with the compact deltas. Updates ``states`` in
     place and returns (events, compact). CPU tensors take
     :func:`resident_step_plain`; CUDA tensors launch
-    ``resident_step_kernel`` (``csrc/resident.cu``) or raise. Host
-    ``slides`` cross to the card without a blocking copy."""
+    ``resident_tile_kernel`` (``csrc/resident_tile.cu`` at one validator
+    tile: a cluster of :func:`tile_cluster_blocks` blocks a member) or
+    raise, counted under ``resident_step``. Host ``slides`` cross to the
+    card without a blocking copy."""
     if words.device.type == "cpu":
         return resident_step_plain(states, slides, words, n_validators,
                                    delta_cap)
     if words.device.type != "cuda":
         raise ValueError(f"resident step: unsupported device {words.device}")
-    return _resident_kernel(states, slides, words, n_validators, delta_cap)
+    return _resident_tile_kernel(states, slides, words, n_validators, 1,
+                                 delta_cap, counter="resident_step")
 
 
 # --- the member x validator fabric (K13, tiled K9) --------------------------
@@ -643,25 +626,33 @@ def resident_tile_plain(states: VoteState, slides, words_seq,
 
 
 TILE_CLUSTER_MAX = 8  # csrc/resident_tile.cu kMaxBlocks: portable clusters
-TILE_BLOCK_BYTES = 16384  # bytes of each vote plane a block counts, at most
+TILE_RULE_MAX = 7  # the most blocks the rule picks: 8 led by 1% at most
+TILE_BLOCK_BYTES = 16384  # bytes of each vote plane a block holds, at most
+TILE_SLIDE_BYTES = 4096  # the same when a member may slide
 
 
-def tile_cluster_blocks(n_rows: int, s: int, members: int,
-                        resident: int) -> int:
-    """Blocks of the cluster a member of the tiled K9 and of K13 (one
-    kernel): enough that none counts more than :data:`TILE_BLOCK_BYTES`
-    of a vote plane (its ``n_rows`` x ``s`` bytes), but no more than let
-    every member's blocks run at once on a card that holds ``resident``
-    of the kernel's blocks; 1 to :data:`TILE_CLUSTER_MAX`, never more
-    than the rows. Each block pays fixed costs (it decodes every word of
-    its member's slots, and the cluster meets twice), so past the count's
-    need, or past one wave, more blocks cost time. The 16 KB threshold is
-    fitted to three timed shapes, phase H's consume and K13's step at
-    phase H's shape (B = 2, from the wave) and phase R's consume (B = 1,
-    from the threshold); what it picks elsewhere is held bit-equal on the
-    card but was never timed."""
-    want = -(-n_rows * s // TILE_BLOCK_BYTES)
-    return max(1, min(want, TILE_CLUSTER_MAX, n_rows,
+def tile_cluster_blocks(n_rows: int, s: int, members: int, resident: int,
+                        sliding: bool = False) -> int:
+    """Blocks of the cluster a member of K9, the tiled K9 and K13 (one
+    kernel): enough that none holds more than :data:`TILE_BLOCK_BYTES`
+    of a vote plane (its ``n_rows`` x ``s`` bytes), or
+    :data:`TILE_SLIDE_BYTES` when a member may slide in this consume, but
+    no more than let every member's blocks run at once on a card that
+    holds ``resident`` of the kernel's blocks; 1 to
+    :data:`TILE_RULE_MAX`, never more than the rows. Each block pays fixed
+    costs (it decodes every word of its member's slots, and the cluster
+    meets twice), so past one wave, or past what the work needs, more
+    blocks cost time. A slide is the work that needs them: ``slide_run``
+    moves 4 KB of a block's rows (4 words of each of 256 threads) behind
+    one barrier and the rest in serial stretches of ~1 us on an H100. At
+    phase F1's consume (64 x 64 x 300) the rule picks 2 blocks without a
+    slide (fastest of 1-8) and 5 with one (within 2% of the fastest);
+    phase H's consume keeps 2 (from the wave), R's and F2's 1, K13 at H
+    and G 2. Shapes other than these timed ones are held bit-equal on
+    the card but were never timed."""
+    per_block = TILE_SLIDE_BYTES if sliding else TILE_BLOCK_BYTES
+    want = -(-n_rows * s // per_block)
+    return max(1, min(want, TILE_RULE_MAX, n_rows,
                       resident // max(1, members)))
 
 
@@ -681,38 +672,46 @@ def _tile_resident(index: int, s: int, c: int, step: bool = False) -> int:
 
 
 def _cluster_blocks(dev: torch.device, n_rows: int, s: int, c: int,
-                    m_count: int, step: bool) -> int:
+                    m_count: int, step: bool, sliding: bool = False) -> int:
     """:func:`tile_cluster_blocks` on the card that holds ``dev``, for
-    K13 (``step``) or the tiled K9."""
+    K13 (``step``) or the tiled K9 (K9 at one tile)."""
     index = torch.cuda.current_device() if dev.index is None else dev.index
     return tile_cluster_blocks(n_rows, s, m_count,
-                               _tile_resident(index, s, c, step))
+                               _tile_resident(index, s, c, step), sliding)
 
 
 def _resident_tile_kernel(states: VoteState, slides: torch.Tensor,
                           words: torch.Tensor, n_validators: int,
                           v_shards: int, delta_cap: int,
-                          blocks: Optional[int] = None
+                          blocks: Optional[int] = None,
+                          counter: str = "resident_tile"
                           ) -> Tuple[QuorumEvents, CompactEvents]:
+    """One ``resident_tile_kernel`` launch (K9 at ``v_shards`` 1, the
+    tiled K9 at any), counted under ``counter``; ``blocks`` forces the
+    cluster size. Otherwise host ``slides`` that are all 0 take the rule's
+    size without a slide; CUDA ``slides``, which the host cannot read
+    without waiting for the card, take its size with one."""
     dev = words.device
     ptrs = _check_words(states, words, 3, "resident tile step")
     k, m_count, w = words.shape
     if tuple(slides.shape) != (k, m_count):
         raise ValueError("resident tile step: slides must be (k, M)")
     _tile_rows(states, v_shards)
+    sliding = slides.device.type != "cpu" or bool(slides.any())
     slides = _to_card(slides, torch.int32, dev, "resident tile step")
     _, n_rows, s = states.prepare_votes.shape
     c = states.checkpoint_votes.shape[-1]
     width = delta_width(s, delta_cap)
     if blocks is None:
-        blocks = _cluster_blocks(dev, n_rows, s, c, m_count, False)
+        blocks = _cluster_blocks(dev, n_rows, s, c, m_count, False,
+                                 sliding)
     buf, events, comp = _outputs(states, width)
     code = kb.library().resident_tile_launch(
         *ptrs, slides.data_ptr(), words.data_ptr(), k, m_count, n_rows, s,
         c, w, v_shards, blocks, n_validators, width, buf.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    kb.check(code, "resident_tile")
-    kb.LAUNCHES["resident_tile"] += 1
+    kb.check(code, counter)
+    kb.LAUNCHES[counter] += 1
     return events, comp
 
 
@@ -815,26 +814,32 @@ def _to_card(values: torch.Tensor, dtype, dev: torch.device,
     return values.to(dtype).contiguous()
 
 
-def _member_operand(state: VoteState, values: torch.Tensor, dtype,
-                    what: str) -> torch.Tensor:
-    """The (M,) per-member operand of a window kernel on the state's
-    card."""
+def _window_launches(state: VoteState, values: torch.Tensor, dtype,
+                     chunks, entries: Tuple[str, str], name: str) -> None:
+    """K8's launches on a CUDA ``state`` for the (M,) per-member
+    ``values``. CUDA ``values`` are read by the kernel on the card: one
+    launch of ``entries[0]``. Host ``values`` are cut by ``chunks`` into
+    int32 arrays that travel in the parameters of one ``entries[1]``
+    launch each: no copy to the card, and no launch for no array. Each
+    entry point takes (state, operand, count, N, S, C, stream)."""
+    what = name.replace("_", " ")
     if values.dim() != 1 or values.shape[0] != state.frontier.shape[0]:
-        raise ValueError(f"window {what}: one entry per member")
-    return _to_card(values, dtype, state.frontier.device, f"window {what}")
-
-
-def _window_launch(state: VoteState, operand: torch.Tensor, entry: str,
-                   name: str) -> None:
+        raise ValueError(f"{what}: one entry per member")
     dev = state.frontier.device
-    ptrs = _state_ptrs(state, dev, f"window {name}")
+    ptrs = _state_ptrs(state, dev, what)
     m_count, n_rows, s = state.prepare_votes.shape
     c = state.checkpoint_votes.shape[-1]
-    code = getattr(kb.library(), entry)(
-        *ptrs, operand.data_ptr(),
-        m_count, n_rows, s, c, torch.cuda.current_stream(dev).cuda_stream)
-    kb.check(code, name)
-    kb.LAUNCHES[name] += 1
+    if values.device.type != "cpu":
+        operand = _to_card(values, dtype, dev, what)
+        launches = [(entries[0], operand.data_ptr(), m_count)]
+    else:
+        arrays = chunks(values.numpy())  # alive until the last launch
+        launches = [(entries[1], a.ctypes.data, len(a)) for a in arrays]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for entry, operand_ptr, count in launches:
+        kb.check(getattr(kb.library(), entry)(
+            *ptrs, operand_ptr, count, n_rows, s, c, stream), name)
+        kb.LAUNCHES[name] += 1
 
 
 def _window_device(state: VoteState) -> str:
@@ -872,35 +877,38 @@ def slide_state(state: VoteState, deltas: torch.Tensor) -> None:
     if _window_device(state) == "cpu":
         slide_plain(state, deltas)
         return
-    if deltas.device.type != "cpu":
-        _window_launch(state, _member_operand(state, deltas, torch.int32,
-                                              "slide"),
-                       "window_slide_launch", "window_slide")
-        return
-    if deltas.dim() != 1 or deltas.shape[0] != state.frontier.shape[0]:
-        raise ValueError("window slide: one entry per member")
-    dev = state.frontier.device
-    ptrs = _state_ptrs(state, dev, "window slide")
-    _, n_rows, s = state.prepare_votes.shape
-    c = state.checkpoint_votes.shape[-1]
-    for pairs in slide_pair_chunks(deltas.numpy()):
-        code = kb.library().window_slide_pairs_launch(
-            *ptrs, pairs.ctypes.data, len(pairs), n_rows, s, c,
-            torch.cuda.current_stream(dev).cuda_stream)
-        kb.check(code, "window_slide")
-        kb.LAUNCHES["window_slide"] += 1
+    _window_launches(state, deltas, torch.int32, slide_pair_chunks,
+                     ("window_slide_launch", "window_slide_pairs_launch"),
+                     "window_slide")
+
+
+ZERO_ROWS_PER_LAUNCH = 256  # csrc/window.cu kMaxZeroRows
+
+
+def zero_row_chunks(mask: np.ndarray,
+                    per_launch: int = ZERO_ROWS_PER_LAUNCH):
+    """The int32 rows of a host zero's reset members (``mask`` nonzero), in
+    row order, one array per launch of at most ``per_launch`` rows. No
+    reset member, no launch."""
+    rows = np.flatnonzero(np.asarray(mask) != 0).astype(np.int32)
+    return [np.ascontiguousarray(rows[i:i + per_launch])
+            for i in range(0, len(rows), per_launch)]
 
 
 def zero_members(state: VoteState, mask: torch.Tensor) -> None:
     """K8's zero: every leaf row of the masked members (view reset), in
-    place. CPU state takes :func:`zero_plain`; CUDA state launches
-    ``zero_kernel`` (``csrc/window.cu``) or raises."""
+    place. CPU state takes :func:`zero_plain`; CUDA state launches a
+    ``csrc/window.cu`` kernel or raises. A host ``mask`` (the pool's)
+    travels in the launch's parameters as the reset members' rows
+    (:func:`zero_row_chunks`): no copy to the card, a grid over those
+    members only, no launch when the mask is empty. A CUDA ``mask`` is
+    read by the kernel on the card."""
     if _window_device(state) == "cpu":
         zero_plain(state, mask)
         return
-    _window_launch(state, _member_operand(state, mask != 0, torch.uint8,
-                                          "zero"),
-                   "window_zero_launch", "window_zero")
+    _window_launches(state, mask != 0, torch.uint8, zero_row_chunks,
+                     ("window_zero_launch", "window_zero_rows_launch"),
+                     "window_zero")
 
 
 # --- host packers (copies of the reference's) -------------------------------

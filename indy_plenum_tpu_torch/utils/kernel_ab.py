@@ -1,7 +1,8 @@
 """A/B timing of the PyTorch + CUDA port's verify, mod-L, quorum-step,
-slide and commit-hash kernels, for comparing two checkouts of the repo
-inside one call on one card. Run this one file by its path from each checkout's
-root, in turns (parent, change, change, parent):
+resident-step, slide, zero and commit-hash kernels, for comparing two
+checkouts of the repo inside one call on one card. Run this one file by
+its path from each checkout's root, in turns (parent, change, change,
+parent):
 
     python3 <checkout>/indy_plenum_tpu_torch/utils/kernel_ab.py --tag change
 
@@ -11,9 +12,10 @@ It imports the port and ``chip_smoke.py`` of the checkout it runs from
 times either. One JSON line:
 
 - K7 (64 x 64 x 300, W 128: phases A and 4), K9 (k = 4 slots of that
-  group), K13 on (4, 2) and the tiled K9 at phase H's n = 256 (k = 4, no
-  slide) and at phase R's shape (M = N = 64, S = 15, C = 3, W = 128, k =
-  4 on (4, 2), one member in four sliding by 5 in the first slot): device
+  group, zero slides on the card), K13 on (4, 2) and the tiled K9 at
+  phase H's n = 256 (k = 4, no slide) and at phase R's shape (M = N =
+  64, S = 15, C = 3, W = 128, k = 4 on (4, 2), one member in four
+  sliding by 5 in the first slot): device
   ms per call behind a spin (``chip_smoke._kernel_ms``) and call ms (CUDA
   events around back-to-back calls, host included); where the checkout
   picks the tiled K9's cluster size (``tile_cluster_blocks``), both
@@ -21,7 +23,8 @@ times either. One JSON line:
 - K13 at phase H's shape on v = 1 (the (8,) mesh's step) beside K7 on
   the same state and words, and where the checkout can force K13's
   cluster size, on v = 1 and 2 at 1, 2, 4 and 8 blocks; K13 at phase G's
-  shape with the verdicts as ``ok`` (the sharded K14's second half);
+  shape with the verdicts as ``ok`` (the sharded K14's second half), there
+  also at each of 1 to 8 blocks;
 - K10 at a 4,096-proof chunk of the catchup-proof tree (17 levels),
   dense and indexed, one proof alone (its dependent-chain floor) and,
   where the checkout sets the block size, at 32, 64 and 128 threads;
@@ -39,15 +42,26 @@ times either. One JSON line:
   and at ``bench.py``'s 32,768, ``verify_kernel_full`` at 32,768 beside
   it, and K14 (``step.fused_step``) on phase G's 8,192 signed votes:
   device ms behind the spin and call ms;
+- K9 (``q.resident_step``) at phase F1's consume (64 x 64 x 300, C 3)
+  and F2's (96 x 16 x 30, C 6), k = 4 slots of 128 words, with no
+  sliding member and with one sliding by the phase's ``CHK_FREQ`` in the
+  first slot (host slides, as the ring passes them: the cluster size is
+  picked from them, their copy timed too), and the cluster kernel at one
+  validator tile, slides on the card, forced to each of 1 to 8 blocks at
+  both (``resident_step_<shape>[_slide]_b<B>``; a
+  parent that predates K9 on the cluster kernel times its tiled K9 at
+  v = 1 there);
 - K8's slide through ``q.slide_state`` with host deltas, one member
-  sliding: at 64 x 64 x 300 by ``CHK_FREQ`` and at phase B's shape (96 x
-  16 x 30, C 6) by 5, device and call ms; then ONE ``torch.profiler``
-  session (a second in one process has come back empty) over 20 such
-  slides and 20 tiled K9 consumes and K13 steps at phase H's shape, the
-  device's work split by kernel name (a copy to the card shows as
-  ``Memcpy HtoD``; the tiled K9 and K13 each as one launch of
-  ``resident_tile_kernel``, or K13 as ``fabric_tile_kernel`` +
-  ``fabric_decide_kernel``);
+  sliding, and K8's zero through ``q.zero_members`` with a host mask of
+  one member: at 64 x 64 x 300 (slide by ``CHK_FREQ``) and at phase B's
+  shape (96 x 16 x 30, C 6; slide by 5), device and call ms; then ONE
+  ``torch.profiler`` session (a second in one process has come back
+  empty) over 20 such slides, 20 such zeros and 20 of K9's F1 consumes,
+  tiled K9 consumes and K13 steps at phase H's shape, the device's work
+  split by kernel name (a copy to the card shows as ``Memcpy HtoD``; K9,
+  the tiled K9 and K13 each as one launch of ``resident_tile_kernel``, a
+  parent's K9 as ``resident_step_kernel``, its zero as ``zero_kernel``
+  after a copy of the mask);
 - the card's name and power limit.
 
 It exits non-zero without a card.
@@ -96,7 +110,11 @@ def _commit_inputs(n_keys, batch):
 
 def verify_and_fused(out, timed, cs, dev, rng):
     """K-c at 8,192 and 32,768, verify_kernel_full at 32,768, K14 at phase
-    G's 8,192 votes."""
+    G's 8,192 votes, and its K13 half alone (with the verdicts as ``ok``)
+    at the wrapper's cluster size and, where the checkout can force it, at
+    each of 1 to 8 blocks."""
+    import inspect
+
     import torch
     from indy_plenum_tpu_torch.tpu import ed25519 as ted
     from indy_plenum_tpu_torch.tpu import quorum as q
@@ -136,34 +154,77 @@ def verify_and_fused(out, timed, cs, dev, rng):
                           1, dev)
     timed("fabric_step_g", lambda: q.fabric_step(
         gstate, words, cs.N_VALIDATORS, 4, compact=False, ok=ok), 20)
+    if "blocks" in inspect.signature(q._fabric_kernel).parameters:
+        for b in range(1, 9):
+            timed(f"fabric_step_g_b{b}", lambda: q._fabric_kernel(
+                gstate, words, cs.N_VALIDATORS, 4, q.ORDER_DELTA_CAP,
+                False, ok, "fabric_step", b), 20)
 
 
-def slide_report(out, timed, cs, dev, rng, tile_consume):
-    """K8's slide with host deltas at the main path's two group shapes,
-    then one profile of 20 slides at 64 x 64 x 300 and 20 calls of
-    ``tile_consume`` (the tiled K9's consume and K13's step at phase H's
-    shape)."""
+def resident_report(timed, cs, dev, rng):
+    """K9 at phase F1's consume (64 x 64 x 300, C 3) and at F2's (96 x 16
+    x 30, C 6), k = 4 slots of 128 words, with no sliding member and with
+    one sliding by the phase's checkpoint interval in the first slot;
+    then both on every cluster size of 1 to 8 blocks (the cluster kernel
+    at one validator tile, its size forced). The wrapper's rows pass host
+    slides, as the ring does: it picks its cluster size from them, and
+    their copy to the card and the host's pace between calls are in the
+    row. The forced rows pass the slides on the card: the kernel alone."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import quorum as q
+
+    k, w = 4, cs.RESIDENT_WIDTH
+    for tag, (m, n, s, c, d) in window_shapes(cs).items():
+        votes = cs._random_votes(dev, rng, m, n, s, c)
+        words = q.words_tensor(cs.resident_words(rng, k, m, w, n, s), dev)
+        still = torch.zeros((k, m), dtype=torch.int32)
+        one = still.clone()
+        one[0, rng.randint(m)] = d
+        for arm, slides in (("", still), ("_slide", one)):
+            name = f"resident_step_{tag}{arm}"
+            timed(name, lambda: q.resident_step(votes, slides, words, n), 20)
+            on_card = slides.to(dev)
+            for b in range(1, 9):
+                timed(f"{name}_b{b}", lambda: q._resident_tile_kernel(
+                    votes, on_card, words, n, 1, q.ORDER_DELTA_CAP, b), 20)
+
+
+def window_shapes(cs):
+    """The main path's two group shapes (M, N, S, C, checkpoint interval):
+    phases A, F1 and 4, and phases B and F2."""
+    return {"64x64x300": (cs.N_VALIDATORS, cs.N_VALIDATORS, cs.LOG_SIZE,
+                          cs.N_CHECKPOINTS, cs.CHK_FREQ),
+            "96x16x30": (cs.B_NODES * cs.B_INSTANCES, cs.B_NODES,
+                         cs.B_LOG_SIZE, cs.B_LOG_SIZE // cs.B_CHK_FREQ,
+                         cs.B_CHK_FREQ)}
+
+
+def slide_report(out, timed, cs, dev, rng, consumes):
+    """K8's slide with host deltas and K8's zero with a host mask (one
+    member each) at the main path's two group shapes, then one profile of
+    20 slides and 20 zeros at 64 x 64 x 300 and 20 calls of ``consumes``
+    (K9 at phase F1's consume, the tiled K9's consume and K13's step at
+    phase H's shape)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from indy_plenum_tpu_torch.tpu import quorum as q
 
-    shapes = {"slide_64x64x300": (cs.N_VALIDATORS, cs.N_VALIDATORS,
-                                  cs.LOG_SIZE, cs.N_CHECKPOINTS,
-                                  cs.CHK_FREQ),
-              "slide_96x16x30": (cs.B_NODES * cs.B_INSTANCES, cs.B_NODES,
-                                 cs.B_LOG_SIZE,
-                                 cs.B_LOG_SIZE // cs.B_CHK_FREQ,
-                                 cs.B_CHK_FREQ)}
-    for name, (m, n, s, c, d) in shapes.items():
+    shapes = window_shapes(cs)
+    for tag, (m, n, s, c, d) in shapes.items():
         votes = cs._random_votes(dev, rng, m, n, s, c)
         deltas = torch.zeros(m, dtype=torch.int32)
         deltas[rng.randint(m)] = d
-        timed(name, lambda: q.slide_state(votes, deltas), 50)
-    m, n, s, c, d = shapes["slide_64x64x300"]
+        mask = torch.zeros(m, dtype=torch.bool)
+        mask[rng.randint(m)] = True
+        timed(f"slide_{tag}", lambda: q.slide_state(votes, deltas), 50)
+        timed(f"zero_{tag}", lambda: q.zero_members(votes, mask), 50)
+    m, n, s, c, d = shapes["64x64x300"]
     votes = cs._random_votes(dev, rng, m, n, s, c)
     deltas = torch.zeros(m, dtype=torch.int32)
     deltas[rng.randint(m)] = d
+    mask = torch.zeros(m, dtype=torch.bool)
+    mask[rng.randint(m)] = True
     calls = 20
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -171,7 +232,9 @@ def slide_report(out, timed, cs, dev, rng, tile_consume):
         for _ in range(calls):
             q.slide_state(votes, deltas)
         for _ in range(calls):
-            tile_consume()
+            q.zero_members(votes, mask)
+        for _ in range(calls):
+            consumes()
         torch.cuda.synchronize()
     split = {}
     for e in prof.events():
@@ -319,6 +382,7 @@ def main() -> int:
     timed("resident_tile",
           lambda: q.resident_tile_step(fstate, fslides, ftile, fm, 2), 20)
     tile_report(timed, cs, dev, rng, fstate, ftile, fslides)
+    resident_report(timed, cs, dev, rng)
     fabric_report(timed, cs, dev, fstate, fwords)
     audit_report(timed, cs, dev)
     mod_l_report(timed, cs, dev, rng)
@@ -326,6 +390,7 @@ def main() -> int:
     verify_and_fused(out, timed, cs, dev, rng)
 
     def consumes():
+        q.resident_step(votes, slides, slot_words, n)
         q.resident_tile_step(fstate, fslides, ftile, fm, 2)
         q.fabric_step(fstate, fwords, fm, 2)
 

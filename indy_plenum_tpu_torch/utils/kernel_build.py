@@ -74,13 +74,6 @@ _SIGNATURES = {
         # the one output allocation (events, compact record, frontier
         # snapshot: quorum_common.cuh events_at), then the stream
         _P, _P),
-    "resident_step_launch": (
-        # state (as quorum_step), slides (k, M), words (k, M, W)
-        _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        # k, M, N, S, C, W, n_validators, delta_cap
-        _I, _I, _I, _I, _I, _I, _I, _I,
-        # the output allocation (as quorum_step), then the stream
-        _P, _P),
     "fabric_step_launch": (
         # state (as quorum_step), words, ok (NULL but for the sharded K14)
         _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -105,7 +98,7 @@ _SIGNATURES = {
     # host table of (a, b, dst, row_bytes) per leaf, leaves, rows,
     # shard_rows, s, stream
     "rotate_merge_launch": (_P, _I, _I, _I, _I, _P),
-    # state (as quorum_step), deltas or mask, M, N, S, C, stream
+    # state (as quorum_step), device deltas or mask, M, N, S, C, stream
     "window_slide_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _P),
     "window_zero_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -114,6 +107,10 @@ _SIGNATURES = {
     # S, C, stream
     "window_slide_pairs_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _I, _I, _P),
+    # state (as quorum_step), host int32 rows of the reset members,
+    # n_rows, N, S, C, stream
+    "window_zero_rows_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _P),
     # msg, out, batch, msg_len, stream
     "sha256_fixed_launch": (_P, _P, _I, _I, _P),
     # refs, literals, out, host level offsets, n_levels, blocks, stream

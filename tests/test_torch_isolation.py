@@ -45,8 +45,8 @@ def test_port_imports_without_jax_or_reference():
         assert "indy_plenum_tpu_torch." + mod in mods
     for mod in ("tpu.ring_exchange", "tpu.rebalance"):
         assert "indy_plenum_tpu_torch." + mod in mods
-    for src in ("resident.cu", "resident_tile.cu", "quorum_common.cuh",
-                "quorum.cu", "window.cu", "ring.cu"):
+    for src in ("resident_tile.cu", "quorum_common.cuh", "quorum.cu",
+                "window.cu", "ring.cu"):
         assert os.path.isfile(os.path.join(PKG, "csrc", src)), src
     blocked = ("jax", "indy_plenum_tpu", "msgpack", "cryptography")
     code = (
@@ -270,10 +270,16 @@ def test_ctypes_signatures_match_cuda_sources():
                            "audit_paths_launch", "audit_paths_indexed_launch"}
     for fn in sha_entries:
         assert f'extern "C" int {fn}(' in sha_src, fn
-    # K9 is csrc/resident.cu; K14's masked step is K7's entry point with
-    # the verdict operand right after the words
-    with open(os.path.join(kb.CSRC_DIR, "resident.cu")) as fh:
-        assert 'extern "C" int resident_step_launch(' in fh.read()
+    # K9 is resident_tile.cu's kernel at one validator tile (no
+    # csrc/resident.cu); K8's host zero passes its rows in the launch;
+    # K14's masked step is K7's entry point with the verdict operand right
+    # after the words
+    assert not os.path.exists(os.path.join(kb.CSRC_DIR, "resident.cu"))
+    assert "resident_step_launch" not in kb._SIGNATURES
+    with open(os.path.join(kb.CSRC_DIR, "window.cu")) as fh:
+        window = fh.read()
+    for fn in ("window_slide_pairs_launch", "window_zero_rows_launch"):
+        assert f'extern "C" int {fn}(' in window, fn
     with open(os.path.join(kb.CSRC_DIR, "quorum.cu")) as fh:
         assert "const void* words, const void* ok, int M" in fh.read()
     assert kb._SIGNATURES["quorum_step_launch"][7:10] == (kb._P, kb._P,
@@ -301,7 +307,8 @@ def test_ctypes_signatures_match_cuda_sources():
             with open(os.path.join(kb.CSRC_DIR, name)) as fh:
                 src = fh.read()
             for gone in ("fabric_tile_kernel", "fabric_decide",
-                         "tile_partials"):
+                         "tile_partials", "resident_step_kernel",
+                         "slide_rows", "eval_member"):
                 assert gone not in src, (name, gone)
     with open(os.path.join(kb.CSRC_DIR, "ring.cu")) as fh:
         ring = fh.read()

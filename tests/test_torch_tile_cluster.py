@@ -1,10 +1,15 @@
 """The partition of the port's tiled resident step (the tiled K9,
 ``csrc/resident_tile.cu``), modelled in Python, against the port's plain
 version (``resident_tile_plain``) and JAX's ``resident_plan_for(mesh)``;
-and the same kernel at one slot with no slide, an optional per-word
+the same kernel at one validator tile (K9, ``resident_step``) against
+``resident_step_plain`` and the unsharded ``resident_plan_for(None, ...)``
+of both packages; and at one slot with no slide, an optional per-word
 verdict ``ok`` and the compact record optional (K13, ``fabric_step``)
 against ``fabric_step_plain`` and JAX's fabric step (``plan_for(mesh)``:
 ``step_compact_local`` on a validator axis) and ``make_sharded_step``.
+K8's slide grid (``csrc/window.cu``: one run inside one plane a block,
+moved by the same ``slide_run``) is modelled here too, against
+``slide_plain`` and JAX's ``_slide_body``.
 
 The model runs the kernel's cluster block by block: block b of B owns the
 validator rows [b N / B, (b + 1) N / B), block 0 also the slot-axis rows,
@@ -412,24 +417,147 @@ def test_slide_run_words_and_edges():
 
 
 def test_cluster_blocks_choice():
-    """Enough blocks that none counts more than TILE_BLOCK_BYTES of a
-    plane, within one wave of the card (M x B blocks resident at once), B
-    of 1 to 8 and at most the rows; the rows split with none empty."""
-    resident = 132 * 4  # an H100's SMs x 4 blocks of 64 registers a thread
-    assert tq.tile_cluster_blocks(256, 300, 256, resident) == 2  # phase H
-    assert tq.tile_cluster_blocks(64, 15, 64, resident) == 1  # phase R
-    assert tq.tile_cluster_blocks(252, 30, 96, resident) == 1
-    assert tq.tile_cluster_blocks(256, 300, 64, resident) == 5
-    assert tq.tile_cluster_blocks(8, 4096, 16, resident) == 2
-    assert tq.tile_cluster_blocks(3, 4096, 1, resident) == 1
-    assert tq.tile_cluster_blocks(1024, 4096, 1, resident) == 8
-    assert tq.tile_cluster_blocks(256, 300, 1024, resident) == 1
-    for n in (1, 5, 64, 256, 600):
-        for s in (15, 300, 4096):
-            for m in (1, 64, 256):
-                b = tq.tile_cluster_blocks(n, s, m, resident)
-                assert 1 <= b <= min(n, tq.TILE_CLUSTER_MAX)
-                assert m * b <= resident or b == 1
-                spans = [rows_of(r, n, b) for r in range(b)]
-                assert sum(nr for _, nr in spans) == n
-                assert all(nr >= 1 for _, nr in spans)
+    """Enough blocks that none holds more than TILE_BLOCK_BYTES of a
+    plane (TILE_SLIDE_BYTES when a member may slide), within one wave of
+    the card (M x B blocks resident at once), B of 1 to TILE_RULE_MAX and
+    at most the rows; the rows split with none empty."""
+    resident = 132 * 4  # an H100's SMs x 4 blocks of 62 registers a thread
+    for sliding, picks in (
+            (False, {(256, 300, 256): 2, (64, 15, 64): 1, (64, 300, 64): 2,
+                     (16, 30, 96): 1, (64, 300, 1): 2, (252, 30, 96): 1,
+                     (256, 300, 64): 5, (8, 4096, 16): 2, (3, 4096, 1): 1,
+                     (1024, 4096, 1): 7, (256, 300, 1024): 1}),
+            (True, {(256, 300, 256): 2, (64, 15, 64): 1, (64, 300, 64): 5,
+                    (16, 30, 96): 1, (64, 300, 1): 5, (252, 30, 96): 2,
+                    (256, 300, 64): 7, (8, 4096, 16): 7, (3, 4096, 1): 3,
+                    (1024, 4096, 1): 7, (256, 300, 1024): 1})):
+        # phases H, R, F1, F2 and G first
+        for (n, s, m), b in picks.items():
+            assert tq.tile_cluster_blocks(n, s, m, resident, sliding) == b
+        for n in (1, 5, 64, 256, 600):
+            for s in (15, 300, 4096):
+                for m in (1, 64, 256):
+                    b = tq.tile_cluster_blocks(n, s, m, resident, sliding)
+                    assert 1 <= b <= min(n, tq.TILE_RULE_MAX)
+                    assert m * b <= resident or b == 1
+                    assert b >= tq.tile_cluster_blocks(n, s, m, resident)
+                    spans = [rows_of(r, n, b) for r in range(b)]
+                    assert sum(nr for _, nr in spans) == n
+                    assert all(nr >= 1 for _, nr in spans)
+    assert tq.tile_cluster_blocks(64, 300, 64, resident) \
+        == tq.tile_cluster_blocks(64, 300, 64, resident, False)
+
+
+# K9 on the cluster kernel at one validator tile (the unsharded plan, no
+# pad rows): (members, validators, S, C, slots, width, B); N odd in each
+K9_CASES = {
+    "k9_n7_s30_k4_b1": (6, 7, 30, 6, 4, 32, 1),
+    "k9_n7_s30_k4_b2": (6, 7, 30, 6, 4, 32, 2),
+    "k9_n5_s15_k2_b3": (4, 5, 15, 3, 2, 24, 3),
+    "k9_n9_s300_k3_b3": (3, 9, 300, 3, 3, 48, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K9_CASES))
+def test_k9_cluster_model_matches_plain_and_jax(case):
+    """K9 (``resident_step`` on the card) is the cluster kernel at v = 1:
+    the model at B blocks against ``resident_step_plain``, the port's
+    unsharded ``resident_plan_for`` on the CPU and JAX's
+    ``resident_plan_for(None, ...)``, with slides of every class, one
+    member sliding by a checkpoint interval in the first slot and an
+    all-invalid slot."""
+    m, n, s, c, k, w, blocks = K9_CASES[case]
+    assert n % 2 == 1 and 1 <= blocks <= n
+    rng = np.random.RandomState(110 + sorted(K9_CASES).index(case))
+    leaves = _leaves(rng, m, n, n, s, c)
+    mix = np.array([0, 1, 2, 3, 5, s - 1, s, s + 3], np.int32)
+    slides = mix[rng.randint(0, len(mix), (k, m))]
+    slides[:, 0] = 0
+    slides[0, 1] = max(1, s // 3)  # the pool's pattern: one member, one
+    words = [_words(rng, m, w, n, n, s, c) for _ in range(k)]
+    words[k - 1][:] = 0  # a slot of nothing but invalid words
+    state, events, comp = model_consume(leaves, slides, words, n, blocks)
+    ours = list(state) + list(events) + list(comp)
+    assert int(events.ordered.sum()) > 0
+
+    plain_state = tq.VoteState(*[torch.from_numpy(a.copy()) for a in leaves])
+    pev, pcomp = tq.resident_step_plain(
+        plain_state, torch.from_numpy(slides),
+        tq.words_tensor(np.stack(words)), n)
+    for a, b in zip(ours, list(plain_state) + list(pev) + list(pcomp)):
+        assert torch.equal(a, b)
+
+    tstep = tcp.resident_plan_for(None, n, n, tq.ORDER_DELTA_CAP, k, w,
+                                  "cpu")
+    tout = tstep(tq.VoteState(*[torch.from_numpy(a.copy()) for a in leaves]),
+                 torch.from_numpy(slides),
+                 *[tq.words_tensor(x) for x in words])
+    for t_all, o_all in zip(tout, (state, events, comp)):
+        for a, b in zip(t_all, o_all):
+            assert torch.equal(a, b)
+
+    jstep = jcp.resident_plan_for(None, n, n, jq.ORDER_DELTA_CAP, k, w)
+    jout = jstep(jq.VoteState(*[jnp.asarray(a) for a in leaves]),
+                 jnp.asarray(slides), *[jnp.asarray(x) for x in words])
+    for j_all, o_all in zip(jout, (state, events, comp)):
+        for a, b in zip(j_all, o_all):
+            assert np.array_equal(np.asarray(a), b.numpy())
+
+
+def slide_grid_blocks(n, s):
+    """``csrc/window.cu``'s slide grid for one member: ``per`` validator
+    rows a block (about one 4-byte word a thread), then blocks 0-2 on the
+    three slot-axis rows and the row groups of the prepare and of the
+    commit plane, each block ONE run inside one plane: (leaf, first row,
+    rows) per block."""
+    per = max(1, min(n, 4 * THREADS // s))
+    groups = -(-n // per)
+    out = [("pp", 0, 1), ("ordered", 0, 1), ("acked", 0, 1)]
+    for plane in ("pv", "cv"):
+        for g in range(groups):
+            out.append((plane, g * per, min(per, n - g * per)))
+    return out
+
+
+@pytest.mark.parametrize("n,s,c", [(64, 300, 3), (16, 30, 6), (7, 13, 2),
+                                   (5, 1100, 4)])
+def test_window_slide_grid_model_matches_plain_and_jax(n, s, c):
+    """K8's slide, the card's grid modelled: every block rolls one run
+    that stays inside one plane with ``slide_run`` (bytes outside the run
+    poisoned); the runs of a member cover its rows once. Sliding members
+    of every delta class, in any block order, give ``slide_plain``'s and
+    JAX's ``_slide_body``'s state."""
+    rng = np.random.RandomState(n + s)
+    m = 4
+    leaves = _leaves(rng, m, n, n, s, c)
+    deltas = np.array([0, 1 + s // 3, s, 3], np.int32)
+    blocks = slide_grid_blocks(n, s)
+    covered = {(leaf, r) for leaf, r0, nr in blocks
+               for r in range(r0, r0 + nr)}
+    assert len(covered) == 3 + 2 * n
+    assert sum(nr for _, _, nr in blocks) == 3 + 2 * n
+    pp, pv, cv, ck, ordered, acked, frontier = [a.copy() for a in leaves]
+    flat = {"pp": pp.reshape(-1), "ordered": ordered.reshape(-1),
+            "acked": acked.reshape(-1), "pv": pv.reshape(-1),
+            "cv": cv.reshape(-1)}
+    for i in rng.permutation(m * len(blocks)):
+        member, b = divmod(int(i), len(blocks))
+        leaf, r0, nr = blocks[b]
+        d = int(deltas[member])
+        if d <= 0:
+            continue
+        rows = 1 if leaf in ("pp", "ordered", "acked") else n
+        slide_run(flat[leaf], (member * rows + r0) * s, nr * s, s, d)
+        if (leaf, r0) == ("pp", 0):
+            ck[member] = 0
+            frontier[member] = max(int(frontier[member]) - d, 0)
+    got = tq.VoteState(*[torch.from_numpy(a) for a in
+                         (pp, pv, cv, ck, ordered, acked, frontier)])
+    plain = tq.VoteState(*[torch.from_numpy(a.copy()) for a in leaves])
+    tq.slide_plain(plain, torch.from_numpy(deltas))
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    want = jcp._slide_body(jq.VoteState(*[jnp.asarray(a) for a in leaves]),
+                           jnp.asarray(deltas))
+    for a, b in zip(want, got):
+        assert np.array_equal(np.asarray(a), b.numpy())
