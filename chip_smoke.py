@@ -11,7 +11,8 @@ drives the signed write path through its entry points at the size of
 member planes; LOG_SIZE 300, CHK_FREQ 100):
 
 1. build      - nvcc for sm_90a, seconds; the card's name and power limit;
-2. kernels    - K-a SHA-512, K-b mod L (at 8,192 and 32,768 rows with
+2. kernels    - K-a SHA-512 (ragged rows, a misaligned view refused), K-b mod L (at 8,192 and 32,768
+                rows with
                 its edge values, also against Python ints), K-c Ed25519
                 verify (the drain,
                 its first 1, 3 and 7 rows, the drain four times, the edge
@@ -43,9 +44,12 @@ member planes; LOG_SIZE 300, CHK_FREQ 100):
                 at k = 1, 2, 4 on phase H's and R's shapes, v = 1, 2 and
                 4, padded rows, S % 4 != 0, every slide class, and every
                 cluster size of 1 to 8 blocks; K1 ring shift for every
-                shift 1 .. m + 1 and K15 rotation merge for 13 rotations,
-                on (8,), (4, 2) and (K15) without a mesh; the sharded K14
-                on 4 validator tiles with phase G's votes;
+                shift 1 .. m + 1 on (8,) and (4, 2), at phases H's and
+                R's states and on odd-sized leaves; the one-card rotation
+                (one K1 roll) against the reference's arms and merge, and
+                K15's merge called on those arms, for 13 rotations on
+                (8,), (4, 2) and without a mesh; the sharded K14 on 4
+                validator tiles with phase G's votes;
 3. ingress    - 64 DID signers sign 1024 NYM requests, tiled with planted
                 faults into one 8192-entry drain, then a 104-entry drain,
                 through ``CoreAuthNr.authenticate_batch``; verdicts
@@ -88,7 +92,8 @@ R. rebalance  - the reference's forced-rebalance pool at n=64 (batches of
                 one, CHK_FREQ 5, LOG_SIZE 15, depth 4, seed 23) on (4, 2)
                 and (8,): ``RebalanceForceTick`` 12 against 0 gives the
                 same ``ordered_hash`` and dispatch-free ``trace_hash``; the
-                forced arm rotates (K1 + K15) at least once;
+                forced arm rotates at least once, each rotation one K1
+                launch and no K15;
 C. execution  - real execution at n=4 with two RBFT instances and
                 phase A's config: signed NYMs executed into every node's
                 ledgers and SMT states, 320 warm-up requests then 3,200
@@ -109,7 +114,9 @@ E. state      - ``run_commit_arms`` host vs device waves at the
                 windows): equal per-window roots;
 5. report     - a ``kernels`` JSON line (launches of the main path's runs,
                 K-a/K-b held against their plain versions at the drain's
-                shapes, times, bounds), a times line (with K11's and K10's
+                shapes, times, bounds; K-a's one-message chain floor, K1
+                and the one-card rotation also at phase R's state), a
+                times line (with K11's and K10's
                 dependent-chain floors, K10 at 32, 64 and 128 threads a
                 block, K13 at v = 1 against K7), the card, and last
                 ``{"ok": true, "device": {...}}``.
@@ -123,6 +130,7 @@ JAX. Without a CUDA device it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import random
@@ -222,19 +230,38 @@ def _nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@contextlib.contextmanager
+def _unfilled():
+    """Time as a user's process runs: ``set_deterministic`` (PyTorch's
+    deterministic algorithms) also fills every ``torch.empty`` on the card
+    with a pattern, one more kernel writing each output a wrapper
+    allocates, which a process without the flag never runs. The checks
+    keep the fill (a byte a kernel leaves unwritten shows); the times are
+    taken without it."""
+    import torch.utils.deterministic as td
+
+    before = td.fill_uninitialized_memory
+    td.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        td.fill_uninitialized_memory = before
+
+
 def _cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     import torch
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    with _unfilled():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
@@ -246,26 +273,27 @@ def _kernel_ms(fn, reps: int) -> float:
     run back to back. The spin grows until it outlasts the enqueueing."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    cycles = 2e7  # about 10 ms at the H100's clock
-    for _ in range(6):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        spun = torch.cuda.Event()
-        torch.cuda._sleep(int(cycles))
-        spun.record()
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        hidden = not spun.query()  # still spinning: no host gap got in
+    with _unfilled():
+        fn()
         torch.cuda.synchronize()
-        if hidden:
-            return start.elapsed_time(end) / reps
-        cycles *= 4
-    raise AssertionError("the host could not enqueue the timed calls "
-                         "ahead of the device")
+        cycles = 2e7  # about 10 ms at the H100's clock
+        for _ in range(6):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            spun = torch.cuda.Event()
+            torch.cuda._sleep(int(cycles))
+            spun.record()
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            hidden = not spun.query()  # still spinning: no host gap got in
+            torch.cuda.synchronize()
+            if hidden:
+                return start.elapsed_time(end) / reps
+            cycles *= 4
+        raise AssertionError("the host could not enqueue the timed calls "
+                             "ahead of the device")
 
 
 def bound(nbytes, ops):
@@ -336,17 +364,30 @@ def make_signed_requests(seed: int):
 
 
 def check_sha512_and_mod_l(dev, rng):
+    """K-a on 4,133 ragged rows of 8 blocks (counts 0 .. 8; not a multiple
+    of the block size) against its plain version; on padded real messages
+    against hashlib; a view 8 bytes off a 16-byte boundary refused. K-b at
+    8,192 and 32,768 rows."""
     import torch
     from indy_plenum_tpu_torch.tpu import sha512 as s5
 
-    batch, nb = 4096, 8
+    batch, nb = 4133, 8
     blocks = torch.from_numpy(
         rng.randint(0, 256, (batch, nb, 128)).astype(np.uint8)).to(dev)
-    counts = torch.from_numpy(
-        rng.randint(0, nb + 1, batch).astype(np.int32)).to(dev)
+    counts = rng.randint(0, nb + 1, batch).astype(np.int32)
+    counts[:4] = [0, 1, nb - 1, nb]
+    counts = torch.from_numpy(counts).to(dev)
     got = s5.sha512_blocks(blocks, counts)
     ref = s5.sha512_blocks_plain(blocks, counts)
     err_a = _max_abs_err([(got, ref)])
+    skewed = torch.empty(batch * nb * 128 + 8, dtype=torch.uint8,
+                         device=dev)[8:].view(batch, nb, 128)
+    try:
+        s5.sha512_blocks(skewed, counts)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K-a took a view off a 16-byte boundary")
     # and the standard itself, on padded real messages
     msgs = [rng.bytes(int(n)) for n in rng.randint(0, 8 * 128 - 81, 64)]
     pb, pc = s5.pad_ed25519_messages([b""] * 64, msgs, 8)
@@ -1142,36 +1183,82 @@ def check_resident_tile(dev, rng):
     return err, checks
 
 
+# phase R's group state: M, N, S, C
+R_STATE = (R_NODES, R_NODES, R_LOG_SIZE, R_LOG_SIZE // R_CHK_FREQ)
+
+
+def odd_leaves(dev, rng, rows=37):
+    """A small member-stacked state of odd-sized leaves: uint8 rows of 7
+    bytes, float32 rows of 3, int32 scalars and uint8 rows of 48 bytes -
+    K1's byte, 4-byte and 16-byte granules."""
+    import torch
+
+    return (torch.from_numpy(rng.randint(0, 256, (rows, 7)).astype(
+        np.uint8)).to(dev),
+        torch.from_numpy(rng.rand(rows, 3).astype(np.float32)).to(dev),
+        torch.from_numpy(rng.randint(0, 99, rows).astype(np.int32)).to(dev),
+        torch.from_numpy(rng.randint(0, 256, (rows, 4, 12)).astype(
+            np.uint8)).to(dev))
+
+
 def check_ring_rotate(dev, rng):
-    """K1 on every leaf of a full-width state (M = N = 256, S = 300, C =
-    3) for shifts 1 .. m + 1 on (8,) and (4, 2); K15 (through
-    ``rotate_planes``) for rows 1, R - 1, R, R + 1, M - 1 and 8 random
-    values on (8,), (4, 2) and without a mesh; each against its plain
-    version."""
+    """K1, the one-card rotation and K15, each against its plain version,
+    bit-equal. K1 (``ring_shift_planes``) on every leaf of phase H's state
+    (M = N = 256, S = 300, C = 3) for shifts 1 .. m + 1 on (8,) and (4,
+    2), and of phase R's (M = N = 64, S = 15, C = 3) on the same meshes;
+    K1 as a roll of any rows (``ring_shift_rows``) on odd-sized leaves at
+    37 rows. The rotation (``rotate_planes``: one K1 roll) against
+    ``rotate_planes_plain`` (the reference's arms and merge) and K15
+    (``rotate_merge``, called on the real arms of the same rotation)
+    against ``rotate_merge_plain``, for rows 1, R - 1, R, R + 1, M - 1
+    and 8 random values on (8,), (4, 2) and without a mesh, at both
+    states. Returns the errors (K1, K15, rotation)."""
+    import torch
     from indy_plenum_tpu_torch.tpu import rebalance as rb
     from indy_plenum_tpu_torch.tpu import ring_exchange as rx
 
-    m_rows = FABRIC_N
-    state = fabric_state(dev, rng, FABRIC_N, FABRIC_N, N_CHECKPOINTS)
-    err_ring = err_rot = 0
-    for shape in (None,) + FABRIC_SHAPES:
-        mesh = None if shape is None else fabric_mesh(dev, shape)
-        r = m_rows if shape is None else m_rows // shape[0]
-        if shape is not None:
-            for shift in range(1, shape[0] + 2):
-                got = rx.ring_shift_planes(state, mesh, shift)
-                want = rx.ring_shift_plain(state, mesh, shift)
-                err_ring = max(err_ring, _max_abs_err(zip(got, want)))
-        rows = [1, r - 1, r, r + 1, m_rows - 1] + [
-            int(x) for x in rng.randint(0, m_rows, 8)]
-        for rot in rows:
-            got = rb.rotate_planes(state, mesh, rot, r)
-            want = rb.rotate_planes_plain(state, mesh, rot, r)
-            err_rot = max(err_rot, _max_abs_err(zip(got, want)))
-    if err_ring or err_rot:
-        raise AssertionError(f"K1 ({err_ring}) or K15 ({err_rot}) differs "
-                             "from plain")
-    return err_ring, err_rot
+    err_ring = err_merge = err_rot = 0
+    states = (fabric_state(dev, rng, FABRIC_N, FABRIC_N, N_CHECKPOINTS),
+              fabric_state(dev, rng, R_STATE[1], R_STATE[1], R_STATE[3],
+                           m=R_STATE[0], s=R_STATE[2]))
+    for state in states:
+        m_rows = state.frontier.shape[0]
+        for shape in (None,) + FABRIC_SHAPES:
+            mesh = None if shape is None else fabric_mesh(dev, shape)
+            r = m_rows if shape is None else m_rows // shape[0]
+            if shape is not None:
+                for shift in range(1, shape[0] + 2):
+                    got = rx.ring_shift_planes(state, mesh, shift)
+                    want = rx.ring_shift_plain(state, mesh, shift)
+                    err_ring = max(err_ring, _max_abs_err(zip(got, want)))
+            rows = [1, r - 1, r, r + 1, m_rows - 1] + [
+                int(x) for x in rng.randint(0, m_rows, 8)]
+            for rot in rows:
+                got = rb.rotate_planes(state, mesh, rot, r)
+                want = rb.rotate_planes_plain(state, mesh, rot, r)
+                err_rot = max(err_rot, _max_abs_err(zip(got, want)))
+                b0, sub = divmod(rot % m_rows, r)
+                if sub == 0:
+                    continue
+                if shape is None:
+                    arm_a = arm_b = state
+                else:
+                    arm_a = rx.ring_shift_plain(state, mesh, b0)
+                    arm_b = rx.ring_shift_plain(state, mesh, b0 + 1)
+                got = rb.rotate_merge(arm_a, arm_b, sub, r)
+                want = rb.rotate_merge_plain(arm_a, arm_b, sub, r)
+                err_merge = max(err_merge, _max_abs_err(zip(got, want)))
+    odd = odd_leaves(dev, rng)
+    for rot in (1, 2, 18, 36, 37 + 5):
+        got = rx.ring_shift_rows(odd, rot)
+        want = [torch.roll(x, rot, dims=0) for x in odd]
+        err_ring = max(err_ring, max(
+            int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+            for a, b in zip(got, want)))
+    if err_ring or err_merge or err_rot:
+        raise AssertionError(f"K1 ({err_ring}), K15 ({err_merge}) or the "
+                             f"rotation ({err_rot}) differs from plain")
+    return err_ring, err_merge, err_rot
 
 
 def check_sharded_fused(dev, inputs, n=N_VALIDATORS, s=LOG_SIZE,
@@ -2212,6 +2299,21 @@ def run_state_e(dev):
 # --- phase 5: report ----------------------------------------------------------
 
 
+def sha_drain_blocks(arrays, reqs):
+    """K-a's operands at the ingress drain: each row's R || A || M padded
+    into blocks (``verify_inputs``' arrays, the requests' signing bytes
+    in turn): (8,192, 2, 128) uint8 and the counts."""
+    from indy_plenum_tpu_torch.tpu import ed25519 as ted
+    from indy_plenum_tpu_torch.tpu import sha512 as s5
+
+    msgs = [r.signing_bytes() for r in reqs]
+    n = len(arrays[0])
+    prefixes = [bytes(arrays[1][i]) + bytes(arrays[0][i]) for i in range(n)]
+    return s5.pad_ed25519_messages(
+        prefixes, [msgs[i % len(msgs)] for i in range(n)],
+        ted.max_blocks_for(msgs))
+
+
 def kernel_report(dev, signers, reqs, rng, launches, errs):
     import torch
     from indy_plenum_tpu_torch.crypto import ed25519 as ed
@@ -2220,8 +2322,6 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
     from indy_plenum_tpu_torch.tpu import sha512 as s5
 
     # the ingress drain's shapes: 8192 entries, 2 SHA-512 blocks each
-    msgs = [r.signing_bytes() for r in reqs]
-    nb = ted.max_blocks_for(msgs)
     rows, arrays = verify_inputs(signers, reqs, rng, DRAIN)
     pk, rb, sb, hb = [torch.from_numpy(a).to(dev) for a in arrays]
     # the verify kernel's work depends on the data: count the signatures
@@ -2231,10 +2331,7 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
         if p not in decodes:
             decodes[p] = ed.decompress(p) is not None
     n_full = sum(decodes[p] for p, _, _ in rows)
-    prefixes = [bytes(arrays[1][i]) + bytes(arrays[0][i])
-                for i in range(DRAIN)]
-    blocks_np, counts_np = s5.pad_ed25519_messages(
-        prefixes, [msgs[i % len(msgs)] for i in range(DRAIN)], nb)
+    blocks_np, counts_np = sha_drain_blocks(arrays, reqs)
     blocks = torch.from_numpy(blocks_np).to(dev)
     counts = torch.from_numpy(counts_np).to(dev)
     # K-a and K-b against their plain versions at these shapes
@@ -2261,6 +2358,10 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
 
     t_sha = _kernel_ms(sha, 20)
     call_sha = _cuda_ms(sha, 20)
+    # K-a's chain floor: one message of the drain alone
+    one_block, one_count = blocks[:1].contiguous(), counts[:1].contiguous()
+    t_sha_one = _kernel_ms(lambda: s5.sha512_blocks(one_block, one_count),
+                           20)
     t_sha_plain = _cuda_ms(lambda: s5.sha512_blocks_plain(blocks, counts),
                            1, 0)
     t_modl = _kernel_ms(modl, 20)
@@ -2357,6 +2458,7 @@ def kernel_report(dev, signers, reqs, rng, launches, errs):
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by,
                     "library_ms": library.get(name)})
+    out[0].update(chain_floor_ms=t_sha_one)
 
     # bench.py's Ed25519 metric: verify_kernel_full at 32768
     big = BENCH_VERIFY_BATCH // DRAIN
@@ -2631,8 +2733,13 @@ def fabric_report(dev, rng, launches, errs, inputs):
     rows, behind the spin as the kernels);
     K15 reads one arm's row for each row it writes and writes the state
     (K1's bytes); the sharded K14 is K-c's bound plus K13's at (1, N, S)
-    with B words. Also K13 at v = 1 (the (8,) member mesh's step) against
-    K7 on the same state and words, alternated three times in one call."""
+    with B words. The one-card rotation (``rotate_planes`` by R / 2 on
+    (8,), one K1 roll; its plain version the reference's arms and merge)
+    is a row of its own, with K1's bound and library call. K1 and the
+    rotation are also timed at phase R's state (M = N = 64, S = 15, C =
+    3; one ring step and R / 2 on (4, 2)), under ``phase_r``. Also K13 at
+    v = 1 (the (8,) member mesh's step) against K7 on the same state and
+    words, alternated three times in one call."""
     import torch
     from indy_plenum_tpu_torch.tpu import quorum as q
     from indy_plenum_tpu_torch.tpu import rebalance as rb
@@ -2688,6 +2795,12 @@ def fabric_report(dev, rng, launches, errs, inputs):
          lambda: rb.rotate_merge_plain(arm_a, arm_b, r // 2, r),
          bound(2 * leaf_bytes, 0), "indy_plenum_tpu_torch/csrc/ring.cu",
          "indy_plenum_tpu/tpu/rebalance.py:184", 20),
+        ("rotate_planes",
+         lambda: rb.rotate_planes(state, mesh8, r // 2, r),
+         lambda: rb.rotate_planes_plain(state, mesh8, r // 2, r),
+         bound(2 * leaf_bytes, 0),
+         "indy_plenum_tpu_torch/tpu/rebalance.py (csrc/ring.cu)",
+         "indy_plenum_tpu/tpu/rebalance.py:184", 20),
         ("sharded_fused_step",
          lambda: sharded(gstate, gwords, *sig),
          lambda: st.fused_step_plain(
@@ -2699,7 +2812,9 @@ def fabric_report(dev, rng, launches, errs, inputs):
     tile_blocks = q._cluster_blocks(dev, n, s, c, m, False, True)
     k13_blocks = q._cluster_blocks(dev, n, s, c, m, True)
     library = {"ring_shift": _kernel_ms(
-        lambda: [torch.roll(x, r, dims=0) for x in state], 20)}
+        lambda: [torch.roll(x, r, dims=0) for x in state], 20),
+        "rotate_planes": _kernel_ms(
+        lambda: [torch.roll(x, r // 2, dims=0) for x in state], 20)}
     out, call_ms = [], {}
     for name, fn, plain, (bound_ms, bound_by), src, replaces, reps in rows:
         ms = _kernel_ms(fn, reps)
@@ -2711,6 +2826,24 @@ def fabric_report(dev, rng, launches, errs, inputs):
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by,
                     "library_ms": library.get(name)})
+    # K1 and the rotation at phase R's state, on its (4, 2) fabric
+    rm, rn, rs, rc = R_STATE
+    rstate = fabric_state(dev, rng, rn, rn, rc, m=rm, s=rs)
+    mesh42 = fabric_mesh(dev, (4, 2))
+    rr = rm // 4
+    r_bound = bound(2 * state_bytes(rm, rn, rs, rc), 0)
+    for row, fn, plain, lib in (
+            (out[2], lambda: rx.ring_shift_planes(rstate, mesh42, 1),
+             lambda: rx.ring_shift_plain(rstate, mesh42, 1), rr),
+            (out[4], lambda: rb.rotate_planes(rstate, mesh42, rr // 2, rr),
+             lambda: rb.rotate_planes_plain(rstate, mesh42, rr // 2, rr),
+             rr // 2)):
+        row["phase_r"] = {
+            "ms": _kernel_ms(fn, 20), "call_ms": _cuda_ms(fn, 20),
+            "plain_ms": _cuda_ms(plain, 1, 0), "bound_ms": r_bound[0],
+            "bound_by": r_bound[1],
+            "library_ms": _kernel_ms(
+                lambda: [torch.roll(x, lib, dims=0) for x in rstate], 20)}
     v1 = {"k13_v1_ms": [], "k7_ms": [], "k13_v1_call_ms": [],
           "k7_call_ms": []}
     for _ in range(3):
@@ -2725,6 +2858,9 @@ def fabric_report(dev, rng, launches, errs, inputs):
                          f"{tile_blocks} blocks a member",
         "ring_shift": f"every leaf of {m} x {n} x {s}, (8,), shift 1",
         "rotate_merge": f"every leaf of {m} x {n} x {s}, R={r}, s={r // 2}",
+        "rotate_planes": f"every leaf of {m} x {n} x {s}, (8,), "
+                         f"{r // 2} rows; phase_r: {rm} x {rn} x {rs}, "
+                         f"(4, 2), {rr // 2} rows (K1: one ring step)",
         "sharded_fused_step": f"{batch} votes, 1 x {N_VALIDATORS} x {s}, "
                               "v=4"}
 
@@ -2760,9 +2896,9 @@ PATH_KERNELS = {
     "fabric_mesh8": ("fabric_step",),
     "fabric_fabric4x2": ("fabric_step",),
     "fabric_fabric4x2_resident": ("resident_tile",),
-    # phase R: the forced arm rotates (K1 + K15); both arms run the tiled
-    # K9 and slide inside it
-    "rebalance_forced": ("resident_tile", "ring_shift", "rotate_merge"),
+    # phase R: the forced arm rotates (one K1 roll a rotation, no K15);
+    # both arms run the tiled K9 and slide inside it
+    "rebalance_forced": ("resident_tile", "ring_shift"),
     "rebalance_unforced": ("resident_tile",),
 }
 
@@ -2828,7 +2964,7 @@ def main() -> int:
     # K13, the tiled K9, K1, K15 and the sharded K14 at full width
     err_k13, k13_checks = check_fabric(dev, rng)
     err_tile, tile_checks = check_resident_tile(dev, rng)
-    err_k1, err_k15 = check_ring_rotate(dev, rng)
+    err_k1, err_k15, err_rot = check_ring_rotate(dev, rng)
     err_sk14 = check_sharded_fused(dev, fused)
     errs = {"sha512_blocks": err_a, "reduce_mod_l": err_b,
             "ed25519_verify": err_c, "quorum_step": err_d,
@@ -2838,7 +2974,7 @@ def main() -> int:
             "audit_paths": err_k10, "audit_paths_indexed": err_k10,
             "fabric_step": err_k13, "resident_tile": err_tile,
             "ring_shift": err_k1, "rotate_merge": err_k15,
-            "sharded_fused_step": err_sk14}
+            "rotate_planes": err_rot, "sharded_fused_step": err_sk14}
     _line("kernels", max_abs_err=errs, verify_accepted=n_ok,
           verify_rows=n_rows, quorum_steps=q_steps, quorum_shapes=k7_shapes,
           k11_plans={"levels": commit_plan(dev)[3],
@@ -2981,10 +3117,11 @@ def main() -> int:
     _line("fabric_h_summary", ordered_hash=hashes.pop(),
           phase_s=time.perf_counter() - t0, card=card)
 
-    # R. a forced rebalance (K1 + K15) against the unforced arm, n=64, on
-    # the (4, 2) fabric and the (8,) mesh
+    # R. a forced rebalance (one K1 roll) against the unforced arm, n=64,
+    # on the (4, 2) fabric and the (8,) mesh
     t0 = time.perf_counter()
     rebalance_r = {}
+    rotations = 0
     for shape in R_SHAPES:
         forced, r_launches, _ = on_card("rebalance_forced", run_pool_r,
                                         None, shape, R_FORCE_TICK)
@@ -2998,6 +3135,12 @@ def main() -> int:
                 or plain_arm["rebalances"] != 0 \
                 or u_launches["ring_shift"] or u_launches["rotate_merge"]:
             raise AssertionError(f"phase R {shape}: {forced} {plain_arm}")
+        # one K1 launch a rotation and no merge: the one-card roll
+        if r_launches["ring_shift"] != forced["rebalances"] \
+                or r_launches["rotate_merge"]:
+            raise AssertionError(f"phase R {shape}: {forced['rebalances']} "
+                                 f"rotations made {r_launches}")
+        rotations += r_launches["ring_shift"]
         rebalance_r["x".join(map(str, shape))] = forced
         _line("rebalance_r", mesh=list(shape), **forced,
               unforced_wall_s=plain_arm["wall_s"], launches=r_launches,
@@ -3074,7 +3217,7 @@ def main() -> int:
     kernels += res_rows
     times["call_ms"].update(res_call_ms)
     fab_rows, fab_call_ms, k13_v1, fab_shapes = fabric_report(
-        dev, rng, launches, errs, fused)
+        dev, rng, dict(launches, rotate_planes=rotations), errs, fused)
     kernels += fab_rows
     times["call_ms"].update(fab_call_ms)
     print(json.dumps({"kernels": kernels}), flush=True)

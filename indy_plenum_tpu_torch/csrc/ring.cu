@@ -15,30 +15,42 @@
 //   contiguous rows, so the shift is a rotation of each leaf's bytes by
 //   shift x R x row_bytes: dst[(i + offset) mod total] = src[i]. Any shift
 //   and both mesh ranks (the validator tiles of a member block move with
-//   it, inside its rows).
+//   it, inside its rows). With every tile on one card the rotation of
+//   ``rotate_planes`` is this kernel too, once, by ``rows`` rows
+//   (tpu/ring_exchange.py ``ring_shift_rows``).
 // - K15: indy_plenum_tpu/tpu/rebalance.py:207-221, `rotate_planes`' merge:
 //   for rows = b R + s, two ring shifts (K1 by b and by b + 1) give arms A
 //   and B; new row k R + r of shard k takes A's row k R + r - s when
 //   r >= s, else B's row k R + r - s + R. Without a mesh the rotation is
 //   this merge alone with m = 1 (A = B = the state, R = M): a roll of the
-//   member axis.
+//   member axis. On one card the port rolls instead (K1 above), so the
+//   merge runs only where the arms live on distinct cards (the
+//   multi-card fabric) and in the checks against its plain version.
 //
 // What bounds them on an H100: bytes. K1 reads and writes each leaf once:
 // at the fabric bench's state (256 x 256 x 300 uint8 planes x 2, the
 // checkpoint votes, three slot rows and the frontier) ~39.7 MB each way,
-// ~79 MB, 24 us at 3.35 TB/s. K15's merge moves the same bytes: it reads
-// one arm's row for each row it writes. A rotation on a mesh is three
-// such passes (two K1 arms and the merge) where, with every tile on one
-// card, one K1-style roll of each leaf by ``rows`` rows would do: the
-// arms-and-merge shape is the reference's multi-device one, kept for the
-// multi-card fabric.
+// ~79 MB, 24 us at 3.35 TB/s. At phase R's state (64 x 64 x 15, ~130 KB)
+// a launch is bound by its latency instead. K15's merge moves the same
+// bytes: it reads one arm's row for each row it writes.
 //
-// Design: a grid-stride copy, grid (blocks, leaves). Each leaf moves in
-// the widest granule (16, 4 or 1 bytes) that divides its size, its
-// rotation offset (K1) or row (K15) and both addresses, so the big planes
-// move as 16-byte vector loads and stores, neighbouring threads on
-// neighbouring addresses. The rotation's wrap is a compare, not a
-// division; the merge divides once per granule to find the row.
+// Design of K1: each leaf's rotation by ``offset`` granules is two linear
+// copies, dst[offset:] <- src[:units - offset] and dst[:offset] <-
+// src[units - offset:], with no wrap test on any element. Each leaf moves
+// in the widest granule (16, 4 or 1 bytes) that divides its size, its
+// offset and both addresses, so the big planes move as 16-byte vectors
+// and the int32 frontier and odd-sized leaves still work. The segments of
+// every leaf are cut into tiles of kRingThreads x kRingLoads granules;
+// the grid is one row of blocks a segment, each block striding over its
+// segment's tiles (at most kMaxBlocks a row, the longest segment's tiles
+// spread evenly over them). A thread issues its kRingLoads loads
+// (neighbouring threads on neighbouring addresses) before its stores,
+// offsets 32-bit inside a tile, with streaming hints (__ldcs/__stcs:
+// phase H's ~80 MB pass through the 50 MB L2 once). PERF.md has its
+// times beside a flat grid's over all segments.
+//
+// K15 (the merge): a grid-stride copy, grid (blocks, leaves), in the same
+// granules; it divides once per granule to find the row.
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,15 +58,20 @@
 namespace {
 
 constexpr int kMaxLeaves = 16;
+constexpr int kMaxSegments = 2 * kMaxLeaves;
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 1024;
+constexpr int kRingThreads = 256;
+constexpr int kRingLoads = 2;  // loads in flight a thread
 
+// the segments of a rotation, each ``units`` granules of ``granule``
+// bytes
 struct RingTable {
-  const uint8_t* src[kMaxLeaves];
-  uint8_t* dst[kMaxLeaves];
-  long long units[kMaxLeaves];   // leaf size in granules
-  long long offset[kMaxLeaves];  // rotation in granules, < units
-  int granule[kMaxLeaves];
+  const uint8_t* src[kMaxSegments];
+  uint8_t* dst[kMaxSegments];
+  long long units[kMaxSegments];
+  int granule[kMaxSegments];
+  int n;
 };
 
 struct MergeTable {
@@ -65,36 +82,55 @@ struct MergeTable {
   int granule[kMaxLeaves];
 };
 
+// tile ``tile`` of a segment of ``units`` granules
 template <class T>
-__device__ __forceinline__ void rotate_leaf(const T* __restrict__ src,
-                                            T* __restrict__ dst,
-                                            long long units,
-                                            long long offset) {
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < units; i += step) {
-    long long to = i + offset;
-    if (to >= units) to -= units;
-    dst[to] = src[i];
+__device__ __forceinline__ void copy_tile(const T* __restrict__ src,
+                                          T* __restrict__ dst,
+                                          long long units, long long tile) {
+  constexpr int kTile = kRingThreads * kRingLoads;
+  const long long base = tile * kTile;
+  const long long rest = units - base;
+  const int left = rest < kTile ? static_cast<int>(rest) : kTile;
+  src += base;
+  dst += base;
+  T v[kRingLoads];
+#pragma unroll
+  for (int j = 0; j < kRingLoads; ++j) {
+    const int i = threadIdx.x + j * kRingThreads;
+    if (i < left) v[j] = __ldcs(src + i);
+  }
+#pragma unroll
+  for (int j = 0; j < kRingLoads; ++j) {
+    const int i = threadIdx.x + j * kRingThreads;
+    if (i < left) __stcs(dst + i, v[j]);
   }
 }
 
-__global__ void ring_shift_kernel(RingTable t) {
-  const int l = blockIdx.y;
-  switch (t.granule[l]) {
+template <class T>
+__device__ __forceinline__ void copy_segment(const T* src, T* dst,
+                                             long long units) {
+  const long long tiles = (units + kRingThreads * kRingLoads - 1) /
+                          (kRingThreads * kRingLoads);
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    copy_tile(src, dst, units, tile);
+  }
+}
+
+// row y of the grid copies segment y
+__global__ void __launch_bounds__(kRingThreads)
+    ring_shift_kernel(const __grid_constant__ RingTable t) {
+  const int s = blockIdx.y;
+  switch (t.granule[s]) {
     case 16:
-      rotate_leaf(reinterpret_cast<const uint4*>(t.src[l]),
-                  reinterpret_cast<uint4*>(t.dst[l]), t.units[l],
-                  t.offset[l]);
+      copy_segment(reinterpret_cast<const uint4*>(t.src[s]),
+                   reinterpret_cast<uint4*>(t.dst[s]), t.units[s]);
       break;
     case 4:
-      rotate_leaf(reinterpret_cast<const uint32_t*>(t.src[l]),
-                  reinterpret_cast<uint32_t*>(t.dst[l]), t.units[l],
-                  t.offset[l]);
+      copy_segment(reinterpret_cast<const unsigned int*>(t.src[s]),
+                   reinterpret_cast<unsigned int*>(t.dst[s]), t.units[s]);
       break;
     default:
-      rotate_leaf(t.src[l], t.dst[l], t.units[l], t.offset[l]);
+      copy_segment(t.src[s], t.dst[s], t.units[s]);
   }
 }
 
@@ -158,11 +194,33 @@ int blocks_for(long long most_units) {
   return static_cast<int>(b < 1 ? 1 : (b > kMaxBlocks ? kMaxBlocks : b));
 }
 
+// K1's blocks a row: the longest segment's tiles spread evenly over at
+// most kMaxBlocks blocks, so each of its blocks walks the same count of
+// tiles and none is left with one more at the end
+int ring_blocks(long long most_units) {
+  constexpr int kTile = kRingThreads * kRingLoads;
+  const long long tiles = (most_units + kTile - 1) / kTile;
+  const long long per_block = (tiles + kMaxBlocks - 1) / kMaxBlocks;
+  return static_cast<int>(per_block < 1 ? 1
+                                        : (tiles + per_block - 1) / per_block);
+}
+
+void add_segment(RingTable& t, const uint8_t* src, uint8_t* dst,
+                 long long units, int granule) {
+  if (units <= 0) return;
+  t.src[t.n] = src;
+  t.dst[t.n] = dst;
+  t.units[t.n] = units;
+  t.granule[t.n] = granule;
+  ++t.n;
+}
+
 }  // namespace
 
 // ``table``: host int64 triples (src, dst, row_bytes) per leaf, each leaf
 // ``rows`` member rows of row_bytes; block b -> b + shift of m blocks of
-// rows / m rows each is a rotation by shift_rows = shift x rows / m rows.
+// rows / m rows each is a rotation by shift_rows = shift x rows / m rows,
+// and rotate_planes' roll by ``rows`` rows is shift_rows = rows.
 extern "C" int ring_shift_launch(const void* table, int n_leaves, int rows,
                                  int shift_rows, void* stream) {
   if (n_leaves < 1 || n_leaves > kMaxLeaves || rows < 1) {
@@ -171,7 +229,6 @@ extern "C" int ring_shift_launch(const void* table, int n_leaves, int rows,
   const long long* in = static_cast<const long long*>(table);
   const int sr = ((shift_rows % rows) + rows) % rows;
   RingTable t = {};
-  long long most = 0;
   for (int l = 0; l < n_leaves; ++l) {
     const long long src = in[3 * l], dst = in[3 * l + 1];
     const long long row_bytes = in[3 * l + 2];
@@ -179,14 +236,18 @@ extern "C" int ring_shift_launch(const void* table, int n_leaves, int rows,
     const long long offset = row_bytes * sr;
     const long long vals[4] = {src, dst, total, offset};
     const int g = granule_of(vals, 4);
-    t.src[l] = reinterpret_cast<const uint8_t*>(src);
-    t.dst[l] = reinterpret_cast<uint8_t*>(dst);
-    t.units[l] = total / g;
-    t.offset[l] = offset / g;
-    t.granule[l] = g;
-    most = t.units[l] > most ? t.units[l] : most;
+    const auto* s = reinterpret_cast<const uint8_t*>(src);
+    auto* d = reinterpret_cast<uint8_t*>(dst);
+    // dst[offset:] <- src[:total - offset]; dst[:offset] <- src[total -
+    // offset:]
+    add_segment(t, s, d + offset, (total - offset) / g, g);
+    add_segment(t, s + (total - offset), d, offset / g, g);
   }
-  ring_shift_kernel<<<dim3(blocks_for(most), n_leaves), kThreads, 0,
+  if (t.n == 0) return static_cast<int>(cudaGetLastError());
+  long long most = 0;
+  for (int i = 0; i < t.n; ++i) most = t.units[i] > most ? t.units[i] : most;
+  const dim3 grid(ring_blocks(most), t.n);
+  ring_shift_kernel<<<grid, kRingThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
 }

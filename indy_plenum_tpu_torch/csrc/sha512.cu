@@ -12,22 +12,45 @@
 // 64-bit adds/rotates/logic per 128-byte block (each 64-bit op is two or
 // more 32-bit instructions), against 128 bytes read - far above the
 // card's bytes-per-operation balance, so the 64 INT32 lanes per SM are the
-// limit, not HBM. The Barrett reduction does 35 64x64->128 products per
-// item for 96 bytes moved; at the drain's 8,192 items its one dependent
-// chain a thread, not the card's issue rate, sets the time.
+// limit, not HBM. At the drain's 8,192 messages that is 256 warps, at most
+// one on each of the card's 528 schedulers: one thread's dependent chain
+// and its warp's issue rate set the time, not the card's. The Barrett
+// reduction does 35 64x64->128 products per item for 96 bytes moved; at
+// the drain's 8,192 items its one dependent chain a thread, not the
+// card's issue rate, sets the time.
 //
-// Design:
-//   - one thread per message; native uint64 words (no hi/lo pairs); the
-//     16-word schedule lives in registers as a rolling window;
-//   - a thread loops over its item's ACTIVE blocks only (n_blocks[i]), so
-//     padding rows past the count are never read;
-//   - the 80 round constants and the IV come from the caller (derived on
-//     the host from the first primes, as the JAX module derives them) and
-//     are staged into shared memory once per block: every thread of a
-//     warp reads the same constant at the same time, a broadcast;
-//   - loads are 8-byte words byte-swapped from big-endian; rows are
-//     128-byte aligned because torch allocations are;
-//   - mod L: one thread per item, Barrett (Handbook of Applied
+// Design of K-a (one thread a message: a message's 160 rounds are one
+// dependent chain whatever runs them, so the design shortens the chain and
+// the instructions a thread issues):
+//   - native uint64 words; the 16-word schedule lives in registers as a
+//     rolling window; a thread loops over its item's ACTIVE blocks only
+//     (n_blocks[i]), so padding rows past the count are never read;
+//   - the 80 round constants and the IV are a constexpr table here (the
+//     host derives the same values from the first primes, for the plain
+//     version and the tests): no operand, no staging, no barrier. The
+//     rounds are template instances, so rounds 0..15 fold their constants
+//     into their adds as immediates; rounds 16..79 are four turns of one
+//     16-round body, their constants from a __constant__ copy of the
+//     table. Fully unrolled, the 80 rounds are ~3,700 instructions (59 KB
+//     of SASS), and warps that share an SM at different rounds miss in
+//     the instruction cache: rolled, the drain takes 18% less time on an
+//     H100 at 700 W (PERF.md);
+//   - a 64-bit rotate is written shift-or: ptxas makes it two funnel
+//     shifts (SHF) on the 32-bit halves, as the SASS shows (PERF.md);
+//     ch and maj are one 3-input logic op (LOP3) a half;
+//   - a block's 128 bytes are 8 16-byte loads, and block b + 1's are in
+//     flight while block b's rounds run, so only a message's first block
+//     exposes the load latency. Rows are 16-byte aligned (the wrapper
+//     raises otherwise);
+//   - 64 threads a block (kSha512Threads): the fastest of the sweep at
+//     the drain's 8,192 messages and at 32,768 on an H100 at 700 W (32
+//     within 1%, 256 60% slower at the drain; PERF.md).
+//   csrc/probe/sha512_variants.cu holds the forms this one was measured
+//   against (every round unrolled, 8-byte loads, and the replaced kernel
+//   that staged its constants in shared memory), for
+//   utils/sha512_probe.py; the library builds this form only.
+//
+// K-b: one thread per item, Barrett (Handbook of Applied
 //     Cryptography, 14.42) with b = 2^64, k = 4 and mu = floor(2^512 / L)
 //     (5 limbs) from the host beside L (4 limbs): q1 = h >> 192, q3 =
 //     (q1 mu) >> 320 (all 25 products, no column skipped: h - q3 L < 3L),
@@ -40,74 +63,217 @@
 //     are 128 blocks, about one a SM.
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <utility>
 
 namespace {
 
-__device__ __forceinline__ uint64_t bswap64(uint64_t x) {
-  uint32_t lo = static_cast<uint32_t>(x);
-  uint32_t hi = static_cast<uint32_t>(x >> 32);
-  uint32_t nlo = __byte_perm(hi, 0, 0x0123);
-  uint32_t nhi = __byte_perm(lo, 0, 0x0123);
-  return (static_cast<uint64_t>(nhi) << 32) | nlo;
+// FIPS 180-4 4.2.3 and 5.3.5: K[0..79], then H0[0..7] at 80..87
+constexpr uint64_t kSha512Table[88] = {
+    0x428a2f98d728ae22ull, 0x7137449123ef65cdull, 0xb5c0fbcfec4d3b2full,
+    0xe9b5dba58189dbbcull, 0x3956c25bf348b538ull, 0x59f111f1b605d019ull,
+    0x923f82a4af194f9bull, 0xab1c5ed5da6d8118ull, 0xd807aa98a3030242ull,
+    0x12835b0145706fbeull, 0x243185be4ee4b28cull, 0x550c7dc3d5ffb4e2ull,
+    0x72be5d74f27b896full, 0x80deb1fe3b1696b1ull, 0x9bdc06a725c71235ull,
+    0xc19bf174cf692694ull, 0xe49b69c19ef14ad2ull, 0xefbe4786384f25e3ull,
+    0x0fc19dc68b8cd5b5ull, 0x240ca1cc77ac9c65ull, 0x2de92c6f592b0275ull,
+    0x4a7484aa6ea6e483ull, 0x5cb0a9dcbd41fbd4ull, 0x76f988da831153b5ull,
+    0x983e5152ee66dfabull, 0xa831c66d2db43210ull, 0xb00327c898fb213full,
+    0xbf597fc7beef0ee4ull, 0xc6e00bf33da88fc2ull, 0xd5a79147930aa725ull,
+    0x06ca6351e003826full, 0x142929670a0e6e70ull, 0x27b70a8546d22ffcull,
+    0x2e1b21385c26c926ull, 0x4d2c6dfc5ac42aedull, 0x53380d139d95b3dfull,
+    0x650a73548baf63deull, 0x766a0abb3c77b2a8ull, 0x81c2c92e47edaee6ull,
+    0x92722c851482353bull, 0xa2bfe8a14cf10364ull, 0xa81a664bbc423001ull,
+    0xc24b8b70d0f89791ull, 0xc76c51a30654be30ull, 0xd192e819d6ef5218ull,
+    0xd69906245565a910ull, 0xf40e35855771202aull, 0x106aa07032bbd1b8ull,
+    0x19a4c116b8d2d0c8ull, 0x1e376c085141ab53ull, 0x2748774cdf8eeb99ull,
+    0x34b0bcb5e19b48a8ull, 0x391c0cb3c5c95a63ull, 0x4ed8aa4ae3418acbull,
+    0x5b9cca4f7763e373ull, 0x682e6ff3d6b2b8a3ull, 0x748f82ee5defb2fcull,
+    0x78a5636f43172f60ull, 0x84c87814a1f0ab72ull, 0x8cc702081a6439ecull,
+    0x90befffa23631e28ull, 0xa4506cebde82bde9ull, 0xbef9a3f7b2c67915ull,
+    0xc67178f2e372532bull, 0xca273eceea26619cull, 0xd186b8c721c0c207ull,
+    0xeada7dd6cde0eb1eull, 0xf57d4f7fee6ed178ull, 0x06f067aa72176fbaull,
+    0x0a637dc5a2c898a6ull, 0x113f9804bef90daeull, 0x1b710b35131c471bull,
+    0x28db77f523047d84ull, 0x32caab7b40c72493ull, 0x3c9ebe0a15c9bebcull,
+    0x431d67c49c100d4cull, 0x4cc5d4becb3e42b6ull, 0x597f299cfc657e2aull,
+    0x5fcb6fab3ad6faecull, 0x6c44198c4a475817ull,
+    // the initial state, H0[0..7] at 80..87
+    0x6a09e667f3bcc908ull, 0xbb67ae8584caa73bull, 0x3c6ef372fe94f82bull,
+    0xa54ff53a5f1d36f1ull, 0x510e527fade682d1ull, 0x9b05688c2b3e6c1full,
+    0x1f83d9abfb41bd6bull, 0x5be0cd19137e2179ull,
+};
+
+__host__ __device__ constexpr uint64_t sha512_const(int i) {
+  return kSha512Table[i];
+}
+
+// entry I of the table as a scalar constant (device code reads no array of
+// the host's)
+template <int I>
+constexpr uint64_t kSha512Word = sha512_const(I);
+
+// K-a's threads a block, and the most its kernel is built for (the
+// probe's sweep launches it at 32 to 256)
+constexpr int kSha512Threads = 64;
+constexpr int kSha512MaxThreads = 256;
+
+__device__ __forceinline__ uint64_t pack(uint32_t hi, uint32_t lo) {
+  return (static_cast<uint64_t>(hi) << 32) | lo;
 }
 
 __device__ __forceinline__ uint64_t rotr64(uint64_t x, int n) {
   return (x >> n) | (x << (64 - n));
 }
 
-// consts: K[0..79], H0[80..87]
-__global__ void sha512_blocks_kernel(const uint64_t* __restrict__ blocks,
-                                     const int32_t* __restrict__ n_blocks,
-                                     uint64_t* __restrict__ out,
-                                     const uint64_t* __restrict__ consts,
-                                     int batch, int nb) {
-  __shared__ uint64_t k[88];
-  for (int i = threadIdx.x; i < 88; i += blockDim.x) k[i] = consts[i];
-  __syncthreads();
-  int item = blockIdx.x * blockDim.x + threadIdx.x;
-  if (item >= batch) return;
+// round T of the compression (T >= 16: the schedule word computed in
+// place); k its round constant
+template <int T>
+__device__ __forceinline__ void sha512_round(uint64_t& a, uint64_t& b,
+                                             uint64_t& c, uint64_t& d,
+                                             uint64_t& e, uint64_t& f,
+                                             uint64_t& g, uint64_t& h,
+                                             uint64_t (&w)[16], uint64_t k) {
+  if constexpr (T >= 16) {
+    const uint64_t w15 = w[(T + 1) & 15], w2 = w[(T + 14) & 15];
+    const uint64_t s0 = rotr64(w15, 1) ^ rotr64(w15, 8) ^ (w15 >> 7);
+    const uint64_t s1 = rotr64(w2, 19) ^ rotr64(w2, 61) ^ (w2 >> 6);
+    w[T & 15] += s0 + w[(T + 9) & 15] + s1;
+  }
+  const uint64_t S1 = rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41);
+  const uint64_t ch = (e & f) ^ (~e & g);
+  const uint64_t t1 = h + S1 + ch + k + w[T & 15];
+  const uint64_t S0 = rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39);
+  const uint64_t mj = (a & b) | (c & (a | b));
+  h = g;
+  g = f;
+  f = e;
+  e = d + t1;
+  d = c;
+  c = b;
+  b = a;
+  a = t1 + S0 + mj;
+}
 
-  uint64_t h[8];
+// rounds T..., each constant an immediate
+template <int... T>
+__device__ __forceinline__ void sha512_rounds(
+    uint64_t& a, uint64_t& b, uint64_t& c, uint64_t& d, uint64_t& e,
+    uint64_t& f, uint64_t& g, uint64_t& h, uint64_t (&w)[16],
+    std::integer_sequence<int, T...>) {
+  (sha512_round<T>(a, b, c, d, e, f, g, h, w, kSha512Word<T>), ...);
+}
+
+// 16 scheduled rounds whose constants are kc[0..15] (loaded, not
+// immediates)
+template <int... J>
+__device__ __forceinline__ void sha512_rounds_loaded(
+    uint64_t& a, uint64_t& b, uint64_t& c, uint64_t& d, uint64_t& e,
+    uint64_t& f, uint64_t& g, uint64_t& h, uint64_t (&w)[16],
+    const uint64_t* kc, std::integer_sequence<int, J...>) {
+  (sha512_round<16 + J>(a, b, c, d, e, f, g, h, w, kc[J]), ...);
+}
+
+// the round constants again as a __constant__ table, for rounds 16..79
+struct Sha512Rounds {
+  uint64_t k[80];
+};
+
+__host__ __device__ constexpr Sha512Rounds sha512_rounds_table() {
+  Sha512Rounds r{};
+  for (int i = 0; i < 80; ++i) r.k[i] = kSha512Table[i];
+  return r;
+}
+
+__constant__ Sha512Rounds kSha512Rounds = sha512_rounds_table();
+
+// the 80 rounds of one block over the state st: rounds 0..15 each a
+// template instance, its constant an immediate; rounds 16..79 four turns
+// of one 16-round body, constants from the __constant__ table (fully
+// unrolled, the 80 rounds are ~3,700 instructions, 59 KB of SASS)
+__device__ __forceinline__ void sha512_compress(uint64_t (&st)[8],
+                                                uint64_t (&w)[16]) {
+  uint64_t a = st[0], b = st[1], c = st[2], d = st[3];
+  uint64_t e = st[4], f = st[5], g = st[6], h = st[7];
+  constexpr auto first = std::make_integer_sequence<int, 16>{};
+  sha512_rounds(a, b, c, d, e, f, g, h, w, first);
+#pragma unroll 1
+  for (int turn = 1; turn < 5; ++turn) {
+    sha512_rounds_loaded(a, b, c, d, e, f, g, h, w,
+                         kSha512Rounds.k + 16 * turn, first);
+  }
+  st[0] += a;
+  st[1] += b;
+  st[2] += c;
+  st[3] += d;
+  st[4] += e;
+  st[5] += f;
+  st[6] += g;
+  st[7] += h;
+}
+
+template <int... I>
+__device__ __forceinline__ void sha512_init(
+    uint64_t (&st)[8], std::integer_sequence<int, I...>) {
+  ((st[I] = kSha512Word<80 + I>), ...);
+}
+
+// block b's 16 big-endian words from its 8 16-byte vectors
+__device__ __forceinline__ void unpack_block(const uint4 (&v)[8],
+                                             uint64_t (&w)[16]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) h[i] = k[80 + i];
+  for (int i = 0; i < 8; ++i) {
+    w[2 * i] = pack(__byte_perm(v[i].x, 0, 0x0123),
+                    __byte_perm(v[i].y, 0, 0x0123));
+    w[2 * i + 1] = pack(__byte_perm(v[i].z, 0, 0x0123),
+                        __byte_perm(v[i].w, 0, 0x0123));
+  }
+}
+
+// the digest's 8 words, big-endian, as 4 16-byte vectors
+__device__ __forceinline__ void store_digest(const uint64_t (&st)[8],
+                                             uint4* dst) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint64_t x = st[2 * i], y = st[2 * i + 1];
+    dst[i] = make_uint4(__byte_perm(static_cast<uint32_t>(x >> 32), 0,
+                                    0x0123),
+                        __byte_perm(static_cast<uint32_t>(x), 0, 0x0123),
+                        __byte_perm(static_cast<uint32_t>(y >> 32), 0,
+                                    0x0123),
+                        __byte_perm(static_cast<uint32_t>(y), 0, 0x0123));
+  }
+}
+
+// K-a: one thread a message, 16-byte loads, the next block's in flight
+// while this block's rounds run
+__global__ void __launch_bounds__(kSha512MaxThreads)
+    sha512_blocks_kernel(const uint4* __restrict__ blocks,
+                         const int32_t* __restrict__ n_blocks,
+                         uint4* __restrict__ out, int batch, int nb) {
+  const int item = blockIdx.x * blockDim.x + threadIdx.x;
+  if (item >= batch) return;
+  uint64_t st[8];
+  sha512_init(st, std::make_integer_sequence<int, 8>{});
   int active = n_blocks[item];
   if (active > nb) active = nb;
-  const uint64_t* row = blocks + static_cast<size_t>(item) * nb * 16;
-  for (int blk = 0; blk < active; ++blk) {
-    uint64_t w[16];
+  const uint4* row = blocks + static_cast<size_t>(item) * nb * 8;
+  uint4 cur[8];
+  if (active > 0) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) w[i] = bswap64(row[blk * 16 + i]);
-    uint64_t a = h[0], b = h[1], c = h[2], d = h[3];
-    uint64_t e = h[4], f = h[5], g = h[6], hh = h[7];
-    // fully unrolled: the window indices below become constants and w[]
-    // stays in registers
-#pragma unroll
-    for (int t = 0; t < 80; ++t) {
-      uint64_t wt;
-      if (t < 16) {
-        wt = w[t];
-      } else {
-        uint64_t w15 = w[(t + 1) & 15], w2 = w[(t + 14) & 15];
-        uint64_t s0 = rotr64(w15, 1) ^ rotr64(w15, 8) ^ (w15 >> 7);
-        uint64_t s1 = rotr64(w2, 19) ^ rotr64(w2, 61) ^ (w2 >> 6);
-        wt = w[t & 15] + s0 + w[(t + 9) & 15] + s1;
-        w[t & 15] = wt;
-      }
-      uint64_t S1 = rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41);
-      uint64_t ch = (e & f) ^ (~e & g);
-      uint64_t t1 = hh + S1 + ch + k[t] + wt;
-      uint64_t S0 = rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39);
-      uint64_t mj = (a & b) ^ (a & c) ^ (b & c);
-      uint64_t t2 = S0 + mj;
-      hh = g; g = f; f = e; e = d + t1;
-      d = c; c = b; b = a; a = t1 + t2;
-    }
-    h[0] += a; h[1] += b; h[2] += c; h[3] += d;
-    h[4] += e; h[5] += f; h[6] += g; h[7] += hh;
+    for (int i = 0; i < 8; ++i) cur[i] = row[i];
   }
-  uint64_t* dst = out + static_cast<size_t>(item) * 8;
+  for (int blk = 0; blk < active; ++blk) {
+    uint4 next[8];
+    if (blk + 1 < active) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) dst[i] = bswap64(h[i]);
+      for (int i = 0; i < 8; ++i) next[i] = row[(blk + 1) * 8 + i];
+    }
+    uint64_t w[16];
+    unpack_block(cur, w);
+    sha512_compress(st, w);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) cur[i] = next[i];
+  }
+  store_digest(st, out + static_cast<size_t>(item) * 4);
 }
 
 // c2:c1:c0 += a * b (column accumulation; the high word of a product is
@@ -192,16 +358,15 @@ __global__ void __launch_bounds__(kModLThreads)
 }  // namespace
 
 extern "C" int sha512_blocks_launch(const void* blocks, const void* n_blocks,
-                                    void* out, const void* consts, int batch,
-                                    int nb, void* stream) {
+                                    void* out, int batch, int nb,
+                                    void* stream) {
   if (batch > 0) {
-    const int threads = 128;
-    const int grid = (batch + threads - 1) / threads;
-    sha512_blocks_kernel<<<grid, threads, 0,
+    sha512_blocks_kernel<<<(batch + kSha512Threads - 1) / kSha512Threads,
+                           kSha512Threads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint64_t*>(blocks),
-        static_cast<const int32_t*>(n_blocks), static_cast<uint64_t*>(out),
-        static_cast<const uint64_t*>(consts), batch, nb);
+        static_cast<const uint4*>(blocks),
+        static_cast<const int32_t*>(n_blocks), static_cast<uint4*>(out),
+        batch, nb);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,14 +9,16 @@ its next checkpoint-boundary slide (the barrier where the residency ring
 is drained). Its docstrings are the reference's; its arithmetic is
 unchanged, so a seeded run plans the same rotations in both packages.
 
-:func:`rotate_planes` (``:184-221``, K15) moves every member plane
-``rows`` rows: ``rows = b R + s`` runs the ring shift (K1,
-:func:`~.ring_exchange.ring_shift_planes`) by b and by b + 1, then the
-shard-local merge (``csrc/ring.cu`` ``rotate_merge_kernel`` for CUDA
-tensors, :func:`rotate_merge_plain` for CPU ones): new local row r takes
-the b arm's row r - s when r >= s, the (b + 1) arm's row r - s + R
-otherwise. Without a mesh the rotation is the merge alone with m = 1 (both
-arms the state itself, R = M), a roll of the member axis.
+:func:`rotate_planes` (``:184-221``) moves every member plane ``rows``
+rows. The reference runs the ring shift (K1) by b and by b + 1 for ``rows
+= b R + s``, then the shard-local merge (K15): new local row r takes the b
+arm's row r - s when r >= s, the (b + 1) arm's row r - s + R otherwise.
+Every tile of a port mesh lives on one card, so the port's rotation is
+one K1 roll of every leaf by ``rows`` rows
+(:func:`~.ring_exchange.ring_shift_rows`); :func:`rotate_planes_plain`
+keeps the reference's arms and merge, and :func:`rotate_merge` (K15,
+``csrc/ring.cu`` ``rotate_merge_kernel``) the merge, for the multi-card
+fabric.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import torch
 
 from ..utils import kernel_build as kb
 from .quorum import as_fabric
-from .ring_exchange import leaves_of, ring_shift_plain, ring_shift_planes
+from .ring_exchange import leaves_of, ring_shift_plain, ring_shift_rows
 
 
 class RebalancePolicy:
@@ -238,37 +240,42 @@ def rotate_merge(a, b, s: int, shard_rows: int):
     return _merge_kernel(la, lb, rebuild, s, shard_rows)
 
 
-def _rotate(states, mesh, rows: int, shard_rows: int, shift, merge):
+def rotate_planes(states, mesh, rows: int, shard_rows: int):
+    """Rotate every member plane ``rows`` device rows along the member
+    axis (row r's plane moves to row ``(r + rows) % M``), out of place.
+
+    Every tile of a port mesh lives on one card (``make_fabric_mesh``
+    refuses two), so the rotation is ONE roll of every leaf by ``rows``
+    rows, on a mesh or without one: one K1 launch
+    (:func:`~.ring_exchange.ring_shift_rows`) where the reference's
+    multi-device shape takes two ring shifts and K15's merge
+    (:func:`rotate_planes_plain`). A rotation by a multiple of M returns
+    ``states`` itself."""
+    mesh = as_fabric(mesh)
+    if mesh is not None:
+        leaves, _ = leaves_of(states)
+        _merge_rows(leaves, shard_rows)
+    return ring_shift_rows(states, rows)
+
+
+def rotate_planes_plain(states, mesh, rows: int, shard_rows: int):
+    """The plain version of :func:`rotate_planes` on any device, in the
+    reference's shape: on a mesh, ``rows = b R + s`` splits into the ring
+    shifts by ``b`` and ``b + 1``
+    (:func:`~.ring_exchange.ring_shift_plain`) merged shard-locally
+    (:func:`rotate_merge_plain`); without one, the merge alone with m = 1,
+    both arms the state and R = M."""
     mesh = as_fabric(mesh)
     if mesh is None:
         leaves, _ = leaves_of(states)
         total = leaves[0].shape[0]
         s = int(rows) % total
-        return states if s == 0 else merge(states, states, s, total)
+        return states if s == 0 else rotate_merge_plain(states, states, s,
+                                                        total)
     b0, s = divmod(int(rows), int(shard_rows))
-    shifted = shift(states, mesh, b0)
+    shifted = ring_shift_plain(states, mesh, b0)
     if s == 0:
         return shifted
-    return merge(shifted, shift(states, mesh, b0 + 1), s, shard_rows)
-
-
-def rotate_planes(states, mesh, rows: int, shard_rows: int):
-    """Rotate every member plane ``rows`` device rows along the member
-    axis (row r's plane moves to row ``(r + rows) % M``), out of place.
-
-    On a mesh: ``rows = b R + s`` splits into the ring shifts by ``b`` and
-    ``b + 1`` (K1) merged shard-locally (K15). Without one (``mesh``
-    None): the merge alone with m = 1, both arms the state and R = M - a
-    plain roll. With every tile on one card the mesh form moves the state
-    three times where one roll would do; it keeps the reference's
-    multi-device shape for the multi-card fabric."""
-    return _rotate(states, mesh, rows, shard_rows, ring_shift_planes,
-                   rotate_merge)
-
-
-def rotate_planes_plain(states, mesh, rows: int, shard_rows: int):
-    """The plain version of :func:`rotate_planes` on any device: the same
-    arms and merge from :func:`~.ring_exchange.ring_shift_plain` and
-    :func:`rotate_merge_plain`."""
-    return _rotate(states, mesh, rows, shard_rows, ring_shift_plain,
-                   rotate_merge_plain)
+    return rotate_merge_plain(shifted, ring_shift_plain(states, mesh,
+                                                        b0 + 1),
+                              s, shard_rows)

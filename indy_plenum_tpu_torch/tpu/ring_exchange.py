@@ -16,7 +16,9 @@ launches K1 (``csrc/ring.cu`` ``ring_shift_kernel``: every leaf in one
 launch, out of place, any dtype, any shift, either mesh rank) for CUDA
 tensors and raises for anything but the CPU or a card. The reference's
 off-TPU fallback to the ppermute path has no counterpart: a CUDA tensor
-reaches the kernel or the call raises.
+reaches the kernel or the call raises. :func:`ring_shift_rows` is the same
+roll by any number of rows, the one-card rotation of
+:func:`~.rebalance.rotate_planes`.
 
 ``states`` is any member-leading tensor or tuple of them (a
 :class:`~indy_plenum_tpu_torch.tpu.quorum.VoteState` stack included);
@@ -63,12 +65,14 @@ def ring_shift_plain(states, mesh: FabricMesh, shift: int = 1):
 
 
 def _ring_kernel(leaves, rows: int, shift_rows: int):
+    """One ``ring_shift_kernel`` launch rolling every leaf by
+    ``shift_rows`` rows."""
     dev = leaves[0].device
     outs, table = [], []
     for x in leaves:
-        if x.device != dev or not x.is_contiguous():
+        if x.device != dev or not x.is_contiguous() or x.shape[0] != rows:
             raise ValueError(f"ring shift: every leaf must be a contiguous "
-                             f"tensor on {dev}")
+                             f"tensor of {rows} member rows on {dev}")
         out = torch.empty_like(x)
         outs.append(out)
         table += [x.data_ptr(), out.data_ptr(),
@@ -82,6 +86,24 @@ def _ring_kernel(leaves, rows: int, shift_rows: int):
     return outs
 
 
+def ring_shift_rows(states, rows: int):
+    """K1 as a roll of the member axis by ``rows`` rows (row r's plane
+    moves to row ``(r + rows) % M``) of every leaf, out of place; a roll
+    by a multiple of M returns ``states`` itself. CPU tensors take
+    ``torch.roll``; CUDA tensors launch ``ring_shift_kernel`` once for
+    every leaf, or raise."""
+    leaves, rebuild = leaves_of(states)
+    total = leaves[0].shape[0]
+    if int(rows) % total == 0:
+        return states
+    dev = leaves[0].device.type
+    if dev == "cpu":
+        return rebuild([torch.roll(x, int(rows), dims=0) for x in leaves])
+    if dev != "cuda":
+        raise ValueError(f"ring shift: unsupported device {leaves[0].device}")
+    return rebuild(_ring_kernel(leaves, total, int(rows) % total))
+
+
 def ring_shift_planes(states, mesh: FabricMesh, shift: int = 1):
     """K1: migrate member blocks ``shift`` ring steps along mesh axis 0 (the
     reference's dispatcher, ``ring_exchange.py:127``). A shift that is a
@@ -91,11 +113,8 @@ def ring_shift_planes(states, mesh: FabricMesh, shift: int = 1):
     mesh = as_fabric(mesh)
     if shift % mesh.m_shards == 0:
         return states
-    leaves, rebuild = leaves_of(states)
+    leaves, _ = leaves_of(states)
     r = _block_rows(leaves, mesh)
-    dev = leaves[0].device.type
-    if dev == "cpu":
+    if leaves[0].device.type == "cpu":
         return ring_shift_plain(states, mesh, shift)
-    if dev != "cuda":
-        raise ValueError(f"ring shift: unsupported device {leaves[0].device}")
-    return rebuild(_ring_kernel(leaves, leaves[0].shape[0], shift * r))
+    return ring_shift_rows(states, shift * r)

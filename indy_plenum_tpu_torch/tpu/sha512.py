@@ -16,7 +16,8 @@ torch has no unsigned 64-bit shifts or wrapping adds to rely on.
 
 The round constants and initial state are DERIVED here (fractional parts
 of cube/square roots of the first primes, FIPS 180-4), as in the
-reference, and handed to the kernel as an operand.
+reference, for the plain version; the kernel holds the same values as a
+``constexpr`` table in its source (the tests hold the two equal).
 """
 from __future__ import annotations
 
@@ -69,11 +70,6 @@ def _as_int64(words) -> np.ndarray:
     """uint64 values -> their int64 bit patterns (what a torch int64
     tensor hands the kernel as ``uint64_t*``)."""
     return np.array(words, dtype=np.uint64).view(np.int64)
-
-
-@functools.lru_cache(maxsize=None)
-def _sha_consts(device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_as_int64(_K64 + _H064)).to(device)
 
 
 # Barrett's constant for the kernel: mu = floor(2^512 / L), 5 limbs of 64
@@ -264,7 +260,8 @@ def reduce_mod_l_plain(h_le_bytes: torch.Tensor) -> torch.Tensor:
 def sha512_blocks(blocks: torch.Tensor, n_blocks: torch.Tensor
                   ) -> torch.Tensor:
     """K-a. CPU tensors take the plain version; CUDA tensors launch
-    ``sha512_blocks_kernel`` or raise."""
+    ``sha512_blocks_kernel`` or raise (a CUDA tensor that is not 16-byte
+    aligned raises too: rows are read as 16-byte vectors)."""
     if blocks.device.type == "cpu":
         return sha512_blocks_plain(blocks, n_blocks)
     _require_cuda(blocks, "sha512_blocks")
@@ -275,12 +272,11 @@ def sha512_blocks(blocks: torch.Tensor, n_blocks: torch.Tensor
             or n_blocks.device != blocks.device:
         raise ValueError("sha512_blocks: blocks (B, NB, 128) and "
                          "n_blocks (B,) on one device")
-    _check_aligned(blocks, "blocks", 8)
+    _check_aligned(blocks, "blocks", 16)
     out = torch.empty((batch, 64), dtype=torch.uint8, device=blocks.device)
-    lib = kb.library()
-    code = lib.sha512_blocks_launch(
-        blocks.data_ptr(), n_blocks.data_ptr(), out.data_ptr(),
-        _sha_consts(blocks.device).data_ptr(), batch, nb, _stream(blocks))
+    code = kb.library().sha512_blocks_launch(
+        blocks.data_ptr(), n_blocks.data_ptr(), out.data_ptr(), batch, nb,
+        _stream(blocks))
     kb.check(code, "sha512_blocks")
     kb.LAUNCHES["sha512_blocks"] += 1
     return out

@@ -610,8 +610,8 @@ class VotePlaneGroup:
     staged member block by member block, the absorb folds the compact
     record block by block (``readback_bytes_per_shard``), the occupancy
     grid has one cell per (member block, validator block), and a
-    scheduled rebalance rotates the planes along the member axis (K1 and
-    K15) at the next checkpoint-boundary slide."""
+    scheduled rebalance rotates the planes along the member axis (one K1
+    roll) at the next checkpoint-boundary slide."""
 
     def __init__(self, n_members: int, validators: List[str], log_size: int,
                  n_checkpoints: int = 4, h: int = 0, metrics=None,
@@ -1308,7 +1308,7 @@ class VotePlaneGroup:
 
         rows, self._rebalance_pending = self._rebalance_pending, 0
         # barrier: everything staged settles under the OLD placement,
-        # THEN the planes move (K1 + K15) and the placement map rewrites
+        # THEN the planes move (one K1 roll) and the placement map rewrites
         self._drain_ring()
         self._states = rotate_planes(self._states, self._mesh, rows,
                                      self._shard_rows)

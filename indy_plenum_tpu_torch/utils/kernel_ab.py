@@ -1,5 +1,6 @@
-"""A/B timing of the PyTorch + CUDA port's verify, mod-L, quorum-step,
-resident-step, slide, zero and commit-hash kernels, for comparing two
+"""A/B timing of the PyTorch + CUDA port's verify, SHA-512, mod-L,
+quorum-step, resident-step, slide, zero, ring and commit-hash kernels,
+for comparing two
 checkouts of the repo inside one call on one card. Run this one file by
 its path from each checkout's root, in turns (parent, change, change,
 parent):
@@ -42,6 +43,16 @@ times either. One JSON line:
   and at ``bench.py``'s 32,768, ``verify_kernel_full`` at 32,768 beside
   it, and K14 (``step.fused_step``) on phase G's 8,192 signed votes:
   device ms behind the spin and call ms;
+- K-a (``s5.sha512_blocks``) on the drain's padded blocks (2 a message)
+  at 8,192 and 32,768 messages and on one message alone (its chain
+  floor);
+- K1 (``ring_shift_planes``, one ring step) and the rotation
+  (``rotate_planes`` by R / 2) at phase H's state (M = N = 256, S = 300,
+  C = 3, on (8,)) and at phase R's (M = N = 64, S = 15, C = 3, on (4,
+  2)), beside two yardsticks of the same roll of every leaf:
+  ``torch.roll`` and two ``Tensor.copy_`` slices a leaf into a buffer
+  made once, and ``Tensor.clone`` of each leaf (the same bytes, no
+  rotation);
 - K9 (``q.resident_step``) at phase F1's consume (64 x 64 x 300, C 3)
   and F2's (96 x 16 x 30, C 6), k = 4 slots of 128 words, with no
   sliding member and with one sliding by the phase's ``CHK_FREQ`` in the
@@ -134,6 +145,13 @@ def verify_and_fused(out, timed, cs, dev, rng):
         ted.max_blocks_for(msgs))
     blocks = torch.from_numpy(blocks_np).to(dev).repeat(big_n, 1, 1)
     counts = torch.from_numpy(counts_np).to(dev).repeat(big_n)
+    timed("sha512_blocks_8192", lambda: s5.sha512_blocks(
+        blocks[:cs.DRAIN], counts[:cs.DRAIN]), 20)
+    timed("sha512_blocks_32768", lambda: s5.sha512_blocks(blocks, counts),
+          20)
+    one_block, one_count = blocks[:1].contiguous(), counts[:1].contiguous()
+    timed("sha512_blocks_1", lambda: s5.sha512_blocks(one_block, one_count),
+          20)
     timed("verify_8192", lambda: ted.verify_kernel(*sig), 5)
     timed("verify_32768", lambda: ted.verify_kernel(*big), 3)
     timed("verify_full_32768", lambda: ted.verify_kernel_full(
@@ -284,6 +302,37 @@ def tile_report(timed, cs, dev, rng, fstate, ftile, fslides):
                 rstate, rslides, rwords, n, 2, q.ORDER_DELTA_CAP, b), 20)
 
 
+def ring_report(timed, cs, dev, rng, fstate):
+    """K1 (one ring step) and the rotation (R / 2 rows) at phase H's state
+    on (8,) and at phase R's on (4, 2), with ``torch.roll`` and two
+    ``Tensor.copy_`` slices a leaf and ``Tensor.clone`` as yardsticks."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import rebalance as rb
+    from indy_plenum_tpu_torch.tpu import ring_exchange as rx
+
+    n, s = 64, 15
+    rstate = cs.fabric_state(dev, rng, n, n, s // 5, m=n, s=s)
+    for tag, state, shape in (("h", fstate, (8,)), ("r", rstate, (4, 2))):
+        mesh = cs.fabric_mesh(dev, shape)
+        m = state.frontier.shape[0]
+        r = m // shape[0]
+        timed(f"ring_shift_{tag}",
+              lambda: rx.ring_shift_planes(state, mesh, 1), 20)
+        timed(f"rotate_planes_{tag}",
+              lambda: rb.rotate_planes(state, mesh, r // 2, r), 20)
+        timed(f"torch_roll_{tag}",
+              lambda: [torch.roll(x, r, dims=0) for x in state], 20)
+        bufs = [torch.empty_like(x) for x in state]
+
+        def copies():
+            for x, y in zip(state, bufs):
+                y[r:].copy_(x[:m - r])
+                y[:r].copy_(x[m - r:])
+
+        timed(f"copy_slices_{tag}", copies, 20)
+        timed(f"clone_{tag}", lambda: [x.clone() for x in state], 20)
+
+
 def fabric_report(timed, cs, dev, fstate, fwords):
     """K13 at phase H's shape on v = 1 (the (8,) mesh's step) beside K7 on
     the same state and words and, where the checkout can force the
@@ -384,6 +433,7 @@ def main() -> int:
     tile_report(timed, cs, dev, rng, fstate, ftile, fslides)
     resident_report(timed, cs, dev, rng)
     fabric_report(timed, cs, dev, fstate, fwords)
+    ring_report(timed, cs, dev, rng, fstate)
     audit_report(timed, cs, dev)
     mod_l_report(timed, cs, dev, rng)
 

@@ -59,8 +59,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of csrc/*.cu's extern "C" entry points
 _SIGNATURES = {
-    # blocks, n_blocks, out, consts, batch, nb, stream
-    "sha512_blocks_launch": (_P, _P, _P, _P, _I, _I, _P),
+    # blocks, n_blocks, out, batch, nb, stream
+    "sha512_blocks_launch": (_P, _P, _P, _I, _I, _P),
     # h, out, Barrett constants (L, mu), batch, stream
     "reduce_mod_l_launch": (_P, _P, _P, _I, _P),
     # pk, R, S, h, ok, consts, batch, stream

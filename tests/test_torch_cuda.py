@@ -37,7 +37,12 @@ so it also runs where JAX is not installed:
   sharded step at n = 16; the tiled step also on its edge shapes), and
   h mod L (K-b) at 8,192 and 32,768 rows against plain and Python ints;
 - the forced-rebalance pool (n = 64 on the (2, 2) fabric) on the card
-  against the same pool on the CPU, and against its unforced arm.
+  against the same pool on the CPU, and against its unforced arm;
+- SHA-512 (K-a, ``csrc/sha512.cu``) on ragged rows,
+  against its plain version and hashlib, and a misaligned view refused;
+- the ring shift (K1) and the one-card rotation (one K1 launch, no merge)
+  at phase R's state and on odd-sized leaves, and the merge (K15) called
+  directly, each bit-equal to its plain version.
 """
 import numpy as np
 import pytest
@@ -314,12 +319,94 @@ def test_fabric_kernels_match_plain(card):
                for _, _, _, rows, _, _, _, _, k in chip_smoke.TILE_SHAPES)
     assert want == 65
     assert chip_smoke.check_resident_tile(card, rng) == (0, want)
-    assert chip_smoke.check_ring_rotate(card, rng) == (0, 0)
+    assert chip_smoke.check_ring_rotate(card, rng) == (0, 0, 0)
     for batch in (8192, 32768):
         assert chip_smoke.check_mod_l(card, rng, batch) == 0
     for name in ("fabric_step", "resident_tile", "ring_shift",
                  "rotate_merge", "reduce_mod_l"):
         assert kb.LAUNCHES[name] > before[name], name
+
+
+@pytest.mark.cuda
+def test_sha512_ragged_rows_and_alignment(card):
+    """K-a on 1,000 ragged rows (counts 0 .. 4 over 4 blocks, with garbage
+    past each count; not a multiple of the block size), bit-equal to the
+    plain version and to hashlib; a view 8 bytes off a 16-byte boundary
+    raises instead of launching."""
+    import hashlib
+
+    from indy_plenum_tpu_torch.tpu import sha512 as s5
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    rng = np.random.RandomState(21)
+    batch, nb = 1000, 4
+    lengths = rng.randint(0, nb * 128 - 17, batch)
+    msgs = [rng.bytes(int(n)) for n in lengths]
+    blocks_np, counts_np = s5.pad_ed25519_messages([b""] * batch, msgs, nb)
+    counts_np[:3] = [0, 0, 0]
+    for i, c in enumerate(counts_np):
+        blocks_np[i, c:] = 0xA5
+    blocks = torch.from_numpy(blocks_np).to(card)
+    counts = torch.from_numpy(counts_np).to(card)
+    before = kb.LAUNCHES["sha512_blocks"]
+    got = s5.sha512_blocks(blocks, counts)
+    assert kb.LAUNCHES["sha512_blocks"] == before + 1
+    assert torch.equal(got.cpu(), s5.sha512_blocks_plain(
+        torch.from_numpy(blocks_np), torch.from_numpy(counts_np)))
+    for row, m, c in zip(got.cpu().numpy(), msgs, counts_np):
+        if c:
+            assert row.tobytes() == hashlib.sha512(m).digest()
+    skewed = torch.empty(blocks.numel() + 8, dtype=torch.uint8,
+                         device=card)[8:].view(batch, nb, 128)
+    skewed.copy_(blocks)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        s5.sha512_blocks(skewed, counts)
+
+
+@pytest.mark.cuda
+def test_ring_and_rotation_match_plain_at_phase_r(card):
+    """K1 (a ring step, every shift) and the one-card rotation (every
+    rows) at phase R's state (M = N = 64, S = 15, C = 3) on (4, 2), and
+    K1 as a roll on odd-sized leaves (byte, 4-byte and 16-byte granules),
+    bit-equal to plain; each rotation one K1 launch and no K15; K15
+    called directly on the rotation's arms, bit-equal to its plain
+    version; a leaf of other rows than the launch's raises."""
+    import chip_smoke
+
+    from indy_plenum_tpu_torch.tpu import rebalance as rb
+    from indy_plenum_tpu_torch.tpu import ring_exchange as rx
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    rng = np.random.RandomState(22)
+    m, n, s, c = chip_smoke.R_STATE
+    state = chip_smoke.fabric_state(card, rng, n, n, c, m=m, s=s)
+    mesh = chip_smoke.fabric_mesh(card, (4, 2))
+    r = m // 4
+    for shift in range(1, 6):
+        got = rx.ring_shift_planes(state, mesh, shift)
+        want = rx.ring_shift_plain(state, mesh, shift)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for rows in range(1, m):
+        before = dict(kb.LAUNCHES)
+        got = rb.rotate_planes(state, mesh, rows, r)
+        assert kb.LAUNCHES["ring_shift"] == before["ring_shift"] + 1
+        assert kb.LAUNCHES["rotate_merge"] == before["rotate_merge"]
+        want = rb.rotate_planes_plain(state, mesh, rows, r)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        b0, sub = divmod(rows, r)
+        if sub:
+            arm_a = rx.ring_shift_plain(state, mesh, b0)
+            arm_b = rx.ring_shift_plain(state, mesh, b0 + 1)
+            got = rb.rotate_merge(arm_a, arm_b, sub, r)
+            want = rb.rotate_merge_plain(arm_a, arm_b, sub, r)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    odd = chip_smoke.odd_leaves(card, rng)
+    for rows in range(1, 37):
+        got = rx.ring_shift_rows(odd, rows)
+        for a, x in zip(got, odd):
+            assert torch.equal(a, torch.roll(x, rows, dims=0))
+    with pytest.raises(ValueError, match="member rows"):
+        rx._ring_kernel(list(odd), 36, 1)
 
 
 @pytest.mark.cuda
