@@ -33,12 +33,12 @@ member planes; LOG_SIZE 300, CHK_FREQ 100):
                 N for k = 1, 2, 4 and 7 slots (edge slides, an empty
                 slot), with one member sliding at 1, 2, 4 and 8 blocks a
                 member, and against K7 at k = 1; K14 fused verify +
-                quorum step at the graft entry's shape and on 8,192
-                signed votes with planted faults, against its plain
-                version, the pure-Python oracle
+                quorum step (one launch a call) at the graft entry's shape,
+                twice on one state, and on 8,192 signed votes with planted
+                faults, against its plain version, the pure-Python oracle
                 and K7 alone on the good votes; K13 fabric step at M = N =
                 256, S = 300 on (8,) and (4, 2) and N = 250 on v = 4, with
-                and without ``ok`` and the compact record, at the
+                and without dropped words and the compact record, at the
                 wrapper's cluster size and at 1, 2, 4 and 8 blocks, and
                 against K7 at v = 1; the tiled K9
                 at k = 1, 2, 4 on phase H's and R's shapes, v = 1, 2 and
@@ -77,9 +77,11 @@ F. residency  - phase A's config (F1) and phase B's (F2) at
                 consume is K9 and every slide folds into it (no K8 slide);
                 prints dispatches per ordered batch beside phase A's;
 G. fused step - K14 at 8,192 signed votes into one 64 x 300 member through
-                ``tpu/step.py``'s ``fused_step``: votes/sec and K-c's
-                share of the step's device time; the same votes through the
-                sharded K14 on 4 validator tiles give the same result;
+                ``tpu/step.py``'s ``fused_step`` (one launch a call, no
+                K-c launch of its own): votes/sec, K-c's share of the
+                step's device time and the tail (the last block's count
+                and decide); the same votes through the sharded K14 on 4
+                validator tiles give the same result;
 H. fabric     - ``bench.py``'s fabric cell (n=256, one instance, 320
                 warm-up then 640 timed requests) in four arms on the card:
                 one device (K7), the (8,) member mesh and the (4, 2)
@@ -932,32 +934,54 @@ def fused_inputs(rng, n, s, batch):
 
 def check_fused(dev, rng, inputs):
     """K14 against its plain version, on the graft entry's shape (n = 8,
-    S = 16, C = 2, B = 8: ``step.example_inputs``) and on ``inputs``
-    (``fused_inputs`` at N = 64, S = 300, B = 8,192, C = 3): state, events
-    and verdicts equal; the verdicts equal the construction's and the
-    pure-Python oracle's (every planted vote and 512 good ones); and the
-    result equals K7 alone on the good votes' words."""
+    S = 16, C = 2, B = 8: ``step.example_inputs``), twice back to back on
+    one state and stream (the second call finds the ticket the first
+    reset), and on ``inputs`` (``fused_inputs`` at N = 64, S = 300, B =
+    8,192, C = 3): state, events and verdicts equal; each call ONE
+    ``fused_step`` launch and no ``ed25519_verify``; the verdicts equal
+    the construction's and the pure-Python oracle's (every planted vote
+    and 512 good ones); and the result equals K7 alone on the good votes'
+    words."""
     import torch
     from indy_plenum_tpu_torch.crypto import ed25519 as ed
+    from indy_plenum_tpu_torch.tpu import ed25519 as ted
     from indy_plenum_tpu_torch.tpu import quorum as q
     from indy_plenum_tpu_torch.tpu import step as st
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    def one_launch(fn, *args, **kwargs):
+        before = kb.launch_counts()
+        out = fn(*args, **kwargs)
+        got = kb.launch_counts()
+        if got["fused_step"] != before["fused_step"] + 1 \
+                or got["ed25519_verify"] != before["ed25519_verify"]:
+            raise AssertionError("K14: a call is not one fused_step launch")
+        return out
 
     err = 0
     small = st.example_inputs(device=dev)
-    plain_small = (q.clone_state(small[0]),) + small[1:]
-    got = st.fused_step(*small, n_validators=8, device=dev)
-    want = st.fused_step_plain(*plain_small, n_validators=8)
-    if not bool(got[2].all()):
-        raise AssertionError("K14: the graft entry's votes were rejected")
-    err = max(err, _max_abs_err(list(zip(got[0], want[0]))
-                                + list(zip(got[1], want[1]))
-                                + [(got[2], want[2])]))
+    plain_state = q.clone_state(small[0])
+    # the plain version's verdicts once: fused_step_plain is this verify,
+    # then fabric_step_plain with them
+    want_ok = ted.verify_kernel_plain(*small[2:])
+    for _ in range(2):
+        got = one_launch(st.fused_step, *small, n_validators=8, device=dev)
+        want, _ = q.fabric_step_plain(plain_state, small[1], 8, 1,
+                                      compact=False,
+                                      ok=want_ok.view(small[1].shape))
+        if not bool(got[2].all()):
+            raise AssertionError("K14: the graft entry's votes were "
+                                 "rejected")
+        err = max(err, _max_abs_err(list(zip(got[0], plain_state))
+                                    + list(zip(got[1], want))
+                                    + [(got[2], want_ok)]))
     rows, words_np, arrays, expect = inputs
     n, s, c = N_VALIDATORS, LOG_SIZE, N_CHECKPOINTS
     words = q.words_tensor(words_np, dev)
     sig = [torch.from_numpy(a).to(dev) for a in arrays]
-    state, events, ok = st.fused_step(q.init_state(n, s, c, 1, dev), words,
-                                      *sig, n_validators=n, device=dev)
+    state, events, ok = one_launch(st.fused_step,
+                                   q.init_state(n, s, c, 1, dev), words,
+                                   *sig, n_validators=n, device=dev)
     pstate, pevents, pok = st.fused_step_plain(
         q.init_state(n, s, c, 1, dev), words, *sig, n_validators=n)
     err = max(err, _max_abs_err(list(zip(state, pstate))
@@ -1028,12 +1052,14 @@ K13_BLOCKS = (1, 2, 4, 8)  # the cluster sizes K13 is held and timed at
 def check_fabric(dev, rng):
     """K13 against its plain version at full width: M = N = 256, S = 300,
     C = 4 on (8,) and (4, 2), and N = 250 (padded to 252) on v = 4 with
-    the path's C = 3; at the wrapper's cluster size with and without an
-    ``ok`` operand and once without the compact record, then at each of
-    ``K13_BLOCKS`` once plainly and once with ``ok`` and without the
-    compact record (the sharded K14's form); then K13 at v = 1 on an
-    unpadded state against K7. Every state leaf, event and compact output
-    equal."""
+    the path's C = 3; at the wrapper's cluster size plainly, with ~10% of
+    the words dropped by a verdict and once without the compact record,
+    then at each of ``K13_BLOCKS`` once plainly and once with dropped
+    words and without the compact record; then K13 at v = 1 on an
+    unpadded state against K7. A dropped word reaches the kernel with its
+    valid bit cleared and the plain version as the word with its verdict
+    ``ok`` False (``fabric_step_plain``'s mask): the two must agree.
+    Every state leaf, event and compact output equal."""
     import torch
     from indy_plenum_tpu_torch.tpu import quorum as q
 
@@ -1052,14 +1078,16 @@ def check_fabric(dev, rng):
                                    dev)
             ok = None if ok_p is None else torch.from_numpy(
                 rng.rand(m, FABRIC_W) < ok_p).to(dev)
+            kwords = words if ok is None else torch.where(
+                ok, words, words & 0x7FFFFFFF)
             shadow = q.clone_state(state)
             if blocks is None:
-                ev, comp = q.fabric_step(state, words, n, v,
-                                         compact=compact, ok=ok)
+                ev, comp = q.fabric_step(state, kwords, n, v,
+                                         compact=compact)
             else:
-                ev, comp = q._fabric_kernel(state, words, n, v,
-                                            q.ORDER_DELTA_CAP, compact, ok,
-                                            "fabric_step", blocks)
+                ev, comp = q._fabric_kernel(state, kwords, n, v,
+                                            q.ORDER_DELTA_CAP, compact,
+                                            blocks)
             pev, pcomp = q.fabric_step_plain(shadow, words, n, v,
                                              compact=compact, ok=ok)
             outs = list(zip(state, shadow)) + list(zip(ev, pev))
@@ -1265,18 +1293,25 @@ def check_sharded_fused(dev, inputs, n=N_VALIDATORS, s=LOG_SIZE,
                         c=N_CHECKPOINTS):
     """The sharded K14 on a 4-tile validator fabric against its plain
     version on ``inputs`` (``fused_inputs``; phase G's 8,192 signed votes
-    at N = 64, S = 300, C = 3), and against the unsharded K14 on the same
+    at N = 64, S = 300, C = 3), one ``sharded_fused_step`` launch and no
+    ``ed25519_verify``, and against the unsharded K14 on the same
     votes."""
     import torch
     from indy_plenum_tpu_torch.tpu import quorum as q
     from indy_plenum_tpu_torch.tpu import step as st
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
 
     _, words_np, arrays, expect = inputs
     words = q.words_tensor(words_np, dev)
     sig = [torch.from_numpy(a).to(dev) for a in arrays]
     mesh = q.make_fabric_mesh([dev] * 4, (4,), ("validators",))
     fn = st.make_sharded_fused_step(mesh, n)
+    before = kb.launch_counts()
     state, events, ok = fn(q.init_state(n, s, c, 1, dev), words, *sig)
+    got = kb.launch_counts()
+    if got["sharded_fused_step"] != before["sharded_fused_step"] + 1 \
+            or got["ed25519_verify"] != before["ed25519_verify"]:
+        raise AssertionError("sharded K14: a call is not one launch")
     pstate, pevents, pok = st.fused_step_plain(
         q.init_state(n, s, c, 1, dev), words, *sig, n_validators=n,
         v_shards=4)
@@ -1302,8 +1337,9 @@ AUDIT_FIRST, AUDIT_PROOFS = 57344, 16384  # 16k consecutive proofs
 
 def check_sha256(dev, rng):
     """K12 and K11 against their plain versions on the card and against
-    hashlib: K12 at every padding edge (1,024 seeded messages a length),
-    K11 at wave widths around the offload floor (32) and at the large
+    hashlib: K12 at every padding edge (1,024 seeded messages a length)
+    and on 57-byte rows from a base one byte past a 16-byte boundary, K11
+    at wave widths around the offload floor (32) and at the large
     waves."""
     import torch
     from indy_plenum_tpu_torch.tpu import sha256 as s2
@@ -1319,6 +1355,15 @@ def check_sha256(dev, rng):
             if dig.tobytes() != hashlib.sha256(row.tobytes()).digest():
                 raise AssertionError(f"sha256_fixed disagrees with hashlib "
                                      f"at length {length}")
+    raw = torch.from_numpy(rng.randint(0, 256, 1024 * 57 + 16).astype(
+        np.uint8)).to(dev)
+    odd = raw[1:1 + 1024 * 57].view(1024, 57)
+    got = s2.sha256_fixed(odd)
+    err12 = max(err12, _max_abs_err([(got, s2.sha256_fixed_plain(odd))]))
+    for row, dig in zip(odd.cpu().numpy(), got.cpu().numpy()):
+        if dig.tobytes() != hashlib.sha256(row.tobytes()).digest():
+            raise AssertionError("sha256_fixed disagrees with hashlib on "
+                                 "unaligned rows")
     err11 = 0
     for n in NODE_WAVES:
         left = rng.randint(0, 256, (n, 32)).astype(np.uint8)
@@ -2060,8 +2105,12 @@ def run_fused_g(dev, inputs):
 
 
 def time_fused_g(dev, inputs):
-    """Device time of one K14 call at phase G's shape behind the spin,
-    and of its K-c launch alone: votes/sec and K-c's share."""
+    """Device time of one K14 call at phase G's shape behind the spin, of
+    K-c alone on its signatures and of K14 into a one-row, one-slot
+    member (the same verify and scatter, a tail with nothing to count),
+    in three rounds that alternate the three, each the median of its
+    rounds: votes/sec, K-c's share, the tail (K14 less K-c alone) and
+    K14 less the one-slot K14 (the last block's count and decide)."""
     import torch
     from indy_plenum_tpu_torch.tpu import ed25519 as ted
     from indy_plenum_tpu_torch.tpu import quorum as q
@@ -2071,10 +2120,21 @@ def time_fused_g(dev, inputs):
     words = q.words_tensor(words_np, dev)
     sig = [torch.from_numpy(a).to(dev) for a in arrays]
     state = q.init_state(N_VALIDATORS, LOG_SIZE, N_CHECKPOINTS, 1, dev)
-    fused_ms = _kernel_ms(lambda: st.fused_step(
-        state, words, *sig, n_validators=N_VALIDATORS, device=dev), 5)
-    verify_ms = _kernel_ms(lambda: ted.verify_kernel(*sig), 5)
+    tiny = q.init_state(1, 1, 1, 1, dev)
+    runs = {"fused": lambda: st.fused_step(
+        state, words, *sig, n_validators=N_VALIDATORS, device=dev),
+        "verify": lambda: ted.verify_kernel(*sig),
+        "one_slot": lambda: st.fused_step(
+            tiny, words, *sig, n_validators=N_VALIDATORS, device=dev)}
+    rounds = {k: [] for k in runs}
+    for _ in range(3):
+        for k, fn in runs.items():
+            rounds[k].append(_kernel_ms(fn, 5))
+    fused_ms, verify_ms, tiny_ms = [float(np.median(rounds[k]))
+                                    for k in runs]
     return {"fused_ms": fused_ms, "verify_ms": verify_ms,
+            "one_slot_ms": tiny_ms, "tail_ms": fused_ms - verify_ms,
+            "over_one_slot_ms": fused_ms - tiny_ms, "rounds_ms": rounds,
             "votes_per_s": words_np.shape[1] / (fused_ms / 1e3),
             "verify_share": verify_ms / fused_ms}
 
@@ -2490,8 +2550,9 @@ def sha256_report(dev, corpus, rng, launches, errs):
     levels of <= 320 nodes, ``commit_plan``), K10 at one 4,096-proof chunk
     of the catchup-proof corpus (the chunk ``_ChunkedDeviceVerify``
     launches; phase D's drains are the same size), K12 at 4,096 64-byte
-    messages (not on the main path: its compression runs inside K10/K11).
-    Beside K11's row: the same plan on one block and on clusters of 2, 4
+    messages (not on the main path: its compression runs inside K10/K11);
+    on K12's row its one-message chain floor and 4,096 rows of 55, 119 and
+    200 bytes. Beside K11's row: the same plan on one block and on clusters of 2, 4
     and 8 blocks, 250-level chain plans of 32 .. 1,024 nodes a level the
     same ways (where the block/cluster cut belongs), one 320-pair wave
     (the per-wave form's shape), and one thread's chain through 256
@@ -2585,6 +2646,18 @@ def sha256_report(dev, corpus, rng, launches, errs):
                      "max_abs_err": errs[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
+    # K12: one 64-byte message alone (its dependent-chain floor) and 4,096
+    # rows of 55, 119 and 200 bytes (1, 2 and 4 blocks)
+    one_msg = msgs[:1].contiguous()
+    k12_row = next(r for r in rows if r["name"] == "sha256_fixed")
+    k12_row["chain_floor_ms"] = _kernel_ms(
+        lambda: s2.sha256_fixed(one_msg), 20)
+    k12_row["lengths_ms"] = {}
+    for length in (55, 119, 200):
+        rows_l = torch.from_numpy(rng.randint(
+            0, 256, (chunk, length)).astype(np.uint8)).to(dev)
+        k12_row["lengths_ms"][length] = _kernel_ms(
+            lambda: s2.sha256_fixed(rows_l), 20)
     poffs32 = np.asarray(poffs, np.int32)
     chain_ms = _kernel_ms(lambda: s2.merkle_plan_hash(crt, clt, coffs), 20)
 
@@ -2693,8 +2766,8 @@ def residency_report(dev, rng, launches, errs, inputs):
              lambda: st.fused_step_plain(gstate, gwords, *sig,
                                          n_validators=n),
              (kc_ms + k7_ms, kc_by),
-             "indy_plenum_tpu_torch/tpu/step.py (csrc/ed25519.cu + "
-             "csrc/quorum.cu)", "indy_plenum_tpu/tpu/step.py:29")):
+             "indy_plenum_tpu_torch/csrc/ed25519.cu",
+             "indy_plenum_tpu/tpu/step.py:29")):
         ms = _kernel_ms(fn, 20 if name == "resident_step" else 5)
         call_ms[name] = _cuda_ms(call, 20 if name == "resident_step"
                                  else 5)
@@ -2806,8 +2879,8 @@ def fabric_report(dev, rng, launches, errs, inputs):
          lambda: st.fused_step_plain(
              gstate, gwords, *sig, n_validators=N_VALIDATORS, v_shards=4),
          (kc_ms + k13g_ms, kc_by),
-         "indy_plenum_tpu_torch/tpu/step.py (csrc/ed25519.cu + "
-         "csrc/resident_tile.cu)", "indy_plenum_tpu/tpu/step.py:46", 5),
+         "indy_plenum_tpu_torch/csrc/ed25519.cu",
+         "indy_plenum_tpu/tpu/step.py:46", 5),
     ]
     tile_blocks = q._cluster_blocks(dev, n, s, c, m, False, True)
     k13_blocks = q._cluster_blocks(dev, n, s, c, m, True)
@@ -2889,7 +2962,8 @@ PATH_KERNELS = {
                 "resident_step"),
     "pool_f2": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
                 "resident_step", "window_zero"),
-    "fused_g": ("ed25519_verify", "fused_step", "sharded_fused_step"),
+    # K14 is one launch a call: no ed25519_verify of its own
+    "fused_g": ("fused_step", "sharded_fused_step"),
     # phase H: K7 on one device, K13 on the fabric, the tiled K9 with
     # residency (K13 for its cold start); 3 batches: no slide
     "fabric_single": ("quorum_step",),
@@ -3094,6 +3168,10 @@ def main() -> int:
     # G. the fused verify + quorum step at full width
     t0 = time.perf_counter()
     fused_g, g_launches, _ = on_card("fused_g", run_fused_g, dev, fused)
+    if g_launches["ed25519_verify"] or g_launches["fused_step"] != 1 \
+            or g_launches["sharded_fused_step"] != 1:
+        raise AssertionError(f"phase G: K14 is not one launch a call: "
+                             f"{g_launches}")
     fused_g.update(time_fused_g(dev, fused))
     _line("fused_g", **fused_g, launches=g_launches,
           phase_s=time.perf_counter() - t0, card=card)
@@ -3255,6 +3333,7 @@ def main() -> int:
             "wall_s", "rebalances", "row_shift")}
             for mesh, res in rebalance_r.items()},
         "fused_g_verify_share": fused_g["verify_share"],
+        "fused_g_tail_ms": fused_g["tail_ms"],
         "plain_ms": plain, "report_s": time.perf_counter() - t0,
         "total_s": time.perf_counter() - t_start}}), flush=True)
     print(card, flush=True)

@@ -66,6 +66,7 @@
 #include <cuda_runtime.h>
 
 #include "fe25519.cuh"
+#include "quorum_common.cuh"
 
 namespace {
 
@@ -208,22 +209,18 @@ __device__ __forceinline__ void to_cached(fe (&out)[4 / L],
   }
 }
 
+// The verdict of signature ``item`` on this lane's group: the body of
+// K-c, which K14 (fused_step_kernel) runs too. Every thread of the block
+// calls it (it holds a barrier); ``smem`` is the block's dynamic shared
+// memory (the base table, then the signature tables when kSharedTable).
 template <int L, bool kSharedTable>
-__global__ void __launch_bounds__(kSigsPerBlock * L,
-                                  65536 / (kSigsPerBlock * L * kRegisterCap))
-ed25519_verify_kernel(const uint8_t* __restrict__ pk,
-                      const uint8_t* __restrict__ rb,
-                      const uint8_t* __restrict__ sb,
-                      const uint8_t* __restrict__ hb,
-                      uint8_t* __restrict__ ok_out,
-                      const uint64_t* __restrict__ consts, int batch) {
+__device__ __forceinline__ bool verify_item(
+    const uint8_t* __restrict__ pk, const uint8_t* __restrict__ rb,
+    const uint8_t* __restrict__ sb, const uint8_t* __restrict__ hb,
+    const uint64_t* __restrict__ consts, uint64_t* smem, int item) {
   constexpr int K = 4 / L;
-  extern __shared__ uint64_t smem[];  // base table, then signature tables
   const int lane = threadIdx.x % L;
   const int sig = threadIdx.x / L;
-  int item = blockIdx.x * kSigsPerBlock + sig;
-  const bool live = item < batch;
-  if (!live) item = batch - 1;
 
   for (int t = threadIdx.x; t < kTableWords; t += blockDim.x) {
     const int j = t / 20, c = (t % 20) / 5, i = t % 5;
@@ -360,7 +357,197 @@ ed25519_verify_kernel(const uint8_t* __restrict__ pk,
   uint8_t diff = 0;
 #pragma unroll
   for (int i = 0; i < 32; ++i) diff |= enc[i] ^ r_bytes[i];
-  if (live && lane == 0) ok_out[item] = ok && diff == 0 ? 1 : 0;
+  return ok && diff == 0;
+}
+
+template <int L, bool kSharedTable>
+__global__ void __launch_bounds__(kSigsPerBlock * L,
+                                  65536 / (kSigsPerBlock * L * kRegisterCap))
+ed25519_verify_kernel(const uint8_t* __restrict__ pk,
+                      const uint8_t* __restrict__ rb,
+                      const uint8_t* __restrict__ sb,
+                      const uint8_t* __restrict__ hb,
+                      uint8_t* __restrict__ ok_out,
+                      const uint64_t* __restrict__ consts, int batch) {
+  extern __shared__ uint64_t smem[];  // base table, then signature tables
+  int item = blockIdx.x * kSigsPerBlock + static_cast<int>(threadIdx.x) / L;
+  const bool live = item < batch;
+  if (!live) item = batch - 1;
+  const bool ok =
+      verify_item<L, kSharedTable>(pk, rb, sb, hb, consts, smem, item);
+  if (live && threadIdx.x % L == 0) ok_out[item] = ok ? 1 : 0;
+}
+
+// K14's tail, in the block that draws the last ticket (one warp): member
+// 0's column counts, checkpoint counts and decide with compact off. Every
+// plane is read through L2 (other blocks of this launch wrote them), and
+// each load is an L2 round trip on the warp's chain, so a thread issues a
+// batch of loads before it uses any: the counts (qc::l2_chunk_counts),
+// the checkpoint votes, and the PRE-PREPARE, ordered and acked rows,
+// staged into shared memory for qc::decide_slots, whose ordered row is
+// copied back after. Not inlined: its registers are allocated apart from
+// the verify's, whose code stays K-c's. ``smem``: C int32 checkpoint
+// counts, 2S uint16 column counts (N < 65,536 rows), then the three
+// staged rows; the decide writes slot s's flags over the staged
+// PRE-PREPARE byte it read first. So the scratch is 7S + 4C bytes, within
+// the base table's 2,560 up to S = 364 (phase G's S = 300): the kernel
+// asks the SM for K-c's shared memory, and K-c's verify keeps its L1.
+constexpr int kTailBatch = 8;  // loads a thread issues at once
+
+__device__ __noinline__ void fused_tail(qc::Planes p, int N, int S, int C,
+                                        int n_validators, qc::Events e,
+                                        uint64_t* smem) {
+  int32_t* kc_s = reinterpret_cast<int32_t*>(smem);
+  uint16_t* pc_s = reinterpret_cast<uint16_t*>(kc_s + C);
+  uint16_t* cc_s = pc_s + S;
+  uint8_t* pp_s = reinterpret_cast<uint8_t*>(cc_s + S);
+  uint8_t* ord_s = pp_s + S;
+  uint8_t* ack_s = ord_s + S;
+  uint8_t* flags = pp_s;  // written by the decide, not read
+  const int t = threadIdx.x;
+  const int step = blockDim.x;
+  for (int i0 = t; i0 < S; i0 += step * kTailBatch) {
+    uint8_t a[kTailBatch], b[kTailBatch], c[kTailBatch];
+#pragma unroll
+    for (int u = 0; u < kTailBatch; ++u) {
+      const int i = i0 + u * step;
+      a[u] = i < S ? __ldcg(p.pp + i) : 0;
+      b[u] = i < S ? __ldcg(p.ordered + i) : 0;
+      c[u] = i < S ? __ldcg(p.acked + i) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kTailBatch; ++u) {
+      const int i = i0 + u * step;
+      if (i < S) {
+        pp_s[i] = a[u];
+        ord_s[i] = b[u];
+        ack_s[i] = c[u];
+        pc_s[i] = 0;
+        cc_s[i] = 0;
+      }
+    }
+  }
+  for (int c = t; c < C; c += step) kc_s[c] = 0;
+  __syncthreads();
+  qc::l2_chunk_counts(p, 0, N, S, 0, N, 0, S, pc_s, cc_s);
+  const int nc = N * C;  // member 0's checkpoint votes, row-major
+  for (int i0 = t; i0 < nc; i0 += step * kTailBatch) {
+    uint8_t v[kTailBatch];
+#pragma unroll
+    for (int u = 0; u < kTailBatch; ++u) {
+      const int i = i0 + u * step;
+      v[u] = i < nc ? __ldcg(p.ck + i) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kTailBatch; ++u) {
+      if (v[u]) atomicAdd(kc_s + (i0 + u * step) % C, v[u]);
+    }
+  }
+  __syncthreads();
+  qc::Planes staged = p;
+  staged.pp = pp_s;
+  staged.ordered = ord_s;
+  staged.acked = ack_s;
+  qc::decide_slots(
+      staged, e, 0, S, 0, S, n_validators, 0,
+      [&](int s, int* pc, int* cc) {
+        *pc = pc_s[s];
+        *cc = cc_s[s];
+      },
+      flags, flags, flags);
+  qc::decide_checkpoints(e, 0, C, n_validators,
+                         [&](int c) { return kc_s[c]; });
+  __syncthreads();
+  for (int i = t; i < S; i += step) p.ordered[i] = ord_s[i];
+}
+
+// What K14 does after its verdicts: lane 0 of each live group writes its
+// verdict and scatters its word when the signature holds; the ticket;
+// the last block's tail, which resets the ticket. Not inlined, and its
+// operands by value (a reference to a kernel parameter makes a local
+// copy): the kernel's own frame is the verify's alone. The verify keeps
+// its table of -A multiples and its spills in local memory, so its time
+// follows that frame: with this part inlined (or the tail called with the
+// state by reference) the frame grew past K-c's and K14 ran ~18 us over
+// K-c alone at phase G, as the parent's second launch did; with it apart
+// the frame is smaller than K-c's and K14 runs about K-c's time
+// (PERF.md §6, K14).
+__device__ __noinline__ void fused_finish(bool ok, bool live, int item,
+                                          uint8_t* ok_out, qc::Planes p,
+                                          const uint32_t* words, int N,
+                                          int S, int C, int n_validators,
+                                          qc::Events e, unsigned int* ticket,
+                                          uint64_t* smem) {
+  __shared__ bool last;
+  if (live && threadIdx.x % kMainLanes == 0) {
+    ok_out[item] = ok ? 1 : 0;
+    if (ok) {
+      qc::scatter_word(qc::member_planes(p, 0, N, S, C), __ldg(words + item),
+                       S, C, 0, N, 0, S, true, true);
+    }
+  }
+  // the block's stores before its ticket: the barrier orders them before
+  // thread 0's release; the last block's acquire orders every block's
+  // before its tail (one acq_rel atomic a block, no fence a lane)
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned int drawn;
+    asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;"
+                 : "=r"(drawn)
+                 : "l"(ticket)
+                 : "memory");
+    last = drawn == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  fused_tail(p, N, S, C, n_validators, e, smem);
+  if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// K14: K-c's verify (the main path's form) and the quorum step of ONE
+// member in one launch. After its verdict, lane 0 of each live group
+// writes ok_out[item] and, when the signature holds, stores word item's 1
+// into the member's planes (qc::scatter_word over every row and slot:
+// PRE-PREPAREs whatever the sender, checkpoints bounded by C); a group
+// past the batch stores nothing. Then each block takes a ticket (an
+// acq_rel atomic after a barrier); the block that draws the last sees every
+// block's stores and evaluates the member (fused_tail: the column
+// counts over the N rows, the slots' decide and the checkpoints' with
+// compact off, as the reference's q.step sets neither prepared_acked nor
+// the frontier, tpu/step.py:19-20). Its scratch takes the dynamic shared
+// memory the base table held: the verify is done with it. It resets the
+// ticket as it ends: ``ticket`` belongs to the wrapper's stream, whose
+// calls run one after another, so the next call finds it 0 and two calls
+// never share one.
+// fused_step_launch sizes the dynamic shared memory for the base table
+// alone
+static_assert(!kMainSharedTable,
+              "K14's verify keeps its signature tables out of shared memory");
+
+__global__ void __launch_bounds__(
+    kSigsPerBlock * kMainLanes,
+    65536 / (kSigsPerBlock * kMainLanes * kRegisterCap))
+    fused_step_kernel(const uint8_t* __restrict__ pk,
+                      const uint8_t* __restrict__ rb,
+                      const uint8_t* __restrict__ sb,
+                      const uint8_t* __restrict__ hb,
+                      uint8_t* __restrict__ ok_out,
+                      const uint64_t* __restrict__ consts, int batch,
+                      qc::Planes p, const uint32_t* __restrict__ words,
+                      int N, int S, int C, int n_validators, qc::Events e,
+                      unsigned int* ticket) {
+  extern __shared__ uint64_t smem[];
+  int item = blockIdx.x * kSigsPerBlock +
+             static_cast<int>(threadIdx.x) / kMainLanes;
+  const bool live = item < batch;
+  if (!live) item = batch - 1;
+  bool ok = false;
+  if (batch > 0) {  // uniform: an empty batch only evaluates
+    ok = verify_item<kMainLanes, kMainSharedTable>(pk, rb, sb, hb, consts,
+                                                  smem, item);
+  }
+  fused_finish(ok, live, item, ok_out, p, words, N, S, C, n_validators, e,
+               ticket, smem);
 }
 
 template <int L, bool kSharedTable>
@@ -380,6 +567,46 @@ void launch(const void* pk, const void* rb, const void* sb, const void* hb,
 }
 
 }  // namespace
+
+// K14: the verify's operands, then ONE member's state (as
+// quorum_step_launch's, M = 1), its (1, B) words, N, S, C, the real
+// validator count, the one output allocation (qc::events_at at M = 1;
+// the compact record is not written) and the stream's ticket (one
+// uint32, 0 between calls).
+extern "C" int fused_step_launch(const void* pk, const void* rb,
+                                 const void* sb, const void* hb,
+                                 void* ok_out, const void* consts, int batch,
+                                 void* pp, void* pv, void* cv, void* ck,
+                                 void* ordered, void* acked, void* frontier,
+                                 const void* words, int N, int S, int C,
+                                 int n_validators, int cap, void* out,
+                                 void* ticket, void* stream) {
+  if (batch < 0 || N < 1 || N > 65535 || S <= 0 || S > qc::kMaxSlots ||
+      C < 0 || C > qc::kMaxSlots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t table = kTableWords * sizeof(uint64_t);
+  // the tail's C int32 and 2S uint16 counts, and 3S bytes
+  const size_t tail = 7 * static_cast<size_t>(S) + 4 * static_cast<size_t>(C);
+  const size_t smem = table > tail ? table : tail;
+  if (smem > 48 * 1024) {  // above 48 KB: the kernel's opt-in
+    const cudaError_t opt = cudaFuncSetAttribute(
+        fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (opt != cudaSuccess) return static_cast<int>(opt);
+  }
+  const int grid = batch > 0 ? (batch + kSigsPerBlock - 1) / kSigsPerBlock
+                             : 1;
+  fused_step_kernel<<<grid, kSigsPerBlock * kMainLanes, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(pk), static_cast<const uint8_t*>(rb),
+      static_cast<const uint8_t*>(sb), static_cast<const uint8_t*>(hb),
+      static_cast<uint8_t*>(ok_out), static_cast<const uint64_t*>(consts),
+      batch, qc::planes(pp, pv, cv, ck, ordered, acked, frontier),
+      static_cast<const uint32_t*>(words), N, S, C, n_validators,
+      qc::events_at(out, 1, S, C, cap), static_cast<unsigned int*>(ticket));
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int ed25519_verify_launch(const void* pk, const void* rb,
                                      const void* sb, const void* hb,

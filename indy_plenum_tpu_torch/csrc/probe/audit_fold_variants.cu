@@ -1,6 +1,6 @@
 // K10's compression variants, for utils/audit_fold_probe.py: the indexed
 // kernel of ../sha256.cu with its node hash's compressions rolled (the
-// library's) or fully unrolled (K11's and K12's form). Built on its own by the
+// library's) or fully unrolled (K11's form). Built on its own by the
 // probe, never into the port's library, whose entry points launch the
 // rolled kernel only.
 #include "../sha256.cu"

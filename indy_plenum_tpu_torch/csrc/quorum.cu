@@ -26,11 +26,6 @@
 // one device allocation (qc::events_at); the host reads only the compact
 // record, except on overflow or in host-eval mode.
 //
-// ``ok`` (nullable) is K14's verdict operand (tpu/step.py, replacing
-// indy_plenum_tpu/tpu/step.py:29 `fused_step`): one byte per word, laid
-// out as the words; a word whose verdict is 0 is dropped in the decode,
-// as the reference's ``valid &= ok``. Every other call passes NULL.
-//
 // What bounds it on an H100: bytes, and at the main path's size launch
 // latency. A 64 x 300-slot plane set is ~2.5 MB of uint8 votes read once
 // for the counts; the arithmetic is a few adds per byte.
@@ -61,9 +56,8 @@ constexpr int kMaxChunk = ((qc::kMaxSlots + kCluster - 1) / kCluster + 3) &
 __global__ void __cluster_dims__(kCluster, 1, 1)
     __launch_bounds__(qc::kThreads)
         quorum_step_kernel(qc::Planes p, const uint32_t* __restrict__ words,
-                           const uint8_t* __restrict__ ok, int N, int S,
-                           int C, int W, int n_validators, int cap,
-                           int compact, qc::Events e) {
+                           int N, int S, int C, int W, int n_validators,
+                           int cap, int compact, qc::Events e) {
   __shared__ uint8_t f_newprep[qc::kMaxSlots];  // the leader's: whole member
   __shared__ uint8_t f_newly[qc::kMaxSlots];
   __shared__ uint8_t f_ordered[qc::kMaxSlots];
@@ -80,9 +74,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   // cluster must have started before any writes them
   asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
   const size_t mw = static_cast<size_t>(m) * W;
-  qc::scatter_member_rows(p, m, words + mw,
-                          ok != nullptr ? ok + mw : nullptr, N, S, C, W, 0,
-                          N, s_lo, s_hi, true, rank == 0);
+  qc::scatter_member_rows(p, m, words + mw, N, S, C, W, 0, N, s_lo, s_hi,
+                          true, rank == 0);
   for (int i = threadIdx.x; i < s_hi - s_lo; i += blockDim.x) {
     pc_s[i] = 0;
     cc_s[i] = 0;
@@ -116,8 +109,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
 
 extern "C" int quorum_step_launch(void* pp, void* pv, void* cv, void* ck,
                                   void* ordered, void* acked, void* frontier,
-                                  const void* words, const void* ok, int M,
-                                  int N, int S, int C, int W,
+                                  const void* words, int M, int N, int S,
+                                  int C, int W,
                                   int n_validators, int cap, int compact,
                                   void* out, void* stream) {
   if (S <= 0 || S > qc::kMaxSlots || M > 65535) {
@@ -127,8 +120,7 @@ extern "C" int quorum_step_launch(void* pp, void* pv, void* cv, void* ck,
     quorum_step_kernel<<<dim3(kCluster, M), qc::kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         qc::planes(pp, pv, cv, ck, ordered, acked, frontier),
-        static_cast<const uint32_t*>(words),
-        static_cast<const uint8_t*>(ok), N, S, C, W, n_validators, cap,
+        static_cast<const uint32_t*>(words), N, S, C, W, n_validators, cap,
         compact, qc::events_at(out, M, S, C, cap));
   }
   return static_cast<int>(cudaGetLastError());

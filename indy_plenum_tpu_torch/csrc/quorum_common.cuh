@@ -1,13 +1,15 @@
 // Device code shared by the vote-plane kernels: the grouped quorum step
-// (K7, quorum.cu), the window slide and zero (K8, window.cu), and the
-// resident step in its one form for every validator tile count (K9 at one
-// tile, the tiled K9) with the member x validator fabric step (K13): one
-// kernel in resident_tile.cu. K7, K9 and K13 decide through one path
-// (decide_slots, decide_checkpoints, compact_member), spread over a
-// cluster, so they cannot drift.
+// (K7, quorum.cu), the fused verify + step (K14, ed25519.cu: one word's
+// scatter, the counts and the decide), the window slide and zero (K8,
+// window.cu), and the resident step in its one form for every validator
+// tile count (K9 at one tile, the tiled K9) with the member x validator
+// fabric step (K13): one kernel in resident_tile.cu. K7, K9, K13 and K14
+// decide through one path (decide_slots, decide_checkpoints; K7, K9 and
+// K13 also compact_member), so they cannot drift.
 //
 // Every function here works on ONE member plane inside one thread block
-// and is called by all threads of the block alike (some hold a barrier).
+// and is called by all threads of the block alike (some hold a barrier),
+// but scatter_word, which is one thread's.
 // The member-stacked VoteState leaves (tpu/quorum.py):
 //   preprepare_seen, ordered, prepared_acked : (M, S) uint8
 //   prepare_votes, commit_votes              : (M, N, S) uint8
@@ -52,47 +54,67 @@ struct Events {
   int32_t* frontier;
 };
 
-// Decode member m's W words and store 1 into the hit planes: prepare and
-// commit votes of the validator rows [row_lo, row_lo + rows) (a
-// resident_tile.cu cluster block's rows; the whole plane for K7) at the
-// slots [s_lo, s_hi) (a K7 cluster block's chunk; all S otherwise);
-// PRE-PREPAREs at those slots when ``pp_owner`` (per slot, whatever the
-// sender: quorum.py:170); checkpoint votes of those rows when
-// ``ck_owner`` (bounded by C, not S: :153). So every byte has one writer. The
-// reference's scatter is a max of 0/1 bytes, idempotent, so plain stores
-// are right in any thread order. ``okm`` (nullable) is a per-word verdict:
-// a word whose verdict is 0 is dropped like an invalid one (K14's masked
-// decode).
-__device__ __forceinline__ void scatter_member_rows(
-    const Planes& p, int m, const uint32_t* __restrict__ wm,
-    const uint8_t* __restrict__ okm, int N, int S, int C, int W,
-    int row_lo, int rows, int s_lo, int s_hi, bool pp_owner,
-    bool ck_owner) {
-  uint8_t* ppm = p.pp + static_cast<size_t>(m) * S;
-  uint8_t* pvm = p.pv + static_cast<size_t>(m) * N * S;
-  uint8_t* cvm = p.cv + static_cast<size_t>(m) * N * S;
-  uint8_t* ckm = p.ck + static_cast<size_t>(m) * N * C;
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    const uint32_t w = wm[j];
-    if (!(w >> 31)) continue;
-    if (okm != nullptr && !okm[j]) continue;
-    const int kind = (w >> 29) & 0x3;
-    const int sender = (w >> 16) & 0x1FFF;
-    const int slot = w & 0xFFFF;
-    const bool in_chunk = slot >= s_lo && slot < s_hi;
-    if (kind == 0) {
-      if (pp_owner && in_chunk) ppm[slot] = 1;
-    } else if (sender >= row_lo && sender < row_lo + rows) {
-      if (kind == 1) {
-        if (in_chunk) pvm[static_cast<size_t>(sender) * S + slot] = 1;
-      } else if (kind == 2) {
-        if (in_chunk) cvm[static_cast<size_t>(sender) * S + slot] = 1;
-      } else {
-        if (ck_owner && slot < C) {
-          ckm[static_cast<size_t>(sender) * C + slot] = 1;
-        }
+// Member m's hit planes: the bases scatter_word stores into, computed
+// once a member, not once a word.
+struct MemberPlanes {
+  uint8_t* pp;
+  uint8_t* pv;
+  uint8_t* cv;
+  uint8_t* ck;
+};
+
+__device__ __forceinline__ MemberPlanes member_planes(const Planes& p, int m,
+                                                      int N, int S, int C) {
+  return {p.pp + static_cast<size_t>(m) * S,
+          p.pv + static_cast<size_t>(m) * N * S,
+          p.cv + static_cast<size_t>(m) * N * S,
+          p.ck + static_cast<size_t>(m) * N * C};
+}
+
+// Store word w's 1 into a member's hit planes: prepare and commit votes of
+// the validator rows [row_lo, row_lo + rows) (a resident_tile.cu cluster
+// block's rows; the whole plane for K7 and K14) at the slots [s_lo, s_hi)
+// (a K7 cluster block's chunk; all S otherwise); a PRE-PREPARE at those
+// slots when ``pp_owner`` (per slot, whatever the sender: quorum.py:170);
+// a checkpoint vote of those rows when ``ck_owner`` (bounded by C, not S:
+// :153). An invalid word (bit 31 clear) stores nothing. The reference's
+// scatter is a max of 0/1 bytes, idempotent, so plain stores are right in
+// any thread order and any number of times.
+__device__ __forceinline__ void scatter_word(const MemberPlanes& mp,
+                                             uint32_t w, int S, int C,
+                                             int row_lo, int rows, int s_lo,
+                                             int s_hi, bool pp_owner,
+                                             bool ck_owner) {
+  if (!(w >> 31)) return;
+  const int kind = (w >> 29) & 0x3;
+  const int sender = (w >> 16) & 0x1FFF;
+  const int slot = w & 0xFFFF;
+  const bool in_chunk = slot >= s_lo && slot < s_hi;
+  if (kind == 0) {
+    if (pp_owner && in_chunk) mp.pp[slot] = 1;
+  } else if (sender >= row_lo && sender < row_lo + rows) {
+    if (kind == 1) {
+      if (in_chunk) mp.pv[static_cast<size_t>(sender) * S + slot] = 1;
+    } else if (kind == 2) {
+      if (in_chunk) mp.cv[static_cast<size_t>(sender) * S + slot] = 1;
+    } else {
+      if (ck_owner && slot < C) {
+        mp.ck[static_cast<size_t>(sender) * C + slot] = 1;
       }
     }
+  }
+}
+
+// Decode member m's W words and store each one's 1 (scatter_word), the
+// words spread over the block's threads. So every byte has one writer.
+__device__ __forceinline__ void scatter_member_rows(
+    const Planes& p, int m, const uint32_t* __restrict__ wm, int N, int S,
+    int C, int W, int row_lo, int rows, int s_lo, int s_hi, bool pp_owner,
+    bool ck_owner) {
+  const MemberPlanes mp = member_planes(p, m, N, S, C);
+  for (int j = threadIdx.x; j < W; j += blockDim.x) {
+    scatter_word(mp, wm[j], S, C, row_lo, rows, s_lo, s_hi, pp_owner,
+                 ck_owner);
   }
 }
 
@@ -232,6 +254,23 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* row, int s0,
   return v;
 }
 
+// load4 through L2 (__ldcg): for planes other blocks of the same launch
+// wrote, never read through L1 or the read-only path (K14's tail). Kept
+// apart from load4: one template over both loads put K9's kernel at 64
+// registers with spills (62 and none with load4 as it is).
+__device__ __forceinline__ uint32_t load4_cg(const uint8_t* row, int s0,
+                                             int s_hi, bool aligned) {
+  if (aligned) return __ldcg(reinterpret_cast<const uint32_t*>(row + s0));
+  uint32_t v = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (s0 + i < s_hi) {
+      v |= static_cast<uint32_t>(__ldcg(row + s0 + i)) << (8 * i);
+    }
+  }
+  return v;
+}
+
 // Prepare and commit column counts of member m's validator rows [r0, r0 + nr)
 // at the slots [s_lo, s_hi) into pc[s - s_lo] and cc[s - s_lo] (shared memory
 // the caller zeroed before a barrier). A thread takes one 4-slot word of the
@@ -292,6 +331,67 @@ __device__ __forceinline__ void chunk_counts(const Planes& p, int m, int N,
       if (s0 + i < s_hi) {
         atomicAdd(pc + (s0 - s_lo + i), tp[i]);
         atomicAdd(cc + (s0 - s_lo + i), tc[i]);
+      }
+    }
+  }
+}
+
+// chunk_counts for a block of few warps whose loads each cross to L2 on
+// its chain (K14's tail, one warp, reading planes other blocks of its
+// launch wrote: through L2, never L1 or the read-only path): a thread owns
+// whole 4-slot words (no atomics: pc and cc zeroed by the caller, before
+// a barrier; 16-bit, so N < 65,536 rows) and issues a batch of kRowBatch
+// rows' loads of both planes before it adds any, so a batch costs one
+// round trip; bytes summed straight into int lanes. The same sums as
+// chunk_counts.
+constexpr int kRowBatch = 16;
+
+template <bool kAligned>
+__device__ __forceinline__ void l2_word_counts(const uint8_t* pvm,
+                                               const uint8_t* cvm, int S,
+                                               int nr, int s0, int s_hi,
+                                               int tp[4], int tc[4]) {
+  for (int n0 = 0; n0 < nr; n0 += kRowBatch) {
+    uint32_t a[kRowBatch], b[kRowBatch];
+#pragma unroll
+    for (int u = 0; u < kRowBatch; ++u) {
+      const size_t row = static_cast<size_t>(n0 + u) * S;
+      const bool in = n0 + u < nr;
+      a[u] = in ? load4_cg(pvm + row, s0, s_hi, kAligned) : 0u;
+      b[u] = in ? load4_cg(cvm + row, s0, s_hi, kAligned) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kRowBatch; ++u) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        tp[i] += (a[u] >> (8 * i)) & 0xFF;
+        tc[i] += (b[u] >> (8 * i)) & 0xFF;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void l2_chunk_counts(const Planes& p, int m,
+                                                int N, int S, int r0,
+                                                int nr, int s_lo, int s_hi,
+                                                uint16_t* pc, uint16_t* cc) {
+  const int words = (s_hi - s_lo + 3) / 4;
+  const uint8_t* pvm = p.pv + (static_cast<size_t>(m) * N + r0) * S;
+  const uint8_t* cvm = p.cv + (static_cast<size_t>(m) * N + r0) * S;
+  for (int t = threadIdx.x; t < words; t += blockDim.x) {
+    const int s0 = s_lo + 4 * t;
+    int tp[4] = {0, 0, 0, 0};
+    int tc[4] = {0, 0, 0, 0};
+    if ((S & 3) == 0) {
+      l2_word_counts<true>(pvm, cvm, S, nr, s0, s_hi, tp, tc);
+    } else {
+      l2_word_counts<false>(pvm, cvm, S, nr, s0, s_hi, tp, tc);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (s0 + i < s_hi) {
+        pc[s0 - s_lo + i] += tp[i];
+        cc[s0 - s_lo + i] += tc[i];
       }
     }
   }

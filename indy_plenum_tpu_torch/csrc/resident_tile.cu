@@ -16,10 +16,8 @@
 //     compile_plan.py:201-245's shard_map step runs it on every (member
 //     block, validator block) tile, and quorum.py:402 `make_sharded_step`
 //     (one plane, full events, no compact record): the same consume at
-//     k = 1 with no slide, an optional per-word verdict ``ok`` (the sharded
-//     fused step, indy_plenum_tpu/tpu/step.py:46; on one card the
-//     reference's all_gather of the verdicts is the identity) and a
-//     ``compact`` flag (0: prepared_acked and the frontier stay).
+//     k = 1 with no slide and a ``compact`` flag (0: prepared_acked and
+//     the frontier stay).
 // On one card every tile lives in one member-stacked VoteState whose N
 // validator rows are padded to a multiple of v; the tiles' counts sum to
 // the counts over all N rows, so the result does not depend on v, and v
@@ -32,8 +30,7 @@
 //      slot-axis row is rolled left by d with the vacated columns zeroed
 //      (d >= S clears), the checkpoint votes cleared and the frontier set
 //      to max(frontier - d, 0); then words[k][m] decoded and scattered,
-//      a word whose ok[k][m] is 0 dropped (quorum_common.cuh
-//      scatter_member_rows);
+//      (quorum_common.cuh scatter_member_rows);
 //   2. the prepare, commit and checkpoint column counts over all N rows;
 //   3. the decide K7, K9 and K13 share (decide_slots, decide_checkpoints,
 //      compact_member).
@@ -77,16 +74,14 @@ namespace {
 
 constexpr int kMaxBlocks = 8;  // the portable cluster size
 
-// ``Step`` instantiates K13 (one slot, no slide, ``ok`` and ``compact``
-// read at run time); the resident step's (K9, the tiled K9) reads neither
-// (no per-word verdict test in its decode, compact fixed at 1).
+// ``Step`` instantiates K13 (one slot, no slide, ``compact`` read at run
+// time); the resident step's (K9, the tiled K9) fixes compact at 1.
 template <bool Step>
 __global__ void __launch_bounds__(qc::kThreads)
     resident_tile_kernel(qc::Planes p, const int32_t* __restrict__ slides,
-                         const uint32_t* __restrict__ words,
-                         const uint8_t* __restrict__ ok, int K, int M, int N,
-                         int S, int C, int W, int n_validators, int cap,
-                         int compact, qc::Events e) {
+                         const uint32_t* __restrict__ words, int K, int M,
+                         int N, int S, int C, int W, int n_validators,
+                         int cap, int compact, qc::Events e) {
   // this block's partial counts, then the member's flags (block 0's are
   // the ones written)
   extern __shared__ int32_t part[];
@@ -127,9 +122,8 @@ __global__ void __launch_bounds__(qc::kThreads)
     }
     // the scatter stores 1s only, so the stores of slots that no slide
     // separates may land in any order: no barrier between them
-    qc::scatter_member_rows(p, m, words + km * W,
-                            Step && ok != nullptr ? ok + km * W : nullptr, N,
-                            S, C, W, r_lo, nr, 0, S, lead, true);
+    qc::scatter_member_rows(p, m, words + km * W, N, S, C, W, r_lo, nr, 0,
+                            S, lead, true);
   }
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
     pc_s[i] = 0;
@@ -213,9 +207,8 @@ cudaError_t allow_shared(size_t smem) {
 template <bool Step>
 int launch(void* pp, void* pv, void* cv, void* ck, void* ordered,
            void* acked, void* frontier, const void* slides, const void* words,
-           const void* ok, int K, int M, int N, int S, int C, int W, int v,
-           int blocks, int n_validators, int cap, int compact, void* out,
-           void* stream) {
+           int K, int M, int N, int S, int C, int W, int v, int blocks,
+           int n_validators, int cap, int compact, void* out, void* stream) {
   if (S <= 0 || S > qc::kMaxSlots || K < 0 || C < 0 || v < 1 || N < 1 ||
       N % v != 0 || blocks < 1 || blocks > kMaxBlocks || blocks > N ||
       M > 65535) {
@@ -241,8 +234,8 @@ int launch(void* pp, void* pv, void* cv, void* ck, void* ordered,
       &cfg, resident_tile_kernel<Step>,
       qc::planes(pp, pv, cv, ck, ordered, acked, frontier),
       static_cast<const int32_t*>(slides),
-      static_cast<const uint32_t*>(words), static_cast<const uint8_t*>(ok),
-      K, M, N, S, C, W, n_validators, cap, compact,
+      static_cast<const uint32_t*>(words), K, M, N, S, C, W, n_validators,
+      cap, compact,
       qc::events_at(out, M, S, C, cap));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -278,18 +271,18 @@ extern "C" int resident_tile_launch(
     int N, int S, int C, int W, int v, int blocks, int n_validators,
     int cap, void* out, void* stream) {
   return launch<false>(pp, pv, cv, ck, ordered, acked, frontier, slides,
-                       words, nullptr, K, M, N, S, C, W, v, blocks,
-                       n_validators, cap, 1, out, stream);
+                       words, K, M, N, S, C, W, v, blocks, n_validators, cap,
+                       1, out, stream);
 }
 
-// K13: one slot, no slide; ``ok`` (M, W) nullable; ``compact`` 0 leaves
-// prepared_acked and the frontier as they are.
+// K13: one slot, no slide; ``compact`` 0 leaves prepared_acked and the
+// frontier as they are.
 extern "C" int fabric_step_launch(
     void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,
-    void* frontier, const void* words, const void* ok, int M, int N, int S,
-    int C, int W, int v, int blocks, int n_validators, int cap, int compact,
-    void* out, void* stream) {
+    void* frontier, const void* words, int M, int N, int S, int C, int W,
+    int v, int blocks, int n_validators, int cap, int compact, void* out,
+    void* stream) {
   return launch<true>(pp, pv, cv, ck, ordered, acked, frontier, nullptr,
-                      words, ok, 1, M, N, S, C, W, v, blocks, n_validators,
-                      cap, compact, out, stream);
+                      words, 1, M, N, S, C, W, v, blocks, n_validators, cap,
+                      compact, out, stream);
 }

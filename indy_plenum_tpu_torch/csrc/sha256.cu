@@ -60,7 +60,10 @@
 //     node j). A node's refs and literal operands are read before the
 //     barrier that precedes its level. The bound that binds is the
 //     dependent chain: levels x one node hash's latency;
-//   - K12: one thread per message, 128-thread blocks;
+//   - K12: one thread per message, kFixedThreads (32) a block; the
+//     message words built from aligned 32-bit loads of the row (the next
+//     block's in flight during a block's rounds), the padding word-wise
+//     (no per-byte branch), the unrolled compression;
 //   - K10: one thread per proof; items are independent, so a proof's
 //     time is its chain of min(depth, path_len) node hashes (levels past
 //     path_len change nothing in the reference either), and the kernel
@@ -175,9 +178,10 @@ __device__ __forceinline__ void node_hash(const uint32_t l[8],
 // (the window's indices stay static), and the two blocks as one unrolled
 // loop. About half the code of node_hash, which a card full of warps
 // streaming the same long body fetches slower than it runs
-// (utils/audit_fold_probe.py times both). K11 and K12 keep node_hash as
-// it is written: routing it through these helpers changed K11's code and
-// made its plans slower on the card.
+// (utils/audit_fold_probe.py times both). K11 keeps node_hash as it is
+// written: routing it through these helpers changed K11's code and made
+// its plans slower on the card. K12 keeps compress (one warp a scheduler
+// runs it: the rolled rounds measured slower there).
 __device__ __forceinline__ uint32_t schedule(uint32_t w[16], int j) {
   const uint32_t w15 = w[(j + 1) & 15], w2 = w[(j + 14) & 15];
   const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
@@ -270,42 +274,106 @@ __device__ __forceinline__ void store_words(uint8_t* p, const uint32_t x[8]) {
   for (int i = 0; i < 8; ++i) q[i] = bswap32(x[i]);
 }
 
-// K12: msg (B, L) bytes -> out (B, 32); FIPS 180-4 padding built per byte
-// (0x80 after the message, the 64-bit bit length in the last 8 bytes).
-__global__ void sha256_fixed_kernel(const uint8_t* __restrict__ msg,
-                                    uint8_t* __restrict__ out, int batch,
-                                    int msg_len) {
-  int item = blockIdx.x * blockDim.x + threadIdx.x;
+// K12: msg (B, L) bytes -> out (B, 32), one thread a message (its
+// compressions are one dependent chain, and at the sizes it serves one
+// warp a scheduler runs it: one thread's chain sets the time). Each thread
+// reads its row as the aligned 32-bit words that hold it (the row's first
+// byte rounded down to 4, whatever L is and wherever the rows start) and
+// builds each big-endian message word from two of them with __byte_perm
+// at the row's byte offset; a word is loaded only where it holds one of
+// the row's bytes (an aligned word never leaves the page of a byte it
+// holds). A block's 16 words are 16 to 32 independent loads: one memory
+// latency, and block b + 1's are loaded before block b's rounds run, so
+// only the first block waits on memory.
+//
+// FIPS 180-4 padding is word-wise and every test of msg_len is uniform
+// across the launch (every row has the same length): the word holding
+// byte msg_len keeps its message bytes under a mask and takes 0x80 after
+// them, later words are 0 and never loaded, and the last block's words 14
+// and 15 are the 64-bit bit length. The rounds are the unrolled compress
+// (one warp a scheduler fetches the long body without missing, and the
+// unrolled rounds keep the constants as immediates).
+// csrc/probe/sha256_fixed_variants.cu builds the other forms it was
+// measured against (rolled rounds, no block in flight, the rows staged in
+// shared memory, the byte loads it replaced) from the helpers below.
+
+// A message word x (its bytes in big-endian order) padded: q = msg_len -
+// (the word's first byte), uniform across the launch.
+__device__ __forceinline__ uint32_t fixed_pad(uint32_t x, int q) {
+  if (q < 4) {
+    if (q <= 0) x = 0u;
+    else x &= 0xFFFFFFFFu << (32 - 8 * q);
+    if (q >= 0) x |= 0x80000000u >> (8 * q);
+  }
+  return x;
+}
+
+// Block b's raw words: lo[i] while word i holds message bytes (q > 0),
+// hi[i] where the row's offset s splits the word and the message reaches
+// past lo[i]; 0 otherwise.
+__device__ __forceinline__ void fixed_load(const uint32_t* __restrict__ g,
+                                           int s, int msg_len, int b,
+                                           uint32_t lo[16], uint32_t hi[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int q = msg_len - 64 * b - 4 * i;
+    lo[i] = q > 0 ? __ldg(g + 16 * b + i) : 0u;
+    hi[i] = s != 0 && q > 4 - s ? __ldg(g + 16 * b + i + 1) : 0u;
+  }
+}
+
+// Block b's 16 padded words from its raw words.
+__device__ __forceinline__ void fixed_join(const uint32_t lo[16],
+                                           const uint32_t hi[16],
+                                           uint32_t sel, int msg_len,
+                                           int n_blocks, uint64_t bitlen,
+                                           int b, uint32_t w[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    w[i] = fixed_pad(__byte_perm(lo[i], hi[i], sel),
+                     msg_len - 64 * b - 4 * i);
+  }
+  if (b == n_blocks - 1) {
+    w[14] = static_cast<uint32_t>(bitlen >> 32);
+    w[15] = static_cast<uint32_t>(bitlen);
+  }
+}
+
+// Row ``item``'s aligned words, its byte offset s in them and the
+// __byte_perm selector that takes a word's 4 bytes from s on.
+__device__ __forceinline__ const uint32_t* fixed_row(const uint8_t* msg,
+                                                     int item, int msg_len,
+                                                     int& s, uint32_t& sel) {
+  const uintptr_t own =
+      reinterpret_cast<uintptr_t>(msg) + static_cast<size_t>(item) * msg_len;
+  s = static_cast<int>(own & 3);
+  sel = ((s + 3) | ((s + 2) << 4) | ((s + 1) << 8) | (s << 12)) & 0xFFFFu;
+  return reinterpret_cast<const uint32_t*>(own & ~uintptr_t(3));
+}
+
+// K12's block size (utils/sha256_fixed_probe.py: 32 and 64 threads within
+// 1%, 128 2-4% slower)
+constexpr int kFixedThreads = 32;
+
+__global__ void __launch_bounds__(kFixedThreads)
+    sha256_fixed_kernel(const uint8_t* __restrict__ msg,
+                        uint8_t* __restrict__ out, int batch,
+                        int msg_len) {
+  const int item = blockIdx.x * blockDim.x + threadIdx.x;
   if (item >= batch) return;
-  const uint8_t* m = msg + static_cast<size_t>(item) * msg_len;
+  int s;
+  uint32_t sel;
+  const uint32_t* g = fixed_row(msg, item, msg_len, s, sel);
   const int n_blocks = (msg_len + 9 + 63) / 64;
-  const int total = n_blocks * 64;
   const uint64_t bitlen = static_cast<uint64_t>(msg_len) * 8;
   uint32_t st[8];
   init_state(st);
-  for (int blk = 0; blk < n_blocks; ++blk) {
+  uint32_t lo[16], hi[16];
+  fixed_load(g, s, msg_len, 0, lo, hi);
+  for (int b = 0; b < n_blocks; ++b) {
     uint32_t w[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      uint32_t word = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        int p = blk * 64 + 4 * i + j;
-        uint32_t byte;
-        if (p < msg_len) {
-          byte = m[p];
-        } else if (p == msg_len) {
-          byte = 0x80;
-        } else if (p >= total - 8) {
-          byte = static_cast<uint32_t>(
-              (bitlen >> (8 * (total - 1 - p))) & 0xFF);
-        } else {
-          byte = 0;
-        }
-        word = (word << 8) | byte;
-      }
-      w[i] = word;
-    }
+    fixed_join(lo, hi, sel, msg_len, n_blocks, bitlen, b, w);
+    if (b + 1 < n_blocks) fixed_load(g, s, msg_len, b + 1, lo, hi);
     compress(st, w);
   }
   store_words(out + static_cast<size_t>(item) * 32, st);
@@ -489,9 +557,9 @@ inline bool fold_threads_ok(int threads) {
 
 extern "C" int sha256_fixed_launch(const void* msg, void* out, int batch,
                                    int msg_len, void* stream) {
+  if (msg_len < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (batch > 0) {
-    const int threads = 128;
-    sha256_fixed_kernel<<<grid_for(batch, threads), threads, 0,
+    sha256_fixed_kernel<<<grid_for(batch, kFixedThreads), kFixedThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(msg), static_cast<uint8_t*>(out), batch,
         msg_len);

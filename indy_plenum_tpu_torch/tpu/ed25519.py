@@ -219,6 +219,21 @@ def _kernel_consts(device: torch.device) -> torch.Tensor:
     return torch.tensor(words, dtype=torch.int64, device=device)
 
 
+def kernel_operands(pk: torch.Tensor, rb: torch.Tensor, s: torch.Tensor,
+                    h: torch.Tensor, what: str) -> list:
+    """The pointers K-c's body takes (``csrc/ed25519.cu`` ``verify_item``,
+    in K-c and in K14): pk, R, S and h, each checked to be a contiguous
+    (B, 32) uint8 tensor on pk's device, then the constant block."""
+    batch = pk.shape[0]
+    for name, t in (("pk", pk), ("R", rb), ("S", s), ("h", h)):
+        if (t.dtype != torch.uint8 or tuple(t.shape) != (batch, 32)
+                or not t.is_contiguous() or t.device != pk.device):
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"(B, 32) uint8 tensor on {pk.device}")
+    return [pk.data_ptr(), rb.data_ptr(), s.data_ptr(), h.data_ptr(),
+            _kernel_consts(pk.device).data_ptr()]
+
+
 def verify_kernel(pk: torch.Tensor, rb: torch.Tensor, s: torch.Tensor,
                   h: torch.Tensor) -> torch.Tensor:
     """K-c: (B, 32) uint8 x 4 (pk, R, S, h) -> (B,) bool. CPU tensors take
@@ -228,17 +243,10 @@ def verify_kernel(pk: torch.Tensor, rb: torch.Tensor, s: torch.Tensor,
         return verify_kernel_plain(pk, rb, s, h)
     if pk.device.type != "cuda":
         raise ValueError(f"verify_kernel: unsupported device {pk.device}")
-    batch = pk.shape[0]
-    for name, t in (("pk", pk), ("R", rb), ("S", s), ("h", h)):
-        if (t.dtype != torch.uint8 or tuple(t.shape) != (batch, 32)
-                or not t.is_contiguous() or t.device != pk.device):
-            raise ValueError(f"verify_kernel: {name} must be a contiguous "
-                             f"(B, 32) uint8 tensor on {pk.device}")
-    ok = torch.empty(batch, dtype=torch.bool, device=pk.device)
-    lib = kb.library()
-    code = lib.ed25519_verify_launch(
-        pk.data_ptr(), rb.data_ptr(), s.data_ptr(), h.data_ptr(),
-        ok.data_ptr(), _kernel_consts(pk.device).data_ptr(), batch,
+    ptrs = kernel_operands(pk, rb, s, h, "verify_kernel")
+    ok = torch.empty(pk.shape[0], dtype=torch.bool, device=pk.device)
+    code = kb.library().ed25519_verify_launch(
+        *ptrs[:4], ok.data_ptr(), ptrs[4], pk.shape[0],
         torch.cuda.current_stream(pk.device).cuda_stream)
     kb.check(code, "ed25519_verify")
     kb.LAUNCHES["ed25519_verify"] += 1

@@ -375,18 +375,6 @@ def _check_words(state: VoteState, words: torch.Tensor, dims: int,
     return _state_ptrs(state, words.device, what)
 
 
-def _check_ok(ok: Optional[torch.Tensor], words: torch.Tensor,
-              what: str) -> None:
-    """K14's verdict operand: one bool or uint8 per word, beside them."""
-    if ok is not None and (
-            ok.device != words.device or not ok.is_contiguous()
-            or ok.dtype not in (torch.bool, torch.uint8)
-            or ok.numel() != words.numel()):
-        raise ValueError(f"{what}: ok must be a contiguous bool or uint8 "
-                         "tensor with one verdict per word on "
-                         f"{words.device}")
-
-
 def _outputs(state: VoteState, width: int
              ) -> Tuple[torch.Tensor, QuorumEvents, CompactEvents]:
     """Device outputs of a K7/K9/K13 launch, carved from ONE allocation in
@@ -425,27 +413,22 @@ def _outputs(state: VoteState, width: int
 
 
 def _step_kernel(state: VoteState, words: torch.Tensor, n_validators: int,
-                 delta_cap: int, compact: bool,
-                 ok: Optional[torch.Tensor] = None,
-                 counter: str = "quorum_step"
+                 delta_cap: int, compact: bool
                  ) -> Tuple[QuorumEvents, CompactEvents]:
     """One ``quorum_step_kernel`` launch, and nothing else on the card
     (the outputs are one allocation; the kernel writes the frontier
-    snapshot). ``ok`` ((M, W) bool or uint8 on the card, optional) is
-    K14's per-word verdict operand, counted under ``counter``."""
+    snapshot)."""
     ptrs = _check_words(state, words, 2, "quorum step")
-    _check_ok(ok, words, "quorum step")
     m_count, n_rows, s = state.prepare_votes.shape
     c = state.checkpoint_votes.shape[-1]
     width = delta_width(s, delta_cap)
     buf, events, comp = _outputs(state, width)
     code = kb.library().quorum_step_launch(
-        *ptrs, words.data_ptr(), None if ok is None else ok.data_ptr(),
-        m_count, n_rows, s, c, words.shape[1], n_validators, width,
-        1 if compact else 0, buf.data_ptr(),
+        *ptrs, words.data_ptr(), m_count, n_rows, s, c, words.shape[1],
+        n_validators, width, 1 if compact else 0, buf.data_ptr(),
         torch.cuda.current_stream(words.device).cuda_stream)
-    kb.check(code, counter)
-    kb.LAUNCHES[counter] += 1
+    kb.check(code, "quorum_step")
+    kb.LAUNCHES["quorum_step"] += 1
     return events, comp
 
 
@@ -560,12 +543,10 @@ def fabric_step_plain(state: VoteState, words: torch.Tensor,
 
 def _fabric_kernel(state: VoteState, words: torch.Tensor, n_validators: int,
                    v_shards: int, delta_cap: int, compact: bool,
-                   ok: Optional[torch.Tensor], counter: str,
                    blocks: Optional[int] = None
                    ) -> Tuple[QuorumEvents, CompactEvents]:
     dev = words.device
     ptrs = _check_words(state, words, 2, "fabric step")
-    _check_ok(ok, words, "fabric step")
     _tile_rows(state, v_shards)
     m_count, n_rows, s = state.prepare_votes.shape
     c = state.checkpoint_votes.shape[-1]
@@ -574,19 +555,17 @@ def _fabric_kernel(state: VoteState, words: torch.Tensor, n_validators: int,
         blocks = _cluster_blocks(dev, n_rows, s, c, m_count, True)
     buf, events, comp = _outputs(state, width)
     code = kb.library().fabric_step_launch(
-        *ptrs, words.data_ptr(), None if ok is None else ok.data_ptr(),
-        m_count, n_rows, s, c, words.shape[1], v_shards, blocks,
-        n_validators, width, 1 if compact else 0, buf.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    kb.check(code, counter)
-    kb.LAUNCHES[counter] += 1
+        *ptrs, words.data_ptr(), m_count, n_rows, s, c, words.shape[1],
+        v_shards, blocks, n_validators, width, 1 if compact else 0,
+        buf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    kb.check(code, "fabric_step")
+    kb.LAUNCHES["fabric_step"] += 1
     return events, comp
 
 
 def fabric_step(state: VoteState, words: torch.Tensor, n_validators: int,
                 v_shards: int, delta_cap: int = ORDER_DELTA_CAP,
-                compact: bool = True, ok: Optional[torch.Tensor] = None,
-                counter: str = "fabric_step"
+                compact: bool = True
                 ) -> Tuple[QuorumEvents, CompactEvents]:
     """K13: the grouped step over the fabric's tiles, ``state``'s validator
     rows cut into ``v_shards`` tiles. ``n_validators`` is the REAL
@@ -600,11 +579,11 @@ def fabric_step(state: VoteState, words: torch.Tensor, n_validators: int,
     partial count in device memory) or raise."""
     if words.device.type == "cpu":
         return fabric_step_plain(state, words, n_validators, v_shards,
-                                 delta_cap, compact, ok)
+                                 delta_cap, compact)
     if words.device.type != "cuda":
         raise ValueError(f"fabric step: unsupported device {words.device}")
     return _fabric_kernel(state, words, n_validators, v_shards, delta_cap,
-                          compact, ok, counter)
+                          compact)
 
 
 def resident_tile_plain(states: VoteState, slides, words_seq,

@@ -306,6 +306,83 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+# --- K12's loads and word-wise padding, modelled on the host ---------------
+# The kernel's own arithmetic (csrc/sha256.cu fixed_load, fixed_join,
+# fixed_pad) on a numpy image of device memory: the tests hold it against
+# hashlib and the reference at every length and row offset, which the card
+# alone cannot show for the unaligned cases.
+
+
+def byte_perm(x: int, y: int, sel: int) -> int:
+    """CUDA's ``__byte_perm``: byte n of the result is byte (sel >> 4n) & 7
+    of the 8 bytes y:x (x holds bytes 0-3)."""
+    v = (y << 32) | x
+    return sum(((v >> (8 * ((sel >> (4 * n)) & 7))) & 0xFF) << (8 * n)
+               for n in range(4))
+
+
+def fixed_pad(x: int, q: int) -> int:
+    """A message word padded: ``q`` is msg_len minus the word's first
+    byte; the message bytes masked where the message ends, 0x80 after its
+    last byte, 0 past it."""
+    if q < 4:
+        x = 0 if q <= 0 else x & ((0xFFFFFFFF << (32 - 8 * q)) & M32)
+        if q >= 0:
+            x |= 0x80000000 >> (8 * q)
+    return x
+
+
+def fixed_words_model(mem: np.ndarray, start: int,
+                      msg_len: int) -> np.ndarray:
+    """(n_blocks, 16) uint32: the padded message words K12's thread builds
+    for the row of ``msg_len`` bytes at ``mem[start]``: the aligned 32-bit
+    words of the row (its first byte rounded down to 4), each loaded only
+    where it holds one of the row's bytes (asserted here), joined two at a
+    time at the row's offset; the last block's words 14 and 15 the bit
+    length."""
+    s = start & 3
+    base = start - s
+    sel = ((s + 3) | ((s + 2) << 4) | ((s + 1) << 8) | (s << 12)) & 0xFFFF
+    n_blocks = (msg_len + 9 + 63) // 64
+
+    def load(k):  # aligned word k from the row's base
+        at = base + 4 * k
+        assert at + 4 > start and at < start + msg_len, "a load past the row"
+        return int(mem[at:at + 4].view("<u4")[0])
+
+    out = np.zeros((n_blocks, 16), np.uint32)
+    for b in range(n_blocks):
+        for i in range(16):
+            q = msg_len - 64 * b - 4 * i
+            lo = load(16 * b + i) if q > 0 else 0
+            hi = load(16 * b + i + 1) if s and q > 4 - s else 0
+            out[b, i] = fixed_pad(byte_perm(lo, hi, sel), q)
+        if b == n_blocks - 1:
+            out[b, 14] = (msg_len * 8) >> 32
+            out[b, 15] = (msg_len * 8) & M32
+    return out
+
+
+def sha256_fixed_model(mem: np.ndarray, base: int, batch: int,
+                       msg_len: int) -> np.ndarray:
+    """(batch, 32) uint8 digests of the rows of ``msg_len`` bytes at
+    ``mem[base:]``, from :func:`fixed_words_model`'s words and the plain
+    compression."""
+    return digest_words(np.stack([
+        fixed_words_model(mem, base + r * msg_len, msg_len)
+        for r in range(batch)]))
+
+
+def digest_words(words: np.ndarray) -> np.ndarray:
+    """(B, n_blocks, 16) uint32 padded message words -> (B, 32) uint8
+    digests, by the plain compression."""
+    lanes = torch.from_numpy(words.astype(np.int64))
+    state = _initial_state(words.shape[0], "cpu")
+    for b in range(words.shape[1]):
+        state = _compress(state, [lanes[:, b, i] for i in range(16)])
+    return _words_to_bytes(torch.stack(state, dim=1)).numpy()
+
+
 def sha256_fixed(msg: torch.Tensor,
                  msg_len: Optional[int] = None) -> torch.Tensor:
     """K12: (B, L) uint8 -> (B, 32) uint8 (``msg_len``, when given, must be

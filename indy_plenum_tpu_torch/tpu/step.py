@@ -5,25 +5,22 @@ JAX package's "flagship step" that ``__graft_entry__.entry()`` exports:
 verify a batch of signed votes and tally the survivors into one member's
 vote tensors, returning the quorum events.
 
-On the card it is two launches on the device's current stream, with no
-host synchronisation between them: K-c (``ed25519_verify_launch``) writes
-the verdicts ``ok`` to device memory, then K7 (``quorum_step_launch``)
-takes them as its verdict operand and drops each word whose verdict is 0
-while it decodes (``valid &= ok``). The reference fuses the two into one
-XLA program; on the card the tally needs every verdict before any column
-count, a grid-wide dependency between a one-thread-per-signature kernel
-and a one-block-per-member kernel, which the stream order carries.
-
-Word b carries the vote whose signature is row b (the reference's "msgs
-batch length == signature batch length"); the state is ONE member (M = 1).
-As the reference's ``q.step``, the step neither sets ``prepared_acked``
-nor moves the frontier.
+On the card it is ONE launch on the device's current stream
+(``csrc/ed25519.cu`` ``fused_step_kernel``): K-c's verify, then in the
+same kernel each signature group whose verdict holds stores its word's
+1 into the member's planes, and the block that finishes last (a ticket
+in device memory, one a stream) counts the columns and decides, as the
+reference's one XLA program does. Word b carries the vote whose
+signature is row b (the reference's "msgs batch length == signature
+batch length"); the state is ONE member (M = 1). As the reference's
+``q.step``, the step neither sets ``prepared_acked`` nor moves the
+frontier.
 
 :func:`make_sharded_fused_step` (reference ``step.py:46``) is the same
-step on a 1-D validator fabric: K-c over the whole batch (on one device
-the reference's ``all_gather`` of the verdicts, ``:62``, is the identity),
-then K13 (``csrc/resident_tile.cu``, one cluster launch) with the
-verdicts as its ``ok`` operand, each block scattering its own senders.
+step on a 1-D validator fabric. On one card every tile lives in the one
+state and the reference's ``all_gather`` of the verdicts (``:62``) is the
+identity, so the tile split changes no count: it launches the same
+kernel. The tiles' own shape returns with a fabric over several cards.
 """
 from __future__ import annotations
 
@@ -33,6 +30,7 @@ import numpy as np
 import torch
 
 from ..crypto import ed25519 as ref
+from ..utils import kernel_build as kb
 from ..utils.torch_env import DeviceLike, resolve_device
 from . import ed25519 as ted
 from . import quorum as q
@@ -53,6 +51,49 @@ def fused_step_plain(state: q.VoteState, words: torch.Tensor,
     return state, events, ok
 
 
+_TICKETS = {}  # (device index, stream) -> the stream's K14 ticket
+
+
+def _ticket(dev: torch.device, stream) -> torch.Tensor:
+    """The one uint32 K14's blocks count on, one a stream (0 between
+    calls: the last block resets it). Made once by a copy from the host,
+    not by a kernel."""
+    key = (dev.index, stream.cuda_stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32).to(dev)
+    return _TICKETS[key]
+
+
+def _fused_kernel(state: q.VoteState, words: torch.Tensor, pk: torch.Tensor,
+                  rb: torch.Tensor, s: torch.Tensor, h: torch.Tensor,
+                  n_validators: int, counter: str
+                  ) -> Tuple[q.QuorumEvents, torch.Tensor]:
+    """One ``fused_step_kernel`` launch, counted under ``counter``: the
+    events (one output allocation, as K7's) and the (B,) verdicts."""
+    dev = words.device
+    ptrs = q._check_words(state, words, 2, "fused step")
+    if state.frontier.shape[0] != 1:
+        raise ValueError("fused step: the state is one member")
+    sig = ted.kernel_operands(pk, rb, s, h, "fused step")
+    if pk.device != dev:
+        raise ValueError(f"fused step: signatures on {pk.device}, words "
+                         f"on {dev}")
+    _, n_rows, n_slots = state.prepare_votes.shape
+    n_chk = state.checkpoint_votes.shape[-1]
+    width = q.delta_width(n_slots, q.ORDER_DELTA_CAP)
+    buf, events, _ = q._outputs(state, width)
+    batch = pk.shape[0]
+    ok = torch.empty(batch, dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    code = kb.library().fused_step_launch(
+        *sig[:4], ok.data_ptr(), sig[4], batch, *ptrs, words.data_ptr(),
+        n_rows, n_slots, n_chk, n_validators, width, buf.data_ptr(),
+        _ticket(dev, stream).data_ptr(), stream.cuda_stream)
+    kb.check(code, counter)
+    kb.LAUNCHES[counter] += 1
+    return events, ok
+
+
 def fused_step(state: q.VoteState, words: torch.Tensor, pk: torch.Tensor,
                rb: torch.Tensor, s: torch.Tensor, h: torch.Tensor, *,
                n_validators: int, device: DeviceLike = None
@@ -63,8 +104,8 @@ def fused_step(state: q.VoteState, words: torch.Tensor, pk: torch.Tensor,
     Returns (state, events, ok (B,) bool). Runs on the card unless
     ``device="cpu"``; operands elsewhere are moved there first (the state
     is updated in place when it already lies there). The CPU takes
-    :func:`fused_step_plain`; on the card each launch counts: one
-    ``ed25519_verify`` and one ``fused_step`` (the masked K7)."""
+    :func:`fused_step_plain`; on the card it is one ``fused_step_kernel``
+    launch, counted under ``fused_step``."""
     dev = resolve_device(device)
     state = q.VoteState(*[t.to(dev) for t in state])
     words, pk, rb, s, h = [t.to(dev) for t in (words, pk, rb, s, h)]
@@ -75,10 +116,8 @@ def fused_step(state: q.VoteState, words: torch.Tensor, pk: torch.Tensor,
     if dev.type == "cpu":
         return fused_step_plain(state, words, pk, rb, s, h,
                                 n_validators=n_validators)
-    ok = ted.verify_kernel(pk, rb, s, h)
-    events, _ = q._step_kernel(state, words, n_validators,
-                               q.ORDER_DELTA_CAP, False, ok=ok,
-                               counter="fused_step")
+    events, ok = _fused_kernel(state, words, pk, rb, s, h, n_validators,
+                               "fused_step")
     return state, events, ok
 
 
@@ -87,9 +126,10 @@ def make_sharded_fused_step(mesh: q.FabricMesh, n_validators: int,
     """The fused step over ``mesh``'s ``axis`` tiles: returns ``(state,
     words, pk, rb, s, h)`` -> (state, events, ok), the operands as
     :func:`fused_step` takes them, on the mesh's device. The reference's
-    sizes hold: ``n_validators`` and the batch split evenly over the
-    tiles. The CPU takes :func:`fused_step_plain`; on the card K-c
-    counts one ``ed25519_verify`` and the masked K13 one
+    sizes hold: ``n_validators``, the state's rows and the batch split
+    evenly over the tiles. The CPU takes :func:`fused_step_plain`; on the
+    card it is the one ``fused_step_kernel`` launch :func:`fused_step`
+    makes (the tiles share the card), counted under
     ``sharded_fused_step``."""
     mesh = q.as_fabric(mesh)
     n_shards = mesh.axis_size(axis)
@@ -111,10 +151,9 @@ def make_sharded_fused_step(mesh: q.FabricMesh, n_validators: int,
             return fused_step_plain(state, words, pk, rb, s, h,
                                     n_validators=n_validators,
                                     v_shards=n_shards)
-        ok = ted.verify_kernel(pk, rb, s, h)
-        events, _ = q.fabric_step(state, words, n_validators, n_shards,
-                                  compact=False, ok=ok,
-                                  counter="sharded_fused_step")
+        q._tile_rows(state, n_shards)
+        events, ok = _fused_kernel(state, words, pk, rb, s, h,
+                                   n_validators, "sharded_fused_step")
         return state, events, ok
 
     return sharded

@@ -1,7 +1,7 @@
 """K10's compression variants on one card, side by side: the audit-path
 fold (``csrc/sha256.cu`` ``audit_fold_kernel``) with its node hash's two
 compressions rolled (48 scheduled rounds as three loop iterations of 16:
-the library's) or fully unrolled (the form K11 and K12 keep). This probe
+the library's) or fully unrolled (the form K11 keeps). This probe
 builds both from ``csrc/probe/audit_fold_variants.cu`` into a library of
 its own. Run from the root of a checkout:
 

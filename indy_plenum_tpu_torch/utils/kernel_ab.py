@@ -1,6 +1,6 @@
 """A/B timing of the PyTorch + CUDA port's verify, SHA-512, mod-L,
-quorum-step, resident-step, slide, zero, ring and commit-hash kernels,
-for comparing two
+quorum-step, resident-step, fused-step, slide, zero, ring, fixed-length
+SHA-256 and commit-hash kernels, for comparing two
 checkouts of the repo inside one call on one card. Run this one file by
 its path from each checkout's root, in turns (parent, change, change,
 parent):
@@ -23,9 +23,10 @@ times either. One JSON line:
   consumes at cluster sizes of 1, 2, 4 and 8 blocks too;
 - K13 at phase H's shape on v = 1 (the (8,) mesh's step) beside K7 on
   the same state and words, and where the checkout can force K13's
-  cluster size, on v = 1 and 2 at 1, 2, 4 and 8 blocks; K13 at phase G's
-  shape with the verdicts as ``ok`` (the sharded K14's second half), there
-  also at each of 1 to 8 blocks;
+  cluster size, on v = 1 and 2 at 1, 2, 4 and 8 blocks; where K13 still
+  takes the verdicts as ``ok`` (a checkout whose sharded K14 is K-c then
+  K13), K13 at phase G's shape with them, there also at each of 1 to 8
+  blocks;
 - K10 at a 4,096-proof chunk of the catchup-proof tree (17 levels),
   dense and indexed, one proof alone (its dependent-chain floor) and,
   where the checkout sets the block size, at 32, 64 and 128 threads;
@@ -41,8 +42,15 @@ times either. One JSON line:
   waves, each the median of five fresh states on one populated tree;
 - K-c (``ted.verify_kernel``) at the ingress drain's 8,192 signatures
   and at ``bench.py``'s 32,768, ``verify_kernel_full`` at 32,768 beside
-  it, and K14 (``step.fused_step``) on phase G's 8,192 signed votes:
-  device ms behind the spin and call ms;
+  it, and K14 (``step.fused_step``) and the sharded K14 on 4 tiles on
+  phase G's 8,192 signed votes, with K-c alone on those signatures, K14
+  into a one-row, one-slot member (phase G's less it is K14's tail) and
+  K7 on the good votes' words at phase G's shape (a parent's second
+  launch): device ms behind the spin and call ms; and under
+  ``fused_rounds_ms`` K14, K-c alone and the one-slot K14 again in four
+  rounds that alternate them (K14's tail is K14 less K-c alone);
+- K12 (``s2.sha256_fixed``) on 4,096 seeded rows of 64, 55, 119 and 200
+  bytes and on one 64-byte row alone (its chain floor);
 - K-a (``s5.sha512_blocks``) on the drain's padded blocks (2 a message)
   at 8,192 and 32,768 messages and on one message alone (its chain
   floor);
@@ -166,17 +174,76 @@ def verify_and_fused(out, timed, cs, dev, rng):
                          dev)
     timed("fused_step_8192", lambda: st.fused_step(
         state, words, *fsig, n_validators=cs.N_VALIDATORS, device=dev), 5)
-    # the sharded K14's second half: K13 on 4 tiles with the verdicts
+    sharded = st.make_sharded_fused_step(
+        q.make_fabric_mesh([dev] * 4, (4,), ("validators",)),
+        cs.N_VALIDATORS)
+    sstate = q.init_state(cs.N_VALIDATORS, cs.LOG_SIZE, cs.N_CHECKPOINTS,
+                          1, dev)
+    timed("sharded_fused_step_8192", lambda: sharded(sstate, words, *fsig),
+          5)
+    timed("verify_g", lambda: ted.verify_kernel(*fsig), 5)
+    # K14 into a one-row, one-slot member: its verify and scatter with a
+    # tail that has nothing to count (phase G's less it is the tail), and
+    # K7 on the good votes' words at phase G's shape (the parent's second
+    # launch)
+    tiny = q.init_state(1, 1, 1, 1, dev)
+    timed("fused_step_tiny", lambda: st.fused_step(
+        tiny, words, *fsig, n_validators=cs.N_VALIDATORS, device=dev), 5)
+    good = q.words_tensor(np.where(expect[None, :], words_np, 0), dev)
+    kstate = q.init_state(cs.N_VALIDATORS, cs.LOG_SIZE, cs.N_CHECKPOINTS,
+                          1, dev)
+    timed("quorum_step_g", lambda: q.step(kstate, good, cs.N_VALIDATORS),
+          20)
+    # the three again in four rounds that alternate them in this process:
+    # the tail is K14 less K-c alone, round by round
+    rounds = {"fused_step_8192": lambda: st.fused_step(
+        state, words, *fsig, n_validators=cs.N_VALIDATORS, device=dev),
+        "verify_g": lambda: ted.verify_kernel(*fsig),
+        "fused_step_tiny": lambda: st.fused_step(
+            tiny, words, *fsig, n_validators=cs.N_VALIDATORS, device=dev)}
+    out["fused_rounds_ms"] = {k: [] for k in rounds}
+    for _ in range(4):
+        for k, fn in rounds.items():
+            out["fused_rounds_ms"][k].append(cs._kernel_ms(fn, 5))
+    if "ok" not in inspect.signature(q.fabric_step).parameters:
+        return
+    # a parent's sharded K14 second half: K13 on 4 tiles with the verdicts
     ok = torch.from_numpy(expect[None, :]).to(dev)
     gstate = q.init_state(cs.N_VALIDATORS, cs.LOG_SIZE, cs.N_CHECKPOINTS,
                           1, dev)
     timed("fabric_step_g", lambda: q.fabric_step(
         gstate, words, cs.N_VALIDATORS, 4, compact=False, ok=ok), 20)
-    if "blocks" in inspect.signature(q._fabric_kernel).parameters:
-        for b in range(1, 9):
-            timed(f"fabric_step_g_b{b}", lambda: q._fabric_kernel(
-                gstate, words, cs.N_VALIDATORS, 4, q.ORDER_DELTA_CAP,
-                False, ok, "fabric_step", b), 20)
+    for b in range(1, 9):
+        timed(f"fabric_step_g_b{b}", lambda: q._fabric_kernel(
+            gstate, words, cs.N_VALIDATORS, 4, q.ORDER_DELTA_CAP,
+            False, ok, "fabric_step", b), 20)
+
+
+def fixed_report(timed, dev, rng):
+    """K12 on 4,096 seeded rows of 64, 55, 119 and 200 bytes, and one
+    64-byte row alone (its chain floor)."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import sha256 as s2
+
+    for length in (64, 55, 119, 200):
+        rows = torch.from_numpy(rng.randint(0, 256, (4096, length)).astype(
+            np.uint8)).to(dev)
+        timed(f"sha256_fixed_{length}", lambda: s2.sha256_fixed(rows), 20)
+        if length == 64:
+            one = rows[:1].contiguous()
+            timed("sha256_fixed_1", lambda: s2.sha256_fixed(one), 20)
+
+
+def _k13(q, state, words, n, v, compact, blocks):
+    """K13 forced to ``blocks`` blocks a member, in either checkout's
+    wrapper (one whose K13 took a verdict operand and a counter, or not)."""
+    import inspect
+
+    if "ok" in inspect.signature(q._fabric_kernel).parameters:
+        return q._fabric_kernel(state, words, n, v, q.ORDER_DELTA_CAP,
+                                compact, None, "fabric_step", blocks)
+    return q._fabric_kernel(state, words, n, v, q.ORDER_DELTA_CAP, compact,
+                            blocks)
 
 
 def resident_report(timed, cs, dev, rng):
@@ -348,9 +415,8 @@ def fabric_report(timed, cs, dev, fstate, fwords):
         return
     for v in (1, 2):
         for b in (1, 2, 4, 8):
-            timed(f"fabric_step_v{v}_b{b}", lambda: q._fabric_kernel(
-                fstate, fwords, fm, v, q.ORDER_DELTA_CAP, True, None,
-                "fabric_step", b), 20)
+            timed(f"fabric_step_v{v}_b{b}", lambda: _k13(
+                q, fstate, fwords, fm, v, True, b), 20)
 
 
 def audit_report(timed, cs, dev):
@@ -436,6 +502,7 @@ def main() -> int:
     ring_report(timed, cs, dev, rng, fstate)
     audit_report(timed, cs, dev)
     mod_l_report(timed, cs, dev, rng)
+    fixed_report(timed, dev, rng)
 
     verify_and_fused(out, timed, cs, dev, rng)
 

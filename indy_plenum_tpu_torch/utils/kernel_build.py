@@ -65,18 +65,26 @@ _SIGNATURES = {
     "reduce_mod_l_launch": (_P, _P, _P, _I, _P),
     # pk, R, S, h, ok, consts, batch, stream
     "ed25519_verify_launch": (_P, _P, _P, _P, _P, _P, _I, _P),
+    "fused_step_launch": (
+        # pk, R, S, h, ok, consts, batch (as ed25519_verify)
+        _P, _P, _P, _P, _P, _P, _I,
+        # state (as quorum_step), words (1, B), N, S, C, n_validators,
+        # delta_cap
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        # the output allocation (as quorum_step), the stream's ticket,
+        # the stream
+        _P, _P, _P),
     "quorum_step_launch": (
         # state: pp, prepare, commit, checkpoint, ordered, acked, frontier
         _P, _P, _P, _P, _P, _P, _P,
-        # words, ok (NULL but for K14), M, N, S, C, W, n_validators,
-        # delta_cap, compact
-        _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        # words, M, N, S, C, W, n_validators, delta_cap, compact
+        _P, _I, _I, _I, _I, _I, _I, _I, _I,
         # the one output allocation (events, compact record, frontier
         # snapshot: quorum_common.cuh events_at), then the stream
         _P, _P),
     "fabric_step_launch": (
-        # state (as quorum_step), words, ok (NULL but for the sharded K14)
-        _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        # state (as quorum_step), words
+        _P, _P, _P, _P, _P, _P, _P, _P,
         # M, N, S, C, W, v, cluster blocks, n_validators, delta_cap,
         # compact
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -12,11 +12,12 @@ so it also runs where JAX is not installed:
   of its four launch variants on the edge rows;
 - the resident step (K9, ``csrc/resident_tile.cu`` at one validator
   tile, also at each cluster size) and the fused verify + quorum step
-  (K14, ``tpu/step.py``) against their plain versions at small shapes,
-  bit-equal, and a small resident pool on the card against the same pool
-  per tick;
+  (K14, ``csrc/ed25519.cu``, one launch a call, also twice back to back)
+  against their plain versions at small shapes, bit-equal, and a small
+  resident pool on the card against the same pool per tick;
 - the SHA-256 kernels (K10-K12, ``csrc/sha256.cu``) against their plain
   versions, hashlib and the host MerkleVerifier, planted faults included;
+  K12 also at 4,096 x 64 B, on unaligned rows and on two-round rows;
   K10 at each block size, a 17-shift proof, and a misaligned operand
   refused;
 - K11's commit-plan kernel at ``chip_smoke.py``'s three plan shapes (a
@@ -30,9 +31,8 @@ so it also runs where JAX is not installed:
   protocol timeline, and every kernel of the path launched;
 - the fabric step (K13) and the tiled resident step, one cluster kernel
   (``csrc/resident_tile.cu``), the first also at every cluster size the
-  report times it at, with ``ok`` and without the compact record; the
-  ring shift and the rotation's merge
-  (K1, K15, ``csrc/ring.cu``) and the sharded fused step against their
+  report times it at, with dropped words and without the compact record;
+  the ring shift and the rotation's merge (K1, K15, ``csrc/ring.cu``) and the sharded fused step against their
   plain versions, bit-equal, at ``chip_smoke.py``'s full-width shapes (the
   sharded step at n = 16; the tiled step also on its edge shapes), and
   h mod L (K-b) at 8,192 and 32,768 rows against plain and Python ints;
@@ -172,6 +172,37 @@ def test_sha256_kernels_match_plain(card):
 
 
 @pytest.mark.cuda
+def test_sha256_fixed_lengths_and_alignment(card):
+    """K12 at ``chip_smoke.SHA_LENGTHS`` (1,024 rows each), at 4,096 x 64
+    B, on rows of odd lengths whose base is not 4-byte aligned, and on
+    rows longer than one round's stage (1,500 bytes: two rounds): bit-equal
+    to the plain version and to hashlib, one launch a call."""
+    import hashlib
+
+    import chip_smoke
+
+    from indy_plenum_tpu_torch.tpu import sha256 as s2
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    rng = np.random.RandomState(16)
+    cases = [torch.from_numpy(rng.randint(0, 256, (1024, n)).astype(
+        np.uint8)).to(card) for n in chip_smoke.SHA_LENGTHS]
+    cases.append(torch.from_numpy(rng.randint(0, 256, (4096, 64)).astype(
+        np.uint8)).to(card))
+    for length, offset in ((57, 1), (63, 3), (119, 2), (1500, 5)):
+        raw = torch.from_numpy(rng.randint(
+            0, 256, 300 * length + 16).astype(np.uint8)).to(card)
+        cases.append(raw[offset:offset + 300 * length].view(300, length))
+    before = kb.LAUNCHES["sha256_fixed"]
+    for msgs in cases:
+        got = s2.sha256_fixed(msgs)
+        assert torch.equal(got.cpu(), s2.sha256_fixed_plain(msgs).cpu())
+        for row, dig in zip(msgs.cpu().numpy()[:64], got.cpu().numpy()):
+            assert dig.tobytes() == hashlib.sha256(row.tobytes()).digest()
+    assert kb.LAUNCHES["sha256_fixed"] == before + len(cases)
+
+
+@pytest.mark.cuda
 def test_audit_fold_block_sizes_and_alignment(card):
     """K10 at 32, 64, 96 and 128 threads a block, dense and indexed,
     against its plain version on proofs with planted faults (every fifth
@@ -251,20 +282,40 @@ def test_resident_step_matches_plain(card):
 
 @pytest.mark.cuda
 def test_fused_step_matches_plain(card):
-    """K14 at the graft entry's shape and on 256 signed votes with planted
+    """K14 at the graft entry's shape, twice back to back on one state and
+    stream (the ticket resets), and on 256 signed votes with planted
     faults (``chip_smoke.check_fused`` builds the full-width operands at
-    N = 64, S = 300)."""
+    N = 64, S = 300): each call ONE ``fused_step`` launch, none of
+    ``ed25519_verify``."""
     import chip_smoke
 
+    from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.tpu import step as st
     from indy_plenum_tpu_torch.utils import kernel_build as kb
 
     rng = np.random.RandomState(10)
     inputs = chip_smoke.fused_inputs(rng, chip_smoke.N_VALIDATORS,
                                      chip_smoke.LOG_SIZE, 256)
-    before = kb.LAUNCHES["fused_step"]
+    before = dict(kb.LAUNCHES)
     err, accepted, _ = chip_smoke.check_fused(card, rng, inputs)
     assert err == 0 and accepted == int(inputs[3].sum())
-    assert kb.LAUNCHES["fused_step"] == before + 2
+    assert kb.LAUNCHES["fused_step"] == before["fused_step"] + 3
+    assert kb.LAUNCHES["ed25519_verify"] == before["ed25519_verify"]
+    # two back-to-back calls on one stream, new votes in the second
+    small = st.example_inputs(batch=16, n_validators=8, log_size=16,
+                              seed=3, device=card)
+    other = st.example_inputs(batch=16, n_validators=8, log_size=16,
+                              seed=4, device=card)
+    plain = q.clone_state(small[0])
+    for args in (small, (small[0],) + other[1:]):
+        got = st.fused_step(*args, n_validators=8, device=card)
+        want = st.fused_step_plain(plain, *args[1:], n_validators=8)
+        for a, b in list(zip(got[0], want[0])) + list(zip(got[1], want[1])):
+            assert torch.equal(a.cpu(), b.cpu())
+        assert torch.equal(got[2].cpu(), want[2].cpu())
+    assert kb.LAUNCHES["fused_step"] == before["fused_step"] + 5
+    assert kb.LAUNCHES["ed25519_verify"] == before["ed25519_verify"]
+
 
 
 @pytest.mark.cuda
@@ -416,9 +467,14 @@ def test_sharded_fused_step_matches_plain(card):
     from indy_plenum_tpu_torch.utils import kernel_build as kb
 
     inputs = chip_smoke.fused_inputs(np.random.RandomState(15), 16, 40, 64)
-    before = kb.LAUNCHES["sharded_fused_step"]
+    before = dict(kb.LAUNCHES)
     assert chip_smoke.check_sharded_fused(card, inputs, 16, 40, 2) == 0
-    assert kb.LAUNCHES["sharded_fused_step"] == before + 1
+    # one launch a call, each form: the sharded K14 and the unsharded one
+    # it is held against
+    assert kb.LAUNCHES["sharded_fused_step"] \
+        == before["sharded_fused_step"] + 1
+    assert kb.LAUNCHES["fused_step"] == before["fused_step"] + 1
+    assert kb.LAUNCHES["ed25519_verify"] == before["ed25519_verify"]
 
 
 @pytest.mark.cuda

@@ -272,8 +272,8 @@ def test_ctypes_signatures_match_cuda_sources():
         assert f'extern "C" int {fn}(' in sha_src, fn
     # K9 is resident_tile.cu's kernel at one validator tile (no
     # csrc/resident.cu); K8's host zero passes its rows in the launch;
-    # K14's masked step is K7's entry point with the verdict operand right
-    # after the words
+    # K14 is one kernel of ed25519.cu (verify and tally), so K7 and K13
+    # take no verdict operand: the words are followed by M
     assert not os.path.exists(os.path.join(kb.CSRC_DIR, "resident.cu"))
     assert "resident_step_launch" not in kb._SIGNATURES
     with open(os.path.join(kb.CSRC_DIR, "window.cu")) as fh:
@@ -281,9 +281,13 @@ def test_ctypes_signatures_match_cuda_sources():
     for fn in ("window_slide_pairs_launch", "window_zero_rows_launch"):
         assert f'extern "C" int {fn}(' in window, fn
     with open(os.path.join(kb.CSRC_DIR, "quorum.cu")) as fh:
-        assert "const void* words, const void* ok, int M" in fh.read()
-    assert kb._SIGNATURES["quorum_step_launch"][7:10] == (kb._P, kb._P,
-                                                          kb._I)
+        assert "const void* words, int M" in fh.read()
+    with open(os.path.join(kb.CSRC_DIR, "resident_tile.cu")) as fh:
+        assert "const void* words, int M" in fh.read()
+    with open(os.path.join(kb.CSRC_DIR, "ed25519.cu")) as fh:
+        assert 'extern "C" int fused_step_launch(' in fh.read()
+    assert kb._SIGNATURES["quorum_step_launch"][7:9] == (kb._P, kb._I)
+    assert kb._SIGNATURES["fabric_step_launch"][7:9] == (kb._P, kb._I)
     assert set(kb.LAUNCHES) == {"sha512_blocks", "reduce_mod_l",
                                 "ed25519_verify", "quorum_step",
                                 "resident_step", "fused_step",

@@ -3,10 +3,12 @@
 version (``resident_tile_plain``) and JAX's ``resident_plan_for(mesh)``;
 the same kernel at one validator tile (K9, ``resident_step``) against
 ``resident_step_plain`` and the unsharded ``resident_plan_for(None, ...)``
-of both packages; and at one slot with no slide, an optional per-word
-verdict ``ok`` and the compact record optional (K13, ``fabric_step``)
-against ``fabric_step_plain`` and JAX's fabric step (``plan_for(mesh)``:
-``step_compact_local`` on a validator axis) and ``make_sharded_step``.
+of both packages; and at one slot with no slide and the compact record
+optional (K13, ``fabric_step``) against ``fabric_step_plain`` and JAX's
+fabric step (``plan_for(mesh)``: ``step_compact_local`` on a validator
+axis) and ``make_sharded_step``, some cases with a per-word verdict
+``ok``: the kernel takes the words with each dropped one's valid bit
+cleared, ``fabric_step_plain`` the words and ``ok``.
 K8's slide grid (``csrc/window.cu``: one run inside one plane a block,
 moved by the same ``slide_run``) is modelled here too, against
 ``slide_plain`` and JAX's ``_slide_body``.
@@ -154,11 +156,10 @@ def chunk_counts(pv, cv, m, n_rows, s, r0, nr):
     return pc, cc
 
 
-def scatter(st, m, words_row, n_rows, s, c, r0, nr, lead, ok_row=None):
-    """``scatter_member_rows`` over the block's rows [r0, r0 + nr); a word
-    whose ``ok_row`` verdict is 0 is dropped."""
-    for j, w in enumerate(int(x) for x in words_row):
-        if not w >> 31 or (ok_row is not None and not ok_row[j]):
+def scatter(st, m, words_row, n_rows, s, c, r0, nr, lead):
+    """``scatter_member_rows`` over the block's rows [r0, r0 + nr)."""
+    for w in (int(x) for x in words_row):
+        if not w >> 31:
             continue
         kind, sender, slot = (w >> 29) & 3, (w >> 16) & 0x1FFF, w & 0xFFFF
         if kind == 0:
@@ -173,11 +174,11 @@ def scatter(st, m, words_row, n_rows, s, c, r0, nr, lead, ok_row=None):
 
 
 def model_consume(leaves, slides, words_seq, n_validators, blocks,
-                  ok_seq=None, compact=True):
+                  compact=True):
     """The kernel on every member: returns the final leaves (numpy) and
     (events, compact) from the decide. ``slides`` None slides nothing (K13);
-    ``ok_seq`` (per slot, (M, W)) drops words; without ``compact`` the
-    decide leaves prepared_acked and the frontier."""
+    without ``compact`` the decide leaves prepared_acked and the
+    frontier."""
     pp, pv, cv, ck, ordered, acked, frontier = [a.copy() for a in leaves]
     m_count, n_rows, s = pv.shape
     c = ck.shape[-1]
@@ -203,8 +204,7 @@ def model_consume(leaves, slides, words_seq, n_validators, blocks,
                             slide_run(st[name], m * s, s, s, d)
                         frontier[m] = max(int(frontier[m]) - d, 0)
                     ck[m, r0:r0 + nr] = 0
-                scatter(st, m, words_seq[k][m], n_rows, s, c, r0, nr, lead,
-                        None if ok_seq is None else ok_seq[k][m])
+                scatter(st, m, words_seq[k][m], n_rows, s, c, r0, nr, lead)
             part_p, part_c = chunk_counts(st["pv"], st["cv"], m, n_rows, s,
                                           r0, nr)
             part_k = [int(ck[m, r0:r0 + nr, x].sum()) for x in range(c)]
@@ -290,14 +290,16 @@ CASES = {
 def _check_k13(case, rng, leaves, shape, m, n, rows, s, c, w, blocks, v,
                use_ok, compact):
     """K13: one slot, no slide, ``ok`` and ``compact`` as the case says:
-    the model against ``fabric_step_plain`` and JAX (the same words with
-    every dropped one marked invalid, the reference's ``valid &= ok``)."""
+    the model on the words with every dropped one marked invalid (the
+    reference's ``valid &= ok``, as the kernel gets them) against
+    ``fabric_step_plain`` on the words and ``ok``, and JAX on the masked
+    words."""
     # one member more than needed: the last one's row is all invalid
     words = _words(rng, m + 1, w, rows, n, s, c)[:m]
     ok = rng.rand(m, w) < 0.8 if use_ok else None
-    state, events, comp = model_consume(
-        leaves, None, [words], n, blocks, None if ok is None else [ok],
-        compact)
+    jw = words if ok is None else np.where(ok, words, words & 0x7FFFFFFF)
+    state, events, comp = model_consume(leaves, None, [jw], n, blocks,
+                                        compact)
     plain_state = tq.VoteState(*[torch.from_numpy(a.copy())
                                  for a in leaves])
     pev, pcomp = tq.fabric_step_plain(
@@ -311,7 +313,6 @@ def _check_k13(case, rng, leaves, shape, m, n, rows, s, c, w, blocks, v,
     if not compact:  # prepared_acked and the frontier as they were
         assert np.array_equal(state.prepared_acked.numpy(), leaves[5])
         assert np.array_equal(state.frontier.numpy(), leaves[6])
-    jw = words if ok is None else np.where(ok, words, words & 0x7FFFFFFF)
     jstate = jq.VoteState(*[jnp.asarray(a) for a in leaves])
     if case.startswith("k13_sharded"):
         from jax.sharding import Mesh
