@@ -111,6 +111,21 @@ D. reads      - proved reads over phase C's committed domain ledger
                 (drains of 4,096 through ``make_read_service(mode=
                 "device")``, K10 indexed), then the catchup-proof shape
                 end to end and kernel only;
+L. catchup    - ``bench.py``'s end-to-end catchup cell (n=4, seed 31,
+                batches of 10, CHK_FREQ 10, LOG_SIZE 30): 30 warm-up
+                requests, node3 disconnected while 150 more order, then
+                reconnected and caught up by its leecher from a fresh
+                offload policy, so the first domain slice (150 proofs)
+                verifies through K10 indexed on the card inside the live
+                pool (L1); L2 is L1 with the peer sent that slice
+                altering one txn of its rep: the card's verdict rejects
+                it (a CATCHUP_REP_WRONG suspicion), the slice is
+                re-assigned and the round completes. Each arm again with
+                ``device="cpu"`` on the same seed: equal ``ordered_hash``,
+                ``trace_hash``, ledger hashes, roots, state heads and
+                ``catchup_stats()``; K10's calls held against plain after
+                the run; leeched txns per sim-second and wall-second,
+                proofs on the card and on the host, K10 launches;
 E. state      - ``run_commit_arms`` host vs device waves at the
                 reference's state-bench size (100,000 keys, delta 256, 20
                 windows): equal per-window roots;
@@ -123,9 +138,9 @@ E. state      - ``run_commit_arms`` host vs device waves at the
                 block, K13 at v = 1 against K7), the card, and last
                 ``{"ok": true, "device": {...}}``.
 
-Each main-path run (phases 3, 4, A, B, F, G, H, R, C, D and E on the card)
-starts with every launch counter at 0 and reads the counters right after;
-the ``kernels`` line's ``launches`` are their sums.
+Each main-path run (phases 3, 4, A, B, F, G, H, R, C, D, L and E on the
+card) starts with every launch counter at 0 and reads the counters right
+after; the ``kernels`` line's ``launches`` are their sums.
 
 Any mismatch raises and the script exits non-zero. It imports nothing of
 JAX. Without a CUDA device it exits non-zero before printing a result.
@@ -2338,6 +2353,247 @@ def catchup_kernel_rate(corpus, dev):
             "proofs_per_s_kernel": len(leaf_data) / (kernel_ms / 1e3)}
 
 
+# phase L: bench.py's end-to-end catchup cell (bench_catchup_e2e)
+L_SEED, L_WARM, L_MISSED = 31, 30, 150
+L_CONFIG = {"Max3PCBatchSize": 10, "Max3PCBatchWait": 0.1, "CHK_FREQ": 10,
+            "LOG_SIZE": 30, "ConsistencyProofsTimeout": 1.0,
+            "CatchupRequestTimeout": 1.5}
+L_BEHIND = "node3"
+L_DOMAIN, L_AUDIT = 1, 3  # DOMAIN_LEDGER_ID, AUDIT_LEDGER_ID in both packages
+L_SIM_BUDGET = 120.0  # virtual seconds a stage of the run may take
+L_ARMS = (("L1", False), ("L2", True))
+
+
+def tamper_first_domain_rep(pool):
+    """Phase L2's byzantine seeder: the peer that node3 sends its first
+    domain ``CatchupReq`` alters one txn (an extra key) of the
+    ``CatchupRep`` it answers with, once. Works on any pool whose nodes
+    have a ``seeder`` (the message classes are taken from the messages).
+    Returns the record ``{"peer": name, "altered": count}``."""
+    import copy
+
+    state = {"peer": None, "altered": 0}
+
+    def spot(msg, frm, to):
+        if state["peer"] is None and frm == L_BEHIND \
+                and getattr(msg, "typename", None) == "CATCHUP_REQ" \
+                and msg.ledgerId == L_DOMAIN:
+            state["peer"] = to
+        return None
+
+    pool.network.add_delayer(spot)
+
+    class Altering:
+        def __init__(self, bus, name):
+            self._bus, self._name = bus, name
+
+        def send(self, msg, dst=None):
+            if not state["altered"] and self._name == state["peer"] \
+                    and getattr(msg, "typename", None) == "CATCHUP_REP" \
+                    and msg.ledgerId == L_DOMAIN:
+                txns = dict(msg.txns)
+                first = min(txns, key=int)
+                txn = copy.deepcopy(txns[first])
+                txn["altered"] = True
+                txns[first] = txn
+                msg = type(msg)(ledgerId=msg.ledgerId, txns=txns,
+                                auditPaths=msg.auditPaths,
+                                catchupTill=msg.catchupTill)
+                state["altered"] += 1
+            return self._bus.send(msg, dst)
+
+    for nd in pool.nodes:
+        nd.seeder._network = Altering(nd.seeder._network, nd.name)
+    return state
+
+
+def run_catchup_l(device, tamper=False, missed=L_MISSED, make_pool=None):
+    """``bench.py``'s end-to-end catchup cell through the port's pool:
+    n = 4, seed 31, batches of 10, CHK_FREQ 10, LOG_SIZE 30; 30 warm-up
+    requests, then node3 disconnected while ``missed`` more order; then
+    reconnect, ``leecher.start()``, and run until node3's domain ledger
+    reaches the honest size. The offload policy starts fresh, so the
+    first domain slice at or above ``DEVICE_MIN_BATCH`` proofs verifies
+    through K10 on ``device``. ``tamper`` (arm L2) makes the peer sent
+    the first domain slice alter one txn of its rep: the verdict must
+    reject it, and the slice is re-assigned. ``make_pool(config)`` builds
+    another package's pool on the same script (the CPU tests pass the
+    JAX package's); by default the port's on ``device``."""
+    from indy_plenum_tpu_torch.server.catchup import catchup_rep_service \
+        as crs
+    from indy_plenum_tpu_torch.tpu import sha256 as s2
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    on_card = make_pool is None and device != "cpu"
+    if make_pool is None:
+        from indy_plenum_tpu_torch.config import getConfig
+        from indy_plenum_tpu_torch.simulation.pool import SimPool
+
+        def make_pool(config):
+            return SimPool(4, seed=L_SEED, real_execution=True,
+                           config=getConfig(config), trace=True,
+                           device=device)
+
+    pool = make_pool(dict(L_CONFIG))
+
+    def size(nd):
+        return nd.boot.db.get_ledger(L_DOMAIN).size
+
+    def run_until(done, what):
+        start = pool.timer.get_current_time()
+        while not done():
+            if pool.timer.get_current_time() - start > L_SIM_BUDGET:
+                raise AssertionError(f"phase L: {what} stalled")
+            pool.run_for(0.5)
+
+    honest = [nd for nd in pool.nodes if nd.name != L_BEHIND]
+    behind = pool.node(L_BEHIND)
+    for i in range(L_WARM):
+        pool.submit_request(i)
+    run_until(lambda: min(size(nd) for nd in honest) >= L_WARM + 1,
+              "warm-up")
+    pool.network.disconnect(L_BEHIND)
+    for i in range(L_WARM, L_WARM + missed):
+        pool.submit_request(i)
+    run_until(lambda: min(size(nd) for nd in honest)
+              >= L_WARM + missed + 1, "ordering")
+    honest_size = size(pool.node("node0"))
+    if size(behind) >= honest_size:
+        raise AssertionError(f"phase L: {L_BEHIND} is not behind")
+    altered = tamper_first_domain_rep(pool) if tamper else None
+    # the suspicions the leecher's rep services raise (each still goes
+    # on to the node's bus as a RaisedSuspicion)
+    suspicions = []
+
+    def noted(sink):
+        def note(ex):
+            suspicions.append(ex.suspicion.code)
+            return sink(ex)
+        return note
+
+    for svc in behind.leecher._rep_services.values():
+        svc._suspicion = noted(svc._suspicion)
+    pool.network.reconnect(L_BEHIND)
+    # a fresh policy, as a new process has it: the first slice at or
+    # above DEVICE_MIN_BATCH goes to the card
+    crs.OFFLOAD_POLICY = crs._AdaptiveOffload()
+    rows = {"dispatched": 0, "card": 0}
+    dispatch, fold = crs.dispatch_audit_paths_batch, \
+        s2.verify_audit_paths_indexed
+
+    def counted_dispatch(leaf_data, *args, **kwargs):
+        rows["dispatched"] += len(leaf_data)
+        return dispatch(leaf_data, *args, **kwargs)
+
+    captured = []  # the card's K10 calls, held against plain after
+
+    def counted_fold(leaf, *args):
+        rows["card"] += int(leaf.shape[0])
+        out = fold(leaf, *args)
+        if leaf.device.type == "cuda":
+            captured.append(((leaf,) + args, out))
+        return out
+
+    leecher = behind.leecher
+    stats0 = leecher.catchup_stats()
+    k10_0 = kb.LAUNCHES["audit_paths_indexed"]
+    crs.dispatch_audit_paths_batch = counted_dispatch
+    s2.verify_audit_paths_indexed = counted_fold
+    try:
+        t0 = time.perf_counter()
+        sim0 = pool.timer.get_current_time()
+        leecher.start()
+        run_until(lambda: size(behind) >= honest_size, "catchup")
+        if on_card:
+            import torch
+
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sim = pool.timer.get_current_time() - sim0
+    finally:
+        crs.dispatch_audit_paths_batch = dispatch
+        s2.verify_audit_paths_indexed = fold
+    k10 = kb.LAUNCHES["audit_paths_indexed"] - k10_0
+    # time to recover on the virtual clock: the round's started and
+    # completed trace marks (the loop above steps 0.5 sim-s at a time)
+    marks = {ev["name"]: ev["ts"] for ev in pool.trace.events()
+             if ev.get("node") == L_BEHIND
+             and ev["name"] in ("catchup.started", "catchup.completed")}
+    stats = leecher.catchup_stats()
+    delta = {key: stats[key] - stats0[key] for key in stats}
+    if size(behind) != honest_size or delta["txns_leeched"] < missed \
+            or delta["proofs_verified"] < delta["txns_leeched"] \
+            or leecher.catchups_completed < 1 \
+            or not behind.data.is_participating:
+        raise AssertionError(f"phase L: catchup incomplete {stats}")
+    nodes = pool.nodes
+    roots = [(nd.boot.db.get_ledger(L_DOMAIN).root_hash.hex(),
+              nd.boot.db.get_ledger(L_AUDIT).root_hash.hex())
+             for nd in nodes]
+    if len(set(roots)) != 1:
+        raise AssertionError("phase L: roots diverge after catchup")
+    return {
+        "missed": missed, "honest_size": honest_size,
+        "txns_leeched": delta["txns_leeched"],
+        "proofs_verified": delta["proofs_verified"],
+        "proofs_on_card": rows["card"],
+        "proofs_on_host": rows["dispatched"] - rows["card"],
+        "reps_rejected": delta["reps_rejected"], "retries": delta["retries"],
+        "k10_launches": k10,
+        "rep_wrong_suspicions": suspicions.count(40),
+        "altered": altered,
+        "recover_sim_s": marks["catchup.completed"]
+        - marks["catchup.started"],
+        "catchup_sim_s": sim, "catchup_wall_s": wall,
+        "leeched_txns_per_sim_s": delta["txns_leeched"] / sim,
+        "leeched_txns_per_recover_sim_s": delta["txns_leeched"]
+        / (marks["catchup.completed"] - marks["catchup.started"]),
+        "leeched_txns_per_wall_s": delta["txns_leeched"] / wall,
+        "catchup_stats": stats,
+        "ordered_hash": pool.ordered_hash(),
+        "trace_hash": pool.trace.trace_hash(exclude_cats=("dispatch",)),
+        "ledger_hashes": [pool.ledger_hash(nd.name) for nd in nodes],
+        "domain_root": roots[0][0], "audit_root": roots[0][1],
+        "state_heads": [[nd.boot.db.get_state(lid).committed_head_hash.hex()
+                         for lid in (0, 1, 2)] for nd in nodes],
+        "k10_calls": captured,
+    }
+
+
+# what phase L's card and CPU runs must agree on
+L_COMPARE = ("ordered_hash", "trace_hash", "ledger_hashes", "domain_root",
+             "audit_root", "state_heads", "catchup_stats", "txns_leeched",
+             "proofs_verified", "reps_rejected", "retries",
+             "rep_wrong_suspicions", "recover_sim_s")
+
+
+def check_catchup_k10(calls):
+    """K10's calls inside phase L's catchup, after the run: each call's
+    verdicts against the plain version on the same inputs (0 = equal),
+    and the first call (the first domain slice) timed behind the spin
+    against its plain version. These launches come after the phase's
+    counters were read."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import sha256 as s2
+
+    if not calls:
+        raise AssertionError("phase L: no K10 call on the card")
+    err = rejected = 0
+    for args, out in calls:
+        plain = s2.verify_audit_paths_indexed_plain(*(a.cpu() for a in args))
+        err = max(err, int((out.cpu() != plain).sum()))
+        rejected += int((~out.cpu()).sum())
+    args = calls[0][0]
+    return {"k10_max_abs_err": err, "k10_calls": len(calls),
+            "k10_rejected_proofs": rejected,
+            "k10_slice_proofs": int(args[0].shape[0]),
+            "k10_slice_depth": int(args[3].shape[1]),
+            "k10_slice_ms": _kernel_ms(
+                lambda: s2.verify_audit_paths_indexed(*args), 20),
+            "k10_slice_plain_ms": _cuda_ms(
+                lambda: s2.verify_audit_paths_indexed_plain(*args), 1, 1)}
+
+
 def run_state_e(dev):
     """The state at the reference's state-bench size: ``run_commit_arms``
     with arms host and device on the card (100,000 keys, delta 256, 20
@@ -2949,6 +3205,10 @@ PATH_KERNELS = {
     "pool_c_auto": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
                     "quorum_step", "merkle_node_hash"),
     "reads_d": ("audit_paths_indexed",),
+    # a fresh offload policy sends the first domain slice (150 proofs,
+    # at or above DEVICE_MIN_BATCH) to the card; L2's too, and it rejects
+    "catchup_L1": ("audit_paths_indexed",),
+    "catchup_L2": ("audit_paths_indexed",),
     "state_e": ("merkle_node_hash",),
     "quorum": ("quorum_step", "window_slide"),
     # 11 batches of 320: below one checkpoint interval, so no slide
@@ -3276,6 +3536,47 @@ def main() -> int:
           phase_s=time.perf_counter() - t0, card=card)
     del pool_c
 
+    # L. catchup: bench.py's end-to-end cell on the card and with
+    # device="cpu" on the same seed (L1), then with one byzantine seeder
+    # (L2); K10 verifies the leeched slices inside the live pool
+    from indy_plenum_tpu_torch.server.catchup.catchup_rep_service import \
+        DEVICE_MIN_BATCH
+    t0 = time.perf_counter()
+    catchup_l = {}
+    for arm, tamper in L_ARMS:
+        t_arm = time.perf_counter()
+        res, l_launches, _ = on_card(f"catchup_{arm}", run_catchup_l, None,
+                                     tamper)
+        arm_s = time.perf_counter() - t_arm
+        res.update(check_catchup_k10(res.pop("k10_calls")))
+        t_cpu = time.perf_counter()
+        cpu = run_catchup_l("cpu", tamper)
+        cpu_s = time.perf_counter() - t_cpu
+        cpu.pop("k10_calls")
+        for key in L_COMPARE:
+            if res[key] != cpu[key]:
+                raise AssertionError(f"phase {arm}: card and CPU differ "
+                                     f"on {key}")
+        if res["k10_launches"] < 1 or res["k10_max_abs_err"] \
+                or res["proofs_on_card"] < DEVICE_MIN_BATCH:
+            raise AssertionError(f"phase {arm}: {res}")
+        if tamper and (res["reps_rejected"] < 1
+                       or res["k10_rejected_proofs"] < 1
+                       or res["rep_wrong_suspicions"] < 1
+                       or res["altered"]["altered"] != 1):
+            raise AssertionError(f"phase {arm}: the altered rep was not "
+                                 f"rejected: {res}")
+        errs["audit_paths_indexed"] = max(errs["audit_paths_indexed"],
+                                          res["k10_max_abs_err"])
+        catchup_l[arm] = res
+        _line("catchup_l", arm=arm, **{k: v for k, v in res.items()
+                                       if k not in ("state_heads",
+                                                    "ledger_hashes")},
+              launches=l_launches, arm_s=arm_s,
+              cpu_catchup_wall_s=cpu["catchup_wall_s"], cpu_arm_s=cpu_s,
+              card=card)
+    _line("catchup_l_summary", phase_s=time.perf_counter() - t0, card=card)
+
     # E. the state at the reference's state-bench size
     t0 = time.perf_counter()
     state_e, e_launches, _ = on_card("state_e", run_state_e, dev)
@@ -3334,6 +3635,11 @@ def main() -> int:
             for mesh, res in rebalance_r.items()},
         "fused_g_verify_share": fused_g["verify_share"],
         "fused_g_tail_ms": fused_g["tail_ms"],
+        "catchup_l": {arm: {key: res[key] for key in (
+            "leeched_txns_per_sim_s", "leeched_txns_per_wall_s",
+            "recover_sim_s", "catchup_wall_s", "proofs_on_card",
+            "proofs_on_host", "k10_launches", "k10_slice_ms", "reps_rejected", "retries")}
+            for arm, res in catchup_l.items()},
         "plain_ms": plain, "report_s": time.perf_counter() - t0,
         "total_s": time.perf_counter() - t_start}}), flush=True)
     print(card, flush=True)

@@ -1,26 +1,31 @@
-"""Batched audit-proof verification: the proof-verify helpers of catchup.
+"""Fetching and verifying txn ranges toward an agreed catchup target.
 
-Copy of the proof-verify helpers of
-``indy_plenum_tpu/server/catchup/catchup_rep_service.py``
-(``DEVICE_MIN_BATCH``, ``_MAX_DEPTH``, ``_AdaptiveOffload``,
-``OFFLOAD_POLICY``, ``verify_audit_paths_batch``,
-``dispatch_audit_paths_batch``, ``_ChunkedDeviceVerify``,
-``pack_audit_batch``), with its imports bound to the port.
-``CatchupRepService`` and the other catchup services come with the catchup
-slice of the port. Callers today: the proved-read service
+Copy of ``indy_plenum_tpu/server/catchup/catchup_rep_service.py``
+(``CatchupRepService`` and its proof-verify helpers ``DEVICE_MIN_BATCH``,
+``_MAX_DEPTH``, ``_AdaptiveOffload``, ``OFFLOAD_POLICY``,
+``verify_audit_paths_batch``, ``dispatch_audit_paths_batch``,
+``_ChunkedDeviceVerify``, ``pack_audit_batch``), with its imports bound to
+the port. Reference: plenum/server/catchup/catchup_rep_service.py. The
+range (own_size, target_size] is sliced into ``CatchupBatchSize`` chunks
+assigned round-robin over the connected peers; each ``CATCHUP_REP`` is
+verified and applied IN ORDER (out-of-order reps are buffered); unanswered
+or bad slices are re-assigned to the next peer on a seeded retry law.
+Other callers of the helpers: the proved-read service
 (``ingress/read_service.py``) and the SMT state's wave placement law.
 
-Every txn's audit path against the agreed root is checked by ONE call into
-the batched audit-fold kernel (K10,
-:func:`indy_plenum_tpu_torch.tpu.sha256.verify_audit_paths_indexed`): leaf
-hashes, indices and a deduplicated sibling-node table are assembled on the
-host, verdicts come back as a bool vector. A scalar host path
-(``MerkleVerifier``) remains for tiny batches and for mode ``"host"``.
+Every txn of a rep carries its audit path against the agreed root, so the
+whole slice is checked by ONE call into the batched audit-fold kernel
+(K10, :func:`indy_plenum_tpu_torch.tpu.sha256.verify_audit_paths_indexed`):
+leaf hashes, indices and a deduplicated sibling-node table are assembled
+on the host, verdicts come back as a bool vector. A scalar host path
+(``MerkleVerifier``) remains for tiny batches, for mode ``"host"`` and
+where the measured offload policy says the host blocks the loop less.
 
 Where the port differs from the reference:
 
 - the verify runs on a ``device``: the CUDA card unless the caller passes
-  ``device="cpu"`` (the kernel's plain version);
+  ``device="cpu"`` (the kernel's plain version); ``CatchupRepService``
+  takes it as an argument and hands it to every dispatch;
 - no XLA shape padding: a batch runs at its own size and depth (the
   reference pads to ``_BUCKETS`` and to depth buckets so jit compiles few
   shapes). A path longer than ``_MAX_DEPTH`` still makes
@@ -37,15 +42,24 @@ Where the port differs from the reference:
 # da: allow-file[device-sync] -- the chunked audit-proof offload deliberately syncs (the calibration event, the verdict readback): proof verification runs OFF the ordering tick loop, and the resolved verdict vector IS the product
 from __future__ import annotations
 
+import logging
 import time
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ...common.event_bus import ExternalBus
+from ...common.messages.node_messages import CatchupRep, CatchupReq
+from ...common.metrics_collector import MetricsName
+from ...common.timer import RepeatingTimer, TimerService
 from ...ledger.merkle_verifier import STH, MerkleVerifier
 from ...ledger.tree_hasher import TreeHasher
+from ...utils.base58 import b58decode
 from ...utils.torch_env import DeviceLike, resolve_device
+from ..suspicion_codes import Suspicions
+
+logger = logging.getLogger(__name__)
 
 # below this many proofs the host scalar loop beats the device dispatch
 DEVICE_MIN_BATCH = 32
@@ -337,3 +351,320 @@ def pack_audit_batch(leaf_data: List[bytes], indices: List[int],
         np.frombuffer(root, np.uint8), (n, 32)))
     return (leaf, idx, np.ascontiguousarray(table), path_idx, plen, ts,
             root_arr)
+
+
+class CatchupRepService:
+    def __init__(self,
+                 ledger_id: int,
+                 network: ExternalBus,
+                 timer: TimerService,
+                 db,
+                 config=None,
+                 suspicion_sink=None,
+                 apply_txn: Optional[Callable[[dict], None]] = None,
+                 metrics=None,
+                 trace=None,
+                 node: str = "",
+                 device: DeviceLike = None):
+        from ...common.metrics_collector import NullMetricsCollector
+        from ...config import getConfig
+        from ...observability.trace import NULL_TRACE
+        from .retry import RetryLaw
+
+        self._ledger_id = ledger_id
+        self._network = network
+        self._timer = timer
+        self._db = db
+        self._config = config or getConfig()
+        self._suspicion = suspicion_sink or (lambda ex: None)
+        # called per applied txn (state updates on stateful ledgers)
+        self._apply_txn = apply_txn
+        self._metrics = metrics if metrics is not None \
+            else NullMetricsCollector()
+        self._trace = trace if trace is not None else NULL_TRACE
+        self._node = node
+        # where the slices' audit folds run: the card unless "cpu"
+        self._device = resolve_device(device)
+
+        self._running = False
+        self._on_done: Optional[Callable[[], None]] = None
+        self._on_fail: Optional[Callable[[], None]] = None
+        self._target_size = 0
+        self._target_root = b""
+        # slice start -> (end, assigned peer)
+        self._outstanding: Dict[int, Tuple[int, str]] = {}
+        # retry law bookkeeping: slice start -> sends so far / deadline
+        # after which the slice is re-assigned (seeded, deterministic)
+        self._attempts: Dict[int, int] = {}
+        self._due: Dict[int, float] = {}
+        # verified-but-early reps: start seq -> ordered txns
+        self._ready: Dict[int, List[dict]] = {}
+        # ONE in-flight async device verification (sender, start, end,
+        # seqs, txns, resolve): dispatched on rep receipt, resolved when
+        # the next rep arrives or the retry timer fires — device compute
+        # overlaps network wait + host packing of the next slice
+        self._inflight: Optional[tuple] = None
+        self._peer_rr: List[str] = []
+        self._law = RetryLaw.from_config(self._config)
+        # the poll runs at half the base timeout so backoff deadlines
+        # resolve within one poll step; re-asks fire only when a slice's
+        # seeded deadline has actually passed
+        self._retry = RepeatingTimer(
+            timer, max(self._law.base / 2.0, 0.01),
+            self._service_retries, active=False)
+        # lifetime meters (observability: Monitor catchup block, chaos
+        # report catchup block, the bench's verified-proofs/sec)
+        self.txns_leeched = 0
+        self.proofs_verified = 0
+        self.reps_rejected = 0
+        self.retries = 0
+
+        network.subscribe(CatchupRep, self.process_catchup_rep)
+
+    # ------------------------------------------------------------------
+
+    @property
+    def _ledger(self):
+        return self._db.get_ledger(self._ledger_id)
+
+    def start(self, target_size: int, target_root: bytes,
+              on_done: Callable[[], None],
+              on_fail: Optional[Callable[[], None]] = None) -> None:
+        """``on_fail`` fires when a slice exhausts ``CatchupMaxRetries``
+        re-assignments: the round FAILS CLOSED (the leecher's backoff
+        path owns the next attempt) instead of re-asking forever."""
+        ledger = self._ledger
+        self._target_size = target_size
+        self._target_root = target_root
+        self._on_done = on_done
+        self._on_fail = on_fail
+        self._outstanding.clear()
+        self._attempts.clear()
+        self._due.clear()
+        self._ready.clear()
+        self._running = True
+        if ledger.size >= target_size:
+            self._finish()
+            return
+        self._peer_rr = sorted(self._network.connecteds)
+        if not self._peer_rr:
+            logger.warning("catchup ledger %d: no peers connected",
+                           self._ledger_id)
+        self._send_requests(ledger.size + 1, target_size)
+        self._retry.start()
+
+    def stop(self) -> None:
+        self._running = False
+        self._inflight = None
+        self._retry.stop()
+
+    def _send_slice(self, start: int, end: int, peer: str) -> None:
+        """One slice to one peer, with its retry-law deadline armed."""
+        attempt = self._attempts.get(start, 0) + 1
+        self._attempts[start] = attempt
+        self._due[start] = self._timer.get_current_time() \
+            + self._law.delay((self._ledger_id, start), attempt)
+        self._outstanding[start] = (end, peer)
+        self._network.send(CatchupReq(
+            ledgerId=self._ledger_id, seqNoStart=start, seqNoEnd=end,
+            catchupTill=self._target_size), [peer])
+        if attempt > 1:
+            self.retries += 1
+            self._metrics.add_event(MetricsName.CATCHUP_RETRIES)
+
+    def _send_requests(self, frm: int, to: int) -> None:
+        if not self._peer_rr:
+            return
+        batch = self._config.CatchupBatchSize
+        i = 0
+        for start in range(frm, to + 1, batch):
+            end = min(start + batch - 1, to)
+            peer = self._peer_rr[i % len(self._peer_rr)]
+            i += 1
+            self._send_slice(start, end, peer)
+
+    def _give_up(self) -> None:
+        """A slice ran out of retry budget: fail the whole round closed.
+        Re-asking forever would leave the node non-participating but
+        "recovering" indefinitely; the leecher's failed-catchup backoff
+        owns when to try the pool again."""
+        logger.error(
+            "catchup ledger %d: slice exhausted %d retries; failing the "
+            "round (leecher backoff takes over)", self._ledger_id,
+            self._law.max_retries)
+        cb = self._on_fail
+        self.stop()
+        self._on_done = None
+        self._on_fail = None
+        if cb is not None:
+            cb()
+
+    def _service_retries(self) -> None:
+        """Re-assign every slice whose seeded retry deadline has passed
+        to the next peer; exhaust the budget => fail the round closed."""
+        self._resolve_inflight()
+        if not self._running or not self._outstanding:
+            return
+        now = self._timer.get_current_time()
+        due = [start for start in self._outstanding
+               if now >= self._due.get(start, 0.0)]
+        if not due:
+            return
+        self._peer_rr = sorted(self._network.connecteds)
+        if not self._peer_rr:
+            return
+        for start in due:
+            if start not in self._outstanding:
+                continue  # an earlier give-up stopped the round
+            if self._law.exhausted(self._attempts.get(start, 0)):
+                self._give_up()
+                return
+            end, old_peer = self._outstanding[start]
+            others = [p for p in self._peer_rr if p != old_peer] \
+                or self._peer_rr
+            peer = others[start % len(others)]
+            self._send_slice(start, end, peer)
+            logger.info("catchup ledger %d: re-requesting %d..%d from %s "
+                        "(attempt %d)", self._ledger_id, start, end, peer,
+                        self._attempts[start])
+
+    # ------------------------------------------------------------------
+
+    def process_catchup_rep(self, rep: CatchupRep, sender: str):
+        if not self._running or rep.ledgerId != self._ledger_id:
+            return
+        if rep.catchupTill != self._target_size:
+            return
+        try:
+            seqs = sorted(int(s) for s in dict(rep.txns))
+        except (TypeError, ValueError):
+            return
+        if not seqs:
+            return
+        start = seqs[0]
+        expected = self._outstanding.get(start)
+        if expected is None or expected[1] != sender:
+            return  # unsolicited (or already satisfied)
+        end = expected[0]
+        if seqs != list(range(start, min(end, seqs[-1]) + 1)):
+            return  # holes — treat like silence; the retry timer reassigns
+
+        txns = dict(rep.txns)
+        paths_raw = dict(rep.auditPaths or {})
+        ledger = self._ledger
+        leaf_data, indices, paths = [], [], []
+        try:
+            for s in seqs:
+                leaf_data.append(ledger.serializer.dumps(txns[str(s)]))
+                indices.append(s - 1)
+                paths.append([b58decode(h) for h in paths_raw[str(s)]])
+        except (KeyError, ValueError):
+            self._bad_rep(sender, start)
+            return
+
+        # pipeline: resolve the PREVIOUS slice's device verdict (its
+        # compute overlapped this rep's network+packing time), then
+        # dispatch this slice asynchronously
+        # a NEW slice arrived: the previous one must fully resolve first
+        # (pipeline depth is one) — force pumps any remaining chunks
+        self._resolve_inflight(force=True)
+        if not self._running:
+            return  # resolution completed the ledger
+        if self._outstanding.get(start) != (end, sender):
+            return  # resolution re-assigned or satisfied this slice
+        resolve = dispatch_audit_paths_batch(
+            leaf_data, indices, paths, self._target_size, self._target_root,
+            device=self._device)
+        self._inflight = (sender, start, end, seqs, txns, resolve)
+        # backstop: if no further rep arrives to trigger resolution (the
+        # final slice), resolve shortly — by then the device is done or
+        # nearly so
+        self._timer.schedule(0.05, self._resolve_inflight)
+
+    def _resolve_inflight(self, force: bool = False) -> None:
+        if self._inflight is None or not self._running:
+            self._inflight = None
+            return
+        sender, start, end, seqs, txns, resolve = self._inflight
+        self._inflight = None
+        expected = self._outstanding.get(start)
+        if expected is None or expected != (end, sender):
+            return  # superseded while in flight (reassigned / satisfied)
+        ok = resolve(force=force)
+        if ok is None:
+            # chunked device verify still pumping: keep it in flight and
+            # come back next pass (vote steps interleave between chunks)
+            self._inflight = (sender, start, end, seqs, txns, resolve)
+            self._timer.schedule(0.02, self._resolve_inflight)
+            return
+        if not ok.all():
+            logger.warning(
+                "catchup ledger %d: %d/%d txns from %s FAIL audit proof",
+                self._ledger_id, int((~ok).sum()), len(ok), sender)
+            self._bad_rep(sender, start)
+            return
+        self.proofs_verified += len(ok)
+        self._metrics.add_event(MetricsName.CATCHUP_PROOFS_VERIFIED,
+                                len(ok))
+        del self._outstanding[start]
+        self._due.pop(start, None)
+        self._ready[start] = [txns[str(s)] for s in seqs]
+        if seqs[-1] < end:
+            # short (clamped) rep: re-request the tail (a fresh slice —
+            # its retry budget starts from scratch)
+            peer = self._peer_rr[seqs[-1] % len(self._peer_rr)] \
+                if self._peer_rr else sender
+            self._send_slice(seqs[-1] + 1, end, peer)
+        self._apply_ready()
+
+    def _bad_rep(self, sender: str, start: int) -> None:
+        from ...common.exceptions import SuspiciousNode
+
+        self.reps_rejected += 1
+        self._metrics.add_event(MetricsName.CATCHUP_REPS_REJECTED)
+        self._suspicion(SuspiciousNode(sender, Suspicions.CATCHUP_REP_WRONG))
+        # reassign this slice to someone else immediately; a byzantine
+        # seeder's rejected reps consume the slice's retry budget too (it
+        # must not be able to bounce a slice around forever)
+        end, _ = self._outstanding[start]
+        if self._law.exhausted(self._attempts.get(start, 0)):
+            self._give_up()
+            return
+        others = [p for p in self._peer_rr if p != sender] or self._peer_rr
+        if others:
+            self._send_slice(start, end, others[start % len(others)])
+
+    def _apply_ready(self) -> None:
+        ledger = self._ledger
+        applied = 0
+        while True:
+            nxt = ledger.size + 1
+            txns = self._ready.pop(nxt, None)
+            if txns is None:
+                break
+            for txn in txns:
+                ledger.add(txn)
+                if self._apply_txn is not None:
+                    self._apply_txn(txn)
+            applied += len(txns)
+        if applied:
+            self.txns_leeched += applied
+            self._metrics.add_event(MetricsName.CATCHUP_TXNS_LEECHED,
+                                    applied)
+            if self._trace.enabled:
+                self._trace.record(
+                    "catchup.txns_leeched", cat="catchup", node=self._node,
+                    args={"ledger": self._ledger_id, "txns": applied,
+                          "size": ledger.size})
+        if ledger.size >= self._target_size:
+            self._finish()
+
+    def _finish(self) -> None:
+        self.stop()
+        cb = self._on_done
+        self._on_done = None
+        self._on_fail = None
+        logger.info("catchup ledger %d complete at size %d", self._ledger_id,
+                    self._ledger.size)
+        if cb is not None:
+            cb()

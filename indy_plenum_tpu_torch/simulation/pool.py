@@ -15,12 +15,13 @@ execution the SMT commit's hash waves and the proved reads' audit-path
 folds) runs on the CUDA card unless the caller passes ``device="cpu"``,
 which runs the kernels' plain PyTorch versions. With ``real_execution``
 every node executes through its own ledgers and SMT states
-(``LedgersBootstrap`` + ``NodeExecutor``); without it, ``SimExecutor``
-fakes the roots. What later slices of the port bring raises
-``NotImplementedError``: catchup (the reference wires a seeder and a
-leecher into every real-execution node; here a node that needs catchup
-raises), BLS and the state-proof plane, the region latency matrix, the
-closed-loop retry driver and the telemetry plane. With
+(``LedgersBootstrap`` + ``NodeExecutor``) and runs the catchup plane:
+every node seeds (``SeederService``), and a ``NodeLeecherService``
+consumes ``NeedMasterCatchup`` and verifies the fetched txns' audit
+proofs on the pool's device (K10); without it, ``SimExecutor`` fakes the
+roots. What later slices of the port bring raises
+``NotImplementedError``: BLS and the state-proof plane, the region latency
+matrix, the closed-loop retry driver and the telemetry plane. With
 ``ResidentTickDepth > 1`` the vote group runs its multi-tick residency
 ring (one fused device step per up to that many ticks, checkpoint slides
 folded in). ``mesh`` (a ``FabricMesh`` from
@@ -278,16 +279,30 @@ class SimNode:
             network=self.external_bus, ordering_service=self.ordering,
             view_change_service=self.view_changer)
 
+        # catchup plane (requires real ledgers): every node seeds; the
+        # leecher consumes NeedMasterCatchup from the checkpoint service,
+        # and verifies the fetched slices' audit proofs on ``device``
+        self.seeder = None
+        self.leecher = None
         if self.boot is not None:
-            # catchup plane: the reference wires a seeder and a leecher
-            # here; both come with the catchup slice, so a node that
-            # falls behind (NeedMasterCatchup) raises instead of leeching
-            from ..common.messages.internal_messages import (
-                NeedMasterCatchup,
-            )
+            from ..server.catchup import NodeLeecherService, SeederService
 
-            self.internal_bus.subscribe(NeedMasterCatchup,
-                                        self._on_need_catchup)
+            self.seeder = SeederService(
+                self.external_bus, self.boot.db, own_name=name,
+                timer=timer, config=config, metrics=metrics)
+
+            def catchup_suspicion(ex):
+                from ..common.messages.internal_messages import (
+                    RaisedSuspicion,
+                )
+
+                self.internal_bus.send(RaisedSuspicion(inst_id=0, ex=ex))
+
+            self.leecher = NodeLeecherService(
+                data=self.data, bus=self.internal_bus,
+                network=self.external_bus, timer=timer, bootstrap=self.boot,
+                config=config, suspicion_sink=catchup_suspicion,
+                metrics=metrics, trace=self.trace, device=device)
 
         # execution: commit batches as they order (the Node's job);
         # re-ordered duplicates after a view change are skipped by seqNo
@@ -319,10 +334,6 @@ class SimNode:
                     args={"ledger": staged.ledger_id,
                           "hashes": state.hashes_total
                           if state is not None else 0})
-
-    def _on_need_catchup(self, msg, *args) -> None:
-        raise _later_slice(f"catchup ({self.name} fell behind the pool)",
-                           "catchup")
 
     def _on_catchup_finished(self, msg, *args) -> None:
         # batches at/below the caught-up point were executed THROUGH the

@@ -133,16 +133,7 @@ def test_proved_reads_match_jax():
     assert not any(r[5] for r in _replies(svc, indices))
 
 
-def test_catchup_and_proofs_name_their_slice():
-    pool = _run(PortPool, port_config, "unsigned_two_instances",
-                device="cpu")
-    from indy_plenum_tpu_torch.common.messages.internal_messages import (
-        NeedMasterCatchup,
-    )
-
-    node = pool.nodes[2]
-    with pytest.raises(NotImplementedError, match="catchup"):
-        node.internal_bus.send(NeedMasterCatchup())
+def test_bls_and_proof_cache_name_their_slice():
     with pytest.raises(NotImplementedError, match="BLS"):
         PortPool(4, real_execution=True, bls=True, device="cpu")
     from indy_plenum_tpu_torch.ingress.read_service import ReadService
