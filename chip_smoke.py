@@ -10,7 +10,9 @@ drives the signed write path through its entry points at the size of
 ``bench.py``'s n=64 cell (64 validators, one protocol instance, so 64
 member planes; LOG_SIZE 300, CHK_FREQ 100):
 
-1. build      - nvcc for sm_90a, seconds; the card's name and power limit;
+1. build      - nvcc for sm_90a, seconds, and the BN254 extension
+                (``native/bn254/bn254c.c``, gcc); the card's name and
+                power limit;
 2. kernels    - K-a SHA-512 (ragged rows, a misaligned view refused), K-b mod L (at 8,192 and 32,768
                 rows with
                 its edge values, also against Python ints), K-c Ed25519
@@ -126,6 +128,27 @@ L. catchup    - ``bench.py``'s end-to-end catchup cell (n=4, seed 31,
                 ``catchup_stats()``; K10's calls held against plain after
                 the run; leeched txns per sim-second and wall-second,
                 proofs on the card and on the host, K10 launches;
+P. proofs     - the state-proof plane at BASELINE config 3's width (64
+                validators, ``bench.py``'s ``bench_bls_multisig`` and
+                ``bench_state_proofs``): aggregate + ``verify_multi_sig``
+                cycles/sec, ``verify_multi_sigs_batch`` at 1, 16 and 64
+                windows (seeded) and a forged window named; 4,096
+                proof-attached reads over ``StaticCorpusBacking(4096)``
+                through ``ReadService(mode="device", proof_cache=)`` (K10
+                indexed, no pairing on the serve path), equal to the CPU's
+                replies, ``verify_proved_read`` on a seeded sample with the
+                pool's keys alone and on a tampered reply; then a real BLS
+                pool (n=4, phase C's batches, CHK_FREQ 2) on the card and
+                on the CPU until a proof window stabilizes: equal
+                ordering, trace, ledgers, roots, BLS stores, a
+                ``read_nym_with_proof`` and a proof-attached drain;
+X. chaos      - ``f_crash_gc_catchup``, ``byzantine_seeder_catchup`` and
+                ``f_crash_partition`` (seed 7) through ``run_scenario`` on
+                the tick plane (tick 0.05, adaptive): the card's report
+                equal to the CPU's (the host's wall-clock flush series
+                aside), every invariant as designed, K7 / K8 launches
+                equal to the dispatches the CPU run counted; the
+                victim's recovery in virtual seconds;
 E. state      - ``run_commit_arms`` host vs device waves at the
                 reference's state-bench size (100,000 keys, delta 256, 20
                 windows): equal per-window roots;
@@ -138,7 +161,7 @@ E. state      - ``run_commit_arms`` host vs device waves at the
                 block, K13 at v = 1 against K7), the card, and last
                 ``{"ok": true, "device": {...}}``.
 
-Each main-path run (phases 3, 4, A, B, F, G, H, R, C, D, L and E on the
+Each main-path run (phases 3, 4, A, B, F, G, H, R, C, D, L, P, X and E on the
 card) starts with every launch counter at 0 and reads the counters right
 after; the ``kernels`` line's ``launches`` are their sums.
 
@@ -2594,6 +2617,388 @@ def check_catchup_k10(calls):
                 lambda: s2.verify_audit_paths_indexed_plain(*args), 1, 1)}
 
 
+# phase P: the state-proof plane at full width (bench.py bench_bls_multisig
+# and bench_state_proofs: BASELINE config 3's 64 validators)
+P_VALIDATORS = 64
+P_WINDOWS = (1, 16, 64)  # windows a combined pairing pass verifies
+P_READS = 4096  # proof-attached reads of one drain
+P_SAMPLE = 64  # replies a client verifies with the pool's keys alone
+P_REPS = 5
+P_SEED = 7  # the combination scalars' seed (bench_state_proofs')
+P_POOL_CONFIG = {"Max3PCBatchSize": POOL_BATCH, "Max3PCBatchWait": 0.05,
+                 "QuorumTickInterval": 0.1, "QuorumTickAdaptive": True,
+                 "CHK_FREQ": 2, "LOG_SIZE": 6,
+                 "StateCommitBatchMode": "host"}
+P_POOL_TXNS = 3 * POOL_BATCH  # two batches stabilize a window, one more
+P_POOL_READS = 1024
+
+
+def _median(samples):
+    return sorted(samples)[len(samples) // 2]
+
+
+def bls_p():
+    """Host work of the state-proof plane at 64 validators: one aggregate
+    + ``verify_multi_sig`` over 64 shares (cycles/sec), then
+    ``verify_multi_sigs_batch`` over 1, 16 and 64 windows (seeded), and
+    the 64 windows again with one forged item, which the verdicts must
+    name. Pairings are host work of the card's machine."""
+    from indy_plenum_tpu_torch.crypto.bls.bls_crypto import (
+        PAIRINGS, BlsCryptoSigner, BlsCryptoVerifier, BlsKeyPair)
+    from indy_plenum_tpu_torch.proofs import verify_multi_sigs_batch
+
+    kps = [BlsKeyPair(hashlib.sha256(b"bench-proof-%d" % i).digest())
+           for i in range(P_VALIDATORS)]
+    signers = [BlsCryptoSigner(kp) for kp in kps]
+    pks = [kp.pk_b58 for kp in kps]
+    msg = b"multi-sig-value|ledger:1|state-root|txn-root|ts:1700000000"
+    shares = [s.sign(msg) for s in signers]
+
+    def cycle():
+        agg = BlsCryptoVerifier.aggregate_sigs(shares)
+        if not BlsCryptoVerifier.verify_multi_sig(agg, msg, pks):
+            raise AssertionError("phase P: a 64-share aggregate failed")
+
+    cycle()  # the subgroup checks of the keys, once
+    times = []
+    for _ in range(P_REPS):
+        t0 = time.perf_counter()
+        cycle()
+        times.append(time.perf_counter() - t0)
+    cycle_s = _median(times)
+    items = []
+    for j in range(max(P_WINDOWS)):
+        m = b"proof-window-root-%d" % j
+        items.append((BlsCryptoVerifier.aggregate_sigs(
+            [s.sign(m) for s in signers]), m, pks))
+    batch = {}
+    for k in P_WINDOWS:
+        before = PAIRINGS.snapshot()
+        if not all(verify_multi_sigs_batch(items[:k], seed=P_SEED)):
+            raise AssertionError(f"phase P: a batch of {k} failed")
+        pairs = PAIRINGS.pairings - before[1]
+        times = []
+        for _ in range(P_REPS):
+            t0 = time.perf_counter()
+            verify_multi_sigs_batch(items[:k], seed=P_SEED)
+            times.append(time.perf_counter() - t0)
+        batch[k] = {"ms": _median(times) * 1e3,
+                    "windows_per_s": k / _median(times),
+                    "miller_loops": pairs}
+    bad = random.Random(15).randrange(len(items))
+    forged = list(items)
+    forged[bad] = (items[bad][0], b"proof-window-forged", pks)
+    verdicts = verify_multi_sigs_batch(forged, seed=P_SEED)
+    if [i for i, ok in enumerate(verdicts) if not ok] != [bad]:
+        raise AssertionError(f"phase P: the forged window {bad} was not "
+                             f"the one named")
+    return {"validators": P_VALIDATORS, "cycle_ms": cycle_s * 1e3,
+            "cycles_per_s": 1.0 / cycle_s, "batch": batch,
+            "forged_window": bad}, signers
+
+
+def proof_reads_p(device, signers):
+    """``P_READS`` proof-attached reads over ``StaticCorpusBacking(4096,
+    seed=11)`` through ``ReadService(mode="device", proof_cache=)``: one
+    pre-verified window with the 64 signers' multi-signature; the serve
+    path makes no pairing check. Returns the replies, the counts and the
+    wall of the timed (second) drain."""
+    from indy_plenum_tpu_torch.crypto.bls.bls_crypto import (
+        PAIRINGS, BlsCryptoVerifier, MultiSignature, MultiSignatureValue)
+    from indy_plenum_tpu_torch.ingress.read_service import (
+        ReadService, StaticCorpusBacking)
+    from indy_plenum_tpu_torch.proofs import CheckpointProofCache, \
+        ProofWindow
+    from indy_plenum_tpu_torch.utils.base58 import b58encode
+
+    backing = StaticCorpusBacking(P_READS, seed=11)
+    value = MultiSignatureValue(
+        ledger_id=1, state_root_hash="bench-state-root",
+        pool_state_root_hash="", txn_root_hash=b58encode(backing.root),
+        timestamp=1_700_000_000)
+    agg = BlsCryptoVerifier.aggregate_sigs(
+        [s.sign(value.serialize()) for s in signers])
+    ms = MultiSignature(signature=agg, participants=[
+        "node%d" % i for i in range(len(signers))], value=value)
+    cache = CheckpointProofCache(
+        bls_replica=None,
+        root_provider=lambda: (backing.tree_size, backing.root),
+        state_root_provider=lambda: "bench-state-root")
+    cache.install(ProofWindow(
+        window=(0, 100), tree_size=backing.tree_size, root=backing.root,
+        state_root_b58="bench-state-root", multi_sig=ms,
+        multi_sig_dict=ms.as_dict(), captured_at=0.0))
+    service = ReadService(backing, mode="device", proof_cache=cache,
+                          device=device)
+    drains = []
+    checks0 = PAIRINGS.checks
+    for _ in range(2):  # the first fills the audit-path cache
+        for i in range(P_READS):
+            service.submit(i)
+        t0 = time.perf_counter()
+        replies = service.drain()
+        if device != "cpu":
+            import torch
+
+            torch.cuda.synchronize()
+        drains.append((replies, time.perf_counter() - t0))
+    return {"replies": drains[0][0], "serve_pairings":
+            PAIRINGS.checks - checks0, "wall_s": drains[1][1],
+            "attached": service.proofs_attached_total,
+            "cache": cache.counters()}
+
+
+def check_proof_reads(got, cpu, keys):
+    """Phase P's reads: every reply verified with the window's
+    multi-signature, no pairing on the serve path, the client's
+    ``verify_proved_read`` on a seeded sample (the pool's keys only) and
+    on one tampered reply, and the card's replies equal to the CPU's
+    field by field."""
+    import dataclasses
+
+    from indy_plenum_tpu_torch.client.state_proof import verify_proved_read
+    from indy_plenum_tpu_torch.crypto.bls.bls_crypto import PAIRINGS
+
+    replies = got["replies"]
+    if len(replies) != P_READS or got["serve_pairings"] \
+            or not all(r.verified and r.multi_sig and r.window == (0, 100)
+                       for r in replies):
+        raise AssertionError("phase P: a read without its window proof")
+    if [dataclasses.asdict(r) for r in replies] != \
+            [dataclasses.asdict(r) for r in cpu["replies"]]:
+        raise AssertionError("phase P: card and CPU replies differ")
+    quorum = len(keys) - (len(keys) - 1) // 3  # n - f co-signers
+    sample = random.Random(19).sample(range(P_READS), P_SAMPLE)
+    before = PAIRINGS.checks
+    t0 = time.perf_counter()
+    ok = sum(verify_proved_read(replies[i], keys, quorum) for i in sample)
+    client_s = time.perf_counter() - t0
+    tampered = dataclasses.replace(replies[sample[0]], leaf=b"forged")
+    if ok != P_SAMPLE or verify_proved_read(tampered, keys, quorum):
+        raise AssertionError("phase P: the client's verdicts are wrong")
+    return {"client_verified": ok,
+            "client_pairings": PAIRINGS.checks - before,
+            "client_ms_per_read": client_s / P_SAMPLE * 1e3}
+
+
+def run_pool_p(device):
+    """A real BLS pool: n = 4, ``device_quorum``, real execution, phase
+    C's batches (320, wait 0.05, adaptive tick from 0.1) with CHK_FREQ 2,
+    three batches of NYMs, until every node holds a proof window; then
+    ``read_nym_with_proof`` from node1 and a proof-attached drain of
+    ``P_POOL_READS`` through ``make_read_service("node0",
+    mode="device")``. Returns what the card and CPU runs must agree on."""
+    import dataclasses
+
+    from indy_plenum_tpu_torch.client.state_proof import (
+        verify_proved_read, verify_proved_reply)
+    from indy_plenum_tpu_torch.common.constants import DOMAIN_LEDGER_ID
+    from indy_plenum_tpu_torch.config import getConfig
+    from indy_plenum_tpu_torch.simulation.pool import SimPool
+
+    pool = SimPool(n_nodes=4, seed=11, config=getConfig(P_POOL_CONFIG),
+                   device_quorum=True, real_execution=True, bls=True,
+                   trace=True, device=device)
+    for i in range(P_POOL_TXNS):
+        pool.submit_request(i)
+    t0 = time.perf_counter()
+    start = pool.timer.get_current_time()
+    while min(len(nd.ordered_digests) for nd in pool.nodes) < P_POOL_TXNS \
+            or any(nd.proof_cache.current() is None for nd in pool.nodes):
+        if pool.timer.get_current_time() - start > 120:
+            raise AssertionError("phase P: no proof window stabilized")
+        pool.run_for(0.1)
+    order_s = time.perf_counter() - t0
+    keys = {name: pk for name, (kp, pk, pop) in pool.bls_keys.items()}
+    nym = pool.node("node1").read_nym_with_proof(pool.trustee.identifier)
+    service = pool.make_read_service("node0", mode="device")
+    rng = random.Random(23)
+    for _ in range(P_POOL_READS):
+        service.submit(rng.randrange(1 << 20))
+    replies = service.drain()
+    if not all(r.verified and r.multi_sig for r in replies) \
+            or not verify_proved_read(replies[0], keys, 3) \
+            or not verify_proved_reply(nym, keys, 3):
+        raise AssertionError("phase P: a pool reply does not verify")
+    if not pool.honest_nodes_agree():
+        raise AssertionError("phase P: honest nodes disagree")
+    return {
+        "ordered": min(len(nd.ordered_digests) for nd in pool.nodes),
+        "order_wall_s": order_s,
+        "windows": [nd.proof_cache.windows() for nd in pool.nodes],
+        "ordered_hash": pool.ordered_hash(),
+        "trace_hash": pool.trace.trace_hash(exclude_cats=("dispatch",)),
+        "ledger_hashes": [pool.ledger_hash(nd.name) for nd in pool.nodes],
+        "state_roots": [nd.boot.db.get_state(
+            DOMAIN_LEDGER_ID).committed_head_hash.hex()
+            for nd in pool.nodes],
+        "bls_stores": [list(nd.bls_replica.store._kv.iterator())
+                       for nd in pool.nodes],
+        "nym": nym.as_dict(),
+        "replies": [dataclasses.asdict(r) for r in replies]}
+
+
+# what phase P's pool arms must agree on (the walls aside)
+P_COMPARE = ("ordered", "windows", "ordered_hash", "trace_hash",
+             "ledger_hashes", "state_roots", "bls_stores", "nym", "replies")
+
+# phase X: chaos arcs on the tick-batched dispatch plane (the reference's
+# tests/test_chaos.py:380 arm), seed 7, each on the card and on the CPU
+X_SEED = 7
+X_TICK = {"device_quorum": True, "quorum_tick_interval": 0.05,
+          "quorum_tick_adaptive": True}
+X_ARMS = ("f_crash_gc_catchup", "byzantine_seeder_catchup",
+          "f_crash_partition")
+
+
+@contextlib.contextmanager
+def plain_dispatches():
+    """Count, on the CPU, the launches the card's wrappers would make for
+    K7 (one a step), K8's slide and zero (one per chunk of host pairs or
+    rows, none for an empty one): the plain versions, patched for the
+    block's length."""
+    from indy_plenum_tpu_torch.tpu import quorum as q
+
+    counts = {"quorum_step": 0, "window_slide": 0, "window_zero": 0}
+    step, slide, zero = q.step_plain, q.slide_plain, q.zero_plain
+
+    def counted_step(*args, **kwargs):
+        counts["quorum_step"] += 1
+        return step(*args, **kwargs)
+
+    def counted_slide(state, deltas):
+        counts["window_slide"] += len(q.slide_pair_chunks(deltas.numpy()))
+        return slide(state, deltas)
+
+    def counted_zero(state, mask):
+        counts["window_zero"] += len(q.zero_row_chunks(
+            (mask != 0).numpy()))
+        return zero(state, mask)
+
+    q.step_plain, q.slide_plain, q.zero_plain = \
+        counted_step, counted_slide, counted_zero
+    try:
+        yield counts
+    finally:
+        q.step_plain, q.slide_plain, q.zero_plain = step, slide, zero
+
+
+def run_chaos_x(device, name):
+    """One chaos arm through the port's ``run_scenario`` on the tick
+    plane, traced; the report's record (the replay command and the
+    host's wall-clock flush series aside), its wall, and for a catchup
+    arc the victim's recovery in virtual seconds: from its restart to its
+    first completed catchup round after it."""
+    import os
+    import tempfile
+
+    from indy_plenum_tpu_torch.chaos import run_scenario
+    from indy_plenum_tpu_torch.observability.trace import load_jsonl
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.jsonl")
+        t0 = time.perf_counter()
+        report = run_scenario(name, X_SEED, trace=True, trace_out=path,
+                              device=device, **X_TICK)
+        wall = time.perf_counter() - t0
+        events = load_jsonl(path)
+    record = report.as_dict()
+    for key in ("replay_command", "trace_file"):
+        record.pop(key)
+    record["metrics"].pop("device.flush_time", None)
+    recover = None
+    for victim in report.catchup.get("restarted_nodes", ()):
+        restart = next(t for t, what in report.trace
+                       if what.startswith("end CrashFault")
+                       and f"node={victim}" in what)
+        done = min(ev["ts"] for ev in events
+                   if ev["name"] == "catchup.completed"
+                   and ev.get("node") == victim and ev["ts"] >= restart)
+        recover = done - restart
+    return report, record, wall, recover
+
+
+def phase_p(on_card, card):
+    """Phase P: the state-proof plane at full width. BLS at 64 validators
+    (host pairings), 4,096 proof-attached reads through K10 indexed with
+    no pairing on the serve path, then a real BLS pool; the card's runs
+    and the CPU's agree. ``on_card(tag, fn, *args)`` is ``main``'s
+    counted run."""
+    t0 = time.perf_counter()
+    bls, signers = bls_p()
+    keys_p = {f"node{i}": s.pk for i, s in enumerate(signers)}
+    reads_p, p_launches, _ = on_card("proofs_p", proof_reads_p, None,
+                                     signers)
+    cpu_reads_p = proof_reads_p("cpu", signers)
+    client_p = check_proof_reads(reads_p, cpu_reads_p, keys_p)
+    pool_p, pool_p_launches, pool_p_s = on_card("pool_p", run_pool_p, None)
+    t_cpu = time.perf_counter()
+    cpu_pool_p = run_pool_p("cpu")
+    cpu_pool_p_s = time.perf_counter() - t_cpu
+    for key in P_COMPARE:
+        if pool_p[key] != cpu_pool_p[key]:
+            raise AssertionError(f"phase P: card and CPU pools differ on "
+                                 f"{key}")
+    proofs_p = dict(
+        bls, reads=P_READS, reads_wall_s=reads_p["wall_s"],
+        reads_per_s=P_READS / reads_p["wall_s"],
+        cpu_reads_wall_s=cpu_reads_p["wall_s"],
+        serve_pairings=reads_p["serve_pairings"],
+        proofs_attached=reads_p["attached"], cache=reads_p["cache"],
+        **client_p)
+    _line("proofs_p", **proofs_p, launches=p_launches, card=card)
+    _line("pool_p", ordered=pool_p["ordered"], windows=pool_p["windows"],
+          ordered_hash=pool_p["ordered_hash"],
+          order_wall_s=pool_p["order_wall_s"], arm_s=pool_p_s,
+          cpu_order_wall_s=cpu_pool_p["order_wall_s"],
+          cpu_arm_s=cpu_pool_p_s, reads=len(pool_p["replies"]),
+          launches=pool_p_launches, phase_s=time.perf_counter() - t0,
+          card=card)
+    return proofs_p
+
+
+def phase_x(on_card, card):
+    """Phase X: each chaos arc of ``X_ARMS`` on the tick plane, on the
+    card and on the CPU: equal reports, and the card's K7 and K8 launches
+    equal to the dispatches the CPU run counted."""
+    t0 = time.perf_counter()
+    chaos_x = {}
+    for name in X_ARMS:
+        (report, record, wall, recover), x_launches, _ = on_card(
+            f"chaos_{name}", run_chaos_x, None, name)
+        with plain_dispatches() as counted:
+            _, cpu_record, cpu_wall, _ = run_chaos_x("cpu", name)
+        diff = sorted(k for k in record if record[k] != cpu_record[k])
+        if diff:
+            raise AssertionError(f"phase X {name}: card and CPU reports "
+                                 f"differ on {diff}")
+        if report.failed or not report.verdict_as_expected:
+            raise AssertionError(f"phase X {name}: {report.invariants}")
+        if any(x_launches[k] != n for k, n in counted.items()) \
+                or x_launches["quorum_step"] != \
+                report.metrics["device.flush"]["count"]:
+            raise AssertionError(f"phase X {name}: launches {x_launches} "
+                                 f"against the CPU's {counted}")
+        chaos_x[name] = {
+            "wall_s": wall, "cpu_wall_s": cpu_wall,
+            "recover_sim_s": recover,
+            "virtual_seconds": report.virtual_seconds,
+            "quorum_step": x_launches["quorum_step"],
+            "window_slide": x_launches["window_slide"],
+            "window_zero": x_launches["window_zero"]}
+        catchup = report.catchup
+        _line("chaos_x", arm=name, **chaos_x[name],
+              invariants={r["name"]: r["verdict"]
+                          for r in report.invariants},
+              txns_leeched=catchup.get("txns_leeched"),
+              reps_rejected=catchup.get("reps_rejected"),
+              proof_read=catchup.get("proof_read"),
+              trace_hash=report.trace_hash, launches=x_launches,
+              cpu_counted=counted, card=card)
+    _line("chaos_x_summary", phase_s=time.perf_counter() - t0, card=card)
+    return chaos_x
+
+
 def run_state_e(dev):
     """The state at the reference's state-bench size: ``run_commit_arms``
     with arms host and device on the card (100,000 keys, delta 256, 20
@@ -3210,6 +3615,16 @@ PATH_KERNELS = {
     "catchup_L1": ("audit_paths_indexed",),
     "catchup_L2": ("audit_paths_indexed",),
     "state_e": ("merkle_node_hash",),
+    # phase P: the proof-attached drain is K10 indexed (mode "device");
+    # the BLS pool's tick plane slides at CHK_FREQ 2, its drain is K10
+    "proofs_p": ("audit_paths_indexed",),
+    "pool_p": ("quorum_step", "window_slide", "audit_paths_indexed"),
+    # phase X: the catchup arcs slide at CHK_FREQ 2 and leech 18 txns
+    # (below DEVICE_MIN_BATCH: their proofs stay on the host); the
+    # partition arc orders below a checkpoint and changes view (a zero)
+    "chaos_f_crash_gc_catchup": ("quorum_step", "window_slide"),
+    "chaos_byzantine_seeder_catchup": ("quorum_step", "window_slide"),
+    "chaos_f_crash_partition": ("quorum_step", "window_zero"),
     "quorum": ("quorum_step", "window_slide"),
     # 11 batches of 320: below one checkpoint interval, so no slide
     "pool_a": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
@@ -3257,8 +3672,10 @@ def main() -> int:
     t0 = time.perf_counter()
     kb.library()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from indy_plenum_tpu_torch.crypto.bls import bn254_native  # noqa: F401
     _line("build", seconds=build_s, nvcc_seconds=kb.last_build_seconds,
-          card=card)
+          bn254_seconds=time.perf_counter() - t0, card=card)
 
     # 2. kernels against their plain versions, on the card
     t0 = time.perf_counter()
@@ -3577,6 +3994,11 @@ def main() -> int:
               card=card)
     _line("catchup_l_summary", phase_s=time.perf_counter() - t0, card=card)
 
+    # P. the state-proof plane at full width; X. chaos arcs on the tick
+    # plane
+    proofs_p = phase_p(on_card, card)
+    chaos_x = phase_x(on_card, card)
+
     # E. the state at the reference's state-bench size
     t0 = time.perf_counter()
     state_e, e_launches, _ = on_card("state_e", run_state_e, dev)
@@ -3640,6 +4062,10 @@ def main() -> int:
             "recover_sim_s", "catchup_wall_s", "proofs_on_card",
             "proofs_on_host", "k10_launches", "k10_slice_ms", "reps_rejected", "retries")}
             for arm, res in catchup_l.items()},
+        "proofs_p": {key: proofs_p[key] for key in (
+            "cycles_per_s", "batch", "reads_per_s", "client_ms_per_read",
+            "serve_pairings")},
+        "chaos_x": chaos_x,
         "plain_ms": plain, "report_s": time.perf_counter() - t0,
         "total_s": time.perf_counter() - t_start}}), flush=True)
     print(card, flush=True)

@@ -33,10 +33,12 @@ universe is the generator's hot-key space.
 Copy of ``indy_plenum_tpu/ingress/read_service.py``,
 with its imports bound to the port. A service verifies on its ``device``:
 the CUDA card unless the caller passes ``device="cpu"`` (the audit-fold
-kernel's plain version). The state-proof plane (a ``proof_cache`` of BLS
-window multi-signatures) comes with the BLS slice of the port, the
-resource-ledger registration (``sized_resources``) with the telemetry
-slice.
+kernel's plain version). With a ``proof_cache`` (the state-proof plane)
+each drain serves against the last stabilized window's snapshot and every
+reply carries the pool's BLS multi-signature over that root: the attach is
+a dict lookup, zero pairings on the serve path, and the drain's folds stay
+on the service's device. The resource-ledger registration
+(``sized_resources``) comes with the telemetry slice.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ class ProofRead:
     over that root (participants ride inside the dict) and ``window``
     the stabilized checkpoint window it was captured at — a client
     holding only the pool's BLS keys verifies the whole reply via
-    ``client/state_proof.verify_proved_read`` (the BLS slice)."""
+    :func:`indy_plenum_tpu_torch.client.state_proof.verify_proved_read`."""
 
     index: int
     leaf: bytes
@@ -212,10 +214,11 @@ class ReadService:
     byte-identically; the wall-clock spent serving still accumulates
     host-side (``serve_wall_s``) for wall-throughput benches only.
 
-    ``proof_cache`` (the state-proof plane's ``CheckpointProofCache``,
-    which serves drains against the LAST stabilized window's snapshot with
-    the pool's BLS multi-signature) comes with the BLS slice of the port:
-    passing one raises ``NotImplementedError``.
+    ``proof_cache`` (a :class:`~indy_plenum_tpu_torch.proofs
+    .checkpoint_cache.CheckpointProofCache`) attaches the state-proof plane:
+    drains serve against the LAST stabilized window's (size, root) snapshot
+    and every reply carries the pool's BLS multi-signature over that root —
+    the attach is a dict lookup, zero pairings on the serve path.
 
     ``capacity`` > 0 bounds the read queue with the SAME deterministic
     drop-newest shed law writes use (an
@@ -233,10 +236,6 @@ class ReadService:
         from ..common.metrics_collector import MetricsCollector
         from ..observability.trace import NULL_TRACE
 
-        if proof_cache is not None:
-            raise NotImplementedError(
-                "proof-attached reads (proof_cache) come with the BLS "
-                "slice of the port")
         # where the drains' audit-path folds run: the card unless
         # device="cpu" (the kernel's plain version)
         self.device = resolve_device(device)
@@ -247,6 +246,7 @@ class ReadService:
         # wins)
         self.mode = mode
         self.backing = backing
+        self.proof_cache = proof_cache
         self._clock = clock if clock is not None else (lambda: 0.0)
         self.metrics = metrics if metrics is not None \
             else MetricsCollector()
@@ -379,6 +379,15 @@ class ReadService:
 
         backing = self.backing
         root, tree_size = backing.root, backing.tree_size
+        ms_dict = window = None
+        if self.proof_cache is not None:
+            entry = self.proof_cache.attach(len(queued))
+            if entry is not None:
+                # the window snapshot, NOT the live tip: mid-window
+                # commits stay unserved until the next stabilization, so
+                # every reply's root is one the pool co-signed
+                root, tree_size = entry.root, entry.tree_size
+                ms_dict, window = entry.multi_sig_dict, entry.window
         out: List[ProofRead] = []
         # da: allow[nondet-source] -- serve_wall_s meter (here and at the += below): wall accounting only, never in a reply or fingerprint
         t0 = time.perf_counter()
@@ -401,7 +410,8 @@ class ReadService:
                                            verdicts):
                 out.append(ProofRead(
                     index=i, leaf=leaf, root=root, path=path,
-                    tree_size=tree_size, verified=bool(good)))
+                    tree_size=tree_size, verified=bool(good),
+                    multi_sig=ms_dict, window=window))
         # da: allow[nondet-source] -- serve_wall_s meter close (see t0 above)
         self.serve_wall_s += time.perf_counter() - t0
         self.served_total += len(queued)
@@ -409,6 +419,8 @@ class ReadService:
         if self._vt_first_serve is None:
             self._vt_first_serve = now
         self._vt_last_serve = now
+        if ms_dict is not None:
+            self.proofs_attached_total += len(queued)
         self.metrics.add_event(MetricsName.READ_BATCH_SIZE, len(queued))
         self.metrics.add_event(MetricsName.READ_SERVED, len(queued))
         # qps on the VIRTUAL serve span (zero until a second serving

@@ -16,10 +16,11 @@ disabled: :data:`NULL_TRACE` is a :class:`NullTraceRecorder`, and every
 hot-path call site guards argument construction behind ``trace.enabled``.
 
 Copy of the recorder part of ``indy_plenum_tpu/observability/trace.py``
-(``TraceRecorder``, ``NullTraceRecorder``, the JSONL dump format). The
-dump analytics (phase percentiles, critical path, overlap and rollup
-reports, Chrome trace export) and the ordering lanes' ``LaneTraceView``
-are not part of the port yet.
+(``TraceRecorder``, ``NullTraceRecorder``, the JSONL dump format) and of
+its nearest-rank ``percentile``, which the causal journeys use. The
+other dump analytics (phase percentiles, critical path, overlap and
+rollup reports, Chrome trace export) and the ordering lanes'
+``LaneTraceView`` are not part of the port yet.
 """
 from __future__ import annotations
 
@@ -219,3 +220,12 @@ def load_jsonl(path: str) -> List[Dict[str, Any]]:
             if line:
                 events.append(json.loads(line))
     return events
+
+
+def percentile(samples: List[float], q: float) -> float:
+    """Nearest-rank percentile over a SORTED sample list (deterministic:
+    no interpolation)."""
+    if not samples:
+        return 0.0
+    rank = max(1, -(-len(samples) * q // 100))  # ceil without floats
+    return samples[int(rank) - 1]

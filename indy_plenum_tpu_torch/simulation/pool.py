@@ -19,9 +19,12 @@ every node executes through its own ledgers and SMT states
 every node seeds (``SeederService``), and a ``NodeLeecherService``
 consumes ``NeedMasterCatchup`` and verifies the fetched txns' audit
 proofs on the pool's device (K10); without it, ``SimExecutor`` fakes the
-roots. What later slices of the port bring raises
-``NotImplementedError``: BLS and the state-proof plane, the region latency
-matrix, the closed-loop retry driver and the telemetry plane. With
+roots. With ``bls`` every node co-signs its roots (``BlsBftReplica``) and,
+with real execution, captures each stabilized window's multi-signature in
+its ``proof_cache``, so proved reads verify with nothing but the pool's
+BLS keys. What later slices of the port bring raises
+``NotImplementedError``: the region latency matrix, the closed-loop retry
+driver and the telemetry plane. With
 ``ResidentTickDepth > 1`` the vote group runs its multi-tick residency
 ring (one fused device step per up to that many ticks, checkpoint slides
 folded in). ``mesh`` (a ``FabricMesh`` from
@@ -180,8 +183,6 @@ class SimNode:
                  shadow_check: Optional[bool] = None,
                  vote_plane=None, trace=None, metrics=None,
                  device: DeviceLike = None):
-        if bls_keys is not None:
-            raise _later_slice("BLS multi-signatures", "BLS")
         # shadow_check default: on whenever the device plane decides, so
         # tests continuously prove host/device equivalence. The bench turns
         # it off to run the device plane as the SOLE quorum authority.
@@ -251,6 +252,33 @@ class SimNode:
                 device=device)
 
         self.bls_replica = None
+        if bls_keys is not None:
+            from ..bls.factory import create_bls_bft_replica
+            from ..utils.base58 import b58encode
+
+            own_kp, pool_keys = bls_keys[name], {
+                n: (pk, pop) for n, (kp, pk, pop) in bls_keys.items()}
+
+            def pool_root():
+                if self.boot is None:
+                    return ""
+                from ..common.constants import POOL_LEDGER_ID
+
+                return b58encode(self.boot.db.get_state(
+                    POOL_LEDGER_ID).committed_head_hash)
+
+            def bls_suspicion(ex):
+                from ..common.messages.internal_messages import (
+                    RaisedSuspicion,
+                )
+
+                self.internal_bus.send(RaisedSuspicion(inst_id=0, ex=ex))
+
+            self.bls_replica = create_bls_bft_replica(
+                name, own_kp[0], pool_keys,
+                pool_state_root_provider=pool_root,
+                suspicion_sink=bls_suspicion)
+
         self.ordering = OrderingService(
             data=self.data, timer=timer, bus=self.internal_bus,
             network=self.external_bus, stasher=self.stasher3pc,
@@ -278,6 +306,21 @@ class SimNode:
             data=self.data, bus=self.internal_bus,
             network=self.external_bus, ordering_service=self.ordering,
             view_change_service=self.view_changer)
+
+        # state-proof plane: per stabilized checkpoint window, capture
+        # the pool's BLS multi-sig over the committed roots (already
+        # aggregated by consensus) so proved reads attach it for free —
+        # rides the same CheckpointStabilized hook as LedgerBacking
+        self.proof_cache = None
+        if self.boot is not None and self.bls_replica is not None \
+                and config.StateProofCacheWindows > 0:
+            from ..proofs import CheckpointProofCache
+
+            self.proof_cache = CheckpointProofCache.for_domain(
+                self.boot.db, self.bls_replica, bus=self.internal_bus,
+                keep=config.StateProofCacheWindows,
+                clock=timer.get_current_time,
+                metrics=metrics, trace=self.trace, node=name)
 
         # catchup plane (requires real ledgers): every node seeds; the
         # leecher consumes NeedMasterCatchup from the checkpoint service,
@@ -341,6 +384,24 @@ class SimNode:
         self.executed_upto = max(self.executed_upto,
                                  msg.last_caught_up_3pc[1])
 
+    def read_nym_with_proof(self, did: str):
+        """Proved read from THIS node alone (requires real_execution+bls):
+        value + SMT inclusion proof + the pool's multi-sig over the root."""
+        from ..client.state_proof import StateProofReply
+        from ..utils.base58 import b58encode
+
+        state = self.boot.db.get_state(DOMAIN_LEDGER_ID)
+        root = state.committed_head_hash
+        key = did.encode()
+        value = state.get(key, is_committed=True)
+        proof = state.generate_state_proof(key, root=root, serialize=True)
+        ms = None
+        if self.bls_replica is not None:
+            found = self.bls_replica.store.get(b58encode(root))
+            ms = found.as_dict() if found else None
+        return StateProofReply(key=key, value=value, root=root,
+                               proof=proof, multi_sig_dict=ms)
+
     @property
     def ordered_digests(self) -> List[str]:
         out = []
@@ -379,8 +440,6 @@ class SimPool:
                  trace: bool = False,
                  trace_capacity: Optional[int] = None,
                  device: DeviceLike = None):
-        if bls:
-            raise _later_slice("BLS multi-signatures", "BLS")
         self.config = config or getConfig(
             {"Max3PCBatchWait": 0.1, "Max3PCBatchSize": 10})
         self.seed = seed
@@ -467,6 +526,13 @@ class SimPool:
             raise _later_slice("the closed-loop retry driver",
                                "overload-retry")
         self.bls_keys = None
+        if bls:
+            from ..bls.factory import generate_bls_keys
+
+            self.bls_keys = {
+                name: generate_bls_keys(
+                    hashlib.sha256(b"sim-bls-" + name.encode()).digest())
+                for name in self.validators}
 
         # all nodes share ONE stacked device plane (member axis vmapped):
         # votes for the whole pool ride a single dispatch per flush
@@ -739,8 +805,8 @@ class SimPool:
         checkpoint-stabilized hook. ``capacity`` bounds the read queue
         (seeded with the POOL seed, like the write side); ``region`` tags
         the read-journey marks. The service verifies on the pool's
-        device. Window multi-signatures (the state-proof plane) come with
-        the BLS slice of the port."""
+        device; when the node runs the state-proof plane, replies carry
+        the pool's window multi-signature."""
         from ..ingress.read_service import LedgerBacking, ReadService
 
         node = self.node(name)
@@ -751,7 +817,7 @@ class SimPool:
         return ReadService(
             backing, clock=self.timer.get_current_time,
             metrics=self.metrics, trace=self.trace, mode=mode,
-            capacity=capacity,
+            proof_cache=node.proof_cache, capacity=capacity,
             seed=self.config.IngressShedSeed or self.seed, name=name,
             region=region, device=self.device)
 

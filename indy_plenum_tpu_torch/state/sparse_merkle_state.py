@@ -44,9 +44,10 @@ launch over every level, one readback) on the state's ``device``: the CUDA
 card unless the caller passes ``device="cpu"`` (the kernel's plain
 version). A failed launch raises; nothing falls back to the host
 quietly. State proofs (``generate_state_proof`` and the client-side
-``verify_state_proof``) come with the state-proof/BLS slice of the port,
-the resource-ledger registration (``sized_resources``) with the
-telemetry slice.
+``verify_state_proof``) are host work, in the wire format of the
+reference (the port's own msgpack encoder and decoder, byte-equal to
+``msgpack``); the resource-ledger registration (``sized_resources``)
+comes with the telemetry slice.
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ from array import array
 from collections import OrderedDict
 from typing import Dict, Iterable, List, Optional, Tuple
 
+from ..common.serializers.serialization import packb, unpackb
 from ..storage.kv_store import KeyValueStorage, KeyValueStorageInMemory
 from ..utils.torch_env import DeviceLike, resolve_device
 from .state import State
@@ -649,10 +651,89 @@ class SparseMerkleState(State):
 
     def generate_state_proof(self, key: bytes, root: Optional[bytes] = None,
                              serialize: bool = True):
-        """Proof of (non-)membership: comes with the state-proof/BLS slice
-        of the port."""
-        raise NotImplementedError(
-            "state proofs come with the state-proof/BLS slice of the port")
+        """Proof of (non-)membership: bitmap + non-default siblings.
+
+        Returns msgpack bytes when ``serialize`` (wire format for
+        state-proof replies), else the (bitmap, siblings) tuple.
+        """
+        if self._pending:
+            self.flush_batch()
+        root = root if root is not None else self._committed_root
+        bits = _path_bits(key)
+        siblings: List[bytes] = []
+        node = root
+        for level in range(DEPTH):
+            if node == DEFAULTS[level]:
+                siblings.extend(DEFAULTS[l + 1] for l in range(level, DEPTH))
+                break
+            raw = self._get_node(node)
+            left, right = raw[1:33], raw[33:65]
+            if bits[level] == 0:
+                siblings.append(right)
+                node = left
+            else:
+                siblings.append(left)
+                node = right
+        bitmap = bytearray(DEPTH // 8)
+        packed: List[bytes] = []
+        for level, sib in enumerate(siblings):
+            if sib != DEFAULTS[level + 1]:
+                bitmap[level // 8] |= 1 << (7 - level % 8)
+                packed.append(sib)
+        proof = (bytes(bitmap), packed)
+        if serialize:
+            return packb([proof[0], proof[1]])
+        return proof
+
+
+def verify_state_proof(root: bytes, key: bytes, value: Optional[bytes],
+                       proof) -> bool:
+    """Client-side scalar verification (host oracle for the device kernel).
+
+    The proof (and often the root) is UNTRUSTED wire input: any
+    malformed shape — undecodable msgpack, a short root, non-bytes path
+    elements, wrong-length siblings or bitmap — verifies ``False``
+    instead of raising (parity with ``verify_proved_read``; a byzantine
+    replier must not crash the client)."""
+    try:
+        if isinstance(proof, (bytes, bytearray)):
+            bitmap, packed = unpackb(bytes(proof))
+        else:
+            bitmap, packed = proof
+        if not isinstance(root, (bytes, bytearray)) or len(root) != 32:
+            return False
+        if not isinstance(key, (bytes, bytearray)):
+            return False
+        if not isinstance(bitmap, (bytes, bytearray)) \
+                or len(bitmap) != DEPTH // 8:
+            return False
+        if not all(isinstance(sib, (bytes, bytearray)) and len(sib) == 32
+                   for sib in packed):
+            return False
+        bits = _path_bits(bytes(key))
+        path_digest = _h(bytes(key))
+        siblings = []
+        it = iter(packed)
+        for level in range(DEPTH):
+            if bitmap[level // 8] & (1 << (7 - level % 8)):
+                try:
+                    siblings.append(bytes(next(it)))
+                except StopIteration:
+                    return False
+            else:
+                siblings.append(DEFAULTS[level + 1])
+        if value is None:
+            node = DEFAULTS[DEPTH]
+        else:
+            node = _h(_LEAF_PREFIX + path_digest + bytes(value))
+        for level in range(DEPTH - 1, -1, -1):
+            if bits[level] == 0:
+                node = _h(_NODE_PREFIX + node + siblings[level])
+            else:
+                node = _h(_NODE_PREFIX + siblings[level] + node)
+        return node == bytes(root)
+    except Exception:  # noqa: BLE001 — untrusted wire input: any shape error is a failed proof
+        return False
 
 
 # API-compat alias: the reference calls its concrete state PruningState

@@ -133,10 +133,61 @@ def test_proved_reads_match_jax():
     assert not any(r[5] for r in _replies(svc, indices))
 
 
-def test_bls_and_proof_cache_name_their_slice():
-    with pytest.raises(NotImplementedError, match="BLS"):
-        PortPool(4, real_execution=True, bls=True, device="cpu")
-    from indy_plenum_tpu_torch.ingress.read_service import ReadService
+def test_proof_cache_reads_match_jax():
+    """``ReadService(proof_cache=...)`` over one pre-verified window of a
+    seeded corpus: the port's replies (``mode="host"`` and ``"device"``,
+    K10's plain version) carry the window's multi-signature and equal the
+    JAX service's field by field, at zero pairings on both serve paths."""
+    import dataclasses
+    import hashlib
 
-    with pytest.raises(NotImplementedError, match="BLS"):
-        ReadService(None, proof_cache=object(), device="cpu")
+    from indy_plenum_tpu.crypto.bls import bls_crypto as jbc
+    from indy_plenum_tpu.ingress import read_service as jrs
+    from indy_plenum_tpu.proofs import checkpoint_cache as jcc
+    from indy_plenum_tpu_torch.client.state_proof import verify_proved_read
+    from indy_plenum_tpu_torch.crypto.bls import bls_crypto as tbc
+    from indy_plenum_tpu_torch.ingress import read_service as trs
+    from indy_plenum_tpu_torch.proofs import checkpoint_cache as tcc
+    from indy_plenum_tpu_torch.utils.base58 import b58encode
+
+    kps = [tbc.BlsKeyPair(hashlib.sha256(b"exec-proof-%d" % i).digest())
+           for i in range(4)]
+    keys = {"node%d" % i: kp.pk_b58 for i, kp in enumerate(kps)}
+
+    def serve(bc, rs, cc, mode, kw):
+        backing = rs.StaticCorpusBacking(300, seed=11)
+        value = bc.MultiSignatureValue(
+            ledger_id=1, state_root_hash="exec-state-root",
+            pool_state_root_hash="", txn_root_hash=b58encode(backing.root),
+            timestamp=1_700_000_000)
+        msg = value.serialize()
+        agg = bc.BlsCryptoVerifier.aggregate_sigs(
+            [tbc.BlsCryptoSigner(kp).sign(msg) for kp in kps])
+        ms = bc.MultiSignature(agg, sorted(keys), value)
+        cache = cc.CheckpointProofCache(
+            None, lambda: (backing.tree_size, backing.root),
+            lambda: "exec-state-root")
+        cache.install(cc.ProofWindow(
+            window=(0, 20), tree_size=backing.tree_size, root=backing.root,
+            state_root_b58="exec-state-root", multi_sig=ms,
+            multi_sig_dict=ms.as_dict(), captured_at=0.0))
+        service = rs.ReadService(backing, mode=mode, proof_cache=cache,
+                                 **kw)
+        for i in (5, 17, 299, 0, 128):
+            service.submit(i)
+        before = bc.PAIRINGS.checks
+        out = service.drain()
+        assert bc.PAIRINGS.checks == before
+        return out, service.counters(), cache.counters()
+
+    want, want_svc, want_cache = serve(jbc, jrs, jcc, "host", {})
+    assert all(r.verified and r.multi_sig for r in want)
+    for mode in ("host", "device"):
+        got, svc, cache = serve(tbc, trs, tcc, mode, {"device": "cpu"})
+        assert [dataclasses.asdict(r) for r in got] == \
+            [dataclasses.asdict(r) for r in want], mode
+        assert (svc, cache) == (want_svc, want_cache)
+    assert svc["proofs_attached"] == 5
+    assert verify_proved_read(got[2], keys, min_participants=3)
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        tcc.CheckpointProofCache(None, None, None).sized_resources()

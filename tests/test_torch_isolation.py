@@ -45,6 +45,12 @@ def test_port_imports_without_jax_or_reference():
         assert "indy_plenum_tpu_torch." + mod in mods
     for mod in ("tpu.ring_exchange", "tpu.rebalance"):
         assert "indy_plenum_tpu_torch." + mod in mods
+    for mod in ("utils.native_build", "crypto.bls.bn254",
+                "crypto.bls.bn254_native", "crypto.bls.bls_crypto", "bls",
+                "bls.bls_bft_replica", "proofs.batch_verify",
+                "proofs.checkpoint_cache", "client.state_proof",
+                "observability.causal", "chaos.runner", "chaos.scenarios"):
+        assert "indy_plenum_tpu_torch." + mod in mods
     for src in ("resident_tile.cu", "quorum_common.cuh", "quorum.cu",
                 "window.cu", "ring.cu"):
         assert os.path.isfile(os.path.join(PKG, "csrc", src)), src
@@ -97,6 +103,7 @@ def _entry_points(device_kw):
         SparseMerkleState,
     )
     from indy_plenum_tpu_torch.tpu.sha256 import merkle_node_hash_bytes
+    from indy_plenum_tpu_torch.chaos import run_scenario
     from indy_plenum_tpu_torch.simulation.pool import SimPool
     from indy_plenum_tpu_torch.tpu.ed25519 import batch_verify
     from indy_plenum_tpu_torch.tpu.compile_plan import resident_plan_for
@@ -141,6 +148,10 @@ def _entry_points(device_kw):
             4, sign_requests=True, **device_kw),
         "SimPool.real_execution": lambda: SimPool(
             4, real_execution=True, **device_kw),
+        "SimPool.bls": lambda: SimPool(
+            4, real_execution=True, bls=True, **device_kw),
+        "run_scenario": lambda: run_scenario(
+            "f_crash_partition", 7, **device_kw),
         "SparseMerkleState": lambda: SparseMerkleState(**device_kw),
         "ReadService": lambda: ReadService(StaticCorpusBacking(8),
                                            **device_kw),
@@ -157,7 +168,7 @@ ENTRY_POINTS = ["CoreAuthNr", "VotePlaneGroup", "VotePlaneGroup.resident",
                 "SimPool.fabric", "DeviceVotePlane",
                 "batch_verify", "SimPool.device_quorum",
                 "SimPool.sign_requests", "SimPool.real_execution",
-                "SparseMerkleState", "ReadService",
+                "SimPool.bls", "run_scenario", "SparseMerkleState", "ReadService",
                 "verify_audit_paths_batch", "merkle_node_hash_bytes"]
 
 

@@ -110,8 +110,24 @@ def test_smt_matches_jax_host_waves():
     port.set_head_hash(old)
     ref.set_head_hash(old)
     assert port.head_hash == ref.head_hash == old
-    with pytest.raises(NotImplementedError):
-        port.generate_state_proof(_key(1))
+    # state proofs (members and non-members, at the committed and at a
+    # historical root): the JAX state's wire bytes and verdicts
+    from indy_plenum_tpu.state.sparse_merkle_state import \
+        verify_state_proof as jax_verify
+    from indy_plenum_tpu_torch.state.sparse_merkle_state import \
+        verify_state_proof as port_verify
+
+    root = port.committed_head_hash
+    for k in (_key(rng.randrange(4000)) for _ in range(12)):
+        value = port.get(k, is_committed=True)
+        proof = port.generate_state_proof(k)
+        assert proof == ref.generate_state_proof(k)
+        assert port.generate_state_proof(k, root=old) == \
+            ref.generate_state_proof(k, root=old)
+        assert port_verify(root, k, value, proof) is True
+        for v in (value, b"forged", None):
+            assert port_verify(root, k, v, proof) == \
+                jax_verify(root, k, v, proof)
 
 
 def test_device_waves_on_cpu_give_the_host_root():
