@@ -148,10 +148,49 @@ X. chaos      - ``f_crash_gc_catchup``, ``byzantine_seeder_catchup`` and
                 equal to the CPU's (the host's wall-clock flush series
                 aside), every invariant as designed, K7 / K8 launches
                 equal to the dispatches the CPU run counted; the
-                victim's recovery in virtual seconds;
+                victim's recovery in virtual seconds; then the
+                workload planes' scenarios ``lane_partition``,
+                ``edge_cache_poisoning`` and
+                ``f_crash_catchup_under_saturation`` the same way, their
+                CPU twins in the worker processes;
+O. overload   - ``bench.py``'s ``_run_overload``, the open-loop and the
+                closed-loop (retry) arm: n=8, signed, an admission queue
+                of 12, 100 writes/s with a crowd at 3.0 s for 1.5 s at
+                8x over 9 s, 25% reads through ``ReadService(mode=
+                "device")`` over ``StaticCorpusBacking(4096, seed=37)``
+                (K10 indexed); ``shed_hash``, ``retry_hash``,
+                ``ordered_hash``, the trace and the replies equal the CPU
+                twin's; goodput, the first-attempt/retry split, the rates
+                before and after the crowd;
+N. lanes      - ``bench.py``'s ``bench_lanes``: 1 and 4 lanes of n=64
+                (2 lanes too while the clock allows), 96 txns a lane in
+                batches of 16, CHK_FREQ 2, LOG_SIZE 6, seed 17, each lane
+                its own vote group (K7 a lane a tick, K8's slide); 4
+                lanes >= 3.0x one lane in virtual time, no orphan
+                journey, every journey with its lane and barrier hop; the
+                4-lane arm's per-lane ``ordered_hash``es, sealed
+                fingerprint and ``journey_hash`` equal the CPU twin's;
+S. soak       - ``simulation/soak.py``'s day soak at ``bench.py``'s
+                ``bench_day_soak`` slice (6 virtual hours, a crash at
+                1.5 h for 0.5 h, a view change at 3 h, the forced
+                rebalance at ``SoakRebalanceTick``) on the (4,) fabric
+                (K13 each tick, K1 for the rotation): ``fingerprint``,
+                ``telemetry_hash`` and the hourly tallies equal the CPU
+                twin's; flat high-water, no unexplained anomaly, both
+                chaos legs ok;
+W. geo        - ``bench.py``'s ``bench_geo``: the ordering arms at n=6
+                and the laned barrier arms with regions 0 and 3 (seed
+                23), then the edge and no-edge read arms (n=4, BLS, real
+                execution, 3 regions, 6 waves of 120 clients, seed 29)
+                with the origin in ``mode="device"`` (K10 indexed): WAN
+                costs virtual time, >= 90% edge hits at the intra-region
+                p99, no pairing on the edge serve path, the arms'
+                fingerprints equal and the whole record equal to the CPU
+                twin's;
 E. state      - ``run_commit_arms`` host vs device waves at the
-                reference's state-bench size (100,000 keys, delta 256, 20
-                windows): equal per-window roots;
+                reference's state-bench delta and windows (delta 256, 20
+                windows) over a 20,000-key state (the cell's 100,000 cut
+                for the clock): equal per-window roots;
 5. report     - a ``kernels`` JSON line (launches of the main path's runs,
                 K-a/K-b held against their plain versions at the drain's
                 shapes, times, bounds; K-a's one-message chain floor, K1
@@ -161,9 +200,12 @@ E. state      - ``run_commit_arms`` host vs device waves at the
                 block, K13 at v = 1 against K7), the card, and last
                 ``{"ok": true, "device": {...}}``.
 
-Each main-path run (phases 3, 4, A, B, F, G, H, R, C, D, L, P, X and E on the
-card) starts with every launch counter at 0 and reads the counters right
-after; the ``kernels`` line's ``launches`` are their sums.
+Each main-path run (phases 3, 4, A, B, F, G, H, R, C, D, L, P, X, O, N, S,
+W and E on the card) starts with every launch counter at 0 and reads the
+counters right after; the ``kernels`` line's ``launches`` are their sums.
+The CPU twins of phases A, B, O, N, S, W and X's workload arms run in
+worker processes (``TWIN_WORKERS``, one torch thread each) started with
+the script and stopped with it.
 
 Any mismatch raises and the script exits non-zero. It imports nothing of
 JAX. Without a CUDA device it exits non-zero before printing a result.
@@ -171,6 +213,7 @@ JAX. Without a CUDA device it exits non-zero before printing a result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import json
 import random
@@ -2181,7 +2224,10 @@ def time_fused_g(dev, inputs):
 
 C_NODES, C_INSTANCES = 4, 2  # a deployed 4-node pool: f + 1 = 2 instances
 
-E_KEYS, E_DELTA, E_WINDOWS = 100_000, 256, 20  # bench.py's state cell
+# bench.py's state cell populates 100,000 keys; the smoke populates
+# 20,000 (host Python, ~1.8 ms a key) to keep its clock under 1,000 s
+# with the workload phases; the delta and the windows are the cell's
+E_KEYS, E_DELTA, E_WINDOWS = 20_000, 256, 20
 D_DRAIN, D_DRAINS = 4096, 4
 
 # K7 at the shapes the main path gives it: (M, N, S, C, W) of phases A/F1
@@ -2849,6 +2895,11 @@ X_TICK = {"device_quorum": True, "quorum_tick_interval": 0.05,
           "quorum_tick_adaptive": True}
 X_ARMS = ("f_crash_gc_catchup", "byzantine_seeder_catchup",
           "f_crash_partition")
+# the workload planes' scenarios; their CPU twins run in worker processes
+X_NEW_ARMS = ("lane_partition", "edge_cache_poisoning",
+              "f_crash_catchup_under_saturation")
+# host wall-clock series: the fields a card run and a CPU run never share
+X_WALL_METRICS = ("device.flush_time", "auth.batch_time")
 
 
 @contextlib.contextmanager
@@ -2905,7 +2956,8 @@ def run_chaos_x(device, name):
     record = report.as_dict()
     for key in ("replay_command", "trace_file"):
         record.pop(key)
-    record["metrics"].pop("device.flush_time", None)
+    for key in X_WALL_METRICS:
+        record["metrics"].pop(key, None)
     recover = None
     for victim in report.catchup.get("restarted_nodes", ()):
         restart = next(t for t, what in report.trace
@@ -2999,9 +3051,751 @@ def phase_x(on_card, card):
     return chaos_x
 
 
+# --- the workload planes: phases O, N, S and W, and phase X's new arms ------
+#
+# Each new phase runs on the card in this process and on the CPU in a
+# worker process of ``_twin_pool``: the CPU twins' plain versions (signed
+# ingress above all, whose plain verify takes seconds a drain) would
+# otherwise hold the card's timeline back by many minutes. The twins are
+# submitted when the script starts and read after the kernels line, where
+# each phase's card record is held against its twin.
+
+TWIN_WORKERS = 6
+
+
+def _twin_init():
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _twin_pool():
+    """The worker processes for the CPU twins (spawned, one torch thread
+    each); ``main`` shuts the pool down, so every process it starts
+    ends with it."""
+    import concurrent.futures
+    import multiprocessing
+
+    return concurrent.futures.ProcessPoolExecutor(
+        max_workers=TWIN_WORKERS,
+        mp_context=multiprocessing.get_context("spawn"),
+        initializer=_twin_init)
+
+
+def _timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def _sim_until(pool, done, budget, step, what):
+    """Run ``pool`` in ``step`` virtual seconds until ``done()``, failing
+    past ``budget`` virtual seconds: a virtual guard, so the card's run
+    and the CPU's stop at the same instant."""
+    start = pool.timer.get_current_time()
+    while not done():
+        if pool.timer.get_current_time() - start > budget:
+            raise AssertionError(f"{what} stalled")
+        pool.run_for(step)
+
+
+def _digest(obj) -> str:
+    return hashlib.sha256(repr(obj).encode()).hexdigest()
+
+
+# phase O: the overload plane, bench.py:1235 _run_overload (both arms)
+O_SEED = 37
+O_NODES, O_CAPACITY, O_KEYS = 8, 12, 4096
+O_BASE_RATE, O_DURATION = 100.0, 9.0
+O_FLASH_AT, O_FLASH_DUR, O_PEAK = 3.0, 1.5, 8.0
+O_COMPARE = ("shed_hash", "retry_hash", "ordered_hash", "trace_hash",
+             "replies_hash", "arrivals", "admission", "retries",
+             "retry_admitted", "first_attempt_admitted", "ordered",
+             "pre_spike_rate", "post_spike_rate", "reads_verified",
+             "governor", "sim_elapsed_s")
+
+
+def run_overload_o(device, retry):
+    """One flash-crowd arm of ``bench.py``'s ``_run_overload``: n=8,
+    signed, an admission queue of 12, 100 writes/s with a crowd at 3.0 s
+    for 1.5 s at 8x over 9 s, 25% reads through ``ReadService(mode=
+    "device")`` over ``StaticCorpusBacking(4096, seed=37)`` (K10
+    indexed). ``retry`` arms the closed loop. The bench's wall-clock
+    guards are virtual ones here, so the card and the CPU stop alike."""
+    from indy_plenum_tpu_torch.common.metrics_collector import MetricsName
+    from indy_plenum_tpu_torch.config import getConfig
+    from indy_plenum_tpu_torch.ingress import (
+        ReadService,
+        StaticCorpusBacking,
+        WorkloadGenerator,
+        WorkloadProfile,
+        WorkloadSpec,
+    )
+    from indy_plenum_tpu_torch.simulation.pool import SimPool
+
+    warm = O_CAPACITY - 8
+    config = getConfig({
+        "Max3PCBatchSize": 40, "Max3PCBatchWait": 0.05,
+        "QuorumTickInterval": 0.1, "QuorumTickAdaptive": True,
+        "IngressQueueCapacity": O_CAPACITY,
+        "IngressRetryMax": 4 if retry else 0,
+        "IngressRetryBase": 0.2, "IngressRetryBackoffMult": 2.0,
+        "IngressRetryBackoffMax": 2.0})
+    pool = SimPool(n_nodes=O_NODES, seed=O_SEED, config=config,
+                   device_quorum=True, shadow_check=False,
+                   sign_requests=True, trace=True, trace_capacity=1 << 20,
+                   device=device)
+    reads = ReadService(StaticCorpusBacking(O_KEYS, seed=O_SEED),
+                        clock=pool.timer.get_current_time,
+                        metrics=pool.metrics, trace=pool.trace,
+                        mode="device", device=device)
+
+    def min_ordered():
+        return min(len(nd.ordered_digests) for nd in pool.nodes)
+
+    for i in range(warm):
+        pool.submit_request(2_000_000 + i, client_id="warm")
+    _sim_until(pool, lambda: min_ordered() >= warm, 300.0, 0.5,
+               "phase O's warm-up")
+    for i in range(64):
+        reads.submit(i)
+    replies = list(reads.drain())
+    reads.reset_serve_meters()
+    seq = [0]
+
+    def on_write(client, key):
+        seq[0] += 1
+        pool.submit_request(seq[0], client_id="c%d" % client)
+
+    gen = WorkloadGenerator(WorkloadSpec(
+        n_clients=250_000, rate=O_BASE_RATE, duration=O_DURATION,
+        read_fraction=0.25, n_keys=O_KEYS, seed=O_SEED,
+        profile=WorkloadProfile(kind="flash", peak=O_PEAK,
+                                flash_at=O_FLASH_AT,
+                                flash_duration=O_FLASH_DUR)))
+    gen.start(pool.timer, on_write,
+              on_read=lambda client, key: reads.submit(key))
+    ordered0 = min_ordered()
+    sim_t0 = pool.timer.get_current_time()
+    wall_t0 = time.perf_counter()
+    samples = {}
+    marks = (1.0, O_FLASH_AT, O_FLASH_AT + O_FLASH_DUR, 6.5, O_DURATION)
+    elapsed = 0.0
+    while (elapsed < O_DURATION + 8.0 or pool.admission.depth
+           or (pool.retry is not None and pool.retry.outstanding)):
+        if elapsed > 600.0:
+            raise AssertionError("phase O: the queue never drained")
+        pool.run_for(0.5)
+        elapsed += 0.5
+        replies += reads.drain()
+        for m in marks:
+            if m <= elapsed and m not in samples:
+                samples[m] = min_ordered()
+    if device != "cpu":
+        import torch
+
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - wall_t0
+    sim_elapsed = pool.timer.get_current_time() - sim_t0
+    if not pool.honest_nodes_agree():
+        raise AssertionError("phase O: honest nodes disagree")
+    adm = pool.admission
+    pre = (samples[O_FLASH_AT] - samples[1.0]) / (O_FLASH_AT - 1.0)
+    post = (samples[O_DURATION] - samples[6.5]) / (O_DURATION - 6.5)
+    readmitted = pool.metrics.stat(MetricsName.INGRESS_RETRY_ADMITTED)
+    readmitted_n = int(readmitted.total) if readmitted else 0
+    adm_counters = adm.counters()
+    adm_counters["offered"] -= warm
+    adm_counters["admitted"] -= warm
+    ordered = min_ordered() - ordered0
+    return {
+        "retry": bool(retry), "arrivals": gen.counters(),
+        "admission": adm_counters,
+        "shed_fraction": adm.shed_total / max(adm_counters["offered"], 1),
+        "ordered": ordered, "ordered_per_sim_s": ordered / sim_elapsed,
+        "pre_spike_rate": pre, "post_spike_rate": post,
+        "recovery_ratio": post / pre if pre else None,
+        "retry_admitted": readmitted_n,
+        "first_attempt_admitted": adm_counters["admitted"] - readmitted_n,
+        "retries": pool.retry.counters() if pool.retry else None,
+        "retry_hash": pool.retry.retry_hash() if pool.retry else None,
+        "shed_hash": adm.shed_hash(), "ordered_hash": pool.ordered_hash(),
+        "trace_hash": pool.trace.trace_hash(),
+        "replies_hash": _digest([(r.index, r.leaf, r.root, r.path,
+                                  r.tree_size, r.verified)
+                                 for r in replies]),
+        "reads_served": reads.served_total,
+        "reads_verified": reads.verified_total,
+        "read_proofs_per_s": (reads.served_total / reads.serve_wall_s
+                              if reads.serve_wall_s else 0.0),
+        "governor": pool.governor.trajectory_summary(),
+        "sim_elapsed_s": sim_elapsed, "wall_s": wall_s,
+        "goodput_per_sim_s": ordered / sim_elapsed}
+
+
+
+# phase N: ordering lanes, bench.py:600 _run_laned / :692 bench_lanes
+N_PER_LANE, N_TXNS_PER_LANE, N_SEED, N_BATCH = 64, 96, 17, 16
+N_ARMS = (1, 4, 2)  # 2 lanes last: run while the clock allows
+N_COMPARE = ("ordered_hash_per_lane", "sealed_fingerprint", "journey_hash",
+             "journeys", "router_distribution", "sealed_window",
+             "seal_pads", "ordered_per_sim_sec", "sim_elapsed_s")
+
+
+def run_laned_n(device, lanes):
+    """One laned arm of ``bench.py``'s ``_run_laned``: ``lanes`` lanes of
+    n=64 (each its own vote group on the one device: K7 a lane a tick,
+    K8's slide at CHK_FREQ 2), 96 txns a lane after a warm-up of one
+    batch a lane, then a seal flush; ordered txns per virtual second."""
+    from indy_plenum_tpu_torch.config import getConfig
+    from indy_plenum_tpu_torch.lanes import LanedPool
+    from indy_plenum_tpu_torch.observability.causal import journey_summary
+
+    config = getConfig({
+        "Max3PCBatchSize": N_BATCH, "Max3PCBatchWait": 0.05,
+        "CHK_FREQ": 2, "LOG_SIZE": 6, "QuorumTickInterval": 0.1,
+        "QuorumTickAdaptive": True, "TraceNetReceivers": 4})
+    pool = LanedPool(lanes=lanes, n_nodes=N_PER_LANE, seed=N_SEED,
+                     config=config, device_quorum=True, trace=True,
+                     device=device)
+    seq = [0]
+
+    def submit(count):
+        for _ in range(count):
+            pool.submit_request(seq[0])
+            seq[0] += 1
+
+    warm = N_BATCH * lanes
+    submit(warm)
+    _sim_until(pool, lambda: pool.ordered_total() >= warm, 600.0, 0.1,
+               f"phase N's {lanes}-lane warm-up")
+    total = N_TXNS_PER_LANE * lanes
+    sim_t0 = pool.timer.get_current_time()
+    t0 = time.perf_counter()
+    submit(total)
+    _sim_until(pool, lambda: pool.ordered_total() >= warm + total, 600.0,
+               0.1, f"phase N's {lanes}-lane arm")
+    if device != "cpu":
+        import torch
+
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sim_elapsed = pool.timer.get_current_time() - sim_t0
+    if not pool.honest_nodes_agree():
+        raise AssertionError(f"phase N {lanes} lanes: nodes disagree")
+    pads = pool.seal_flush()
+    js = journey_summary(pool.trace.events())
+    lanes_js = js.get("lanes") or {}
+    return {
+        "lanes": lanes, "n_per_lane": N_PER_LANE, "txns_ordered": total,
+        "ordered_per_sim_sec": total / sim_elapsed,
+        "sim_elapsed_s": sim_elapsed, "wall_s": wall,
+        "ordered_per_wall_sec": total / wall,
+        "router_distribution": list(pool.router.distribution),
+        "ordered_hash_per_lane": pool.ordered_hashes(),
+        "sealed_window": pool.barrier.sealed_window,
+        "sealed_fingerprint": pool.sealed_fingerprint, "seal_pads": pads,
+        "journey_hash": js["journey_hash"],
+        "journeys": {
+            "count": js["count"], "complete": js["complete"],
+            "orphan_spans": js["orphan_spans"],
+            "with_lane": lanes_js.get("with_lane", 0),
+            "with_barrier_hop": lanes_js.get("with_barrier_hop", 0)}}
+
+
+
+def check_laned_arm(arm):
+    j = arm["journeys"]
+    if j["orphan_spans"] or not (j["complete"] == j["count"]
+                                 == j["with_lane"]
+                                 == j["with_barrier_hop"]) or not j["count"]:
+        raise AssertionError(f"phase N {arm['lanes']} lanes: journeys {j}")
+
+
+# phase S: the day soak on the (4,) fabric (bench.py:1944 bench_day_soak)
+S_HOURS = 6.0  # the bench's own slice; its legs at their hours
+S_LEGS = {"crash_hour": 1.5, "crash_hours": 0.5, "vc_hour": 3.0}
+S_SEED = 17
+S_COMPARE = ("fingerprint", "telemetry_hash", "hourly_ordered",
+             "ordered_total", "arrivals", "windows", "anomalies",
+             "unexplained", "chaos", "first_high_water", "last_high_water",
+             "flat_high_water", "throughput_drift", "agree")
+
+
+def run_soak_s(device, hours=S_HOURS):
+    """``simulation/soak.py``'s ``_day_soak_once`` at the config's
+    ``SoakRate`` 0.1 and ``SoakKeys`` 400, seed 17, 600 s windows, the
+    forced rebalance at ``SoakRebalanceTick``; the crash and view-change
+    legs at the bench's hours, scaled by ``hours / 6``."""
+    from indy_plenum_tpu_torch.config import getConfig
+    from indy_plenum_tpu_torch.simulation.soak import _day_soak_once
+
+    base = getConfig()
+    scale = hours / S_HOURS
+    t0 = time.perf_counter()
+    out = _day_soak_once(
+        hours, base.SoakRate, S_SEED, base.SoakKeys,
+        S_LEGS["crash_hour"] * scale, S_LEGS["crash_hours"] * scale,
+        S_LEGS["vc_hour"] * scale, base.SoakRebalanceTick,
+        window_sec=600.0, device=device)
+    if device != "cpu":
+        import torch
+
+        torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+
+def check_soak(rec):
+    chaos = rec["chaos"]
+    if not (rec["flat_high_water"] and rec["agree"] and rec["device_arm"]
+            and rec["anomalies_unexplained"] == 0
+            and chaos["crash"]["ok"] and chaos["view_change"]["ok"]):
+        raise AssertionError(f"phase S: {rec}")
+
+
+# phase W: the geo plane, bench.py:1994 bench_geo (phases A and B)
+W_SEED_A, W_SEED_B = 23, 29
+W_WAVES, W_CLIENTS = 6, 120
+W_INTRA_HI = 0.05
+
+
+def _geo_ordering_arm(device, region_count):
+    from indy_plenum_tpu_torch.config import getConfig
+    from indy_plenum_tpu_torch.observability.causal import journey_summary
+    from indy_plenum_tpu_torch.simulation.pool import SimPool
+
+    config = getConfig({"Max3PCBatchSize": 4, "Max3PCBatchWait": 0.05,
+                        "OrderingStallTimeout": 4.0,
+                        "RegionCount": region_count})
+    pool = SimPool(n_nodes=6, seed=W_SEED_A, config=config, trace=True,
+                   device=device)
+    sim_t0 = pool.timer.get_current_time()
+    for i in range(48):
+        pool.submit_request(i, region=(i % 3) if region_count else None)
+    _sim_until(pool, lambda: min(len(nd.ordered_digests)
+                                 for nd in pool.nodes) >= 48,
+               300.0, 0.25, f"phase W regions={region_count}")
+    if not pool.honest_nodes_agree():
+        raise AssertionError("phase W: honest nodes disagree")
+    order_s = pool.timer.get_current_time() - sim_t0
+    primary = pool.nodes[0].data.primaries[0]
+    pool.network.disconnect(primary)
+    survivors = [nd for nd in pool.nodes if nd.name != primary]
+    sim_t1 = pool.timer.get_current_time()
+    for i in range(6):
+        pool.submit_request(48 + i, region=(i % 3) if region_count else None)
+    _sim_until(pool, lambda: all(nd.data.view_no >= 1
+                                 and not nd.data.waiting_for_new_view
+                                 for nd in survivors),
+               300.0, 0.25, f"phase W's view change, regions="
+               f"{region_count}")
+    js = journey_summary(pool.trace.events())
+    return {"regions": region_count, "order_48_sim_s": order_s,
+            "view_change_sim_s": pool.timer.get_current_time() - sim_t1,
+            "write_e2e_p99": ((js.get("e2e") or {}).get("write")
+                              or {}).get("p99"),
+            "cross_region_msgs": pool.network.counters().get(
+                "cross_region", 0),
+            "ordered_hash": pool.ordered_hash(),
+            "journey_hash": js["journey_hash"]}
+
+
+def _geo_barrier_arm(device, region_count):
+    from indy_plenum_tpu_torch.config import getConfig
+    from indy_plenum_tpu_torch.lanes import LanedPool
+
+    config = getConfig({"Max3PCBatchSize": 4, "Max3PCBatchWait": 0.05,
+                        "CHK_FREQ": 2, "LOG_SIZE": 6,
+                        "RegionCount": region_count})
+    pool = LanedPool(lanes=2, n_nodes=4, seed=W_SEED_A, config=config,
+                     device=device)
+    sim_t0 = pool.timer.get_current_time()
+    for i in range(32):
+        pool.submit_request(i)
+    _sim_until(pool, lambda: pool.ordered_total() >= 32, 300.0, 0.25,
+               "phase W's laned arm")
+    return {"regions": region_count,
+            "sealed_window": pool.barrier.sealed_window,
+            "seals": pool.barrier.seals,
+            "seal_32_sim_s": pool.timer.get_current_time() - sim_t0,
+            "sealed_fingerprint": pool.sealed_fingerprint,
+            "ordered_hashes": pool.ordered_hashes()}
+
+
+def _geo_edge_arm(device, use_edges):
+    """``bench_geo``'s phase B arm: n=4 with BLS and real execution, 3
+    regions; the origin (node0) serves in ``mode="device"``: its drains,
+    the edges' replication included, fold their proofs with K10
+    indexed."""
+    from indy_plenum_tpu_torch.config import getConfig
+    from indy_plenum_tpu_torch.crypto.bls.bls_crypto import PAIRINGS
+    from indy_plenum_tpu_torch.observability.causal import journey_summary
+    from indy_plenum_tpu_torch.proofs.edge_cache import (
+        EdgeProofCache,
+        GeoReadFabric,
+    )
+    from indy_plenum_tpu_torch.simulation.pool import SimPool
+
+    config = getConfig({"Max3PCBatchSize": 1, "Max3PCBatchWait": 0.05,
+                        "CHK_FREQ": 5, "LOG_SIZE": 15, "RegionCount": 3})
+    pool = SimPool(n_nodes=4, seed=W_SEED_B, config=config,
+                   real_execution=True, bls=True, trace=True, device=device)
+    for i in range(12):
+        pool.submit_request(i, region=i % 3)
+    _sim_until(pool, lambda: (min(len(nd.ordered_digests)
+                                  for nd in pool.nodes) >= 12
+                              and pool.nodes[0].proof_cache.current()
+                              is not None),
+               300.0, 0.25, "phase W's edge arm")
+    origin = pool.make_read_service("node0", mode="device")
+    entry = origin.proof_cache.current()
+    keys = {name: pk for name, (kp, pk, pop) in pool.bls_keys.items()}
+    quorum = len(pool.validators) - (len(pool.validators) - 1) // 3
+    edges = {}
+    replicated = []
+    if use_edges:
+        for i in range(entry.tree_size):
+            origin.submit(i)
+        replicated = origin.drain()
+        edges = {r: EdgeProofCache(region=r,
+                                   clock=pool.timer.get_current_time)
+                 for r in range(3)}
+        for edge in edges.values():
+            if edge.replicate(entry.window, replicated) != entry.tree_size:
+                raise AssertionError("phase W: an edge refused the window")
+    origin.reset_serve_meters()
+    fabric = GeoReadFabric(
+        origin, pool.region_matrix, keys, min_participants=quorum,
+        n_regions=3, origin_region=0, edges=edges, seed=W_SEED_B,
+        clock=pool.timer.get_current_time)
+    pairings0 = PAIRINGS.checks
+    served = []
+    t0 = time.perf_counter()
+    for wave in range(W_WAVES):
+        for client in range(W_CLIENTS):
+            fabric.submit(client, (7 * client + wave) % entry.tree_size)
+        out = fabric.drain()
+        if len(out) != W_CLIENTS:
+            raise AssertionError(f"phase W wave {wave}: {len(out)} served")
+        served += out
+        pool.run_for(1.0)
+    wall = time.perf_counter() - t0
+    js = journey_summary(pool.trace.events())
+    return {"edges": bool(use_edges), "reads": W_WAVES * W_CLIENTS,
+            "fabric": fabric.counters(),
+            "pairings": PAIRINGS.checks - pairings0,
+            "global_write_e2e_p99": ((js.get("e2e") or {}).get("write")
+                                     or {}).get("p99"),
+            "journey_hash": js["journey_hash"],
+            "shed_hash": origin.shed_hash(),
+            "ordered_hash": pool.ordered_hash(),
+            "replies_hash": _digest([dataclasses.astuple(r)
+                                     for r in replicated + served]),
+            "wall_s": wall}
+
+
+def run_geo_w(device):
+    """``bench.py``'s ``bench_geo``: phase A's ordering arms (n=6, regions
+    0 and 3) and laned barrier arms, phase B's edge and no-edge arms."""
+    t0 = time.perf_counter()
+    phase_a = {
+        "ordering": {"off": _geo_ordering_arm(device, 0),
+                     "on": _geo_ordering_arm(device, 3)},
+        "barrier": {"off": _geo_barrier_arm(device, 0),
+                    "on": _geo_barrier_arm(device, 3)}}
+    phase_b = {"edges": _geo_edge_arm(device, True),
+               "no_edges": _geo_edge_arm(device, False)}
+    if device != "cpu":
+        import torch
+
+        torch.cuda.synchronize()
+    return {"phase_a": phase_a, "phase_b": phase_b,
+            "wall_s": time.perf_counter() - t0}
+
+
+
+def check_geo(rec):
+    """``bench_geo``'s laws: WAN costs virtual time on the ordering and
+    barrier arms; >= 90% edge hits at the intra-region p99 with zero
+    pairings on the edge serve path; the no-edge arm pays the WAN band;
+    the edge tier moves no write-plane bit."""
+    from indy_plenum_tpu_torch.config import getConfig
+
+    a, b = rec["phase_a"], rec["phase_b"]
+    if not (a["ordering"]["on"]["order_48_sim_s"]
+            > a["ordering"]["off"]["order_48_sim_s"]
+            and a["barrier"]["on"]["seal_32_sim_s"]
+            > a["barrier"]["off"]["seal_32_sim_s"]
+            and a["ordering"]["on"]["cross_region_msgs"] > 0):
+        raise AssertionError(f"phase W: WAN cost no virtual time: {a}")
+    fb = b["edges"]["fabric"]
+    if fb["edge_hit_rate"] < 0.90 or fb["edge_serve_pairings"] != 0 \
+            or any(blk["latency_p99"] > W_INTRA_HI
+                   for blk in fb["regions"].values()):
+        raise AssertionError(f"phase W: edge tier {fb}")
+    wan_floor = getConfig().RegionWanMinLatency
+    nb = b["no_edges"]["fabric"]
+    if any(nb["regions"][r]["latency_p99"] < wan_floor for r in ("1", "2")):
+        raise AssertionError(f"phase W: no-edge arm below WAN: {nb}")
+    for key in ("ordered_hash", "journey_hash", "shed_hash"):
+        if b["edges"][key] != b["no_edges"][key]:
+            raise AssertionError(f"phase W: the edge tier moved {key}")
+
+
+def _geo_record(rec):
+    """What the card and the CPU must share: everything but walls."""
+    def strip(obj):
+        if isinstance(obj, dict):
+            return {k: strip(v) for k, v in obj.items() if k != "wall_s"}
+        return obj
+
+    return strip(rec)
+
+
+def twin_chaos(name):
+    t0 = time.perf_counter()
+    with plain_dispatches() as counted:
+        _, record, wall, recover = run_chaos_x("cpu", name)
+    return (record, wall, recover, dict(counted)), \
+        time.perf_counter() - t0
+
+
+def _twin(jobs, key):
+    """A CPU twin's result and its seconds, waiting for it if it is
+    still running; ``wait_s`` is how long the card's timeline waited."""
+    t0 = time.perf_counter()
+    out, seconds = jobs[key].result()
+    return out, seconds, time.perf_counter() - t0
+
+
+def card_x_new(on_card, card):
+    """Phase X's arms of the workload planes (``X_NEW_ARMS``) on the card;
+    ``check_x_new`` holds them against their CPU twins."""
+    runs = {}
+    for name in X_NEW_ARMS:
+        t0 = time.perf_counter()
+        runs[name] = on_card(f"chaos_{name}", run_chaos_x, None, name)
+        _line("chaos_x_card", arm=name, phase_s=time.perf_counter() - t0,
+              card=card)
+    return runs
+
+
+def check_x_new(runs, card, jobs):
+    """Each workload arm of phase X against its CPU twin: equal reports
+    and K7 / K8 launches equal to the dispatches the CPU run counted."""
+    t0 = time.perf_counter()
+    chaos_x = {}
+    for name in X_NEW_ARMS:
+        (report, record, wall, recover), x_launches, _ = runs[name]
+        (cpu_record, cpu_wall, _, counted), cpu_s, wait_s = _twin(
+            jobs, f"x_{name}")
+        diff = sorted(k for k in record if record[k] != cpu_record[k])
+        if diff:
+            raise AssertionError(f"phase X {name}: card and CPU reports "
+                                 f"differ on {diff}")
+        if report.failed or not report.verdict_as_expected:
+            raise AssertionError(f"phase X {name}: {report.invariants}")
+        if any(x_launches[k] != n for k, n in counted.items()):
+            raise AssertionError(f"phase X {name}: launches {x_launches} "
+                                 f"against the CPU's {counted}")
+        chaos_x[name] = {
+            "wall_s": wall, "cpu_wall_s": cpu_wall, "cpu_twin_s": cpu_s,
+            "twin_wait_s": wait_s, "recover_sim_s": recover,
+            "virtual_seconds": report.virtual_seconds,
+            "quorum_step": x_launches["quorum_step"],
+            "window_slide": x_launches["window_slide"],
+            "window_zero": x_launches["window_zero"]}
+        _line("chaos_x", arm=name, **chaos_x[name],
+              invariants={r["name"]: r["verdict"]
+                          for r in report.invariants},
+              txns_leeched=report.catchup.get("txns_leeched"),
+              lanes=report.lanes or None,
+              ingress={k: v for k, v in (report.ingress or {}).items()
+                       if k in ("admission", "retry", "shed_hash",
+                                "retry_hash", "seeder_throttle")} or None,
+              edge=report.edge or None,
+              trace_hash=report.trace_hash, launches=x_launches,
+              cpu_counted=counted, card=card)
+    _line("chaos_x_new_summary", check_s=time.perf_counter() - t0,
+          card=card)
+    return chaos_x
+
+
+def card_o(on_card, card):
+    """Phase O's open-loop and closed-loop arms on the card."""
+    t0 = time.perf_counter()
+    runs = {}
+    for retry in (False, True):
+        tag = "overload_o_retry" if retry else "overload_o_open"
+        runs[retry] = on_card(tag, run_overload_o, None, retry)
+    _line("overload_o_card", phase_s=time.perf_counter() - t0, card=card)
+    return runs
+
+
+def check_o(runs, card, jobs):
+    """Phase O: each arm equal to its CPU twin on every fingerprint and
+    count; sheds, verified reads and (closed loop) re-offers."""
+    t0 = time.perf_counter()
+    arms = {}
+    for retry in (False, True):
+        res, o_launches, _ = runs[retry]
+        cpu, cpu_s, wait_s = _twin(jobs, f"o_{retry}")
+        diff = [k for k in O_COMPARE if res[k] != cpu[k]]
+        if diff:
+            raise AssertionError(f"phase O retry={retry}: card and CPU "
+                                 f"differ on {diff}")
+        if res["admission"]["shed"] <= 0 or res["reads_verified"] <= 0 \
+                or (retry and res["retries"]["reoffers"] <= 0):
+            raise AssertionError(f"phase O retry={retry}: {res}")
+        arms[retry] = res
+        _line("overload_o", **res, launches=o_launches,
+              cpu_wall_s=cpu["wall_s"], cpu_twin_s=cpu_s,
+              twin_wait_s=wait_s, card=card)
+    closed, open_ = arms[True], arms[False]
+    summary = {
+        "goodput_open": open_["ordered"], "goodput_retry": closed["ordered"],
+        "goodput_per_sim_s_retry": closed["goodput_per_sim_s"],
+        "first_attempt_admitted": closed["first_attempt_admitted"],
+        "retry_admitted": closed["retry_admitted"],
+        "post_spike_rate_retry": closed["post_spike_rate"],
+        "post_spike_rate_open": open_["post_spike_rate"],
+        "recovery_ratio_retry": closed["recovery_ratio"],
+        "wall_s": {"open": open_["wall_s"], "retry": closed["wall_s"]},
+        "check_s": time.perf_counter() - t0}
+    _line("overload_o_summary", **summary, card=card)
+    return summary
+
+
+N_TWO_LANE_BEFORE_S = 700.0  # run the 2-lane arm only before this clock
+
+
+def card_n(on_card, card, t_start):
+    """Phase N's arms of 1 and 4 lanes on the card, and 2 lanes while the
+    smoke's clock allows."""
+    t0 = time.perf_counter()
+    runs = {}
+    for lanes in N_ARMS:
+        if lanes == 2 and time.perf_counter() - t_start \
+                > N_TWO_LANE_BEFORE_S:
+            _line("laned_n", lanes=2, skipped="the smoke's clock",
+                  clock_s=time.perf_counter() - t_start, card=card)
+            continue
+        runs[lanes] = on_card(f"laned_n_{lanes}", run_laned_n, None, lanes)
+    _line("laned_n_card", phase_s=time.perf_counter() - t0, card=card)
+    return runs
+
+
+def check_n(runs, card, jobs):
+    """Phase N: ``bench_lanes``' laws (4 lanes >= 3.0x one lane in virtual
+    time, every journey whole, with its lane and barrier hop) and the
+    4-lane arm equal to its CPU twin."""
+    t0 = time.perf_counter()
+    arms = {}
+    for lanes, (res, n_launches, _) in runs.items():
+        check_laned_arm(res)
+        arms[lanes] = res
+        extra = {}
+        if lanes == 4:
+            cpu, cpu_s, wait_s = _twin(jobs, "n_4")
+            diff = [k for k in N_COMPARE if res[k] != cpu[k]]
+            if diff:
+                raise AssertionError(f"phase N 4 lanes: card and CPU "
+                                     f"differ on {diff}")
+            extra = {"cpu_wall_s": cpu["wall_s"], "cpu_twin_s": cpu_s,
+                     "twin_wait_s": wait_s}
+        _line("laned_n", **res, launches=n_launches, **extra, card=card)
+    speedup_4 = arms[4]["ordered_per_sim_sec"] / \
+        arms[1]["ordered_per_sim_sec"]
+    if speedup_4 < 3.0:
+        raise AssertionError(f"phase N: 4 lanes {speedup_4:.3f}x one lane")
+    summary = {
+        "ordered_per_sim_sec": {str(k): a["ordered_per_sim_sec"]
+                                for k, a in arms.items()},
+        "ordered_per_wall_sec": {str(k): a["ordered_per_wall_sec"]
+                                 for k, a in arms.items()},
+        "speedup_4_lanes": speedup_4,
+        "wall_s": {str(k): a["wall_s"] for k, a in arms.items()},
+        "check_s": time.perf_counter() - t0}
+    _line("laned_n_summary", **summary, card=card)
+    return summary
+
+
+def card_s(on_card, card):
+    """Phase S's day soak on the (4,) fabric on the card."""
+    t0 = time.perf_counter()
+    run = on_card("soak_s", run_soak_s, None, S_HOURS)
+    _line("soak_s_card", phase_s=time.perf_counter() - t0, card=card)
+    return run
+
+
+def check_s(run, card, jobs):
+    """Phase S: equal to its CPU twin on ``fingerprint``,
+    ``telemetry_hash`` and the hourly tallies; flat high-water, no
+    unexplained anomaly, both legs ok."""
+    t0 = time.perf_counter()
+    res, s_launches, _ = run
+    cpu, cpu_s, wait_s = _twin(jobs, "s")
+    diff = [k for k in S_COMPARE if res[k] != cpu[k]]
+    if diff:
+        raise AssertionError(f"phase S: card and CPU differ on {diff}")
+    check_soak(res)
+    keep = ("hours", "rate", "n_keys", "arrivals", "ordered_total",
+            "hourly_ordered", "throughput_drift", "flat_high_water",
+            "windows", "anomalies", "anomalies_unexplained", "chaos",
+            "agree", "telemetry_hash", "fingerprint", "wall_s")
+    summary = {k: res[k] for k in keep}
+    summary.update(cpu_wall_s=cpu["wall_s"], cpu_twin_s=cpu_s,
+                   twin_wait_s=wait_s, check_s=time.perf_counter() - t0)
+    _line("soak_s", **summary, legs=S_LEGS, launches=s_launches, card=card)
+    return summary
+
+
+def card_w(on_card, card):
+    """Phase W's ``bench_geo`` phases A and B on the card."""
+    t0 = time.perf_counter()
+    run = on_card("geo_w", run_geo_w, None)
+    _line("geo_w_card", phase_s=time.perf_counter() - t0, card=card)
+    return run
+
+
+def check_w(run, card, jobs):
+    """Phase W: ``bench_geo``'s laws, and every fingerprint and counter
+    equal to the CPU twin's."""
+    t0 = time.perf_counter()
+    res, w_launches, _ = run
+    check_geo(res)
+    cpu, cpu_s, wait_s = _twin(jobs, "w")
+    if _geo_record(res) != _geo_record(cpu):
+        raise AssertionError("phase W: card and CPU differ")
+    b = res["phase_b"]
+    summary = {
+        "order_48_sim_s": {k: a["order_48_sim_s"] for k, a in
+                           res["phase_a"]["ordering"].items()},
+        "view_change_sim_s": {k: a["view_change_sim_s"] for k, a in
+                              res["phase_a"]["ordering"].items()},
+        "seal_32_sim_s": {k: a["seal_32_sim_s"] for k, a in
+                          res["phase_a"]["barrier"].items()},
+        "edge_hit_rate": b["edges"]["fabric"]["edge_hit_rate"],
+        "edge_serve_pairings": b["edges"]["fabric"]["edge_serve_pairings"],
+        "edge_p99": max(blk["latency_p99"] for blk in
+                        b["edges"]["fabric"]["regions"].values()),
+        "wan_p99": max(b["no_edges"]["fabric"]["regions"][r]["latency_p99"]
+                       for r in ("1", "2")),
+        "reads_wall_s": {"edges": b["edges"]["wall_s"],
+                         "no_edges": b["no_edges"]["wall_s"]},
+        "wall_s": res["wall_s"], "cpu_wall_s": cpu["wall_s"],
+        "cpu_twin_s": cpu_s, "twin_wait_s": wait_s,
+        "check_s": time.perf_counter() - t0}
+    _line("geo_w", **summary, fabric=b["edges"]["fabric"],
+          launches=w_launches, card=card)
+    return summary
+
+
 def run_state_e(dev):
-    """The state at the reference's state-bench size: ``run_commit_arms``
-    with arms host and device on the card (100,000 keys, delta 256, 20
+    """The state at the reference's state-bench delta: ``run_commit_arms``
+    with arms host and device on the card (``E_KEYS`` keys, delta 256, 20
     windows, seed 7, 32 hot keys at 0.9); per-window roots must be
     identical across the arms (the function asserts it)."""
     from indy_plenum_tpu_torch.simulation.state_commit_bench import \
@@ -3649,6 +4443,27 @@ PATH_KERNELS = {
     # both arms run the tiled K9 and slide inside it
     "rebalance_forced": ("resident_tile", "ring_shift"),
     "rebalance_unforced": ("resident_tile",),
+    # phase X's workload arms: four lanes of K7 with slides at CHK_FREQ 2;
+    # the BLS pool's slides; the saturating crowd's signed ingress
+    "chaos_lane_partition": ("quorum_step", "window_slide"),
+    "chaos_edge_cache_poisoning": ("quorum_step", "window_slide"),
+    "chaos_f_crash_catchup_under_saturation": (
+        "sha512_blocks", "reduce_mod_l", "ed25519_verify", "quorum_step",
+        "window_slide"),
+    # phase O: signed ingress, K7 a tick, the reads' K10 indexed; CHK_FREQ
+    # 100 with batches of 40: no slide
+    "overload_o_open": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
+                        "quorum_step", "audit_paths_indexed"),
+    "overload_o_retry": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
+                         "quorum_step", "audit_paths_indexed"),
+    # phase N: K7 a lane a tick, K8's slide at CHK_FREQ 2
+    "laned_n_1": ("quorum_step", "window_slide"),
+    "laned_n_2": ("quorum_step", "window_slide"),
+    "laned_n_4": ("quorum_step", "window_slide"),
+    # phase S: the (4,) fabric's K13 each tick, the forced rotation's K1
+    "soak_s": ("fabric_step", "ring_shift"),
+    # phase W: the origin's drains in mode "device"
+    "geo_w": ("audit_paths_indexed",),
 }
 
 
@@ -3659,6 +4474,45 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    twins = _twin_pool()
+    try:
+        return _main(twins)
+    finally:
+        _stop_twins(twins)
+
+
+def _stop_twins(twins):
+    """Cancel what has not started and end every worker process."""
+    twins.shutdown(wait=False, cancel_futures=True)
+    for proc in list((getattr(twins, "_processes", None) or {}).values()):
+        if proc.is_alive():
+            proc.terminate()
+        proc.join(timeout=30)
+
+
+def submit_twins(twins):
+    """The CPU twins of phases A, B, O, N, S, W and X's workload arms,
+    longest first: they run in the worker processes while the card runs
+    the phases before their checks."""
+    jobs = {}
+    for retry in (True, False):
+        jobs[f"o_{retry}"] = twins.submit(_timed, run_overload_o, "cpu",
+                                          retry)
+    jobs["x_f_crash_catchup_under_saturation"] = twins.submit(
+        twin_chaos, "f_crash_catchup_under_saturation")
+    jobs["a"] = twins.submit(_timed, run_pool_a, "cpu")
+    jobs["b"] = twins.submit(_timed, run_pool_b, "cpu")
+    for name in ("lane_partition", "edge_cache_poisoning"):
+        jobs[f"x_{name}"] = twins.submit(twin_chaos, name)
+    jobs["n_4"] = twins.submit(_timed, run_laned_n, "cpu", 4)
+    jobs["s"] = twins.submit(_timed, run_soak_s, "cpu", S_HOURS)
+    jobs["w"] = twins.submit(_timed, run_geo_w, "cpu")
+    return jobs
+
+
+def _main(twins) -> int:
+    import torch
+
     from indy_plenum_tpu_torch.utils import kernel_build as kb
     from indy_plenum_tpu_torch.utils.torch_env import resolve_device, \
         set_deterministic
@@ -3667,6 +4521,7 @@ def main() -> int:
     dev = resolve_device()
     card = _nvidia_smi()
     t_start = time.perf_counter()
+    jobs = submit_twins(twins)
 
     # 1. build
     t0 = time.perf_counter()
@@ -3792,20 +4647,20 @@ def main() -> int:
     # A. the n=64 ordered-txns cell through the port's pool
     t0 = time.perf_counter()
     pool_a, a_launches, _ = on_card("pool_a", run_pool_a, None)
-    cpu_a = run_pool_a("cpu")
+    cpu_a, _, a_wait_s = _twin(jobs, "a")
     for key in ("ordered_hash", "trace_hash", "views", "ordered_min"):
         if pool_a[key] != cpu_a[key]:
             raise AssertionError(f"phase A: card and CPU differ on {key}")
     if pool_a["ordered"] != POOL_BATCHES * POOL_BATCH:
         raise AssertionError(f"phase A ordered {pool_a['ordered']}")
     _line("pool_a", **pool_a, launches=a_launches,
-          cpu_wall_s=cpu_a["wall_s"], phase_s=time.perf_counter() - t0,
-          card=card)
+          cpu_wall_s=cpu_a["wall_s"], twin_wait_s=a_wait_s,
+          phase_s=time.perf_counter() - t0, card=card)
 
     # B. the instance axis, slides and a view change
     t0 = time.perf_counter()
     pool_b, b_launches, _ = on_card("pool_b", run_pool_b, None)
-    cpu_b = run_pool_b("cpu")
+    cpu_b, _, b_wait_s = _twin(jobs, "b")
     for key in ("ordered_hash", "trace_hash", "views", "min_slides",
                 "member_resets"):
         if pool_b[key] != cpu_b[key]:
@@ -3813,8 +4668,8 @@ def main() -> int:
     if pool_b["min_slides"] < 4 or pool_b["max_view"] < 1:
         raise AssertionError("phase B: too few slides or no view change")
     _line("pool_b", **pool_b, launches=b_launches,
-          cpu_wall_s=cpu_b["wall_s"], phase_s=time.perf_counter() - t0,
-          card=card)
+          cpu_wall_s=cpu_b["wall_s"], twin_wait_s=b_wait_s,
+          phase_s=time.perf_counter() - t0, card=card)
 
     # F. residency at full width: phases A's and B's configs at depth 4,
     # card only, each held against its phase (whose CPU twin ran above)
@@ -3999,6 +4854,17 @@ def main() -> int:
     proofs_p = phase_p(on_card, card)
     chaos_x = phase_x(on_card, card)
 
+    # O, N, S, W and X's workload arms: the workload planes at the
+    # reference's widths on the card; each is held against its CPU twin
+    # from the worker processes after the report, while the last twins
+    # finish
+    x_new_runs = card_x_new(on_card, card)
+    o_runs = card_o(on_card, card)
+    n_runs = card_n(on_card, card, t_start)
+    s_run = card_s(on_card, card)
+    rotations += s_run[1]["ring_shift"]  # the soak's rebalance: one K1 roll
+    w_run = card_w(on_card, card)
+
     # E. the state at the reference's state-bench size
     t0 = time.perf_counter()
     state_e, e_launches, _ = on_card("state_e", run_state_e, dev)
@@ -4022,6 +4888,14 @@ def main() -> int:
     kernels += fab_rows
     times["call_ms"].update(fab_call_ms)
     print(json.dumps({"kernels": kernels}), flush=True)
+    report_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chaos_x.update(check_x_new(x_new_runs, card, jobs))
+    overload_o = check_o(o_runs, card, jobs)
+    laned_n = check_n(n_runs, card, jobs)
+    soak_s = check_s(s_run, card, jobs)
+    geo_w = check_w(w_run, card, jobs)
+    _line("workload_checks", check_s=time.perf_counter() - t0, card=card)
     plain = {k["name"]: k["plain_ms"] for k in kernels}
     print(json.dumps({"times": {
         "card": card, "verify_full_ms_32768": times["verify_full_ms_32768"],
@@ -4066,7 +4940,9 @@ def main() -> int:
             "cycles_per_s", "batch", "reads_per_s", "client_ms_per_read",
             "serve_pairings")},
         "chaos_x": chaos_x,
-        "plain_ms": plain, "report_s": time.perf_counter() - t0,
+        "overload_o": overload_o, "laned_n": laned_n, "soak_s": soak_s,
+        "geo_w": geo_w,
+        "plain_ms": plain, "report_s": report_s,
         "total_s": time.perf_counter() - t_start}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,9 +22,7 @@ Byzantine nodes (known from the :class:`FaultPlan`) are excluded from the
 honest set; crashed-forever nodes are exempt from liveness only.
 
 Copy of ``indy_plenum_tpu/chaos/invariants.py``, with its imports bound to
-the port. The ordering lanes' checks (``check_cross_lane``,
-``check_laned_safety``, ``check_laned_liveness``) come with the lanes
-slice.
+the port.
 """
 from __future__ import annotations
 
@@ -35,6 +33,9 @@ AGREEMENT = "agreement"
 ORDERED_PREFIX = "ordered_prefix"
 LEDGER_ROOTS = "ledger_roots"
 LIVENESS = "liveness"
+CROSS_LANE = "cross_lane"
+
+SAFETY_INVARIANTS = (AGREEMENT, ORDERED_PREFIX, LEDGER_ROOTS)
 
 
 @dataclass
@@ -223,3 +224,158 @@ class InvariantChecker:
         # over the post-probe state so the final verdicts cover it
         results[:3] = self.check_safety()
         return results
+
+
+# ----------------------------------------------------------------------
+# ordering lanes (lanes/): cross-lane consistency + laned liveness
+# ----------------------------------------------------------------------
+
+def check_cross_lane(laned_pool) -> InvariantResult:
+    """The barrier contract as an executable assertion over a
+    :class:`~indy_plenum_tpu_torch.lanes.pool.LanedPool`:
+
+    1. **no lane commits past the seal** — every node's stable
+       checkpoint window is at or below the barrier's sealed window;
+    2. **bounded skew** — no lane's ordering ran more than ``LOG_SIZE``
+       batches past the sealed boundary (the watermark stall the held
+       stabilization produces);
+    3. **fingerprint integrity** — the sealed-window chain recomputes
+       bit-for-bit from the per-lane digests each seal folded.
+    """
+    import hashlib as _hashlib
+
+    from ..lanes.barrier import GENESIS_FINGERPRINT
+
+    barrier = laned_pool.barrier
+    problems: List[str] = []
+    for lane, lane_pool in enumerate(laned_pool.lane_pools):
+        for node in lane_pool.nodes:
+            stable_window = barrier.window_of(node.data.stable_checkpoint)
+            if stable_window > barrier.sealed_window:
+                problems.append(
+                    f"lane {lane} {node.name} stabilized window "
+                    f"{stable_window} past the seal "
+                    f"({barrier.sealed_window})")
+    bound = (barrier.sealed_window * barrier.chk_freq
+             + laned_pool.config.LOG_SIZE)
+    for lane, lane_pool in enumerate(laned_pool.lane_pools):
+        for node in lane_pool.nodes:
+            seq = node.data.last_ordered_3pc[1]
+            if seq > bound:
+                problems.append(
+                    f"lane {lane} {node.name} ordered seq {seq} past "
+                    f"the skew bound {bound} (sealed window "
+                    f"{barrier.sealed_window} + LOG_SIZE)")
+    # recompute the chain over the RETAINED windows (a bounded barrier
+    # prunes old seal records; the oldest retained window's predecessor
+    # fingerprint seeds the fold — GENESIS when nothing was pruned)
+    start = min(barrier.seal_digests) if barrier.seal_digests else 1
+    chain = GENESIS_FINGERPRINT if start == 1 \
+        else barrier.fingerprints.get(start - 1)
+    if chain is None:
+        problems.append(
+            f"retained chain has no seed fingerprint for window "
+            f"{start - 1}")
+        chain = GENESIS_FINGERPRINT
+    for window in range(start, barrier.sealed_window + 1):
+        digests = barrier.seal_digests.get(window)
+        if digests is None or len(digests) != barrier.lanes:
+            problems.append(f"window {window} has no seal record")
+            continue
+        chain = _hashlib.sha256(
+            ("%s|%d|%s" % (chain, window,
+                           "|".join(digests))).encode()).hexdigest()
+        if barrier.fingerprints.get(window) != chain:
+            problems.append(
+                f"window {window} fingerprint does not recompute from "
+                f"its per-lane digests")
+    if barrier.sealed_window and chain != barrier.seal_fingerprint:
+        problems.append("seal fingerprint chain tip mismatch")
+    if problems:
+        return InvariantResult(CROSS_LANE, False, "; ".join(problems[:4]))
+    return InvariantResult(
+        CROSS_LANE, True,
+        f"{barrier.lanes} lanes, sealed window {barrier.sealed_window}, "
+        f"chain tip {barrier.seal_fingerprint[:12]}…, no lane past the "
+        f"seal or the skew bound")
+
+
+def check_laned_safety(laned_pool) -> List[InvariantResult]:
+    """Per-lane safety, aggregated per invariant (one result each, a
+    failing lane named in the detail) + the cross-lane check — the
+    laned scenarios' periodic safety probe."""
+    aggregated: List[InvariantResult] = []
+    per_lane = [InvariantChecker(lane_pool).check_safety()
+                for lane_pool in laned_pool.lane_pools]
+    for i, name in enumerate(SAFETY_INVARIANTS):
+        bad = [(lane, results[i]) for lane, results in enumerate(per_lane)
+               if not results[i].passed]
+        if bad:
+            lane, result = bad[0]
+            aggregated.append(InvariantResult(
+                name, False,
+                f"lane {lane}: {result.detail}"
+                + (f" (+{len(bad) - 1} more lanes)" if len(bad) > 1
+                   else "")))
+        else:
+            aggregated.append(InvariantResult(
+                name, True,
+                f"holds in all {len(per_lane)} lanes"))
+    aggregated.append(check_cross_lane(laned_pool))
+    return aggregated
+
+
+def _node_progress(node) -> int:
+    """Per-node progress gauge for laned liveness: real-execution nodes
+    count committed domain-ledger txns — a victim that recovered the
+    probe range BY CATCHUP made progress even though the leeched middle
+    never emitted ``Ordered`` (the ledger is its ordering record, same
+    argument as :meth:`InvariantChecker._ordered_seq`)."""
+    if getattr(node, "boot", None) is not None:
+        from ..common.constants import DOMAIN_LEDGER_ID
+
+        return node.boot.db.get_ledger(DOMAIN_LEDGER_ID).size
+    return len(node.ordered_digests)
+
+
+def check_laned_liveness(laned_pool, probes: int = 3,
+                         timeout: float = 40.0,
+                         probe_seq_base: int = 900_000) -> InvariantResult:
+    """Targeted probes into EVERY lane (bypassing the router, so no lane
+    can pass vacuously): each lane's every node must advance by all its
+    probes within ``timeout`` virtual seconds. Probes double as the
+    recovery trigger: a victim that fell behind a GC'd window needs
+    peers to checkpoint PAST its high watermark before lag detection
+    fires, and the probe traffic provides exactly that."""
+    before = [[_node_progress(node) for node in lane_pool.nodes]
+              for lane_pool in laned_pool.lane_pools]
+    for lane in range(laned_pool.n_lanes):
+        for i in range(probes):
+            laned_pool.submit_to_lane(
+                probe_seq_base + lane * probes + i, lane)
+
+    def _done() -> bool:
+        return all(
+            _node_progress(node) >= before[lane][ni] + probes
+            for lane, lane_pool in enumerate(laned_pool.lane_pools)
+            for ni, node in enumerate(lane_pool.nodes))
+
+    waited = 0.0
+    while waited < timeout:
+        laned_pool.run_for(1.0)
+        waited += 1.0
+        if _done():
+            return InvariantResult(
+                LIVENESS, True,
+                f"{probes} probes per lane ordered on every node of all "
+                f"{laned_pool.n_lanes} lanes within {waited:.0f}s virtual")
+    stuck = {
+        f"lane{lane}.{node.name}":
+            _node_progress(node) - before[lane][ni]
+        for lane, lane_pool in enumerate(laned_pool.lane_pools)
+        for ni, node in enumerate(lane_pool.nodes)
+        if _node_progress(node) < before[lane][ni] + probes}
+    return InvariantResult(
+        LIVENESS, False,
+        f"laned ordering did not resume within {timeout:.0f}s virtual; "
+        f"progress per stuck replica: {stuck}")

@@ -12,12 +12,10 @@ Copy of ``indy_plenum_tpu/chaos/runner.py``, with its imports bound to
 the port. ``run_scenario`` takes ``device`` and hands it to the pool: the
 CUDA card unless the caller passes ``"cpu"``, so the tick-batched dispatch
 plane's quorum step, window slides and zeros (and, with real execution,
-the SMT commits and the catchup's proof folds) run on the card. Three
-branches wait for later slices of the port and raise
-``NotImplementedError`` naming them: laned scenarios (``lanes > 1``, the
-lanes slice), saturating workloads (``workload_rate > 0``, the overload
-slice) and the edge-cache poisoning check (``edge_poison``, the geo
-slice).
+the SMT commits and the catchup's proof folds) run on the card. Laned
+scenarios run every lane on that one device, a saturating workload's
+signed ingress verifies there, and the edge-cache poisoning check's
+origin folds its proofs there.
 """
 from __future__ import annotations
 
@@ -170,6 +168,267 @@ def _catchup_verdicts(pool, plan, scenario, block) -> list:
     return out
 
 
+def _edge_block(pool, scenario, seed: int) -> Dict[str, object]:
+    """The geo plane's cache-poisoning closing check (``edge_poison``
+    scenarios): replicate the last stabilized window's proof-attached
+    replies into TWO region-local edge caches, arm deterministic
+    tampering on one, route the same read set through both via
+    :class:`~indy_plenum_tpu_torch.proofs.edge_cache.GeoReadFabric`, and
+    record what client verification caught. Verification — not the
+    cache — is the security boundary, so every tampered reply must fail
+    offline verification and be re-served from the origin validator."""
+    if not scenario.edge_poison or pool.bls_keys is None:
+        return {}
+    from ..proofs.edge_cache import EdgeProofCache, GeoReadFabric
+    from ..simulation.sim_network import RegionLatencyMatrix
+
+    origin = pool.make_read_service("node0", mode="host")
+    if origin.proof_cache is None or origin.proof_cache.current() is None:
+        return {"error": "no stabilized proof window to replicate"}
+    entry = origin.proof_cache.current()
+    n_reads = min(entry.tree_size, 24)
+    for i in range(n_reads):
+        origin.submit(i)
+    replies = origin.drain()
+    keys = {name: pk for name, (kp, pk, pop) in pool.bls_keys.items()}
+    quorum = len(pool.validators) - (len(pool.validators) - 1) // 3
+    matrix = RegionLatencyMatrix(2, seed=seed, intra_band=(0.01, 0.05),
+                                 wan_band=(0.08, 0.25))
+    clock = pool.timer.get_current_time
+    block: Dict[str, object] = {"window": list(entry.window),
+                                "replicated": len(replies)}
+    for label, poison in (("honest", False), ("poisoned", True)):
+        edge = EdgeProofCache(region=1, keep_windows=2,
+                              max_entries=4096, clock=clock)
+        edge.replicate(entry.window, replies)
+        if poison:
+            edge.poison(seed)
+        fabric = GeoReadFabric(
+            origin, matrix, keys, min_participants=quorum, n_regions=2,
+            origin_region=0, edges={1: edge}, seed=seed, clock=clock)
+        for i in range(n_reads):
+            fabric.submit(2 * i + 1, i)  # every client homes in region 1
+        answered = fabric.drain()
+        counters = fabric.counters()
+        block[label] = {
+            "served": counters["served"],
+            "edge_served": counters["edge_served"],
+            "verified": sum(b["verified"] for b
+                            in counters["regions"].values()),
+            "tampered": edge.tampered_total,
+            "caught": counters["verify_caught"],
+            "origin_fallbacks": counters["origin_served"],
+            "stale_fallbacks": counters["stale_fallbacks"],
+            "edge_serve_pairings": counters["edge_serve_pairings"],
+            "answered": len(answered),
+        }
+    return block
+
+
+def _edge_verdicts(scenario, block) -> list:
+    """Poisoning verdicts from the edge closing check: catching is
+    asserted NON-VACUOUSLY (tampered > 0), and the honest arm proves
+    the check passes for the right reason, not by rejecting everything."""
+    if not scenario.edge_poison:
+        return []
+    if not block or "poisoned" not in block:
+        return [InvariantResult(
+            "edge_poisoning", False,
+            str(block.get("error")) if block
+            else "edge closing check did not run")]
+    poisoned, honest = block["poisoned"], block["honest"]
+    tampered, caught = poisoned["tampered"], poisoned["caught"]
+    return [
+        InvariantResult(
+            "edge_poisoning",
+            tampered > 0 and caught == tampered
+            and poisoned["origin_fallbacks"] == tampered
+            and poisoned["answered"] == poisoned["served"],
+            f"byzantine edge tampered {tampered} replies; client "
+            f"verification caught {caught}/{tampered}, "
+            f"{poisoned['origin_fallbacks']} re-served from the origin"
+            if tampered else
+            "no reply was tampered — the poisoned edge was never "
+            "exercised (vacuous)"),
+        InvariantResult(
+            "edge_honest_serve",
+            honest["tampered"] == 0 and honest["served"] > 0
+            and honest["verified"] == honest["served"]
+            and honest["edge_served"] == honest["served"]
+            and honest["edge_serve_pairings"] == 0,
+            f"honest edge served {honest['edge_served']}/"
+            f"{honest['served']} reads region-locally, "
+            f"{honest['verified']} verified offline, "
+            f"{honest['edge_serve_pairings']} pairings on the edge "
+            "serve path"),
+    ]
+
+
+class _LaneZeroFacade:
+    """The fault plan's view of a :class:`~indy_plenum_tpu_torch.lanes.pool
+    .LanedPool`: faults target lane 0 (the scenario's fault lane — its
+    network, its nodes), while the timer / trace / metrics are the
+    laned pool's shared ones. The healthy lanes feel the fault only
+    through the cross-lane barrier, which is exactly the coupling the
+    ``cross_lane`` invariant probes."""
+
+    def __init__(self, laned_pool):
+        self._lane = laned_pool.lane_pools[0]
+        self.network = self._lane.network
+        self.timer = laned_pool.timer
+        self.trace = laned_pool.trace
+        self.metrics = laned_pool.metrics
+        self.validators = self._lane.validators
+        self.nodes = self._lane.nodes
+
+    def node(self, name: str):
+        return self._lane.node(name)
+
+
+def _run_laned_scenario(scenario: Scenario, seed: int, n: int,
+                        out_path: Optional[str],
+                        probe_interval: float,
+                        device_quorum: bool,
+                        quorum_tick_interval: float,
+                        quorum_tick_adaptive: bool,
+                        trace: bool,
+                        trace_out: Optional[str],
+                        device) -> ChaosReport:
+    """Laned scenarios (``scenario.lanes > 1``): the fault plan applies
+    inside lane 0 of a LanedPool, safety aggregates per lane + the
+    cross-lane barrier invariant, and liveness probes EVERY lane."""
+    from ..lanes import LanedPool
+    from .invariants import check_laned_liveness, check_laned_safety
+
+    plan = scenario.plan(seed, n)
+    overrides = {**BASE_CONFIG, **scenario.config_overrides}
+    if quorum_tick_interval > 0:
+        overrides["QuorumTickInterval"] = quorum_tick_interval
+        overrides["QuorumTickAdaptive"] = quorum_tick_adaptive
+    config = getConfig(overrides)
+    pool = LanedPool(lanes=scenario.lanes, n_nodes=n, seed=seed,
+                     config=config, device_quorum=device_quorum,
+                     real_execution=scenario.real_execution,
+                     bls=scenario.bls,
+                     num_instances=scenario.num_instances,
+                     trace=trace, device=device)
+    facade = _LaneZeroFacade(pool)
+    scheduler = FaultScheduler(
+        facade, plan,
+        safety_probe=lambda: check_laned_safety(pool),
+        probe_interval=probe_interval).install()
+
+    for i in range(scenario.initial_requests):
+        pool.submit_request(i)
+    for i in range(scenario.trickle_requests):
+        pool.timer.schedule(
+            (i + 1) * scenario.trickle_interval,
+            lambda seq=scenario.initial_requests + i:
+            pool.submit_request(seq))
+
+    # faults land in lane 0: snapshot its restarted victims' committed
+    # ledger sizes at their restart instants (the leeched range starts
+    # there), exactly like the unlaned path
+    fault_lane = pool.lane_pools[0]
+    leech_floor: Dict[str, int] = {}
+    if scenario.real_execution:
+        from ..common.constants import DOMAIN_LEDGER_ID
+
+        def _snap_floor(victim: str) -> None:
+            node = fault_lane.node(victim)
+            if node.boot is not None:
+                leech_floor[victim] = node.boot.db.get_ledger(
+                    DOMAIN_LEDGER_ID).size
+
+        for fault in plan.faults:
+            if isinstance(fault, CrashFault) and fault.duration is not None:
+                pool.timer.schedule(fault.at + fault.duration,
+                                    lambda v=fault.node: _snap_floor(v))
+
+    horizon = max(scenario.run_seconds, plan.end_time + 5.0)
+    pool.run_for(horizon)
+    scheduler.stop_probe()
+
+    results = check_laned_safety(pool)
+    results.append(check_laned_liveness(
+        pool, probes=3, timeout=scenario.liveness_timeout))
+    # liveness mutated pool history (per-lane probes): re-verify the
+    # safety + cross-lane set over the post-probe state
+    results[:4] = check_laned_safety(pool)
+    metrics_summary = pool.metrics.summary()
+    # catchup requirements assert against the FAULT lane (recovery
+    # happened inside lane 0) — a laned scenario can no more 'pass' by
+    # silently skipping recovery than an unlaned one
+    catchup_block = _catchup_block(fault_lane, plan, scenario,
+                                   leech_floor)
+    results.extend(_catchup_verdicts(fault_lane, plan, scenario,
+                                     catchup_block))
+
+    network_totals = {"per_lane": {
+        f"lane{lane}": lp.network.counters()
+        for lane, lp in enumerate(pool.lane_pools)}}
+    for key in ("sent", "dropped", "duplicated"):
+        network_totals[key] = sum(
+            c[key] for c in (lp.network.counters()
+                             for lp in pool.lane_pools))
+    report = ChaosReport(
+        scenario=scenario.name,
+        seed=seed,
+        n_nodes=n,
+        dispatch_mode={
+            "device_quorum": device_quorum,
+            "tick": quorum_tick_interval,
+            "adaptive": quorum_tick_adaptive,
+            "mesh": 0,
+            "host_eval": False,
+            "trace": trace,
+            "lanes": scenario.lanes,
+        },
+        plan=plan.as_dicts(),
+        trace=list(scheduler.trace),
+        invariants=[r.as_dict() for r in results],
+        expected_failures=list(scenario.expect_fail),
+        network=network_totals,
+        metrics=metrics_summary,
+        ordered_per_node={
+            f"lane{lane}/{nd.name}": len(nd.ordered_digests)
+            for lane, lp in enumerate(pool.lane_pools)
+            for nd in lp.nodes},
+        ordered_hash_per_node={
+            f"lane{lane}/{nd.name}": hashlib.sha256(
+                "|".join(nd.ordered_digests).encode()).hexdigest()
+            for lane, lp in enumerate(pool.lane_pools)
+            for nd in lp.nodes},
+        lanes={
+            "count": pool.n_lanes,
+            "router": pool.router.counters(),
+            "barrier": pool.barrier.counters(),
+            "ordered_hash_per_lane": pool.ordered_hashes(),
+            "ordered_per_lane": pool.ordered_per_lane(),
+        },
+        catchup=catchup_block,
+        byzantine_nodes=sorted(plan.byzantine_nodes),
+        periodic_checks=len(scheduler.probe_results),
+        first_violation=scheduler.first_violation,
+        virtual_seconds=pool.timer.get_current_time()
+        - 1_700_000_000.0,
+    )
+    if trace:
+        jsonl = pool.trace.to_jsonl()
+        report.trace_hash = hashlib.sha256(jsonl.encode()).hexdigest()
+        report.flight_recorder = [dict(d) for d in pool.trace.dumps]
+        from ..observability.causal import journey_summary
+
+        report.journeys = journey_summary(pool.trace.events())
+        if trace_out is not None:
+            with open(trace_out, "w") as fh:
+                fh.write(jsonl)
+            report.trace_file = trace_out
+    if out_path is not None:
+        report.save(out_path)
+    return report
+
+
 def run_scenario(scenario: "str | Scenario", seed: int,
                  n_nodes: int = 0,
                  out_path: Optional[str] = None,
@@ -236,17 +495,15 @@ def run_scenario(scenario: "str | Scenario", seed: int,
         scenario = get_scenario(scenario)
     n = n_nodes or scenario.n_nodes
     if scenario.lanes > 1:
-        raise NotImplementedError(
-            f"scenario {scenario.name!r} runs ordering lanes: laned "
-            "scenarios come with the lanes slice of the port")
-    if scenario.workload_rate > 0:
-        raise NotImplementedError(
-            f"scenario {scenario.name!r} drives a saturating workload: "
-            "it comes with the overload slice of the port")
-    if scenario.edge_poison:
-        raise NotImplementedError(
-            f"scenario {scenario.name!r} runs the edge-cache poisoning "
-            "check: it comes with the geo slice of the port")
+        if mesh is not None or host_eval or resident_depth > 1:
+            raise ValueError(
+                "laned scenarios run per-lane vote planes; mesh/"
+                "host_eval/resident_depth overrides are not supported "
+                "on the laned path")
+        return _run_laned_scenario(
+            scenario, seed, n, out_path, probe_interval, device_quorum,
+            quorum_tick_interval, quorum_tick_adaptive, trace, trace_out,
+            device)
     plan = scenario.plan(seed, n)
 
     overrides = {**BASE_CONFIG, **scenario.config_overrides}
@@ -256,13 +513,52 @@ def run_scenario(scenario: "str | Scenario", seed: int,
     if resident_depth > 1:
         overrides["ResidentTickDepth"] = resident_depth
     config = getConfig(overrides)
+    saturating = scenario.workload_rate > 0
+    if saturating and (quorum_tick_interval <= 0 or not device_quorum):
+        # the admission queue only drains on the dispatch tick: running
+        # a workload scenario per-message would fill the queue forever
+        # and 'pass' without ever exercising the overload plane
+        raise ValueError(
+            f"scenario {scenario.name!r} drives a saturating workload "
+            "and requires the tick-batched dispatch plane "
+            "(device_quorum=True, quorum_tick_interval > 0)")
     pool = SimPool(n_nodes=n, seed=seed, config=config,
                    device_quorum=device_quorum, mesh=mesh,
                    host_eval=host_eval, trace=trace,
                    real_execution=scenario.real_execution,
                    bls=scenario.bls,
+                   sign_requests=saturating,
                    num_instances=scenario.num_instances,
                    device=device)
+    generator = None
+    if saturating:
+        # the overload plane: a seeded profiled open-loop population
+        # (flash crowds and all) submits through ADMISSION for the whole
+        # fault arc; with IngressRetryMax armed the pool's retry driver
+        # closes the loop on its sheds. Same seed as the fault plan, so
+        # the storm replays with the run.
+        from ..ingress.workload import (
+            WorkloadGenerator,
+            WorkloadProfile,
+            WorkloadSpec,
+        )
+
+        wl_seq = [0]
+
+        def _wl_write(client: int, key: int) -> None:
+            wl_seq[0] += 1
+            pool.submit_request(1_000_000 + wl_seq[0],
+                               client_id="c%d" % client)
+
+        generator = WorkloadGenerator(WorkloadSpec(
+            n_clients=scenario.workload_clients,
+            rate=scenario.workload_rate,
+            duration=scenario.workload_duration,
+            start=scenario.workload_start,
+            seed=seed,
+            profile=WorkloadProfile.from_config(
+                scenario.workload_profile, config)))
+        generator.start(pool.timer, _wl_write)
     checker = InvariantChecker(
         pool,
         byzantine=plan.byzantine_nodes,
@@ -300,8 +596,11 @@ def run_scenario(scenario: "str | Scenario", seed: int,
                 pool.timer.schedule(fault.at + fault.duration,
                                     lambda v=fault.node: _snap_floor(v))
 
-    # run past the last bounded fault, then let the pool settle
-    horizon = max(scenario.run_seconds, plan.end_time + 5.0)
+    # run past the last bounded fault (and the workload window, for
+    # overload scenarios), then let the pool settle
+    horizon = max(scenario.run_seconds, plan.end_time + 5.0,
+                  scenario.workload_start + scenario.workload_duration
+                  + 5.0)
     pool.run_for(horizon)
     scheduler.stop_probe()
 
@@ -312,6 +611,38 @@ def run_scenario(scenario: "str | Scenario", seed: int,
     metrics_summary = pool.metrics.summary()
     catchup_block = _catchup_block(pool, plan, scenario, leech_floor)
     results.extend(_catchup_verdicts(pool, plan, scenario, catchup_block))
+    edge_block = _edge_block(pool, scenario, seed)
+    results.extend(_edge_verdicts(scenario, edge_block))
+
+    # overload robustness plane: the saturation forensic record — the
+    # shed/retry fingerprints let the overload gate assert byte-
+    # identical replays, the seeder meters prove the throttle engaged
+    # while the pool kept ordering
+    ingress_block: Dict[str, object] = {}
+    if saturating and pool.admission is not None:
+        adm = pool.admission
+        ingress_block = {
+            "profile": scenario.workload_profile,
+            "workload": generator.counters(),
+            "admission": adm.counters(),
+            "shed_hash": adm.shed_hash(),
+        }
+        if pool.retry is not None:
+            ingress_block["retry"] = pool.retry.counters()
+            ingress_block["retry_hash"] = pool.retry.retry_hash()
+        seeders = {
+            nd.name: {"served_txns": nd.seeder.served_txns,
+                      "deferred": nd.seeder.deferred_total}
+            for nd in pool.nodes
+            if getattr(nd, "seeder", None) is not None}
+        if seeders:
+            ingress_block["seeder_throttle"] = {
+                "per_node": seeders,
+                "served_txns": sum(seeders[n]["served_txns"]
+                                   for n in sorted(seeders)),
+                "deferred": sum(seeders[n]["deferred"]
+                                for n in sorted(seeders)),
+            }
 
     report = ChaosReport(
         scenario=scenario.name,
@@ -346,6 +677,8 @@ def run_scenario(scenario: "str | Scenario", seed: int,
             nd.name: nd.monitor.snapshot() for nd in pool.nodes
             if getattr(nd, "monitor", None) is not None},
         catchup=catchup_block,
+        ingress=ingress_block,
+        edge=edge_block,
         byzantine_nodes=sorted(plan.byzantine_nodes),
         periodic_checks=len(scheduler.probe_results),
         first_violation=scheduler.first_violation,

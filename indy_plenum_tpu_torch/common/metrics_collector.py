@@ -216,6 +216,25 @@ class MetricsCollector:
     def stat(self, name: str) -> Optional[Stat]:
         return self._stats.get(name)
 
+    def sized_resources(self, prefix: str = "metrics."):
+        """Resource-ledger registration (observability.telemetry): stat
+        names come from the fixed MetricsName space (leak-law watched),
+        and the widest histogram must respect HISTOGRAM_MAX_BUCKETS
+        (+1 for the overflow key)."""
+        from ..observability.telemetry import SizedResource
+
+        return (
+            SizedResource(prefix + "stats", lambda: len(self._stats),
+                          bound=None, entry_bytes=96),
+            SizedResource(prefix + "histogram_buckets",
+                          lambda: max((len(h) for h in
+                                       self._histograms.values()),
+                                      default=0),
+                          bound=HISTOGRAM_MAX_BUCKETS + 1,
+                          entry_bytes=48),
+        )
+
+
     def summary(self) -> Dict[str, Dict[str, Any]]:
         return {name: s.as_dict() for name, s in sorted(self._stats.items())}
 

@@ -12,8 +12,7 @@ plenum/common/router.py (`Router`). A handler returns a verdict:
 Stash queues are bounded (byzantine peers must not grow host memory).
 
 Copy of ``indy_plenum_tpu/common/stashing_router.py``, with its imports
-bound to the port and without the test-only ``RouterSpy``, which no part of
-the port attaches.
+bound to the port.
 """
 from __future__ import annotations
 
@@ -60,6 +59,40 @@ class Router:
         return handler(message, *args)
 
 
+class RouterSpy:
+    """Test instrumentation: records every routed message with its
+    verdict (reference: plenum/test/testable.py ``Spyable`` /
+    plenum/test/test_node.py spylog). Attach via
+    ``StashingRouter.spy``; fault-injection tests can then assert
+    e.g. "node X processed PREPARE from Y exactly once" instead of
+    relying only on end-state convergence.
+    """
+
+    def __init__(self, clock: Callable | None = None):
+        import time as _time
+
+        self._clock = clock or _time.monotonic
+        self.log: list = []  # (message, frm, verdict_code, t)
+
+    def record(self, message, frm, verdict) -> None:
+        self.log.append((message, frm, verdict, self._clock()))
+
+    def events(self, msg_type: type | None = None,
+               frm: str | None = None,
+               verdict: int | None = None) -> list:
+        return [e for e in self.log
+                if (msg_type is None or isinstance(e[0], msg_type))
+                and (frm is None or e[1] == frm)
+                and (verdict is None or e[2] == verdict)]
+
+    def count(self, msg_type: type | None = None, frm: str | None = None,
+              verdict: int | None = None) -> int:
+        return len(self.events(msg_type, frm, verdict))
+
+    def clear(self) -> None:
+        self.log.clear()
+
+
 class StashingRouter(Router):
     def __init__(self, limit: int, buses: Iterable[Any] = (),
                  unstash_handler: Callable | None = None):
@@ -68,6 +101,7 @@ class StashingRouter(Router):
         self._queues: dict[int, deque] = defaultdict(lambda: deque(maxlen=limit))
         self._unstash_handler = unstash_handler
         self._buses = list(buses)
+        self.spy: RouterSpy | None = None  # test-only; None in production
 
     def subscribe(self, message_type: type, handler: Callable) -> None:
         """Route ``message_type`` to ``handler`` and listen for it on all
@@ -102,6 +136,8 @@ class StashingRouter(Router):
             return None
         verdict = handler(message, *args)
         code, reason = verdict if isinstance(verdict, tuple) else (verdict, None)
+        if self.spy is not None:
+            self.spy.record(message, args[0] if args else None, code)
         if code is None or code == PROCESS:
             return PROCESS
         if code == DISCARD:

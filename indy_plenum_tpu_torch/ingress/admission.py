@@ -120,6 +120,25 @@ class AdmissionController:
     def depth(self) -> int:
         return len(self._queue)
 
+    def sized_resources(self, prefix: str = "admission."):
+        """Resource-ledger registration (observability.telemetry). The
+        queue and same-tick shed cohort are the controller's bounded
+        stores; ``shed_digests`` is a by-design run-long fingerprint
+        spine (like ``ordered_digests``) and stays off the ledger."""
+        from ..observability.telemetry import SizedResource
+
+        return (
+            SizedResource(prefix + "queue", lambda: len(self._queue),
+                          bound=self.capacity or None, entry_bytes=512),
+            SizedResource(prefix + "shed_pending",
+                          lambda: len(self._shed_pending),
+                          bound=None, entry_bytes=512),
+            SizedResource(prefix + "per_client",
+                          lambda: len(self._per_client),
+                          bound=None, entry_bytes=64),
+        )
+
+
     def shed_hash(self) -> str:
         """sha256 over the SORTED shed digests — THE shed-set
         fingerprint. Canonical set hash: the shed SET is independent of

@@ -37,8 +37,7 @@ kernel's plain version). With a ``proof_cache`` (the state-proof plane)
 each drain serves against the last stabilized window's snapshot and every
 reply carries the pool's BLS multi-signature over that root: the attach is
 a dict lookup, zero pairings on the serve path, and the drain's folds stay
-on the service's device. The resource-ledger registration
-(``sized_resources``) comes with the telemetry slice.
+on the service's device.
 """
 from __future__ import annotations
 
@@ -150,6 +149,18 @@ class LedgerBacking:
 
             bus.subscribe(CheckpointStabilized,
                           self._on_checkpoint_stabilized)
+
+    def sized_resources(self, prefix: str = "read_backing."):
+        """Resource-ledger registration (observability.telemetry): the
+        audit-path LRU is the backing's one bounded store."""
+        from ..observability.telemetry import SizedResource
+
+        return (
+            SizedResource(prefix + "path_cache",
+                          lambda: len(self._path_cache),
+                          bound=self._path_cache_max or None,
+                          entry_bytes=680),
+        )
 
     def _on_checkpoint_stabilized(self, msg, *args) -> None:
         self.refresh()

@@ -123,6 +123,22 @@ class TraceRecorder:
     def __len__(self) -> int:
         return len(self._events)
 
+    def sized_resources(self, prefix: str = "trace."):
+        """Resource-ledger registration (observability.telemetry): the
+        ring and the flight-dump deque are the recorder's two bounded
+        stores."""
+        from .telemetry import SizedResource
+
+        return (
+            SizedResource(prefix + "ring", lambda: len(self._events),
+                          bound=self._events.maxlen, entry_bytes=120,
+                          ring=True),
+            SizedResource(prefix + "dumps", lambda: len(self.dumps),
+                          bound=self.dumps.maxlen, entry_bytes=16384,
+                          ring=True),
+        )
+
+
     def __bool__(self) -> bool:
         # a recorder is never falsy: with __len__ defined, an enabled
         # but still-empty ring would otherwise fail `trace or NULL_TRACE`
@@ -197,6 +213,51 @@ class NullTraceRecorder(TraceRecorder):
 
 
 NULL_TRACE = NullTraceRecorder()
+
+
+class LaneTraceView:
+    """A lane's view onto the pool-shared recorder (ordering lanes).
+
+    Every event recorded through the view carries ``args["lane"]``, so
+    one merged dump still attributes each mark — request lifecycle, 3PC
+    waves, net send/recv — to the ordering lane that produced it (the
+    causal plane keys its wave joins on it: two lanes both at
+    ``(view 0, seq 5)`` must never cross-pollute each other's latency
+    samples). Everything else (ring, clock, dumps, journey-rollup cache)
+    delegates to the wrapped recorder, so ``trace_hash``/``to_jsonl``
+    cover the whole pool regardless of which view a caller holds."""
+
+    def __init__(self, base: TraceRecorder, lane: int):
+        self._base = base
+        self.lane = lane
+        self.enabled = base.enabled
+
+    def _tag(self, args: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+        tagged = {"lane": self.lane}
+        if args:
+            tagged.update(args)
+        return tagged
+
+    def record(self, name: str, cat: str = "3pc", node: str = "",
+               key: Optional[Sequence] = None, dur: Optional[float] = None,
+               args: Optional[Dict[str, Any]] = None,
+               ts: Optional[float] = None) -> None:
+        self._base.record(name, cat=cat, node=node, key=key, dur=dur,
+                          args=self._tag(args), ts=ts)
+
+    def span(self, name: str, cat: str = "dispatch", node: str = "",
+             args: Optional[Dict[str, Any]] = None):
+        return self._base.span(name, cat=cat, node=node,
+                               args=self._tag(args))
+
+    def trigger_dump(self, reason: str, node: str = "",
+                     args: Optional[Dict[str, Any]] = None) -> dict:
+        return self._base.trigger_dump(reason, node=node,
+                                       args=self._tag(args))
+
+    def __getattr__(self, item):
+        return getattr(self._base, item)
+
 
 
 # ----------------------------------------------------------------------

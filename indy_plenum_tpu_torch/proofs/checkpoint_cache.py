@@ -37,8 +37,7 @@ Window contract:
   retires), and an evicted window is no longer served.
 
 Copy of ``indy_plenum_tpu/proofs/checkpoint_cache.py``, with its imports bound to
-the port. Its resource-ledger registration (``sized_resources``) raises:
-it comes with the telemetry slice.
+the port.
 """
 from __future__ import annotations
 
@@ -264,10 +263,17 @@ class CheckpointProofCache:
         return entry
 
     def sized_resources(self, prefix: str = "proof_cache."):
-        """Resource-ledger registration: comes with the telemetry slice of
-        the port (``observability/telemetry.py``)."""
-        raise NotImplementedError(
-            "sized_resources comes with the telemetry slice of the port")
+        """Resource-ledger registration (observability.telemetry):
+        servable windows and half-signed pending windows, both bounded
+        by ``keep``."""
+        from ..observability.telemetry import SizedResource
+
+        return (
+            SizedResource(prefix + "windows", lambda: len(self._entries),
+                          bound=self.keep, entry_bytes=512),
+            SizedResource(prefix + "pending", lambda: len(self._pending),
+                          bound=self.keep, entry_bytes=512),
+        )
 
     def counters(self) -> Dict[str, int]:
         return {

@@ -9,8 +9,7 @@ OrderingService). If f+1 nodes checkpoint beyond our high watermark we are
 lagging and need catchup (``NeedMasterCatchup``).
 
 Copy of ``indy_plenum_tpu/server/consensus/checkpoint_service.py``, with its
-imports bound to the port and without the ordering lanes' cross-lane
-checkpoint barrier (``barrier``/``lane``), which comes with that slice.
+imports bound to the port.
 """
 from __future__ import annotations
 
@@ -46,7 +45,9 @@ class CheckpointService:
                  stasher: StashingRouter,
                  config=None,
                  vote_plane=None,
-                 shadow_check: bool = False):
+                 shadow_check: bool = False,
+                 barrier=None,
+                 lane: int = 0):
         from ...config import getConfig
 
         self._data = data
@@ -54,6 +55,15 @@ class CheckpointService:
         self._network = network
         self._stasher = stasher
         self._config = config or getConfig()
+        # cross-lane checkpoint barrier (ordering lanes, lanes/barrier.py):
+        # when set, a locally-quorate checkpoint window may not stabilize
+        # (GC + watermark advance + CheckpointStabilized) until the
+        # barrier has SEALED that window across every lane — the lane's
+        # ordering then stalls at its high watermark instead of running
+        # more than LOG_SIZE past the slowest lane. None = single-lane
+        # behaviour, bit-identical to the pre-lanes service.
+        self._barrier = barrier
+        self._lane = lane
         # device checkpoint tally (tpu.vote_plane). Only digest-matching
         # votes are scattered (the tensor is digest-blind), own vote
         # included per the vote-inclusion contract: device n-f == host
@@ -183,6 +193,19 @@ class CheckpointService:
     def _mark_stable(self, view_no: int, seq_no_end: int) -> None:
         if seq_no_end <= self._data.stable_checkpoint:
             return
+        if self._barrier is not None:
+            own = self._own_checkpoints.get(seq_no_end)
+            digest = own.digest if own is not None else ""
+            admitted = self._barrier.offer(
+                self._lane, self._data.name, seq_no_end, digest,
+                lambda: self._finish_stable(view_no, seq_no_end))
+            if not admitted:
+                return  # held: released when the barrier seals the window
+        self._finish_stable(view_no, seq_no_end)
+
+    def _finish_stable(self, view_no: int, seq_no_end: int) -> None:
+        if seq_no_end <= self._data.stable_checkpoint:
+            return
         logger.debug("%s stable checkpoint %d", self._data.name, seq_no_end)
         # GC own/received checkpoint state at or below
         self._own_checkpoints = {
@@ -234,6 +257,11 @@ class CheckpointService:
             s: c for s, c in self._own_checkpoints.items() if s > pp_seq_no}
         self._received = {
             k: v for k, v in self._received.items() if k[1] > pp_seq_no}
+        if self._barrier is not None:
+            # the leeched state is pool-verified up to pp_seq_no: the
+            # lane is vacuously ready for every window it covers (the
+            # seeders' stabilizations already passed the barrier)
+            self._barrier.lane_caught_up(self._lane, pp_seq_no)
 
     # --- introspection -------------------------------------------------
 

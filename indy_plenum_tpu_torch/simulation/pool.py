@@ -22,20 +22,19 @@ proofs on the pool's device (K10); without it, ``SimExecutor`` fakes the
 roots. With ``bls`` every node co-signs its roots (``BlsBftReplica``) and,
 with real execution, captures each stabilized window's multi-signature in
 its ``proof_cache``, so proved reads verify with nothing but the pool's
-BLS keys. What later slices of the port bring raises
-``NotImplementedError``: the region latency matrix, the closed-loop retry
-driver and the telemetry plane. With
-``ResidentTickDepth > 1`` the vote group runs its multi-tick residency
-ring (one fused device step per up to that many ticks, checkpoint slides
-folded in). ``mesh`` (a ``FabricMesh`` from
+BLS keys. With ``ResidentTickDepth > 1`` the vote group runs its
+multi-tick residency ring (one fused device step per up to that many
+ticks, checkpoint slides folded in). ``mesh`` (a ``FabricMesh`` from
 ``tpu.quorum.make_fabric_mesh`` on the pool's device) runs the vote group
 as the member x validator fabric on that one device, and with
 ``RebalanceSkewThreshold`` or ``RebalanceForceTick`` armed
-``pool.rebalance`` plans member-plane rotations. The ordering lanes' seams
-(a shared timer, metrics collector and trace ring, the cross-lane
-checkpoint barrier, the lane tick driver), the router spies and the
-closed-loop retry seam are left out: the lanes and overload slices bring
-them with their callers.
+``pool.rebalance`` plans member-plane rotations. The workload planes ride
+the same pool: the closed-loop retry driver (``IngressRetryMax``), the
+region latency matrix (``RegionCount``), the telemetry plane and its
+resource ledger (``TelemetryWindowSec``), the router spies (``spy``) and
+the ordering lanes' seams (a shared timer, metrics collector and trace
+ring, the cross-lane checkpoint barrier, ``drive_ticks=False`` for the
+lane tick of ``lanes/pool.py``), all host code around the same kernels.
 """
 from __future__ import annotations
 
@@ -70,11 +69,6 @@ from ..server.consensus.view_change_trigger_service import (
 from ..utils.torch_env import DeviceLike
 from .mock_timer import MockTimer
 from .sim_network import SimNetwork
-
-
-def _later_slice(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} comes with the {slice_name} slice of the port")
 
 
 class SimExecutor(Executor):
@@ -182,6 +176,7 @@ class SimNode:
                  storage=None, bls_keys=None,
                  shadow_check: Optional[bool] = None,
                  vote_plane=None, trace=None, metrics=None,
+                 barrier=None, lane: int = 0,
                  device: DeviceLike = None):
         # shadow_check default: on whenever the device plane decides, so
         # tests continuously prove host/device equivalence. The bench turns
@@ -290,7 +285,8 @@ class SimNode:
             data=self.data, bus=self.internal_bus,
             network=self.external_bus, stasher=self.stasher3pc,
             config=config,
-            vote_plane=self.vote_plane, shadow_check=shadow_check)
+            vote_plane=self.vote_plane, shadow_check=shadow_check,
+            barrier=barrier, lane=lane)
         self.view_changer = ViewChangeService(
             data=self.data, timer=timer, bus=self.internal_bus,
             network=self.external_bus, stasher=self.stasher,
@@ -388,6 +384,7 @@ class SimNode:
         """Proved read from THIS node alone (requires real_execution+bls):
         value + SMT inclusion proof + the pool's multi-sig over the root."""
         from ..client.state_proof import StateProofReply
+        from ..common.constants import DOMAIN_LEDGER_ID
         from ..utils.base58 import b58encode
 
         state = self.boot.db.get_state(DOMAIN_LEDGER_ID)
@@ -417,11 +414,59 @@ class SimNode:
         carry the original request digests in their metadata, so the
         ledger sequence is bit-comparable across survivors and
         freshly-caught-up nodes. Requires real execution."""
+        from ..common.constants import DOMAIN_LEDGER_ID
         from ..common.txn_util import get_digest
 
         ledger = self.boot.db.get_ledger(DOMAIN_LEDGER_ID)
         return [get_digest(ledger.get_by_seq_no(s)) or ""
                 for s in range(1, ledger.size + 1)]
+
+
+class _TelemetryTap:
+    """The telemetry plane's deterministic consensus tap: per-node
+    executed-txn tallies (mirroring :meth:`SimNode._on_ordered`'s
+    re-order dedupe so the count means *executed*, not delivered), e2e
+    latency samples (virtual pre-prepare -> executed seconds), and the
+    window pulses that roll rollup boundaries — all driven by internal
+    bus events at virtual instants, so every series replays
+    byte-identically per seed."""
+
+    def __init__(self, plane, clock):
+        self.plane = plane
+        self.clock = clock
+        self.txns: Dict[str, int] = {}
+        self._upto: Dict[str, int] = {}
+
+    def attach(self, node) -> None:
+        from ..common.messages.internal_messages import CheckpointStabilized
+
+        self.txns[node.name] = 0
+        self._upto[node.name] = 0
+        node.internal_bus.subscribe(
+            Ordered,
+            lambda o, *a, _n=node.name: self._on_ordered(_n, o))
+        node.internal_bus.subscribe(CheckpointStabilized,
+                                    self._on_stabilized)
+
+    def _on_ordered(self, name: str, ordered) -> None:
+        if ordered.ppSeqNo <= self._upto[name]:
+            return  # re-ordered after view change; already executed
+        self._upto[name] = ordered.ppSeqNo
+        self.txns[name] += len(ordered.reqIdr)
+        now = self.clock()
+        self.plane.observe_latency(now - ordered.ppTime)
+        self.plane.pulse(now)
+
+    def _on_stabilized(self, msg, *args) -> None:
+        if msg.inst_id != 0:
+            return  # master instance only, like the proof cache
+        self.plane.pulse(self.clock())
+
+    def ordered_txns(self) -> int:
+        """Pool progress = the max per-node tally: a crashed node's
+        stalled counter (its gap arrives via catchup, not Ordered) must
+        not read as pool throughput loss."""
+        return max(self.txns.values()) if self.txns else 0
 
 
 class SimPool:
@@ -437,33 +482,59 @@ class SimPool:
                  host_accounting: bool = False,
                  pipelined_flush: bool = True,
                  host_eval: bool = False,
+                 spy: bool = False,
                  trace: bool = False,
                  trace_capacity: Optional[int] = None,
+                 timer: Optional[MockTimer] = None,
+                 metrics: Optional[MetricsCollector] = None,
+                 trace_recorder=None,
+                 drive_ticks: bool = True,
+                 barrier=None,
+                 lane: int = 0,
                  device: DeviceLike = None):
+        # injection seams (ordering lanes, lanes/pool.py): a LanedPool
+        # composes K SimPools as lanes on ONE shared timer / metrics
+        # collector / flight-recorder ring (each lane recording through
+        # its LaneTraceView), with the cross-lane checkpoint barrier
+        # threaded into every lane's CheckpointService and the pool-level
+        # tick replaced by the multi-lane driver (drive_ticks=False).
         self.config = config or getConfig(
             {"Max3PCBatchWait": 0.1, "Max3PCBatchSize": 10})
         self.seed = seed
-        self.timer = MockTimer(start_time=1_700_000_000.0)
-        self.metrics = MetricsCollector()
+        self.timer = timer if timer is not None \
+            else MockTimer(start_time=1_700_000_000.0)
+        self.metrics = metrics if metrics is not None else MetricsCollector()
+        self.lane = lane
         # consensus flight recorder: one pool-shared ring on the VIRTUAL
         # clock, so a seeded run (chaos and mesh runs included) dumps a
         # bit-identical trace — checkable like ordered_hash()
         from ..observability.trace import NULL_TRACE, TraceRecorder
 
-        self.trace = (TraceRecorder(
-            self.timer.get_current_time,
-            capacity=trace_capacity or self.config.TraceRecorderCapacity)
-            if trace else NULL_TRACE)
+        if trace_recorder is not None:
+            self.trace = trace_recorder
+        else:
+            self.trace = (TraceRecorder(
+                self.timer.get_current_time,
+                capacity=trace_capacity
+                or self.config.TraceRecorderCapacity)
+                if trace else NULL_TRACE)
         # geo plane (RegionCount > 0): node i lives in region i % R and
         # cross-region deliveries draw from the seeded WAN pair band.
         # Strictly opt-in — RegionCount=0 builds the exact pre-geo
         # network (no matrix, same rng sequence, same fingerprints).
-        if self.config.RegionCount > 0:
-            raise _later_slice("the region latency matrix", "geo")
-        if self.config.TelemetryWindowSec > 0:
-            raise _later_slice("the telemetry plane", "telemetry")
         self.regions: Dict[str, int] = {}
         self.region_matrix = None
+        if self.config.RegionCount > 0:
+            from .sim_network import RegionLatencyMatrix
+
+            self.regions = {f"node{i}": i % self.config.RegionCount
+                            for i in range(n_nodes)}
+            self.region_matrix = RegionLatencyMatrix(
+                self.config.RegionCount,
+                self.config.RegionLatencySeed or seed,
+                intra_band=(0.01, 0.05),
+                wan_band=(self.config.RegionWanMinLatency,
+                          self.config.RegionWanMaxLatency))
         # causal tracing plane: the network stamps net.send/net.recv
         # marks on the same recorder, so cross-node journeys carry
         # measured (delayer-inclusive) per-hop network latency
@@ -521,10 +592,20 @@ class SimPool:
                 per_client_cap=self.config.IngressPerClientCap,
                 seed=seed, clock=self.timer.get_current_time)
         # closed-loop retry (overload robustness plane): shed requests
-        # come BACK on a seeded backoff through the same admission path
+        # come BACK on a seeded backoff — the drain hands each tick's
+        # sheds to the RetryDriver, which re-offers them through the
+        # same admission path (fairness cap and shed cohort included).
+        # Seeded with the POOL seed like the shed tiebreak, so the
+        # retry storm replays byte-identically (retry_hash).
+        self.retry = None
         if self.admission is not None and self.config.IngressRetryMax > 0:
-            raise _later_slice("the closed-loop retry driver",
-                               "overload-retry")
+            from ..ingress.retry import RetryDriver, RetryPolicy
+
+            self.retry = RetryDriver(
+                RetryPolicy.from_config(self.config, seed=seed),
+                self.timer, self._retry_offer,
+                metrics=self.metrics, trace=self.trace)
+
         self.bls_keys = None
         if bls:
             from ..bls.factory import generate_bls_keys
@@ -558,7 +639,8 @@ class SimPool:
                     bls_keys=self.bls_keys, shadow_check=shadow_check,
                     vote_plane=(self.vote_group.view(i * k)
                                 if self.vote_group else None),
-                    trace=self.trace, metrics=self.metrics, device=device)
+                    trace=self.trace, metrics=self.metrics,
+                    barrier=barrier, lane=lane, device=device)
             for i, name in enumerate(self.validators)]
         self.network.connect_all()
 
@@ -604,6 +686,26 @@ class SimPool:
         # flush — conservative: a real node flushes only its own
         # num_instances-member plane) accumulates in host_seconds[name];
         # the busiest node bounds a deployed pool's throughput.
+        # spy instrumentation (reference: plenum/test/testable.py): every
+        # node's routers record (msg, sender, verdict, sim-time) — tests
+        # can assert exact processing counts, not just end states. Query
+        # via pool.spy_of(name, inst_id).
+        self._spies: Dict[tuple, object] = {}
+        if spy:
+            from ..common.stashing_router import RouterSpy
+
+            clock = self.timer.get_current_time
+            for nd in self.nodes:
+                for st, key in ((nd.stasher3pc, (nd.name, 0, "3pc")),
+                                (nd.stasher, (nd.name, 0, "other"))):
+                    st.spy = RouterSpy(clock=clock)
+                    self._spies[key] = st.spy
+                replicas = getattr(nd, "replicas", None)
+                for backup in (replicas.backups if replicas else ()):
+                    backup.stasher.spy = RouterSpy(clock=clock)
+                    self._spies[(nd.name, backup.inst_id, "3pc")] = \
+                        backup.stasher.spy
+
         self.host_seconds: Optional[Dict[str, float]] = None
         if host_accounting:
             self.host_seconds = {n.name: 0.0 for n in self.nodes}
@@ -617,19 +719,31 @@ class SimPool:
         # interval get ONE device batch verify at tick start.
         self._last_ingress_depth = 0
         self._last_ingress_shed = 0
+        # drive_ticks=False: a composing driver (the multi-lane tick in
+        # quorum_driver.drive_lane_ticks) owns the pool-level tick
         self._quorum_tick_timer = drive_group_ticks(
             self.timer, self.config, self.vote_group, self.nodes,
             accounting=self.host_seconds,
             ingress=(self._ingress_tick if self.authnr is not None
                      else None),
-            trace=self.trace)
+            trace=self.trace) if drive_ticks else None
         # adaptive tick mode: the governor's interval trajectory is a
         # first-class observable (bench digests, determinism tests)
         self.governor = getattr(self._quorum_tick_timer, "governor", None)
         # occupancy-driven rebalance policy (None unless sharded + armed)
         self.rebalance = getattr(self._quorum_tick_timer, "rebalance", None)
+        # long-horizon telemetry plane (observability/telemetry.py):
+        # TelemetryWindowSec > 0 registers every bounded structure in ONE
+        # resource ledger and rolls windowed series off deterministic
+        # consensus pulses; unarmed pools pay nothing (no ledger, no bus
+        # subscribers). Pools that delegate their tick (drive_ticks=False,
+        # the multi-lane composition) leave arming to the composer.
         self.resource_ledger = None
         self.telemetry = None
+        self._telemetry_tap = None
+        self._read_backing_seq = 0
+        if drive_ticks and self.config.TelemetryWindowSec > 0:
+            self._arm_telemetry()
 
     def _install_accounting(self, node: "SimNode") -> None:
         import time as _time
@@ -668,16 +782,21 @@ class SimPool:
     def node(self, name: str) -> SimNode:
         return next(n for n in self.nodes if n.name == name)
 
+    def spy_of(self, name: str, inst_id: int = 0, router: str = "3pc"):
+        """The RouterSpy for ``name``'s instance router (pool built with
+        spy=True); ``router``: "3pc" (ordering/checkpoint traffic) or
+        "other" (view change / instance change / message req)."""
+        return self._spies[(name, inst_id, router)]
+
     @property
     def primary(self) -> SimNode:
         return self.node(self.nodes[0].data.primaries[0])
 
-    def submit_request(self, seq: int,
-                       client_id: Optional[str] = None,
-                       region: Optional[int] = None) -> Request:
-        # client_id: the ingress plane's virtual-client identity — the
-        # admission controller's per-client fairness cap keys on it
-        # (None = anonymous, outside any cap)
+    def build_request(self, seq: int) -> Request:
+        """Construct (but do not submit) the pool's standard request for
+        ``seq`` — the seam the lane router needs: a LanedPool builds the
+        request first, routes it by its key, THEN submits it to the
+        owning lane (``submit_built``)."""
         if self.real_execution:
             from ..common.constants import NYM, TARGET_NYM, TXN_TYPE, VERKEY
             from ..crypto.signers import DidSigner
@@ -692,6 +811,20 @@ class SimPool:
         else:
             req = Request(identifier="client1", reqId=seq,
                           operation={"type": "1", "v": seq})
+        return req
+
+    def submit_request(self, seq: int,
+                       client_id: Optional[str] = None,
+                       region: Optional[int] = None) -> Request:
+        # client_id: the ingress plane's virtual-client identity — the
+        # admission controller's per-client fairness cap keys on it
+        # (None = anonymous, outside any cap)
+        return self.submit_built(self.build_request(seq), client_id,
+                                 region=region)
+
+    def submit_built(self, req: Request,
+                     client_id: Optional[str] = None,
+                     region: Optional[int] = None) -> Request:
         if self.trace.enabled:
             # geo plane: the submitting client's home region rides the
             # ingress mark into the journey table (None = unstamped —
@@ -711,6 +844,15 @@ class SimPool:
                 self.trace.record("req.finalised", cat="req",
                                   key=(req.digest,))
         return req
+
+    def _retry_offer(self, req: Request,
+                     client_id: Optional[str] = None) -> None:
+        """The retry driver's re-offer seam: the SAME request (already
+        signed, ``req.ingress`` already marked at first arrival)
+        re-enters the bounded queue like any arrival — it competes in
+        the same-instant shed cohort and counts against its client's
+        fairness cap (no retry-based cap evasion)."""
+        self.admission.offer(req, client_id)
 
     def submit_tampered_request(self, seq: int) -> Request:
         """Signed, then payload mutated: the device verify must reject it."""
@@ -749,6 +891,15 @@ class SimPool:
                 for req in batch:
                     self.trace.record("req.admitted", cat="req",
                                       key=(req.digest,))
+            if self.retry is not None and batch:
+                # the goodput split: admitted work that needed >= 1
+                # retry vs first-attempt admissions
+                readmitted = sum(
+                    1 for req in batch
+                    if req.digest in self.retry.retried_digests)
+                if readmitted:
+                    self.metrics.add_event(
+                        MetricsName.INGRESS_RETRY_ADMITTED, readmitted)
             if shed:
                 self.metrics.add_event(MetricsName.INGRESS_SHED,
                                        len(shed))
@@ -757,6 +908,11 @@ class SimPool:
                         self.trace.record("req.shed", cat="req",
                                           key=(req.digest,),
                                           args={"reason": reason})
+                if self.retry is not None:
+                    # the closed loop: this tick's sheds schedule their
+                    # seeded-backoff re-offers on the virtual timer
+                    for req, cid, reason in shed:
+                        self.retry.on_shed(req, cid, reason)
         else:
             batch, self._ingress = self._ingress, []
         if not batch:
@@ -794,7 +950,74 @@ class SimPool:
             capacity=self.admission.capacity,
             shed_delta=self._last_ingress_shed,
             leeching=any(not nd.data.is_participating
-                         for nd in self.nodes))
+                         for nd in self.nodes),
+            # re-offers still waiting on the timer: load the pool owes
+            # itself — holds the governor's narrow between shed bursts
+            retry_pressure=(self.retry.outstanding
+                            if self.retry is not None else 0))
+
+    def _arm_telemetry(self) -> None:
+        """Build the resource ledger + telemetry plane and register every
+        bounded structure the pool composed: trace rings, metrics
+        histograms, admission queue, retry cohort, per-node proof caches,
+        SMT node caches / dirty overlays, staged write batches and
+        request queues. Series: ordered txns (the tap's max-node tally),
+        shed/retry counters, governor occupancy EWMA."""
+        from ..observability.telemetry import (
+            ResourceLedger,
+            SizedResource,
+            TelemetryPlane,
+        )
+
+        ledger = ResourceLedger()
+        plane = TelemetryPlane.from_config(
+            self.config, ledger, t0=self.timer.get_current_time(),
+            metrics=self.metrics, trace=self.trace)
+        self.resource_ledger = ledger
+        self.telemetry = plane
+        if self.trace.enabled:
+            ledger.register_all(self.trace.sized_resources())
+        ledger.register_all(self.metrics.sized_resources())
+        if self.admission is not None:
+            ledger.register_all(self.admission.sized_resources())
+        if self.retry is not None:
+            ledger.register_all(self.retry.sized_resources())
+        for nd in self.nodes:
+            p = nd.name + "."
+            ledger.register(SizedResource(
+                p + "requests_queue",
+                (lambda _q=self.requests._queues, _n=nd.name:
+                 len(_q.get(_n, ()))),
+                bound=None, entry_bytes=64))
+            if nd.proof_cache is not None:
+                ledger.register_all(
+                    nd.proof_cache.sized_resources(p + "proof_cache."))
+            if nd.boot is not None:
+                state = nd.boot.db.get_state(DOMAIN_LEDGER_ID)
+                if state is not None and hasattr(state, "sized_resources"):
+                    ledger.register_all(
+                        state.sized_resources(p + "state."))
+                wm = nd.boot.write_manager
+                if hasattr(wm, "_staged"):
+                    ledger.register(SizedResource(
+                        p + "staged_batches",
+                        (lambda _w=wm: len(_w._staged)),
+                        bound=None, entry_bytes=256))
+        tap = _TelemetryTap(plane, self.timer.get_current_time)
+        for nd in self.nodes:
+            tap.attach(nd)
+        self._telemetry_tap = tap
+        plane.add_counter("ordered", tap.ordered_txns)
+        plane.add_counter(
+            "shed", lambda: (self.admission.shed_total
+                             if self.admission is not None else 0))
+        plane.add_counter(
+            "retry", lambda: (self.retry.reoffers_total
+                              if self.retry is not None else 0))
+        plane.add_gauge(
+            "occupancy_ewma",
+            lambda: (float(self.governor.ewma)
+                     if self.governor is not None else 0.0))
 
     def make_read_service(self, name: str = "node0", mode: str = "host",
                           capacity: int = 0,
@@ -802,18 +1025,28 @@ class SimPool:
         """A proof-serving :class:`~indy_plenum_tpu_torch.ingress
         .read_service.ReadService` over ``name``'s committed domain ledger
         (requires real_execution): the backing rides the node's
-        checkpoint-stabilized hook. ``capacity`` bounds the read queue
-        (seeded with the POOL seed, like the write side); ``region`` tags
-        the read-journey marks. The service verifies on the pool's
-        device; when the node runs the state-proof plane, replies carry
-        the pool's window multi-signature."""
+        checkpoint-stabilized hook and, when the node runs the state-proof
+        plane, replies carry the pool's window multi-signature.
+        ``capacity`` bounds the read queue (seeded with the POOL seed,
+        like the write side); ``region`` (default: the serving node's pool
+        region, when the geo plane is armed) tags the read-journey marks
+        so causal summaries segregate read e2e per region. The service
+        verifies on the pool's device."""
         from ..ingress.read_service import LedgerBacking, ReadService
 
         node = self.node(name)
         assert node.boot is not None, "make_read_service needs real ledgers"
+        if region is None:
+            region = self.regions.get(name)
         backing = LedgerBacking(
             node.boot.db.get_ledger(DOMAIN_LEDGER_ID),
             bus=node.internal_bus)
+        if self.resource_ledger is not None:
+            # telemetry armed: late-built read backings join the ledger
+            # too (ordinal-prefixed — a bench may build several per node)
+            self._read_backing_seq += 1
+            self.resource_ledger.register_all(backing.sized_resources(
+                f"{name}.read_backing{self._read_backing_seq}."))
         return ReadService(
             backing, clock=self.timer.get_current_time,
             metrics=self.metrics, trace=self.trace, mode=mode,

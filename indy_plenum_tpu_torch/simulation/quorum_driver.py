@@ -19,8 +19,9 @@ With a ``mesh`` the same contract runs on the member x validator fabric,
 every tile on the group's one device: the governor observes the per-cell
 occupancy grid, and an armed :class:`~indy_plenum_tpu_torch.tpu.rebalance
 .RebalancePolicy` plans member-plane rotations that the group executes at
-its next checkpoint-boundary slide. The multi-lane tick
-(``drive_lane_ticks``) comes with the ordering-lanes slice.
+its next checkpoint-boundary slide. :func:`drive_lane_ticks` is the one
+tick of the ordering lanes: every lane's group flushes once a tick, one
+governor over all of them.
 
 Copy of ``indy_plenum_tpu/simulation/quorum_driver.py``, with its imports
 bound to the port.
@@ -213,3 +214,132 @@ def drive_group_ticks(timer: TimerService, config: Config, vote_group,
     rt.rebalance = rebalance
     return rt
 
+
+def drive_lane_ticks(timer: TimerService, config: Config, lane_pools,
+                     barrier=None, trace=None,
+                     metrics=None) -> Optional[RepeatingTimer]:
+    """One pool-level tick driving EVERY ordering lane: each lane owns a
+    full :class:`~indy_plenum_tpu_torch.tpu.vote_plane.VotePlaneGroup`
+    (its own fabric when the lane has a mesh; every lane on the pool's
+    one device), but the tick cadence is shared — per tick, each lane's
+    ingress drains, each lane's group flushes once, every lane's
+    services evaluate against their fresh snapshot, and finally the
+    cross-lane checkpoint barrier re-evaluates its seal condition
+    (:meth:`~indy_plenum_tpu_torch.lanes.barrier.CrossLaneBarrier
+    .service_tick`) so a lane that went idle unblocks the others at a
+    deterministic instant.
+
+    ONE dispatch governor serves all lanes: it observes the
+    concatenation of every lane's per-shard occupancy deltas (the
+    hottest lane-shard narrows the tick for the whole pool, exactly as
+    the hottest shard does in a mesh run) and the FOLDED per-lane
+    backpressure (max queue pressure, summed sheds, any-lane leeching).
+    Returns None when ``config.QuorumTickInterval <= 0`` (per-message
+    mode — the LanedPool then runs a plain barrier pulse instead)."""
+    if config.QuorumTickInterval <= 0:
+        return None
+    from ..observability.trace import NULL_TRACE
+    from ..tpu.governor import DispatchGovernor
+
+    trace = trace if trace is not None else NULL_TRACE
+    if metrics is None:
+        metrics = lane_pools[0].metrics
+    tick_groups = [lp.vote_group for lp in lane_pools
+                   if lp.vote_group is not None]
+    for lp in lane_pools:
+        if lp.vote_group is not None:
+            for node in lp.nodes:
+                node.vote_plane.defer_flush_on_query = True
+                replicas = getattr(node, "replicas", None)
+                for backup in (replicas.backups if replicas else ()):
+                    if backup.vote_plane is not None:
+                        backup.vote_plane.defer_flush_on_query = True
+    governor = DispatchGovernor.from_config(config, metrics=metrics,
+                                            trace=trace) \
+        if tick_groups else None
+    last_flush = [g.flushes for g in tick_groups]
+    last_shard = [(list(g.flush_votes_per_shard),
+                   list(g.flush_capacity_per_shard)) for g in tick_groups]
+    timer_box: list = []
+
+    def tick() -> None:
+        signals = []
+        with trace.span("tick.drain") if trace.enabled else _NO_SPAN:
+            for lp in lane_pools:
+                if lp.authnr is not None:
+                    drained = lp._ingress_tick()
+                    if isinstance(drained, BackpressureSignal):
+                        signals.append(drained)
+        dispatches_per_lane = []
+        vote_deltas: list = []
+        cap_deltas: list = []
+        for gi, group in enumerate(tick_groups):
+            group.flush()
+            dispatches_per_lane.append(group.flushes - last_flush[gi])
+            last_flush[gi] = group.flushes
+            votes0, caps0 = last_shard[gi]
+            vote_deltas.extend(
+                a - b for a, b in zip(group.flush_votes_per_shard, votes0))
+            cap_deltas.extend(
+                a - b for a, b in zip(group.flush_capacity_per_shard,
+                                      caps0))
+            last_shard[gi] = (list(group.flush_votes_per_shard),
+                              list(group.flush_capacity_per_shard))
+        dispatches = sum(dispatches_per_lane)
+        if tick_groups:
+            metrics.add_event(MetricsName.DEVICE_DISPATCHES_PER_TICK,
+                              dispatches)
+        if trace.enabled:
+            trace.record("tick.flush", cat="dispatch",
+                         args={"dispatches": dispatches,
+                               "per_lane": dispatches_per_lane})
+        if governor is not None:
+            if signals:
+                # fold per-lane pressure: the most-pressured lane's
+                # queue fraction drives the narrow decision, sheds and
+                # outstanding retries sum, and any lane leeching widens
+                worst = max(signals, key=lambda s: s.queue_frac)
+                governor.feed_backpressure(BackpressureSignal(
+                    queue_depth=worst.queue_depth,
+                    capacity=worst.capacity,
+                    shed_delta=sum(s.shed_delta for s in signals),
+                    leeching=any(s.leeching for s in signals),
+                    retry_pressure=sum(s.retry_pressure
+                                       for s in signals)))
+            new_interval = governor.observe_shards(
+                vote_deltas, cap_deltas, dispatches,
+                inflight=any(g.lagging for g in tick_groups))
+            timer_box[0].update_interval(new_interval)
+            if trace.enabled:
+                trace.record(
+                    "tick.governor", cat="dispatch",
+                    args={"interval": round(new_interval, 9),
+                          "occupancy_ewma": round(governor.ewma, 6)})
+        with trace.span("tick.eval",
+                        args={"lanes": len(lane_pools)}) \
+                if trace.enabled else _NO_SPAN:
+            for lp in lane_pools:
+                if lp.vote_group is None:
+                    continue
+                for node in lp.nodes:
+                    node.ordering.service_quorum_tick()
+                    node.checkpoints.service_quorum_tick()
+                    replicas = getattr(node, "replicas", None)
+                    for backup in (replicas.backups if replicas else ()):
+                        if backup.vote_plane is not None:
+                            backup.ordering.service_quorum_tick()
+                            backup.checkpoints.service_quorum_tick()
+        if barrier is not None:
+            barrier.service_tick()
+        # per-lane ordered totals (Monitor lanes block: Stat.last)
+        for li, lp in enumerate(lane_pools):
+            metrics.add_event(
+                "%s.%d" % (MetricsName.LANE_ORDERED, li),
+                min(len(nd.ordered_digests) for nd in lp.nodes))
+        metrics.add_event(MetricsName.LANE_COUNT, len(lane_pools))
+
+    interval = governor.interval if governor else config.QuorumTickInterval
+    rt = RepeatingTimer(timer, interval, tick, barrier=True)
+    timer_box.append(rt)
+    rt.governor = governor
+    return rt

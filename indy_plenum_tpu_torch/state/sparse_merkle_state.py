@@ -46,8 +46,7 @@ version). A failed launch raises; nothing falls back to the host
 quietly. State proofs (``generate_state_proof`` and the client-side
 ``verify_state_proof``) are host work, in the wire format of the
 reference (the port's own msgpack encoder and decoder, byte-equal to
-``msgpack``); the resource-ledger registration (``sized_resources``)
-comes with the telemetry slice.
+``msgpack``).
 """
 from __future__ import annotations
 
@@ -267,6 +266,26 @@ class SparseMerkleState(State):
     def cache_hit_rate(self) -> float:
         total = self.cache_hits + self.cache_misses
         return self.cache_hits / total if total else 0.0
+
+    def sized_resources(self, prefix: str = "state."):
+        """Resource-ledger registration (observability.telemetry): the
+        LRU node cache (bounded), the dirty overlay and the uncommitted
+        write count (both transient — drained at each commit, watched
+        by the leak law rather than a declared cap)."""
+        from ..observability.telemetry import SizedResource
+
+        return (
+            SizedResource(prefix + "node_cache",
+                          lambda: len(self._cache),
+                          bound=self._cache_size or None,
+                          entry_bytes=256),
+            SizedResource(prefix + "dirty", lambda: len(self._dirty),
+                          bound=None, entry_bytes=256),
+            SizedResource(prefix + "pending_writes",
+                          lambda: self.pending_writes,
+                          bound=None, entry_bytes=128),
+        )
+
 
     # --- core update ---------------------------------------------------
 

@@ -8,8 +8,8 @@ preserves the same iteration/batch semantics. Keys and values are bytes;
 iteration is byte-lexicographic as in LevelDB.
 
 Copy of ``indy_plenum_tpu/storage/kv_store.py``,
-with its imports bound to the port. The file-backed stores
-(``storage/file_stores.py``) come with the deployed-node slice.
+with its imports bound to the port; the file-backed stores are the port's
+``storage/file_stores.py``.
 """
 from __future__ import annotations
 
@@ -201,8 +201,12 @@ def initKeyValueStorage(storage_type: str, data_dir: str, name: str
         return KeyValueStorageInMemory()
     if storage_type == "sqlite":
         return KeyValueStorageSqlite(data_dir, name)
-    if storage_type in ("chunked_file", "text_file"):
-        raise NotImplementedError(
-            f"the {storage_type} store comes with the deployed-node slice "
-            "of the port")
+    if storage_type == "chunked_file":
+        from .file_stores import ChunkedFileStore
+
+        return ChunkedFileStore(data_dir, name)
+    if storage_type == "text_file":
+        from .file_stores import TextFileStore
+
+        return TextFileStore(data_dir, name)
     raise StorageError(f"unknown storage type {storage_type}")

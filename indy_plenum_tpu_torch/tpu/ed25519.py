@@ -44,16 +44,20 @@ def _pt(x, y, z, t):
 
 
 def point_double(p: torch.Tensor) -> torch.Tensor:
+    """dbl-2008-hwcd. Independent field products run as one stacked call
+    (the field ops are limb-wise, so each row is computed exactly as alone):
+    the four squarings, then the four output products."""
     X, Y, Z = p[..., 0, :], p[..., 1, :], p[..., 2, :]
-    A = fe.sqr(X)
-    B = fe.sqr(Y)
-    C = fe.mul_small(fe.sqr(Z), 2)
+    A, B, ZZ, XY2 = fe.sqr(torch.stack([X, Y, Z, fe.add(X, Y)],
+                                        dim=-2)).unbind(-2)
+    C = fe.mul_small(ZZ, 2)
     Dd = fe.neg(A)
-    E = fe.sub(fe.sub(fe.sqr(fe.add(X, Y)), A), B)
+    E = fe.sub(fe.sub(XY2, A), B)
     G = fe.add(Dd, B)
-    F = fe.sub(G, C)
-    H = fe.sub(Dd, B)
-    return _pt(fe.mul(E, F), fe.mul(G, H), fe.mul(F, G), fe.mul(E, H))
+    F, H = fe.sub(torch.stack([G, Dd], dim=-2),
+                  torch.stack([C, B], dim=-2)).unbind(-2)
+    return fe.mul(torch.stack([E, G, F, E], dim=-2),
+                  torch.stack([F, H, G, H], dim=-2))
 
 
 def to_cached(p: torch.Tensor) -> torch.Tensor:
@@ -64,17 +68,22 @@ def to_cached(p: torch.Tensor) -> torch.Tensor:
 
 
 def point_add_cached(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Extended point + cached point (add-2008-hwcd-3, a=-1)."""
+    """Extended point + cached point (add-2008-hwcd-3, a=-1); its four
+    input products, the sums and the four output products each one
+    stacked call, as in :func:`point_double`."""
     X1, Y1, Z1, T1 = p[..., 0, :], p[..., 1, :], p[..., 2, :], p[..., 3, :]
-    A = fe.mul(fe.sub(Y1, X1), q[..., 1, :])
-    B = fe.mul(fe.add(Y1, X1), q[..., 0, :])
-    C = fe.mul(q[..., 2, :], T1)
-    Dd = fe.mul(q[..., 3, :], Z1)
-    E = fe.sub(B, A)
-    F = fe.sub(Dd, C)
-    G = fe.add(Dd, C)
-    H = fe.add(B, A)
-    return _pt(fe.mul(E, F), fe.mul(G, H), fe.mul(F, G), fe.mul(E, H))
+    q, p = torch.broadcast_tensors(q, p)
+    A, B, C, Dd = fe.mul(
+        torch.stack([fe.sub(Y1, X1), fe.add(Y1, X1), q[..., 2, :],
+                     q[..., 3, :]], dim=-2),
+        torch.stack([q[..., 1, :], q[..., 0, :], T1, Z1], dim=-2)
+    ).unbind(-2)
+    E, F = fe.sub(torch.stack([B, Dd], dim=-2),
+                  torch.stack([A, C], dim=-2)).unbind(-2)
+    G, H = fe.add(torch.stack([Dd, B], dim=-2),
+                  torch.stack([C, A], dim=-2)).unbind(-2)
+    return fe.mul(torch.stack([E, G, F, E], dim=-2),
+                  torch.stack([F, H, G, H], dim=-2))
 
 
 def point_neg(p: torch.Tensor) -> torch.Tensor:
@@ -167,9 +176,12 @@ def _table(name: str, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(globals()[name].copy()).to(device)
 
 
+@torch.inference_mode()
 def verify_kernel_plain(pk: torch.Tensor, rb: torch.Tensor,
                         s: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """The plain version of K-c: (B, 32) uint8 x 4 -> (B,) bool."""
+    """The plain version of K-c: (B, 32) uint8 x 4 -> (B,) bool. Its
+    thousands of small integer ops run in inference mode: no autograd
+    bookkeeping, the same values."""
     batch = pk.shape[0]
     A, ok_a = decompress(pk)
     a_neg = point_neg(A)

@@ -1,9 +1,13 @@
 """The chaos plane in the port against the JAX package.
 
-- Every scenario the port runs (14 of the 17 registered) at seed 7, the
-  port with ``device="cpu"``: every ``ChaosReport`` field equal to the JAX
-  run's, the replay command aside (the port's names its own
-  ``run_scenario``, the reference's its ``scripts/chaos_run.py``).
+- Every one of the 17 registered scenarios at seed 7, the port with
+  ``device="cpu"``: every ``ChaosReport`` field equal to the JAX run's,
+  the replay command and the host's wall-clock series aside (the port's
+  replay names its own ``run_scenario``, the reference's its
+  ``scripts/chaos_run.py``). ``f_crash_catchup_under_saturation`` needs
+  the tick plane and signs its requests, whose verify's plain version is
+  slow on the CPU: at full size it is marked slow, as the reference's
+  test of it is, and a smaller workload of it runs unmarked.
 - ``f_crash_gc_catchup`` traced: ``trace_hash``, the flight recorder and
   the causal journeys equal; the catchup arcs on the tick-batched dispatch
   plane (``device_quorum``, tick 0.05, the adaptive governor) equal the
@@ -11,9 +15,9 @@
 - ``f_crash_partition`` through the port's member mesh and 2-axis fabric
   (one device) and through a depth-4 residency ring orders as the JAX
   run on one device at depth 1, and replays.
-- The three scenarios of later slices (lanes, overload, geo) raise
-  ``NotImplementedError`` naming their slice; the argument checks are the
-  reference's.
+- The three scenarios that came with the workload planes (lanes,
+  overload, geo) run: what raises there is the reference's own argument
+  checks; the other argument checks are the reference's too.
 - The port's full ``observability/causal.py``: ``build_journeys``,
   ``journey_summary``, ``journey_hash`` and ``journey_for`` on one trace,
   equal to the reference's.
@@ -31,11 +35,12 @@ from indy_plenum_tpu_torch.observability import causal as port_causal  # noqa: E
 LATER = {"lane_partition": "lanes",
          "f_crash_catchup_under_saturation": "overload",
          "edge_cache_poisoning": "geo"}
-RUNNABLE = [name for name in SCENARIOS if name not in LATER]
+SATURATION = "f_crash_catchup_under_saturation"
+RUNNABLE = [name for name in SCENARIOS if name != SATURATION]
 TICK = dict(device_quorum=True, quorum_tick_interval=0.05,
             quorum_tick_adaptive=True)
-# a host wall-clock series: the one field two runs never share
-WALL_METRICS = ("device.flush_time",)
+# host wall-clock series: the fields two runs never share
+WALL_METRICS = ("device.flush_time", "auth.batch_time")
 
 
 def _record(report):
@@ -56,7 +61,7 @@ def test_registries_match():
     from indy_plenum_tpu.chaos import SCENARIOS as JAX_SCENARIOS
 
     assert list(SCENARIOS) == list(JAX_SCENARIOS)
-    assert len(RUNNABLE) == 14
+    assert len(RUNNABLE) == 16 and len(SCENARIOS) == 17
     for name, sc in SCENARIOS.items():
         ref = JAX_SCENARIOS[name]
         assert sc.plan(7).as_dicts() == ref.plan(7).as_dicts()
@@ -96,8 +101,77 @@ def test_tick_plane_arcs_match_jax(name):
 
 @pytest.mark.parametrize("name", sorted(LATER))
 def test_later_slice_scenarios_raise(name):
-    with pytest.raises(NotImplementedError, match=LATER[name]):
-        port_run(name, 7, device="cpu")
+    """The three scenarios whose slices have landed no longer raise
+    ``NotImplementedError``: what raises is the reference's own argument
+    checks, alike in both runners, and each scenario's verdicts hold on
+    the port (its whole report is held in ``test_scenario_matches_jax``,
+    and for the saturating one in the cases below)."""
+    for run in (jax_run, port_run):
+        extra = {} if run is jax_run else {"device": "cpu"}
+        if name == "lane_partition":
+            for kw in (dict(host_eval=True), dict(resident_depth=4, **TICK),
+                       dict(mesh=object(), **TICK)):
+                with pytest.raises(ValueError, match="laned"):
+                    run(name, 7, **kw, **extra)
+        elif name == SATURATION:
+            with pytest.raises(ValueError, match="tick-batched"):
+                run(name, 7, **extra)
+    if name == "edge_cache_poisoning":
+        report = port_run(name, 7, device="cpu")
+        verdicts = {r["name"]: r["verdict"] for r in report.invariants}
+        assert verdicts["edge_poisoning"] == "PASS"
+        assert verdicts["edge_honest_serve"] == "PASS"
+        poisoned = report.edge["poisoned"]
+        assert poisoned["tampered"] == poisoned["caught"] > 0
+        assert report.edge["honest"]["edge_serve_pairings"] == 0
+
+
+SAT_TICK = dict(device_quorum=True, quorum_tick_interval=0.1,
+                quorum_tick_adaptive=True)
+
+
+def _saturation_pair(seed, **smaller):
+    """The saturating scenario through both runners; ``smaller`` replaces
+    fields of the registered scenario (the same in both packages)."""
+    import dataclasses
+
+    from indy_plenum_tpu.chaos import get_scenario as jax_get
+    from indy_plenum_tpu_torch.chaos import get_scenario as port_get
+
+    want = jax_run(dataclasses.replace(jax_get(SATURATION), **smaller),
+                   seed, trace=True, **SAT_TICK)
+    got = port_run(dataclasses.replace(port_get(SATURATION), **smaller),
+                   seed, trace=True, device="cpu", **SAT_TICK)
+    return want, got
+
+
+def _check_saturation(want, got):
+    assert _record(got) == _record(want)
+    assert got.trace_hash == want.trace_hash
+    assert got.verdict_as_expected and not got.failed
+    ing = got.ingress
+    assert ing["shed_hash"] == want.ingress["shed_hash"]
+    assert ing["retry_hash"] == want.ingress["retry_hash"]
+    assert ing["admission"]["shed"] > 0 and ing["retry"]["reoffers"] > 0
+    assert got.catchup["txns_leeched"] > 0
+
+
+def test_saturation_scenario_small_workload_matches_jax():
+    """The saturating scenario with a half-second crowd of 4 writes/s: the
+    whole report, ``shed_hash``, ``retry_hash`` and the trace equal the
+    JAX run's, and its recovery verdicts hold."""
+    _check_saturation(*_saturation_pair(
+        7, workload_duration=0.5, workload_rate=4.0))
+
+
+@pytest.mark.slow
+def test_saturation_scenario_matches_jax():
+    """The reference's slow case (seed 11, the tick plane at 0.1, traced)
+    at full size: the flash crowd sheds, the retries re-offer, the seeder
+    throttle defers, and both runners write the same report."""
+    want, got = _saturation_pair(11)
+    _check_saturation(want, got)
+    assert got.ingress["seeder_throttle"]["deferred"] > 0
 
 
 def test_run_scenario_checks_its_dispatch_arguments():
@@ -180,6 +254,25 @@ def test_smoke_phase_x_on_cpu_matches_jax():
     assert record == want
     assert counted["quorum_step"] == report.metrics["device.flush"]["count"]
     assert counted["window_slide"] > 0 and recover > 0
+
+
+@pytest.mark.parametrize("name", [
+    "lane_partition", "edge_cache_poisoning",
+    pytest.param(SATURATION, marks=pytest.mark.slow)])
+def test_smoke_phase_x_workload_arms_on_cpu_match_jax(name):
+    """``chip_smoke.py`` phase X's workload arms on the CPU (the twins the
+    card's runs are held against): the record equals the JAX run's, and
+    the dispatches counted for the card's K7 are one a flush."""
+    import chip_smoke as cs
+
+    with cs.plain_dispatches() as counted:
+        report, record, _, _ = cs.run_chaos_x("cpu", name)
+    want = _record(jax_run(name, cs.X_SEED, trace=True, **cs.X_TICK))
+    want.pop("trace_file")
+    assert record == want
+    assert report.verdict_as_expected and not report.failed
+    assert counted["quorum_step"] == report.metrics["device.flush"]["count"]
+    assert counted["window_slide"] > 0
 
 
 def test_resident_arc_orders_as_jax():

@@ -189,5 +189,9 @@ def test_proof_cache_reads_match_jax():
         assert (svc, cache) == (want_svc, want_cache)
     assert svc["proofs_attached"] == 5
     assert verify_proved_read(got[2], keys, min_participants=3)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        tcc.CheckpointProofCache(None, None, None).sized_resources()
+    # the resource-ledger registration is the reference's
+    got = [(r.name, r.entries(), r.bound, r.entry_bytes) for r in
+           tcc.CheckpointProofCache(None, None, None).sized_resources()]
+    want = [(r.name, r.entries(), r.bound, r.entry_bytes) for r in
+            jcc.CheckpointProofCache(None, None, None).sized_resources()]
+    assert got == want and got

@@ -51,6 +51,11 @@ def test_port_imports_without_jax_or_reference():
                 "proofs.checkpoint_cache", "client.state_proof",
                 "observability.causal", "chaos.runner", "chaos.scenarios"):
         assert "indy_plenum_tpu_torch." + mod in mods
+    for mod in ("ingress.workload", "ingress.retry", "lanes", "lanes.router",
+                "lanes.barrier", "lanes.pool", "observability.telemetry",
+                "simulation.soak", "proofs.edge_cache",
+                "storage.file_stores"):
+        assert "indy_plenum_tpu_torch." + mod in mods
     for src in ("resident_tile.cu", "quorum_common.cuh", "quorum.cu",
                 "window.cu", "ring.cu"):
         assert os.path.isfile(os.path.join(PKG, "csrc", src)), src
@@ -104,7 +109,12 @@ def _entry_points(device_kw):
     )
     from indy_plenum_tpu_torch.tpu.sha256 import merkle_node_hash_bytes
     from indy_plenum_tpu_torch.chaos import run_scenario
+    from indy_plenum_tpu_torch.lanes import LanedPool, lane_meshes
     from indy_plenum_tpu_torch.simulation.pool import SimPool
+    from indy_plenum_tpu_torch.simulation.soak import _day_soak_once
+    from indy_plenum_tpu_torch.simulation.state_commit_bench import (
+        run_state_soak,
+    )
     from indy_plenum_tpu_torch.tpu.ed25519 import batch_verify
     from indy_plenum_tpu_torch.tpu.compile_plan import resident_plan_for
     from indy_plenum_tpu_torch.tpu.step import example_inputs, fused_step
@@ -152,6 +162,15 @@ def _entry_points(device_kw):
             4, real_execution=True, bls=True, **device_kw),
         "run_scenario": lambda: run_scenario(
             "f_crash_partition", 7, **device_kw),
+        "run_scenario.lanes": lambda: run_scenario(
+            "lane_partition", 7, **device_kw),
+        "LanedPool": lambda: LanedPool(2, device_quorum=True, **device_kw),
+        "lane_meshes": lambda: lane_meshes(2, (2,), **device_kw),
+        "day_soak": lambda: _day_soak_once(
+            0.05, 0.1, 17, 10, 99.0, 1.0, 99.0, 0, **device_kw),
+        "run_state_soak": lambda: run_state_soak(
+            hours=0.05, n_keys=10, period=90.0, sample_every=30.0,
+            repeats=1, **device_kw),
         "SparseMerkleState": lambda: SparseMerkleState(**device_kw),
         "ReadService": lambda: ReadService(StaticCorpusBacking(8),
                                            **device_kw),
@@ -168,7 +187,9 @@ ENTRY_POINTS = ["CoreAuthNr", "VotePlaneGroup", "VotePlaneGroup.resident",
                 "SimPool.fabric", "DeviceVotePlane",
                 "batch_verify", "SimPool.device_quorum",
                 "SimPool.sign_requests", "SimPool.real_execution",
-                "SimPool.bls", "run_scenario", "SparseMerkleState", "ReadService",
+                "SimPool.bls", "run_scenario", "run_scenario.lanes",
+                "LanedPool", "lane_meshes", "day_soak", "run_state_soak",
+                "SparseMerkleState", "ReadService",
                 "verify_audit_paths_batch", "merkle_node_hash_bytes"]
 
 

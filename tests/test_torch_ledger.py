@@ -244,7 +244,14 @@ def test_kv_stores_match_jax(kind, tmp_path):
     assert list(port.iterator(lo, hi, include_value=False)) \
         == list(ref.iterator(lo, hi, include_value=False))
     assert port.get_equal_or_none(b"nope") is None
-    with pytest.raises(NotImplementedError):
-        pkv.initKeyValueStorage("chunked_file", str(tmp_path), "x")
+    # the file-backed kinds are the port's storage/file_stores.py
+    # (tests/test_torch_file_stores.py holds them against the JAX stores)
+    for file_kind in ("chunked_file", "text_file"):
+        got = pkv.initKeyValueStorage(file_kind, str(tmp_path / "pf"), "x")
+        want = jkv.initKeyValueStorage(file_kind, str(tmp_path / "jf"), "x")
+        assert type(got).__name__ == type(want).__name__
+        assert type(got).__module__.startswith("indy_plenum_tpu_torch.")
+        got.close()
+        want.close()
     port.close()
     ref.close()
