@@ -16,11 +16,12 @@ disabled: :data:`NULL_TRACE` is a :class:`NullTraceRecorder`, and every
 hot-path call site guards argument construction behind ``trace.enabled``.
 
 Copy of the recorder part of ``indy_plenum_tpu/observability/trace.py``
-(``TraceRecorder``, ``NullTraceRecorder``, the JSONL dump format) and of
-its nearest-rank ``percentile``, which the causal journeys use. The
-other dump analytics (phase percentiles, critical path, overlap and
-rollup reports, Chrome trace export) and the ordering lanes'
-``LaneTraceView`` are not part of the port yet.
+(``TraceRecorder``, ``NullTraceRecorder``, ``LaneTraceView``, the JSONL
+dump format), of its nearest-rank ``percentile``, which the causal
+journeys use, and of its phase analytics (``phase_durations``,
+``phase_percentiles``), which the RBFT monitor's snapshot reports. The
+other dump analytics (critical path, overlap and rollup reports, Chrome
+trace export) are not part of the port yet.
 """
 from __future__ import annotations
 
@@ -41,6 +42,37 @@ DEFAULT_CAPACITY = 65536
 # must not grow memory without bound
 FLIGHT_TAIL = 512
 MAX_FLIGHT_DUMPS = 8
+
+# canonical 3PC phase chain: each phase is the delta between two
+# lifecycle marks for the same (node, key) group. ``commit_quorum`` is
+# recorded when the service OBSERVES the quorum (in tick mode that is
+# the tick instant), so ``order`` captures only the in-order delivery
+# wait on top of it.
+PHASES: Tuple[Tuple[str, str, str], ...] = (
+    ("prepare", "3pc.preprepare", "3pc.prepare_quorum"),
+    ("commit", "3pc.prepare_quorum", "3pc.commit_quorum"),
+    ("order", "3pc.commit_quorum", "3pc.ordered"),
+    ("execute", "3pc.ordered", "3pc.executed"),
+    ("total_3pc", "3pc.preprepare", "3pc.executed"),
+)
+AUTH_PHASE = ("auth", "req.ingress", "req.finalised")
+# state-proof plane: a checkpoint boundary batch's ordering → its
+# window's pool proof becoming servable (CheckpointProofCache capture).
+# Joined per node on (view_no, seq_no_end) — the window key IS the
+# boundary batch's (view, pp_seq), so the sample measures exactly the
+# stabilization wait a proved read pays before a root is servable.
+PROOF_PHASE = ("proof", "3pc.ordered", "proof.window_signed")
+# catchup plane: a leecher round's full recovery arc, joined per
+# (node, round ordinal) — how long a lagging node took from detecting
+# the gap to rejoining 3PC with every leeched batch proof-verified
+# (``catchup.txns_leeched`` marks ride the same category, un-keyed).
+CATCHUP_PHASE = ("catchup", "catchup.started", "catchup.completed")
+# state-commit plane: a batch's execution (commit_batch returning its
+# staged record) → its state root durably advanced (the executed→proof
+# hop's first half). Joined per node on (view_no, pp_seq_no) — the
+# ``state.commit`` mark also carries the node's cumulative tree-hash
+# meter, so a dump shows hash cost alongside the latency chain.
+STATE_PHASE = ("state_commit", "3pc.executed", "state.commit")
 
 
 class TraceRecorder:
@@ -283,6 +315,132 @@ def load_jsonl(path: str) -> List[Dict[str, Any]]:
     return events
 
 
+# ----------------------------------------------------------------------
+# phase analytics
+# ----------------------------------------------------------------------
+
+def _mark_times(events: List[Dict[str, Any]], cat: str,
+                nodes: Optional[frozenset]
+                ) -> Dict[tuple, Dict[str, float]]:
+    """(node, key) -> {mark name -> earliest ts} for one category;
+    ``nodes`` filters to that set (None = every node)."""
+    groups: Dict[tuple, Dict[str, float]] = {}
+    for ev in events:
+        if ev.get("cat") != cat or ev.get("key") is None:
+            continue
+        ev_node = ev.get("node", "")
+        if nodes is not None and ev_node not in nodes:
+            continue
+        marks = groups.setdefault((ev_node, tuple(ev["key"])), {})
+        name = ev["name"]
+        if name not in marks or ev["ts"] < marks[name]:
+            marks[name] = ev["ts"]
+    return groups
+
+
+def phase_durations(events: List[Dict[str, Any]],
+                    node: Optional[str] = None) -> Dict[str, List[float]]:
+    """Per-phase duration samples from lifecycle marks. ``node=None``
+    aggregates every node's samples (request marks recorded pool-level
+    under node ``""`` are always included — the auth phase is a pool
+    observation, not a per-replica one)."""
+    out: Dict[str, List[float]] = {}
+    for (_node, _key), marks in sorted(
+            _mark_times(events, "3pc",
+                        None if node is None
+                        else frozenset((node,))).items()):
+        # the primary's own batch has no applied mark; its send mark is
+        # the honest phase start
+        if "3pc.preprepare" not in marks \
+                and "3pc.preprepare_sent" in marks:
+            marks["3pc.preprepare"] = marks["3pc.preprepare_sent"]
+        for phase, start, end in PHASES:
+            if start in marks and end in marks:
+                out.setdefault(phase, []).append(
+                    marks[end] - marks[start])
+    # auth phase: ingress happens on whichever node the client hit (or
+    # pool-level under node ""), finalisation on EVERY node — so the
+    # join runs per request digest across nodes: earliest ingress
+    # anywhere → earliest finalisation on the filtered node
+    ingress_ts: Dict[tuple, float] = {}
+    finalised_ts: Dict[tuple, float] = {}
+    for ev in events:
+        if ev.get("cat") != "req" or ev.get("key") is None:
+            continue
+        k = tuple(ev["key"])
+        if ev["name"] == AUTH_PHASE[1]:
+            if k not in ingress_ts or ev["ts"] < ingress_ts[k]:
+                ingress_ts[k] = ev["ts"]
+        elif ev["name"] == AUTH_PHASE[2]:
+            if node is not None and ev.get("node", "") not in (node, ""):
+                continue
+            if k not in finalised_ts or ev["ts"] < finalised_ts[k]:
+                finalised_ts[k] = ev["ts"]
+    for k in sorted(finalised_ts):
+        if k in ingress_ts:
+            out.setdefault(AUTH_PHASE[0], []).append(
+                finalised_ts[k] - ingress_ts[k])
+    # proof phase: per node, each proof.window_signed (key (view, seq))
+    # joins the SAME node's earliest 3pc.ordered mark for the boundary
+    # batch (key (view, seq, digest)) — the stabilization wait between
+    # a window's last batch ordering and its pool proof being servable
+    ordered_at: Dict[tuple, float] = {}
+    for ev in events:
+        if ev.get("cat") != "3pc" or ev["name"] != PROOF_PHASE[1] \
+                or ev.get("key") is None or len(ev["key"]) < 2:
+            continue
+        if node is not None and ev.get("node", "") != node:
+            continue
+        k = (ev.get("node", ""), ev["key"][0], ev["key"][1])
+        if k not in ordered_at or ev["ts"] < ordered_at[k]:
+            ordered_at[k] = ev["ts"]
+    for ev in events:
+        if ev.get("cat") != "proof" or ev["name"] != PROOF_PHASE[2] \
+                or ev.get("key") is None or len(ev["key"]) < 2:
+            continue
+        if node is not None and ev.get("node", "") != node:
+            continue
+        t0 = ordered_at.get(
+            (ev.get("node", ""), ev["key"][0], ev["key"][1]))
+        if t0 is not None:
+            out.setdefault(PROOF_PHASE[0], []).append(ev["ts"] - t0)
+    # state-commit phase: per node, each state.commit (key (view, seq))
+    # joins the SAME node's earliest 3pc.executed mark for that batch
+    # (key (view, seq, digest)) — how long after execution the state
+    # root was durably advanced (same cross-category join as the proof
+    # phase above)
+    executed_at: Dict[tuple, float] = {}
+    for ev in events:
+        if ev.get("cat") != "3pc" or ev["name"] != STATE_PHASE[1] \
+                or ev.get("key") is None or len(ev["key"]) < 2:
+            continue
+        if node is not None and ev.get("node", "") != node:
+            continue
+        k = (ev.get("node", ""), ev["key"][0], ev["key"][1])
+        if k not in executed_at or ev["ts"] < executed_at[k]:
+            executed_at[k] = ev["ts"]
+    for ev in events:
+        if ev.get("cat") != "state" or ev["name"] != STATE_PHASE[2] \
+                or ev.get("key") is None or len(ev["key"]) < 2:
+            continue
+        if node is not None and ev.get("node", "") != node:
+            continue
+        t0 = executed_at.get(
+            (ev.get("node", ""), ev["key"][0], ev["key"][1]))
+        if t0 is not None:
+            out.setdefault(STATE_PHASE[0], []).append(ev["ts"] - t0)
+    # catchup phase: each leecher round's started -> completed arc,
+    # joined per (node, round ordinal) like the 3PC lifecycle marks
+    for (_node, _key), marks in sorted(
+            _mark_times(events, "catchup",
+                        None if node is None
+                        else frozenset((node,))).items()):
+        if CATCHUP_PHASE[1] in marks and CATCHUP_PHASE[2] in marks:
+            out.setdefault(CATCHUP_PHASE[0], []).append(
+                marks[CATCHUP_PHASE[2]] - marks[CATCHUP_PHASE[1]])
+    return out
+
+
 def percentile(samples: List[float], q: float) -> float:
     """Nearest-rank percentile over a SORTED sample list (deterministic:
     no interpolation)."""
@@ -290,3 +448,22 @@ def percentile(samples: List[float], q: float) -> float:
         return 0.0
     rank = max(1, -(-len(samples) * q // 100))  # ceil without floats
     return samples[int(rank) - 1]
+
+
+def phase_percentiles(events: List[Dict[str, Any]],
+                      node: Optional[str] = None,
+                      ndigits: int = 6) -> Dict[str, Dict[str, float]]:
+    """{phase: {count, p50, p90, p99, max}} — the ``phase_latency``
+    block every surface reports (Monitor.snapshot, profile_rbft --json,
+    bench ordered sub-benches, trace_tool)."""
+    out: Dict[str, Dict[str, float]] = {}
+    for phase, samples in phase_durations(events, node=node).items():
+        s = sorted(samples)
+        out[phase] = {
+            "count": len(s),
+            "p50": round(percentile(s, 50), ndigits),
+            "p90": round(percentile(s, 90), ndigits),
+            "p99": round(percentile(s, 99), ndigits),
+            "max": round(s[-1], ndigits),
+        }
+    return out

@@ -56,6 +56,15 @@ def test_port_imports_without_jax_or_reference():
                 "simulation.soak", "proofs.edge_cache",
                 "storage.file_stores"):
         assert "indy_plenum_tpu_torch." + mod in mods
+    for mod in ("storage.req_id_to_txn", "plugins", "plugins.loader",
+                "server.throughput_measurement", "server.monitor",
+                "server.propagator", "server.notifier", "server.observer",
+                "server.pool_manager",
+                "server.request_managers.read_request_manager",
+                "server.request_managers.action_request_manager",
+                "server.node", "client.wallet", "client.client",
+                "simulation.node_pool"):
+        assert "indy_plenum_tpu_torch." + mod in mods
     for src in ("resident_tile.cu", "quorum_common.cuh", "quorum.cu",
                 "window.cu", "ring.cu"):
         assert os.path.isfile(os.path.join(PKG, "csrc", src)), src
@@ -110,7 +119,12 @@ def _entry_points(device_kw):
     from indy_plenum_tpu_torch.tpu.sha256 import merkle_node_hash_bytes
     from indy_plenum_tpu_torch.chaos import run_scenario
     from indy_plenum_tpu_torch.lanes import LanedPool, lane_meshes
+    from indy_plenum_tpu_torch.server.node import Node
+    from indy_plenum_tpu_torch.server.observer import Observer
+    from indy_plenum_tpu_torch.simulation.mock_timer import MockTimer
+    from indy_plenum_tpu_torch.simulation.node_pool import NodePool
     from indy_plenum_tpu_torch.simulation.pool import SimPool
+    from indy_plenum_tpu_torch.simulation.sim_network import SimNetwork
     from indy_plenum_tpu_torch.simulation.soak import _day_soak_once
     from indy_plenum_tpu_torch.simulation.state_commit_bench import (
         run_state_soak,
@@ -134,6 +148,10 @@ def _entry_points(device_kw):
 
         return make_fabric_mesh([device_kw.get("device", "cuda")] * 8,
                                 (2, 2))
+
+    def node():
+        timer = MockTimer()
+        return Node("a", validators, timer, SimNetwork(timer), **device_kw)
 
     return {
         "CoreAuthNr": lambda: CoreAuthNr(**device_kw),
@@ -179,6 +197,12 @@ def _entry_points(device_kw):
         "merkle_node_hash_bytes": lambda: merkle_node_hash_bytes(
             np.zeros((2, 32), np.uint8), np.zeros((2, 32), np.uint8),
             **device_kw),
+        "Node": node,
+        "NodePool": lambda: NodePool(4, **device_kw),
+        "NodePool.device_quorum": lambda: NodePool(
+            4, device_quorum=True, num_instances=0, **device_kw),
+        "Observer": lambda: Observer("o", SimNetwork(MockTimer()),
+                                     **device_kw),
     }
 
 
@@ -190,7 +214,8 @@ ENTRY_POINTS = ["CoreAuthNr", "VotePlaneGroup", "VotePlaneGroup.resident",
                 "SimPool.bls", "run_scenario", "run_scenario.lanes",
                 "LanedPool", "lane_meshes", "day_soak", "run_state_soak",
                 "SparseMerkleState", "ReadService",
-                "verify_audit_paths_batch", "merkle_node_hash_bytes"]
+                "verify_audit_paths_batch", "merkle_node_hash_bytes",
+                "Node", "NodePool", "NodePool.device_quorum", "Observer"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
