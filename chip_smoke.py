@@ -211,6 +211,20 @@ V. node       - the deployed validator node: real ``Node``s in
                 dispatch-free ``trace_hash``) equals its CPU twin's, K-a,
                 K-b and K-c launch once a drain, and K7 / K8 launches
                 equal the dispatches the CPU twin counted;
+Y. replay     - the recorder (``recorder/``): node2 of a live
+                ``NodePool`` on the card is recorded from before the first
+                write, its log dumped to a file and loaded back, and
+                replayed into a fresh ``Node`` on a fresh ``MockTimer``
+                with ``ReplayNetwork``, on the card. Y1 is the reference's
+                recorder test (``NodePool(4, seed=82)``, the host quorum,
+                30 signed NYMs round-robin: three batches); Y2 is V2a's
+                pool with 48 writes (two stable checkpoints) replayed into
+                a node with its own standalone ``DeviceVotePlane`` ticking
+                on the node's timer (K7, K8's slide). Each replay gives the
+                live node2's ordered digests, domain root and state head;
+                the recorded file, the fingerprint and the replay's
+                launches equal the CPU twin's (K-a/K-b/K-c once a drain,
+                K7 / K8 as the CPU counted);
 E. state      - ``run_commit_arms`` host vs device waves at the
                 reference's state-bench delta and windows (delta 256, 20
                 windows) over a 20,000-key state (the cell's 100,000 cut
@@ -225,9 +239,9 @@ E. state      - ``run_commit_arms`` host vs device waves at the
                 ``{"ok": true, "device": {...}}``.
 
 Each main-path run (phases 3, 4, A, B, F, G, H, R, C, D, L, P, X, O, N, S,
-W, V and E on the card) starts with every launch counter at 0 and reads
+W, V, Y and E on the card) starts with every launch counter at 0 and reads
 the counters right after; the ``kernels`` line's ``launches`` are their
-sums. The CPU twins of phases A, B, O, N, S, W, V and X's workload arms
+sums. The CPU twins of phases A, B, O, N, S, W, V, Y and X's workload arms
 run in worker processes (``TWIN_WORKERS``, one torch thread each) started with
 the script and stopped with it.
 
@@ -3908,10 +3922,10 @@ def node_record(pool, client=None, digests=()):
     }
 
 
-def _count_drains(pool):
-    """Count every node's device verifies (one a drain with an entry)."""
+def _count_drains(nodes):
+    """Count the nodes' device verifies (one a drain with an entry)."""
     counts = {"drains": 0, "entries": 0}
-    for nd in pool.nodes:
+    for nd in nodes:
         verify = nd.authnr._verify_entries
 
         def counted(pks, msgs, sigs, verify=verify):
@@ -3953,7 +3967,7 @@ def run_node_v1(device, bursts=V1_BURSTS, burst=V1_BURST):
                     device_quorum=True, bls=True, num_instances=0,
                     with_pool_genesis=True, trace=True, device=device)
     build_s = time.perf_counter() - t0
-    drains = _count_drains(pool)
+    drains = _count_drains(pool.nodes)
     client = pool.make_client()
     digests = []
     sim0 = pool.timer.get_current_time()
@@ -4003,7 +4017,7 @@ def run_node_v2a(device, writes=V2A_WRITES):
     pool = NodePool(4, seed=V2A_SEED, config=getConfig(V2A_CONFIG),
                     device_quorum=True, bls=True, num_instances=0,
                     with_pool_genesis=True, trace=True, device=device)
-    drains = _count_drains(pool)
+    drains = _count_drains(pool.nodes)
     client = pool.make_client()
     digests = [client.submit_write(pool.make_nym_request())
                for _ in range(writes)]
@@ -4051,7 +4065,7 @@ def run_node_v2b(device, writes=V2B_WRITES):
         return None
 
     pool.network.add_delayer(throttle)
-    drains = _count_drains(pool)
+    drains = _count_drains(pool.nodes)
     for i in range(writes):
         pool.submit_to(f"node{i % 4}", pool.make_nym_request())
     sim0 = pool.timer.get_current_time()
@@ -4160,6 +4174,216 @@ def check_v(runs, card, jobs):
               primaries=rec["primaries"][0], cpu_counted=counted,
               card=card)
     _line("node_v_summary", check_s=time.perf_counter() - t0, card=card)
+    return arms
+
+
+# --- phase Y: a recorded node replayed on the card --------------------------
+#
+# ``recorder/``: node2 of a live NodePool is recorded (every message and
+# client request it took in, on the virtual clock), the log is dumped to a
+# file and loaded back, and replayed into a fresh Node built on a fresh
+# MockTimer with ``ReplayNetwork`` (its sends go nowhere). The replay must
+# order what the live node ordered, into the same domain ledger and state:
+# a node is a function of its genesis, its config and its timed inputs.
+# The replayed node's ingress drains run K-a, K-b and K-c; in Y2 its own
+# standalone vote plane runs K7 each tick and K8's slide at each stable
+# checkpoint.
+
+Y_SEED = 82  # tests/test_metrics_recorder.py:72
+Y1_WRITES = 30  # three 3PC batches at the default Max3PCBatchSize of 10
+Y2_WRITES = 48  # twelve batches of 4 at CHK_FREQ 5: two stable checkpoints
+Y_TAIL_S = 5.0  # virtual seconds the live pool runs on past its last order
+Y_KERNELS = ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
+             "quorum_step", "window_slide", "window_zero")
+Y_PATH = {"Y1": ("sha512_blocks", "reduce_mod_l", "ed25519_verify"),
+          "Y2": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
+                 "quorum_step", "window_slide")}
+Y_COMPARE = ("recording", "entries", "bytes", "writes", "ordered",
+             "ordered_count", "domain_root", "state_head",
+             "stable_checkpoint", "drains", "entries_verified", "launches")
+
+
+def _replay_fingerprint(node):
+    """What a replay must reproduce: the ordered digests, the domain
+    ledger's root and the domain state's committed head."""
+    from indy_plenum_tpu_torch.common.constants import DOMAIN_LEDGER_ID
+
+    db = node.boot.db
+    return {"ordered": _digest(node.ordered_digests),
+            "ordered_count": len(node.ordered_digests),
+            "domain_root": db.get_ledger(DOMAIN_LEDGER_ID).root_hash.hex(),
+            "state_head": db.get_state(
+                DOMAIN_LEDGER_ID).committed_head_hash.hex(),
+            "stable_checkpoint": node.data.stable_checkpoint}
+
+
+def run_replay_y(device, arm):
+    """Phase Y, one arm. Y1 is the reference's recorder test
+    (``tests/test_metrics_recorder.py:72``): ``NodePool(4, seed=82)`` on
+    the host quorum, ``Y1_WRITES`` signed NYMs sent round-robin, one to a
+    node. Y2 is phase V2a's pool (BLS, f+1 instances, pool genesis, the
+    grouped plane on a 0.05 s tick, CHK_FREQ 5, LOG_SIZE 15) with
+    ``Y2_WRITES`` writes from a client to every node, replayed into a
+    node with a standalone ``DeviceVotePlane`` on the same device that
+    ticks on the node's own timer. The recorder is attached to node2
+    before the first write; the log goes through a file; the replay must
+    give the live node2's fingerprint, or this raises. The replay's
+    launches: on the card the launch counters' growth, on the CPU the
+    dispatches ``plain_dispatches`` counts and one verify a drain."""
+    import os
+    import tempfile
+
+    import torch
+
+    from indy_plenum_tpu_torch.config import getConfig
+    from indy_plenum_tpu_torch.recorder import Recorder, Replayer
+    from indy_plenum_tpu_torch.recorder.recorder import ReplayNetwork
+    from indy_plenum_tpu_torch.server.node import Node
+    from indy_plenum_tpu_torch.simulation.mock_timer import MockTimer
+    from indy_plenum_tpu_torch.simulation.node_pool import NodePool
+    from indy_plenum_tpu_torch.tpu.vote_plane import DeviceVotePlane
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+    from indy_plenum_tpu_torch.utils.torch_env import resolve_device
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    if arm == "Y1":
+        pool = NodePool(4, seed=Y_SEED, device=dev)
+    else:
+        pool = NodePool(4, seed=V2A_SEED, config=getConfig(V2A_CONFIG),
+                        device_quorum=True, bls=True, num_instances=0,
+                        with_pool_genesis=True, device=dev)
+    start = pool.timer.get_current_time()
+    recorder = Recorder()
+    recorder.attach(pool.node("node2"))
+    if arm == "Y1":
+        writes = Y1_WRITES
+        for i in range(writes):
+            pool.submit_to(f"node{i % 4}", pool.make_nym_request())
+    else:
+        writes = Y2_WRITES
+        client = pool.make_client()
+        for _ in range(writes):
+            client.submit_write(pool.make_nym_request())
+    _sim_until(pool, _ordered_all(pool, writes), V_SIM_BUDGET, 1.0,
+               f"phase {arm} live")
+    pool.run_for(Y_TAIL_S)
+    live = _replay_fingerprint(pool.node("node2"))
+    live_sim_s = pool.timer.get_current_time() - start
+    record_s = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "node2.rec")
+        recorder.dump(path)
+        with open(path, "rb") as fh:
+            raw = fh.read()
+        loaded = Recorder.load(path)
+    if len(loaded.entries) != len(recorder.entries):
+        raise AssertionError(f"phase {arm}: {len(recorder.entries)} entries "
+                             f"recorded, {len(loaded.entries)} loaded")
+
+    t0 = time.perf_counter()
+    timer = MockTimer(start_time=start)
+    extra = {}
+    if arm == "Y2":
+        config = pool.config
+        extra = dict(
+            vote_plane=DeviceVotePlane(
+                list(pool.validators), log_size=config.LOG_SIZE,
+                n_checkpoints=max(1, config.LOG_SIZE // config.CHK_FREQ),
+                device=dev),
+            bls_keys=pool.bls_keys, num_instances=0,
+            pool_genesis=[dict(t) for t in pool.pool_genesis])
+    fresh = Node("node2", list(pool.validators), timer, ReplayNetwork(),
+                 config=pool.config,
+                 domain_genesis=[dict(t) for t in pool._domain_genesis],
+                 seed_keys=dict(pool._seed_keys), device=dev, **extra)
+    drains = _count_drains([fresh])
+    fresh.start()
+    Replayer(loaded).replay_into(fresh, timer)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        before = kb.launch_counts()
+        timer.advance(live_sim_s)
+        torch.cuda.synchronize()
+        after = kb.launch_counts()
+        launches = {k: after[k] - before[k] for k in Y_KERNELS}
+    else:
+        with plain_dispatches() as counted:
+            timer.advance(live_sim_s)
+        launches = dict(counted, **{k: drains["drains"] for k in (
+            "sha512_blocks", "reduce_mod_l", "ed25519_verify")})
+    replay_s = time.perf_counter() - t0
+    got = _replay_fingerprint(fresh)
+    if got != live:
+        raise AssertionError(f"phase {arm}: the replay gave {got}, the "
+                             f"live node2 {live}")
+    if live["ordered_count"] != writes:
+        raise AssertionError(f"phase {arm}: node2 ordered "
+                             f"{live['ordered_count']} of {writes}")
+    missing = [k for k in Y_PATH[arm] if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"phase {arm}: the replay never launched "
+                             f"{missing}: {launches}")
+    return dict(got, arm=arm, writes=writes, entries=len(recorder.entries),
+                bytes=len(raw), recording=hashlib.sha256(raw).hexdigest(),
+                drains=drains["drains"], entries_verified=drains["entries"],
+                launches=launches, live_sim_s=live_sim_s, record_s=record_s,
+                replay_s=replay_s)
+
+
+Y_ARMS = ("Y1", "Y2")
+
+
+def twin_replay(arm):
+    """A phase Y arm with ``device="cpu"``."""
+    return _timed(run_replay_y, "cpu", arm)
+
+
+def card_y(on_card, card):
+    """Phase Y's arms on the card; ``check_y`` holds each against its CPU
+    twin."""
+    runs = {}
+    for arm in Y_ARMS:
+        t0 = time.perf_counter()
+        runs[arm] = on_card(f"replay_{arm}", run_replay_y, None, arm)
+        _line("replay_y_card", arm=arm, phase_s=time.perf_counter() - t0,
+              card=card)
+    return runs
+
+
+def check_y(runs, card, jobs):
+    """Phase Y: each arm's record on the card equal to its CPU twin's on
+    ``Y_COMPARE`` (the recorded file byte for byte, the replay's ordered
+    digests, domain root and state head, its drains, and its launches
+    against the CPU's counted dispatches and drains), and K-a/K-b/K-c
+    launched once a drain of the replay."""
+    t0 = time.perf_counter()
+    arms = {}
+    for arm in Y_ARMS:
+        rec, y_launches, wall = runs[arm]
+        cpu, cpu_s, wait_s = _twin(jobs, f"y_{arm}")
+        diff = [k for k in Y_COMPARE if rec[k] != cpu[k]]
+        if diff:
+            raise AssertionError(f"phase {arm}: card and CPU differ on "
+                                 f"{diff}: {[(rec[k], cpu[k]) for k in diff]}")
+        if any(rec["launches"][k] != rec["drains"] for k in (
+                "sha512_blocks", "reduce_mod_l", "ed25519_verify")):
+            raise AssertionError(f"phase {arm}: {rec['drains']} drains "
+                                 f"made {rec['launches']}")
+        arms[arm] = {
+            "entries": rec["entries"], "bytes": rec["bytes"],
+            "ordered": rec["ordered_count"],
+            "domain_root": rec["domain_root"][:16],
+            "state_head": rec["state_head"][:16],
+            "ordered_digests": rec["ordered"][:16],
+            "stable_checkpoint": rec["stable_checkpoint"],
+            "replay_launches": rec["launches"], "run_launches": y_launches,
+            "drains": rec["drains"], "record_s": rec["record_s"],
+            "replay_s": rec["replay_s"], "wall_s": wall,
+            "cpu_record_s": cpu["record_s"], "cpu_replay_s": cpu["replay_s"],
+            "cpu_twin_s": cpu_s, "twin_wait_s": wait_s}
+    _line("Y", arms=arms, check_s=time.perf_counter() - t0, card=card)
     return arms
 
 
@@ -4847,6 +5071,12 @@ PATH_KERNELS = {
                  "quorum_step", "window_slide", "window_zero"),
     "node_V2b": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
                  "quorum_step", "window_zero"),
+    # phase Y: the live pool and the replayed node2; Y1 orders on the host
+    # quorum, Y2's live pool on the grouped plane and its replay on a
+    # standalone plane that slides at CHK_FREQ 5
+    "replay_Y1": ("sha512_blocks", "reduce_mod_l", "ed25519_verify"),
+    "replay_Y2": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
+                  "quorum_step", "window_slide"),
 }
 
 
@@ -4874,7 +5104,7 @@ def _stop_twins(twins):
 
 
 def submit_twins(twins):
-    """The CPU twins of phases A, B, O, N, S, W, V and X's workload
+    """The CPU twins of phases A, B, O, N, S, W, V, Y and X's workload
     arms, longest first: they run in the worker processes while the card
     runs the phases before their checks."""
     jobs = {}
@@ -4893,6 +5123,8 @@ def submit_twins(twins):
     jobs["w"] = twins.submit(_timed, run_geo_w, "cpu")
     for arm in ("V2a", "V2b"):
         jobs[f"v_{arm}"] = twins.submit(twin_node, arm)
+    for arm in Y_ARMS:
+        jobs[f"y_{arm}"] = twins.submit(twin_replay, arm)
     return jobs
 
 
@@ -5253,6 +5485,8 @@ def _main(twins) -> int:
     # V. the deployed validator node: real Nodes, 25 with full RBFT, the
     # 4-node local pool and the monitor voting out a slow master
     v_runs = card_v(on_card, card)
+    # Y. node2 of a live pool recorded, and replayed into a fresh node
+    y_runs = card_y(on_card, card)
 
     # E. the state at the reference's state-bench size
     t0 = time.perf_counter()
@@ -5285,6 +5519,7 @@ def _main(twins) -> int:
     soak_s = check_s(s_run, card, jobs)
     geo_w = check_w(w_run, card, jobs)
     node_v = check_v(v_runs, card, jobs)
+    replay_y = check_y(y_runs, card, jobs)
     _line("workload_checks", check_s=time.perf_counter() - t0, card=card)
     plain = {k["name"]: k["plain_ms"] for k in kernels}
     print(json.dumps({"times": {
@@ -5337,6 +5572,9 @@ def _main(twins) -> int:
             for arm, res in node_v.items()},
         "node_v1_ordered_txns_per_sim_s":
             node_v["V1"]["ordered_txns_per_sim_s"],
+        "replay_y": {arm: {key: res[key] for key in (
+            "record_s", "replay_s", "cpu_twin_s", "replay_launches")}
+            for arm, res in replay_y.items()},
         "plain_ms": plain, "report_s": report_s,
         "total_s": time.perf_counter() - t_start}}), flush=True)
     print(card, flush=True)

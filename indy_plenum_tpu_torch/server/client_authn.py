@@ -182,7 +182,7 @@ class CoreAuthNr(ClientAuthNr):
                                          ted.max_blocks_for(msgs))
         ok = ted.verify_kernel_full(*ted.to_device(
             (pk_a, r_a, s_a, blocks, counts), self.device))
-        # one batched sync per ingress drain: the verdicts decide admission
+        # da: allow[device-sync] -- auth verdicts MUST resolve before admission decides this batch; one batched sync per ingress drain, not per message
         return ok.cpu().numpy() & pre
 
 

@@ -385,4 +385,5 @@ def batch_verify(pks: Sequence[bytes], msgs: Sequence[bytes],
 
     ok = verify_kernel_full(*to_device(
         [padded(a) for a in (pk_a, r_a, s_a, blocks, counts)], dev))
+    # da: allow[device-sync] -- verify_batch is the kernel's OWN blocking entry point (callers wanting overlap use verify_kernel_full + deferred resolve)
     return ok.cpu().numpy()[:n] & pre

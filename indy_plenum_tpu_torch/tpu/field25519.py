@@ -55,6 +55,7 @@ def limbs_from_int(x: int) -> np.ndarray:
 
 def int_from_limbs(limbs) -> int:
     if isinstance(limbs, torch.Tensor):
+        # da: allow[device-sync] -- host-side bignum reassembly for tests/constants (object dtype cannot live on device anyway)
         limbs = limbs.cpu().numpy()
     arr = np.asarray(limbs, dtype=object).reshape(-1)
     return sum(int(arr[i]) << (RADIX * i) for i in range(NLIMBS)) % P

@@ -196,11 +196,13 @@ def merkle_plan_hash_plain(refs: torch.Tensor, literals: torch.Tensor,
     (n, 2) int32, ``literals`` (L, 32) uint8, ``level_offsets`` host ints
     -> (n, 32) uint8 digests."""
     offs = _plan_offsets(level_offsets)
+    # da: allow[device-sync] -- the plain K11 checks the plan's operands on the host before its walk; it runs on CPU tensors and as the kernel's oracle, never on the consensus tick loop
     check_plan_refs(refs.cpu().numpy(), literals.shape[0], offs)
     out = torch.empty((int(offs[-1]), 32), dtype=torch.uint8,
                       device=refs.device)
     lits = literals if literals.shape[0] else torch.zeros(
         (1, 32), dtype=torch.uint8, device=refs.device)
+    # da: allow[device-sync] -- offs is the host-side numpy plan offsets; no device value involved
     for lo, hi in zip(offs[:-1].tolist(), offs[1:].tolist()):
         if hi == lo:
             continue
@@ -380,6 +382,7 @@ def digest_words(words: np.ndarray) -> np.ndarray:
     state = _initial_state(words.shape[0], "cpu")
     for b in range(words.shape[1]):
         state = _compress(state, [lanes[:, b, i] for i in range(16)])
+    # da: allow[device-sync] -- a host model: every tensor here is a CPU tensor built from numpy; no device value involved
     return _words_to_bytes(torch.stack(state, dim=1)).numpy()
 
 
@@ -577,11 +580,13 @@ def merkle_plan_hash_bytes(refs: np.ndarray, literals: np.ndarray,
     check_plan_refs(refs, literals.shape[0], offs)
     n = refs.shape[0]
     if dev.type == "cpu":
+        # da: allow[device-sync] -- the CPU path: the plain version's tensors are host tensors already
         return merkle_plan_hash_plain(torch.tensor(refs),
                                       torch.tensor(literals), offs).numpy()
     ref_bytes = 8 * n
     staged = torch.empty(ref_bytes + literals.size, dtype=torch.uint8,
                          pin_memory=True)
+    # da: allow[device-sync] -- a numpy view of the pinned HOST staging buffer; no device value involved
     view = staged.numpy()
     view[:ref_bytes] = refs.view(np.uint8).reshape(-1)
     view[ref_bytes:] = literals.reshape(-1)
@@ -592,7 +597,9 @@ def merkle_plan_hash_bytes(refs: np.ndarray, literals: np.ndarray,
     host.copy_(out, non_blocking=True)
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(dev))
+    # da: allow[device-sync] -- wave result is the product; state commit runs outside the consensus tick loop
     done.synchronize()
+    # da: allow[device-sync] -- the digests came back into pinned host memory behind the event above
     return host.numpy()
 
 

@@ -65,6 +65,14 @@ def test_port_imports_without_jax_or_reference():
                 "server.node", "client.wallet", "client.client",
                 "simulation.node_pool"):
         assert "indy_plenum_tpu_torch." + mod in mods
+    for mod in ("analysis", "analysis.__main__", "analysis.core",
+                "analysis.pragmas", "analysis.rules_config",
+                "analysis.rules_determinism", "analysis.rules_device",
+                "analysis.rules_hotpath", "analysis.rules_ordering",
+                "common.looper", "common.log", "recorder",
+                "recorder.recorder"):
+        assert "indy_plenum_tpu_torch." + mod in mods
+    assert os.path.isfile(os.path.join(PKG, "analysis", "baseline.json"))
     for src in ("resident_tile.cu", "quorum_common.cuh", "quorum.cu",
                 "window.cu", "ring.cu"):
         assert os.path.isfile(os.path.join(PKG, "csrc", src)), src
