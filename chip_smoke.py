@@ -225,6 +225,36 @@ Y. replay     - the recorder (``recorder/``): node2 of a live
                 the recorded file, the fingerprint and the replay's
                 launches equal the CPU twin's (K-a/K-b/K-c once a drain,
                 K7 / K8 as the CPU counted);
+Z. sockets    - the deployed transport (``network/``, ``tools/``,
+                ``cli/``) over real CurveZMQ sockets, ``zmq.has("curve")``
+                required. Z1 is ``BASELINE.json`` configs[0]: a 4-node
+                pool provisioned by ``generate_pool_config`` (fixed master
+                seed, free ports) and run by ``run_pool`` on one Looper,
+                BLS on; after ``warm_verify_kernel``, 1,000 trustee-signed
+                NYMs from a socket client, at most 100 in flight, each
+                with f+1 matching REPLYs; a forged signature REQNACKed; 16
+                proved GET_NYMs verified with the pool's BLS keys alone; a
+                VALIDATOR_INFO answered; every node's ledgers and state
+                equal, no looper error, no rejected curve key; node1
+                recorded from before the first write and replayed into a
+                fresh node on the card on a ``MockTimer``, to node1's
+                ordered digests, ledger roots and state root. Z2 runs the
+                three scenarios of ``tests/test_socket_membership.py``
+                (node3 frozen through 40 writes and caught up, its slice
+                on K10 indexed; node4 added by a NODE txn; node3's key
+                rotated), each ending with equal roots. Z3 is
+                ``tests/test_cli.py``'s scripted session through
+                ``PoolCli``. Z4 provisions with ``python -m
+                indy_plenum_tpu_torch.tools.generate_pool``, runs one
+                ``python -m indy_plenum_tpu_torch.tools.start_node``
+                process per validator, orders 200 signed writes from a
+                client here and SIGINTs every process, which must exit 0
+                and leave its log. The pool runs on the wall clock (each
+                3PC batch carries the primary's wall-clock ``ppTime``, and
+                socket timing decides what arrives before which timer
+                fires), so no CPU run can equal it record for record:
+                phase Z has no CPU twin, and Z1's replay on a virtual
+                timer is its deterministic check;
 E. state      - ``run_commit_arms`` host vs device waves at the
                 reference's state-bench delta and windows (delta 256, 20
                 windows) over a 20,000-key state (the cell's 100,000 cut
@@ -239,9 +269,10 @@ E. state      - ``run_commit_arms`` host vs device waves at the
                 ``{"ok": true, "device": {...}}``.
 
 Each main-path run (phases 3, 4, A, B, F, G, H, R, C, D, L, P, X, O, N, S,
-W, V, Y and E on the card) starts with every launch counter at 0 and reads
-the counters right after; the ``kernels`` line's ``launches`` are their
-sums. The CPU twins of phases A, B, O, N, S, W, V, Y and X's workload arms
+W, V, Y, Z and E on the card) starts with every launch counter at 0 and
+reads the counters right after; the ``kernels`` line's ``launches`` are
+their sums, with Z4's counted in its validator processes (each prints its
+own at exit). The CPU twins of phases A, B, O, N, S, W, V, Y and X's workload arms
 run in worker processes (``TWIN_WORKERS``, one torch thread each) started with
 the script and stopped with it.
 
@@ -4387,6 +4418,882 @@ def check_y(runs, card, jobs):
     return arms
 
 
+# --- phase Z: the deployed transport over real sockets -----------------------
+#
+# ``network/`` (the CurveZMQ ROUTER stack, the client-facing listener, the
+# pool client), ``tools/`` (provisioning, ``build_node``, ``run_pool``,
+# the ``python -m`` node runner) and ``cli/``. The pool runs on the wall
+# clock: the primary stamps each 3PC batch with wall seconds (``ppTime``),
+# and the socket timings decide what arrives before which timer fires, so
+# no run on the CPU can equal a run on the card record for record. Phase
+# Z therefore has no CPU twin. Its deterministic check is the recorder:
+# node1 is recorded during Z1 and replayed into a fresh node on the card
+# on a virtual timer, which must order what the live node1 ordered, into
+# the same ledgers and state. Every node's ingress drain runs K-a, K-b and
+# K-c; Z2's restarted node verifies its leeched slice with K10 indexed;
+# the SMT commits run K11 where the "auto" law sends them to the card.
+# Liveness waits use the reference's budget (``run_until(..., timeout=
+# 30)``) and no check reads a duration.
+
+Z_SEED = hashlib.sha256(b"chip-smoke-phase-z").digest()
+Z_TIMEOUT = 30.0  # tests/test_client_socket.py's liveness budget
+Z1_WRITES = 1000  # BASELINE.json configs[0]'s NYM write load, 100 in flight
+Z_IN_FLIGHT = 100
+Z1_READS = 16  # proved GET_NYMs of written NYMs, round-robin over nodes
+Z2_FAST = {"Max3PCBatchWait": 0.05, "Max3PCBatchSize": 10,
+           "PropagateBatchWait": 0.02, "ConsistencyProofsTimeout": 1.0,
+           "CatchupTransactionsTimeout": 1.5}  # test_socket_membership.py
+Z2_SEED = b"\x31" * 32  # tests/test_socket_membership.py's master seed
+# txns the stopped node misses: one catchup slice of at least
+# DEVICE_MIN_BATCH (32) proofs, so a fresh offload policy verifies it on
+# the card (K10 indexed)
+Z2_MISSED = 40
+Z2_SCENARIOS = ("restart", "add_node", "rotate_key")
+Z4_WRITES = 200
+Z_PORT_LO = 24000  # below the ephemeral range, above the reference's
+
+
+def _free_port_block(n, _next=[Z_PORT_LO]):
+    """The first of ``n`` consecutive ports that a test bind finds free;
+    successive calls move on, so a pool just closed lends no port to the
+    next one."""
+    import socket
+
+    start = _next[0]
+    while start + n < 32768:
+        for port in range(start, start + n):
+            with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+                try:
+                    sock.bind(("127.0.0.1", port))
+                except OSError:
+                    start = port + 1
+                    break
+        else:
+            _next[0] = start + n
+            return start
+    raise RuntimeError(f"no {n} free ports from {Z_PORT_LO}")
+
+
+def _z_nym(trustee, tag, req_id, role=None):
+    """A trustee-signed NYM for the DID seeded by ``tag``."""
+    from indy_plenum_tpu_torch.common.constants import (
+        NYM,
+        ROLE,
+        TARGET_NYM,
+        TXN_TYPE,
+        VERKEY,
+    )
+    from indy_plenum_tpu_torch.common.request import Request
+    from indy_plenum_tpu_torch.crypto.signers import DidSigner
+
+    target = DidSigner(hashlib.sha256(tag).digest())
+    op = {TXN_TYPE: NYM, TARGET_NYM: target.identifier,
+          VERKEY: target.verkey}
+    if role is not None:
+        op[ROLE] = role
+    req = Request(identifier=trustee.identifier, reqId=req_id, operation=op)
+    trustee.sign_request(req)
+    return req, target
+
+
+def _write_all(looper, client, reqs, in_flight=Z_IN_FLIGHT,
+               stall=Z_TIMEOUT):
+    """Submit ``reqs`` with at most ``in_flight`` outstanding, each to
+    every node, until each has f+1 matching REPLYs; raises when no write
+    completes for ``stall`` seconds or one is rejected. Returns the wall
+    seconds from the first submit to the last result."""
+    queue = list(reqs)
+    pending = []
+    t0 = time.perf_counter()
+    while queue or pending:
+        while queue and len(pending) < in_flight:
+            pending.append(client.submit_write(queue.pop(0)))
+
+        def progressed():
+            return any(client.result(d) is not None
+                       or client.is_rejected(d) for d in pending)
+
+        if not looper.run_until(progressed, timeout=stall):
+            raise AssertionError(f"no write completed in {stall} s; "
+                                 f"{len(pending)} pending, {len(queue)} "
+                                 f"queued")
+        for digest in [d for d in pending
+                       if client.result(d) is not None
+                       or client.is_rejected(d)]:
+            client.take_result(digest)  # raises on a rejected write
+            pending.remove(digest)
+    return time.perf_counter() - t0
+
+
+def _socket_fingerprint(node):
+    """Ordered digests, every ledger's root and the domain state's
+    committed head of one node."""
+    from indy_plenum_tpu_torch.common.constants import DOMAIN_LEDGER_ID
+
+    db = node.boot.db
+    return {"ordered": _digest(list(node.ordered_digests)),
+            "ordered_count": len(node.ordered_digests),
+            "ledger_roots": {str(lid): db.get_ledger(lid).root_hash.hex()
+                             for lid in db.ledger_ids},
+            "state_root": db.get_state(
+                DOMAIN_LEDGER_ID).committed_head_hash.hex()}
+
+
+def _bls_keys_of(directory, name):
+    """The ``bls_keys`` ``tools.local_pool.build_node`` gives ``name``."""
+    from indy_plenum_tpu_torch.bls.factory import generate_bls_keys
+    from indy_plenum_tpu_torch.tools.local_pool import (
+        load_pool_info,
+        load_secret_seed,
+    )
+
+    info = load_pool_info(directory)
+    own, _, _ = generate_bls_keys(
+        load_secret_seed(directory, name, key="bls_seed"))
+    return {peer: (own if peer == name else None, rec["bls_key"],
+                   rec["bls_pop"]) for peer, rec in info["nodes"].items()}
+
+
+def _genesis_of(directory):
+    import os
+
+    from indy_plenum_tpu_torch.ledger.genesis import load_genesis_file
+    from indy_plenum_tpu_torch.tools.local_pool import (
+        DOMAIN_GENESIS,
+        POOL_GENESIS,
+    )
+
+    return (load_genesis_file(os.path.join(directory, POOL_GENESIS)),
+            load_genesis_file(os.path.join(directory, DOMAIN_GENESIS)))
+
+
+def _close_pool(looper, nodes, stacks, extra=()):
+    looper.shutdown()
+    for node in nodes:
+        with contextlib.suppress(Exception):
+            node.stop()
+        surface = getattr(node, "client_surface", None)
+        if surface is not None:
+            with contextlib.suppress(Exception):
+                surface.close()
+    for stack in [*stacks, *extra]:
+        with contextlib.suppress(Exception):
+            stack.close()
+
+
+def _all_handshaken(stacks, n):
+    return lambda: all(sum(s.peer_states.values()) >= n - 1
+                       for s in stacks)
+
+
+def run_socket_z1(device, writes=Z1_WRITES, reads=Z1_READS):
+    """Phase Z1: ``BASELINE.json`` configs[0], a provisioned 4-node pool
+    (``generate_pool_config`` with a fixed master seed, free ports) run by
+    ``run_pool`` on one Looper over CurveZMQ sockets, BLS on, and a
+    socket client (``build_client``). After ``warm_verify_kernel``:
+    ``writes`` trustee-signed NYMs, at most ``Z_IN_FLIGHT`` in flight,
+    each with f+1 matching REPLYs; a forged signature REQNACKed by more
+    than f nodes; ``reads`` proved GET_NYMs of written NYMs, each verified
+    by the client against the pool's BLS keys alone; a VALIDATOR_INFO
+    action answered by node1. Every node must order every write into equal
+    ledgers and state, with no looper error and no rejected curve key.
+    node1 is recorded from before the first write; its log goes through a
+    file and is replayed into a fresh node on ``device`` on a MockTimer,
+    which must give node1's ordered digests, ledger roots and state
+    root."""
+    import os
+    import shutil
+    import tempfile
+
+    from indy_plenum_tpu_torch.common.constants import (
+        GET_NYM,
+        TARGET_NYM,
+        TXN_TYPE,
+        VALIDATOR_INFO,
+    )
+    from indy_plenum_tpu_torch.common.request import Request
+    from indy_plenum_tpu_torch.common.serializers.serialization import \
+        unpackb
+    from indy_plenum_tpu_torch.crypto.signers import DidSigner
+    from indy_plenum_tpu_torch.recorder import Recorder, Replayer
+    from indy_plenum_tpu_torch.recorder.recorder import ReplayNetwork
+    from indy_plenum_tpu_torch.server.node import Node
+    from indy_plenum_tpu_torch.simulation.mock_timer import MockTimer
+    from indy_plenum_tpu_torch.tools import build_client, \
+        generate_pool_config
+    from indy_plenum_tpu_torch.tools.local_pool import (
+        load_pool_info,
+        load_secret_seed,
+        run_pool,
+        warm_verify_kernel,
+    )
+    from indy_plenum_tpu_torch.utils.torch_env import resolve_device
+
+    dev = resolve_device(device)
+    tmp = tempfile.mkdtemp(prefix="z1-pool-")
+    generate_pool_config(tmp, n_nodes=4, base_port=_free_port_block(8),
+                         master_seed=Z_SEED)
+    validators = load_pool_info(tmp)["validators"]
+    looper, nodes, stacks = run_pool(tmp, device=dev)
+    client_stack = None
+    try:
+        trustee = DidSigner(load_secret_seed(tmp, "trustee"))
+        client, client_stack = build_client(tmp, "z1-client")
+        looper.add(client_stack)
+        if not looper.run_until(_all_handshaken(stacks, 4), Z_TIMEOUT):
+            raise AssertionError(f"phase Z1: handshakes pending: "
+                                 f"{[s.peer_states for s in stacks]}")
+        t0 = time.perf_counter()
+        warm_verify_kernel(nodes[0], trustee)
+        warm_s = time.perf_counter() - t0
+        recorder = Recorder()
+        start = looper.timer.get_current_time()
+        recorder.attach(nodes[1])
+        drains = _count_drains(nodes)
+        reqs = [_z_nym(trustee, b"z1-nym-%d" % i, i + 1)[0]
+                for i in range(writes)]
+        write_s = _write_all(looper, client, reqs)
+        if not looper.run_until(
+                lambda: all(len(n.ordered_digests) >= writes
+                            for n in nodes), Z_TIMEOUT):
+            raise AssertionError(f"phase Z1: ordered "
+                                 f"{[len(n.ordered_digests) for n in nodes]}"
+                                 f" of {writes}")
+
+        forged, _ = _z_nym(trustee, b"z1-forged", writes + 1)
+        forged.operation["evil"] = True  # the signature no longer covers it
+        fd = client.submit_write(forged)
+        if not looper.run_until(lambda: client.is_rejected(fd), Z_TIMEOUT):
+            raise AssertionError("phase Z1: the forged write was not "
+                                 "REQNACKed by more than f nodes")
+        nacks = dict(client.pending[fd].nacks)
+        if client.result(fd) is not None \
+                or not all("signature" in r for r in nacks.values()):
+            raise AssertionError(f"phase Z1: forged write: {nacks}")
+
+        step = max(1, writes // reads)
+        read_digests = {}
+        for i in range(reads):
+            dest = reqs[i * step].operation[TARGET_NYM]
+            read = Request(identifier="z1-reader", reqId=10_000 + i,
+                           operation={TXN_TYPE: GET_NYM, TARGET_NYM: dest})
+            read_digests[client.submit_read(
+                read, to=validators[i % len(validators)])] = reqs[i * step]
+        if not looper.run_until(
+                lambda: all(client.result(d) is not None
+                            for d in read_digests), Z_TIMEOUT):
+            raise AssertionError("phase Z1: a proved read went unanswered")
+        for digest, req in read_digests.items():
+            res = client.proved_reads.get(digest)
+            if res is None or res["dest"] != req.operation[TARGET_NYM] \
+                    or unpackb(res["data"])["verkey"] != \
+                    req.operation["verkey"]:
+                raise AssertionError(f"phase Z1: proved read {res}")
+
+        info = Request(identifier=trustee.identifier, reqId=writes + 2,
+                       operation={TXN_TYPE: VALIDATOR_INFO,
+                                  "timestamp": time.time()})
+        trustee.sign_request(info)
+        vd = client.submit_action(info, to="node1")
+        if not looper.run_until(lambda: client.result(vd) is not None,
+                                Z_TIMEOUT):
+            raise AssertionError("phase Z1: VALIDATOR_INFO unanswered")
+        status = client.result(vd)["data"]
+        if status["name"] != "node1" or status["is_participating"] is not True:
+            raise AssertionError(f"phase Z1: VALIDATOR_INFO {status}")
+
+        prints = [_socket_fingerprint(n) for n in nodes]
+        same = {k: len({json.dumps(p[k]) for p in prints})
+                for k in ("ordered", "ledger_roots", "state_root")}
+        if any(v != 1 for v in same.values()):
+            raise AssertionError(f"phase Z1: the nodes differ: {prints}")
+        live = prints[1]
+        live_s = looper.timer.get_current_time() - start
+        rejected = sum(s.rejected_unknown_key for s in stacks)
+        if looper.errors or rejected:
+            raise AssertionError(f"phase Z1: {looper.errors} looper errors,"
+                                 f" {rejected} rejected curve keys")
+        dropped = sum(s.dropped for s in stacks)
+
+        path = os.path.join(tmp, "node1.rec")
+        recorder.dump(path)
+        loaded = Recorder.load(path)
+        pool_genesis, domain_genesis = _genesis_of(tmp)
+        t0 = time.perf_counter()
+        timer = MockTimer(start_time=start)
+        fresh = Node("node1", list(validators), timer, ReplayNetwork(),
+                     config=nodes[1].config, pool_genesis=pool_genesis,
+                     domain_genesis=domain_genesis,
+                     seed_keys={load_pool_info(tmp)["trustee_did"]:
+                                load_pool_info(tmp)["trustee_verkey"]},
+                     bls_keys=_bls_keys_of(tmp, "node1"), device=dev)
+        fresh.start()
+        Replayer(loaded).replay_into(fresh, timer)
+        timer.advance(live_s)
+        replay_s = time.perf_counter() - t0
+        got = _socket_fingerprint(fresh)
+        if got != live:
+            raise AssertionError(f"phase Z1: the replay gave {got}, the "
+                                 f"live node1 {live}")
+        return {"writes": writes, "ordered": live["ordered_count"],
+                "ordered_writes_per_wall_s": writes / write_s,
+                "write_s": write_s, "warm_s": warm_s, "reads": reads,
+                "forged_nacks": len(nacks), "dropped": dropped,
+                "looper_errors": looper.errors,
+                "rejected_unknown_key": rejected,
+                "drains": drains["drains"],
+                "entries_verified": drains["entries"],
+                "recorded_entries": len(recorder.entries),
+                "replay_s": replay_s, "replay_equal": True,
+                "domain_root": live["ledger_roots"]["1"][:16],
+                "state_root": live["state_root"][:16]}
+    finally:
+        _close_pool(looper, nodes, stacks,
+                    [client_stack] if client_stack is not None else [])
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _z2_order(looper, nodes, trustee, tag, req_id, entry=0):
+    """One write into ``nodes[entry]``; every node orders one more."""
+    req, _ = _z_nym(trustee, tag, req_id)
+    want = {n.name: len(n.ordered_digests) + 1 for n in nodes}
+    nodes[entry].submit_client_request(req, client_id="cli")
+    if not looper.run_until(
+            lambda: all(len(n.ordered_digests) >= want[n.name]
+                        for n in nodes), Z_TIMEOUT):
+        raise AssertionError(f"phase Z2: ordered "
+                             f"{[len(n.ordered_digests) for n in nodes]}")
+    return req
+
+
+def _z2_domain(node):
+    from indy_plenum_tpu_torch.common.constants import DOMAIN_LEDGER_ID
+
+    ledger = node.boot.db.get_ledger(DOMAIN_LEDGER_ID)
+    return ledger.size, ledger.root_hash.hex()
+
+
+def _z2_stack(directory, name, seed, config, bind_port=0):
+    """A validator built by hand over its own stack (the joining or
+    rotated node of tests/test_socket_membership.py)."""
+    from indy_plenum_tpu_torch.network import ZStack
+    from indy_plenum_tpu_torch.tools.local_pool import load_pool_info
+
+    info = load_pool_info(directory)
+    stack = ZStack(name, seed, bind_port=bind_port,
+                   max_batch=config.OUTGOING_BATCH_SIZE,
+                   msg_len_limit=config.MSG_LEN_LIMIT)
+    for peer, rec in info["nodes"].items():
+        if peer == name:
+            continue
+        key = rec["transport_public"].encode()
+        stack.allow_peer(peer, key)
+        stack.connect(peer, (rec["node_ip"], rec["node_port"]), key)
+    return stack, info
+
+
+def run_membership_z2(device, scenario, missed=Z2_MISSED):
+    """Phase Z2, one scenario of ``tests/test_socket_membership.py`` on a
+    provisioned 4-node pool (the test's master seed and config, free
+    ports) over sockets: ``restart`` (node3 frozen while ``missed`` writes
+    order, then back through catchup, its leeched slice verified from a
+    fresh offload policy: K10 indexed on the card), ``add_node`` (a
+    steward NYM, then a steward-signed NODE txn adds node4, which catches
+    up and orders with the pool) and ``rotate_key`` (node3 down, a NODE
+    txn rotates its transport key, every survivor restarts that
+    connection and drops the old key, node3 rejoins under the new key).
+    Each ends with one more write ordered by every member and every
+    member's domain ledger root equal. Returns the sizes, the root and the
+    sizes of the catchup slices verified."""
+    import os
+    import shutil
+    import tempfile
+
+    from indy_plenum_tpu_torch.bls.factory import generate_bls_keys
+    from indy_plenum_tpu_torch.common.constants import (
+        ALIAS,
+        BLS_KEY,
+        BLS_KEY_PROOF,
+        NODE,
+        NODE_IP,
+        NODE_PORT,
+        SERVICES,
+        STEWARD,
+        TARGET_NYM,
+        TRANSPORT_VERKEY,
+        TXN_TYPE,
+        VALIDATOR,
+    )
+    from indy_plenum_tpu_torch.common.request import Request
+    from indy_plenum_tpu_torch.config import getConfig
+    from indy_plenum_tpu_torch.crypto.signers import DidSigner
+    from indy_plenum_tpu_torch.network import ZStackNetwork
+    from indy_plenum_tpu_torch.network.keys import curve_keypair_from_seed
+    from indy_plenum_tpu_torch.server.catchup import catchup_rep_service \
+        as crs
+    from indy_plenum_tpu_torch.server.node import Node
+    from indy_plenum_tpu_torch.tools import generate_pool_config
+    from indy_plenum_tpu_torch.tools.local_pool import (
+        load_pool_info,
+        load_secret_seed,
+        run_pool,
+        warm_verify_kernel,
+    )
+    from indy_plenum_tpu_torch.utils.torch_env import resolve_device
+
+    dev = resolve_device(device)
+    tmp = tempfile.mkdtemp(prefix="z2-pool-")
+    generate_pool_config(tmp, n_nodes=4, base_port=_free_port_block(8),
+                         master_seed=Z2_SEED)
+    config = getConfig(dict(Z2_FAST))
+    looper, nodes, stacks = run_pool(tmp, config=config, device=dev)
+    extra_nodes, extra_stacks = [], []
+    slices = []
+    dispatch = crs.dispatch_audit_paths_batch
+
+    def counted(leaf_data, *args, **kw):
+        slices.append(len(leaf_data))
+        return dispatch(leaf_data, *args, **kw)
+
+    crs.dispatch_audit_paths_batch = counted
+    try:
+        trustee = DidSigner(load_secret_seed(tmp, "trustee"))
+        warm_verify_kernel(nodes[0], trustee)
+        _z2_order(looper, nodes, trustee, b"z2-%s-0" % scenario.encode(), 1)
+        members = list(nodes)
+        if scenario == "restart":
+            behind, behind_stack = nodes[3], stacks[3]
+            looper.remove(behind_stack)  # the process freezes
+            live = nodes[:3]
+            for i in range(missed):
+                req, _ = _z_nym(trustee, b"z2-restart-%d" % i, i + 2)
+                live[0].submit_client_request(req, client_id="cli")
+            if not looper.run_until(
+                    lambda: all(len(n.ordered_digests) >= missed + 1
+                                for n in live), Z_TIMEOUT):
+                raise AssertionError("phase Z2 restart: the live nodes "
+                                     "did not order the missed writes")
+            if _z2_domain(behind)[0] >= _z2_domain(live[0])[0]:
+                raise AssertionError("phase Z2 restart: node3 not behind")
+            # a fresh offload policy, as a restarted process has it
+            crs.OFFLOAD_POLICY = crs._AdaptiveOffload()
+            looper.add(behind_stack)
+            behind.leecher.start()
+            if not looper.run_until(
+                    lambda: behind.leecher.catchups_completed >= 1
+                    and _z2_domain(behind) == _z2_domain(live[0]),
+                    Z_TIMEOUT):
+                raise AssertionError(f"phase Z2 restart: "
+                                     f"{_z2_domain(behind)} against "
+                                     f"{_z2_domain(live[0])}")
+            tail_entry = 0
+        elif scenario == "add_node":
+            node4_seed = hashlib.sha256(b"membership-node4-seed").digest()
+            node4_public, _ = curve_keypair_from_seed(node4_seed)
+            kp4, bls_pk4, bls_pop4 = generate_bls_keys(
+                hashlib.sha256(b"membership-node4-bls").digest())
+            stack4, info = _z2_stack(tmp, "node4", node4_seed, config)
+            extra_stacks.append(stack4)
+            req_steward, steward4 = _z_nym(trustee, b"z2-steward4", 2,
+                                           role=STEWARD)
+            nodes[1].submit_client_request(req_steward, client_id="cli")
+            if not looper.run_until(
+                    lambda: all(n.get_nym_data(steward4.identifier)
+                                is not None for n in nodes), Z_TIMEOUT):
+                raise AssertionError("phase Z2 add_node: steward NYM")
+            node_txn = Request(
+                identifier=steward4.identifier, reqId=1,
+                operation={TXN_TYPE: NODE, TARGET_NYM: "nym-node4",
+                           "data": {ALIAS: "node4",
+                                    NODE_IP: stack4.ha[0],
+                                    NODE_PORT: stack4.ha[1],
+                                    SERVICES: [VALIDATOR],
+                                    BLS_KEY: bls_pk4,
+                                    BLS_KEY_PROOF: bls_pop4,
+                                    TRANSPORT_VERKEY: node4_public.decode()}})
+            steward4.sign_request(node_txn)
+            nodes[2].submit_client_request(node_txn, client_id="cli")
+            if not looper.run_until(
+                    lambda: all(len(n.data.validators) == 5 for n in nodes),
+                    Z_TIMEOUT):
+                raise AssertionError("phase Z2 add_node: NODE txn")
+            if not all(n.data.quorums.n == 5 for n in nodes) \
+                    or not all("node4" in s.connected_peers
+                               for s in stacks):
+                raise AssertionError("phase Z2 add_node: quorums or "
+                                     "transports not extended")
+            net4 = ZStackNetwork(stack4)
+            pool_genesis, domain_genesis = _genesis_of(tmp)
+            bls_keys = {peer: (None, rec["bls_key"], rec["bls_pop"])
+                        for peer, rec in info["nodes"].items()}
+            bls_keys["node4"] = (kp4, bls_pk4, bls_pop4)
+            node4 = Node("node4", list(info["validators"]), looper.timer,
+                         net4, config=config, pool_genesis=pool_genesis,
+                         domain_genesis=domain_genesis,
+                         seed_keys={info["trustee_did"]:
+                                    info["trustee_verkey"]},
+                         bls_keys=bls_keys, device=dev)
+            extra_nodes.append(node4)
+            net4.mark_connected(set(info["validators"]))
+            node4.on_membership_changed_hook = net4.membership_hook
+            node4.start()
+            looper.add(stack4)
+            node4.leecher.start()
+            if not looper.run_until(
+                    lambda: node4.leecher.catchups_completed >= 1
+                    and len(node4.data.validators) == 5, Z_TIMEOUT):
+                raise AssertionError("phase Z2 add_node: node4 catchup")
+            if _z2_domain(node4) != _z2_domain(nodes[0]):
+                raise AssertionError("phase Z2 add_node: node4's root")
+            members = nodes + [node4]
+            tail_entry = 2
+        elif scenario == "rotate_key":
+            victim, victim_stack = nodes[3], stacks[3]
+            old_key = victim_stack.public_key
+            port = load_pool_info(tmp)["nodes"]["node3"]["node_port"]
+            looper.remove(victim_stack)
+            looper.remove(victim.client_surface)
+            victim.stop()
+            victim_stack.close()
+            victim.client_surface.close()
+            new_seed = hashlib.sha256(b"node3-rotated-seed").digest()
+            new_public, _ = curve_keypair_from_seed(new_seed)
+            steward3 = DidSigner(hashlib.sha256(Z2_SEED + b"steward-3")
+                                 .digest())
+            rotate = Request(
+                identifier=steward3.identifier, reqId=1,
+                operation={TXN_TYPE: NODE, TARGET_NYM: "nym-node3",
+                           "data": {ALIAS: "node3",
+                                    TRANSPORT_VERKEY: new_public.decode()}})
+            steward3.sign_request(rotate)
+            survivors, survivor_stacks = nodes[:3], stacks[:3]
+            nodes[0].submit_client_request(rotate, client_id="cli")
+            if not looper.run_until(
+                    lambda: all(s._allowed.get(new_public) == "node3"
+                                for s in survivor_stacks), Z_TIMEOUT):
+                raise AssertionError("phase Z2 rotate_key: new key not "
+                                     "admitted")
+            if any(old_key in s._allowed for s in survivor_stacks):
+                raise AssertionError("phase Z2 rotate_key: old key kept")
+            new_stack, info = _z2_stack(tmp, "node3", new_seed, config,
+                                        bind_port=port)
+            extra_stacks.append(new_stack)
+            net3 = ZStackNetwork(new_stack)
+            pool_genesis, domain_genesis = _genesis_of(tmp)
+            node3 = Node("node3", list(info["validators"]), looper.timer,
+                         net3, config=config, pool_genesis=pool_genesis,
+                         domain_genesis=domain_genesis,
+                         seed_keys={info["trustee_did"]:
+                                    info["trustee_verkey"]},
+                         bls_keys=_bls_keys_of(tmp, "node3"), device=dev)
+            extra_nodes.append(node3)
+            net3.mark_connected(set(info["validators"]) - {"node3"})
+            node3.on_membership_changed_hook = net3.membership_hook
+            node3.start()
+            looper.add(new_stack)
+            node3.leecher.start()
+            if not looper.run_until(
+                    lambda: node3.leecher.catchups_completed >= 1
+                    and _z2_domain(node3)[0] == _z2_domain(nodes[0])[0],
+                    Z_TIMEOUT):
+                raise AssertionError("phase Z2 rotate_key: node3 catchup")
+            members = survivors + [node3]
+            tail_entry = 0
+        else:
+            raise ValueError(scenario)
+        _z2_order(looper, members, trustee,
+                  b"z2-%s-tail" % scenario.encode(), 70, entry=tail_entry)
+        domains = {n.name: _z2_domain(n) for n in members}
+        if len(set(domains.values())) != 1:
+            raise AssertionError(f"phase Z2 {scenario}: {domains}")
+        if looper.errors:
+            raise AssertionError(f"phase Z2 {scenario}: {looper.errors} "
+                                 f"looper errors")
+        size, root = domains[members[0].name]
+        return {"scenario": scenario, "members": len(members),
+                "domain_size": size, "domain_root": root[:16],
+                "audit_slices": slices, "looper_errors": looper.errors}
+    finally:
+        crs.dispatch_audit_paths_batch = dispatch
+        _close_pool(looper, nodes + extra_nodes, stacks, extra_stacks)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the scripted session of tests/test_cli.py, with ``start pool`` on a
+# directory provisioned on free ports (``new pool`` provisions at 9700)
+Z3_CHECKS = ("pool of 4 provisioned", "4 validators up", "NYM alice ->",
+             "(f+1 quorum)", "NYM alice: dest=", "(proved read)",
+             "unknown alias 'nobody'", "unknown command", "pool stopped")
+
+
+def run_cli_z3(device):
+    """Phase Z3: the scripted session of ``tests/test_cli.py`` through the
+    port's ``PoolCli`` on ``device``; its output checked as that test
+    checks it. Returns the session's line count and the checks passed."""
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from indy_plenum_tpu_torch.cli import PoolCli
+    from indy_plenum_tpu_torch.tools import generate_pool_config
+
+    tmp = tempfile.mkdtemp(prefix="z3-cli-")
+    try:
+        new_dir, run_dir = os.path.join(tmp, "new"), os.path.join(tmp, "run")
+        generate_pool_config(run_dir, n_nodes=4,
+                             base_port=_free_port_block(8))
+        out = io.StringIO()
+        cli = PoolCli(out=out, device=device)
+        session = ["help", f"new pool {new_dir} 4", f"start pool {run_dir}",
+                   "status", "send nym alice", "get nym alice",
+                   "get nym nobody", "bogus command"]
+        errors = []
+
+        def lines():
+            for line in session:
+                yield line + "\n"
+            errors.append(cli._looper.errors)  # before `exit` drops it
+            yield "exit\n"
+
+        cli.repl(stdin=lines())
+        text = out.getvalue()
+        missing = [c for c in Z3_CHECKS if c not in text]
+        if missing or "error:" in text or errors != [0] \
+                or not os.path.isfile(os.path.join(new_dir,
+                                                   "pool_info.json")):
+            raise AssertionError(f"phase Z3: missing {missing}, looper "
+                                 f"errors {errors} in {text!r}")
+        return {"lines": len(text.splitlines()), "checks": len(Z3_CHECKS),
+                "looper_errors": errors[0],
+                "text_sha256": hashlib.sha256(text.encode()).hexdigest()
+                [:16]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _read_line(proc, timeout):
+    """One stdout line of ``proc`` within ``timeout`` seconds, or None."""
+    import selectors
+
+    sel = selectors.DefaultSelector()
+    sel.register(proc.stdout, selectors.EVENT_READ)
+    try:
+        if not sel.select(timeout):
+            return None
+        return proc.stdout.readline()
+    finally:
+        sel.close()
+
+
+def _await_domain_sizes(looper, client, trustee, names, target, req_id):
+    """Poll every node with VALIDATOR_INFO until its domain ledger holds
+    ``target`` txns; returns the sizes, raises after ``Z_TIMEOUT``."""
+    from indy_plenum_tpu_torch.common.constants import (
+        TXN_TYPE,
+        VALIDATOR_INFO,
+    )
+    from indy_plenum_tpu_torch.common.request import Request
+
+    sizes = {name: 0 for name in names}
+    deadline = time.monotonic() + Z_TIMEOUT
+    while time.monotonic() < deadline:
+        asked = {}
+        for name in names:
+            if sizes[name] >= target:
+                continue
+            info = Request(identifier=trustee.identifier, reqId=req_id,
+                           operation={TXN_TYPE: VALIDATOR_INFO,
+                                      "timestamp": time.time()})
+            req_id += 1
+            trustee.sign_request(info)
+            asked[name] = client.submit_action(info, to=name)
+        if not asked:
+            return sizes
+        looper.run_until(lambda: all(client.result(d) is not None
+                                     for d in asked.values()),
+                         max(0.0, deadline - time.monotonic()))
+        for name, digest in asked.items():
+            res = client.take_result(digest)
+            if res is not None:
+                sizes[name] = res["data"]["ledger_sizes"]["1"]
+        if any(sizes[name] < target for name in names):
+            looper.run_for(0.2)
+    raise AssertionError(f"phase Z4: domain ledger sizes {sizes}, not "
+                         f"{target}")
+
+
+def _stop_nodes(procs):
+    """SIGINT every node process; each must exit within ``Z_TIMEOUT``.
+    Returns each one's exit code (None: killed) and its last stdout line
+    parsed (the node's stop record)."""
+    import signal
+
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+    stops = {}
+    for name, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=Z_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            stops[name] = {"rc": None, "record": None}
+            continue
+        last = out.strip().splitlines()[-1] if out.strip() else ""
+        stops[name] = {"rc": proc.returncode,
+                       "record": json.loads(last)
+                       if last.startswith("{") else None}
+    return stops
+
+
+def run_processes_z4(device, writes=Z4_WRITES):
+    """Phase Z4: the reference's deployment form. ``python -m
+    indy_plenum_tpu_torch.tools.generate_pool`` provisions a directory
+    (the phase's master seed, free ports); four ``python -m
+    indy_plenum_tpu_torch.tools.start_node DIR nodeI`` processes run the
+    validators (``--device cpu`` when ``device`` is "cpu"); a client in
+    this process orders ``writes`` signed NYMs with f+1 replies and waits
+    until every node's domain ledger holds them. Then every process gets
+    SIGINT and must exit 0 within ``Z_TIMEOUT``, leaving its log under
+    ``DIR/logs/``; each prints its ordered count, domain root and kernel
+    launches, which are returned summed, with each node's."""
+    import os
+    import shutil
+    import tempfile
+
+    from indy_plenum_tpu_torch.common.looper import Looper
+    from indy_plenum_tpu_torch.crypto.signers import DidSigner
+    from indy_plenum_tpu_torch.tools import build_client
+    from indy_plenum_tpu_torch.tools.local_pool import (
+        load_pool_info,
+        load_secret_seed,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="z4-pool-")
+    extra = ["--device", "cpu"] if str(device) == "cpu" else []
+    procs = {}
+    try:
+        gen = subprocess.run(
+            [sys.executable, "-m",
+             "indy_plenum_tpu_torch.tools.generate_pool", tmp, "4",
+             str(_free_port_block(8)), Z_SEED.hex()],
+            cwd=root, capture_output=True, text=True, timeout=120)
+        if gen.returncode != 0:
+            raise AssertionError(f"phase Z4: generate_pool: {gen.stderr}")
+        names = load_pool_info(tmp)["validators"]
+        looper = Looper()
+        client_stack = None
+        try:
+            for name in names:
+                with open(os.path.join(tmp, f"{name}.stderr"), "w") as err:
+                    procs[name] = subprocess.Popen(
+                        [sys.executable, "-m",
+                         "indy_plenum_tpu_torch.tools.start_node", tmp,
+                         name, *extra], cwd=root, stdout=subprocess.PIPE,
+                        stderr=err, text=True)
+            t0 = time.perf_counter()
+            for name, proc in procs.items():
+                line = _read_line(proc, 120.0)
+                if not line or "listening" not in line:
+                    raise AssertionError(f"phase Z4: {name} did not "
+                                         f"start: {line!r}")
+            start_s = time.perf_counter() - t0
+            trustee = DidSigner(load_secret_seed(tmp, "trustee"))
+            client, client_stack = build_client(tmp, "z4-client")
+            looper.add(client_stack)
+            reqs = [_z_nym(trustee, b"z4-nym-%d" % i, i + 1)[0]
+                    for i in range(writes)]
+            write_s = _write_all(looper, client, reqs)
+            # f+1 replies leave up to f nodes still committing: ask each
+            # node for its domain ledger's size before stopping it
+            sizes = _await_domain_sizes(looper, client, trustee, names,
+                                        5 + writes, writes + 1)
+        finally:
+            looper.shutdown()
+            if client_stack is not None:
+                client_stack.close()
+            stops = _stop_nodes(procs)
+        bad = {name: s for name, s in stops.items()
+               if s["rc"] != 0 or s["record"] is None
+               or not os.path.isfile(os.path.join(tmp, "logs",
+                                                  f"{name}.log"))}
+        if bad:
+            stderr = {}
+            for name in bad:
+                with open(os.path.join(tmp, f"{name}.stderr")) as fh:
+                    stderr[name] = fh.read()[-2000:]
+            raise AssertionError(f"phase Z4: {bad} {stderr}")
+        records = {name: s["record"] for name, s in stops.items()}
+        if any(r["ordered"] < writes or r["looper_errors"]
+               for r in records.values()) \
+                or len({r["domain_root"] for r in records.values()}) != 1:
+            raise AssertionError(f"phase Z4: {records}")
+        launches = {}
+        for rec in records.values():
+            for k, v in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        return {"writes": writes,
+                "ordered": {n: r["ordered"] for n, r in records.items()},
+                "domain_sizes": sizes,
+                "domain_root": records[names[0]]["domain_root"][:16],
+                "ordered_writes_per_wall_s": writes / write_s,
+                "write_s": write_s, "start_s": start_s,
+                "exit_codes": {n: s["rc"] for n, s in stops.items()},
+                "node_launches": {n: {k: v for k, v in r["launches"].items()
+                                      if v} for n, r in records.items()},
+                "launches": launches}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+Z_PATH = ("sha512_blocks", "reduce_mod_l", "ed25519_verify")
+
+
+def phase_z(on_card, card):
+    """Phase Z on the card: Z1, Z2's three scenarios, Z3 and Z4, one line.
+    Returns Z4's launches, made in the validator processes, for the
+    kernels line (``on_card`` counts those of this process)."""
+    import zmq
+
+    t0 = time.perf_counter()
+    version, curve = zmq.zmq_version(), bool(zmq.has("curve"))
+    if not curve:
+        raise AssertionError(f"phase Z: libzmq {version} has no CURVE")
+    z1, z1_launches, z1_wall = on_card("socket_z1", run_socket_z1, None)
+    z2 = {}
+    for scenario in Z2_SCENARIOS:
+        res, got, wall = on_card(f"socket_z2_{scenario}", run_membership_z2,
+                                 None, scenario)
+        z2[scenario] = dict(res, launches={k: v for k, v in got.items()
+                                           if v}, wall_s=wall)
+    if z2["restart"]["launches"].get("audit_paths_indexed", 0) < 1:
+        raise AssertionError(f"phase Z2: K10 indexed never verified the "
+                             f"restarted node's slice: {z2['restart']}")
+    z3, z3_launches, z3_wall = on_card("socket_z3", run_cli_z3, None)
+    t4 = time.perf_counter()
+    z4 = run_processes_z4(None)
+    z4_wall = time.perf_counter() - t4
+    for name, got in z4["node_launches"].items():
+        if any(got.get(k, 0) <= 0 for k in Z_PATH):
+            raise AssertionError(f"phase Z4: {name} launched {got}")
+    phase_s = time.perf_counter() - t0
+    _line("Z", zmq_version=version, curve=curve,
+          z1=dict(z1, launches={k: v for k, v in z1_launches.items() if v},
+                  wall_s=z1_wall),
+          z2=z2,
+          z3=dict(z3, launches={k: v for k, v in z3_launches.items() if v},
+                  wall_s=z3_wall),
+          z4=dict(z4, wall_s=z4_wall), phase_s=phase_s, card=card)
+    return z4["launches"], z1, z4, phase_s
+
+
 def run_state_e(dev):
     """The state at the reference's state-bench delta: ``run_commit_arms``
     with arms host and device on the card (``E_KEYS`` keys, delta 256, 20
@@ -5077,6 +5984,14 @@ PATH_KERNELS = {
     "replay_Y1": ("sha512_blocks", "reduce_mod_l", "ed25519_verify"),
     "replay_Y2": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
                   "quorum_step", "window_slide"),
+    # phase Z: every node's drain over sockets (the deployed node builds no
+    # vote plane: its quorum is the host's); the restarted node's leeched
+    # slice is K10 indexed from a fresh offload policy
+    "socket_z1": Z_PATH,
+    "socket_z2_restart": Z_PATH + ("audit_paths_indexed",),
+    "socket_z2_add_node": Z_PATH,
+    "socket_z2_rotate_key": Z_PATH,
+    "socket_z3": Z_PATH,
 }
 
 
@@ -5487,6 +6402,12 @@ def _main(twins) -> int:
     v_runs = card_v(on_card, card)
     # Y. node2 of a live pool recorded, and replayed into a fresh node
     y_runs = card_y(on_card, card)
+    # Z. the deployed transport: a provisioned pool over CurveZMQ sockets,
+    # membership over sockets, the CLI, one process per validator (whose
+    # launches are counted in those processes)
+    z4_launches, socket_z1, socket_z4, z_s = phase_z(on_card, card)
+    for name, count in z4_launches.items():
+        launches[name] += count
 
     # E. the state at the reference's state-bench size
     t0 = time.perf_counter()
@@ -5575,6 +6496,11 @@ def _main(twins) -> int:
         "replay_y": {arm: {key: res[key] for key in (
             "record_s", "replay_s", "cpu_twin_s", "replay_launches")}
             for arm, res in replay_y.items()},
+        "socket_z": {"z1_ordered_writes_per_wall_s":
+                     socket_z1["ordered_writes_per_wall_s"],
+                     "z4_ordered_writes_per_wall_s":
+                     socket_z4["ordered_writes_per_wall_s"],
+                     "z1_replay_s": socket_z1["replay_s"], "phase_s": z_s},
         "plain_ms": plain, "report_s": report_s,
         "total_s": time.perf_counter() - t_start}}), flush=True)
     print(card, flush=True)

@@ -1,10 +1,11 @@
 """Metrics: named event accumulators + timing around the hot paths.
 
 Copy of ``indy_plenum_tpu/common/metrics_collector.py`` (reference:
-plenum/common/metrics_collector.py) without the KV-persisted collector
-(node storage is not part of the port yet). Every event is (name, value);
-the collector keeps running count/sum/min/max/last per name and bounded
-histograms.
+plenum/common/metrics_collector.py). Every event is (name, value); the
+collector keeps running count/sum/min/max/last per name and bounded
+histograms, and ``KvMetricsCollector`` persists periodic snapshots into a
+key-value store (``storage/kv_store.initKeyValueStorage``) so a
+long-running node's history survives restarts.
 """
 from __future__ import annotations
 
@@ -272,3 +273,88 @@ class NullMetricsCollector(MetricsCollector):
     @contextmanager
     def measure_time(self, name: str):
         yield
+
+
+# histogram entries share the stat keyspace; the prefix keeps them
+# distinguishable (no metric name starts with it — MetricsName values
+# are dotted lowercase words)
+_HISTOGRAM_KEY_PREFIX = "hist!"
+
+
+class KvMetricsCollector(MetricsCollector):
+    """Persists summary snapshots into a KV store (reference: the
+    KvStoreMetricsCollector's accumulated storage). Re-opening over a
+    non-empty store SEEDS the counters from the persisted snapshot —
+    stats AND histograms (``governor.tick_interval`` dwell history
+    included), so history genuinely survives restarts instead of being
+    overwritten by the new process's counters. ``close()`` flushes the
+    up-to-``flush_every - 1`` events a periodic-only flush would lose on
+    a clean shutdown — Node teardown calls it."""
+
+    def __init__(self, store, flush_every: int = 1000):
+        super().__init__()
+        self._store = store
+        self._flush_every = flush_every
+        self._events_since_flush = 0
+        for name, snap in self.load_persisted().items():
+            stat = self._stats[name] = Stat()
+            stat.count = snap.get("count", 0)
+            stat.total = snap.get("sum", 0.0)
+            stat.min = snap.get("min")
+            stat.max = snap.get("max")
+            stat.last = snap.get("last")
+        for name, hist in self.load_persisted_histograms().items():
+            self._histograms[name] = dict(hist)
+
+    def add_event(self, name: str, value: float = 1.0) -> None:
+        super().add_event(name, value)
+        self._events_since_flush += 1
+        if self._events_since_flush >= self._flush_every:
+            self.flush()
+
+    def flush(self) -> None:
+        import json
+
+        self._events_since_flush = 0
+        for name, stat in self._stats.items():
+            self._store.put(name.encode(),
+                            json.dumps(stat.as_dict()).encode())
+        for name, hist in self._histograms.items():
+            # [bucket, count] pairs, not an object: JSON object keys are
+            # strings, and the governor's float buckets must round-trip
+            # as floats
+            self._store.put(
+                (_HISTOGRAM_KEY_PREFIX + name).encode(),
+                json.dumps(sorted(
+                    ([b, c] for b, c in hist.items()),
+                    key=lambda pair: str(pair[0]))).encode())
+
+    def close(self) -> None:
+        self.flush()
+
+    def load_persisted(self) -> Dict[str, Dict[str, Any]]:
+        import json
+
+        out = {}
+        for key, value in self._store.iterator():
+            name = bytes(key).decode()
+            if name.startswith(_HISTOGRAM_KEY_PREFIX):
+                continue
+            out[name] = json.loads(bytes(value))
+        return out
+
+    def load_persisted_histograms(self) -> Dict[str, Dict[Any, int]]:
+        import json
+
+        out: Dict[str, Dict[Any, int]] = {}
+        for key, value in self._store.iterator():
+            name = bytes(key).decode()
+            if not name.startswith(_HISTOGRAM_KEY_PREFIX):
+                continue
+            pairs = json.loads(bytes(value))
+            out[name[len(_HISTOGRAM_KEY_PREFIX):]] = {
+                # JSON has no tuple/int-key subtleties for our buckets
+                # (floats and strings); lists would be unhashable, guard
+                (tuple(b) if isinstance(b, list) else b): c
+                for b, c in pairs}
+        return out

@@ -1,8 +1,10 @@
 """Canonical serialization: every node must hash/sign identical bytes.
 
 Port of ``indy_plenum_tpu/common/serializers/serialization.py``: the
-signing serializer (ordered msgpack), the ledger txn serializer (compact
-key-sorted JSON) and the base58 root serializer. The JAX package calls
+signing serializer (ordered msgpack), the wire serializer of node and
+client messages (``serialize_msg``), the ledger txn serializer (compact
+key-sorted JSON), the base58 root serializer and the state-proof node
+serializer. The JAX package calls
 ``msgpack.packb``/``msgpack.unpackb``; the machine the port runs on may
 have no ``msgpack``, so this module carries a small msgpack ENCODER and
 DECODER of its own. The encoder is byte-identical to msgpack-python
@@ -10,7 +12,9 @@ DECODER of its own. The encoder is byte-identical to msgpack-python
 holds: ``None``, ``bool``, ``int`` (-2^63 .. 2^64-1), ``float`` (as
 float 64), ``str``, ``bytes``/``bytearray``, lists/tuples and dicts. For
 signing, maps are key-sorted and ``None`` values dropped (absent field ==
-None), exactly as ``_canonical`` does there. The decoder gives the objects
+None), exactly as ``_canonical`` does there; on the wire, dict order and
+``None`` are kept, so a port node and a JAX node exchange the same
+bytes. The decoder gives the objects
 ``msgpack.unpackb(raw=False)`` gives: str for str, bytes for bin, lists
 for arrays, dicts for maps.
 """
@@ -119,6 +123,11 @@ def packb(obj: Any) -> bytes:
 def serialize_for_signing(obj: Any) -> bytes:
     """Deterministic bytes for signing/digesting (ordered msgpack)."""
     return packb(_canonical(obj))
+
+
+def serialize_msg(obj: Any) -> bytes:
+    """Wire serialization for node/client messages (msgpack, order kept)."""
+    return packb(obj)
 
 
 # --- decoding (msgpack.unpackb(data, raw=False)) ----------------------------
@@ -250,3 +259,18 @@ class Base58Serializer:
 
 
 state_roots_serializer = Base58Serializer()
+
+
+class ProofNodesSerializer:
+    """State-proof node list <-> msgpack bytes (client-verifiable)."""
+
+    @staticmethod
+    def serialize(nodes: Any) -> bytes:
+        return packb(nodes)
+
+    @staticmethod
+    def deserialize(data: bytes) -> Any:
+        return unpackb(data)
+
+
+proof_nodes_serializer = ProofNodesSerializer()

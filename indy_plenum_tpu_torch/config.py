@@ -97,9 +97,7 @@ class Config:
     PropagateBatchWait: float = 0.1
 
     # --- transport --------------------------------------------------------
-    # da: allow[config-knob] -- read by the reference's tools/local_pool.py, whose port twin waits for network/ and tools/ (ROADMAP Queue 1, the network/ and tools/ items)
     OUTGOING_BATCH_SIZE: int = 100
-    # da: allow[config-knob] -- read by the reference's tools/local_pool.py, whose port twin waits for network/ and tools/ (ROADMAP Queue 1, the network/ and tools/ items)
     MSG_LEN_LIMIT: int = 128 * 1024
 
     # --- geo plane: regional latency realism (simulation/sim_network.py) --
@@ -292,7 +290,6 @@ class Config:
 
     # --- storage ----------------------------------------------------------
     # sqlite | memory
-    # da: allow[config-knob] -- read by the reference's tools/local_pool.py, whose port twin waits for network/ and tools/ (ROADMAP Queue 1, the network/ and tools/ items)
     KVStorageType: str = "sqlite"
 
     # --- request handling -------------------------------------------------
@@ -301,7 +298,6 @@ class Config:
     ActionFreshnessWindow: float = 300.0
 
     # --- metrics / observability -----------------------------------------
-    # da: allow[config-knob] -- read by the reference's tools/local_pool.py, whose port twin waits for network/ and tools/ (ROADMAP Queue 1, the network/ and tools/ items)
     METRICS_COLLECTOR_TYPE: Optional[str] = "kv"
     # consensus flight recorder (observability.trace): span traces for
     # the 3PC lifecycle + dispatch plane. Disabled by default — recording
@@ -357,14 +353,13 @@ class Config:
     SoakViewChangeHour: float = 12.0  # primary partition -> view change
     SoakRebalanceTick: int = 5000  # RebalanceForceTick for the soak pool
     # logging (reference: stp logging config + rotating handler); the
-    # five knobs below are consumed by the reference's
-    # scripts/start_node.py (deployed logging setup, through
-    # common/log.setup_logging); the port has no twin of that script yet
-    logLevel: str = "INFO"  # da: allow[config-knob] -- read by the reference's scripts/start_node.py, whose port twin waits for network/ and tools/ (ROADMAP Queue 1, the network/ and tools/ items)
-    logRotationMaxBytes: int = 10 * 1024 * 1024  # da: allow[config-knob] -- read by the reference's scripts/start_node.py, whose port twin waits for network/ and tools/ (ROADMAP Queue 1, the network/ and tools/ items)
-    logRotationBackupCount: int = 10  # da: allow[config-knob] -- read by the reference's scripts/start_node.py, whose port twin waits for network/ and tools/ (ROADMAP Queue 1, the network/ and tools/ items)
-    logRotationWhen: str = "h"  # da: allow[config-knob] -- read by the reference's scripts/start_node.py, whose port twin waits for network/ and tools/ (ROADMAP Queue 1, the network/ and tools/ items)
-    logRotationInterval: int = 1  # da: allow[config-knob] -- read by the reference's scripts/start_node.py, whose port twin waits for network/ and tools/ (ROADMAP Queue 1, the network/ and tools/ items)
+    # five knobs below are consumed by tools/start_node.py (deployed
+    # logging setup, through common/log.setup_logging)
+    logLevel: str = "INFO"
+    logRotationMaxBytes: int = 10 * 1024 * 1024
+    logRotationBackupCount: int = 10
+    logRotationWhen: str = "h"
+    logRotationInterval: int = 1
 
     # --- plugins ----------------------------------------------------------
     # importable module paths, each exposing plugin_entry(node)

@@ -18,10 +18,14 @@ hot-path call site guards argument construction behind ``trace.enabled``.
 Copy of the recorder part of ``indy_plenum_tpu/observability/trace.py``
 (``TraceRecorder``, ``NullTraceRecorder``, ``LaneTraceView``, the JSONL
 dump format), of its nearest-rank ``percentile``, which the causal
-journeys use, and of its phase analytics (``phase_durations``,
-``phase_percentiles``), which the RBFT monitor's snapshot reports. The
-other dump analytics (critical path, overlap and rollup reports, Chrome
-trace export) are not part of the port yet.
+journeys use, of its phase analytics (``phase_durations``,
+``phase_percentiles``), which the RBFT monitor's snapshot reports, and of
+its dump analytics: the critical path per ordered batch
+(:func:`critical_path`), the per-tick host/device overlap and
+readback-bytes report (:func:`overlap_report`), the telemetry plane's
+windowed rollups (:func:`rollup_report`) and the Chrome trace-event export
+(:func:`to_chrome_trace`, loadable in Perfetto). They are pure host
+functions over event lists.
 """
 from __future__ import annotations
 
@@ -467,3 +471,380 @@ def phase_percentiles(events: List[Dict[str, Any]],
             "max": round(s[-1], ndigits),
         }
     return out
+
+
+# breakdown phases only (no overlapping total) — critical-path shares
+# must sum to ~1.0 over an ordered batch's life
+_BREAKDOWN = ("prepare", "commit", "order", "execute")
+
+
+def critical_path(events: List[Dict[str, Any]],
+                  node: Optional[str] = None) -> Dict[str, Any]:
+    """Per ordered batch: which phase dominated its latency. Returns
+    ``batches`` (groups with a complete breakdown), ``dominant`` (phase
+    -> how many batches it dominated) and ``phase_share`` (phase ->
+    fraction of total attributed time pool-wide)."""
+    dominant: Dict[str, int] = {}
+    totals: Dict[str, float] = {}
+    batches = 0
+    for (_node, _key), marks in sorted(
+            _mark_times(events, "3pc",
+                        None if node is None
+                        else frozenset((node,))).items()):
+        if "3pc.preprepare" not in marks \
+                and "3pc.preprepare_sent" in marks:
+            marks["3pc.preprepare"] = marks["3pc.preprepare_sent"]
+        durs = {}
+        for phase, start, end in PHASES:
+            if phase in _BREAKDOWN and start in marks and end in marks:
+                durs[phase] = marks[end] - marks[start]
+        if not durs:
+            continue
+        batches += 1
+        # ties break on canonical phase order (deterministic)
+        top, top_d = None, float("-inf")
+        for phase in _BREAKDOWN:
+            if phase in durs and durs[phase] > top_d:
+                top, top_d = phase, durs[phase]
+        dominant[top] = dominant.get(top, 0) + 1
+        for phase, d in durs.items():
+            totals[phase] = totals.get(phase, 0.0) + d
+    whole = sum(totals.values())
+    return {
+        "batches": batches,
+        "dominant": {p: dominant[p] for p in _BREAKDOWN if p in dominant},
+        "phase_share": {p: round(totals[p] / whole, 4)
+                        for p in _BREAKDOWN if p in totals} if whole
+        else {},
+    }
+
+
+def overlap_report(events: List[Dict[str, Any]],
+                   node: Optional[str] = None) -> Dict[str, Any]:
+    """Per-tick host/device overlap + readback-bytes attribution (the
+    ordering fast path's measured story — ``trace_tool.py --overlap``).
+
+    A tick's dispatch events arrive in ring order as ``tick.drain``,
+    ``flush.dispatch``*, ``flush.readback``, ``tick.flush``,
+    ``tick.governor``, ``tick.eval`` — the report closes a tick at each
+    ``tick.flush`` mark and joins the trailing eval/governor marks to
+    it. ``overlapped`` on a ``flush.readback`` means the absorb consumed
+    a step DISPATCHED by an earlier flush call: its device round-trip
+    hid behind at least one full tick of host work (the pipelined
+    contract). ``readback_bytes`` is what actually crossed the
+    device->host boundary — O(newly certified + frontier) in device
+    eval, the full event matrix under host_eval.
+
+    Mesh runs (the scale-out quorum fabric) additionally carry per-shard
+    columns: ``flush.readback`` events are per member shard (``shard``
+    arg) and ``flush.dispatch`` splits its votes per occupancy-grid cell
+    (``shard_votes``), so the ``per_shard`` block — readback bytes per
+    member shard, votes/share per cell — makes a hot shard visible from
+    a trace dump alone.
+
+    Multi-tick residency runs stage votes with ``flush.enqueue`` spans
+    (these carry the votes/shard_votes; the fused ``flush.dispatch``
+    then covers several ticks via its ``ticks`` arg) and record
+    ``flush.defer`` when a tick ends with the ring still accumulating.
+    Such traces grow per-tick ``enqueues``/``resident_ticks``/
+    ``deferred`` columns plus a ``residency`` summary; traces with no
+    resident events are byte-identical to before. ``rebalance.planned``
+    / ``rebalance.executed`` records surface as a ``rebalances`` block
+    with their marks."""
+    ticks: List[Dict[str, Any]] = []
+    cur = {"dispatches": 0, "votes": 0, "readbacks": 0, "overlapped": 0,
+           "readback_bytes": 0}
+    rcur = {"enqueues": 0, "resident_ticks": 0, "deferred": 0}
+    resident_seen = False
+    rtotals = {"enqueues": 0, "resident_ticks_total": 0,
+               "readbacks_deferred": 0}
+    rebalance_marks: List[Dict[str, Any]] = []
+    rebalances_executed = 0
+    shard_bytes: Dict[int, int] = {}
+    shard_readbacks: Dict[int, int] = {}
+    cell_votes: List[int] = []
+    # per-shard data stages per tick and commits at tick.flush, so the
+    # per_shard block covers exactly the same closed-tick window as the
+    # totals (a trailing partial tick is dropped from BOTH views)
+    pend_shard_bytes: Dict[int, int] = {}
+    pend_shard_readbacks: Dict[int, int] = {}
+    pend_cell_votes: List[int] = []
+    for ev in events:
+        if ev.get("cat") != "dispatch":
+            continue
+        if node is not None and ev.get("node", "") not in (node, ""):
+            continue
+        name, args = ev["name"], ev.get("args") or {}
+        if name == "flush.dispatch":
+            cur["dispatches"] += 1
+            cur["votes"] += args.get("votes", 0)
+            if "resident" in args:
+                resident_seen = True
+                rcur["resident_ticks"] += args.get("ticks", 0)
+                rtotals["resident_ticks_total"] += args.get("ticks", 0)
+            sv = args.get("shard_votes")
+            if sv:
+                if len(pend_cell_votes) < len(sv):
+                    pend_cell_votes.extend(
+                        [0] * (len(sv) - len(pend_cell_votes)))
+                for ci, v in enumerate(sv):
+                    pend_cell_votes[ci] += v
+        elif name == "flush.enqueue":
+            # resident staging: votes counted HERE (the fused dispatch
+            # carries none, so totals stay single-counted)
+            resident_seen = True
+            rcur["enqueues"] += 1
+            rtotals["enqueues"] += 1
+            cur["votes"] += args.get("votes", 0)
+            sv = args.get("shard_votes")
+            if sv:
+                if len(pend_cell_votes) < len(sv):
+                    pend_cell_votes.extend(
+                        [0] * (len(sv) - len(pend_cell_votes)))
+                for ci, v in enumerate(sv):
+                    pend_cell_votes[ci] += v
+        elif name == "flush.defer":
+            resident_seen = True
+            rcur["deferred"] += 1
+            rtotals["readbacks_deferred"] += 1
+        elif name in ("rebalance.planned", "rebalance.executed"):
+            rebalance_marks.append({"name": name, "ts": ev["ts"],
+                                    "args": dict(args)})
+            if name == "rebalance.executed":
+                rebalances_executed += 1
+        elif name == "flush.readback":
+            cur["readbacks"] += 1
+            cur["readback_bytes"] += args.get("bytes", 0)
+            if args.get("overlapped"):
+                cur["overlapped"] += 1
+            shard = args.get("shard")
+            if shard is not None:
+                pend_shard_bytes[shard] = (pend_shard_bytes.get(shard, 0)
+                                           + args.get("bytes", 0))
+                pend_shard_readbacks[shard] = \
+                    pend_shard_readbacks.get(shard, 0) + 1
+        elif name == "tick.flush":
+            cur["ts"] = ev["ts"]
+            if resident_seen:
+                cur.update(rcur)
+            ticks.append(cur)
+            cur = {"dispatches": 0, "votes": 0, "readbacks": 0,
+                   "overlapped": 0, "readback_bytes": 0}
+            rcur = {"enqueues": 0, "resident_ticks": 0, "deferred": 0}
+            for s, b in pend_shard_bytes.items():
+                shard_bytes[s] = shard_bytes.get(s, 0) + b
+            for s, n in pend_shard_readbacks.items():
+                shard_readbacks[s] = shard_readbacks.get(s, 0) + n
+            if len(cell_votes) < len(pend_cell_votes):
+                cell_votes.extend(
+                    [0] * (len(pend_cell_votes) - len(cell_votes)))
+            for ci, v in enumerate(pend_cell_votes):
+                cell_votes[ci] += v
+            pend_shard_bytes = {}
+            pend_shard_readbacks = {}
+            pend_cell_votes = []
+    byte_series = sorted(t["readback_bytes"] for t in ticks)
+    readbacks = sum(t["readbacks"] for t in ticks)
+    overlapped = sum(t["overlapped"] for t in ticks)
+    out = {
+        "ticks": len(ticks),
+        "readbacks": readbacks,
+        # host/device overlap fraction: readbacks whose round-trip hid
+        # behind a full tick of host work / all readbacks
+        "overlap_fraction": (round(overlapped / readbacks, 4)
+                             if readbacks else 0.0),
+        "readback_bytes_total": sum(byte_series),
+        "readback_bytes_per_tick": {
+            "p50": percentile(byte_series, 50),
+            "max": byte_series[-1] if byte_series else 0,
+        },
+        "per_tick": ticks,
+    }
+    if resident_seen:
+        out["residency"] = dict(rtotals)
+    if rebalance_marks:
+        out["rebalances"] = {"executed": rebalances_executed,
+                             "marks": rebalance_marks}
+    if shard_bytes or cell_votes:
+        n_shards = max([s + 1 for s in shard_bytes] or [0])
+        total_votes = sum(cell_votes)
+        out["per_shard"] = {
+            # member shards: what each shard's compact blocks cost to
+            # read back (and how many blocks absorbed)
+            "readback_bytes": [shard_bytes.get(s, 0)
+                               for s in range(n_shards)],
+            "readbacks": [shard_readbacks.get(s, 0)
+                          for s in range(n_shards)],
+            # occupancy-grid cells (member block x validator block,
+            # flattened): each cell's vote count and share — the
+            # dump-local analog of VotePlaneGroup.shard_occupancy
+            "votes": list(cell_votes),
+            "vote_share": [round(v / total_votes, 4) if total_votes
+                           else 0.0 for v in cell_votes],
+        }
+    return out
+
+
+def rollup_report(events: List[Dict[str, Any]],
+                  node: Optional[str] = None) -> Dict[str, Any]:
+    """The telemetry plane's windowed-rollup view from a flight dump
+    alone (``trace_tool.py --rollups`` — the long-horizon sibling of
+    ``--overlap``).
+
+    An armed plane records one ``telemetry.roll`` mark per rolled
+    window (ordered/shed/retry deltas, window p99, summed and largest
+    per-resource high-water) and a ``flight.telemetry.<law>`` mark per
+    fired anomaly (the drift detector's ``trigger_dump``). The report
+    rebuilds the per-window table, joins each anomaly to its window,
+    and totals anomalies per law — so a dump from a soak run answers
+    "when did throughput drift, and what was growing" without the
+    run's in-memory plane."""
+    rows: List[Dict[str, Any]] = []
+    by_window: Dict[int, Dict[str, Any]] = {}
+    for ev in events:
+        if ev.get("name") != "telemetry.roll":
+            continue
+        if node is not None and ev.get("node", "") not in ("", node):
+            continue
+        row = dict(ev.get("args") or {})
+        row["ts"] = ev.get("ts")
+        row["anomalies"] = []
+        rows.append(row)
+        if row.get("window") is not None:
+            by_window[int(row["window"])] = row
+    anomalies: List[Dict[str, Any]] = []
+    by_law: Dict[str, int] = {}
+    for ev in events:
+        name = ev.get("name", "")
+        if ev.get("cat") != "flight" \
+                or not name.startswith("flight.telemetry."):
+            continue
+        law = name[len("flight.telemetry."):]
+        rec = dict(ev.get("args") or {})
+        rec["law"] = law
+        rec["ts"] = ev.get("ts")
+        anomalies.append(rec)
+        by_law[law] = by_law.get(law, 0) + 1
+        w = rec.get("window")
+        if w is not None and int(w) in by_window:
+            by_window[int(w)]["anomalies"].append(law)
+    ordered = [r.get("ordered") or 0 for r in rows]
+    return {
+        "windows": len(rows),
+        "ordered_total": sum(ordered),
+        "ordered_min": min(ordered) if ordered else 0,
+        "ordered_max": max(ordered) if ordered else 0,
+        "anomaly_count": len(anomalies),
+        "anomalies_by_law": dict(sorted(by_law.items())),
+        "anomalies": anomalies,
+        "per_window": rows,
+    }
+
+
+# ----------------------------------------------------------------------
+# Chrome trace-event export (Perfetto / chrome://tracing)
+# ----------------------------------------------------------------------
+
+def to_chrome_trace(events: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Chrome trace-event JSON: one pid per node (pool-level events ride
+    pid "pool"), one tid per category; spans (events with ``dur``) become
+    complete "X" events, marks become instant "i" events. Timestamps are
+    microseconds per the format spec.
+
+    Transport marks (cat ``net``, the causal tracing plane) additionally
+    emit **flow events**: each matched ``net.send``/``net.recv`` pair
+    becomes an "s"/"f" flow arc between the sender's and receiver's
+    pids, so a request's PROPAGATE/3PC journey renders as arrows hopping
+    across node tracks in Perfetto."""
+    nodes = sorted({ev.get("node", "") for ev in events})
+    cats = sorted({ev.get("cat", "") for ev in events})
+    pid_of = {n: i + 1 for i, n in enumerate(nodes)}
+    tid_of = {c: i + 1 for i, c in enumerate(cats)}
+    out: List[Dict[str, Any]] = []
+    for n in nodes:
+        out.append({"ph": "M", "name": "process_name", "pid": pid_of[n],
+                    "tid": 0, "args": {"name": n or "pool"}})
+    for c in cats:
+        for n in nodes:
+            out.append({"ph": "M", "name": "thread_name",
+                        "pid": pid_of[n], "tid": tid_of[c],
+                        "args": {"name": c}})
+    t0 = min((ev["ts"] for ev in events), default=0.0)
+    for ev in events:
+        args = dict(ev.get("args") or {})
+        if ev.get("key") is not None:
+            args["key"] = list(ev["key"])
+        rec: Dict[str, Any] = {
+            "name": ev["name"],
+            "cat": ev.get("cat", ""),
+            "pid": pid_of[ev.get("node", "")],
+            "tid": tid_of[ev.get("cat", "")],
+            "ts": round((ev["ts"] - t0) * 1e6, 3),
+        }
+        if args:
+            rec["args"] = args
+        is_net_mark = (ev.get("cat") == "net"
+                       and ev["name"] in ("net.send", "net.recv"))
+        # cross-lane checkpoint barrier (ordering lanes): each lane's
+        # readiness mark flows into the seal mark, so Perfetto draws the
+        # K-way barrier join as arrows converging on barrier.sealed
+        is_barrier_mark = (ev.get("cat") == "lanes"
+                           and ev["name"] in ("barrier.ready",
+                                              "barrier.sealed"))
+        if ev.get("dur") is not None:
+            rec["ph"] = "X"
+            rec["dur"] = round(ev["dur"] * 1e6, 3)
+        elif is_net_mark or is_barrier_mark:
+            # flow ends must bind to an ENCLOSING duration slice per the
+            # trace-event spec — an instant can't anchor an arrow — so
+            # transport marks render as 1µs slices
+            rec["ph"] = "X"
+            rec["dur"] = 1.0
+        else:
+            rec["ph"] = "i"
+            rec["s"] = "p"
+        out.append(rec)
+        # flow arcs: a send/recv pair shares args["id"]; the send is the
+        # flow start ("s") on the sender's pid, the recv binds the end
+        # ("f", enclosing slice) on the receiver's — Perfetto draws the
+        # cross-node arrow
+        if is_net_mark:
+            flow_id = (ev.get("args") or {}).get("id")
+            if flow_id is not None:
+                out.append({
+                    "ph": "s" if ev["name"] == "net.send" else "f",
+                    "bp": "e",
+                    "id": str(flow_id),
+                    "name": "net." + str((ev.get("args") or {})
+                                         .get("m", "msg")),
+                    "cat": "net",
+                    "pid": rec["pid"],
+                    "tid": rec["tid"],
+                    "ts": rec["ts"],
+                })
+        elif is_barrier_mark and ev.get("key"):
+            window = ev["key"][0]
+            bargs = ev.get("args") or {}
+            if ev["name"] == "barrier.ready":
+                flow_ids = ["barrier-%s-%s" % (window, bargs.get("lane"))]
+            else:
+                # sealed: close one arc per lane that actually emitted a
+                # readiness mark for this window — idle/skipped lanes
+                # have no flow start, and a dangling end renders broken
+                ready = bargs.get("ready_lanes")
+                if ready is None:  # older dumps: best-effort all lanes
+                    ready = range(int(bargs.get("lanes", 0)))
+                flow_ids = ["barrier-%s-%s" % (window, lane)
+                            for lane in ready]
+            for fid in flow_ids:
+                out.append({
+                    "ph": "s" if ev["name"] == "barrier.ready" else "f",
+                    "bp": "e",
+                    "id": fid,
+                    "name": "barrier.window",
+                    "cat": "lanes",
+                    "pid": rec["pid"],
+                    "tid": rec["tid"],
+                    "ts": rec["ts"],
+                })
+    return {"traceEvents": out, "displayTimeUnit": "ms"}

@@ -612,3 +612,11 @@ def merkle_node_hash_bytes(left: np.ndarray, right: np.ndarray,
     return merkle_plan_hash_bytes(_wave_refs(n),
                                   np.concatenate([left, right]), [0, n],
                                   device)
+
+
+def sha256_host_oracle(data: bytes) -> bytes:
+    """hashlib's SHA-256, the reference's host oracle for the kernels'
+    digests (``indy_plenum_tpu/tpu/sha256.py:360``)."""
+    import hashlib
+
+    return hashlib.sha256(data).digest()

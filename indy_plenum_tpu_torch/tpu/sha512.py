@@ -337,3 +337,11 @@ def pad_ed25519_messages(prefixes, msgs, max_blocks: int
         buf[np.ix_(idxs, np.arange(nb * 128 - 16, nb * 128))] = bits
         counts[idxs] = nb
     return buf.reshape(n, max_blocks, 128), counts
+
+
+def sha512_host_oracle(data: bytes) -> bytes:
+    """hashlib's SHA-512, the reference's host oracle for the kernel's
+    digests (``indy_plenum_tpu/tpu/sha512.py:337``)."""
+    import hashlib
+
+    return hashlib.sha512(data).digest()

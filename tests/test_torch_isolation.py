@@ -3,7 +3,8 @@
 - Every module of ``indy_plenum_tpu_torch`` and ``chip_smoke.py`` imports
   with ``jax``, ``indy_plenum_tpu``, ``msgpack`` and ``cryptography`` made
   unimportable (a subprocess: this test process has imported jax already,
-  through conftest); the card's machine has none of them.
+  through conftest); the card's machine has none of them. Importing a
+  module starts nothing (``cli.__main__`` guards its REPL).
 - Without CUDA, an entry point built without ``device="cpu"`` raises, one
   asked for ``device="cuda"`` raises instead of running the plain
   versions, and a kernel wrapper given a tensor on neither the CPU nor a
@@ -71,6 +72,11 @@ def test_port_imports_without_jax_or_reference():
                 "analysis.rules_hotpath", "analysis.rules_ordering",
                 "common.looper", "common.log", "recorder",
                 "recorder.recorder"):
+        assert "indy_plenum_tpu_torch." + mod in mods
+    for mod in ("network", "network.keys", "network.zstack",
+                "network.client_stack", "tools", "tools.local_pool",
+                "tools.start_node", "tools.generate_pool", "cli", "cli.cli",
+                "cli.__main__"):
         assert "indy_plenum_tpu_torch." + mod in mods
     assert os.path.isfile(os.path.join(PKG, "analysis", "baseline.json"))
     for src in ("resident_tile.cu", "quorum_common.cuh", "quorum.cu",
