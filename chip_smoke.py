@@ -255,6 +255,29 @@ Z. sockets    - the deployed transport (``network/``, ``tools/``,
                 fires), so no CPU run can equal it record for record:
                 phase Z has no CPU twin, and Z1's replay on a virtual
                 timer is its deterministic check;
+T. tools      - the operator entry points (``indy_plenum_tpu_torch/
+                tools/``), each through its ``main`` as its command line
+                calls it. T1 is ``check_dispatch_budget`` at its defaults
+                with ``--only`` the sharded, fabric, tracing, readback,
+                residency, latency, catchup, governor, lanes, proof and
+                geo gates (the dispatch budget always runs): verdict PASS,
+                and every field but the walls equal to the same command's
+                CPU twin from the worker processes. T2 is ``chaos_run``
+                on ``f_crash_gc_catchup`` (seed 7) on the tick plane
+                (0.05), then its report's ``replay_command`` as a process
+                of its own: the two reports and a CPU run's are equal but
+                for the wall-clock flush series, and K7 / K8 launch as
+                the CPU counted. T3 is ``ingress_run`` twice on one seed
+                (n=16, signed, 400 writes/s for 3 s, a queue of 16, half
+                reads): equal records but for the walls and
+                ``read_qps``; its ``--trace-out`` dump through every
+                ``trace_tool`` view, and ``--chrome`` JSON that loads. T4
+                is ``profile_rbft`` (n=16, 6 instances, 960 txns) on four
+                member tiles at depth 4, its top hotspots printed. T5 is
+                ``graft_entry``: ``fn(*args)`` (K14) equal to its plain
+                version on the same inputs, and ``dryrun_multichip(4)``'s
+                sharded step equal to the step on one tile and to the CPU's
+                dry run, its three pools ordering as the CPU's;
 E. state      - ``run_commit_arms`` host vs device waves at the
                 reference's state-bench delta and windows (delta 256, 20
                 windows) over a 20,000-key state (the cell's 100,000 cut
@@ -269,12 +292,12 @@ E. state      - ``run_commit_arms`` host vs device waves at the
                 ``{"ok": true, "device": {...}}``.
 
 Each main-path run (phases 3, 4, A, B, F, G, H, R, C, D, L, P, X, O, N, S,
-W, V, Y, Z and E on the card) starts with every launch counter at 0 and
+W, V, Y, Z, T and E on the card) starts with every launch counter at 0 and
 reads the counters right after; the ``kernels`` line's ``launches`` are
 their sums, with Z4's counted in its validator processes (each prints its
-own at exit). The CPU twins of phases A, B, O, N, S, W, V, Y and X's workload arms
-run in worker processes (``TWIN_WORKERS``, one torch thread each) started with
-the script and stopped with it.
+own at exit). The CPU twins of phases A, B, O, N, S, W, V, Y, X's workload
+arms and T1 run in worker processes (``TWIN_WORKERS``, one torch thread
+each) started with the script and stopped with it.
 
 Any mismatch raises and the script exits non-zero. It imports nothing of
 JAX. Without a CUDA device it exits non-zero before printing a result.
@@ -5294,6 +5317,333 @@ def phase_z(on_card, card):
     return z4["launches"], z1, z4, phase_s
 
 
+# --- phase T: the operator entry points on the card ------------------------
+#
+# The port's ``python -m`` twins of ``scripts/`` and ``__graft_entry__.py``
+# (``indy_plenum_tpu_torch/tools/``), each called through its ``main`` as a
+# user's command line would, its stdout read back.
+
+# T1: the gate suite at its defaults, these gates (the dispatch budget
+# always runs); the ingress, overload, state and soak gates run in the full
+# suite (utils/gate_suite.py, PERF.md), not in the smoke
+T_GATES = ("sharded", "fabric", "trace", "readback", "residency", "latency",
+           "catchup", "governor", "lanes", "proof", "geo")
+# fields a gate builds from time.perf_counter (tests/torch_gates.py)
+T_WALL_KEYS = {"wall_s", "wall_ratio", "per_root_64_s", "batch_64_s",
+               "batch_speedup", "populate_s", "leeched_txns_per_wall_sec",
+               "commits_per_sec", "elapsed_s"}
+# T2: one chaos arc on the tick plane, and its replay command
+T_CHAOS = ["--seed", "7", "--scenario", "f_crash_gc_catchup",
+           "--device-quorum", "--tick", "0.05"]
+# T3: the ingress tool at n=16, signed, a short window (two runs)
+T_INGRESS = ["--nodes", "16", "--rate", "400", "--duration", "3",
+             "--settle", "3", "--capacity", "16", "--read-fraction", "0.5",
+             "--keys", "4096", "--seed", "7", "--json"]
+T_TRACE_VIEWS = ([], ["--phases"], ["--critical-path"], ["--overlap"],
+                 ["--rollups"], ["--journeys"], ["--json"])
+# T4: the profiler's default pool (n=16, 6 instances) on four member tiles
+# at depth 4, 960 txns after its warm-up batch
+T_PROFILE = ["16", "6", "960", "--json", "--no-baseline", "--mesh", "4",
+             "--resident-depth", "4"]
+T_TILES = 4  # T5: dryrun_multichip's validator tiles
+
+
+def _tool_main(tool, argv):
+    """``tool.main(argv)`` with its stdout (and stderr) captured: (exit
+    code, stdout)."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = tool.main(list(argv))
+    return rc, out.getvalue()
+
+
+def _wall_sum(obj):
+    """The ``wall_s`` fields of a gate's record, summed over its arms."""
+    if isinstance(obj, dict):
+        return sum(v if k == "wall_s" else _wall_sum(v)
+                   for k, v in obj.items()
+                   if k == "wall_s" or isinstance(v, (dict, list)))
+    if isinstance(obj, list):
+        return sum(_wall_sum(v) for v in obj)
+    return 0.0
+
+
+def _strip_wall(obj):
+    if isinstance(obj, dict):
+        return {k: _strip_wall(v) for k, v in obj.items()
+                if k not in T_WALL_KEYS}
+    if isinstance(obj, list):
+        return [_strip_wall(v) for v in obj]
+    return obj
+
+
+def run_gates_t(device):
+    """T1: ``tools.check_dispatch_budget --only T_GATES --json`` on
+    ``device`` (``None``: the card); the record and its exit code."""
+    from indy_plenum_tpu_torch.tools import check_dispatch_budget as cdb
+
+    argv = ["--only", ",".join(T_GATES), "--json"]
+    if device is not None:
+        argv += ["--device", device]
+    rc, out = _tool_main(cdb, argv)
+    return rc, json.loads(out.strip().splitlines()[-1])
+
+
+def twin_gates():
+    t0 = time.perf_counter()
+    return run_gates_t("cpu"), time.perf_counter() - t0
+
+
+def _chaos_report(path):
+    with open(path) as fh:
+        rec = json.load(fh)
+    for key in X_WALL_METRICS:
+        rec["metrics"].pop(key, None)
+    return rec
+
+
+def run_chaos_t(device, workdir):
+    """T2: ``tools.chaos_run`` on ``T_CHAOS`` in ``workdir`` (the default
+    report file name); its exit code and report."""
+    import os
+
+    from indy_plenum_tpu_torch.tools import chaos_run
+
+    argv = list(T_CHAOS) + (["--device", device] if device else [])
+    here = os.getcwd()
+    os.chdir(workdir)
+    try:
+        rc, out = _tool_main(chaos_run, argv)
+    finally:
+        os.chdir(here)
+    report = os.path.join(workdir, "chaos_f_crash_gc_catchup_7.json")
+    return rc, out, report
+
+
+def run_ingress_t(device, trace_out=None):
+    """T3: ``tools.ingress_run`` on ``device`` (``None``: the card); its
+    JSON record."""
+    from indy_plenum_tpu_torch.tools import ingress_run
+
+    argv = list(T_INGRESS) + (["--trace-out", trace_out] if trace_out
+                              else []) + (["--device", device] if device
+                                          else [])
+    rc, out = _tool_main(ingress_run, argv)
+    if rc != 0:
+        raise AssertionError(f"phase T3: ingress_run exited {rc}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _ingress_fields(rec):
+    """T3's record without its walls (``*wall_s``) and ``read_qps``."""
+    rec = {k: v for k, v in rec.items()
+           if not k.endswith("wall_s") and k != "trace_file"}
+    rec["reads"] = {k: v for k, v in rec["reads"].items()
+                    if k != "read_qps"}
+    return rec
+
+
+def run_profile_t(device):
+    """T4: ``tools.profile_rbft`` on ``T_PROFILE`` on ``device`` (``None``:
+    the card); its JSON record and the first rows of the profile it prints
+    sorted by own time (``tottime``)."""
+    import io
+
+    from indy_plenum_tpu_torch.tools import profile_rbft
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        profile_rbft.main(list(T_PROFILE) + (["--device", device] if device
+                                             else []))
+    text = err.getvalue()
+    own = text[text.index("Ordered by: internal time"):].splitlines()
+    head = next(i for i, line in enumerate(own) if "tottime" in line)
+    rows = [" ".join(line.split()) for line in own[head + 1:head + 13]
+            if line.strip()]
+    return json.loads(out.getvalue().strip().splitlines()[-1]), rows
+
+
+def run_graft_t(device):
+    """T5: ``graft_entry.entry()`` on ``device`` (``None``: the card)
+    against its plain version on the same inputs, and
+    ``dryrun_multichip(T_TILES)`` against the step on one tile of the
+    device and the CPU's dry run."""
+    from indy_plenum_tpu_torch.tools import graft_entry as ge
+    from indy_plenum_tpu_torch.tpu.step import fused_step
+
+    fn, args = ge.entry(device)
+    card = ge._step_record(*fn(*args))
+    pfn, pargs = ge.entry("cpu")
+    plain = ge._step_record(*pfn(*pargs))
+    with contextlib.redirect_stdout(sys.stderr):
+        dry = ge.dryrun_multichip(T_TILES, device)
+        cpu_dry = ge.dryrun_multichip(T_TILES, "cpu")
+    n_validators, one = ge.dryrun_inputs(T_TILES, device)
+    one_tile = ge._step_record(*fused_step(*one, n_validators=n_validators,
+                                           device=device))
+    return card, plain, dry, cpu_dry, one_tile
+
+
+def _records_equal(a, b):
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[k], b[k]) if not isinstance(a[k], dict)
+        else _records_equal(a[k], b[k]) for k in a)
+
+
+def phase_t(on_card, card, jobs):
+    """Phase T: T1-T5 on the card, one line each and a summary; returns
+    the phase's launches (counted by ``on_card``) and its seconds."""
+    import os
+    import shlex
+    import tempfile
+
+    from indy_plenum_tpu_torch.tools import trace_tool
+
+    t0 = time.perf_counter()
+    t_launches = {}
+
+    def counted(tag, fn, *args):
+        out, got, wall = on_card(tag, fn, *args)
+        for name, n in got.items():
+            t_launches[name] = t_launches.get(name, 0) + n
+        return out, got, wall
+
+    # T1: the gates on the card, against the CPU twin of the same command
+    (rc, gates), t1_launches, t1_wall = counted("gates_t1", run_gates_t,
+                                                None)
+    (cpu_rc, cpu_gates), cpu_s, wait_s = _twin(jobs, "t1")
+    if rc != 0 or gates["verdict"] != "PASS":
+        raise AssertionError(f"phase T1: {gates['verdict']}")
+    a, b = _strip_wall(gates), _strip_wall(cpu_gates)
+    diff = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+    if cpu_rc != rc or diff:
+        raise AssertionError(f"phase T1: card and CPU gates differ on "
+                             f"{diff}")
+    _line("T1", gates=list(T_GATES), verdict=gates["verdict"],
+          arm_wall_s={k: _wall_sum(v) for k, v in gates.items()
+                       if k.endswith(("_gate", "_gates"))},
+          dispatches_per_batch=gates["device_dispatches_per_ordered_batch"],
+          sharded_dispatches_per_batch=gates["sharded_gate"][
+              "mesh_sharded"]["device_dispatches_per_ordered_batch"],
+          residency_dispatches_per_batch=gates["residency_gate"][
+              "resident"]["device_dispatches_per_ordered_batch"],
+          e2e_p99=gates["latency_gate"]["e2e"]["p99"],
+          proof_batch_speedup=gates["proof_gate"]["batch_speedup"],
+          wall_s=t1_wall, cpu_twin_s=cpu_s, twin_wait_s=wait_s,
+          launches={k: v for k, v in t1_launches.items() if v}, card=card)
+
+    # T2: a chaos arc through the CLI, then its replay command as a process
+    with tempfile.TemporaryDirectory() as tmp:
+        for sub in ("card", "replay", "cpu"):
+            os.mkdir(os.path.join(tmp, sub))
+        (rc, text, path), t2_launches, t2_wall = counted(
+            "chaos_t2", run_chaos_t, None, os.path.join(tmp, "card"))
+        report = _chaos_report(path)
+        command = report["replay_command"]
+        if rc != 0 or not command.startswith(
+                "python -m indy_plenum_tpu_torch.tools.chaos_run "):
+            raise AssertionError(f"phase T2: exit {rc}, {command}")
+        t_replay = time.perf_counter()
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.run([sys.executable] + shlex.split(command)[1:],
+                              cwd=os.path.join(tmp, "replay"), env=env,
+                              capture_output=True, text=True, timeout=300)
+        replay_s = time.perf_counter() - t_replay
+        if proc.returncode != 0:
+            raise AssertionError(f"phase T2: the replay exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        again = _chaos_report(os.path.join(
+            tmp, "replay", os.path.basename(path)))
+        with plain_dispatches() as cpu_counted:
+            cpu_rc, _, cpu_path = run_chaos_t("cpu", os.path.join(tmp, "cpu"))
+        cpu_report = _chaos_report(cpu_path)
+    if again != report or cpu_report != report or cpu_rc != 0:
+        raise AssertionError("phase T2: the replay or the CPU run differs "
+                             "from the card's report")
+    if any(t2_launches[k] != n for k, n in cpu_counted.items()):
+        raise AssertionError(f"phase T2: launches {t2_launches} against the "
+                             f"CPU's {cpu_counted}")
+    _line("T2", command=command, invariants={
+        r["name"]: r["verdict"] for r in report["invariants"]},
+        wall_s=t2_wall, replay_s=replay_s, cpu_counted=dict(cpu_counted),
+        launches={k: v for k, v in t2_launches.items() if v}, card=card)
+
+    # T3: the ingress tool twice on one seed; its dump through every view
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = os.path.join(tmp, "ingress.jsonl")
+        first, t3_launches, t3_wall = counted("ingress_t3", run_ingress_t,
+                                              None)
+        second, _, _ = counted("ingress_t3", run_ingress_t, None, dump)
+        if _ingress_fields(first) != _ingress_fields(second):
+            raise AssertionError("phase T3: two same-seed ingress runs "
+                                 "differ")
+        views = {}
+        for flags in T_TRACE_VIEWS:
+            rc, text = _tool_main(trace_tool, [dump] + flags)
+            if rc != 0 or not text:
+                raise AssertionError(f"phase T3: trace_tool {flags} exited "
+                                     f"{rc}")
+            views[" ".join(flags) or "report"] = len(text)
+        chrome = os.path.join(tmp, "chrome.json")
+        rc, _ = _tool_main(trace_tool, [dump, "--phases", "--chrome",
+                                        chrome])
+        with open(chrome) as fh:
+            chrome_events = len(json.load(fh)["traceEvents"])
+        if rc != 0 or not chrome_events:
+            raise AssertionError("phase T3: the Chrome trace is empty")
+    _line("T3", ordered=first["ordered"], admission=first["admission"],
+          shed_hash=first["shed_hash"], ordered_hash=first["ordered_hash"],
+          ordered_per_sim_second=first["ordered_per_sim_second"],
+          ingress_to_finalised=first["ingress_to_finalised"],
+          reads=first["reads"], wall_s=[first["wall_s"], second["wall_s"]],
+          trace_views_bytes=views, chrome_events=chrome_events,
+          launches={k: v for k, v in t3_launches.items() if v}, card=card)
+
+    # T4: the profiler on four member tiles at depth 4
+    (prof, own), t4_launches, t4_wall = counted("profile_t4", run_profile_t,
+                                                None)
+    if prof["txns_ordered"] < int(T_PROFILE[2]) or not prof["residency"] \
+            or prof["shards"] != 4:
+        raise AssertionError(f"phase T4: {prof}")
+    _line("T4_hotspots", cumulative=[
+        {k: h[k] for k in ("func", "ncalls", "tottime_s", "cumtime_s")}
+        for h in prof["hotspots_top20_cumulative"][:12]],
+        own_time=own, card=card)
+    _line("T4", **{k: prof[k] for k in (
+        "n_nodes", "instances", "txns_ordered", "wall_s", "txns_per_sec",
+        "device_dispatches_per_ordered_batch", "shards", "mesh_shape",
+        "residency")}, launches={k: v for k, v in t4_launches.items() if v},
+        phase_wall_s=t4_wall, card=card)
+
+    # T5: the graft entry and the dry run over four tiles
+    (card5, plain5, dry, cpu_dry, one_tile), t5_launches, t5_wall = \
+        counted("graft_t5", run_graft_t, None)
+    if not _records_equal(card5, plain5) or not card5["ok"].all():
+        raise AssertionError("phase T5: entry() differs from its plain "
+                             "version")
+    if not _records_equal(dry["step"], one_tile) \
+            or not _records_equal(dry["step"], cpu_dry["step"]):
+        raise AssertionError("phase T5: the dry run on four tiles differs "
+                             "from one tile or from the CPU")
+    for key in ("member_mesh", "fabric", "resident"):
+        if dry[key]["ordered_hash"] != cpu_dry[key]["ordered_hash"]:
+            raise AssertionError(f"phase T5: the {key} pool differs from "
+                                 f"the CPU's")
+    _line("T5", entry_ok=int(card5["ok"].sum()), dry_tiles=T_TILES,
+          dry_ok=int(dry["step"]["ok"].sum()),
+          pools={k: dry[k]["ordered_hash"][:16]
+                 for k in ("member_mesh", "fabric", "resident")},
+          wall_s=t5_wall,
+          launches={k: v for k, v in t5_launches.items() if v}, card=card)
+    phase_s = time.perf_counter() - t0
+    _line("T", phase_s=phase_s,
+          launches={k: v for k, v in t_launches.items() if v}, card=card)
+    return t_launches, phase_s
+
+
 def run_state_e(dev):
     """The state at the reference's state-bench delta: ``run_commit_arms``
     with arms host and device on the card (``E_KEYS`` keys, delta 256, 20
@@ -5992,6 +6342,20 @@ PATH_KERNELS = {
     "socket_z2_add_node": Z_PATH,
     "socket_z2_rotate_key": Z_PATH,
     "socket_z3": Z_PATH,
+    # phase T: T1's gates order on K7 (one device), K13 (the member mesh
+    # and the fabric), K9 (the resident arm), the tiled K9 and K1 (the
+    # residency gate's forced migration on four member tiles); T2's arc
+    # slides at CHK_FREQ 2; T3 is the signed ingress path; T4 the tiled K9
+    # on four member tiles at depth 4 (K13 for its cold start); T5 K14 and
+    # the sharded K14, then the dry run's pools
+    "gates_t1": ("quorum_step", "fabric_step", "resident_step",
+                 "resident_tile", "ring_shift"),
+    "chaos_t2": ("quorum_step", "window_slide"),
+    "ingress_t3": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
+                   "quorum_step"),
+    "profile_t4": ("resident_tile",),
+    "graft_t5": ("fused_step", "sharded_fused_step", "fabric_step",
+                 "resident_tile"),
 }
 
 
@@ -6019,8 +6383,8 @@ def _stop_twins(twins):
 
 
 def submit_twins(twins):
-    """The CPU twins of phases A, B, O, N, S, W, V, Y and X's workload
-    arms, longest first: they run in the worker processes while the card
+    """The CPU twins of phases A, B, O, N, S, W, V, Y, X's workload arms
+    and T1, longest first: they run in the worker processes while the card
     runs the phases before their checks."""
     jobs = {}
     for retry in (True, False):
@@ -6040,6 +6404,7 @@ def submit_twins(twins):
         jobs[f"v_{arm}"] = twins.submit(twin_node, arm)
     for arm in Y_ARMS:
         jobs[f"y_{arm}"] = twins.submit(twin_replay, arm)
+    jobs["t1"] = twins.submit(twin_gates)
     return jobs
 
 
@@ -6408,6 +6773,10 @@ def _main(twins) -> int:
     z4_launches, socket_z1, socket_z4, z_s = phase_z(on_card, card)
     for name, count in z4_launches.items():
         launches[name] += count
+    # T. the operator entry points (tools/): the gate suite against its CPU
+    # twin, the chaos CLI and its replay command, the ingress tool and
+    # the trace tool, the profiler, the graft entry
+    t_launches, t_s = phase_t(on_card, card, jobs)
 
     # E. the state at the reference's state-bench size
     t0 = time.perf_counter()
@@ -6501,6 +6870,8 @@ def _main(twins) -> int:
                      "z4_ordered_writes_per_wall_s":
                      socket_z4["ordered_writes_per_wall_s"],
                      "z1_replay_s": socket_z1["replay_s"], "phase_s": z_s},
+        "phase_t": {"phase_s": t_s,
+                    "launches": {k: v for k, v in t_launches.items() if v}},
         "plain_ms": plain, "report_s": report_s,
         "total_s": time.perf_counter() - t_start}}), flush=True)
     print(card, flush=True)

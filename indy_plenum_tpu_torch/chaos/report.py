@@ -7,9 +7,9 @@ state and every invariant verdict. A failing run's report IS its repro —
 ``replay_command`` re-executes the identical schedule.
 
 Copy of ``indy_plenum_tpu/chaos/report.py``, with its imports bound to
-the port. ``replay_command`` is the port's own: a call of its
-``run_scenario``, where the reference names its ``scripts/chaos_run.py``
-(the port has no chaos CLI yet).
+the port. ``replay_command`` names the port's chaos CLI
+(``python -m indy_plenum_tpu_torch.tools.chaos_run``) where the reference
+names its ``scripts/chaos_run.py``; the flags after it are the same.
 """
 from __future__ import annotations
 
@@ -106,36 +106,29 @@ class ChaosReport:
 
     @property
     def replay_command(self) -> str:
-        """The port's replay: a call of its own ``run_scenario`` with the
-        run's seed and dispatch mode (the reference's ``chaos_run.py``
-        drives the JAX package, not the port). It names no device, so it
-        replays on the card."""
+        """The port's chaos CLI with the reference's flags, in its order
+        (``indy_plenum_tpu/chaos/report.py:103``): equal to the
+        reference's command after the program name. It names no device,
+        so it replays on the card."""
+        cmd = (f"python -m indy_plenum_tpu_torch.tools.chaos_run "
+               f"--seed {self.seed} "
+               f"--scenario {self.scenario} --nodes {self.n_nodes}")
         mode = self.dispatch_mode
-        args = [repr(self.scenario), str(self.seed),
-                f"n_nodes={self.n_nodes}"]
-        head = "from indy_plenum_tpu_torch.chaos import run_scenario"
         if mode.get("device_quorum"):
-            args.append("device_quorum=True")
+            cmd += " --device-quorum"
         if mode.get("tick"):
-            args.append(f"quorum_tick_interval={mode['tick']}")
+            cmd += f" --tick {mode['tick']}"
         if mode.get("adaptive"):
-            args.append("quorum_tick_adaptive=True")
+            cmd += " --adaptive-tick"
         if mode.get("mesh"):
-            dims = [int(d) for d in str(mode["mesh"]).split("x")]
-            tiles = 1
-            for d in dims:
-                tiles *= d
-            head += ("; from indy_plenum_tpu_torch.tpu.quorum import "
-                     "make_fabric_mesh")
-            args.append(f"mesh=make_fabric_mesh(['cuda'] * {tiles}, "
-                        f"{tuple(dims)})")
-        if mode.get("host_eval"):
-            args.append("host_eval=True")
+            cmd += f" --mesh {mode['mesh']}"
         if mode.get("resident"):
-            args.append(f"resident_depth={mode['resident']}")
+            cmd += f" --resident-depth {mode['resident']}"
         if mode.get("trace"):
-            args.append("trace=True")
-        return f'python -c "{head}; run_scenario({", ".join(args)})"'
+            cmd += " --trace"
+        if mode.get("lanes"):
+            cmd += f" --lanes {mode['lanes']}"
+        return cmd
 
     def as_dict(self) -> Dict[str, Any]:
         return {

@@ -787,6 +787,12 @@ class VotePlaneGroup:
                                 self.flush_capacity_per_shard)]
 
     @property
+    def eval_mode(self) -> str:
+        """Where quorum decisions are made: "device" (compact readback,
+        the default) or "host" (full event-matrix readback fallback)."""
+        return "host" if self.host_eval else "device"
+
+    @property
     def lagging(self) -> bool:
         """True while a dispatched step's events are not yet in the host
         snapshot (pipelined mode), or a ring slot is staged but not yet

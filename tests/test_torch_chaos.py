@@ -3,8 +3,9 @@
 - Every one of the 17 registered scenarios at seed 7, the port with
   ``device="cpu"``: every ``ChaosReport`` field equal to the JAX run's,
   the replay command and the host's wall-clock series aside (the port's
-  replay names its own ``run_scenario``, the reference's its
-  ``scripts/chaos_run.py``). ``f_crash_catchup_under_saturation`` needs
+  replay names its own chaos CLI, ``python -m indy_plenum_tpu_torch.tools
+  .chaos_run``, the reference's its ``scripts/chaos_run.py``; the flags
+  after the program are the same). ``f_crash_catchup_under_saturation`` needs
   the tick plane and signs its requests, whose verify's plain version is
   slow on the CPU: at full size it is marked slow, as the reference's
   test of it is, and a smaller workload of it runs unmarked.
@@ -94,9 +95,10 @@ def test_tick_plane_arcs_match_jax(name):
     assert _record(got) == _record(want)
     assert got.trace_hash == want.trace_hash
     assert got.failed == [] and got.metrics["device.flush"]["count"] > 0
-    assert "device_quorum=True" in got.replay_command
-    assert "quorum_tick_interval=0.05" in got.replay_command
-    assert "chaos_run" not in got.replay_command
+    program = "python -m indy_plenum_tpu_torch.tools.chaos_run "
+    assert got.replay_command.startswith(program)
+    assert got.replay_command[len(program):] == \
+        want.replay_command[len("python scripts/chaos_run.py "):]
 
 
 @pytest.mark.parametrize("name", sorted(LATER))
@@ -233,7 +235,8 @@ def test_mesh_arcs_order_as_jax(shape):
     assert got.ordered_hash_per_node == want.ordered_hash_per_node
     assert got.invariants == want.invariants
     assert got.dispatch_mode["mesh"] == "x".join(map(str, shape))
-    assert "make_fabric_mesh" in got.replay_command
+    assert got.replay_command.endswith(
+        " --mesh " + "x".join(map(str, shape)) + " --trace")
     replay = port_run("f_crash_partition", 7, device="cpu", mesh=mesh,
                       trace=True, **TICK)
     assert replay.trace_hash == got.trace_hash
@@ -287,5 +290,5 @@ def test_resident_arc_orders_as_jax():
     want = jax_run("f_crash_partition", 7, **tick)
     assert got.failed == [] and got.verdict_as_expected
     assert got.dispatch_mode["resident"] == 4
-    assert "resident_depth=4" in got.replay_command
+    assert " --resident-depth 4" in got.replay_command
     assert got.ordered_hash_per_node == want.ordered_hash_per_node

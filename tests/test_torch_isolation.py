@@ -78,6 +78,8 @@ def test_port_imports_without_jax_or_reference():
                 "tools.start_node", "tools.generate_pool", "cli", "cli.cli",
                 "cli.__main__"):
         assert "indy_plenum_tpu_torch." + mod in mods
+    for mod in TOOLS + ("tools.trace_tool", "utils.phase_t_probe"):
+        assert "indy_plenum_tpu_torch." + mod in mods
     assert os.path.isfile(os.path.join(PKG, "analysis", "baseline.json"))
     for src in ("resident_tile.cu", "quorum_common.cuh", "quorum.cu",
                 "window.cu", "ring.cu"):
@@ -114,6 +116,49 @@ def test_chip_smoke_refuses_without_a_card():
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+# the operator entry points that run kernels: each needs the card unless
+# ``--device cpu`` (the trace tool launches none and takes no device)
+TOOLS = ("tools.check_dispatch_budget", "tools.chaos_run",
+         "tools.ingress_run", "tools.profile_rbft", "tools.graft_entry")
+TOOL_ARGV = {"tools.check_dispatch_budget": ["--only", "", "--json"],
+             "tools.chaos_run": ["--scenario", "f_crash_partition"],
+             "tools.ingress_run": ["--json"],
+             "tools.profile_rbft": ["4", "1", "20", "--json"],
+             "tools.graft_entry": []}
+
+
+@pytest.mark.parametrize("mod", TOOLS)
+def test_tools_exit_without_a_card(mod, no_cuda, tmp_path, monkeypatch,
+                                   capsys):
+    """Without CUDA and without ``--device cpu`` a tool exits non-zero
+    before it builds a pool (argparse's error exit), and prints no
+    result; its command-line-only listings still work."""
+    import importlib
+
+    monkeypatch.chdir(tmp_path)
+    tool = importlib.import_module("indy_plenum_tpu_torch." + mod)
+    with pytest.raises(SystemExit) as exc:
+        tool.main(TOOL_ARGV[mod])
+    assert exc.value.code not in (0, None)
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not list(tmp_path.iterdir())
+    from indy_plenum_tpu_torch.tools import graft_entry
+    from indy_plenum_tpu_torch.utils.torch_env import NoCudaDevice
+
+    with pytest.raises(NoCudaDevice):
+        graft_entry.entry()
+    with pytest.raises(NoCudaDevice):
+        graft_entry.dryrun_multichip(4)
+
+
+def test_tool_listings_need_no_card(no_cuda, capsys):
+    from indy_plenum_tpu_torch.tools import chaos_run, check_dispatch_budget
+
+    assert chaos_run.main(["--list"]) == 0
+    assert check_dispatch_budget.main(["--list-gates"]) == 0
+    assert len(capsys.readouterr().out.splitlines()) == 17 + 16
 
 
 def _entry_points(device_kw):
