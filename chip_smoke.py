@@ -282,7 +282,30 @@ E. state      - ``run_commit_arms`` host vs device waves at the
                 reference's state-bench delta and windows (delta 256, 20
                 windows) over a 20,000-key state (the cell's 100,000 cut
                 for the clock): equal per-window roots;
-5. report     - a ``kernels`` JSON line (launches of the main path's runs,
+M. multi-card - the fabric's per-tile layout (every tile its own tensors
+                on its own device; ``make_fabric_mesh(..., split=True)``).
+                First the machine's card count, the card and, for each
+                pair, whether peer access is possible. M1 puts every tile
+                on cuda:0; M2, only where the machine has two or more
+                cards (else its line says it was skipped for one card),
+                puts tile t on card t % count. Each holds the tile
+                kernel's partials mode, the decide from partials, K1's
+                peer form, K15 and the split sharded K14 bit-equal to
+                their plain versions at the path's shapes, then runs
+                M-H (phase H's (4, 2) fabric at n=256, depth 1 and 4:
+                ``ordered_hash``, orders and readbacks equal to phase H's
+                one-state arms), M-R (phase R's forced rotation on (4, 2)
+                and (8,), equal to phase R's forced arms: two K1 peer
+                shifts and K15's merge on every tile), M-G (the sharded
+                K14 on phase G's 8,192 votes on a (1, 2) split, equal to
+                the one-launch sharded K14) and M-L (phase N's pool at 2
+                lanes, each lane a (2,) fabric on its slice of the device
+                list, equal to the same lanes on the one-state fabric);
+                each also equal to its CPU twin of the per-tile layout
+                from the worker processes; each line with its cards and
+                wall;
+5. report     - a ``kernels`` JSON line (launches of the main path's runs;
+                phase M's kernels at its (4, 2) tile and (1, 2) split,
                 K-a/K-b held against their plain versions at the drain's
                 shapes, times, bounds; K-a's one-message chain floor, K1
                 and the one-card rotation also at phase R's state), a
@@ -292,12 +315,12 @@ E. state      - ``run_commit_arms`` host vs device waves at the
                 ``{"ok": true, "device": {...}}``.
 
 Each main-path run (phases 3, 4, A, B, F, G, H, R, C, D, L, P, X, O, N, S,
-W, V, Y, Z, T and E on the card) starts with every launch counter at 0 and
-reads the counters right after; the ``kernels`` line's ``launches`` are
-their sums, with Z4's counted in its validator processes (each prints its
-own at exit). The CPU twins of phases A, B, O, N, S, W, V, Y, X's workload
-arms and T1 run in worker processes (``TWIN_WORKERS``, one torch thread
-each) started with the script and stopped with it.
+W, V, Y, Z, T, E and M on the card) starts with every launch counter at 0
+and reads the counters right after; the ``kernels`` line's ``launches``
+are their sums, with Z4's counted in its validator processes (each prints
+its own at exit). The CPU twins of phases M, A, B, O, N, S, W, V, Y, X's
+workload arms and T1 run in worker processes (``TWIN_WORKERS``, one torch
+thread each) started with the script and stopped with it.
 
 Any mismatch raises and the script exits non-zero. It imports nothing of
 JAX. Without a CUDA device it exits non-zero before printing a result.
@@ -1189,12 +1212,30 @@ FABRIC_W = 512  # that group's flush_batch: 2N votes in a pow2 chunk
 FABRIC_SHAPES = ((8,), (4, 2))  # the cell's member mesh and its fabric
 
 
-def fabric_mesh(dev, shape):
-    """The one-device fabric: every tile of ``shape`` on ``dev``."""
+def fabric_mesh(dev, shape, layout=None):
+    """The fabric of ``shape``: every tile on ``dev`` in one state
+    (``layout`` None), or the per-tile layout (phase M): every tile on
+    ``dev`` ("m1"; the CPU twins' too) or tile t on card t % count
+    ("m2")."""
     from indy_plenum_tpu_torch.tpu import quorum as q
     from indy_plenum_tpu_torch.utils.torch_env import mesh_devices
 
-    return q.make_fabric_mesh([dev] * mesh_devices(shape), shape)
+    tiles = mesh_devices(shape)
+    if layout is None:
+        return q.make_fabric_mesh([dev] * tiles, shape)
+    return q.make_fabric_mesh(m_devices(dev, tiles, layout), shape,
+                              split=True)
+
+
+def m_devices(dev, tiles, layout):
+    """Phase M's device list for ``tiles`` tiles: every tile on ``dev``
+    ("m1"), or tile t on card t % count ("m2")."""
+    from indy_plenum_tpu_torch.utils.torch_env import device_list
+
+    if layout == "m2":
+        cards = device_list()
+        return [cards[t % len(cards)] for t in range(tiles)]
+    return [dev] * tiles
 
 
 def fabric_state(dev, rng, n_rows, n_real, c, m=FABRIC_N, s=LOG_SIZE):
@@ -2143,13 +2184,14 @@ H_ARMS = (("single", None, 1), ("mesh8", (8,), 1),
 R_SHAPES = ((4, 2), (8,))
 
 
-def run_pool_h(device, shape, depth):
+def run_pool_h(device, shape, depth, layout=None):
     """``bench.py``'s fabric cell (``bench.py:524-570``: ``_bench_ordered
     (256, 1, batches=2)``, whose config is ``bench.py:154-200``): 256
     validators, one instance, seed 11, unsigned, 3PC batches of 320,
     batch wait 0.05, adaptive tick from 0.1, pipelined flush; 320 warm-up
     requests, then 640 timed. ``shape`` None is the one-device arm (K7),
-    else the one-device fabric of that mesh shape (K13); ``depth`` is
+    else the one-device fabric of that mesh shape (K13), or with
+    ``layout`` its per-tile layout (``fabric_mesh``); ``depth`` is
     ``ResidentTickDepth``."""
     from indy_plenum_tpu_torch.common.metrics_collector import MetricsName
     from indy_plenum_tpu_torch.config import getConfig
@@ -2159,7 +2201,8 @@ def run_pool_h(device, shape, depth):
         "Max3PCBatchSize": POOL_BATCH, "Max3PCBatchWait": 0.05,
         "QuorumTickInterval": 0.1, "QuorumTickAdaptive": True,
         "TraceNetReceivers": 4, "ResidentTickDepth": depth})
-    mesh = None if shape is None else fabric_mesh(device or "cuda", shape)
+    mesh = None if shape is None else fabric_mesh(device or "cuda", shape,
+                                                  layout)
     pool = SimPool(n_nodes=FABRIC_N, seed=11, config=config,
                    device_quorum=True, shadow_check=False,
                    pipelined_flush=True, mesh=mesh, trace=True,
@@ -2213,11 +2256,12 @@ def run_pool_h(device, shape, depth):
         readbacks_deferred=group.readbacks_deferred)
 
 
-def run_pool_r(device, shape, force_tick):
+def run_pool_r(device, shape, force_tick, layout=None):
     """The reference's forced-rebalance arm (``tests/test_residency.py:
     135-171``) at n=64: batches of one, CHK_FREQ 5, LOG_SIZE 15,
-    ResidentTickDepth 4, seed 23, on the one-device fabric of ``shape``;
-    ``force_tick`` 12 forces a rotation, 0 never rotates."""
+    ResidentTickDepth 4, seed 23, on the one-device fabric of ``shape``
+    (or with ``layout`` its per-tile layout); ``force_tick`` 12 forces a
+    rotation, 0 never rotates."""
     from indy_plenum_tpu_torch.config import getConfig
     from indy_plenum_tpu_torch.simulation.pool import SimPool
 
@@ -2228,7 +2272,7 @@ def run_pool_r(device, shape, force_tick):
         "ResidentTickDepth": 4, "RebalanceForceTick": force_tick})
     pool = SimPool(R_NODES, seed=R_SEED, config=config, device_quorum=True,
                    shadow_check=False, mesh=fabric_mesh(device or "cuda",
-                                                        shape),
+                                                        shape, layout),
                    trace=True, device=device)
     t0 = time.perf_counter()
     for i in range(6):
@@ -3340,22 +3384,34 @@ N_COMPARE = ("ordered_hash_per_lane", "sealed_fingerprint", "journey_hash",
              "seal_pads", "ordered_per_sim_sec", "sim_elapsed_s")
 
 
-def run_laned_n(device, lanes):
+def run_laned_n(device, lanes, layout=None):
     """One laned arm of ``bench.py``'s ``_run_laned``: ``lanes`` lanes of
     n=64 (each its own vote group on the one device: K7 a lane a tick,
     K8's slide at CHK_FREQ 2), 96 txns a lane after a warm-up of one
-    batch a lane, then a seal flush; ordered txns per virtual second."""
+    batch a lane, then a seal flush; ordered txns per virtual second.
+    With ``layout`` (phase M-L) each lane's group runs as a fabric of
+    ``M_L_SHAPE``: "one" its one-device layout on ``device``, "m1" /
+    "m2" the per-tile layout on its own slice of a device list
+    (``lane_meshes`` with a list, ``m_devices``)."""
     from indy_plenum_tpu_torch.config import getConfig
-    from indy_plenum_tpu_torch.lanes import LanedPool
+    from indy_plenum_tpu_torch.lanes import LanedPool, lane_meshes
     from indy_plenum_tpu_torch.observability.causal import journey_summary
+    from indy_plenum_tpu_torch.utils.torch_env import mesh_devices
 
     config = getConfig({
         "Max3PCBatchSize": N_BATCH, "Max3PCBatchWait": 0.05,
         "CHK_FREQ": 2, "LOG_SIZE": 6, "QuorumTickInterval": 0.1,
         "QuorumTickAdaptive": True, "TraceNetReceivers": 4})
+    meshes = None
+    if layout == "one":
+        meshes = lane_meshes(lanes, M_L_SHAPE, device=device)
+    elif layout is not None:
+        meshes = lane_meshes(lanes, M_L_SHAPE, devices=m_devices(
+            device or "cuda", lanes * mesh_devices(M_L_SHAPE), layout),
+            split=True)
     pool = LanedPool(lanes=lanes, n_nodes=N_PER_LANE, seed=N_SEED,
                      config=config, device_quorum=True, trace=True,
-                     device=device)
+                     meshes=meshes, device=device)
     seq = [0]
 
     def submit(count):
@@ -6247,6 +6303,437 @@ def fabric_report(dev, rng, launches, errs, inputs):
                               "v=4"}
 
 
+# --- phase M: the fabric over several devices (the per-tile layout) ----------
+
+M_H_DEPTHS = (1, 4)  # phase H's (4, 2) fabric at ResidentTickDepth 1 and 4
+M_H_SHAPE = (4, 2)
+M_H_COMPARE = ("ordered_hash", "ordered", "dispatches", "readbacks",
+               "readbacks_overlapped", "readback_bytes_total",
+               "readback_bytes_per_shard", "shards", "mesh_shape",
+               "resident_ticks", "readbacks_deferred")
+M_R_COMPARE = ("ordered_hash", "trace_hash", "views", "ordered_min",
+               "rebalances", "row_shift", "flushes", "resident_ticks")
+M_G_TILES = 2  # the sharded K14's validator tiles, (1, 2)
+M_L_LANES, M_L_SHAPE = 2, (2,)  # phase N's lane pool at 2 lanes, (2,) each
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink 4, each way
+
+
+def m_cards():
+    """The machine's cards: the count, and for each ordered pair whether
+    the first can read the second's memory (``cudaDeviceCanAccessPeer``)."""
+    import torch
+
+    count = torch.cuda.device_count()
+    peer = {f"{a}->{b}": bool(torch.cuda.can_device_access_peer(a, b))
+            for a in range(count) for b in range(count) if a != b}
+    return count, peer
+
+
+def _mesh_cards(mesh):
+    return sorted({str(d) for d in mesh.tile_devices})
+
+
+def run_fused_mg(dev, inputs, layout):
+    """The sharded K14 on the per-tile layout: phase G's 8,192 signed
+    votes into a (1, 64, 300) plane of ``M_G_TILES`` validator tiles, each
+    verifying its share with K-c on its device."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.tpu import step as st
+
+    _, words_np, arrays, expect = inputs
+    mesh = q.make_fabric_mesh(m_devices(dev, M_G_TILES, layout),
+                              (M_G_TILES,), ("validators",), split=True)
+    tiles = q.TileState.split(
+        q.init_state(N_VALIDATORS, LOG_SIZE, N_CHECKPOINTS, 1, dev), mesh)
+    words = q.words_tensor(words_np, dev)
+    sig = [torch.from_numpy(a).to(dev) for a in arrays]
+    tiles, events, ok = st.make_sharded_fused_step(mesh, N_VALIDATORS)(
+        tiles, words, *sig)
+    if not np.array_equal(ok.cpu().numpy(), expect):
+        raise AssertionError("phase M-G: verdicts differ")
+    return tiles.join(), events, ok, _mesh_cards(mesh)
+
+
+def _split_tile_cases():
+    """The partials mode's cases at phase M's shapes: (tag, R, V, S, C,
+    W, k, with a verdict operand) - phase H's (4, 2) tile (R = 64, V =
+    128) at one slot and at depth 4, phase R's (4, 2) tile (R = 16, V =
+    32, S = 15) at depth 4 with slides, phase G's (1, 2) tile (R = 1, V =
+    32) with its 8,192-word verdicts."""
+    return (("h_k1", FABRIC_N // 4, FABRIC_N // 2, LOG_SIZE, N_CHECKPOINTS,
+             FABRIC_W, 0, False),
+            ("h_k4", FABRIC_N // 4, FABRIC_N // 2, LOG_SIZE, N_CHECKPOINTS,
+             FABRIC_W, 4, False),
+            ("r_k4", R_NODES // 4, R_NODES // 2, R_LOG_SIZE,
+             R_LOG_SIZE // R_CHK_FREQ, RESIDENT_WIDTH, 4, False),
+            ("g_ok", 1, N_VALIDATORS // M_G_TILES, LOG_SIZE, N_CHECKPOINTS,
+             DRAIN, 0, True))
+
+
+def check_split(dev, rng, inputs, layout="m1"):
+    """Phase M's kernels against their plain versions on the card, at the
+    path's shapes: the tile kernel's partials mode (``split_partials``)
+    on home and non-home tiles at each of ``_split_tile_cases`` (slides of
+    every class at depth 4; dropped words with a verdict operand) and at
+    every cluster size of 1, 2, 4 and 8 blocks; the decide from v = 2
+    partials (``split_decide``) with and without the compact record; K1's
+    peer form (``peer_copy``) of a tile of phase H's and R's states, card
+    to card where ``layout`` is "m2"; the per-tile step and rotation of
+    phase H's and R's states against the one-state plain versions, K15's
+    merge on every tile; the split sharded K14 against its plain version
+    and the one-launch sharded K14. Every leaf, partial, event, compact
+    output and verdict equal. Returns the max error by kernel."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.tpu import rebalance as rb
+    from indy_plenum_tpu_torch.tpu import ring_exchange as rx
+    from indy_plenum_tpu_torch.tpu import step as st
+
+    errs = {"resident_partials": 0, "decide_partials": 0, "ring_peer": 0,
+            "rotate_merge": 0, "sharded_fused_split": 0}
+
+    def err(name, pairs):
+        errs[name] = max(errs[name], _max_abs_err(pairs))
+
+    for tag, r, v_rows, s, c, w, k, with_ok in _split_tile_cases():
+        for home in (True, False):
+            row0 = 0 if home else v_rows
+            for blocks in (None, 1, 2, 4, 8):
+                if blocks is not None and (blocks > v_rows or with_ok):
+                    continue
+                tile = _random_votes(dev, rng, r, v_rows, s, c)
+                shadow = q.clone_state(tile)
+                if k:
+                    words = q.words_tensor(np.stack([
+                        fabric_words(rng, r, w, 2 * v_rows, s, c)
+                        for _ in range(k)]), dev)
+                    mix = np.array([0, 1, CHK_FREQ % s, s - 1, s], np.int32)
+                    slides = torch.from_numpy(
+                        mix[rng.randint(0, len(mix), (k, r))])
+                else:
+                    words = q.words_tensor(
+                        fabric_words(rng, r, w, 2 * v_rows, s, c), dev)
+                    slides = None
+                ok = None
+                if with_ok:
+                    ok = torch.from_numpy(rng.rand(r, w) < 0.9).to(dev)
+                part = q._split_partials_kernel(tile, words, row0, home,
+                                                slides, ok, blocks)
+                plain = q.split_partials_plain(shadow, words, row0, home,
+                                               slides, ok)
+                err("resident_partials", list(zip(tile, shadow))
+                    + [(part, plain)])
+    # the decide from two tiles' partials, on random home states
+    for r, s, c, v_rows in ((FABRIC_N // 4, LOG_SIZE, N_CHECKPOINTS,
+                             FABRIC_N // 2),
+                            (1, LOG_SIZE, N_CHECKPOINTS, N_VALIDATORS // 2)):
+        for compact in (True, False):
+            home = _random_votes(dev, rng, r, 1, s, c)
+            shadow = q.clone_state(home)
+            parts = [torch.from_numpy(rng.randint(
+                0, v_rows + 1, r * (2 * s + c)).astype(np.int32)).to(dev)
+                for _ in range(2)]
+            ev, comp = q.split_decide(home, parts, 2 * v_rows,
+                                      compact=compact)
+            pev, pcomp = q.split_decide_plain(shadow, parts, 2 * v_rows,
+                                              compact=compact)
+            err("decide_partials", list(zip(home, shadow))
+                + list(zip(ev, pev)) + list(zip(comp, pcomp)))
+    # K1's peer form and the per-tile step and rotation, on H's and R's
+    # states
+    for shape, m, n, s, c, w in ((M_H_SHAPE, FABRIC_N, FABRIC_N, LOG_SIZE,
+                                  N_CHECKPOINTS, FABRIC_W),
+                                 (M_H_SHAPE, R_NODES, R_NODES, R_LOG_SIZE,
+                                  R_LOG_SIZE // R_CHK_FREQ,
+                                  RESIDENT_WIDTH),
+                                 ((8,), R_NODES, R_NODES, R_LOG_SIZE,
+                                  R_LOG_SIZE // R_CHK_FREQ,
+                                  RESIDENT_WIDTH)):
+        mesh = fabric_mesh(dev, shape, layout)
+        state = fabric_state(dev, rng, n, n, c, m=m, s=s)
+        tiles = q.TileState.split(state, mesh)
+        for t, tile in enumerate(tiles.tiles):
+            dst = mesh.tile_devices[(t + 1) % len(mesh.tile_devices)]
+            got = rx.peer_copy(tile, dst)
+            err("ring_peer", list(zip(got, rx.peer_copy_plain(tile, dst))))
+        r = m // shape[0]
+        for rows in (r, r // 2, 3 * r + r // 2 + 1):
+            got = rb.rotate_planes(tiles, mesh, rows, r).join(dev)
+            want = rb.rotate_planes_plain(state, mesh, rows, r)
+            err("rotate_merge", list(zip(got, want)))
+        words = q.words_tensor(fabric_words(rng, m, w, n, s, c), dev)
+        shadow = q.clone_state(state)
+        events, compact = q.tiles_step(
+            tiles, q.tile_words(words, mesh, tiles.rows), n)
+        pev, pcomp = q.fabric_step_plain(shadow, words, n, mesh.v_shards)
+        err("decide_partials", list(zip(tiles.join(dev), shadow))
+            + list(zip(q.join_blocks(events), pev))
+            + list(zip(q.join_blocks(compact), pcomp)))
+    # the split sharded K14 against its plain version and the one-launch
+    # sharded K14
+    _, words_np, arrays, expect = inputs
+    words = q.words_tensor(words_np, dev)
+    sig = [torch.from_numpy(a).to(dev) for a in arrays]
+    state, events, ok, _ = run_fused_mg(dev, inputs, layout)
+    pstate, pevents, pok = st.fused_step_plain(
+        q.init_state(N_VALIDATORS, LOG_SIZE, N_CHECKPOINTS, 1, dev), words,
+        *sig, n_validators=N_VALIDATORS, v_shards=M_G_TILES)
+    one = st.make_sharded_fused_step(
+        q.make_fabric_mesh([dev] * M_G_TILES, (M_G_TILES,),
+                           ("validators",)), N_VALIDATORS)
+    ostate, oevents, ook = one(
+        q.init_state(N_VALIDATORS, LOG_SIZE, N_CHECKPOINTS, 1, dev), words,
+        *sig)
+    err("sharded_fused_split", list(zip(state, pstate))
+        + list(zip(events, pevents)) + [(ok, pok)]
+        + list(zip(state, ostate)) + list(zip(events, oevents))
+        + [(ok, ook)])
+    if any(errs.values()) or not np.array_equal(ok.cpu().numpy(), expect):
+        raise AssertionError(f"phase M: a split kernel differs: {errs}")
+    return errs
+
+
+def partials_work(r, v_rows, s, c, words_np):
+    """(bytes, 32-bit instructions) of one tile's partials-mode launch:
+    the tile's planes read once, the words read and each valid word's hit
+    written, the partials written; a few instructions a word and a vote
+    byte."""
+    hits = int(((words_np >> 31) & 1).sum())
+    nbytes = (r * (2 * v_rows * s + v_rows * c) + 4 * words_np.size + hits
+              + 4 * r * (2 * s + c))
+    return nbytes, 10 * words_np.size + 2 * r * v_rows * s
+
+
+def decide_work(r, s, c, v):
+    """(bytes, 32-bit instructions) of the decide from v partials: the
+    partials and the home's slot rows read, the ordered and acked rows,
+    the frontier, the events and the compact record written."""
+    from indy_plenum_tpu_torch.tpu import quorum as q
+
+    width = q.delta_width(s, q.ORDER_DELTA_CAP)
+    nbytes = (4 * v * r * (2 * s + c) + 3 * r * s + 4 * r + r * (2 * s + 4)
+              + r * (3 * s + c + 8 * s) + r * (4 + 8 * width + 8 + c))
+    return nbytes, v * r * (2 * s + c) + 12 * r * s
+
+
+def phase_m(on_card, card, jobs, dev, inputs, fabric_h, rebalance_r, rng):
+    """Phase M: the fabric's per-tile layout on the card. The machine's
+    card count and peer access first; then M1 (every tile on cuda:0) and,
+    with two or more cards, M2 (tile t on card t % count), each: the
+    split kernels against their plain versions (``check_split``), M-H
+    (phase H's (4, 2) fabric at depth 1 and 4), M-R (phase R's forced
+    rotation on (4, 2) and (8,)), M-G (the sharded K14 on a (1, 2) split)
+    and M-L (phase N's pool at 2 lanes, each lane a (2,) fabric on its
+    slice of the device list), each equal to the one-state layout's run
+    in this process and to its CPU twin. Returns the kernels' errors, the
+    summary and the phase's seconds."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.tpu import step as st
+
+    t0 = time.perf_counter()
+    count, peer = m_cards()
+    _line("phase_m_devices", count=count, peer_access=peer, card=card)
+    layouts = ["m1"] + (["m2"] if count >= 2 else [])
+    if count < 2:
+        _line("phase_m2", skipped="1 card", count=count, card=card)
+    errs = {}
+    summary = {"count": count, "layouts": layouts}
+    # the one-launch sharded K14 and the one-state lanes, once, for both
+    # layouts to equal
+    _, words_np, arrays, _ = inputs
+    sig = [torch.from_numpy(a).to(dev) for a in arrays]
+    one_g = st.make_sharded_fused_step(
+        q.make_fabric_mesh([dev] * M_G_TILES, (M_G_TILES,),
+                           ("validators",)), N_VALIDATORS)(
+        q.init_state(N_VALIDATORS, LOG_SIZE, N_CHECKPOINTS, 1, dev),
+        q.words_tensor(words_np, dev), *sig)
+    one_l, l_launches, l_wall = on_card("laned_one", run_laned_n, None,
+                                        M_L_LANES, "one")
+    cpu_l, cpu_l_s, l_wait_s = _twin(jobs, "m_l")
+    for layout in layouts:
+        t_l = time.perf_counter()
+        for name, e in check_split(dev, rng, inputs, layout).items():
+            errs[name] = max(errs.get(name, 0), e)
+        check_s = time.perf_counter() - t_l
+        # M-H: phase H's (4, 2) fabric at depth 1 and 4
+        for depth in M_H_DEPTHS:
+            res, got, wall = on_card(f"{layout}_fabric_h", run_pool_h, None,
+                                     M_H_SHAPE, depth, layout)
+            one = fabric_h["fabric4x2" if depth == 1
+                           else "fabric4x2_resident"]
+            cpu, cpu_s, wait_s = _twin(jobs, f"m_h_{depth}")
+            diff = [k for k in M_H_COMPARE
+                    if res[k] != one[k] or res[k] != cpu[k]]
+            if diff or res["strategy"]["step"] != "k13_split":
+                raise AssertionError(f"phase M-H {layout} depth {depth}: "
+                                     f"differs on {diff}")
+            _line("fabric_mh", layout=layout, depth=depth,
+                  cards=_mesh_cards(fabric_mesh(dev, M_H_SHAPE, layout)),
+                  wall_s=wall, timed_wall_s=res["wall_s"], **{
+                      k: res[k] for k in (
+                          "ordered_hash", "ordered", "ordered_txns_per_s",
+                          "dispatches_per_batch", "readbacks",
+                          "readback_bytes_per_shard", "strategy")},
+                  one_state_timed_wall_s=one["wall_s"],
+                  one_state_ordered_txns_per_s=one["ordered_txns_per_s"],
+                  cpu_twin_s=cpu_s,
+                  twin_wait_s=wait_s,
+                  launches={k: v for k, v in got.items() if v}, card=card)
+            summary[f"{layout}_h{depth}_timed_wall_s"] = res["wall_s"]
+        # M-R: phase R's forced rotation on (4, 2) and (8,)
+        for shape in R_SHAPES:
+            tag = "x".join(map(str, shape))
+            res, got, wall = on_card(f"{layout}_rebalance", run_pool_r,
+                                     None, shape, R_FORCE_TICK, layout)
+            one = rebalance_r[tag]
+            cpu, cpu_s, wait_s = _twin(jobs, f"m_r_{tag}")
+            diff = [k for k in M_R_COMPARE
+                    if res[k] != one[k] or res[k] != cpu[k]]
+            if diff or res["rebalances"] < 1:
+                raise AssertionError(f"phase M-R {layout} {shape}: differs "
+                                     f"on {diff}")
+            _line("rebalance_mr", layout=layout, mesh=list(shape),
+                  cards=_mesh_cards(fabric_mesh(dev, shape, layout)),
+                  wall_s=wall, one_state_wall_s=one["wall_s"],
+                  rebalances=res["rebalances"], row_shift=res["row_shift"],
+                  ordered_hash=res["ordered_hash"], cpu_twin_s=cpu_s,
+                  launches={k: v for k, v in got.items() if v}, card=card)
+        # M-G: the sharded K14 on a (1, 2) split
+        (state, events, ok, cards), got, wall = on_card(
+            f"{layout}_fused_g", run_fused_mg, dev, inputs, layout)
+        if _max_abs_err(list(zip(state, one_g[0]))
+                        + list(zip(events, one_g[1])) + [(ok, one_g[2])]):
+            raise AssertionError(f"phase M-G {layout}: the split sharded "
+                                 "K14 differs from the one launch")
+        _line("fused_mg", layout=layout, tiles=M_G_TILES, cards=cards,
+              wall_s=wall, votes=int(words_np.shape[1]),
+              accepted=int(ok.sum()), ordered_slots=int(events.ordered.sum()),
+              launches={k: v for k, v in got.items() if v}, card=card)
+        # M-L: two lanes, each a (2,) per-tile fabric on its slice
+        res, got, wall = on_card(f"{layout}_laned", run_laned_n, None,
+                                 M_L_LANES, layout)
+        check_laned_arm(res)
+        diff = [k for k in N_COMPARE
+                if res[k] != one_l[k] or res[k] != cpu_l[k]]
+        if diff:
+            raise AssertionError(f"phase M-L {layout}: differs on {diff}")
+        _line("laned_ml", layout=layout, lanes=M_L_LANES,
+              cards=sorted({str(d) for d in m_devices(
+                  dev, M_L_LANES * 2, layout)}),
+              wall_s=wall, one_state_wall_s=l_wall, cpu_twin_s=cpu_l_s,
+              twin_wait_s=l_wait_s,
+              ordered_hash_per_lane=res["ordered_hash_per_lane"],
+              sealed_fingerprint=res["sealed_fingerprint"],
+              launches={k: v for k, v in got.items() if v},
+              one_state_launches={k: v for k, v in l_launches.items() if v},
+              card=card)
+        summary[f"{layout}_s"] = time.perf_counter() - t_l
+        summary[f"{layout}_check_s"] = check_s
+    summary["phase_s"] = time.perf_counter() - t0
+    _line("phase_m_summary", **summary, card=card)
+    return errs, summary
+
+
+def split_report(dev, rng, launches, errs, inputs):
+    """The rows of phase M's kernels, at the path's shapes on one card
+    (M1): the partials mode at phase H's (4, 2) tile (R = 64 members, V =
+    128 rows, S = 300, C = 3, 512 words; K13's form, a non-home tile),
+    the decide from its v = 2 partials on the home, K1's peer form moving
+    one such tile (its library call: a copy of each leaf), and the split
+    sharded K14 at phase G's 8,192 votes on (1, 2) (K-c on each tile's
+    share, the gather, the tiles' partials and the decide; its plain
+    version ``fused_step_plain`` at v = 2). Bounds count the work: the
+    partials mode ``partials_work``, the decide ``decide_work``, K1's
+    form reads and writes the tile once, the split K14 is K-c's bound
+    plus the step's at (1, N, S). With two or more cards K1's form is
+    also timed card to card, its bound the tile's bytes over NVLink's
+    450 GB/s each way; the moves of partials and verdicts get their
+    bytes and both bounds (they are copies, not kernels)."""
+    import torch
+    from indy_plenum_tpu_torch.tpu import quorum as q
+    from indy_plenum_tpu_torch.tpu import ring_exchange as rx
+    from indy_plenum_tpu_torch.tpu import step as st
+
+    r, v_rows, s, c, w = (FABRIC_N // 4, FABRIC_N // 2, LOG_SIZE,
+                          N_CHECKPOINTS, FABRIC_W)
+    tile = _random_votes(dev, rng, r, v_rows, s, c)
+    words_np = fabric_words(rng, r, w, FABRIC_N, s, c)
+    words = q.words_tensor(words_np, dev)
+    parts = [q.split_partials(tile, words, v_rows, False) for _ in range(2)]
+    home = _random_votes(dev, rng, r, v_rows, s, c)
+    tile_bytes = state_bytes(r, v_rows, s, c)
+    _, words_g, arrays, _ = inputs
+    batch = words_g.shape[1]
+    gwords = q.words_tensor(words_g, dev)
+    sig = [torch.from_numpy(a).to(dev) for a in arrays]
+    gmesh = q.make_fabric_mesh([dev] * M_G_TILES, (M_G_TILES,),
+                               ("validators",), split=True)
+    gtiles = q.TileState.split(
+        q.init_state(N_VALIDATORS, s, c, 1, dev), gmesh)
+    gstate = q.init_state(N_VALIDATORS, s, c, 1, dev)
+    sharded = st.make_sharded_fused_step(gmesh, N_VALIDATORS)
+    kc_ms, kc_by = bound(batch * (4 * 32 + 1), batch * VERIFY_OPS_PER_ITEM)
+    g_bytes, g_ops = step_work(1, N_VALIDATORS, s, c, words_g)
+    rows = [
+        ("resident_partials",
+         lambda: q.split_partials(tile, words, v_rows, False),
+         lambda: q.split_partials_plain(tile, words, v_rows, False),
+         bound(*partials_work(r, v_rows, s, c, words_np)),
+         "indy_plenum_tpu_torch/csrc/resident_tile.cu",
+         "indy_plenum_tpu/tpu/quorum.py:306", 20, None),
+        ("decide_partials",
+         lambda: q.split_decide(home, parts, FABRIC_N),
+         lambda: q.split_decide_plain(home, parts, FABRIC_N),
+         bound(*decide_work(r, s, c, 2)),
+         "indy_plenum_tpu_torch/csrc/resident_tile.cu",
+         "indy_plenum_tpu/tpu/quorum.py:183", 20, None),
+        ("ring_peer", lambda: rx.peer_copy(tile, dev),
+         lambda: rx.peer_copy_plain(tile, dev), bound(2 * tile_bytes, 0),
+         "indy_plenum_tpu_torch/csrc/ring.cu",
+         "indy_plenum_tpu/tpu/ring_exchange.py:67", 20,
+         lambda: [x.clone() for x in tile]),
+        ("sharded_fused_split",
+         lambda: sharded(gtiles, gwords, *sig),
+         lambda: st.fused_step_plain(
+             gstate, gwords, *sig, n_validators=N_VALIDATORS,
+             v_shards=M_G_TILES),
+         (kc_ms + bound(g_bytes, g_ops)[0], kc_by),
+         "indy_plenum_tpu_torch/tpu/step.py (csrc/ed25519.cu, "
+         "csrc/resident_tile.cu)", "indy_plenum_tpu/tpu/step.py:46", 5,
+         None),
+    ]
+    out, call_ms = [], {}
+    for name, fn, plain, (bound_ms, bound_by), src, replaces, reps, lib \
+            in rows:
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": errs[name], "ms": _kernel_ms(fn, reps),
+                    "plain_ms": _cuda_ms(plain, 1, 0), "bound_ms": bound_ms,
+                    "bound_by": bound_by,
+                    "library_ms": None if lib is None
+                    else _kernel_ms(lib, reps)})
+        call_ms[name] = _cuda_ms(fn, reps)
+    part_bytes = 4 * r * (2 * s + c)
+    moves = {
+        "partials_bytes_a_block": part_bytes,
+        "partials_hbm_ms": part_bytes / HBM_BYTES_PER_S * 1e3,
+        "partials_nvlink_ms": part_bytes / NVLINK_BYTES_PER_S * 1e3,
+        "verdict_bytes_a_tile": batch // M_G_TILES,
+        "verdicts_nvlink_ms": batch // M_G_TILES / NVLINK_BYTES_PER_S * 1e3,
+        "ring_peer_tile_bytes": tile_bytes,
+        "ring_peer_nvlink_ms": tile_bytes / NVLINK_BYTES_PER_S * 1e3}
+    if torch.cuda.device_count() >= 2:
+        far = torch.device("cuda", 1)
+        with q.on_device(far):
+            out[2]["m2"] = {"ms": _kernel_ms(
+                lambda: rx.peer_copy(tile, far), 20),
+                "bound_ms": moves["ring_peer_nvlink_ms"],
+                "bound_by": "bytes (NVLink)"}
+    return out, call_ms, moves
+
+
 # the kernels each main-path run must launch
 PATH_KERNELS = {
     "ingress": ("sha512_blocks", "reduce_mod_l", "ed25519_verify"),
@@ -6356,7 +6843,21 @@ PATH_KERNELS = {
     "profile_t4": ("resident_tile",),
     "graft_t5": ("fused_step", "sharded_fused_step", "fabric_step",
                  "resident_tile"),
+    # phase M: the per-tile layout's partials mode and decide on every
+    # step and consume; the forced rotation's K1 peer shifts and K15; the
+    # split K14's verifies; the lanes' K8 slides per tile. Its one-state
+    # lanes: K13 a lane a tick
+    "laned_one": ("fabric_step", "window_slide"),
 }
+for _layout in ("m1", "m2"):
+    PATH_KERNELS.update({
+        f"{_layout}_fabric_h": ("resident_partials", "decide_partials"),
+        f"{_layout}_rebalance": ("resident_partials", "decide_partials",
+                                 "ring_peer", "rotate_merge"),
+        f"{_layout}_fused_g": ("sharded_fused_split", "resident_partials",
+                               "decide_partials"),
+        f"{_layout}_laned": ("resident_partials", "decide_partials",
+                             "window_slide")})
 
 
 def main() -> int:
@@ -6382,11 +6883,26 @@ def _stop_twins(twins):
         proc.join(timeout=30)
 
 
-def submit_twins(twins):
-    """The CPU twins of phases A, B, O, N, S, W, V, Y, X's workload arms
-    and T1, longest first: they run in the worker processes while the card
-    runs the phases before their checks."""
+def submit_m_twins(twins):
+    """Phase M's CPU twins, the per-tile layout on the CPU: M-H's two
+    depths at n = 256 first (the longest), then M-R's two meshes and
+    M-L's two lanes."""
     jobs = {}
+    for depth in M_H_DEPTHS:
+        jobs[f"m_h_{depth}"] = twins.submit(_timed, run_pool_h, "cpu",
+                                            M_H_SHAPE, depth, "m1")
+    for shape in R_SHAPES:
+        jobs["m_r_" + "x".join(map(str, shape))] = twins.submit(
+            _timed, run_pool_r, "cpu", shape, R_FORCE_TICK, "m1")
+    jobs["m_l"] = twins.submit(_timed, run_laned_n, "cpu", M_L_LANES, "m1")
+    return jobs
+
+
+def submit_twins(twins):
+    """The CPU twins of phases M, A, B, O, N, S, W, V, Y, X's workload
+    arms and T1, longest first: they run in the worker processes while
+    the card runs the phases before their checks."""
+    jobs = submit_m_twins(twins)
     for retry in (True, False):
         jobs[f"o_{retry}"] = twins.submit(_timed, run_overload_o, "cpu",
                                           retry)
@@ -6784,6 +7300,13 @@ def _main(twins) -> int:
     _line("state_e", **state_e, launches=e_launches,
           phase_s=time.perf_counter() - t0, card=card)
 
+    # M. the fabric's per-tile layout: M1 with every tile on this card, M2
+    # with the tiles over the machine's cards where it has two or more
+    m_errs, phase_m_summary = phase_m(on_card, card, jobs, dev, fused,
+                                      fabric_h, rebalance_r, rng)
+    for name, err in m_errs.items():
+        errs[name] = max(errs.get(name, 0), err)
+
     # 5. report
     t0 = time.perf_counter()
     kernels, errs, times = kernel_report(dev, signers, reqs, rng, launches,
@@ -6800,6 +7323,10 @@ def _main(twins) -> int:
         dev, rng, dict(launches, rotate_planes=rotations), errs, fused)
     kernels += fab_rows
     times["call_ms"].update(fab_call_ms)
+    m_rows, m_call_ms, m_moves = split_report(dev, rng, launches, errs,
+                                              fused)
+    kernels += m_rows
+    times["call_ms"].update(m_call_ms)
     print(json.dumps({"kernels": kernels}), flush=True)
     report_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -6872,6 +7399,7 @@ def _main(twins) -> int:
                      "z1_replay_s": socket_z1["replay_s"], "phase_s": z_s},
         "phase_t": {"phase_s": t_s,
                     "launches": {k: v for k, v in t_launches.items() if v}},
+        "phase_m": dict(phase_m_summary, moves=m_moves),
         "plain_ms": plain, "report_s": report_s,
         "total_s": time.perf_counter() - t_start}}), flush=True)
     print(card, flush=True)

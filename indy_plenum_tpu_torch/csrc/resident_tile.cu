@@ -64,6 +64,27 @@
 // less three slots of words. K9 at phase F1's consume (M = N = 64, S =
 // 300, W = 128, k = 4) moves ~2.9 MB, under 1 us, so there a launch's
 // latency and the cluster's two barriers are the real cost.
+//
+// The per-tile layout (tpu/quorum.py TileState: every tile its own
+// tensors on its own device) runs the same consume in two kernels:
+//   - the partials mode (``Out``): one tile's launch slides and scatters
+//     its V validator rows [row0, row0 + V) (a word's sender is global;
+//     the planes' bases are moved back by row0 rows so it indexes them),
+//     counts them, and writes the tile's (M, S) prepare and commit and
+//     (M, C) checkpoint partials to device memory instead of deciding.
+//     Only the block's home tile (``home``) holds the slot-axis rows: it
+//     alone stores PRE-PREPAREs and slides preprepare_seen, ordered,
+//     prepared_acked and the frontier. An optional verdict operand ``ok``
+//     ((M, W) bytes; K = 1) drops the words whose signature failed (the
+//     split K14);
+//   - decide_partials_kernel, on the home tile's device: the v tiles'
+//     partials (copied there) summed and decided by decide_slots,
+//     decide_checkpoints and compact_member, one block a member. It is
+//     the reference's psum over the validator axis
+//     (indy_plenum_tpu/tpu/quorum.py:183-186) followed by its decide.
+// Both are bound by bytes: a tile's launch moves its own share of the
+// consume's bytes plus its partials (4 (2S + C) bytes a member), the
+// decide the v partials and the events and compact record.
 #include <cooperative_groups.h>
 
 #include "quorum_common.cuh"
@@ -76,12 +97,16 @@ constexpr int kMaxBlocks = 8;  // the portable cluster size
 
 // ``Step`` instantiates K13 (one slot, no slide, ``compact`` read at run
 // time); the resident step's (K9, the tiled K9) fixes compact at 1.
-template <bool Step>
+// ``Out`` is the per-tile layout's partials mode (the header): ``ok``,
+// ``row0``, ``home`` and ``part`` are read only there.
+template <bool Step, bool Out>
 __global__ void __launch_bounds__(qc::kThreads)
     resident_tile_kernel(qc::Planes p, const int32_t* __restrict__ slides,
-                         const uint32_t* __restrict__ words, int K, int M,
+                         const uint32_t* __restrict__ words,
+                         const uint8_t* __restrict__ ok, int K, int M,
                          int N, int S, int C, int W, int n_validators,
-                         int cap, int compact, qc::Events e) {
+                         int cap, int compact, int row0, int home,
+                         qc::Events e, int32_t* __restrict__ part_out) {
   // this block's partial counts, then the member's flags (block 0's are
   // the ones written)
   extern __shared__ int32_t part[];
@@ -97,7 +122,7 @@ __global__ void __launch_bounds__(qc::kThreads)
   const int m = blockIdx.y;
   const int r_lo = rank * N / B;
   const int nr = (rank + 1) * N / B - r_lo;
-  const bool lead = rank == 0;
+  const bool lead = Out ? rank == 0 && home != 0 : rank == 0;
   const size_t ms = static_cast<size_t>(m) * S;
   for (int k = 0; k < K; ++k) {
     const size_t km = static_cast<size_t>(k) * M + m;
@@ -122,8 +147,25 @@ __global__ void __launch_bounds__(qc::kThreads)
     }
     // the scatter stores 1s only, so the stores of slots that no slide
     // separates may land in any order: no barrier between them
-    qc::scatter_member_rows(p, m, words + km * W, N, S, C, W, r_lo, nr, 0,
-                            S, lead, true);
+    if constexpr (Out) {
+      // the tile's rows are the validators [row0, row0 + N): the bases
+      // move back row0 rows so a word's global sender indexes them (no
+      // byte outside the tile's own rows is stored)
+      qc::MemberPlanes mp = qc::member_planes(p, m, N, S, C);
+      mp.pv -= static_cast<size_t>(row0) * S;
+      mp.cv -= static_cast<size_t>(row0) * S;
+      mp.ck -= static_cast<size_t>(row0) * C;
+      const uint32_t* wm = words + km * W;
+      const uint8_t* okm = ok == nullptr ? nullptr : ok + km * W;
+      for (int j = threadIdx.x; j < W; j += blockDim.x) {
+        if (okm != nullptr && okm[j] == 0) continue;
+        qc::scatter_word(mp, wm[j], S, C, row0 + r_lo, nr, 0, S, lead,
+                         true);
+      }
+    } else {
+      qc::scatter_member_rows(p, m, words + km * W, N, S, C, W, r_lo, nr,
+                              0, S, lead, true);
+    }
   }
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
     pc_s[i] = 0;
@@ -133,6 +175,45 @@ __global__ void __launch_bounds__(qc::kThreads)
   qc::chunk_counts(p, m, N, S, r_lo, nr, 0, S, pc_s, cc_s);
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     kc_s[c] = qc::checkpoint_count(p, m, r_lo, nr, N, C, c);
+  }
+  if constexpr (Out) {
+    // the tile's partials to device memory: (M, S) prepare, (M, S)
+    // commit, (M, C) checkpoint counts, one after another
+    int32_t* pc_o = part_out + ms;
+    int32_t* cc_o = part_out + static_cast<size_t>(M) * S + ms;
+    int32_t* kc_o = part_out + 2 * static_cast<size_t>(M) * S +
+                    static_cast<size_t>(m) * C;
+    if (B == 1) {
+      __syncthreads();  // every count in before it is written out
+      for (int s = threadIdx.x; s < S; s += blockDim.x) {
+        pc_o[s] = pc_s[s];
+        cc_o[s] = cc_s[s];
+      }
+      for (int c = threadIdx.x; c < C; c += blockDim.x) kc_o[c] = kc_s[c];
+      return;
+    }
+    cluster.sync();  // every block's counts in before any is summed
+    const int chunk = (S + B - 1) / B;
+    const int s_lo = rank * chunk < S ? rank * chunk : S;
+    const int s_hi = s_lo + chunk < S ? s_lo + chunk : S;
+    for (int s = s_lo + threadIdx.x; s < s_hi; s += blockDim.x) {
+      int a = 0, b = 0;
+      for (int r = 0; r < B; ++r) {
+        a += cluster.map_shared_rank(pc_s, r)[s];
+        b += cluster.map_shared_rank(cc_s, r)[s];
+      }
+      pc_o[s] = a;
+      cc_o[s] = b;
+    }
+    if (rank == 0) {
+      for (int c = threadIdx.x; c < C; c += blockDim.x) {
+        int kc = 0;
+        for (int r = 0; r < B; ++r) kc += cluster.map_shared_rank(kc_s, r)[c];
+        kc_o[c] = kc;
+      }
+    }
+    cluster.sync();  // every partial read before any block exits
+    return;
   }
   if (B == 1) {
     // one block a member: its partials are the counts, and a block
@@ -195,28 +276,31 @@ size_t shared_bytes(int S, int C) {
 }
 
 // above 48 KB a block's dynamic shared memory needs the kernel's opt-in
-template <bool Step>
+template <bool Step, bool Out = false>
 cudaError_t allow_shared(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(resident_tile_kernel<Step>,
+  return cudaFuncSetAttribute(resident_tile_kernel<Step, Out>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
 // One launch of the kernel: a cluster of ``blocks`` blocks a member.
-template <bool Step>
+// ``part`` (the partials mode) takes the tile's partials; ``out`` the
+// events otherwise.
+template <bool Step, bool Out>
 int launch(void* pp, void* pv, void* cv, void* ck, void* ordered,
            void* acked, void* frontier, const void* slides, const void* words,
-           int K, int M, int N, int S, int C, int W, int v, int blocks,
-           int n_validators, int cap, int compact, void* out, void* stream) {
+           const void* ok, int K, int M, int N, int S, int C, int W, int v,
+           int blocks, int n_validators, int cap, int compact, int row0,
+           int home, void* out, void* part, void* stream) {
   if (S <= 0 || S > qc::kMaxSlots || K < 0 || C < 0 || v < 1 || N < 1 ||
       N % v != 0 || blocks < 1 || blocks > kMaxBlocks || blocks > N ||
-      M > 65535) {
+      M > 65535 || row0 < 0 || (Step && K != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M == 0) return static_cast<int>(cudaGetLastError());
   const size_t smem = shared_bytes(S, C);
-  const cudaError_t opt = allow_shared<Step>(smem);
+  const cudaError_t opt = allow_shared<Step, Out>(smem);
   if (opt != cudaSuccess) return static_cast<int>(opt);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks, M, 1);
@@ -230,13 +314,15 @@ int launch(void* pp, void* pv, void* cv, void* ck, void* ordered,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  const qc::Events e =
+      Out ? qc::Events{} : qc::events_at(out, M, S, C, cap);
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, resident_tile_kernel<Step>,
+      &cfg, resident_tile_kernel<Step, Out>,
       qc::planes(pp, pv, cv, ck, ordered, acked, frontier),
       static_cast<const int32_t*>(slides),
-      static_cast<const uint32_t*>(words), K, M, N, S, C, W, n_validators,
-      cap, compact,
-      qc::events_at(out, M, S, C, cap));
+      static_cast<const uint32_t*>(words),
+      static_cast<const uint8_t*>(ok), K, M, N, S, C, W, n_validators, cap,
+      compact, row0, home, e, static_cast<int32_t*>(part));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -255,9 +341,11 @@ extern "C" int resident_tile_occupancy(int S, int C, int step,
       step ? allow_shared<true>(smem) : allow_shared<false>(smem);
   if (err == cudaSuccess) {
     err = step ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &n, resident_tile_kernel<true>, qc::kThreads, smem)
+                     &n, resident_tile_kernel<true, false>, qc::kThreads,
+                     smem)
                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &n, resident_tile_kernel<false>, qc::kThreads, smem);
+                     &n, resident_tile_kernel<false, false>, qc::kThreads,
+                     smem);
   }
   *static_cast<int*>(blocks_per_sm) = n;
   return static_cast<int>(err);
@@ -270,9 +358,10 @@ extern "C" int resident_tile_launch(
     void* frontier, const void* slides, const void* words, int K, int M,
     int N, int S, int C, int W, int v, int blocks, int n_validators,
     int cap, void* out, void* stream) {
-  return launch<false>(pp, pv, cv, ck, ordered, acked, frontier, slides,
-                       words, K, M, N, S, C, W, v, blocks, n_validators, cap,
-                       1, out, stream);
+  return launch<false, false>(pp, pv, cv, ck, ordered, acked, frontier,
+                              slides, words, nullptr, K, M, N, S, C, W, v,
+                              blocks, n_validators, cap, 1, 0, 1, out,
+                              nullptr, stream);
 }
 
 // K13: one slot, no slide; ``compact`` 0 leaves prepared_acked and the
@@ -282,7 +371,107 @@ extern "C" int fabric_step_launch(
     void* frontier, const void* words, int M, int N, int S, int C, int W,
     int v, int blocks, int n_validators, int cap, int compact, void* out,
     void* stream) {
-  return launch<true>(pp, pv, cv, ck, ordered, acked, frontier, nullptr,
-                      words, 1, M, N, S, C, W, v, blocks, n_validators, cap,
-                      compact, out, stream);
+  return launch<true, false>(pp, pv, cv, ck, ordered, acked, frontier,
+                             nullptr, words, nullptr, 1, M, N, S, C, W, v,
+                             blocks, n_validators, cap, compact, 0, 1, out,
+                             nullptr, stream);
+}
+
+// The partials mode on one tile of the per-tile layout: the tile's N
+// validator rows are [row0, row0 + N); ``home`` when it is its block's
+// home tile (the slot-axis rows). Without ``slides`` it is K13's form
+// (K = 1, no slide; ``ok`` the optional (M, W) verdict bytes), with them
+// the tiled K9's (K slots). ``part``: the tile's (M, 2S + C) int32
+// partials, prepare then commit then checkpoint counts.
+extern "C" int resident_partials_launch(
+    void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,
+    void* frontier, const void* slides, const void* words, const void* ok,
+    int K, int M, int N, int S, int C, int W, int row0, int home,
+    int blocks, void* part, void* stream) {
+  if (slides == nullptr) {
+    return launch<true, true>(pp, pv, cv, ck, ordered, acked, frontier,
+                              nullptr, words, ok, K, M, N, S, C, W, 1,
+                              blocks, 1, 1, 1, row0, home, nullptr, part,
+                              stream);
+  }
+  if (ok != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false, true>(pp, pv, cv, ck, ordered, acked, frontier,
+                             slides, words, nullptr, K, M, N, S, C, W, 1,
+                             blocks, 1, 1, 1, row0, home, nullptr, part,
+                             stream);
+}
+
+namespace {
+
+constexpr int kMaxTiles = 16;  // validator tiles a decide sums, at most
+
+struct PartialTable {
+  const int32_t* part[kMaxTiles];
+};
+
+// The decide of the per-tile layout on a block's home tile: member m
+// sums the v tiles' partials of every slot and checkpoint, then decides
+// and compacts as K7, K9 and K13 do. One block a member.
+__global__ void __launch_bounds__(qc::kThreads)
+    decide_partials_kernel(qc::Planes p,
+                           const __grid_constant__ PartialTable t, int v,
+                           int M, int S, int C, int n_validators, int cap,
+                           int compact, qc::Events e) {
+  extern __shared__ uint8_t flags[];
+  uint8_t* f_newprep = flags;
+  uint8_t* f_newly = flags + S;
+  uint8_t* f_ordered = flags + 2 * S;
+  const int m = blockIdx.x;
+  const size_t ms = static_cast<size_t>(m) * S;
+  const size_t plane = static_cast<size_t>(M) * S;
+  qc::decide_slots(
+      p, e, m, S, 0, S, n_validators, compact,
+      [&](int s, int* pc, int* cc) {
+        int a = 0, b = 0;
+        for (int r = 0; r < v; ++r) {
+          a += t.part[r][ms + s];
+          b += t.part[r][plane + ms + s];
+        }
+        *pc = a;
+        *cc = b;
+      },
+      f_newprep, f_newly, f_ordered);
+  qc::decide_checkpoints(e, m, C, n_validators, [&](int c) {
+    int kc = 0;
+    for (int r = 0; r < v; ++r) {
+      kc += t.part[r][2 * plane + static_cast<size_t>(m) * C + c];
+    }
+    return kc;
+  });
+  __syncthreads();  // every flag before the compact
+  qc::compact_member(p, e, m, S, cap, compact, f_newprep, f_newly,
+                     f_ordered);
+}
+
+}  // namespace
+
+// ``table``: host int64 pointers of the v partials ((M, 2S + C) int32
+// each, on this device); the home tile's slot-axis leaves; the events and
+// compact record into ``out`` (tpu/quorum.py _outputs' allocation).
+extern "C" int decide_partials_launch(void* pp, void* ordered, void* acked,
+                                      void* frontier, const void* table,
+                                      int v, int M, int S, int C,
+                                      int n_validators, int cap,
+                                      int compact, void* out, void* stream) {
+  if (v < 1 || v > kMaxTiles || S <= 0 || S > qc::kMaxSlots || C < 0 ||
+      M < 0 || cap < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (M == 0) return static_cast<int>(cudaGetLastError());
+  const long long* in = static_cast<const long long*>(table);
+  PartialTable t = {};
+  for (int r = 0; r < v; ++r) {
+    t.part[r] = reinterpret_cast<const int32_t*>(in[r]);
+  }
+  decide_partials_kernel<<<M, qc::kThreads, 3 * static_cast<size_t>(S),
+                           static_cast<cudaStream_t>(stream)>>>(
+      qc::planes(pp, nullptr, nullptr, nullptr, ordered, acked, frontier),
+      t, v, M, S, C, n_validators, cap, compact,
+      qc::events_at(out, M, S, C, cap));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -10,12 +10,12 @@
 //   `ring_shift_pallas` :118), behind the dispatcher `ring_shift_planes`
 //   (:127) whose oracle is `ring_shift_reference` (:47, lax.ppermute):
 //   member block b of every leaf moves to block (b + shift) mod m. The
-//   TPU kernel RDMAs each device's block to its ring neighbour. On one
-//   device every block lives in the same leaf, and the member blocks are
-//   contiguous rows, so the shift is a rotation of each leaf's bytes by
-//   shift x R x row_bytes: dst[(i + offset) mod total] = src[i]. Any shift
-//   and both mesh ranks (the validator tiles of a member block move with
-//   it, inside its rows). With every tile on one card the rotation of
+//   TPU kernel RDMAs each device's block to its ring neighbour. In the
+//   one-device layout every block lives in the same leaf, and the member
+//   blocks are contiguous rows, so the shift is a rotation of each leaf's
+//   bytes by shift x R x row_bytes: dst[(i + offset) mod total] = src[i].
+//   Any shift and both mesh ranks (the validator tiles of a member block
+//   move with it, inside its rows). In that layout the rotation of
 //   ``rotate_planes`` is this kernel too, once, by ``rows`` rows
 //   (tpu/ring_exchange.py ``ring_shift_rows``).
 // - K15: indy_plenum_tpu/tpu/rebalance.py:207-221, `rotate_planes`' merge:
@@ -23,9 +23,19 @@
 //   and B; new row k R + r of shard k takes A's row k R + r - s when
 //   r >= s, else B's row k R + r - s + R. Without a mesh the rotation is
 //   this merge alone with m = 1 (A = B = the state, R = M): a roll of the
-//   member axis. On one card the port rolls instead (K1 above), so the
-//   merge runs only where the arms live on distinct cards (the
-//   multi-card fabric) and in the checks against its plain version.
+//   member axis. The one-device layout rolls instead (K1 above); the
+//   per-tile layout runs the reference's shape: two K1 shifts of the tiles
+//   (below), then this merge on every tile, on the tile's own device.
+//
+// K1's peer form (tpu/ring_exchange.py ``_peer_copy``): in the per-tile
+// layout (tpu/quorum.py TileState) each tile is its own set of leaves on
+// its own device, so a ring step moves tile (i, j) whole to tile
+// ((i + shift) mod m, j). The move is this kernel at offset 0 (one linear
+// segment a leaf), launched on the DESTINATION tile's device with its
+// source pointers on the ring neighbour's device, read through peer
+// access (enable_peer_access below) - the counterpart of the reference's
+// RDMA to the neighbour. With every tile on one card the same launch gets
+// local pointers.
 //
 // What bounds them on an H100: bytes. K1 reads and writes each leaf once:
 // at the fabric bench's state (256 x 256 x 300 uint8 planes x 2, the
@@ -250,6 +260,25 @@ extern "C" int ring_shift_launch(const void* table, int n_leaves, int rows,
   ring_shift_kernel<<<grid, kRingThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(t);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Let the current thread's kernels on device ``dev`` read device ``peer``'s
+// memory (cudaDeviceEnablePeerAccess from ``dev``): 0, or the CUDA error.
+// Access already enabled (by this call or by PyTorch's own peer copies)
+// counts as done. The calling thread's current device is restored.
+extern "C" int enable_peer_access(int dev, int peer) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clear the sticky-free "already" report
+    err = cudaSuccess;
+  }
+  const cudaError_t back = cudaSetDevice(prev);
+  return static_cast<int>(err != cudaSuccess ? err : back);
 }
 
 // ``table``: host int64 quadruples (a, b, dst, row_bytes) per leaf, each

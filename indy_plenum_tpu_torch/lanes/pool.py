@@ -22,10 +22,10 @@ AND the byte-identical sealed-window fingerprint chain.
 
 Copy of ``indy_plenum_tpu/lanes/pool.py``, with its imports bound to the
 port. Every lane's vote group, ingress drain and window ops run on the
-pool's ``device``: the CUDA card unless the caller passes ``"cpu"``. All
-lanes share that one device: :func:`lane_meshes` builds each lane's fabric
-on it, where the reference slices its device list into disjoint meshes;
-spreading the lanes over several cards waits for the multi-card fabric.
+pool's ``device`` (the CUDA card unless the caller passes ``"cpu"``), or
+with ``meshes`` on the home device of its lane's mesh. :func:`lane_meshes`
+slices a device list into disjoint meshes as the reference does, or
+without a list builds every lane's fabric on the one device.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ from ..config import Config, getConfig
 from ..simulation.mock_timer import MockTimer
 from ..simulation.pool import SimPool
 from ..simulation.quorum_driver import drive_lane_ticks
+from ..tpu.quorum import as_fabric
 from ..utils.torch_env import DeviceLike, resolve_device
 from .barrier import CrossLaneBarrier
 from .router import LaneRouter
@@ -52,21 +53,35 @@ def lane_seed(seed: int, lane: int) -> int:
     return int.from_bytes(h[:4], "big")
 
 
-def lane_meshes(lanes: int, shape, device: DeviceLike = None) -> list:
-    """One fabric mesh of ``shape`` for each of ``lanes`` lanes, every
-    tile on ``device`` (the card unless ``"cpu"``). The reference slices
-    its host's device grid into disjoint meshes, lane l on devices
-    ``[l*prod(shape), (l+1)*prod(shape))``; the port has one card, so the
-    lanes share it and each lane's vote plane runs as its own fabric
-    there. Lanes on distinct cards wait for the multi-card fabric."""
+def lane_meshes(lanes: int, shape, device: DeviceLike = None,
+                devices=None, split: bool = False) -> list:
+    """One fabric mesh of ``shape`` for each of ``lanes`` lanes. With a
+    ``devices`` list (``utils.torch_env.device_list``, the counterpart of
+    ``jax.devices()``) lane l takes the slice ``[l*prod(shape),
+    (l+1)*prod(shape))``, as the reference's ``lanes/pool.py:48-67`` does,
+    and raises when the list is short; ``split`` builds each lane's mesh
+    in the per-tile layout even where its slice repeats one device.
+    Without a list every tile of every lane is on ``device`` (the card
+    unless ``"cpu"``), each lane its own one-device fabric there."""
     from ..tpu import quorum as q
 
-    device = resolve_device(device)
     per = 1
     for dim in shape:
         per *= dim
-    return [q.make_fabric_mesh([device] * per, tuple(shape))
-            for _ in range(lanes)]
+    if devices is None:
+        device = resolve_device(device)
+        return [q.make_fabric_mesh([device] * per, tuple(shape),
+                                   split=split)
+                for _ in range(lanes)]
+    devices = list(devices)
+    need = lanes * per
+    if len(devices) < need:
+        raise ValueError(
+            f"lane_meshes needs {need} devices for {lanes} lanes of "
+            f"{tuple(shape)}, have {len(devices)}")
+    return [q.make_fabric_mesh(devices[lane * per:(lane + 1) * per],
+                               tuple(shape), split=split)
+            for lane in range(lanes)]
 
 
 def _lane_busy(lane_pool: SimPool) -> bool:
@@ -156,7 +171,8 @@ class LanedPool:
                     drive_ticks=False,
                     barrier=self.barrier,
                     lane=lane,
-                    device=device)
+                    device=(device if meshes is None
+                            else as_fabric(meshes[lane]).home(0)))
             for lane in range(lanes)]
         for lane, lane_pool in enumerate(self.lane_pools):
             self.barrier.set_idle_probe(

@@ -16,7 +16,8 @@ instance) member planes, the window slide and view-change zero, the SMT
 commits' hash waves) runs on the CUDA card unless the caller passes
 ``device="cpu"``, which runs the kernels' plain PyTorch versions; without
 a card the pool raises. ``mesh`` is a ``FabricMesh`` from
-``tpu.quorum.make_fabric_mesh`` on the pool's one device.
+``tpu.quorum.make_fabric_mesh`` whose first home tile is the pool's
+device.
 """
 from __future__ import annotations
 

@@ -25,8 +25,10 @@ its ``proof_cache``, so proved reads verify with nothing but the pool's
 BLS keys. With ``ResidentTickDepth > 1`` the vote group runs its
 multi-tick residency ring (one fused device step per up to that many
 ticks, checkpoint slides folded in). ``mesh`` (a ``FabricMesh`` from
-``tpu.quorum.make_fabric_mesh`` on the pool's device) runs the vote group
-as the member x validator fabric on that one device, and with
+``tpu.quorum.make_fabric_mesh`` whose first home tile is the pool's
+device) runs the vote group as the member x validator fabric, in one
+state on that device or with every tile on its own device (the per-tile
+layout), and with
 ``RebalanceSkewThreshold`` or ``RebalanceForceTick`` armed
 ``pool.rebalance`` plans member-plane rotations. The workload planes ride
 the same pool: the closed-loop retry driver (``IngressRetryMax``), the

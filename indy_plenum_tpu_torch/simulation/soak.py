@@ -73,7 +73,11 @@ WARM_SEC = WARM_WRITE_SEC + WARM_SETTLE_SEC
 
 def _day_mesh(device: DeviceLike = None):
     """The soak's (4,)-fabric mesh, every tile on ``device``: the
-    reference's ticked arm, which it takes when JAX sees >= 4 devices."""
+    reference's ticked arm, which it takes when JAX sees >= 4 devices. It
+    stays the one-device layout on purpose, on a machine with several
+    cards too: the soak's readings (fingerprint, telemetry, the hourly
+    tallies) are the day's, and a fabric over cards is phase M's to
+    check, not the soak's."""
     from ..tpu.quorum import make_fabric_mesh
 
     return make_fabric_mesh([resolve_device(device)] * 4, (4,))

@@ -17,12 +17,25 @@ runs, to the kernels that run them:
   :func:`~indy_plenum_tpu_torch.tpu.quorum.zero_members`, one
   ``csrc/window.cu`` launch each on the card. The reference's pjit'd mesh
   versions are per-member maps over the member-stacked state, so on the
-  one-device fabric K8 runs them over the padded state as it is.
+  one-device fabric K8 runs them over the padded state as it is, and in
+  the per-tile layout on every tile's rows, on the tile's device
+  (:func:`~indy_plenum_tpu_torch.tpu.quorum.slide_tiles`,
+  :func:`~indy_plenum_tpu_torch.tpu.quorum.zero_tiles`).
+
+A mesh in the per-tile layout (``FabricMesh.split``) takes the split
+forms: the state is a :class:`~indy_plenum_tpu_torch.tpu.quorum.
+TileState`, the words one operand a tile (or one (M, W) tensor, cut and
+copied to the tiles), and the step
+:func:`~indy_plenum_tpu_torch.tpu.quorum.tiles_step`: the tile kernel's
+partials mode on every tile, the partials copied to each block's home,
+the decide there; its events and compact record come back one member
+block at a time (lists).
 
 ``CompilePlan.strategy`` names what the port launches for each function
-(``{"step": "k7" | "k13", "slide": "k8", "zero": "k8"}``) where the
-reference names its compilation path; ``mesh_shape`` is the reference's:
-``()`` unsharded, ``(m,)`` or ``(m, v)`` on the fabric.
+(``{"step": "k7" | "k13" | "k13_split", "slide": "k8" | "k8_tiles",
+"zero": "k8" | "k8_tiles"}``) where the reference names its compilation
+path; ``mesh_shape`` is the reference's: ``()`` unsharded, ``(m,)`` or
+``(m, v)`` on the fabric.
 
 All three update the state IN PLACE, which takes the place of the
 reference's buffer donation (``compile_plan.py:54``), and return it so a
@@ -31,7 +44,9 @@ caller rebinding its state reads like the JAX code.
 consume: K9 (:func:`~indy_plenum_tpu_torch.tpu.quorum.resident_step`)
 unsharded, the tiled K9 (:func:`~indy_plenum_tpu_torch.tpu.quorum.
 resident_tile_step`) on the fabric; on the card both are one launch of
-``csrc/resident_tile.cu``'s cluster kernel, K9 at one validator tile.
+``csrc/resident_tile.cu``'s cluster kernel, K9 at one validator tile. In
+the per-tile layout the consume is
+:func:`~indy_plenum_tpu_torch.tpu.quorum.tiles_step` with the slides.
 """
 from __future__ import annotations
 
@@ -66,6 +81,34 @@ def _check_device(mesh, t: torch.Tensor) -> None:
                          f"{mesh.device}")
 
 
+def _tile_operands(mesh, states, words, slots=None, width=None) -> list:
+    """One word operand a tile of ``states`` (a TileState): ``words`` as
+    given one a tile, or one tensor whose member rows are cut and copied
+    to the tiles; each on its tile's device, (R, W) with one W for every
+    tile, or (``slots``, R, ``width``)."""
+    q.check_tiles(mesh, states)
+    if isinstance(words, torch.Tensor):
+        words = q.tile_words(words, mesh, states.rows)
+    q.check_tiles(mesh, states, words)
+    shape = ((states.rows, words[0].shape[-1]) if slots is None
+             else (slots, states.rows, width))
+    for w in words:
+        if tuple(w.shape) != shape:
+            raise ValueError(f"fabric plan: a tile's words must be {shape}, "
+                             f"not {tuple(w.shape)}")
+    return list(words)
+
+
+def _zero_tiles(states, mask: torch.Tensor):
+    q.zero_tiles(states, mask)
+    return states
+
+
+def _slide_tiles(states, deltas: torch.Tensor):
+    q.slide_tiles(states, deltas)
+    return states
+
+
 def _zero_body(states: q.VoteState, mask: torch.Tensor) -> q.VoteState:
     q.zero_members(states, mask)
     return states
@@ -90,7 +133,10 @@ def resident_plan_for(mesh, n_validators: int, n_validator_rows: int,
     one K9 launch. Cached per the reference's key; runs on the card
     unless ``device="cpu"``. On a fabric ``mesh`` the step is the tiled
     K9 over the mesh's device, whose state carries ``n_validator_rows``
-    (padded) rows."""
+    (padded) rows; in the per-tile layout it is
+    :func:`~indy_plenum_tpu_torch.tpu.quorum.tiles_step` with the slides
+    over a TileState, the words one (n_slots, R, width) operand a tile
+    (a list) or the stack as above, cut and copied to the tiles."""
     mesh = q.as_fabric(mesh)
     if mesh is None:
         if n_validator_rows != n_validators:
@@ -103,6 +149,19 @@ def resident_plan_for(mesh, n_validators: int, n_validator_rows: int,
             raise ValueError(f"resident plan: device {device}, mesh on "
                              f"{dev}")
         v = _fabric_tiles(mesh, n_validator_rows)
+
+    def split(states, slides, *words):
+        block = words[0] if len(words) == 1 else torch.stack(words)
+        if isinstance(block, torch.Tensor) and block.dim() == 2:
+            block = block.unsqueeze(0)  # one slot's (M, W) row
+        tiles = _tile_operands(mesh, states, block, n_slots, width)
+        events, compact = q.tiles_step(states, tiles, n_validators,
+                                       delta_cap,
+                                       slides=torch.as_tensor(slides))
+        return states, events, compact
+
+    if mesh is not None and mesh.split:
+        return split
 
     def step(states: q.VoteState, slides, *words):
         block = (words[0] if len(words) == 1 and words[0].dim() == 3
@@ -131,7 +190,9 @@ def plan_for(mesh, n_validators: int, n_validator_rows: int,
     (quorum thresholds); ``n_validator_rows`` the row count the state
     tensors carry (equal without a mesh; padded to a multiple of the
     validator tiles on the fabric - pad rows never receive votes, so the
-    summed counts are exact)."""
+    summed counts are exact). In the per-tile layout the plan's functions
+    take a TileState, and the step returns one events and one compact
+    record a member block."""
     mesh = q.as_fabric(mesh)
     if mesh is None:
         if n_validator_rows != n_validators:
@@ -147,6 +208,18 @@ def plan_for(mesh, n_validators: int, n_validator_rows: int,
                                      "zero": "k8"},
                            mesh_shape=())
     v = _fabric_tiles(mesh, n_validator_rows)
+    if mesh.split:
+        def split(states, words):
+            tiles = _tile_operands(mesh, states, words)
+            events, compact = q.tiles_step(states, tiles, n_validators,
+                                           delta_cap)
+            return states, events, compact
+
+        return CompilePlan(step=split, slide=_slide_tiles, zero=_zero_tiles,
+                           strategy={"step": "k13_split",
+                                     "slide": "k8_tiles",
+                                     "zero": "k8_tiles"},
+                           mesh_shape=tuple(mesh.shape))
 
     def fabric(states: q.VoteState, words: torch.Tensor):
         _check_device(mesh, words)

@@ -247,10 +247,11 @@ def kernel_operands(pk: torch.Tensor, rb: torch.Tensor, s: torch.Tensor,
 
 
 def verify_kernel(pk: torch.Tensor, rb: torch.Tensor, s: torch.Tensor,
-                  h: torch.Tensor) -> torch.Tensor:
+                  h: torch.Tensor,
+                  counter: str = "ed25519_verify") -> torch.Tensor:
     """K-c: (B, 32) uint8 x 4 (pk, R, S, h) -> (B,) bool. CPU tensors take
-    the plain version; CUDA tensors launch ``ed25519_verify_kernel`` or
-    raise."""
+    the plain version; CUDA tensors launch ``ed25519_verify_kernel``,
+    counted under ``counter``, or raise."""
     if pk.device.type == "cpu":
         return verify_kernel_plain(pk, rb, s, h)
     if pk.device.type != "cuda":
@@ -260,8 +261,8 @@ def verify_kernel(pk: torch.Tensor, rb: torch.Tensor, s: torch.Tensor,
     code = kb.library().ed25519_verify_launch(
         *ptrs[:4], ok.data_ptr(), ptrs[4], pk.shape[0],
         torch.cuda.current_stream(pk.device).cuda_stream)
-    kb.check(code, "ed25519_verify")
-    kb.LAUNCHES["ed25519_verify"] += 1
+    kb.check(code, counter)
+    kb.LAUNCHES[counter] += 1
     return ok
 
 

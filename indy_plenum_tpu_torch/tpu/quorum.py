@@ -34,21 +34,30 @@ validator tile; its plain version is :func:`resident_step_plain`, built like
 :func:`decide_plain`, the reference's ``scatter_batch``/``eval_compact``).
 
 The member x validator fabric (reference ``quorum.py:59-73``,
-``:145-190``, ``:306-342``, ``:402``) runs on ONE device here: a
-:class:`FabricMesh` names the tile grid (m member blocks x v validator
-blocks) and the one device that holds every tile. The group's state stays
-one member-stacked :class:`VoteState`, its validator rows padded to a
-multiple of v, so tile (i, j) is member rows ``[i R, (i+1) R)`` x
-validator rows ``[j V, (j+1) V)``. :func:`fabric_step` (K13, reference
-``step_compact_local`` ``:306`` under ``compile_plan.py:201-245``) scatters
-each tile's own senders, sums the tiles' column counts (the reference's
-``psum`` over the validator axis) and decides; its plain version is
-:func:`fabric_step_plain`. :func:`resident_tile_step` is K9 per tile
-(``compile_plan.py:141-173``): the slides and scatters of k ring slots
-restricted to each tile's rows, then K13's decide. Both are one launch of
-``csrc/resident_tile.cu``'s cluster kernel (K13 at k = 1, no slide).
-:func:`make_sharded_step` (``:402``) is K13 on one plane without the
-compact record.
+``:145-190``, ``:306-342``, ``:402``) has two layouts, both named by a
+:class:`FabricMesh` (m member blocks x v validator blocks):
+
+- the one-device layout (a device list that repeats one device): every
+  tile lives in one member-stacked :class:`VoteState`, its validator rows
+  padded to a multiple of v, so tile (i, j) is member rows ``[i R, (i+1)
+  R)`` x validator rows ``[j V, (j+1) V)``. :func:`fabric_step` (K13,
+  reference ``step_compact_local`` ``:306`` under ``compile_plan.py:
+  201-245``) scatters each tile's own senders, sums the tiles' column
+  counts (the reference's ``psum`` over the validator axis) in the
+  cluster's shared memory and decides; its plain version is
+  :func:`fabric_step_plain`. :func:`resident_tile_step` is K9 per tile
+  (``compile_plan.py:141-173``): the slides and scatters of k ring slots
+  restricted to each tile's rows, then K13's decide. Both are one launch
+  of ``csrc/resident_tile.cu``'s cluster kernel (K13 at k = 1, no slide).
+- the per-tile layout (a list naming distinct devices, or ``split=True``):
+  a :class:`TileState`, tile (i, j) a VoteState of its own on its own
+  device. :func:`tiles_step` runs the tile kernel's partials mode on
+  every tile (:func:`split_partials`), copies the partials of tiles (i,
+  1..v-1) to the block's home tile (i, 0) and decides there
+  (:func:`split_decide`): the reference's psum as a copy and a sum.
+
+:func:`make_sharded_step` (``:402``) is the fabric step on one plane
+without the compact record, in either layout.
 
 Words are uint32 bit patterns carried in int32 tensors; the plain version
 decodes them in int64 lanes masked to 0xFFFFFFFF (CPU torch has no uint32
@@ -56,14 +65,15 @@ shifts).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..utils import kernel_build as kb
-from ..utils.torch_env import resolve_device
+from ..utils.torch_env import require_peer_access, resolve_device
 
 # message kinds in the packed device format
 PREPREPARE = 0
@@ -127,16 +137,18 @@ class CompactEvents(NamedTuple):
 
 
 class FabricMesh(NamedTuple):
-    """The fabric's tile grid on ONE device (the port of
-    ``make_fabric_mesh``'s ``Mesh``): ``shape`` is (m,) or (m, v),
-    ``axis_names`` the reference's names for its axes and ``device`` the
-    device that holds every tile. Every tile of the grid lives in the one
-    member-stacked state on that device; a fabric spread over several
-    cards (cross-card reduce and ring) is a later slice."""
+    """The fabric's tile grid (the port of ``make_fabric_mesh``'s
+    ``Mesh``): ``shape`` is (m,) or (m, v), ``axis_names`` the
+    reference's names for its axes. ``tile_devices`` is None in the
+    one-device layout, where ``device`` holds every tile in one
+    member-stacked state; otherwise it names one device per tile, tile
+    (i, j) on ``tile_devices[i * v + j]`` (the per-tile layout,
+    :class:`TileState`), and ``device`` is tile 0's."""
 
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     device: torch.device
+    tile_devices: Optional[Tuple[torch.device, ...]] = None
 
     def axis_size(self, axis: str) -> int:
         return self.shape[self.axis_names.index(axis)]
@@ -151,17 +163,49 @@ class FabricMesh(NamedTuple):
         """Validator blocks (mesh axis 1; 1 on a 1-axis mesh)."""
         return self.shape[1] if len(self.shape) > 1 else 1
 
+    @property
+    def split(self) -> bool:
+        """True for the per-tile layout."""
+        return self.tile_devices is not None
 
-def make_fabric_mesh(devices, shape, axis_names=None) -> FabricMesh:
+    @property
+    def grid(self) -> Tuple[int, int]:
+        """(member blocks, validator blocks) of the tiles: a
+        ``("validators",)`` mesh is one member block of ``shape[0]``
+        validator tiles (the sharded steps' plane)."""
+        if self.axis_names == ("validators",):
+            return 1, self.shape[0]
+        return self.m_shards, self.v_shards
+
+    def tile_device(self, i: int, j: int = 0) -> torch.device:
+        """The device of tile (i, j)."""
+        if self.tile_devices is None:
+            return self.device
+        return self.tile_devices[i * self.grid[1] + j]
+
+    def home(self, i: int) -> torch.device:
+        """The device of member block i's home tile (i, 0)."""
+        return self.tile_device(i, 0)
+
+
+def make_fabric_mesh(devices, shape, axis_names=None,
+                     split: bool = False) -> FabricMesh:
     """The fabric mesh from a device list and a 1- or 2-dim ``shape``:
     ``(8,)`` member blocks only, ``(4, 2)`` the member x validator grid.
     The shape checks are the reference's (``quorum.py:66-73``): one or two
-    dims, each >= 1, and at least as many devices as tiles. The list may
-    repeat one device (``["cuda:0"] * 8`` on the card, ``["cpu"] * 8`` in
-    the tests); a list that names two different devices raises
-    ``NotImplementedError``: tiles on distinct cards wait for the
-    multi-card slice. ``axis_names`` defaults to :data:`FABRIC_AXES`
-    (``("validators",)`` gives the 1-D mesh of :func:`make_sharded_step`)."""
+    dims, each >= 1, and at least as many devices as tiles; tile (i, j)
+    takes ``devices[i * v + j]``. A list that repeats one device
+    (``["cuda:0"] * 8``) builds the one-device layout, unless ``split``;
+    a list that names two or more distinct devices, or any list with
+    ``split=True``, builds the per-tile layout: every tile its own tensors
+    on its own device (``["cpu"] * 8`` with ``split=True`` is how the CPU
+    tests and a one-card run reach it). Every device is resolved as an
+    entry point resolves its own: a card this process does not see
+    raises, and so does a list that mixes the CPU with cards, or two
+    cards without peer access between them (the cross-card moves never
+    route through the host). ``axis_names`` defaults to
+    :data:`FABRIC_AXES` (``("validators",)`` gives the 1-D mesh of
+    :func:`make_sharded_step`)."""
     shape = tuple(int(d) for d in shape)
     if not 1 <= len(shape) <= 2 or any(d < 1 for d in shape):
         raise ValueError(f"fabric mesh shape must be (M,) or (M, V): {shape}")
@@ -172,26 +216,18 @@ def make_fabric_mesh(devices, shape, axis_names=None) -> FabricMesh:
     if len(devices) < n_dev:
         raise ValueError(
             f"fabric mesh {shape} needs {n_dev} devices, have {len(devices)}")
-    named = {_same_card(d) for d in devices[:n_dev]}
-    if len(named) != 1:
-        raise NotImplementedError(
-            f"a fabric over several devices ({sorted(map(str, named))}) "
-            "needs cross-card copies: it waits for the multi-card slice "
-            "of the port; give one device for every tile")
+    tiles = [resolve_device(d) for d in devices[:n_dev]]
+    if len({d.type for d in tiles}) != 1:
+        raise ValueError("a fabric's tiles lie all on the CPU or all on "
+                         f"cards: {sorted(map(str, set(tiles)))}")
     names = tuple(axis_names) if axis_names is not None \
         else FABRIC_AXES[:len(shape)]
     if len(names) != len(shape):
         raise ValueError(f"one axis name per mesh dim: {names}")
-    return FabricMesh(shape, names, resolve_device(named.pop()))
-
-
-def _same_card(device) -> torch.device:
-    """``device`` with a bare ``cuda`` named by its index, so that one
-    card listed two ways counts once."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+    if len(set(tiles)) == 1 and not split:
+        return FabricMesh(shape, names, tiles[0])
+    require_peer_access(tiles)
+    return FabricMesh(shape, names, tiles[0], tuple(tiles))
 
 
 def as_fabric(mesh) -> Optional[FabricMesh]:
@@ -245,7 +281,8 @@ def _delta_slots(newly: torch.Tensor, width: int):
 
 def scatter_plain(state: VoteState, words: torch.Tensor,
                   ok: Optional[torch.Tensor] = None, row_offset: int = 0,
-                  local_rows: Optional[int] = None) -> None:
+                  local_rows: Optional[int] = None, row_base: int = 0,
+                  preprepare: bool = True) -> None:
     """The plain version of the scatter half (reference ``scatter_batch``,
     ``quorum.py:322``): decode (M, W) vote words and store 1 into the hit
     planes, ``state`` in place. ``ok`` ((M, W) bool, optional) drops the
@@ -253,11 +290,14 @@ def scatter_plain(state: VoteState, words: torch.Tensor,
     ``row_offset``/``local_rows`` restrict the per-validator planes to one
     validator tile's rows ``[row_offset, row_offset + local_rows)`` (the
     reference's ``_scatter_local``, ``:145-173``): a sender outside them is
-    dropped, a PRE-PREPARE hits whatever its sender."""
+    dropped, a PRE-PREPARE hits whatever its sender. ``row_base`` is the
+    global validator index of the planes' first row (a tile of the
+    per-tile layout holds only its own rows); without ``preprepare`` no
+    PRE-PREPARE is stored (a tile that is not its block's home)."""
     n_rows, s = state.prepare_votes.shape[1:]
     c = state.checkpoint_votes.shape[-1]
     if local_rows is None:
-        local_rows = n_rows - row_offset
+        local_rows = n_rows + row_base - row_offset
     msgs = unpack_words(words)
     valid = msgs.valid if ok is None else msgs.valid & ok.to(torch.bool)
     member = torch.arange(words.shape[0], device=words.device).unsqueeze(-1)
@@ -266,9 +306,10 @@ def scatter_plain(state: VoteState, words: torch.Tensor,
     cslot_ok = msgs.slot < c
     mine = valid & (msgs.sender >= row_offset) \
         & (msgs.sender < row_offset + local_rows)
+    row = msgs.sender - row_base
 
     def scatter(plane, hit, slots):
-        plane[member[hit], msgs.sender[hit], slots[hit]] = 1
+        plane[member[hit], row[hit], slots[hit]] = 1
 
     scatter(state.prepare_votes, (msgs.kind == PREPARE) & mine & slot_ok,
             msgs.slot)
@@ -276,9 +317,10 @@ def scatter_plain(state: VoteState, words: torch.Tensor,
             msgs.slot)
     scatter(state.checkpoint_votes,
             (msgs.kind == CHECKPOINT) & mine & cslot_ok, msgs.slot)
-    # PRE-PREPARE is per slot, not per validator: no sender bound
-    pp_hit = (msgs.kind == PREPREPARE) & valid & slot_ok
-    state.preprepare_seen[member[pp_hit], msgs.slot[pp_hit]] = 1
+    if preprepare:
+        # PRE-PREPARE is per slot, not per validator: no sender bound
+        pp_hit = (msgs.kind == PREPREPARE) & valid & slot_ok
+        state.preprepare_seen[member[pp_hit], msgs.slot[pp_hit]] = 1
 
 
 def decide_plain(state: VoteState, prep_counts: torch.Tensor,
@@ -720,16 +762,25 @@ def make_sharded_step(mesh: FabricMesh, n_validators: int,
                       axis: str = "validators"):
     """One plane's step with its validator axis cut into the ``axis``
     tiles of ``mesh`` (reference ``quorum.py:402``): ``(state, words)`` ->
-    (state, events), state (1, N, S) updated in place, full events, no
-    compact record (``prepared_acked`` and the frontier stay). K13 on the
-    card; ``n_validators`` must split evenly over the tiles, as the
-    reference asserts."""
+    (state, events), state updated in place, full events, no compact
+    record (``prepared_acked`` and the frontier stay). In the one-device
+    layout the state is one (1, N, S) VoteState and the step K13; in the
+    per-tile layout it is a :class:`TileState` of the plane's v tiles
+    (:meth:`TileState.split` of that VoteState over ``mesh``), the words
+    (1, W) on any device, and the step :func:`tiles_step`.
+    ``n_validators`` must split evenly over the tiles, as the reference
+    asserts."""
     mesh = as_fabric(mesh)
     n_shards = mesh.axis_size(axis)
     if n_validators % n_shards:
         raise ValueError(f"{n_validators} validators on {n_shards} tiles")
 
-    def sharded(state: VoteState, words: torch.Tensor):
+    def sharded(state, words: torch.Tensor):
+        if mesh.split:
+            check_tiles(mesh, state)
+            events, _ = tiles_step(state, tile_words(words, mesh, 1),
+                                   n_validators, compact=False)
+            return state, events[0]
         if words.device != mesh.device:
             raise ValueError(f"sharded step: words on {words.device}, "
                              f"mesh on {mesh.device}")
@@ -740,12 +791,384 @@ def make_sharded_step(mesh: FabricMesh, n_validators: int,
     return sharded
 
 
-def slide_plain(state: VoteState, deltas: torch.Tensor) -> None:
+# --- the per-tile layout ----------------------------------------------------
+
+
+def on_device(dev: torch.device):
+    """The context a launch on ``dev`` runs in: that card current (a
+    kernel launches on the current card's stream), nothing on the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def move(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` copied to ``dev``: a local copy on one device, a peer copy
+    between two cards (PyTorch orders it after ``t``'s writer and before
+    the destination stream's next work with events on both cards'
+    current streams). Data movement of the fabric, not a kernel."""
+    out = torch.empty_like(t, device=dev)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+class TileState:
+    """The per-tile layout of a member-stacked vote state: tile (i, j) is a
+    :class:`VoteState` of member block i's R members x validator block
+    j's V rows, on the mesh's ``tile_device(i, j)``. The home tile (i, 0)
+    holds the block's slot-axis leaves (``preprepare_seen``, ``ordered``,
+    ``prepared_acked``, ``frontier``), as the one-card tiled kernel gives
+    its first block the PRE-PREPAREs and the slot rows. Tiles (i, j > 0)
+    carry slot-axis leaves of the same shape, so that K8, K1 and K15 move
+    every tile as one VoteState, but no step writes or reads them (3 R S +
+    4 R bytes a tile); :meth:`join` takes the homes'."""
+
+    def __init__(self, tiles: Sequence[VoteState], v: int):
+        self.tiles = tuple(tiles)
+        self.v = int(v)
+        if self.v < 1 or len(self.tiles) % self.v:
+            raise ValueError(f"{len(self.tiles)} tiles in rows of {v}")
+
+    @property
+    def m(self) -> int:
+        """Member blocks."""
+        return len(self.tiles) // self.v
+
+    @property
+    def rows(self) -> int:
+        """Members a block (R)."""
+        return self.tiles[0].frontier.shape[0]
+
+    @property
+    def v_rows(self) -> int:
+        """Validator rows a tile (V)."""
+        return self.tiles[0].prepare_votes.shape[1]
+
+    def tile(self, i: int, j: int = 0) -> VoteState:
+        return self.tiles[i * self.v + j]
+
+    def home(self, i: int) -> VoteState:
+        return self.tiles[i * self.v]
+
+    @classmethod
+    def init(cls, mesh: FabricMesh, n_validator_rows: int, log_size: int,
+             n_checkpoints: int, n_members: int = 1) -> "TileState":
+        """Zero tiles of an (n_members, n_validator_rows) state, each on
+        its device; both counts must split evenly over the grid."""
+        m, v = mesh.grid
+        if n_members % m or n_validator_rows % v:
+            raise ValueError(f"({n_members}, {n_validator_rows}) does not "
+                             f"split over the tiles {m} x {v}")
+        return cls([init_state(n_validator_rows // v, log_size,
+                               n_checkpoints, n_members // m,
+                               mesh.tile_device(i, j))
+                    for i in range(m) for j in range(v)], v)
+
+    @classmethod
+    def split(cls, state: VoteState, mesh: FabricMesh) -> "TileState":
+        """``state`` (a one-state VoteState, any device) cut into the
+        mesh's tiles, each copied to its device."""
+        m, v = mesh.grid
+        n_members, n_rows = state.prepare_votes.shape[:2]
+        if n_members % m or n_rows % v:
+            raise ValueError(f"({n_members}, {n_rows}) does not split over "
+                             f"the tiles {m} x {v}")
+        r, vr = n_members // m, n_rows // v
+        tiles = []
+        for i in range(m):
+            for j in range(v):
+                part = [x[i * r:(i + 1) * r] if x.dim() < 3
+                        else x[i * r:(i + 1) * r, j * vr:(j + 1) * vr]
+                        for x in state]
+                tiles.append(VoteState(*[move(x.contiguous(),
+                                              mesh.tile_device(i, j))
+                                         for x in part]))
+        return cls(tiles, v)
+
+    def clone(self) -> "TileState":
+        return TileState([clone_state(t) for t in self.tiles], self.v)
+
+    def join(self, device="cpu") -> VoteState:
+        """The one-state VoteState the tiles stand for, on ``device``: the
+        planes of every tile, the slot-axis leaves of the homes."""
+        dev = torch.device(device)
+
+        def cat_blocks(leaf):
+            return torch.cat([self.home(i)[leaf].to(dev)
+                              for i in range(self.m)])
+
+        def cat_tiles(leaf):
+            return torch.cat([torch.cat([self.tile(i, j)[leaf].to(dev)
+                                         for j in range(self.v)], dim=1)
+                              for i in range(self.m)])
+
+        return VoteState(*[cat_tiles(k) if k in (1, 2, 3) else cat_blocks(k)
+                           for k in range(len(VoteState._fields))])
+
+    def to_numpy(self) -> VoteState:
+        """:meth:`join` as numpy arrays."""
+        return VoteState(*[x.numpy() for x in self.join("cpu")])
+
+
+def check_tiles(mesh: FabricMesh, states, words=None) -> None:
+    """``states`` is a :class:`TileState` on the mesh's grid, each tile on
+    its device; each of ``words`` (one operand a tile) on its tile's."""
+    if not isinstance(states, TileState):
+        raise TypeError(f"the per-tile layout steps a TileState, not "
+                        f"{type(states).__name__}")
+    m, v = mesh.grid
+    if (states.m, states.v) != (m, v):
+        raise ValueError(f"tiles {states.m} x {states.v} on a {m} x {v} "
+                         "mesh")
+    for t, tile in enumerate(states.tiles):
+        dev = mesh.tile_device(t // v, t % v)
+        if tile.frontier.device != dev or (
+                words is not None and words[t].device != dev):
+            raise ValueError(f"tile {divmod(t, v)}: operand on "
+                             f"{tile.frontier.device}, mesh tile on {dev}")
+
+
+def tile_words(words: torch.Tensor, mesh: FabricMesh,
+               rows: int) -> List[torch.Tensor]:
+    """(..., M, W) words -> one operand a tile: member block i's ``rows``
+    rows, copied to each of its tiles' devices."""
+    m, v = mesh.grid
+    out = []
+    for i in range(m):
+        block = words[..., i * rows:(i + 1) * rows, :].contiguous()
+        out += [move(block, mesh.tile_device(i, j)) for j in range(v)]
+    return out
+
+
+def _partial_views(buf: torch.Tensor, rows: int, s: int, c: int):
+    """A tile's partials: its (R, 2S + C) int32 allocation as the (R, S)
+    prepare, (R, S) commit and (R, C) checkpoint counts."""
+    rs = rows * s
+    return (buf[:rs].view(rows, s), buf[rs:2 * rs].view(rows, s),
+            buf[2 * rs:].view(rows, c))
+
+
+def split_partials_plain(tile: VoteState, words: torch.Tensor, row0: int,
+                        home: bool, slides=None,
+                        ok: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of the tile kernel's partials mode on one tile of
+    the per-tile layout: for each slot of ``words`` ((k, R, W) with
+    ``slides`` (k, R); (R, W) without), the slide of the tile's rows
+    (:func:`slide_plain`, the slot-axis rows only at ``home``), then the
+    scatter of the words whose sender is one of the tile's validators
+    ``[row0, row0 + V)`` (PRE-PREPAREs only at ``home``; ``ok`` drops
+    words as :func:`scatter_plain` does); then the tile's column counts,
+    one int32 allocation of (R, S) prepare, (R, S) commit and (R, C)
+    checkpoint counts. ``tile`` in place."""
+    seq = words if slides is not None else words.unsqueeze(0)
+    if slides is not None:
+        slides = torch.as_tensor(slides)
+    for k in range(seq.shape[0]):
+        if slides is not None and bool((slides[k] != 0).any()):
+            slide_plain(tile, slides[k], home)
+        scatter_plain(tile, seq[k], ok, row0, tile.prepare_votes.shape[1],
+                      row_base=row0, preprepare=home)
+    return torch.cat([tile.prepare_votes.sum(dim=1, dtype=torch.int32)
+                      .flatten(),
+                      tile.commit_votes.sum(dim=1, dtype=torch.int32)
+                      .flatten(),
+                      tile.checkpoint_votes.sum(dim=1, dtype=torch.int32)
+                      .flatten()])
+
+
+def _split_partials_kernel(tile: VoteState, words: torch.Tensor, row0: int,
+                     home: bool, slides, ok: Optional[torch.Tensor],
+                     blocks: Optional[int]) -> torch.Tensor:
+    """One ``resident_tile_kernel`` launch in its partials mode."""
+    dev = words.device
+    dims = 2 if slides is None else 3
+    ptrs = _check_words(tile, words, dims, "tile partials")
+    rows, n_rows, s = tile.prepare_votes.shape
+    c = tile.checkpoint_votes.shape[-1]
+    k, w = (1, words.shape[1]) if slides is None else (words.shape[0],
+                                                       words.shape[2])
+    slides_ptr = ok_ptr = None
+    sliding = False
+    if slides is not None:
+        if tuple(slides.shape) != (k, rows):
+            raise ValueError("tile partials: slides must be (k, R)")
+        sliding = slides.device.type != "cpu" or bool(slides.any())
+        slides = _to_card(slides, torch.int32, dev, "tile partials")
+        slides_ptr = slides.data_ptr()
+    if ok is not None:
+        if tuple(ok.shape) != (rows, w) or ok.device != dev:
+            raise ValueError(f"tile partials: ok must be (R, W) on {dev}")
+        ok = ok.to(torch.uint8).contiguous()
+        ok_ptr = ok.data_ptr()
+    if blocks is None:
+        blocks = _cluster_blocks(dev, n_rows, s, c, rows, slides is None,
+                                 sliding)
+    buf = torch.empty(rows * (2 * s + c), dtype=torch.int32, device=dev)
+    code = kb.library().resident_partials_launch(
+        *ptrs, slides_ptr, words.data_ptr(), ok_ptr, k, rows, n_rows, s, c,
+        w, row0, int(home), blocks, buf.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kb.check(code, "resident_partials")
+    kb.LAUNCHES["resident_partials"] += 1
+    return buf
+
+
+def split_partials(tile: VoteState, words: torch.Tensor, row0: int,
+                  home: bool, slides=None, ok: Optional[torch.Tensor] = None,
+                  blocks: Optional[int] = None) -> torch.Tensor:
+    """The tile kernel's partials mode on one tile: slides and scatters as
+    :func:`split_partials_plain` says, ``tile`` in place, and returns the
+    tile's partial counts (one (R, 2S + C) int32 allocation on the tile's
+    device). CPU tensors take :func:`split_partials_plain`; CUDA tensors
+    launch ``resident_tile_kernel``'s partials mode (``csrc/
+    resident_tile.cu``, a cluster of :func:`tile_cluster_blocks` blocks a
+    member; ``blocks`` forces it) on the current card, or raise."""
+    if words.device.type == "cpu":
+        return split_partials_plain(tile, words, row0, home, slides, ok)
+    if words.device.type != "cuda":
+        raise ValueError(f"tile partials: unsupported device {words.device}")
+    return _split_partials_kernel(tile, words, row0, home, slides, ok, blocks)
+
+
+def split_decide_plain(home: VoteState, partials, n_validators: int,
+                                delta_cap: int = ORDER_DELTA_CAP,
+                                compact: bool = True
+                                ) -> Tuple[QuorumEvents, CompactEvents]:
+    """The plain version of the decide from partials: the tiles' counts
+    summed, then :func:`decide_plain` on the home tile, in place."""
+    rows, _, s = home.prepare_votes.shape
+    c = home.checkpoint_votes.shape[-1]
+    views = [_partial_views(p, rows, s, c) for p in partials]
+    return decide_plain(home, *[sum(v[k] for v in views) for k in range(3)],
+                        n_validators, delta_cap, compact)
+
+
+def _split_decide_kernel(home: VoteState, partials, n_validators: int,
+                   delta_cap: int, compact: bool
+                   ) -> Tuple[QuorumEvents, CompactEvents]:
+    dev = home.frontier.device
+    ptrs = _state_ptrs(home, dev, "decide partials")
+    rows, _, s = home.prepare_votes.shape
+    c = home.checkpoint_votes.shape[-1]
+    size = rows * (2 * s + c)
+    for p in partials:
+        if p.device != dev or p.dtype != torch.int32 or p.numel() != size \
+                or not p.is_contiguous():
+            raise ValueError(f"decide partials: every partial an "
+                             f"(R, 2S + C) int32 allocation on {dev}")
+    width = delta_width(s, delta_cap)
+    buf, events, comp = _outputs(home, width)
+    table = np.array([p.data_ptr() for p in partials], np.int64)
+    code = kb.library().decide_partials_launch(
+        ptrs[0], ptrs[4], ptrs[5], ptrs[6], table.ctypes.data,
+        len(partials), rows, s, c, n_validators, width,
+        1 if compact else 0, buf.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kb.check(code, "decide_partials")
+    kb.LAUNCHES["decide_partials"] += 1
+    return events, comp
+
+
+def split_decide(home: VoteState, partials, n_validators: int,
+                    delta_cap: int = ORDER_DELTA_CAP, compact: bool = True
+                    ) -> Tuple[QuorumEvents, CompactEvents]:
+    """The decide of the per-tile layout on a block's home tile: the v
+    tiles' partials (each on the home's device) summed, the quorums
+    decided, the frontier and compact deltas (``compact``: as K13's flag),
+    ``home`` in place. CPU tensors take :func:`split_decide_plain`; CUDA
+    tensors launch ``decide_partials_kernel`` (``csrc/resident_tile.cu``,
+    one block a member) on the current card, or raise."""
+    dev = home.frontier.device
+    if dev.type == "cpu":
+        return split_decide_plain(home, partials, n_validators, delta_cap,
+                                  compact)
+    if dev.type != "cuda":
+        raise ValueError(f"decide partials: unsupported device {dev}")
+    return _split_decide_kernel(home, partials, n_validators, delta_cap,
+                                compact)
+
+
+def tiles_step(states: TileState, words: Sequence[torch.Tensor],
+               n_validators: int, delta_cap: int = ORDER_DELTA_CAP,
+               compact: bool = True, slides=None, ok=None
+               ) -> Tuple[List[QuorumEvents], List[CompactEvents]]:
+    """The fabric step of the per-tile layout (K13's, or the tiled K9's
+    with ``slides``): every tile's partials mode on its device
+    (:func:`split_partials`; ``words`` one operand a tile, (R, W) or (k,
+    R, W); ``slides`` the (k, M) window deltas; ``ok`` one (R, W) verdict
+    operand a tile), the partials of tiles (i, 1..v-1) copied to the home
+    tile (i, 0) (:func:`move`), and the decide there
+    (:func:`split_decide`). ``states`` in place; returns each member
+    block's events and compact record, on its home's device (the
+    reference reads each block back from its own shard)."""
+    m, v = states.m, states.v
+    rows, v_rows = states.rows, states.v_rows
+    parts = []
+    for t, tile in enumerate(states.tiles):
+        i, j = divmod(t, v)
+        with on_device(tile.frontier.device):
+            parts.append(split_partials(
+                tile, words[t], j * v_rows, j == 0,
+                None if slides is None
+                else slides[:, i * rows:(i + 1) * rows],
+                None if ok is None else ok[t]))
+    events, compacts = [], []
+    for i in range(m):
+        home = states.home(i)
+        dev = home.frontier.device
+        with on_device(dev):
+            ps = [parts[i * v]] + [move(parts[i * v + j], dev)
+                                   for j in range(1, v)]
+            ev, comp = split_decide(home, ps, n_validators, delta_cap,
+                                       compact)
+        events.append(ev)
+        compacts.append(comp)
+    return events, compacts
+
+
+def join_blocks(blocks):
+    """Per-block events or compact records (NamedTuples of one member
+    block's rows each) as one NamedTuple of every member's rows, on the
+    CPU."""
+    cls = type(blocks[0])
+    return cls(*[torch.cat([b[k].cpu() for b in blocks])
+                 for k in range(len(cls._fields))])
+
+
+def slide_tiles(states: TileState, deltas: torch.Tensor) -> None:
+    """K8's slide on the per-tile layout: each tile slides its rows by its
+    block's ``deltas`` (:func:`slide_state` on the tile's device; no
+    launch for a tile whose block slides no member)."""
+    rows = states.rows
+    for t, tile in enumerate(states.tiles):
+        d = deltas[(t // states.v) * rows:(t // states.v + 1) * rows]
+        if d.device.type == "cpu" and not bool((d > 0).any()):
+            continue
+        with on_device(tile.frontier.device):
+            slide_state(tile, d)
+
+
+def zero_tiles(states: TileState, mask: torch.Tensor) -> None:
+    """K8's zero on the per-tile layout: each tile zeroes the masked
+    members of its block (:func:`zero_members` on the tile's device)."""
+    rows = states.rows
+    for t, tile in enumerate(states.tiles):
+        part = mask[(t // states.v) * rows:(t // states.v + 1) * rows]
+        if part.device.type == "cpu" and not bool((part != 0).any()):
+            continue
+        with on_device(tile.frontier.device):
+            zero_members(tile, part)
+
+
+def slide_plain(state: VoteState, deltas: torch.Tensor,
+                home: bool = True) -> None:
     """The plain version of the window slide: roll each member's slot axis
     left by its ``deltas[m]`` (>= 0) and zero the vacated columns, in
     place. A zero delta is a strict identity; checkpoint votes clear where
     the delta is positive; the frontier slides with the window, clamped
-    at 0."""
+    at 0. Without ``home`` (a tile of the per-tile layout that is not its
+    block's home) only the validator planes move: the slot-axis rows and
+    the frontier stay."""
     s = state.prepare_votes.shape[-1]
     d = deltas.to(device=state.frontier.device, dtype=torch.int64)
     cols = torch.arange(s, device=d.device)
@@ -761,10 +1184,12 @@ def slide_plain(state: VoteState, deltas: torch.Tensor) -> None:
         x.copy_(torch.where(keep.unsqueeze(1), torch.gather(x, 2, idx),
                             torch.zeros_like(x)))
 
-    roll1(state.preprepare_seen)
     roll2(state.prepare_votes)
     roll2(state.commit_votes)
     state.checkpoint_votes.masked_fill_((d > 0).view(-1, 1, 1), 0)
+    if not home:
+        return
+    roll1(state.preprepare_seen)
     roll1(state.ordered)
     roll1(state.prepared_acked)
     state.frontier.copy_(torch.clamp(state.frontier.to(torch.int64) - d,

@@ -13,12 +13,12 @@ unchanged, so a seeded run plans the same rotations in both packages.
 rows. The reference runs the ring shift (K1) by b and by b + 1 for ``rows
 = b R + s``, then the shard-local merge (K15): new local row r takes the b
 arm's row r - s when r >= s, the (b + 1) arm's row r - s + R otherwise.
-Every tile of a port mesh lives on one card, so the port's rotation is
-one K1 roll of every leaf by ``rows`` rows
-(:func:`~.ring_exchange.ring_shift_rows`); :func:`rotate_planes_plain`
-keeps the reference's arms and merge, and :func:`rotate_merge` (K15,
-``csrc/ring.cu`` ``rotate_merge_kernel``) the merge, for the multi-card
-fabric.
+The per-tile layout runs that shape: two K1 shifts of the tiles (K1's
+peer form), then :func:`rotate_merge` (K15, ``csrc/ring.cu``
+``rotate_merge_kernel``) on every tile, on its device. In the one-device
+layout every tile lives in one state, so the rotation is one K1 roll of
+every leaf by ``rows`` rows (:func:`~.ring_exchange.ring_shift_rows`);
+:func:`rotate_planes_plain` keeps the reference's arms and merge there.
 """
 from __future__ import annotations
 
@@ -28,8 +28,9 @@ import numpy as np
 import torch
 
 from ..utils import kernel_build as kb
-from .quorum import as_fabric
-from .ring_exchange import leaves_of, ring_shift_plain, ring_shift_rows
+from .quorum import TileState, as_fabric, on_device
+from .ring_exchange import (leaves_of, ring_shift_plain, ring_shift_planes,
+                            ring_shift_rows)
 
 
 class RebalancePolicy:
@@ -244,18 +245,40 @@ def rotate_planes(states, mesh, rows: int, shard_rows: int):
     """Rotate every member plane ``rows`` device rows along the member
     axis (row r's plane moves to row ``(r + rows) % M``), out of place.
 
-    Every tile of a port mesh lives on one card (``make_fabric_mesh``
-    refuses two), so the rotation is ONE roll of every leaf by ``rows``
-    rows, on a mesh or without one: one K1 launch
-    (:func:`~.ring_exchange.ring_shift_rows`) where the reference's
-    multi-device shape takes two ring shifts and K15's merge
+    In the per-tile layout (``states`` a TileState) this is the
+    reference's shape: ``rows = b R + s`` splits into the ring shifts by
+    ``b`` and ``b + 1`` (:func:`~.ring_exchange.ring_shift_planes`, K1's
+    peer form), merged on every tile by K15 (:func:`rotate_merge`, on the
+    tile's device). In the one-device layout, on a mesh or without one, it
+    is ONE roll of every leaf by ``rows`` rows, one K1 launch
+    (:func:`~.ring_exchange.ring_shift_rows`), where the reference's
+    shape takes two ring shifts and the merge
     (:func:`rotate_planes_plain`). A rotation by a multiple of M returns
     ``states`` itself."""
     mesh = as_fabric(mesh)
+    if mesh is not None and mesh.split:
+        return _rotate_tiles(states, mesh, rows, shard_rows)
     if mesh is not None:
         leaves, _ = leaves_of(states)
         _merge_rows(leaves, shard_rows)
     return ring_shift_rows(states, rows)
+
+
+def _rotate_tiles(states: TileState, mesh, rows: int,
+                  shard_rows: int) -> TileState:
+    if states.rows != shard_rows:
+        raise ValueError(f"rotate planes: tiles of {states.rows} members, "
+                         f"shards of {shard_rows}")
+    b0, s = divmod(int(rows), int(shard_rows))
+    shifted = ring_shift_planes(states, mesh, b0)
+    if s == 0:
+        return shifted
+    shifted_up = ring_shift_planes(states, mesh, b0 + 1)
+    merged = []
+    for a, b in zip(shifted.tiles, shifted_up.tiles):
+        with on_device(a.frontier.device):
+            merged.append(rotate_merge(a, b, s, shard_rows))
+    return TileState(merged, states.v)
 
 
 def rotate_planes_plain(states, mesh, rows: int, shard_rows: int):

@@ -17,10 +17,15 @@ batch length"); the state is ONE member (M = 1). As the reference's
 frontier.
 
 :func:`make_sharded_fused_step` (reference ``step.py:46``) is the same
-step on a 1-D validator fabric. On one card every tile lives in the one
-state and the reference's ``all_gather`` of the verdicts (``:62``) is the
-identity, so the tile split changes no count: it launches the same
-kernel. The tiles' own shape returns with a fabric over several cards.
+step on a 1-D validator fabric. In the one-device layout every tile lives
+in the one state and the reference's ``all_gather`` of the verdicts
+(``:62``) is the identity, so the tile split changes no count: it launches
+the same kernel. In the per-tile layout it takes the reference's tile
+split: each validator tile verifies its B / v share of the signatures
+with K-c on its device, the verdicts are gathered to every tile by
+copies, each tile runs the tile kernel's partials mode with the verdicts
+as its word mask over its own senders, and the decide runs on the home
+tile.
 """
 from __future__ import annotations
 
@@ -121,28 +126,70 @@ def fused_step(state: q.VoteState, words: torch.Tensor, pk: torch.Tensor,
     return state, events, ok
 
 
+def split_fused_step(states: q.TileState, mesh: q.FabricMesh,
+                     words: torch.Tensor, pk: torch.Tensor, rb: torch.Tensor,
+                     s: torch.Tensor, h: torch.Tensor, *, n_validators: int
+                     ) -> Tuple[q.QuorumEvents, torch.Tensor]:
+    """The sharded K14 on the per-tile layout (one member block of v
+    validator tiles): tile j verifies signatures ``[j B / v, (j + 1) B /
+    v)`` with K-c on its device (counted under ``sharded_fused_split``),
+    every tile gathers the v verdict slices by copies (the reference's
+    ``all_gather``, ``step.py:62``), runs the tile kernel's partials mode
+    over its own senders with the verdicts as its word mask, and the home
+    tile decides without the compact record. Returns the events and the
+    (B,) verdicts on the home tile's device; ``states`` in place. The
+    operands may lie on any device: each tile's share is copied to it."""
+    q.check_tiles(mesh, states)
+    v = states.v
+    batch = pk.shape[0]
+    per = batch // v
+    oks = []
+    for j in range(v):
+        dev = mesh.tile_device(0, j)
+        share = [q.move(t[j * per:(j + 1) * per].contiguous(), dev)
+                 for t in (pk, rb, s, h)]
+        with q.on_device(dev):
+            oks.append(ted.verify_kernel(*share,
+                                         counter="sharded_fused_split"))
+    gathered = []
+    for j in range(v):
+        dev = mesh.tile_device(0, j)
+        with q.on_device(dev):
+            gathered.append(torch.cat([q.move(o, dev) for o in oks])
+                            .view(1, batch))
+    events, _ = q.tiles_step(states, q.tile_words(words, mesh, 1),
+                             n_validators, compact=False, ok=gathered)
+    return events[0], gathered[0].view(batch)
+
+
 def make_sharded_fused_step(mesh: q.FabricMesh, n_validators: int,
                             axis: str = "validators"):
     """The fused step over ``mesh``'s ``axis`` tiles: returns ``(state,
     words, pk, rb, s, h)`` -> (state, events, ok), the operands as
-    :func:`fused_step` takes them, on the mesh's device. The reference's
-    sizes hold: ``n_validators``, the state's rows and the batch split
-    evenly over the tiles. The CPU takes :func:`fused_step_plain`; on the
-    card it is the one ``fused_step_kernel`` launch :func:`fused_step`
-    makes (the tiles share the card), counted under
-    ``sharded_fused_step``."""
+    :func:`fused_step` takes them. The reference's sizes hold:
+    ``n_validators``, the state's rows and the batch split evenly over
+    the tiles. In the one-device layout the operands lie on the mesh's
+    device; the CPU takes :func:`fused_step_plain`, and on the card it is
+    the one ``fused_step_kernel`` launch :func:`fused_step` makes (the
+    tiles share the card), counted under ``sharded_fused_step``. In the
+    per-tile layout ``state`` is a TileState of the plane's tiles and the
+    step :func:`split_fused_step`."""
     mesh = q.as_fabric(mesh)
     n_shards = mesh.axis_size(axis)
     if n_validators % n_shards:
         raise ValueError(f"{n_validators} validators on {n_shards} tiles")
 
-    def sharded(state: q.VoteState, words: torch.Tensor, pk: torch.Tensor,
+    def sharded(state, words: torch.Tensor, pk: torch.Tensor,
                 rb: torch.Tensor, s: torch.Tensor, h: torch.Tensor):
         if words.dim() != 2 or words.shape[0] != 1 \
                 or words.shape[1] != pk.shape[0] \
                 or pk.shape[0] % n_shards:
             raise ValueError("sharded fused step: words must be (1, B), "
                              "one per signature, B a multiple of the tiles")
+        if mesh.split:
+            events, ok = split_fused_step(state, mesh, words, pk, rb, s, h,
+                                          n_validators=n_validators)
+            return state, events, ok
         for t in (words, pk, rb, s, h, *state):
             if t.device != mesh.device:
                 raise ValueError(f"sharded fused step: operand on "

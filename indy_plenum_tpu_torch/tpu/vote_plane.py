@@ -18,10 +18,12 @@ and quorum verdicts come back as compact deltas.
   a launch, and ONE K9 launch consumes up to ``resident_depth`` ticks with
   the checkpoint slides folded in, quorums evaluated once; and the
   member x validator fabric (``mesh=``, reference ``:594-660``,
-  ``:800-952``, ``:1116-1282``, ``:1499-1532``) with every tile on the
-  group's one device: padded axes, K13 steps, per-block staging and
-  absorb, the occupancy grid, and plane rotation (rebalance) through the
-  placement map.
+  ``:800-952``, ``:1116-1282``, ``:1499-1532``): padded axes, K13 steps,
+  per-block staging and absorb, the occupancy grid, and plane rotation
+  (rebalance) through the placement map, with every tile on the group's
+  one device, or in the per-tile layout every tile on its own device
+  (the state a ``TileState``, each block's words staged to its tiles'
+  devices, its compact record read back from its home tile).
 
 Transfer contract (the reference's XLA async dispatch and
 ``copy_to_host_async``, ``vote_plane.py:1311-1322``):
@@ -147,61 +149,101 @@ class _PinnedPool:
 
 class _Fetch:
     """Device->host copies of one step's readback arrays: issued
-    ``non_blocking`` on the current stream at dispatch, completed by one
-    CUDA event that :meth:`result` waits on. On the CPU the arrays are
-    already host-side."""
+    ``non_blocking`` on the current stream of each array's card at
+    dispatch, completed by one CUDA event a card that :meth:`result`
+    waits on. On the CPU the arrays are already host-side."""
 
     def __init__(self, tensors, pool: _PinnedPool):
         self._pool = pool
-        self._event = None
+        self._events = []
         if tensors[0].device.type == "cuda":
             self._host = [pool.take(t) for t in tensors]
             for buf, t in zip(self._host, tensors):
                 buf.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(tensors[0].device))
+            for dev in dict.fromkeys(t.device for t in tensors):
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                self._events.append(event)
         else:
             self._host = list(tensors)
 
     def result(self) -> List[np.ndarray]:
-        if self._event is not None:
-            self._event.synchronize()
+        for event in self._events:
+            event.synchronize()
         # copy out: the pinned buffers go back to the pool for reuse
         out = [buf.numpy().copy() for buf in self._host]
-        if self._event is not None:
+        if self._events:
             for buf in self._host:
                 self._pool.give(buf)
         self._host = []
         return out
 
 
+def _blocks(x) -> list:
+    """A step's events or compact record as a list of member blocks: the
+    per-tile layout returns one a block, the others one for all."""
+    return x if isinstance(x, list) else [x]
+
+
+def _fetch_fields(x, fields, pool: _PinnedPool) -> _Fetch:
+    """One fetch of ``fields`` of every member block of ``x``."""
+    return _Fetch([getattr(b, f) for b in _blocks(x) for f in fields], pool)
+
+
+def _joined(arrays: List[np.ndarray], n_fields: int) -> List[np.ndarray]:
+    """A fetch's arrays, block after block, as one array a field over
+    every member row."""
+    if len(arrays) == n_fields:
+        return arrays
+    return [np.concatenate(arrays[k::n_fields]) for k in range(n_fields)]
+
+
 class _Staging:
     """One ladder rung's scatter staging: a pinned (M, width) host buffer
     and its device twin, staged and copied in ``blocks`` member blocks
-    (one on an unsharded group). A block's host rows are rewritten only
-    after the event behind their last H2D copy has completed."""
+    (one on an unsharded group). ``tiles`` (the per-tile layout: for each
+    block, the devices of its tiles) gives every tile a device buffer of
+    its block's rows, and :meth:`stage` returns them, one a tile. A
+    block's host rows are rewritten only after the events behind their
+    last H2D copies have completed."""
 
     def __init__(self, rows: int, width: int, device: torch.device,
-                 blocks: int = 1):
+                 blocks: int = 1, tiles=None):
         self._cuda = device.type == "cuda"
         self.host = torch.zeros((rows, width), dtype=torch.int32,
                                 pin_memory=self._cuda)
         self._view = self.host.numpy().view(np.uint32)
-        self._dev = (torch.empty((rows, width), dtype=torch.int32,
-                                 device=device) if self._cuda else None)
         self._block = rows // blocks
-        self._copied = [torch.cuda.Event() if self._cuda else None
-                        for _ in range(blocks)]
+        spans = [(b * self._block, (b + 1) * self._block)
+                 for b in range(blocks)]
+        self._split = tiles is not None
+        if self._split:
+            # one buffer a tile: its block's rows on its device (the CPU
+            # hands each tile a view of the host rows)
+            self._targets = [
+                [torch.empty((hi - lo, width), dtype=torch.int32,
+                             device=dev) if self._cuda else
+                 self.host[lo:hi] for dev in devs]
+                for (lo, hi), devs in zip(spans, tiles)]
+            self._dev = None
+        else:
+            self._dev = (torch.empty((rows, width), dtype=torch.int32,
+                                     device=device) if self._cuda else None)
+            self._targets = [[self._dev[lo:hi]] if self._cuda else []
+                             for lo, hi in spans]
+        self._copied = [[torch.cuda.Event() for _ in targets]
+                        if self._cuda else [] for targets in self._targets]
         self._pending_copy = [False] * blocks
 
-    def stage(self, row_chunks, interleave=None) -> torch.Tensor:
+    def stage(self, row_chunks, interleave=None):
         """``row_chunks[r]``: the packed words of device row r. After
-        each block's copy is issued, ``interleave`` (optional) advances
+        each block's copies are issued, ``interleave`` (optional) advances
         once."""
-        for b, event in enumerate(self._copied):
+        for b, events in enumerate(self._copied):
             lo, hi = b * self._block, (b + 1) * self._block
             if self._pending_copy[b]:
-                event.synchronize()
+                for event in events:
+                    event.synchronize()
                 self._pending_copy[b] = False
             view = self._view[lo:hi]
             view[...] = 0
@@ -209,13 +251,16 @@ class _Staging:
                 if entries:
                     q.fill_words_row(view[i], entries)
             if self._cuda:
-                self._dev[lo:hi].copy_(self.host[lo:hi], non_blocking=True)
-                event.record(torch.cuda.current_stream(self._dev.device))
+                for dst, event in zip(self._targets[b], events):
+                    dst.copy_(self.host[lo:hi], non_blocking=True)
+                    event.record(torch.cuda.current_stream(dst.device))
                 self._pending_copy[b] = True
             if interleave is not None:
                 next(interleave, None)
         # on the CPU the plain step consumes the words before the buffer
         # is staged again
+        if self._split:
+            return [t for targets in self._targets for t in targets]
         return self._dev if self._cuda else self.host
 
 
@@ -223,30 +268,41 @@ class _Ring:
     """The residency ring's word slots: a (capacity, M, width) int32 block
     on the device, grown by doubling, so a consume hands K9 its k slots as
     one operand. Each slot is staged in its own pinned host row and copied
-    ``non_blocking``; a row is rewritten only after the CUDA event behind
-    its last copy has completed. On the CPU the host block is the ring:
-    the plain step reads it before a slot is staged again."""
+    ``non_blocking``; a row is rewritten only after the CUDA events behind
+    its last copies have completed. On the CPU the host block is the ring:
+    the plain step reads it before a slot is staged again. ``tiles`` (the
+    per-tile layout: one (lo, hi, device) a tile, its block's rows) keeps
+    one device block a tile, and :meth:`block` returns them, one a
+    tile."""
 
-    def __init__(self, rows: int, width: int, device: torch.device):
+    def __init__(self, rows: int, width: int, device: torch.device,
+                 tiles=None):
         self._shape = (rows, width)
         self._device = device
         self._cuda = device.type == "cuda"
+        self._targets = [(0, rows, device)] if tiles is None else list(tiles)
+        self._split = tiles is not None
         self._cap = 0
-        self._host = self._dev = None
-        self._copied: list = []  # per slot: the event behind its copy
+        self._host = None
+        self._devs: list = []
+        self._copied: list = []  # per slot: the events behind its copies
         self._grow(4)
 
     def _grow(self, cap: int) -> None:
         host = torch.zeros((cap,) + self._shape, dtype=torch.int32,
                            pin_memory=self._cuda)
-        dev = (torch.empty((cap,) + self._shape, dtype=torch.int32,
-                           device=self._device) if self._cuda else None)
+        devs = ([torch.empty((cap, hi - lo, self._shape[1]),
+                             dtype=torch.int32, device=dev)
+                 for lo, hi, dev in self._targets] if self._cuda else [])
         if self._cap:
             # staged slots keep their words: on the card a copy behind
             # their H2D copies on the same stream
-            (dev if self._cuda else host)[:self._cap].copy_(self.block(
-                self._cap))
-        self._host, self._dev = host, dev
+            if self._cuda:
+                for new, old in zip(devs, self._devs):
+                    new[:self._cap].copy_(old[:self._cap])
+            else:
+                host[:self._cap].copy_(self._host[:self._cap])
+        self._host, self._devs = host, devs
         self._view = host.numpy().view(np.uint32)
         self._copied += [None] * (cap - self._cap)
         self._cap = cap
@@ -257,7 +313,8 @@ class _Ring:
         if pos >= self._cap:
             self._grow(2 * self._cap)
         if self._copied[pos] is not None:
-            self._copied[pos].synchronize()
+            for event in self._copied[pos]:
+                event.synchronize()
             self._copied[pos] = None
         view = self._view[pos]
         view[...] = 0
@@ -265,14 +322,22 @@ class _Ring:
             if entries:
                 q.fill_words_row(view[i], entries)
         if self._cuda:
-            self._dev[pos].copy_(self._host[pos], non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self._device))
-            self._copied[pos] = event
+            events = []
+            for (lo, hi, dev), block in zip(self._targets, self._devs):
+                block[pos].copy_(self._host[pos, lo:hi], non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                events.append(event)
+            self._copied[pos] = events
 
-    def block(self, k: int) -> torch.Tensor:
-        """Slots [0, k) as one contiguous (k, M, width) tensor."""
-        return (self._dev if self._cuda else self._host)[:k]
+    def block(self, k: int):
+        """Slots [0, k) as one contiguous (k, M, width) tensor, or in the
+        per-tile layout one (k, R, width) tensor a tile."""
+        if not self._split:
+            return (self._devs[0] if self._cuda else self._host)[:k]
+        if self._cuda:
+            return [block[:k] for block in self._devs]
+        return [self._host[:k, lo:hi] for lo, hi, _ in self._targets]
 
 
 def _rebase_full(row: np.ndarray, d: int) -> np.ndarray:
@@ -589,6 +654,10 @@ class DeviceVotePlane:
 
 # --- the group -----------------------------------------------------------------
 
+# the full-event arrays a host-eval absorb reads back
+_HOST_EVAL_FIELDS = ("prepared", "prepare_counts", "commit_counts",
+                     "stable_checkpoints")
+
 
 class VotePlaneGroup:
     """M stacked vote planes stepped in ONE fused device launch.
@@ -601,17 +670,24 @@ class VotePlaneGroup:
     the full event matrix instead of the compact deltas. Runs on the card
     unless ``device="cpu"``.
 
-    ``mesh`` (a :class:`~indy_plenum_tpu_torch.tpu.quorum.FabricMesh` on
-    the group's device, from ``make_fabric_mesh``) runs the group as the
-    reference's member x validator fabric, every tile on that one device:
+    ``mesh`` (a :class:`~indy_plenum_tpu_torch.tpu.quorum.FabricMesh`
+    from ``make_fabric_mesh`` whose first home tile is the group's
+    device) runs the group as the reference's member x validator fabric:
     both axes pad up to their mesh multiple (pad member rows are zero
     planes with no member view, pad validator rows never receive votes),
-    the step is K13 (the tiled K9 with residency), the word block is
-    staged member block by member block, the absorb folds the compact
-    record block by block (``readback_bytes_per_shard``), the occupancy
-    grid has one cell per (member block, validator block), and a
-    scheduled rebalance rotates the planes along the member axis (one K1
-    roll) at the next checkpoint-boundary slide."""
+    the word block is staged member block by member block, the absorb
+    folds the compact record block by block (``readback_bytes_per_shard``),
+    the occupancy grid has one cell per (member block, validator block),
+    and a scheduled rebalance rotates the planes along the member axis at
+    the next checkpoint-boundary slide. In the one-device layout every
+    tile lives in one state on the group's device, the step is K13 (the
+    tiled K9 with residency) and the rotation one K1 roll. In the
+    per-tile layout (``mesh.split``) the state is a
+    :class:`~indy_plenum_tpu_torch.tpu.quorum.TileState`, each block's
+    words are copied to its tiles' devices, the step is the split form
+    (partials, copies, the decide on each home), each block's compact
+    record is read back from its home tile, K8 runs per tile, and the
+    rotation is two K1 peer shifts and K15's merge."""
 
     def __init__(self, n_members: int, validators: List[str], log_size: int,
                  n_checkpoints: int = 4, h: int = 0, metrics=None,
@@ -636,9 +712,9 @@ class VotePlaneGroup:
         self._v_rows = self._n
         self._n_pad = self._n
         if mesh is not None:
-            if mesh.device != self.device:
-                raise ValueError(f"fabric mesh on {mesh.device}, group on "
-                                 f"{self.device}")
+            if mesh.home(0) != self.device:
+                raise ValueError(f"fabric mesh's first home on "
+                                 f"{mesh.home(0)}, group on {self.device}")
             self._m_shards = mesh.m_shards
             self._v_shards = mesh.v_shards
             # both axes pad up to their mesh multiple (reference
@@ -659,8 +735,14 @@ class VotePlaneGroup:
         self._v_real = [
             min(max(self._n - vj * self._v_rows, 0), self._v_rows)
             for vj in range(self._v_shards)]
-        self._states = q.init_state(self._n_pad, log_size, n_checkpoints,
-                                    self._m_pad, self.device)
+        self._split = mesh is not None and mesh.split
+        if self._split:
+            self._states = q.TileState.init(mesh, self._n_pad, log_size,
+                                            n_checkpoints, self._m_pad)
+        else:
+            self._states = q.init_state(self._n_pad, log_size,
+                                        n_checkpoints, self._m_pad,
+                                        self.device)
         self._members = [
             _MemberPlane(self, i, validators, log_size, n_checkpoints, h)
             for i in range(n_members)]
@@ -816,8 +898,13 @@ class VotePlaneGroup:
         block's copy is issued (reference ``vote_plane.py:1116-1136``)."""
         buf = self._scatter_bufs.get(shape)
         if buf is None:
+            tiles = None
+            if self._split:
+                tiles = [[self._mesh.tile_device(i, j)
+                          for j in range(self._v_shards)]
+                         for i in range(self._m_shards)]
             buf = self._scatter_bufs[shape] = _Staging(
-                self._m_pad, shape, self.device, self._m_shards)
+                self._m_pad, shape, self.device, self._m_shards, tiles)
         return buf.stage(self._row_chunks(chunks), interleave)
 
     def _cell_votes(self, shard_votes: List[int], base: int, take) -> None:
@@ -941,11 +1028,11 @@ class VotePlaneGroup:
         for i, (events, compact) in enumerate(results):
             fetch = None
             if not self.host_eval:
-                fetch = _Fetch(list(compact), self._pinned)
+                fetch = _fetch_fields(compact, q.CompactEvents._fields,
+                                      self._pinned)
             elif i == last:
-                fetch = _Fetch([events.prepared, events.prepare_counts,
-                                events.commit_counts,
-                                events.stable_checkpoints], self._pinned)
+                fetch = _fetch_fields(events, _HOST_EVAL_FIELDS,
+                                      self._pinned)
             out.append((events, compact, fetch))
         return out
 
@@ -977,7 +1064,8 @@ class VotePlaneGroup:
                     if trace_on else _NO_SPAN:
                 (self._host_prepared, self._host_prepare_counts,
                  self._host_commit_counts,
-                 self._host_stable) = results[-1][2].result()
+                 self._host_stable) = _joined(results[-1][2].result(),
+                                              len(_HOST_EVAL_FIELDS))
                 if self._row_shift:
                     # the snapshot is row-indexed, members read it by
                     # index: un-rotate the rows
@@ -1000,7 +1088,8 @@ class VotePlaneGroup:
             self._count_readback(bytes_n, overlapped, None)
         else:
             sharded = self._mesh is not None
-            hosts = [(events, q.CompactEvents(*fetch.result()))
+            hosts = [(events, q.CompactEvents(*_joined(
+                fetch.result(), len(q.CompactEvents._fields))))
                      for events, _, fetch in results]
             for si in range(self._m_shards if sharded else 1):
                 args = ({"bytes": 0, "overlapped": overlapped}
@@ -1061,8 +1150,9 @@ class VotePlaneGroup:
         over_c = host.n_committed > cap
         full_prep = full_ord = None
         if (over_p & valid).any() or (over_c & valid).any():
-            full_prep = events.prepared[lo:lo + rows].cpu().numpy()
-            full_ord = events.ordered[lo:lo + rows].cpu().numpy()
+            ev = self._event_rows(events, lo, rows)
+            full_prep = ev.prepared.cpu().numpy()
+            full_ord = ev.ordered.cpu().numpy()
             bytes_n += full_prep.nbytes + full_ord.nbytes
         touched = np.nonzero(
             ((host.new_prepared[:, 0] < s) | (host.new_committed[:, 0] < s)
@@ -1110,6 +1200,14 @@ class VotePlaneGroup:
                 self._mir_frontier[mis[sh]],
                 np.maximum(frontier[sh] - deltas[sh], 0))
         return bytes_n
+
+    def _event_rows(self, events, lo: int, rows: int) -> q.QuorumEvents:
+        """Device events of the member rows [lo, lo + rows): one member
+        block's own events in the per-tile layout (on its home tile), a
+        slice of the one allocation otherwise."""
+        if isinstance(events, list):
+            return events[lo // self._shard_rows]
+        return q.QuorumEvents(*[x[lo:lo + rows] for x in events])
 
     # --- flush --------------------------------------------------------
 
@@ -1187,8 +1285,14 @@ class VotePlaneGroup:
 
     def _ring_slot(self, chunks: List[List[int]]) -> None:
         if self._ring_words is None:
+            tiles = None
+            if self._split:
+                r = self._shard_rows
+                tiles = [(i * r, (i + 1) * r, self._mesh.tile_device(i, j))
+                         for i in range(self._m_shards)
+                         for j in range(self._v_shards)]
             self._ring_words = _Ring(self._m_pad, self._resident_width,
-                                     self.device)
+                                     self.device, tiles)
         self._ring_words.stage(len(self._ring), self._row_chunks(chunks))
         self._ring.append(self._take_slide())
 
@@ -1314,7 +1418,8 @@ class VotePlaneGroup:
 
         rows, self._rebalance_pending = self._rebalance_pending, 0
         # barrier: everything staged settles under the OLD placement,
-        # THEN the planes move (one K1 roll) and the placement map rewrites
+        # THEN the planes move (one K1 roll; in the per-tile layout two K1
+        # peer shifts and K15's merge) and the placement map rewrites
         self._drain_ring()
         self._states = rotate_planes(self._states, self._mesh, rows,
                                      self._shard_rows)
@@ -1517,9 +1622,11 @@ class _MemberPlane(DeviceVotePlane):
         self.events()
         if self._host_prepare_counts is not None:
             return int(self._host_prepare_counts[slot])
-        ev = self._group._dev_events
+        g = self._group
+        ev = g._dev_events
         if ev is None:
             return 0
         # one scalar from the device-resident events, addressed by row
-        return int(ev.prepare_counts[self._group._row_of(self._mi),
-                                     slot].item())
+        row = g._row_of(self._mi)
+        ev = g._event_rows(ev, row - row % g._shard_rows, g._shard_rows)
+        return int(ev.prepare_counts[row % g._shard_rows, slot].item())

@@ -55,6 +55,13 @@ LAUNCHES: Dict[str, int] = {
     "sharded_fused_step": 0,
     "ring_shift": 0,
     "rotate_merge": 0,
+    # the per-tile layout (tpu/quorum.py TileState): the tile kernel's
+    # partials mode, the decide from partials, K1's peer form and the
+    # split K14's verifies (K-c on each validator tile)
+    "resident_partials": 0,
+    "decide_partials": 0,
+    "ring_peer": 0,
+    "sharded_fused_split": 0,
 }
 
 _P = ctypes.c_void_p
@@ -99,6 +106,24 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         # the output allocation (as quorum_step), then the stream
         _P, _P),
+    "resident_partials_launch": (
+        # state (as quorum_step), slides (k, M) or null, words, verdict
+        # bytes (M, W) or null
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        # k, M, N, S, C, W, row0, home, cluster blocks
+        _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        # the tile's (M, 2S + C) int32 partials, then the stream
+        _P, _P),
+    "decide_partials_launch": (
+        # the home tile's pp, ordered, acked, frontier; host table of the
+        # v partials' pointers
+        _P, _P, _P, _P, _P,
+        # v, M, S, C, n_validators, delta_cap, compact
+        _I, _I, _I, _I, _I, _I, _I,
+        # the output allocation (as quorum_step), then the stream
+        _P, _P),
+    # device ordinal, peer ordinal: cudaDeviceEnablePeerAccess
+    "enable_peer_access": (_I, _I),
     # S, C, K13's instantiation (0/1), host int out: the blocks one SM
     # holds
     "resident_tile_occupancy": (_I, _I, _I, _P),
@@ -252,6 +277,20 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+_PEERS = set()  # (device, peer) ordinals whose access is enabled
+
+
+def enable_peer_access(dev: int, peer: int) -> None:
+    """Let kernels on card ``dev`` read card ``peer``'s memory (once per
+    pair and process); raises :class:`KernelLaunchError` on any CUDA
+    error. A card is its own peer."""
+    if dev == peer or (dev, peer) in _PEERS:
+        return
+    check(library().enable_peer_access(dev, peer),
+          f"enable_peer_access({dev}, {peer})")
+    _PEERS.add((dev, peer))
 
 
 def check(code: int, name: str) -> None:

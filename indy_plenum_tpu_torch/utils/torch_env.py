@@ -13,7 +13,7 @@ is the same for every entry point (``CoreAuthNr``, ``VotePlaneGroup``,
 from __future__ import annotations
 
 import os
-from typing import Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 
@@ -42,10 +42,49 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "PyTorch versions of the kernels")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        elif dev.index >= torch.cuda.device_count():
+            raise ValueError(f"{dev}: this process sees "
+                             f"{torch.cuda.device_count()} card(s)")
         return dev
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def device_list(device: DeviceLike = None,
+                count: Optional[int] = None) -> List[torch.device]:
+    """The devices a fabric mesh can take, the counterpart of
+    ``jax.devices()``: every visible card (``cuda:0`` .. ``cuda:n-1``;
+    :class:`NoCudaDevice` without one), or ``count`` (default 1) times
+    the CPU when ``device="cpu"``, which a mesh built with ``split=True``
+    spreads its tiles over (the CPU tests' stand-in for several cards).
+    ``count`` with cards asks for that many of them, and raises when
+    fewer are visible."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        return [torch.device("cpu")] * (1 if count is None else int(count))
+    resolve_device(dev)
+    have = torch.cuda.device_count()
+    want = have if count is None else int(count)
+    if want > have:
+        raise ValueError(f"{want} cards asked for, {have} visible")
+    return [torch.device("cuda", i) for i in range(want)]
+
+
+def require_peer_access(devices: Sequence[torch.device]) -> None:
+    """Raise ``RuntimeError`` unless every pair of distinct cards in
+    ``devices`` can read each other's memory
+    (``cudaDeviceCanAccessPeer``). A fabric's cross-card moves (partial
+    counts, verdicts, ring steps) run card to card or not at all: never
+    through the host. CPU devices and repeats of one card need nothing."""
+    cards = sorted({d.index for d in devices if d.type == "cuda"})
+    for a in cards:
+        for b in cards:
+            if a != b and not torch.cuda.can_device_access_peer(a, b):
+                raise RuntimeError(
+                    f"cuda:{a} cannot read cuda:{b}'s memory (no peer "
+                    "access): a fabric over these cards would route "
+                    "through the host")
 
 
 def set_deterministic() -> None:

@@ -42,7 +42,11 @@ so it also runs where JAX is not installed:
   against its plain version and hashlib, and a misaligned view refused;
 - the ring shift (K1) and the one-card rotation (one K1 launch, no merge)
   at phase R's state and on odd-sized leaves, and the merge (K15) called
-  directly, each bit-equal to its plain version.
+  directly, each bit-equal to its plain version;
+- the per-tile layout's kernels with every tile on the card (the tile
+  kernel's partials mode, the decide from partials, K1's peer form, the
+  rotation's K15, the split sharded K14) against their plain versions,
+  and the forced-rebalance pool on a per-tile mesh against the CPU.
 """
 import numpy as np
 import pytest
@@ -556,3 +560,32 @@ def test_quorum_step_matches_plain_at_path_shapes(card, tag):
                              list(shadow) + list(pev) + list(pcomp)):
             assert torch.equal(got.cpu(), want.cpu())
         assert comp.frontier.data_ptr() != state.frontier.data_ptr()
+
+
+@pytest.mark.cuda
+def test_split_kernels_match_plain(card):
+    """Phase M's kernels on the per-tile layout with every tile on this
+    card (``chip_smoke.check_split``: the partials mode, the decide from
+    partials, K1's peer form, the per-tile step and rotation with K15,
+    the split sharded K14), bit-equal to their plain versions; then the
+    forced-rebalance pool on a (2, 2) per-tile mesh on the card against
+    the same pool on the CPU, the rotation two K1 peer shifts and K15."""
+    import chip_smoke
+
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
+
+    inputs = chip_smoke.fused_inputs(np.random.RandomState(16),
+                                     chip_smoke.N_VALIDATORS,
+                                     chip_smoke.LOG_SIZE, 512)
+    errs = chip_smoke.check_split(card, np.random.RandomState(17), inputs)
+    assert not any(errs.values()), errs
+    kb.reset_launch_counts()
+    forced = chip_smoke.run_pool_r(None, (2, 2), chip_smoke.R_FORCE_TICK,
+                                   "m1")
+    launches = kb.launch_counts()
+    on_cpu = chip_smoke.run_pool_r("cpu", (2, 2), chip_smoke.R_FORCE_TICK,
+                                   "m1")
+    for key in chip_smoke.M_R_COMPARE:
+        assert forced[key] == on_cpu[key], key
+    for name in chip_smoke.PATH_KERNELS["m1_rebalance"]:
+        assert launches[name] > 0, name

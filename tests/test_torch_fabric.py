@@ -2,7 +2,8 @@
 JAX package on the conftest's 8 virtual CPU devices.
 
 - The mesh builder (``make_fabric_mesh``, ``parse_mesh_shape``) behaves as
-  the reference's, and a fabric over two different devices raises.
+  the reference's; a list naming distinct devices builds the per-tile
+  layout, and one naming a card this process lacks raises.
 - K13's plain version (``plan_for(mesh).step``) against JAX's
   ``step_compact_local`` under ``plan_for(mesh)`` on (4, 2), (2, 2) and N
   = 5 on v = 2; at v = 1 it equals K7's plain version.
@@ -75,11 +76,38 @@ def test_fabric_mesh_builder():
             tq.make_fabric_mesh(CPU8, shape)
         with pytest.raises(ValueError):
             jq.make_fabric_mesh(jax.devices()[:8], shape)
-    # every tile on one device, or the multi-card slice
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    # a list naming a card this process does not have raises (here: no
+    # CUDA at all; with cards, the CPU and a card in one fabric), never a
+    # fallback to the CPU or to one device
+    with pytest.raises((RuntimeError, ValueError)):
         tq.make_fabric_mesh(["cpu", "cuda:0"] + ["cpu"] * 6, (4, 2))
     with pytest.raises(TypeError):
         tcp.plan_for(jmesh((4,)), 4, 4, 16)
+
+
+def test_fabric_mesh_over_distinct_devices_is_per_tile(monkeypatch):
+    """A list naming distinct devices builds the per-tile layout, tile
+    (i, j) on ``devices[i * v + j]`` (the cards are named only: the
+    process is made to see eight, with peer access between them); one
+    card without peer access to another raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: True)
+    cards = [f"cuda:{i}" for i in range(8)]
+    mesh = tq.make_fabric_mesh(cards, (4, 2))
+    assert mesh.split and mesh.device == torch.device("cuda", 0)
+    assert [mesh.tile_device(i, j).index for i in range(4)
+            for j in range(2)] == list(range(8))
+    assert mesh.home(2) == torch.device("cuda", 4)
+    assert not tq.make_fabric_mesh(["cuda:3"] * 8, (4, 2)).split
+    assert tq.make_fabric_mesh(["cuda:3"] * 8, (4, 2), split=True).split
+    with pytest.raises(ValueError):
+        tq.make_fabric_mesh(["cuda:8"] * 8, (4, 2))
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: {a, b} != {1, 6})
+    with pytest.raises(RuntimeError, match="peer"):
+        tq.make_fabric_mesh(cards, (4, 2))
 
 
 def test_compile_plan_strategies():

@@ -412,16 +412,21 @@ def test_ctypes_signatures_match_cuda_sources():
                                 "audit_paths", "audit_paths_indexed",
                                 "fabric_step", "resident_tile",
                                 "sharded_fused_step", "ring_shift",
-                                "rotate_merge"}
-    # K13 and the tiled K9 are one cluster kernel's two entry points; no
-    # partial counts and no second kernel anywhere; K1 and K15 are
+                                "rotate_merge", "resident_partials",
+                                "decide_partials", "ring_peer",
+                                "sharded_fused_split"}
+    # K13 and the tiled K9 are one cluster kernel's entry points, its
+    # partials mode (the per-tile layout) a third; the decide from
+    # partials is the file's one other kernel; none of the pre-PR-10
+    # fabric pair comes back; K1 (and its peer form) and K15 are
     # csrc/ring.cu
     assert not os.path.exists(os.path.join(kb.CSRC_DIR, "fabric.cu"))
     with open(os.path.join(kb.CSRC_DIR, "resident_tile.cu")) as fh:
         tile = fh.read()
-    for fn in ("resident_tile_launch", "fabric_step_launch"):
+    for fn in ("resident_tile_launch", "fabric_step_launch",
+               "resident_partials_launch", "decide_partials_launch"):
         assert f'extern "C" int {fn}(' in tile, fn
-    assert tile.count("__global__") == 1
+    assert tile.count("__global__") == 2
     for name in os.listdir(kb.CSRC_DIR):
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(kb.CSRC_DIR, name)) as fh:
@@ -432,7 +437,8 @@ def test_ctypes_signatures_match_cuda_sources():
                 assert gone not in src, (name, gone)
     with open(os.path.join(kb.CSRC_DIR, "ring.cu")) as fh:
         ring = fh.read()
-    for fn in ("ring_shift_launch", "rotate_merge_launch"):
+    for fn in ("ring_shift_launch", "rotate_merge_launch",
+               "enable_peer_access"):
         assert f'extern "C" int {fn}(' in ring, fn
 
 

@@ -192,10 +192,14 @@ def test_packers_match_reference():
 
 
 def test_mesh_plans_raise():
-    # a fabric over two devices waits for the multi-card slice; a mesh
-    # that is not the port's FabricMesh is refused
-    with pytest.raises(NotImplementedError):
+    # a mesh naming a card this process lacks raises before any plan is
+    # made; the per-tile layout's plan is the split one; a mesh that is
+    # not the port's FabricMesh is refused
+    with pytest.raises((RuntimeError, ValueError)):
         tcp.plan_for(tq.make_fabric_mesh(["cpu", "cuda:0"], (2,)), 4, 4, 16)
+    split = tcp.plan_for(tq.make_fabric_mesh(["cpu"] * 2, (2,), split=True),
+                         4, 4, 16)
+    assert split.strategy["step"] == "k13_split"
     with pytest.raises(TypeError):
         tcp.plan_for(object(), 4, 4, 16)
 

@@ -181,8 +181,8 @@ def test_ring_drains_on_view_reset():
 
 
 def test_rebalance_and_mesh_wait_for_their_slices():
-    # the rotation and the one-device fabric are in; only a fabric over
-    # several cards waits for its slice
+    # the rotation, the one-device fabric and the per-tile layout are in;
+    # a mesh naming a card this process lacks raises
     group = tvp.VotePlaneGroup(4, ["a", "b", "c", "d"], 8, 2,
                                resident_depth=4, device="cpu")
     group.rebalance_at_barrier()  # nothing scheduled: a no-op
@@ -190,6 +190,8 @@ def test_rebalance_and_mesh_wait_for_their_slices():
     group.schedule_rebalance(1)
     group.rebalance_at_barrier()
     assert (group.rebalances, group.row_shift) == (1, 1)
-    with pytest.raises(NotImplementedError, match="multi-card slice"):
+    with pytest.raises((RuntimeError, ValueError)):
         tcp.resident_plan_for(tq.make_fabric_mesh(["cpu", "cuda:0"], (2,)),
                               4, 4, 16, 1, 16, "cpu")
+    split = tq.make_fabric_mesh(["cpu"] * 2, (2,), split=True)
+    assert callable(tcp.resident_plan_for(split, 4, 4, 16, 1, 16, "cpu"))

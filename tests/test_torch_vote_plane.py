@@ -139,13 +139,19 @@ def test_mesh_raises():
 
     from indy_plenum_tpu_torch.tpu import quorum as tq
 
-    # a fabric over two devices waits for the multi-card slice; a mesh
-    # that is not the port's FabricMesh, or on another device than the
-    # group's, is refused
-    with pytest.raises(NotImplementedError):
+    # a mesh naming a card this process lacks raises; one naming distinct
+    # devices (or split) runs the group in the per-tile layout; a mesh
+    # that is not the port's FabricMesh, or whose first home is another
+    # device than the group's, is refused
+    with pytest.raises((RuntimeError, ValueError)):
         tvp.VotePlaneGroup(4, ["a", "b", "c", "d"], 40,
                            mesh=tq.make_fabric_mesh(["cpu", "cuda:0"], (2,)),
                            device="cpu")
+    group = tvp.VotePlaneGroup(
+        4, ["a", "b", "c", "d"], 40, device="cpu",
+        mesh=tq.make_fabric_mesh(["cpu"] * 2, (2,), split=True))
+    assert isinstance(group._states, tq.TileState)
+    assert group.compile_strategy["step"] == "k13_split"
     with pytest.raises(TypeError):
         tvp.VotePlaneGroup(4, ["a", "b", "c", "d"], 40, mesh=object(),
                            device="cpu")
