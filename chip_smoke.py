@@ -289,7 +289,8 @@ M. multi-card - the fabric's per-tile layout (every tile its own tensors
                 on cuda:0; M2, only where the machine has two or more
                 cards (else its line says it was skipped for one card),
                 puts tile t on card t % count. Each holds the tile
-                kernel's partials mode, the decide from partials, K1's
+                kernel's partials mode (storing into the home's buffer,
+                a peer store across cards) and home form, K1's
                 peer form, K15 and the split sharded K14 bit-equal to
                 their plain versions at the path's shapes, then runs
                 M-H (phase H's (4, 2) fabric at n=256, depth 1 and 4:
@@ -529,7 +530,9 @@ def _max_abs_err(pairs) -> int:
             raise AssertionError(f"shape {tuple(a.shape)} != "
                                  f"{tuple(b.shape)}")
         if a.numel():
-            d = (a.to("cpu").long() - b.to("cpu").long()).abs().max()
+            # exact integers, compared where ``a`` lies (on the card, no
+            # copy of the pair to the host)
+            d = (a.long() - b.to(a.device).long()).abs().max()
             err = max(err, int(d))
     return err
 
@@ -6371,75 +6374,91 @@ def _split_tile_cases():
              DRAIN, 0, True))
 
 
+SPLIT_TILES = (1, 2, 4)  # the validator tiles a block the check holds
+
+
 def check_split(dev, rng, inputs, layout="m1"):
     """Phase M's kernels against their plain versions on the card, at the
-    path's shapes: the tile kernel's partials mode (``split_partials``)
-    on home and non-home tiles at each of ``_split_tile_cases`` (slides of
-    every class at depth 4; dropped words with a verdict operand) and at
-    every cluster size of 1, 2, 4 and 8 blocks; the decide from v = 2
-    partials (``split_decide``) with and without the compact record; K1's
-    peer form (``peer_copy``) of a tile of phase H's and R's states, card
-    to card where ``layout`` is "m2"; the per-tile step and rotation of
-    phase H's and R's states against the one-state plain versions, K15's
-    merge on every tile; the split sharded K14 against its plain version
-    and the one-launch sharded K14. Every leaf, partial, event, compact
-    output and verdict equal. Returns the max error by kernel."""
+    path's shapes: at each of ``_split_tile_cases`` (slides of every class
+    at depth 4; dropped words with a verdict operand), at v = 1, 2 and 4
+    validator tiles a block, at every cluster size of 1, 2, 4 and 8 blocks
+    and the rule's, with and without the compact record (one slot): the
+    partials mode on each non-home tile, storing into its row of the
+    home's buffer (on the home's card: a peer store where ``layout`` is
+    "m2" and the tiles lie on distinct cards), then the home form on the
+    home tile adding them (``split_home``), against
+    ``split_partials_plain`` and ``split_home_plain`` (the decide of
+    ``split_decide_plain``); K1's peer form (``peer_copy``) of a tile of
+    phase H's and R's states, card to card where ``layout`` is "m2"; the
+    per-tile step and rotation of phase H's and R's states against the
+    one-state plain versions, K15's merge on every tile; the split sharded
+    K14 against its plain version and the one-launch sharded K14. Every
+    leaf, partial, event, compact output and verdict equal. Returns the
+    max error by kernel."""
     import torch
     from indy_plenum_tpu_torch.tpu import quorum as q
     from indy_plenum_tpu_torch.tpu import rebalance as rb
     from indy_plenum_tpu_torch.tpu import ring_exchange as rx
     from indy_plenum_tpu_torch.tpu import step as st
+    from indy_plenum_tpu_torch.utils import kernel_build as kb
 
-    errs = {"resident_partials": 0, "decide_partials": 0, "ring_peer": 0,
+    errs = {"resident_partials": 0, "resident_home": 0, "ring_peer": 0,
             "rotate_merge": 0, "sharded_fused_split": 0}
 
     def err(name, pairs):
         errs[name] = max(errs[name], _max_abs_err(pairs))
 
     for tag, r, v_rows, s, c, w, k, with_ok in _split_tile_cases():
-        for home in (True, False):
-            row0 = 0 if home else v_rows
-            for blocks in (None, 1, 2, 4, 8):
-                if blocks is not None and (blocks > v_rows or with_ok):
-                    continue
-                tile = _random_votes(dev, rng, r, v_rows, s, c)
-                shadow = q.clone_state(tile)
-                if k:
-                    words = q.words_tensor(np.stack([
-                        fabric_words(rng, r, w, 2 * v_rows, s, c)
-                        for _ in range(k)]), dev)
-                    mix = np.array([0, 1, CHK_FREQ % s, s - 1, s], np.int32)
-                    slides = torch.from_numpy(
-                        mix[rng.randint(0, len(mix), (k, r))])
-                else:
-                    words = q.words_tensor(
-                        fabric_words(rng, r, w, 2 * v_rows, s, c), dev)
-                    slides = None
-                ok = None
-                if with_ok:
-                    ok = torch.from_numpy(rng.rand(r, w) < 0.9).to(dev)
-                part = q._split_partials_kernel(tile, words, row0, home,
-                                                slides, ok, blocks)
-                plain = q.split_partials_plain(shadow, words, row0, home,
-                                               slides, ok)
-                err("resident_partials", list(zip(tile, shadow))
-                    + [(part, plain)])
-    # the decide from two tiles' partials, on random home states
-    for r, s, c, v_rows in ((FABRIC_N // 4, LOG_SIZE, N_CHECKPOINTS,
-                             FABRIC_N // 2),
-                            (1, LOG_SIZE, N_CHECKPOINTS, N_VALIDATORS // 2)):
-        for compact in (True, False):
-            home = _random_votes(dev, rng, r, 1, s, c)
-            shadow = q.clone_state(home)
-            parts = [torch.from_numpy(rng.randint(
-                0, v_rows + 1, r * (2 * s + c)).astype(np.int32)).to(dev)
-                for _ in range(2)]
-            ev, comp = q.split_decide(home, parts, 2 * v_rows,
-                                      compact=compact)
-            pev, pcomp = q.split_decide_plain(shadow, parts, 2 * v_rows,
-                                              compact=compact)
-            err("decide_partials", list(zip(home, shadow))
-                + list(zip(ev, pev)) + list(zip(comp, pcomp)))
+        for v in SPLIT_TILES:
+            devs = m_devices(dev, v, layout)
+            n = v * v_rows
+            base = [_random_votes(d, rng, r, v_rows, s, c) for d in devs]
+            if k:
+                words_np = np.stack([fabric_words(rng, r, w, n, s, c)
+                                     for _ in range(k)])
+                mix = np.array([0, 1, CHK_FREQ % s, s - 1, s], np.int32)
+                slides = torch.from_numpy(
+                    mix[rng.randint(0, len(mix), (k, r))])
+            else:
+                words_np = fabric_words(rng, r, w, n, s, c)
+                slides = None
+            words = [q.words_tensor(words_np, d) for d in devs]
+            ok_np = rng.rand(r, w) < 0.9
+            oks = [torch.from_numpy(ok_np).to(d) if with_ok else None
+                   for d in devs]
+            for compact in ((True, False) if k == 0 else (True,)):
+                shadow = [q.clone_state(t) for t in base]
+                want = [q.split_partials_plain(shadow[j], words[j],
+                                               j * v_rows, False, slides,
+                                               oks[j]).to(devs[0])
+                        for j in range(1, v)]
+                pev, pcomp = q.split_home_plain(shadow[0], words[0], want, n,
+                                                compact=compact,
+                                                slides=slides, ok=oks[0])
+                for blocks in (None, 1, 2, 4, 8):
+                    if blocks is not None and blocks > v_rows:
+                        continue
+                    tiles = [q.clone_state(t) for t in base]
+                    parts = torch.empty(v - 1, r * (2 * s + c),
+                                        dtype=torch.int32, device=devs[0])
+                    for j in range(1, v):
+                        kb.enable_peer_access(devs[j].index, devs[0].index)
+                        with q.on_device(devs[j]):
+                            q._split_partials_kernel(
+                                tiles[j], words[j], j * v_rows,
+                                parts[j - 1], slides, oks[j], blocks)
+                    for d in set(devs):
+                        torch.cuda.synchronize(d)  # every store in
+                    with q.on_device(devs[0]):
+                        ev, comp = q._split_home_kernel(
+                            tiles[0], words[0], parts, n, q.ORDER_DELTA_CAP,
+                            compact, slides, oks[0], blocks)
+                    err("resident_partials",
+                        [pair for j in range(1, v)
+                         for pair in zip(tiles[j], shadow[j])]
+                        + list(zip(parts, want)))
+                    err("resident_home", list(zip(tiles[0], shadow[0]))
+                        + list(zip(ev, pev)) + list(zip(comp, pcomp)))
     # K1's peer form and the per-tile step and rotation, on H's and R's
     # states
     for shape, m, n, s, c, w in ((M_H_SHAPE, FABRIC_N, FABRIC_N, LOG_SIZE,
@@ -6467,7 +6486,7 @@ def check_split(dev, rng, inputs, layout="m1"):
         events, compact = q.tiles_step(
             tiles, q.tile_words(words, mesh, tiles.rows), n)
         pev, pcomp = q.fabric_step_plain(shadow, words, n, mesh.v_shards)
-        err("decide_partials", list(zip(tiles.join(dev), shadow))
+        err("resident_home", list(zip(tiles.join(dev), shadow))
             + list(zip(q.join_blocks(events), pev))
             + list(zip(q.join_blocks(compact), pcomp)))
     # the split sharded K14 against its plain version and the one-launch
@@ -6494,27 +6513,37 @@ def check_split(dev, rng, inputs, layout="m1"):
     return errs
 
 
-def partials_work(r, v_rows, s, c, words_np):
-    """(bytes, 32-bit instructions) of one tile's partials-mode launch:
-    the tile's planes read once, the words read and each valid word's hit
-    written, the partials written; a few instructions a word and a vote
-    byte."""
+def partials_work(r, v_rows, s, c, words_np, store=True):
+    """(bytes, 32-bit instructions) of one tile's consume in the split
+    kernel: the tile's planes read once, the words read and each valid
+    word's hit written, and with ``store`` (the partials mode) the
+    partials written; a few instructions a word and a vote byte."""
     hits = int(((words_np >> 31) & 1).sum())
     nbytes = (r * (2 * v_rows * s + v_rows * c) + 4 * words_np.size + hits
-              + 4 * r * (2 * s + c))
+              + (4 * r * (2 * s + c) if store else 0))
     return nbytes, 10 * words_np.size + 2 * r * v_rows * s
 
 
-def decide_work(r, s, c, v):
-    """(bytes, 32-bit instructions) of the decide from v partials: the
-    partials and the home's slot rows read, the ordered and acked rows,
-    the frontier, the events and the compact record written."""
+def decide_work(r, s, c, parts):
+    """(bytes, 32-bit instructions) of the decide from ``parts`` stored
+    partials: the partials and the home's slot rows read, the ordered and
+    acked rows, the frontier, the events and the compact record written."""
     from indy_plenum_tpu_torch.tpu import quorum as q
 
     width = q.delta_width(s, q.ORDER_DELTA_CAP)
-    nbytes = (4 * v * r * (2 * s + c) + 3 * r * s + 4 * r + r * (2 * s + 4)
-              + r * (3 * s + c + 8 * s) + r * (4 + 8 * width + 8 + c))
-    return nbytes, v * r * (2 * s + c) + 12 * r * s
+    nbytes = (4 * parts * r * (2 * s + c) + 3 * r * s + 4 * r
+              + r * (2 * s + 4) + r * (3 * s + c + 8 * s)
+              + r * (4 + 8 * width + 8 + c))
+    return nbytes, parts * r * (2 * s + c) + 12 * r * s
+
+
+def home_work(r, v_rows, s, c, words_np, parts):
+    """(bytes, 32-bit instructions) of the home form: the home tile's own
+    consume (no partials stored) and the decide from ``parts`` stored
+    partials."""
+    a = partials_work(r, v_rows, s, c, words_np, store=False)
+    b = decide_work(r, s, c, parts)
+    return a[0] + b[0], a[1] + b[1]
 
 
 def phase_m(on_card, card, jobs, dev, inputs, fabric_h, rebalance_r, rng):
@@ -6639,18 +6668,20 @@ def phase_m(on_card, card, jobs, dev, inputs, fabric_h, rebalance_r, rng):
 def split_report(dev, rng, launches, errs, inputs):
     """The rows of phase M's kernels, at the path's shapes on one card
     (M1): the partials mode at phase H's (4, 2) tile (R = 64 members, V =
-    128 rows, S = 300, C = 3, 512 words; K13's form, a non-home tile),
-    the decide from its v = 2 partials on the home, K1's peer form moving
-    one such tile (its library call: a copy of each leaf), and the split
+    128 rows, S = 300, C = 3, 512 words; K13's form, a non-home tile)
+    storing into the home's buffer, the home form on the home tile adding
+    that v - 1 = 1 stored partial and deciding, K1's peer form moving one
+    such tile (its library call: a copy of each leaf), and the split
     sharded K14 at phase G's 8,192 votes on (1, 2) (K-c on each tile's
-    share, the gather, the tiles' partials and the decide; its plain
+    share, the gather, the partials mode and the home form; its plain
     version ``fused_step_plain`` at v = 2). Bounds count the work: the
-    partials mode ``partials_work``, the decide ``decide_work``, K1's
+    partials mode ``partials_work``, the home form ``home_work``, K1's
     form reads and writes the tile once, the split K14 is K-c's bound
-    plus the step's at (1, N, S). With two or more cards K1's form is
-    also timed card to card, its bound the tile's bytes over NVLink's
-    450 GB/s each way; the moves of partials and verdicts get their
-    bytes and both bounds (they are copies, not kernels)."""
+    plus the step's at (1, N, S). With two or more cards the partials
+    mode is also timed on card 1 storing into card 0's buffer, and K1's
+    form card to card (its bound the tile's bytes over NVLink's 450 GB/s
+    each way); the verdicts' moves get their bytes and bound (copies,
+    not kernels)."""
     import torch
     from indy_plenum_tpu_torch.tpu import quorum as q
     from indy_plenum_tpu_torch.tpu import ring_exchange as rx
@@ -6661,7 +6692,8 @@ def split_report(dev, rng, launches, errs, inputs):
     tile = _random_votes(dev, rng, r, v_rows, s, c)
     words_np = fabric_words(rng, r, w, FABRIC_N, s, c)
     words = q.words_tensor(words_np, dev)
-    parts = [q.split_partials(tile, words, v_rows, False) for _ in range(2)]
+    parts = torch.empty(1, r * (2 * s + c), dtype=torch.int32, device=dev)
+    q.split_partials(tile, words, v_rows, parts[0])
     home = _random_votes(dev, rng, r, v_rows, s, c)
     tile_bytes = state_bytes(r, v_rows, s, c)
     _, words_g, arrays, _ = inputs
@@ -6678,17 +6710,17 @@ def split_report(dev, rng, launches, errs, inputs):
     g_bytes, g_ops = step_work(1, N_VALIDATORS, s, c, words_g)
     rows = [
         ("resident_partials",
-         lambda: q.split_partials(tile, words, v_rows, False),
+         lambda: q.split_partials(tile, words, v_rows, parts[0]),
          lambda: q.split_partials_plain(tile, words, v_rows, False),
          bound(*partials_work(r, v_rows, s, c, words_np)),
          "indy_plenum_tpu_torch/csrc/resident_tile.cu",
          "indy_plenum_tpu/tpu/quorum.py:306", 20, None),
-        ("decide_partials",
-         lambda: q.split_decide(home, parts, FABRIC_N),
-         lambda: q.split_decide_plain(home, parts, FABRIC_N),
-         bound(*decide_work(r, s, c, 2)),
+        ("resident_home",
+         lambda: q.split_home(home, words, parts, FABRIC_N),
+         lambda: q.split_home_plain(home, words, parts, FABRIC_N),
+         bound(*home_work(r, v_rows, s, c, words_np, 1)),
          "indy_plenum_tpu_torch/csrc/resident_tile.cu",
-         "indy_plenum_tpu/tpu/quorum.py:183", 20, None),
+         "indy_plenum_tpu/tpu/quorum.py:182", 20, None),
         ("ring_peer", lambda: rx.peer_copy(tile, dev),
          lambda: rx.peer_copy_plain(tile, dev), bound(2 * tile_bytes, 0),
          "indy_plenum_tpu_torch/csrc/ring.cu",
@@ -6717,16 +6749,26 @@ def split_report(dev, rng, launches, errs, inputs):
         call_ms[name] = _cuda_ms(fn, reps)
     part_bytes = 4 * r * (2 * s + c)
     moves = {
-        "partials_bytes_a_block": part_bytes,
-        "partials_hbm_ms": part_bytes / HBM_BYTES_PER_S * 1e3,
-        "partials_nvlink_ms": part_bytes / NVLINK_BYTES_PER_S * 1e3,
         "verdict_bytes_a_tile": batch // M_G_TILES,
         "verdicts_nvlink_ms": batch // M_G_TILES / NVLINK_BYTES_PER_S * 1e3,
         "ring_peer_tile_bytes": tile_bytes,
         "ring_peer_nvlink_ms": tile_bytes / NVLINK_BYTES_PER_S * 1e3}
     if torch.cuda.device_count() >= 2:
+        from indy_plenum_tpu_torch.utils import kernel_build as kb
+
         far = torch.device("cuda", 1)
+        kb.enable_peer_access(1, parts.device.index or 0)
+        far_tile = q.VoteState(*[x.to(far) for x in tile])
+        far_words = words.to(far)
+        # the tile's own bytes at HBM, its partials over NVLink once
+        p_bytes, p_ops = partials_work(r, v_rows, s, c, words_np, False)
         with q.on_device(far):
+            out[0]["m2"] = {"ms": _kernel_ms(
+                lambda: q.split_partials(far_tile, far_words, v_rows,
+                                         parts[0]), 20),
+                "bound_ms": max(bound(p_bytes, p_ops)[0],
+                                part_bytes / NVLINK_BYTES_PER_S * 1e3),
+                "bound_by": "bytes"}
             out[2]["m2"] = {"ms": _kernel_ms(
                 lambda: rx.peer_copy(tile, far), 20),
                 "bound_ms": moves["ring_peer_nvlink_ms"],
@@ -6843,21 +6885,22 @@ PATH_KERNELS = {
     "profile_t4": ("resident_tile",),
     "graft_t5": ("fused_step", "sharded_fused_step", "fabric_step",
                  "resident_tile"),
-    # phase M: the per-tile layout's partials mode and decide on every
-    # step and consume; the forced rotation's K1 peer shifts and K15; the
-    # split K14's verifies; the lanes' K8 slides per tile. Its one-state
-    # lanes: K13 a lane a tick
+    # phase M: the per-tile layout's home form on every step and consume,
+    # and its partials mode where a block has v > 1 validator tiles (H's
+    # (4, 2), G's (1, 2); R's (8,) and the lanes' (2,) fabrics have v = 1:
+    # the home form alone); the forced rotation's K1 peer shifts and K15;
+    # the split K14's verifies; the lanes' K8 slides per tile. Its
+    # one-state lanes: K13 a lane a tick
     "laned_one": ("fabric_step", "window_slide"),
 }
 for _layout in ("m1", "m2"):
     PATH_KERNELS.update({
-        f"{_layout}_fabric_h": ("resident_partials", "decide_partials"),
-        f"{_layout}_rebalance": ("resident_partials", "decide_partials",
-                                 "ring_peer", "rotate_merge"),
+        f"{_layout}_fabric_h": ("resident_partials", "resident_home"),
+        f"{_layout}_rebalance": ("resident_home", "ring_peer",
+                                 "rotate_merge"),
         f"{_layout}_fused_g": ("sharded_fused_split", "resident_partials",
-                               "decide_partials"),
-        f"{_layout}_laned": ("resident_partials", "decide_partials",
-                             "window_slide")})
+                               "resident_home"),
+        f"{_layout}_laned": ("resident_home", "window_slide")})
 
 
 def main() -> int:

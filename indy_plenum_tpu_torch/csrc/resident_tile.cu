@@ -29,8 +29,8 @@
 //   1. for each slot k: d = slides[k][m] (no slides: 0); when d > 0 every
 //      slot-axis row is rolled left by d with the vacated columns zeroed
 //      (d >= S clears), the checkpoint votes cleared and the frontier set
-//      to max(frontier - d, 0); then words[k][m] decoded and scattered,
-//      (quorum_common.cuh scatter_member_rows);
+//      to max(frontier - d, 0); then words[k][m] decoded and scattered
+//      (quorum_common.cuh scatter_word, a word a thread);
 //   2. the prepare, commit and checkpoint column counts over all N rows;
 //   3. the decide K7, K9 and K13 share (decide_slots, decide_checkpoints,
 //      compact_member).
@@ -50,9 +50,10 @@
 // of its chunk (a multiple of 4 slots, as K7's) over distributed shared
 // memory, decides them and writes their flags into block 0's shared
 // memory; block 0 also decides the checkpoints. cluster.sync(); block 0
-// compacts the member and writes the frontier snapshot. No partial count
-// reaches device memory. A one-block cluster (B = 1) decides from its own
-// shared memory behind block barriers: no cluster barrier (~0.5 us each).
+// compacts the member and writes the frontier snapshot. In one state no
+// partial count reaches device memory. A one-block cluster (B = 1)
+// decides from its own shared memory behind block barriers: no cluster
+// barrier (~0.5 us each).
 //
 // The slide is quorum_common.cuh's slide_run: a block's row run of a plane
 // moved a 4-byte word at a time.
@@ -66,25 +67,37 @@
 // latency and the cluster's two barriers are the real cost.
 //
 // The per-tile layout (tpu/quorum.py TileState: every tile its own
-// tensors on its own device) runs the same consume in two kernels:
-//   - the partials mode (``Out``): one tile's launch slides and scatters
-//     its V validator rows [row0, row0 + V) (a word's sender is global;
-//     the planes' bases are moved back by row0 rows so it indexes them),
-//     counts them, and writes the tile's (M, S) prepare and commit and
-//     (M, C) checkpoint partials to device memory instead of deciding.
-//     Only the block's home tile (``home``) holds the slot-axis rows: it
-//     alone stores PRE-PREPAREs and slides preprepare_seen, ordered,
-//     prepared_acked and the frontier. An optional verdict operand ``ok``
-//     ((M, W) bytes; K = 1) drops the words whose signature failed (the
-//     split K14);
-//   - decide_partials_kernel, on the home tile's device: the v tiles'
-//     partials (copied there) summed and decided by decide_slots,
-//     decide_checkpoints and compact_member, one block a member. It is
-//     the reference's psum over the validator axis
-//     (indy_plenum_tpu/tpu/quorum.py:183-186) followed by its decide.
-// Both are bound by bytes: a tile's launch moves its own share of the
-// consume's bytes plus its partials (4 (2S + C) bytes a member), the
-// decide the v partials and the events and compact record.
+// tensors on its own device) runs the same consume as v launches a member
+// block, one a tile, and no other kernel: the reference's psum over the
+// validator axis (indy_plenum_tpu/tpu/quorum.py:182-186) followed by its
+// decide.
+//   - the partials mode (``Out``), on each non-home tile (i, j > 0): the
+//     launch slides and scatters its V validator rows [row0, row0 + V) (a
+//     word's sender is global; the planes' bases are moved back by row0
+//     rows so it indexes them), counts them, sums its B blocks over
+//     distributed shared memory, and stores the tile's (M, S) prepare and
+//     commit and (M, C) checkpoint partials straight into its slot of a
+//     (v - 1, M, 2S + C) int32 buffer on the block's HOME card: a peer
+//     store over NVLink from another card, a local store on one. It holds
+//     no slot-axis row: no PRE-PREPARE, no slide of preprepare_seen,
+//     ordered, prepared_acked or the frontier.
+//   - the home form, on the home tile (i, 0), launched after every
+//     non-home launch of the step (tpu/quorum.py tiles_step orders it
+//     with events where the streams differ): K13's or the tiled K9's body
+//     on the tile's own rows, whose sums add the ``n_parts`` stored
+//     partials to the cluster's own counts, then the decide and the
+//     compact record as K13 does. At n_parts = 0 it is K13 or the tiled
+//     K9 on the tile. An optional verdict operand ``ok`` ((M, W) bytes; K
+//     = 1) drops the words whose signature failed in either form (the
+//     split K14).
+// What bounds each form: bytes, but at phase H's (4, 2) tile (R = 64, V =
+// 128, S = 300: ~5 MB of planes, under 2 us of HBM time) a launch's
+// latency and the cluster's two barriers cost more. The design keeps the
+// pair to v launches a block and no copy: the partials cross to the home
+// once, in the non-home launch's own stores (4 (2S + C) bytes a member),
+// and the decide runs inside the home's launch, spread over its cluster's
+// B blocks (a chunk of slots each) instead of one block a member in a
+// launch of its own.
 #include <cooperative_groups.h>
 
 #include "quorum_common.cuh"
@@ -95,25 +108,26 @@ namespace {
 
 constexpr int kMaxBlocks = 8;  // the portable cluster size
 
-// ``Step`` instantiates K13 (one slot, no slide, ``compact`` read at run
-// time); the resident step's (K9, the tiled K9) fixes compact at 1.
-// ``Out`` is the per-tile layout's partials mode (the header): ``ok``,
-// ``row0``, ``home`` and ``part`` are read only there.
+// ``Step`` instantiates K13 and the home form without slides (one slot,
+// no slide); the resident step's (K9, the tiled K9) takes k slots and
+// their slides. ``Out`` is the partials mode (the header): ``part`` its
+// destination. Otherwise ``part`` holds the ``n_parts`` other tiles'
+// partials ((n_parts, M, 2S + C), read only) that the sums add.
 template <bool Step, bool Out>
 __global__ void __launch_bounds__(qc::kThreads)
     resident_tile_kernel(qc::Planes p, const int32_t* __restrict__ slides,
                          const uint32_t* __restrict__ words,
                          const uint8_t* __restrict__ ok, int K, int M,
                          int N, int S, int C, int W, int n_validators,
-                         int cap, int compact, int row0, int home,
-                         qc::Events e, int32_t* __restrict__ part_out) {
+                         int cap, int compact, int row0, qc::Events e,
+                         int32_t* __restrict__ part, int n_parts) {
   // this block's partial counts, then the member's flags (block 0's are
   // the ones written)
-  extern __shared__ int32_t part[];
-  int32_t* pc_s = part;
-  int32_t* cc_s = part + S;
-  int32_t* kc_s = part + 2 * S;
-  uint8_t* f_newprep = reinterpret_cast<uint8_t*>(part + 2 * S + C);
+  extern __shared__ int32_t counts[];
+  int32_t* pc_s = counts;
+  int32_t* cc_s = counts + S;
+  int32_t* kc_s = counts + 2 * S;
+  uint8_t* f_newprep = reinterpret_cast<uint8_t*>(counts + 2 * S + C);
   uint8_t* f_newly = f_newprep + S;
   uint8_t* f_ordered = f_newly + S;
   cg::cluster_group cluster = cg::this_cluster();
@@ -122,7 +136,9 @@ __global__ void __launch_bounds__(qc::kThreads)
   const int m = blockIdx.y;
   const int r_lo = rank * N / B;
   const int nr = (rank + 1) * N / B - r_lo;
-  const bool lead = Out ? rank == 0 && home != 0 : rank == 0;
+  // block 0 of a deciding launch owns the slot-axis rows; a partials
+  // launch (a non-home tile) holds none
+  const bool lead = !Out && rank == 0;
   const size_t ms = static_cast<size_t>(m) * S;
   for (int k = 0; k < K; ++k) {
     const size_t km = static_cast<size_t>(k) * M + m;
@@ -146,25 +162,19 @@ __global__ void __launch_bounds__(qc::kThreads)
       __syncthreads();  // the slide before this slot's scatter
     }
     // the scatter stores 1s only, so the stores of slots that no slide
-    // separates may land in any order: no barrier between them
-    if constexpr (Out) {
-      // the tile's rows are the validators [row0, row0 + N): the bases
-      // move back row0 rows so a word's global sender indexes them (no
-      // byte outside the tile's own rows is stored)
-      qc::MemberPlanes mp = qc::member_planes(p, m, N, S, C);
-      mp.pv -= static_cast<size_t>(row0) * S;
-      mp.cv -= static_cast<size_t>(row0) * S;
-      mp.ck -= static_cast<size_t>(row0) * C;
-      const uint32_t* wm = words + km * W;
-      const uint8_t* okm = ok == nullptr ? nullptr : ok + km * W;
-      for (int j = threadIdx.x; j < W; j += blockDim.x) {
-        if (okm != nullptr && okm[j] == 0) continue;
-        qc::scatter_word(mp, wm[j], S, C, row0 + r_lo, nr, 0, S, lead,
-                         true);
-      }
-    } else {
-      qc::scatter_member_rows(p, m, words + km * W, N, S, C, W, r_lo, nr,
-                              0, S, lead, true);
+    // separates may land in any order: no barrier between them. The
+    // tile's rows are the validators [row0, row0 + N): the bases move
+    // back row0 rows so a word's global sender indexes them (no byte
+    // outside the tile's own rows is stored)
+    qc::MemberPlanes mp = qc::member_planes(p, m, N, S, C);
+    mp.pv -= static_cast<size_t>(row0) * S;
+    mp.cv -= static_cast<size_t>(row0) * S;
+    mp.ck -= static_cast<size_t>(row0) * C;
+    const uint32_t* wm = words + km * W;
+    const uint8_t* okm = ok == nullptr ? nullptr : ok + km * W;
+    for (int j = threadIdx.x; j < W; j += blockDim.x) {
+      if (okm != nullptr && okm[j] == 0) continue;
+      qc::scatter_word(mp, wm[j], S, C, row0 + r_lo, nr, 0, S, lead, true);
     }
   }
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
@@ -176,20 +186,22 @@ __global__ void __launch_bounds__(qc::kThreads)
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     kc_s[c] = qc::checkpoint_count(p, m, r_lo, nr, N, C, c);
   }
+  // one tile's partials: (M, S) prepare, (M, S) commit, (M, C)
+  // checkpoint counts, one after another
+  const size_t plane = static_cast<size_t>(M) * S;
+  const size_t tile = static_cast<size_t>(M) * (2 * S + C);
+  const size_t mc = 2 * plane + static_cast<size_t>(m) * C;
   if constexpr (Out) {
-    // the tile's partials to device memory: (M, S) prepare, (M, S)
-    // commit, (M, C) checkpoint counts, one after another
-    int32_t* pc_o = part_out + ms;
-    int32_t* cc_o = part_out + static_cast<size_t>(M) * S + ms;
-    int32_t* kc_o = part_out + 2 * static_cast<size_t>(M) * S +
-                    static_cast<size_t>(m) * C;
+    // the tile's partials into its slot on the home card
     if (B == 1) {
       __syncthreads();  // every count in before it is written out
       for (int s = threadIdx.x; s < S; s += blockDim.x) {
-        pc_o[s] = pc_s[s];
-        cc_o[s] = cc_s[s];
+        part[ms + s] = pc_s[s];
+        part[plane + ms + s] = cc_s[s];
       }
-      for (int c = threadIdx.x; c < C; c += blockDim.x) kc_o[c] = kc_s[c];
+      for (int c = threadIdx.x; c < C; c += blockDim.x) {
+        part[mc + c] = kc_s[c];
+      }
       return;
     }
     cluster.sync();  // every block's counts in before any is summed
@@ -202,38 +214,46 @@ __global__ void __launch_bounds__(qc::kThreads)
         a += cluster.map_shared_rank(pc_s, r)[s];
         b += cluster.map_shared_rank(cc_s, r)[s];
       }
-      pc_o[s] = a;
-      cc_o[s] = b;
+      part[ms + s] = a;
+      part[plane + ms + s] = b;
     }
     if (rank == 0) {
       for (int c = threadIdx.x; c < C; c += blockDim.x) {
         int kc = 0;
         for (int r = 0; r < B; ++r) kc += cluster.map_shared_rank(kc_s, r)[c];
-        kc_o[c] = kc;
+        part[mc + c] = kc;
       }
     }
     cluster.sync();  // every partial read before any block exits
     return;
   }
+  // the other tiles' stored counts at ``at`` of a partials layout (none
+  // outside the home form)
+  const int32_t* others = part;
+  auto stored = [&](size_t at) {
+    int x = 0;
+    for (int t = 0; t < n_parts; ++t) x += others[t * tile + at];
+    return x;
+  };
   if (B == 1) {
-    // one block a member: its partials are the counts, and a block
+    // one block a member: its counts are the cluster's, and a block
     // barrier orders what the cluster barriers order below
     __syncthreads();
     qc::decide_slots(
-        p, e, m, S, 0, S, n_validators, Step ? compact : 1,
+        p, e, m, S, 0, S, n_validators, compact,
         [&](int s, int* pc, int* cc) {
-          *pc = pc_s[s];
-          *cc = cc_s[s];
+          *pc = pc_s[s] + stored(ms + s);
+          *cc = cc_s[s] + stored(plane + ms + s);
         },
         f_newprep, f_newly, f_ordered);
     qc::decide_checkpoints(e, m, C, n_validators,
-                           [&](int c) { return kc_s[c]; });
+                           [&](int c) { return kc_s[c] + stored(mc + c); });
     __syncthreads();
-    qc::compact_member(p, e, m, S, cap, Step ? compact : 1, f_newprep,
-                       f_newly, f_ordered);
+    qc::compact_member(p, e, m, S, cap, compact, f_newprep, f_newly,
+                       f_ordered);
     return;
   }
-  // every block's partials (and block 0's slides and PRE-PREPAREs) before
+  // every block's counts (and block 0's slides and PRE-PREPAREs) before
   // any block reads them
   cluster.sync();
   const int chunk = ((S + B - 1) / B + 3) & ~3;
@@ -241,9 +261,9 @@ __global__ void __launch_bounds__(qc::kThreads)
   const int s_lo = lo < S ? lo : S;
   const int s_hi = s_lo + chunk < S ? s_lo + chunk : S;
   qc::decide_slots(
-      p, e, m, S, s_lo, s_hi, n_validators, Step ? compact : 1,
+      p, e, m, S, s_lo, s_hi, n_validators, compact,
       [&](int s, int* pc, int* cc) {
-        int a = 0, b = 0;
+        int a = stored(ms + s), b = stored(plane + ms + s);
         for (int r = 0; r < B; ++r) {
           a += cluster.map_shared_rank(pc_s, r)[s];
           b += cluster.map_shared_rank(cc_s, r)[s];
@@ -256,17 +276,17 @@ __global__ void __launch_bounds__(qc::kThreads)
       cluster.map_shared_rank(f_ordered, 0));
   if (lead) {
     qc::decide_checkpoints(e, m, C, n_validators, [&](int c) {
-      int kc = 0;
+      int kc = stored(mc + c);
       for (int r = 0; r < B; ++r) kc += cluster.map_shared_rank(kc_s, r)[c];
       return kc;
     });
   }
-  // every flag written, and every partial read, before block 0 compacts
+  // every flag written, and every count read, before block 0 compacts
   // and any block exits
   cluster.sync();
   if (lead) {
-    qc::compact_member(p, e, m, S, cap, Step ? compact : 1, f_newprep,
-                       f_newly, f_ordered);
+    qc::compact_member(p, e, m, S, cap, compact, f_newprep, f_newly,
+                       f_ordered);
   }
 }
 
@@ -285,17 +305,20 @@ cudaError_t allow_shared(size_t smem) {
 }
 
 // One launch of the kernel: a cluster of ``blocks`` blocks a member.
-// ``part`` (the partials mode) takes the tile's partials; ``out`` the
-// events otherwise.
+// ``part`` takes the tile's partials in the partials mode (``Out``);
+// otherwise it holds ``n_parts`` stored partials to add, and ``out``
+// takes the events.
 template <bool Step, bool Out>
 int launch(void* pp, void* pv, void* cv, void* ck, void* ordered,
            void* acked, void* frontier, const void* slides, const void* words,
            const void* ok, int K, int M, int N, int S, int C, int W, int v,
            int blocks, int n_validators, int cap, int compact, int row0,
-           int home, void* out, void* part, void* stream) {
+           void* out, void* part, int n_parts, void* stream) {
   if (S <= 0 || S > qc::kMaxSlots || K < 0 || C < 0 || v < 1 || N < 1 ||
       N % v != 0 || blocks < 1 || blocks > kMaxBlocks || blocks > N ||
-      M > 65535 || row0 < 0 || (Step && K != 1)) {
+      M > 65535 || row0 < 0 || n_parts < 0 || (Step && K != 1) ||
+      (ok != nullptr && !Step) ||
+      (part == nullptr && (Out || n_parts > 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M == 0) return static_cast<int>(cudaGetLastError());
@@ -322,7 +345,7 @@ int launch(void* pp, void* pv, void* cv, void* ck, void* ordered,
       static_cast<const int32_t*>(slides),
       static_cast<const uint32_t*>(words),
       static_cast<const uint8_t*>(ok), K, M, N, S, C, W, n_validators, cap,
-      compact, row0, home, e, static_cast<int32_t*>(part));
+      compact, row0, e, static_cast<int32_t*>(part), n_parts);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -360,8 +383,8 @@ extern "C" int resident_tile_launch(
     int cap, void* out, void* stream) {
   return launch<false, false>(pp, pv, cv, ck, ordered, acked, frontier,
                               slides, words, nullptr, K, M, N, S, C, W, v,
-                              blocks, n_validators, cap, 1, 0, 1, out,
-                              nullptr, stream);
+                              blocks, n_validators, cap, 1, 0, out, nullptr,
+                              0, stream);
 }
 
 // K13: one slot, no slide; ``compact`` 0 leaves prepared_acked and the
@@ -373,105 +396,53 @@ extern "C" int fabric_step_launch(
     void* stream) {
   return launch<true, false>(pp, pv, cv, ck, ordered, acked, frontier,
                              nullptr, words, nullptr, 1, M, N, S, C, W, v,
-                             blocks, n_validators, cap, compact, 0, 1, out,
-                             nullptr, stream);
+                             blocks, n_validators, cap, compact, 0, out,
+                             nullptr, 0, stream);
 }
 
-// The partials mode on one tile of the per-tile layout: the tile's N
-// validator rows are [row0, row0 + N); ``home`` when it is its block's
-// home tile (the slot-axis rows). Without ``slides`` it is K13's form
-// (K = 1, no slide; ``ok`` the optional (M, W) verdict bytes), with them
-// the tiled K9's (K slots). ``part``: the tile's (M, 2S + C) int32
-// partials, prepare then commit then checkpoint counts.
+// The partials mode on a non-home tile of the per-tile layout: the
+// tile's N validator rows are [row0, row0 + N). Without ``slides`` it is
+// K13's form (K = 1, no slide; ``ok`` the optional (M, W) verdict bytes),
+// with them the tiled K9's (K slots). ``part``: the tile's (M, 2S + C)
+// int32 partials, prepare then commit then checkpoint counts, on this
+// card or on a peer card (the block's home).
 extern "C" int resident_partials_launch(
     void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,
     void* frontier, const void* slides, const void* words, const void* ok,
-    int K, int M, int N, int S, int C, int W, int row0, int home,
-    int blocks, void* part, void* stream) {
+    int K, int M, int N, int S, int C, int W, int row0, int blocks,
+    void* part, void* stream) {
   if (slides == nullptr) {
     return launch<true, true>(pp, pv, cv, ck, ordered, acked, frontier,
                               nullptr, words, ok, K, M, N, S, C, W, 1,
-                              blocks, 1, 1, 1, row0, home, nullptr, part,
+                              blocks, 1, 1, 1, row0, nullptr, part, 0,
                               stream);
   }
-  if (ok != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch<false, true>(pp, pv, cv, ck, ordered, acked, frontier,
-                             slides, words, nullptr, K, M, N, S, C, W, 1,
-                             blocks, 1, 1, 1, row0, home, nullptr, part,
-                             stream);
+                             slides, words, ok, K, M, N, S, C, W, 1, blocks,
+                             1, 1, 1, row0, nullptr, part, 0, stream);
 }
 
-namespace {
-
-constexpr int kMaxTiles = 16;  // validator tiles a decide sums, at most
-
-struct PartialTable {
-  const int32_t* part[kMaxTiles];
-};
-
-// The decide of the per-tile layout on a block's home tile: member m
-// sums the v tiles' partials of every slot and checkpoint, then decides
-// and compacts as K7, K9 and K13 do. One block a member.
-__global__ void __launch_bounds__(qc::kThreads)
-    decide_partials_kernel(qc::Planes p,
-                           const __grid_constant__ PartialTable t, int v,
-                           int M, int S, int C, int n_validators, int cap,
-                           int compact, qc::Events e) {
-  extern __shared__ uint8_t flags[];
-  uint8_t* f_newprep = flags;
-  uint8_t* f_newly = flags + S;
-  uint8_t* f_ordered = flags + 2 * S;
-  const int m = blockIdx.x;
-  const size_t ms = static_cast<size_t>(m) * S;
-  const size_t plane = static_cast<size_t>(M) * S;
-  qc::decide_slots(
-      p, e, m, S, 0, S, n_validators, compact,
-      [&](int s, int* pc, int* cc) {
-        int a = 0, b = 0;
-        for (int r = 0; r < v; ++r) {
-          a += t.part[r][ms + s];
-          b += t.part[r][plane + ms + s];
-        }
-        *pc = a;
-        *cc = b;
-      },
-      f_newprep, f_newly, f_ordered);
-  qc::decide_checkpoints(e, m, C, n_validators, [&](int c) {
-    int kc = 0;
-    for (int r = 0; r < v; ++r) {
-      kc += t.part[r][2 * plane + static_cast<size_t>(m) * C + c];
-    }
-    return kc;
-  });
-  __syncthreads();  // every flag before the compact
-  qc::compact_member(p, e, m, S, cap, compact, f_newprep, f_newly,
-                     f_ordered);
-}
-
-}  // namespace
-
-// ``table``: host int64 pointers of the v partials ((M, 2S + C) int32
-// each, on this device); the home tile's slot-axis leaves; the events and
-// compact record into ``out`` (tpu/quorum.py _outputs' allocation).
-extern "C" int decide_partials_launch(void* pp, void* ordered, void* acked,
-                                      void* frontier, const void* table,
-                                      int v, int M, int S, int C,
-                                      int n_validators, int cap,
-                                      int compact, void* out, void* stream) {
-  if (v < 1 || v > kMaxTiles || S <= 0 || S > qc::kMaxSlots || C < 0 ||
-      M < 0 || cap < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// The home form on a block's home tile (its validator rows are [0, N)):
+// K13's body without ``slides`` (K = 1; ``ok`` the optional verdict
+// bytes; ``compact`` as K13's), the tiled K9's with them, the counts
+// summed with the ``n_parts`` partials at ``parts`` ((n_parts, M, 2S + C)
+// int32 on this card, stored by the block's other tiles), then the
+// decide and the compact record into ``out``.
+extern "C" int resident_home_launch(
+    void* pp, void* pv, void* cv, void* ck, void* ordered, void* acked,
+    void* frontier, const void* slides, const void* words, const void* ok,
+    int K, int M, int N, int S, int C, int W, int blocks, int n_validators,
+    int cap, int compact, const void* parts, int n_parts, void* out,
+    void* stream) {
+  void* in = const_cast<void*>(parts);
+  if (slides == nullptr) {
+    return launch<true, false>(pp, pv, cv, ck, ordered, acked, frontier,
+                               nullptr, words, ok, K, M, N, S, C, W, 1,
+                               blocks, n_validators, cap, compact, 0, out,
+                               in, n_parts, stream);
   }
-  if (M == 0) return static_cast<int>(cudaGetLastError());
-  const long long* in = static_cast<const long long*>(table);
-  PartialTable t = {};
-  for (int r = 0; r < v; ++r) {
-    t.part[r] = reinterpret_cast<const int32_t*>(in[r]);
-  }
-  decide_partials_kernel<<<M, qc::kThreads, 3 * static_cast<size_t>(S),
-                           static_cast<cudaStream_t>(stream)>>>(
-      qc::planes(pp, nullptr, nullptr, nullptr, ordered, acked, frontier),
-      t, v, M, S, C, n_validators, cap, compact,
-      qc::events_at(out, M, S, C, cap));
-  return static_cast<int>(cudaGetLastError());
+  return launch<false, false>(pp, pv, cv, ck, ordered, acked, frontier,
+                              slides, words, ok, K, M, N, S, C, W, 1, blocks,
+                              n_validators, cap, compact, 0, out, in,
+                              n_parts, stream);
 }

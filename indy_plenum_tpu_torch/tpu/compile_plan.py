@@ -27,9 +27,10 @@ forms: the state is a :class:`~indy_plenum_tpu_torch.tpu.quorum.
 TileState`, the words one operand a tile (or one (M, W) tensor, cut and
 copied to the tiles), and the step
 :func:`~indy_plenum_tpu_torch.tpu.quorum.tiles_step`: the tile kernel's
-partials mode on every tile, the partials copied to each block's home,
-the decide there; its events and compact record come back one member
-block at a time (lists).
+partials mode on each non-home tile, its counts stored on its block's
+home tile's device, then the home form there (its own consume, the
+stored counts added, the decide); its events and compact record come
+back one member block at a time (lists).
 
 ``CompilePlan.strategy`` names what the port launches for each function
 (``{"step": "k7" | "k13" | "k13_split", "slide": "k8" | "k8_tiles",

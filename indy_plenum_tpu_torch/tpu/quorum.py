@@ -52,9 +52,11 @@ The member x validator fabric (reference ``quorum.py:59-73``,
 - the per-tile layout (a list naming distinct devices, or ``split=True``):
   a :class:`TileState`, tile (i, j) a VoteState of its own on its own
   device. :func:`tiles_step` runs the tile kernel's partials mode on
-  every tile (:func:`split_partials`), copies the partials of tiles (i,
-  1..v-1) to the block's home tile (i, 0) and decides there
-  (:func:`split_decide`): the reference's psum as a copy and a sum.
+  each tile (i, j > 0) (:func:`split_partials`), which stores its
+  partial counts on the block's home tile's device, then its home form
+  on the home tile (i, 0) (:func:`split_home`), which adds them to its
+  own and decides: the reference's psum as stores and a sum, v launches
+  a block.
 
 :func:`make_sharded_step` (``:402``) is the fabric step on one plane
 without the compact record, in either layout.
@@ -828,6 +830,7 @@ class TileState:
         self.v = int(v)
         if self.v < 1 or len(self.tiles) % self.v:
             raise ValueError(f"{len(self.tiles)} tiles in rows of {v}")
+        self._reduce: dict = {}  # member block -> partials_buffer's list
 
     @property
     def m(self) -> int:
@@ -849,6 +852,22 @@ class TileState:
 
     def home(self, i: int) -> VoteState:
         return self.tiles[i * self.v]
+
+    def partials_buffer(self, i: int) -> list:
+        """[member block i's (v - 1, R (2S + C)) int32 partials buffer on
+        its home tile's device (made at first use; row
+        :func:`partials_slot` (j, v) is tile (i, j)'s), the event of the
+        last home launch that read it from another stream (None before
+        one; :func:`tiles_step` sets it)]."""
+        got = self._reduce.get(i)
+        if got is None:
+            home = self.home(i)
+            size = self.rows * (2 * home.prepare_votes.shape[-1]
+                                + home.checkpoint_votes.shape[-1])
+            got = self._reduce[i] = [torch.empty(
+                self.v - 1, size, dtype=torch.int32,
+                device=home.frontier.device), None]
+        return got
 
     @classmethod
     def init(cls, mesh: FabricMesh, n_validator_rows: int, log_size: int,
@@ -976,64 +995,89 @@ def split_partials_plain(tile: VoteState, words: torch.Tensor, row0: int,
                       .flatten()])
 
 
-def _split_partials_kernel(tile: VoteState, words: torch.Tensor, row0: int,
-                     home: bool, slides, ok: Optional[torch.Tensor],
-                     blocks: Optional[int]) -> torch.Tensor:
-    """One ``resident_tile_kernel`` launch in its partials mode."""
+def _split_operands(tile: VoteState, words: torch.Tensor, slides, ok,
+                    what: str):
+    """Check one tile launch's operands: the state's pointers, (k, W),
+    the slides' pointer (None without), whether a member may slide, the
+    verdicts' pointer (None without)."""
     dev = words.device
     dims = 2 if slides is None else 3
-    ptrs = _check_words(tile, words, dims, "tile partials")
-    rows, n_rows, s = tile.prepare_votes.shape
-    c = tile.checkpoint_votes.shape[-1]
+    ptrs = _check_words(tile, words, dims, what)
+    rows = tile.frontier.shape[0]
     k, w = (1, words.shape[1]) if slides is None else (words.shape[0],
                                                        words.shape[2])
     slides_ptr = ok_ptr = None
     sliding = False
     if slides is not None:
         if tuple(slides.shape) != (k, rows):
-            raise ValueError("tile partials: slides must be (k, R)")
+            raise ValueError(f"{what}: slides must be (k, R)")
         sliding = slides.device.type != "cpu" or bool(slides.any())
-        slides = _to_card(slides, torch.int32, dev, "tile partials")
+        slides = _to_card(slides, torch.int32, dev, what)
         slides_ptr = slides.data_ptr()
     if ok is not None:
+        if slides is not None:
+            raise ValueError(f"{what}: a verdict operand takes one slot "
+                             "and no slides")
         if tuple(ok.shape) != (rows, w) or ok.device != dev:
-            raise ValueError(f"tile partials: ok must be (R, W) on {dev}")
+            raise ValueError(f"{what}: ok must be (R, W) on {dev}")
         ok = ok.to(torch.uint8).contiguous()
         ok_ptr = ok.data_ptr()
+    # the operands the pointers name live until the launch is enqueued
+    return ptrs, (k, w), (slides, slides_ptr), sliding, (ok, ok_ptr)
+
+
+def _split_partials_kernel(tile: VoteState, words: torch.Tensor, row0: int,
+                           out: torch.Tensor, slides,
+                           ok: Optional[torch.Tensor],
+                           blocks: Optional[int] = None) -> torch.Tensor:
+    """One ``resident_tile_kernel`` launch in its partials mode;
+    ``blocks`` forces the cluster size."""
+    dev = words.device
+    ptrs, (k, w), (slides, slides_ptr), sliding, (ok, ok_ptr) = \
+        _split_operands(tile, words, slides, ok, "tile partials")
+    rows, n_rows, s = tile.prepare_votes.shape
+    c = tile.checkpoint_votes.shape[-1]
+    if out.dtype != torch.int32 or out.numel() != rows * (2 * s + c) \
+            or not out.is_contiguous() or out.device.type != "cuda":
+        raise ValueError("tile partials: out must be a contiguous (R, 2S "
+                         "+ C) int32 tensor on a card")
     if blocks is None:
         blocks = _cluster_blocks(dev, n_rows, s, c, rows, slides is None,
                                  sliding)
-    buf = torch.empty(rows * (2 * s + c), dtype=torch.int32, device=dev)
     code = kb.library().resident_partials_launch(
         *ptrs, slides_ptr, words.data_ptr(), ok_ptr, k, rows, n_rows, s, c,
-        w, row0, int(home), blocks, buf.data_ptr(),
+        w, row0, blocks, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     kb.check(code, "resident_partials")
     kb.LAUNCHES["resident_partials"] += 1
-    return buf
+    return out
 
 
 def split_partials(tile: VoteState, words: torch.Tensor, row0: int,
-                  home: bool, slides=None, ok: Optional[torch.Tensor] = None,
-                  blocks: Optional[int] = None) -> torch.Tensor:
-    """The tile kernel's partials mode on one tile: slides and scatters as
-    :func:`split_partials_plain` says, ``tile`` in place, and returns the
-    tile's partial counts (one (R, 2S + C) int32 allocation on the tile's
-    device). CPU tensors take :func:`split_partials_plain`; CUDA tensors
-    launch ``resident_tile_kernel``'s partials mode (``csrc/
-    resident_tile.cu``, a cluster of :func:`tile_cluster_blocks` blocks a
-    member; ``blocks`` forces it) on the current card, or raise."""
+                   out: torch.Tensor, slides=None,
+                   ok: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The tile kernel's partials mode on a non-home tile (its validator
+    rows ``[row0, row0 + V)``, no slot-axis row): slides and scatters as
+    :func:`split_partials_plain` says, ``tile`` in place, and stores the
+    tile's partial counts into ``out`` (an (R, 2S + C) int32 tensor; on a
+    card, the tile's own or one it has peer access to: its block's
+    home's), which it returns. CPU tensors take
+    :func:`split_partials_plain`; CUDA tensors launch
+    ``resident_tile_kernel``'s partials mode (``csrc/resident_tile.cu``, a
+    cluster of :func:`tile_cluster_blocks` blocks a member) on the current
+    card, or raise."""
     if words.device.type == "cpu":
-        return split_partials_plain(tile, words, row0, home, slides, ok)
+        return out.copy_(split_partials_plain(tile, words, row0, False,
+                                              slides, ok))
     if words.device.type != "cuda":
         raise ValueError(f"tile partials: unsupported device {words.device}")
-    return _split_partials_kernel(tile, words, row0, home, slides, ok, blocks)
+    return _split_partials_kernel(tile, words, row0, out, slides, ok)
 
 
 def split_decide_plain(home: VoteState, partials, n_validators: int,
-                                delta_cap: int = ORDER_DELTA_CAP,
-                                compact: bool = True
-                                ) -> Tuple[QuorumEvents, CompactEvents]:
+                       delta_cap: int = ORDER_DELTA_CAP,
+                       compact: bool = True
+                       ) -> Tuple[QuorumEvents, CompactEvents]:
     """The plain version of the decide from partials: the tiles' counts
     summed, then :func:`decide_plain` on the home tile, in place."""
     rows, _, s = home.prepare_votes.shape
@@ -1043,49 +1087,89 @@ def split_decide_plain(home: VoteState, partials, n_validators: int,
                         n_validators, delta_cap, compact)
 
 
-def _split_decide_kernel(home: VoteState, partials, n_validators: int,
-                   delta_cap: int, compact: bool
-                   ) -> Tuple[QuorumEvents, CompactEvents]:
-    dev = home.frontier.device
-    ptrs = _state_ptrs(home, dev, "decide partials")
-    rows, _, s = home.prepare_votes.shape
+def split_home_plain(home: VoteState, words: torch.Tensor, partials,
+                     n_validators: int, delta_cap: int = ORDER_DELTA_CAP,
+                     compact: bool = True, slides=None,
+                     ok: Optional[torch.Tensor] = None
+                     ) -> Tuple[QuorumEvents, CompactEvents]:
+    """The plain version of the home form: the home tile's own partials
+    (:func:`split_partials_plain` at row 0 with the slot-axis rows), then
+    :func:`split_decide_plain` of them and the other tiles' ``partials``
+    (rows of (R, 2S + C) int32 counts, or None). ``home`` in place."""
+    own = split_partials_plain(home, words, 0, True, slides, ok)
+    others = [] if partials is None else list(partials)
+    return split_decide_plain(home, [own] + others, n_validators, delta_cap,
+                              compact)
+
+
+def _split_home_kernel(home: VoteState, words: torch.Tensor, partials,
+                       n_validators: int, delta_cap: int, compact: bool,
+                       slides, ok: Optional[torch.Tensor],
+                       blocks: Optional[int] = None
+                       ) -> Tuple[QuorumEvents, CompactEvents]:
+    """One ``resident_tile_kernel`` launch in its home form; ``blocks``
+    forces the cluster size."""
+    dev = words.device
+    ptrs, (k, w), (slides, slides_ptr), sliding, (ok, ok_ptr) = \
+        _split_operands(home, words, slides, ok, "tile home")
+    rows, n_rows, s = home.prepare_votes.shape
     c = home.checkpoint_votes.shape[-1]
-    size = rows * (2 * s + c)
-    for p in partials:
-        if p.device != dev or p.dtype != torch.int32 or p.numel() != size \
-                or not p.is_contiguous():
-            raise ValueError(f"decide partials: every partial an "
-                             f"(R, 2S + C) int32 allocation on {dev}")
+    n_parts, parts_ptr = 0, None
+    if partials is not None and len(partials):
+        if partials.device != dev or partials.dtype != torch.int32 \
+                or not partials.is_contiguous() or partials.dim() != 2 \
+                or partials.shape[1] != rows * (2 * s + c):
+            raise ValueError(f"tile home: partials must be a contiguous "
+                             f"(n, R (2S + C)) int32 tensor on {dev}")
+        n_parts, parts_ptr = partials.shape[0], partials.data_ptr()
+    if blocks is None:
+        blocks = _cluster_blocks(dev, n_rows, s, c, rows, slides is None,
+                                 sliding)
     width = delta_width(s, delta_cap)
     buf, events, comp = _outputs(home, width)
-    table = np.array([p.data_ptr() for p in partials], np.int64)
-    code = kb.library().decide_partials_launch(
-        ptrs[0], ptrs[4], ptrs[5], ptrs[6], table.ctypes.data,
-        len(partials), rows, s, c, n_validators, width,
-        1 if compact else 0, buf.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    kb.check(code, "decide_partials")
-    kb.LAUNCHES["decide_partials"] += 1
+    code = kb.library().resident_home_launch(
+        *ptrs, slides_ptr, words.data_ptr(), ok_ptr, k, rows, n_rows, s, c,
+        w, blocks, n_validators, width, 1 if compact else 0, parts_ptr,
+        n_parts, buf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    kb.check(code, "resident_home")
+    kb.LAUNCHES["resident_home"] += 1
     return events, comp
 
 
-def split_decide(home: VoteState, partials, n_validators: int,
-                    delta_cap: int = ORDER_DELTA_CAP, compact: bool = True
-                    ) -> Tuple[QuorumEvents, CompactEvents]:
-    """The decide of the per-tile layout on a block's home tile: the v
-    tiles' partials (each on the home's device) summed, the quorums
-    decided, the frontier and compact deltas (``compact``: as K13's flag),
-    ``home`` in place. CPU tensors take :func:`split_decide_plain`; CUDA
-    tensors launch ``decide_partials_kernel`` (``csrc/resident_tile.cu``,
-    one block a member) on the current card, or raise."""
-    dev = home.frontier.device
-    if dev.type == "cpu":
-        return split_decide_plain(home, partials, n_validators, delta_cap,
-                                  compact)
-    if dev.type != "cuda":
-        raise ValueError(f"decide partials: unsupported device {dev}")
-    return _split_decide_kernel(home, partials, n_validators, delta_cap,
-                                compact)
+def split_home(home: VoteState, words: torch.Tensor, partials,
+               n_validators: int, delta_cap: int = ORDER_DELTA_CAP,
+               compact: bool = True, slides=None,
+               ok: Optional[torch.Tensor] = None
+               ) -> Tuple[QuorumEvents, CompactEvents]:
+    """The home form on a block's home tile (its validator rows from 0,
+    the slot-axis rows): K13's consume (the tiled K9's with ``slides``;
+    ``ok`` masks words) on the tile's own rows, its counts summed with the
+    other tiles' ``partials`` (an (n, R (2S + C)) int32 tensor on the
+    home's device, as :func:`split_partials` stores them, or None), the
+    quorums decided, the frontier and compact deltas (``compact``: as
+    K13's flag), ``home`` in place. CPU tensors take
+    :func:`split_home_plain`; CUDA tensors launch ``resident_tile_kernel``
+    (``csrc/resident_tile.cu``, a cluster of :func:`tile_cluster_blocks`
+    blocks a member, the decide spread over the cluster) on the current
+    card, or raise."""
+    if words.device.type == "cpu":
+        return split_home_plain(home, words, partials, n_validators,
+                                delta_cap, compact, slides, ok)
+    if words.device.type != "cuda":
+        raise ValueError(f"tile home: unsupported device {words.device}")
+    return _split_home_kernel(home, words, partials, n_validators, delta_cap,
+                              compact, slides, ok)
+
+
+def partials_slot(j: int, v: int) -> int:
+    """The row of its block's partials buffer that tile (i, j), 0 < j <
+    v, stores into. The home form sums every row, so any one-to-one map of
+    1..v-1 onto 0..v-2 gives the same step (the tests permute it)."""
+    return j - 1
+
+
+def _stream(dev: torch.device):
+    return torch.cuda.current_stream(dev) if dev.type == "cuda" else None
 
 
 def tiles_step(states: TileState, words: Sequence[torch.Tensor],
@@ -1093,34 +1177,64 @@ def tiles_step(states: TileState, words: Sequence[torch.Tensor],
                compact: bool = True, slides=None, ok=None
                ) -> Tuple[List[QuorumEvents], List[CompactEvents]]:
     """The fabric step of the per-tile layout (K13's, or the tiled K9's
-    with ``slides``): every tile's partials mode on its device
-    (:func:`split_partials`; ``words`` one operand a tile, (R, W) or (k,
-    R, W); ``slides`` the (k, M) window deltas; ``ok`` one (R, W) verdict
-    operand a tile), the partials of tiles (i, 1..v-1) copied to the home
-    tile (i, 0) (:func:`move`), and the decide there
-    (:func:`split_decide`). ``states`` in place; returns each member
-    block's events and compact record, on its home's device (the
-    reference reads each block back from its own shard)."""
+    with ``slides``), v launches a member block: the partials mode on
+    each tile (i, j > 0) (:func:`split_partials`; ``words`` one operand a
+    tile, (R, W) or (k, R, W); ``slides`` the (k, M) window deltas; ``ok``
+    one (R, W) verdict operand a tile), each storing its partials into
+    its row of a (v - 1, R (2S + C)) int32 buffer on the home tile's
+    device (a peer store between cards), then the home form on the home
+    tile (i, 0) (:func:`split_home`), which adds them and decides. No
+    partial is copied. ``states`` in place; returns each member block's
+    events and compact record, on its home's device (the reference reads
+    each block back from its own shard).
+
+    Ordering, where a non-home tile's stream is not its home's (tiles on
+    two cards): the home's launch waits on an event of each non-home
+    launch of the step (its partials are in); the readback of its outputs
+    follows it on the home's stream; and a non-home tile's next store
+    into its row waits on an event of the block's previous home launch
+    (which read the row: the write-after-read hazard across cards). On
+    one stream, launch order is that order. No spin on another tile, no
+    system-scope atomic."""
     m, v = states.m, states.v
     rows, v_rows = states.rows, states.v_rows
-    parts = []
-    for t, tile in enumerate(states.tiles):
-        i, j = divmod(t, v)
-        with on_device(tile.frontier.device):
-            parts.append(split_partials(
-                tile, words[t], j * v_rows, j == 0,
-                None if slides is None
-                else slides[:, i * rows:(i + 1) * rows],
-                None if ok is None else ok[t]))
     events, compacts = [], []
     for i in range(m):
         home = states.home(i)
-        dev = home.frontier.device
-        with on_device(dev):
-            ps = [parts[i * v]] + [move(parts[i * v + j], dev)
-                                   for j in range(1, v)]
-            ev, comp = split_decide(home, ps, n_validators, delta_cap,
-                                       compact)
+        hdev = home.frontier.device
+        block = None if slides is None \
+            else slides[:, i * rows:(i + 1) * rows]
+        reduce = states.partials_buffer(i)
+        parts, last_read = reduce
+        home_stream = _stream(hdev)
+        stored = []
+        for j in range(1, v):
+            t = i * v + j
+            tile = states.tiles[t]
+            dev = tile.frontier.device
+            with on_device(dev):
+                stream = _stream(dev)
+                cross = stream is not None and stream != home_stream
+                if cross:
+                    kb.enable_peer_access(dev.index, hdev.index)
+                    if last_read is not None:
+                        stream.wait_event(last_read)
+                split_partials(tile, words[t], j * v_rows,
+                               parts[partials_slot(j, v)], block,
+                               None if ok is None else ok[t])
+                if cross:
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                    stored.append(done)
+        with on_device(hdev):
+            for done in stored:
+                home_stream.wait_event(done)
+            ev, comp = split_home(home, words[i * v], parts, n_validators,
+                                  delta_cap, compact, block,
+                                  None if ok is None else ok[i * v])
+            if stored:
+                reduce[1] = torch.cuda.Event()
+                reduce[1].record(home_stream)
         events.append(ev)
         compacts.append(comp)
     return events, compacts

@@ -23,9 +23,10 @@ in the one state and the reference's ``all_gather`` of the verdicts
 the same kernel. In the per-tile layout it takes the reference's tile
 split: each validator tile verifies its B / v share of the signatures
 with K-c on its device, the verdicts are gathered to every tile by
-copies, each tile runs the tile kernel's partials mode with the verdicts
-as its word mask over its own senders, and the decide runs on the home
-tile.
+copies, each non-home tile runs the tile kernel's partials mode with the
+verdicts as its word mask over its own senders, storing its counts on
+the home tile's device, and the home tile runs the home form with its
+verdicts: its own senders, the stored counts added, the decide.
 """
 from __future__ import annotations
 
@@ -134,9 +135,11 @@ def split_fused_step(states: q.TileState, mesh: q.FabricMesh,
     validator tiles): tile j verifies signatures ``[j B / v, (j + 1) B /
     v)`` with K-c on its device (counted under ``sharded_fused_split``),
     every tile gathers the v verdict slices by copies (the reference's
-    ``all_gather``, ``step.py:62``), runs the tile kernel's partials mode
-    over its own senders with the verdicts as its word mask, and the home
-    tile decides without the compact record. Returns the events and the
+    ``all_gather``, ``step.py:62``), and :func:`~indy_plenum_tpu_torch.
+    tpu.quorum.tiles_step` runs with the verdicts as each tile's word
+    mask over its own senders (the partials mode on the non-home tiles,
+    the home form deciding without the compact record). Returns the
+    events and the
     (B,) verdicts on the home tile's device; ``states`` in place. The
     operands may lie on any device: each tile's share is copied to it."""
     q.check_tiles(mesh, states)

@@ -56,10 +56,10 @@ LAUNCHES: Dict[str, int] = {
     "ring_shift": 0,
     "rotate_merge": 0,
     # the per-tile layout (tpu/quorum.py TileState): the tile kernel's
-    # partials mode, the decide from partials, K1's peer form and the
-    # split K14's verifies (K-c on each validator tile)
+    # partials mode (non-home tiles) and home form (the decide), K1's
+    # peer form and the split K14's verifies (K-c on each validator tile)
     "resident_partials": 0,
-    "decide_partials": 0,
+    "resident_home": 0,
     "ring_peer": 0,
     "sharded_fused_split": 0,
 }
@@ -110,16 +110,20 @@ _SIGNATURES = {
         # state (as quorum_step), slides (k, M) or null, words, verdict
         # bytes (M, W) or null
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        # k, M, N, S, C, W, row0, home, cluster blocks
-        _I, _I, _I, _I, _I, _I, _I, _I, _I,
-        # the tile's (M, 2S + C) int32 partials, then the stream
+        # k, M, N, S, C, W, row0, cluster blocks
+        _I, _I, _I, _I, _I, _I, _I, _I,
+        # the tile's (M, 2S + C) int32 partials (this card or a peer's),
+        # then the stream
         _P, _P),
-    "decide_partials_launch": (
-        # the home tile's pp, ordered, acked, frontier; host table of the
-        # v partials' pointers
-        _P, _P, _P, _P, _P,
-        # v, M, S, C, n_validators, delta_cap, compact
-        _I, _I, _I, _I, _I, _I, _I,
+    "resident_home_launch": (
+        # state (as quorum_step), slides (k, M) or null, words, verdict
+        # bytes (M, W) or null
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        # k, M, N, S, C, W, cluster blocks, n_validators, delta_cap,
+        # compact
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        # the other tiles' (n, M, 2S + C) int32 partials or null, n
+        _P, _I,
         # the output allocation (as quorum_step), then the stream
         _P, _P),
     # device ordinal, peer ordinal: cudaDeviceEnablePeerAccess

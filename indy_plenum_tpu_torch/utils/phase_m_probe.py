@@ -95,7 +95,7 @@ def main(argv) -> int:
                 for shape in cs.R_SHAPES}
             errs, _ = cs.phase_m(on_card, card, jobs, dev, inputs, fabric_h,
                                  rebalance_r, rng)
-        for name in ("resident_partials", "decide_partials", "ring_peer",
+        for name in ("resident_partials", "resident_home", "ring_peer",
                      "sharded_fused_split"):
             errs.setdefault(name, 0)
         rows, call_ms, moves = cs.split_report(dev, rng, launches, errs,

@@ -44,9 +44,10 @@ so it also runs where JAX is not installed:
   at phase R's state and on odd-sized leaves, and the merge (K15) called
   directly, each bit-equal to its plain version;
 - the per-tile layout's kernels with every tile on the card (the tile
-  kernel's partials mode, the decide from partials, K1's peer form, the
-  rotation's K15, the split sharded K14) against their plain versions,
-  and the forced-rebalance pool on a per-tile mesh against the CPU.
+  kernel's partials mode and home form, K1's peer form, the rotation's
+  K15, the split sharded K14) against their plain versions, a per-tile
+  step's launches (v a block), and the forced-rebalance pool on a
+  per-tile mesh against the CPU.
 """
 import numpy as np
 import pytest
@@ -565,13 +566,17 @@ def test_quorum_step_matches_plain_at_path_shapes(card, tag):
 @pytest.mark.cuda
 def test_split_kernels_match_plain(card):
     """Phase M's kernels on the per-tile layout with every tile on this
-    card (``chip_smoke.check_split``: the partials mode, the decide from
-    partials, K1's peer form, the per-tile step and rotation with K15,
-    the split sharded K14), bit-equal to their plain versions; then the
+    card (``chip_smoke.check_split``: the partials mode storing into the
+    home's buffer and the home form adding the stored partials, at v = 1,
+    2 and 4 and every cluster size, K1's peer form, the per-tile step and
+    rotation with K15, the split sharded K14), bit-equal to their plain
+    versions; a (2, 4) per-tile step launches v kernels a block (v - 1
+    partials-mode launches, one home form) and nothing else; then the
     forced-rebalance pool on a (2, 2) per-tile mesh on the card against
     the same pool on the CPU, the rotation two K1 peer shifts and K15."""
     import chip_smoke
 
+    from indy_plenum_tpu_torch.tpu import quorum as q
     from indy_plenum_tpu_torch.utils import kernel_build as kb
 
     inputs = chip_smoke.fused_inputs(np.random.RandomState(16),
@@ -579,6 +584,21 @@ def test_split_kernels_match_plain(card):
                                      chip_smoke.LOG_SIZE, 512)
     errs = chip_smoke.check_split(card, np.random.RandomState(17), inputs)
     assert not any(errs.values()), errs
+    rng = np.random.RandomState(18)
+    mesh = q.make_fabric_mesh([card] * 8, (2, 4), split=True)
+    state = chip_smoke.fabric_state(card, rng, 64, 64, 3, m=32, s=40)
+    tiles = q.TileState.split(state, mesh)
+    words = q.words_tensor(chip_smoke.fabric_words(rng, 32, 64, 64, 40, 3),
+                           card)
+    kb.reset_launch_counts()
+    events, compact = q.tiles_step(tiles, q.tile_words(words, mesh, 16), 64)
+    assert {k: n for k, n in kb.launch_counts().items() if n} == {
+        "resident_partials": 6, "resident_home": 2}
+    pev, pcomp = q.fabric_step_plain(state, words, 64, 4)
+    for got, want in zip(list(tiles.join(card)) + list(q.join_blocks(events))
+                         + list(q.join_blocks(compact)),
+                         list(state) + list(pev) + list(pcomp)):
+        assert torch.equal(got.cpu(), want.cpu())
     kb.reset_launch_counts()
     forced = chip_smoke.run_pool_r(None, (2, 2), chip_smoke.R_FORCE_TICK,
                                    "m1")

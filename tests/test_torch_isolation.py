@@ -413,27 +413,30 @@ def test_ctypes_signatures_match_cuda_sources():
                                 "fabric_step", "resident_tile",
                                 "sharded_fused_step", "ring_shift",
                                 "rotate_merge", "resident_partials",
-                                "decide_partials", "ring_peer",
+                                "resident_home", "ring_peer",
                                 "sharded_fused_split"}
     # K13 and the tiled K9 are one cluster kernel's entry points, its
-    # partials mode (the per-tile layout) a third; the decide from
-    # partials is the file's one other kernel; none of the pre-PR-10
-    # fabric pair comes back; K1 (and its peer form) and K15 are
-    # csrc/ring.cu
+    # partials mode and home form (the per-tile layout) two more, and the
+    # file holds no other kernel: the decide from partials is the home
+    # form's; none of the pre-PR-10 fabric pair comes back; K1 (and its
+    # peer form) and K15 are csrc/ring.cu
     assert not os.path.exists(os.path.join(kb.CSRC_DIR, "fabric.cu"))
     with open(os.path.join(kb.CSRC_DIR, "resident_tile.cu")) as fh:
         tile = fh.read()
     for fn in ("resident_tile_launch", "fabric_step_launch",
-               "resident_partials_launch", "decide_partials_launch"):
+               "resident_partials_launch", "resident_home_launch"):
         assert f'extern "C" int {fn}(' in tile, fn
-    assert tile.count("__global__") == 2
+    assert tile.count("__global__") == 1
+    assert "decide_partials_launch" not in kb._SIGNATURES
+    assert "decide_partials" not in kb.LAUNCHES
     for name in os.listdir(kb.CSRC_DIR):
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(kb.CSRC_DIR, name)) as fh:
                 src = fh.read()
             for gone in ("fabric_tile_kernel", "fabric_decide",
                          "tile_partials", "resident_step_kernel",
-                         "slide_rows", "eval_member"):
+                         "slide_rows", "eval_member",
+                         "decide_partials_kernel", "decide_partials_launch"):
                 assert gone not in src, (name, gone)
     with open(os.path.join(kb.CSRC_DIR, "ring.cu")) as fh:
         ring = fh.read()

@@ -5,11 +5,14 @@ conftest's 8 virtual CPU devices. The port's mesh is
 code a mesh over several cards runs, each tile's kernels in their plain
 versions and each cross-device move a copy.
 
-- The per-tile step (``plan_for(mesh).step``: partials, copies, the
-  decide on each home) against JAX's ``plan_for`` on (8,), (4, 2) and
-  (2, 4), and ``make_sharded_step`` against JAX's on an 8-tile validator
-  axis.
+- The per-tile step (``plan_for(mesh).step``: the non-home tiles'
+  partials stored on each home, the home form's sum and decide) against
+  JAX's ``plan_for`` on (8,), (4, 2) and (2, 4), and
+  ``make_sharded_step`` against JAX's on an 8-tile validator axis.
 - The per-tile resident plan at k = 2 and 4 against ``resident_plan_for``.
+- Both on (4, 2) and (2, 4) with the non-home tiles' partials stored into
+  the home's buffer rows in reverse and rotated order (the home form sums
+  every row, whichever tile wrote it).
 - ``ring_shift_planes`` (K1's peer form) against ``ring_shift_reference``
   for every shift, and ``rotate_planes`` (two shifts and K15's merge on
   every tile) against the reference's for rows that are and are not a
@@ -113,6 +116,10 @@ def test_split_step_matches_jax(shape):
     """Two steps (random words, then a full wave) through the per-tile
     plan and JAX's ``plan_for`` on the same mesh shape: every state leaf,
     event and compact record equal."""
+    _check_split_step(shape)
+
+
+def _check_split_step(shape):
     m, n, s, c, w = 8, 8, 24, 3, 32
     rng = np.random.RandomState(sum(shape) * 7)
     leaves = _state(rng, m, n, s, c)
@@ -159,7 +166,11 @@ def test_split_sharded_step_matches_jax():
 def test_split_resident_plan_matches_jax(k):
     """The per-tile resident plan on (4, 2) against JAX's: slides of 0, 1,
     the checkpoint interval, S - 1 and S, an empty slot, a full wave."""
-    m, n, s, c, w = 8, 6, 20, 3, 32
+    _check_split_resident((4, 2), k, 6)
+
+
+def _check_split_resident(shape, k, n):
+    m, s, c, w = 8, 20, 3, 32
     rng = np.random.RandomState(70 + k)
     leaves = _state(rng, m, n, s, c)
     mix = np.array([0, 1, 5, s - 1, s], np.int32)
@@ -168,17 +179,43 @@ def test_split_resident_plan_matches_jax(k):
     words = [_words(rng, m, w, n, s, c) for _ in range(k)]
     words[0] = _wave(m, w, n, 3)
     words[k // 2][:] = 0
-    jfn = jcp.resident_plan_for(jmesh((4, 2)), n, n, jq.ORDER_DELTA_CAP, k,
+    jfn = jcp.resident_plan_for(jmesh(shape), n, n, jq.ORDER_DELTA_CAP, k,
                                 w)
     jout = jfn(jq.VoteState(*[jnp.asarray(a) for a in leaves]),
                jnp.asarray(slides), *[jnp.asarray(x) for x in words])
-    tfn = tcp.resident_plan_for(smesh((4, 2)), n, n, tq.ORDER_DELTA_CAP, k,
+    tfn = tcp.resident_plan_for(smesh(shape), n, n, tq.ORDER_DELTA_CAP, k,
                                 w, "cpu")
-    tiles, events, compact = tfn(_tiles(leaves, smesh((4, 2))),
+    tiles, events, compact = tfn(_tiles(leaves, smesh(shape)),
                                  torch.from_numpy(slides),
                                  *[tq.words_tensor(x) for x in words])
     _assert_same(jout, _port_out(tiles, events, compact))
     assert (slides > 0).any()
+
+
+SLOT_ORDERS = {"reverse": lambda j, v: v - 1 - j,
+               "rotate": lambda j, v: j % (v - 1)}
+
+
+@pytest.mark.parametrize("order", sorted(SLOT_ORDERS))
+@pytest.mark.parametrize("shape", [(4, 2), (2, 4)], ids=["4x2", "2x4"])
+def test_split_partials_slot_order_matches_jax(shape, order, monkeypatch):
+    """The home form's sum does not depend on which row of the home's
+    partials buffer a non-home tile stored into: the per-tile step (two
+    steps) and the resident plan at k = 2 with the tiles' partials handed
+    to the home in reverse and rotated row order, against JAX's
+    ``plan_for`` and ``resident_plan_for`` on the same mesh shape."""
+    used = set()
+
+    def slot(j, v):
+        used.add((j, SLOT_ORDERS[order](j, v)))
+        return SLOT_ORDERS[order](j, v)
+
+    monkeypatch.setattr(tq, "partials_slot", slot)
+    _check_split_step(shape)
+    v = shape[1]
+    _check_split_resident(shape, 2, 3 * v)
+    assert sorted(r for _, r in used) == list(range(v - 1))
+    assert v == 2 or any(j - 1 != r for j, r in used)
 
 
 # --- the ring and the rotation -----------------------------------------------

@@ -44,6 +44,14 @@ def _last_json(text):
 
 
 def run_reference(argv, monkeypatch, capsys):
+    """The reference's ``main`` on ``argv``, its vote groups staging each
+    word block in a fresh host buffer (``copy_staging``: the JAX ring's
+    staging race, ROADMAP Queue 3, otherwise lets a queued slot's words
+    land in another under CPU load, and the residency gate then fails on
+    the JAX side alone)."""
+    from test_torch_resident import copy_staging
+
+    copy_staging(monkeypatch)
     monkeypatch.setattr(sys, "argv", ["check_dispatch_budget.py"]
                         + list(argv) + ["--json"])
     rc = reference().main()
