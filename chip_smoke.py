@@ -100,8 +100,9 @@ R. rebalance  - the reference's forced-rebalance pool at n=64 (batches of
                 launch and no K15;
 C. execution  - real execution at n=4 with two RBFT instances and
                 phase A's config: signed NYMs executed into every node's
-                ledgers and SMT states, 320 warm-up requests then 3,200
-                timed, the state's device waves on the card as one K11
+                ledgers and SMT states, 320 warm-up requests then 1,280
+                timed (``C_BATCHES`` 4 of phase A's 10, for the clock),
+                the state's device waves on the card as one K11
                 commit plan per commit; the same seed with host waves,
                 and with the default "auto" law (a fresh offload policy),
                 must give the same ordering, ledger hashes and state and
@@ -280,7 +281,7 @@ T. tools      - the operator entry points (``indy_plenum_tpu_torch/
                 dry run, its three pools ordering as the CPU's;
 E. state      - ``run_commit_arms`` host vs device waves at the
                 reference's state-bench delta and windows (delta 256, 20
-                windows) over a 20,000-key state (the cell's 100,000 cut
+                windows) over a 10,000-key state (the cell's 100,000 cut
                 for the clock): equal per-window roots;
 M. multi-card - the fabric's per-tile layout (every tile its own tensors
                 on its own device; ``make_fabric_mesh(..., split=True)``).
@@ -305,6 +306,25 @@ M. multi-card - the fabric's per-tile layout (every tile its own tensors
                 each also equal to its CPU twin of the per-tile layout
                 from the worker processes; each line with its cards and
                 wall;
+J. bench      - the six cells of the reference's ``bench.py`` that no
+                other phase runs, through the port's twin
+                (``indy_plenum_tpu_torch/tools/bench.py``) at their sizes:
+                ``rbft`` (n=64, all f+1 = 22 instances, 1,408 member
+                planes, host accounting), ``ordered100`` (n=100),
+                ``sharded`` (n=64 on one device against an 8-tile (8,)
+                member mesh), ``saturation`` (n=16, signed, beyond its
+                service rate, reads served then dropped, and the two
+                ``_run_overload`` arms), ``offload`` (n=16 ordering while a
+                131,072-proof catchup stream verifies in host, device and
+                auto modes) and ``viewchange`` (BASELINE config 4, n=100:
+                every view-change message signed at send, every delivered
+                copy verified on the card in chunks of 512); each cell's
+                own assertions, and its fields that no wall clock builds
+                equal to its CPU twin's from the worker processes
+                (``saturation``'s flash-crowd arms to phase O's twins, the
+                storm at n=25 on both); ``J_CLI_CELL`` again through
+                ``python -m indy_plenum_tpu_torch.tools.bench``, whose
+                last line must parse; each cell's metric, value, wall;
 5. report     - a ``kernels`` JSON line (launches of the main path's runs;
                 phase M's kernels at its (4, 2) tile and (1, 2) split,
                 K-a/K-b held against their plain versions at the drain's
@@ -316,11 +336,11 @@ M. multi-card - the fabric's per-tile layout (every tile its own tensors
                 ``{"ok": true, "device": {...}}``.
 
 Each main-path run (phases 3, 4, A, B, F, G, H, R, C, D, L, P, X, O, N, S,
-W, V, Y, Z, T, E and M on the card) starts with every launch counter at 0
+W, V, Y, Z, T, E, M and J on the card) starts with every launch counter at 0
 and reads the counters right after; the ``kernels`` line's ``launches``
 are their sums, with Z4's counted in its validator processes (each prints
-its own at exit). The CPU twins of phases M, A, B, O, N, S, W, V, Y, X's
-workload arms and T1 run in worker processes (``TWIN_WORKERS``, one torch
+its own at exit). The CPU twins of phases M, 4, A, B, O, N, S, W, V, Y, X's
+workload arms, T1 and J run in worker processes (``TWIN_WORKERS``, one torch
 thread each) started with the script and stopped with it.
 
 Any mismatch raises and the script exits non-zero. It imports nothing of
@@ -2369,10 +2389,15 @@ def time_fused_g(dev, inputs):
 
 C_NODES, C_INSTANCES = 4, 2  # a deployed 4-node pool: f + 1 = 2 instances
 
-# bench.py's state cell populates 100,000 keys; the smoke populates
-# 20,000 (host Python, ~1.8 ms a key) to keep its clock under 1,000 s
-# with the workload phases; the delta and the windows are the cell's
-E_KEYS, E_DELTA, E_WINDOWS = 20_000, 256, 20
+# bench.py's state cell populates 100,000 keys (the bench twin's ``state``
+# cell runs them); the smoke populates 10,000 (host Python, ~1.8 ms a
+# key) to keep its clock under 1,000 s with the workload phases and phase
+# J; the delta and the windows are the cell's
+E_KEYS, E_DELTA, E_WINDOWS = 10_000, 256, 20
+# phase C orders 320 warm-up requests, then C_BATCHES batches of 320 timed
+# (phase A's 10 cut to 4 for the clock: execution is ~99% of its wall, and
+# each of its three arms pays it)
+C_BATCHES = 4
 D_DRAIN, D_DRAINS = 4096, 4
 
 # K7 at the shapes the main path gives it: (M, N, S, C, W) of phases A/F1
@@ -2393,7 +2418,7 @@ def run_pool_c(device, mode):
     flush, seed 11) at n = 4 with two RBFT instances, signed NYM writes
     executed into every node's ledgers and SMT states, the state's hash
     waves placed by ``StateCommitBatchMode`` = ``mode``. 320 warm-up
-    requests, then 3,200 timed."""
+    requests, then ``C_BATCHES`` batches of 320 timed."""
     from indy_plenum_tpu_torch.common.constants import AUDIT_LEDGER_ID, \
         DOMAIN_LEDGER_ID
     from indy_plenum_tpu_torch.config import getConfig
@@ -2459,7 +2484,7 @@ def run_pool_c(device, mode):
 
     submit(POOL_BATCH)
     run_until(POOL_BATCH)
-    n_txns = POOL_BATCHES * POOL_BATCH
+    n_txns = C_BATCHES * POOL_BATCH
     submit(n_txns)
     exec_s[0] = wave_s[0] = 0.0
     launches0 = kb.LAUNCHES["merkle_node_hash"]
@@ -5703,6 +5728,176 @@ def phase_t(on_card, card, jobs):
     return t_launches, phase_s
 
 
+# phase J: the cells of the bench twin (indy_plenum_tpu_torch/tools/bench.py,
+# the reference's bench.py) that no other phase runs, at their sizes
+J_CELLS = ("rbft", "ordered100", "sharded", "saturation", "offload",
+           "viewchange")
+J_CLI_CELL = "sharded"  # the one of the six also run through the CLI
+# the ordered cells' fields that no wall clock builds
+J_ORDERED = ("ordered_hash", "txns_ordered", "device_flushes",
+             "device_dispatches_per_ordered_batch", "readbacks",
+             "resident_ticks", "readbacks_deferred", "backups_ordered_upto")
+# the saturation record's with-reads arm, and each flash-crowd arm
+J_SATURATION = ("ordered_hash", "shed_hash", "ordered", "admission",
+                "workload", "reads_served", "reads_verified")
+J_FLASH = ("ordered_hash", "shed_hash", "retry_hash", "ordered",
+           "arrivals", "admission", "retries", "retry_admitted",
+           "first_attempt_admitted", "reads_verified")
+# the view-change storm is compared at a cut size, card and twin alike: at
+# n=100 its CPU twin verifies every copy through the plain K-c in chunks of
+# 512 (~10 s a chunk on one CPU thread), more than 14 minutes; the card's
+# full-size run still stands with the cell's own assertions
+J_VIEWCHANGE_COMPARE_N = 25
+
+
+def _j_ordered_fields(rec):
+    out = {k: rec.get(k) for k in J_ORDERED}
+    out["journey_hash"] = rec["e2e_latency"]["journey_hash"]
+    return out
+
+
+def _j_viewchange_fields(device, n=None):
+    """``_view_change_storm`` at ``n`` validators (the cell's by default)
+    on ``device``: its record and its fields that no wall clock builds."""
+    from indy_plenum_tpu_torch.tools import bench
+
+    rec, pool = bench._view_change_storm(
+        **({"n": n} if n else {}), device=device)
+    return rec, {"signatures_signed": rec["signatures_signed"],
+                 "signatures_verified": rec["signatures_verified"],
+                 "messages": rec["messages"],
+                 "ordered_hash": pool.ordered_hash(),
+                 "views": {nd.name: nd.data.view_no for nd in pool.nodes}}
+
+
+def run_bench_j(device, cell):
+    """One of ``J_CELLS`` through the bench twin's functions on ``device``
+    (``None``: the card): (the cell's record, its fields that no wall clock
+    builds). ``saturation``'s flash-crowd arms are held against phase O's
+    runs of the same ``_run_overload`` configuration instead of CPU runs of
+    their own (each costs ~300 plain-verify drains on the CPU)."""
+    from indy_plenum_tpu_torch.tools import bench
+
+    if cell in ("rbft", "ordered100", "sharded"):
+        rec = bench.BENCHES[cell](device)
+        return rec, _j_ordered_fields(rec)
+    if cell == "saturation":
+        rec = bench.bench_saturation(device)
+        fields = {k: rec[k] for k in J_SATURATION}
+        fields["journey_hash"] = rec["e2e_latency"]["journey_hash"]
+        return rec, fields
+    if cell == "offload":
+        rec, arms = bench._catchup_offload(device=device)
+        return rec, {"arms": arms, "proofs": rec["proofs"]}
+    if cell == "viewchange":
+        return _j_viewchange_fields(device)
+    raise ValueError(cell)
+
+
+def twin_bench_j(cell):
+    """``cell``'s CPU twin: its fields (``_run_saturation``'s with-reads
+    arm for ``saturation``; the storm at ``J_VIEWCHANGE_COMPARE_N`` for
+    ``viewchange``) and its seconds."""
+    from indy_plenum_tpu_torch.tools import bench
+
+    t0 = time.perf_counter()
+    if cell == "viewchange":
+        fields = _j_viewchange_fields("cpu", J_VIEWCHANGE_COMPARE_N)[1]
+    elif cell == "saturation":
+        arm = bench._run_saturation(True, device="cpu")
+        fields = {k: arm[k] for k in ("ordered_hash", "shed_hash",
+                                      "ordered", "admission", "workload")}
+        fields["reads_served"] = arm["reads"]["served"]
+        fields["reads_verified"] = arm["reads"]["verified"]
+        fields["journey_hash"] = arm["e2e_latency"]["journey_hash"]
+    else:
+        fields = run_bench_j("cpu", cell)[1]
+    return fields, time.perf_counter() - t0
+
+
+def run_bench_cli(cell):
+    """``python -m indy_plenum_tpu_torch.tools.bench cell`` on the card in a
+    process of its own: its exit code, its last stdout line parsed, its
+    seconds."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "indy_plenum_tpu_torch.tools.bench", cell],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase J: the bench CLI on {cell} exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.returncode, json.loads(lines[-1]), wall
+
+
+def phase_j(on_card, card, jobs):
+    """Phase J: the six ``J_CELLS`` of the bench twin on the card in this
+    process, each between launch counters set to 0 and read after; each
+    cell's fields held against its CPU twin from the worker processes
+    (``saturation``'s flash arms against phase O's twins); ``J_CLI_CELL``
+    again through the CLI. Returns the summary."""
+    t0 = time.perf_counter()
+    summary = {}
+    for cell in J_CELLS:
+        (rec, fields), got, wall = on_card(f"bench_{cell}", run_bench_j,
+                                           None, cell)
+        line = {"metric": rec["metric"], "value": rec["value"]}
+        if cell == "viewchange":
+            if sum(1 for v in fields["views"].values() if v >= 1) \
+                    != len(fields["views"]) - 1:
+                raise AssertionError(f"phase J viewchange: views "
+                                     f"{fields['views']}")
+            line.update(signatures_verified=rec["signatures_verified"],
+                        signatures_signed=rec["signatures_signed"],
+                        messages=rec["messages"])
+            (_, fields), cmp_got, cmp_wall = on_card(
+                "bench_viewchange", _j_viewchange_fields, None,
+                J_VIEWCHANGE_COMPARE_N)
+            line.update(compare_n=J_VIEWCHANGE_COMPARE_N,
+                        compare_wall_s=cmp_wall,
+                        compare_launches={k: v for k, v in cmp_got.items()
+                                          if v})
+        twin, twin_s, wait_s = _twin(jobs, f"j_{cell}")
+        diff = sorted(k for k in set(fields) | set(twin)
+                      if fields.get(k) != twin.get(k))
+        if diff:
+            raise AssertionError(f"phase J {cell}: card and CPU differ on "
+                                 f"{diff}")
+        if cell == "saturation":
+            for arm, retry in (("open_loop", False), ("retry_storm", True)):
+                cpu, _, _ = _twin(jobs, f"o_{retry}")
+                got_arm = rec["flash_crowd"][arm]
+                diff = [k for k in J_FLASH if got_arm[k] != cpu[k]]
+                if diff:
+                    raise AssertionError(f"phase J saturation {arm}: differs "
+                                         f"from phase O's twin on {diff}")
+        summary[cell] = {"value": rec["value"], "wall_s": wall}
+        _line("bench_j", cell=cell, **line, unit=rec["unit"],
+              vs_baseline=rec["vs_baseline"], wall_s=wall,
+              cpu_twin_s=twin_s, twin_wait_s=wait_s,
+              compared=sorted(fields),
+              launches={k: v for k, v in got.items() if v}, card=card)
+    rc, last, cli_s = run_bench_cli(J_CLI_CELL)
+    missing = [k for k in ("metric", "value", "unit", "vs_baseline")
+               if k not in last]
+    if missing or last.get("errors"):
+        raise AssertionError(f"phase J: the CLI's line lacks {missing}: "
+                             f"{last}")
+    _line("bench_j_cli", cell=J_CLI_CELL, rc=rc, metric=last["metric"],
+          value=last["value"], wall_s=cli_s, card=card)
+    summary["cli"] = {"cell": J_CLI_CELL, "value": last["value"],
+                      "wall_s": cli_s}
+    summary["phase_s"] = time.perf_counter() - t0
+    _line("phase_j_summary", **summary, card=card)
+    return summary
+
+
 def run_state_e(dev):
     """The state at the reference's state-bench delta: ``run_commit_arms``
     with arms host and device on the card (``E_KEYS`` keys, delta 256, 20
@@ -6893,6 +7088,21 @@ PATH_KERNELS = {
     # one-state lanes: K13 a lane a tick
     "laned_one": ("fabric_step", "window_slide"),
 }
+# phase J: the bench twin's cells. rbft, ordered100 and sharded's first
+# arm order on K7 (7 and 6 batches of 320 at CHK_FREQ 100: no slide),
+# sharded's (8,) mesh on K13; saturation's signed drains, K7 and its reads'
+# K10 indexed (mode "auto": a fresh or a probing policy sends a drain to
+# the card); offload's pools on K7 and its device and auto modes on K10
+# indexed; the view-change storm's chunks of 512 on K-c (its pool's quorum
+# is the host's)
+PATH_KERNELS.update({
+    "bench_rbft": ("quorum_step",),
+    "bench_ordered100": ("quorum_step",),
+    "bench_sharded": ("quorum_step", "fabric_step"),
+    "bench_saturation": ("sha512_blocks", "reduce_mod_l", "ed25519_verify",
+                         "quorum_step", "audit_paths_indexed"),
+    "bench_offload": ("quorum_step", "audit_paths_indexed"),
+    "bench_viewchange": ("ed25519_verify",)})
 for _layout in ("m1", "m2"):
     PATH_KERNELS.update({
         f"{_layout}_fabric_h": ("resident_partials", "resident_home"),
@@ -6942,18 +7152,23 @@ def submit_m_twins(twins):
 
 
 def submit_twins(twins):
-    """The CPU twins of phases M, A, B, O, N, S, W, V, Y, X's workload
-    arms and T1, longest first: they run in the worker processes while
-    the card runs the phases before their checks."""
-    jobs = submit_m_twins(twins)
+    """The CPU twins of phases 4, A, B, M, O, N, S, W, V, Y, X's workload
+    arms, T1 and J: first those the card reads within its first minutes
+    (phases 4, A and B), then the rest longest first. They run in the
+    worker processes while the card runs the phases before their
+    checks."""
+    jobs = {"quorum": twins.submit(
+        _timed, run_quorum_schedule, "cpu",
+        [f"Node{i}" for i in range(N_VALIDATORS)])}
+    jobs["a"] = twins.submit(_timed, run_pool_a, "cpu")
+    jobs["b"] = twins.submit(_timed, run_pool_b, "cpu")
+    jobs.update(submit_m_twins(twins))
     for retry in (True, False):
         jobs[f"o_{retry}"] = twins.submit(_timed, run_overload_o, "cpu",
                                           retry)
     jobs["v_V1"] = twins.submit(twin_node, "V1")
     jobs["x_f_crash_catchup_under_saturation"] = twins.submit(
         twin_chaos, "f_crash_catchup_under_saturation")
-    jobs["a"] = twins.submit(_timed, run_pool_a, "cpu")
-    jobs["b"] = twins.submit(_timed, run_pool_b, "cpu")
     for name in ("lane_partition", "edge_cache_poisoning"):
         jobs[f"x_{name}"] = twins.submit(twin_chaos, name)
     jobs["n_4"] = twins.submit(_timed, run_laned_n, "cpu", 4)
@@ -6964,6 +7179,8 @@ def submit_twins(twins):
     for arm in Y_ARMS:
         jobs[f"y_{arm}"] = twins.submit(twin_replay, arm)
     jobs["t1"] = twins.submit(twin_gates)
+    for cell in J_CELLS:
+        jobs[f"j_{cell}"] = twins.submit(twin_bench_j, cell)
     return jobs
 
 
@@ -7078,8 +7295,7 @@ def _main(twins) -> int:
     validators = [f"Node{i}" for i in range(N_VALIDATORS)]
     (glog, gfront, gcount, gwall, gticks, gh), quorum_launches, _ = \
         on_card("quorum", run_quorum_schedule, "cuda", validators)
-    clog, cfront, ccount, _, cticks, _ = run_quorum_schedule(
-        "cpu", validators)
+    (clog, cfront, ccount, _, cticks, _), _, _ = _twin(jobs, "quorum")
     if glog != clog or gfront != cfront or gcount != ccount \
             or gticks != cticks:
         raise AssertionError("card and CPU runs of phase 4 differ")
@@ -7227,7 +7443,7 @@ def _main(twins) -> int:
         if c_dev[key] != c_host[key]:
             raise AssertionError(f"phase C: device and host waves differ "
                                  f"on {key}")
-    if c_dev["ordered"] != POOL_BATCHES * POOL_BATCH \
+    if c_dev["ordered"] != C_BATCHES * POOL_BATCH \
             or not c_dev["roots_agree"] \
             or c_dev["wave_device_hashes"] <= 0 \
             or c_host["wave_device_hashes"] != 0:
@@ -7350,6 +7566,10 @@ def _main(twins) -> int:
     for name, err in m_errs.items():
         errs[name] = max(errs.get(name, 0), err)
 
+    # J. the bench twin's six cells that no other phase runs, at their
+    # sizes, each against its CPU twin; one of them through the CLI
+    phase_j_summary = phase_j(on_card, card, jobs)
+
     # 5. report
     t0 = time.perf_counter()
     kernels, errs, times = kernel_report(dev, signers, reqs, rng, launches,
@@ -7443,6 +7663,7 @@ def _main(twins) -> int:
         "phase_t": {"phase_s": t_s,
                     "launches": {k: v for k, v in t_launches.items() if v}},
         "phase_m": dict(phase_m_summary, moves=m_moves),
+        "phase_j": phase_j_summary,
         "plain_ms": plain, "report_s": report_s,
         "total_s": time.perf_counter() - t_start}}), flush=True)
     print(card, flush=True)

@@ -78,7 +78,8 @@ def test_port_imports_without_jax_or_reference():
                 "tools.start_node", "tools.generate_pool", "cli", "cli.cli",
                 "cli.__main__"):
         assert "indy_plenum_tpu_torch." + mod in mods
-    for mod in TOOLS + ("tools.trace_tool", "utils.phase_t_probe"):
+    for mod in TOOLS + ("tools.trace_tool", "utils.phase_t_probe",
+                        "tools.bench", "utils.phase_j_probe"):
         assert "indy_plenum_tpu_torch." + mod in mods
     assert os.path.isfile(os.path.join(PKG, "analysis", "baseline.json"))
     for src in ("resident_tile.cu", "quorum_common.cuh", "quorum.cu",
@@ -151,6 +152,23 @@ def test_tools_exit_without_a_card(mod, no_cuda, tmp_path, monkeypatch,
         graft_entry.entry()
     with pytest.raises(NoCudaDevice):
         graft_entry.dryrun_multichip(4)
+
+
+def test_bench_raises_without_a_card(no_cuda, monkeypatch, capsys):
+    """The bench twin without CUDA and without ``--device cpu`` raises
+    before any cell runs, and prints no result."""
+    from indy_plenum_tpu_torch.tools import bench
+    from indy_plenum_tpu_torch.utils.torch_env import NoCudaDevice
+
+    ran = []
+    for name in bench.BENCHES:
+        monkeypatch.setitem(bench.BENCHES, name,
+                            lambda device, name=name: ran.append(name))
+    for argv in ([], ["ordered"], ["all", "--device", "cuda"]):
+        with pytest.raises(NoCudaDevice):
+            bench.main(argv)
+    assert not ran
+    assert capsys.readouterr().out == ""
 
 
 def test_tool_listings_need_no_card(no_cuda, capsys):
