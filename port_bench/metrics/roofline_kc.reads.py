@@ -1,0 +1,7 @@
+"""K-c (ed25519_verify_kernel): the frozen bound of the window's launches
+over their device time in the trace, in percent."""
+from port_bench.readers import roofline
+
+
+def read(run):
+    return roofline(run, "kc")
